@@ -2,12 +2,14 @@
 reference examples/tsdf/offline.cc).
 
 Replays a logged dataset (trajectory.txt + {id}_rgb/_depth[/_ht/_no_ht]
-PNGs) through TSDFGrid, reports the integrate time per frame and can dump
-the fused volume as VoxelSpatialTSDF records (data.bin).
+PNGs) through TSDFGrid, reports the integrate time per frame, can dump
+the fused volume as VoxelSpatialTSDF records (data.bin) and render the
+final view to PNGs.
 
 Usage:
   python -m disinfect_slam_tpu_torch.apps.offline --logdir datasets/orbit_vga \
-      --config datasets/orbit_vga/cam.yaml --preset bench --save data.bin
+      --config datasets/orbit_vga/cam.yaml --preset bench --save data.bin \
+      --render-dir out --renderer auto
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from ..io.config_reader import (
 )
 from ..io.dataset import LoggedReplay
 from ..ops.gather import dump_spatial_tsdf
-from ..systems.tsdf_grid import TSDFGrid
+from ..systems.tsdf_grid import RENDERERS, TSDFGrid
 from ..utils.timing import StageTimer
+from ..viz.headless import render_to_png
 
 # (voxel m, truncation m, max depth m) when the flags leave them unset
 _FULL_DEFAULTS = (0.01, 0.06, 10.0)
@@ -54,6 +57,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--preset", choices=["full", "small", "bench"], default="full",
         help="volume capacity preset (small: quick CPU runs; bench: the "
              "benchmark's 2^18-block, 4 mm configuration)",
+    )
+    ap.add_argument("--render-dir", help="write the final view's PNGs here")
+    ap.add_argument(
+        "--renderer", choices=list(RENDERERS), default="auto",
+        help="raycast: the parity ray marcher; splat / splat_pallas: the "
+             "splat renderer (its CUDA kernels on a CUDA device); auto: "
+             "splat on a CUDA device, raycast elsewhere",
     )
     ap.add_argument(
         "--device", default="cuda" if torch.cuda.is_available() else "cpu",
@@ -96,8 +106,9 @@ def make_config(args) -> tuple[TSDFConfig, float, float, float]:
 
 
 def run(args) -> dict:
-    """Replay the dataset; returns the grid, per-frame integrate seconds
-    and, with --save, the number of records written."""
+    """Replay the dataset; returns the grid, per-frame integrate seconds,
+    with --save the number of records written and with --render-dir the
+    PNG paths and the render time."""
     if args.config:
         cam_yaml = load_yaml(args.config)
         intrinsics = get_intrinsics(cam_yaml)
@@ -115,6 +126,7 @@ def run(args) -> dict:
     grid = TSDFGrid(voxel, trunc, cfg=cfg, device=args.device)
     timer = StageTimer(grid.device)
     n = 0
+    last_pose = np.eye(4, dtype=np.float32)
     for frame in replay:
         if n == 0:
             fh, fw = frame.depth.shape[:2]
@@ -129,6 +141,7 @@ def run(args) -> dict:
         with timer.span("integrate"):
             grid.integrate(frame.rgb, frame.depth, frame.ht, frame.lt,
                            max_depth, intrinsics, frame.cam_T_world)
+        last_pose = frame.cam_T_world
         n += 1
         if n % 25 == 0:
             print(f"[offline] frame {n}: integrate "
@@ -141,10 +154,21 @@ def run(args) -> dict:
     print(f"[offline] done: {n} frames on {grid.device}, integrate "
           f"{ms:.3f} ms/frame, {grid.num_active_blocks()} blocks")
     result = {"grid": grid, "frames": n,
-              "integrate_s": list(timer.samples["integrate"]), "records": None}
+              "integrate_s": list(timer.samples["integrate"]), "records": None,
+              "render_paths": None, "render_ms": None}
     if args.save:
         result["records"] = dump_spatial_tsdf(grid.gather_valid(), args.save)
         print(f"[offline] saved {result['records']} voxels to {args.save}")
+    if args.render_dir:
+        # the final view at 640x360 from the last pose, as apps/offline.py
+        with timer.span("render"):
+            paths = render_to_png(grid, args.render_dir, last_pose,
+                                  (intrinsics, 360, 640), max_depth=max_depth,
+                                  prefix="final", renderer=args.renderer)
+        result["render_paths"] = paths
+        result["render_ms"] = timer.mean_ms("render")
+        print(f"[offline] rendered {paths} ({result['render_ms']:.1f} ms, "
+              f"renderer {args.renderer})")
     return result
 
 

@@ -94,6 +94,18 @@ class TSDFConfig:
     def grid_cells(self) -> int:
         return 1 << (3 * self.grid_log2)
 
+    def refine_iters(self, step_size: float) -> int:
+        """Static iteration count of the raycaster's binary refinement:
+        the reference refines while the squared endpoint gap in voxels
+        exceeds 0.1 (voxel_tsdf.cu:265), and the gap quarters per
+        iteration."""
+        gap_sq = (step_size / self.voxel_size) ** 2
+        iters = 0
+        while gap_sq > 0.1 and iters < 16:
+            gap_sq /= 4.0
+            iters += 1
+        return max(iters, 1)
+
     def validate(self) -> None:
         if self.truncation <= self.voxel_size:
             raise ValueError("truncation must exceed voxel_size")

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 _F = np.float32
 
@@ -74,6 +75,10 @@ class SE3:
     t: np.ndarray  # f32 [3]
 
     @classmethod
+    def identity(cls) -> "SE3":
+        return cls(q=np.asarray([1, 0, 0, 0], _F), t=np.zeros(3, _F))
+
+    @classmethod
     def from_matrix(cls, m) -> "SE3":
         """From a 3x4 or 4x4 row-major transform matrix."""
         m = np.asarray(m, _F)
@@ -114,6 +119,16 @@ class SE3:
             r20 * vx + r21 * vy + r22 * vz,
         )
 
+    def rotate(self, vecs):
+        """Rotate float32 vectors [..., 3] (a tensor) by the quaternion,
+        v + 2w(u x v) + 2(u x (u x v)), the JAX package's formula."""
+        w, ux, uy, uz = (float(c) for c in self.q)
+        vx, vy, vz = vecs.unbind(-1)
+        cx, cy, cz = uy * vz - uz * vy, uz * vx - ux * vz, ux * vy - uy * vx
+        ccx, ccy, ccz = uy * cz - uz * cy, uz * cx - ux * cz, ux * cy - uy * cx
+        return vecs + 2.0 * (w * torch.stack([cx, cy, cz], -1)
+                             + torch.stack([ccx, ccy, ccz], -1))
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraIntrinsics:
@@ -136,6 +151,14 @@ class CameraIntrinsics:
         return CameraIntrinsics(
             float(fx_inv), float(fy_inv),
             float(-_F(self.cx) * fx_inv), float(-_F(self.cy) * fy_inv),
+        )
+
+    def project(self, pts):
+        """Camera points [..., 3] (a float32 tensor) -> homogeneous image
+        coords (u z, v z, z); on `.inverse()` it back-projects pixels."""
+        x, y, z = pts.unbind(-1)
+        return torch.stack(
+            [self.fx * x + self.cx * z, self.fy * y + self.cy * z, z], -1
         )
 
 

@@ -12,9 +12,29 @@ import torch
 from ..config import TSDFConfig
 
 
+def point_to_block(point: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:
+    """Voxel coord [..., 3] int32 -> block coord.  `>>` on a signed
+    tensor is an arithmetic shift, i.e. floor division for negative
+    coordinates (voxel_mem.cuh:29-32)."""
+    return point >> cfg.block_len_log2
+
+
 def block_to_point(block: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:
     """Block coord [..., 3] -> voxel coord of its first voxel."""
     return block << cfg.block_len_log2
+
+
+def point_to_offset(point: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:
+    """Voxel coord [..., 3] -> offset within its block, in [0, block_len)
+    (two's complement `&`, so negative coordinates wrap like `>>`)."""
+    return point & (cfg.block_len - 1)
+
+
+def offset_to_index(offset: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:
+    """In-block offset [..., 3] -> flat index in [0, 512), x fastest
+    (OffsetToIndex, voxel_mem.cuh:65-68)."""
+    bl = cfg.block_len_log2
+    return offset[..., 0] + (offset[..., 1] << bl) + (offset[..., 2] << (2 * bl))
 
 
 def index_to_offset(index: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:

@@ -20,7 +20,14 @@ import torch
 
 from ..config import TSDFConfig
 from ..core import voxel as vx
-from ..core.state import EMPTY, RESET_PROB, RESET_TSDF, TSDFVolume
+from ..core.state import (
+    DEFAULT_PROB,
+    DEFAULT_TSDF,
+    EMPTY,
+    RESET_PROB,
+    RESET_TSDF,
+    TSDFVolume,
+)
 
 _I32_MAX = torch.iinfo(torch.int32).max
 
@@ -87,6 +94,45 @@ def lookup(vol: TSDFVolume, block: torch.Tensor) -> torch.Tensor:
     idx, in_range = table_index(block, vol.cfg)
     pool = vol.block_table[idx.long()]
     return torch.where(in_range, pool, EMPTY)
+
+
+def _voxel_rows(vol: TSDFVolume, point: torch.Tensor):
+    """Voxel coords [..., 3] -> (hit, pool row, in-block index), each
+    [...] with the row and index safe to gather on a miss."""
+    cfg = vol.cfg
+    pool = lookup(vol, vx.point_to_block(point, cfg))
+    hit = pool >= 0
+    row = torch.where(hit, pool, 0).long()
+    vidx = vx.offset_to_index(vx.point_to_offset(point, cfg), cfg).long()
+    return hit, row, vidx
+
+
+def read_voxels(vol: TSDFVolume, point: torch.Tensor):
+    """(tsdf, rgb [..., 3], weight, prob) at integer voxel coords
+    [..., 3]; a miss reads the default voxel (+1, black, 0, 0), like
+    Retrieve's default-on-miss (voxel_hash.cuh:104-112).  The packed
+    RGBW word is gathered first and unpacked after."""
+    hit, row, vidx = _voxel_rows(vol, point)
+    tsdf = torch.where(hit, vol.tsdf[row, vidx], DEFAULT_TSDF)
+    rw = vol.rgbw[row, vidx]
+    rgb = torch.stack([rw & 0xFF, (rw >> 8) & 0xFF, (rw >> 16) & 0xFF], -1).float()
+    rgb = torch.where(hit[..., None], rgb, 0.0)
+    weight = torch.where(hit, ((rw >> 24) & 0xFF).float(), 0.0)
+    prob = torch.where(hit, vol.prob[row, vidx], DEFAULT_PROB)
+    return tsdf, rgb, weight, prob
+
+
+def read_tsdf_miss(vol: TSDFVolume, point: torch.Tensor):
+    """(tsdf, block missing) at integer voxel coords [..., 3]; an
+    unallocated block reads the default +1 everywhere, which lets the
+    raycaster skip it."""
+    hit, row, vidx = _voxel_rows(vol, point)
+    return torch.where(hit, vol.tsdf[row, vidx], DEFAULT_TSDF), ~hit
+
+
+def read_tsdf(vol: TSDFVolume, point: torch.Tensor) -> torch.Tensor:
+    """TSDF at integer voxel coords [..., 3] (miss -> +1)."""
+    return read_tsdf_miss(vol, point)[0]
 
 
 def _push_free(vol: TSDFVolume, mask: torch.Tensor, blk: torch.Tensor) -> None:

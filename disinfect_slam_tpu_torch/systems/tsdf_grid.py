@@ -3,7 +3,9 @@ disinfect_slam_tpu/systems/tsdf_grid.py; API of
 utils/tsdf/voxel_tsdf.cuh:32-124).
 
 Owns a TSDFVolume on one device; integrate takes numpy frames, uploads
-them and updates the volume in place.  Not ported yet: ray_cast, the
+them and updates the volume in place; ray_cast renders a virtual view
+with the parity raycaster or the splat renderer (on a CUDA device, the
+splat_zbuf_rows / splat_payload_rows kernels).  Not ported yet: the
 dense-window recenter and the host spill store.
 """
 
@@ -21,8 +23,12 @@ from ..config import TSDFConfig
 from ..core.geometry import SE3, CameraIntrinsics, CameraParams
 from ..core.state import TSDFVolume
 from ..ops import gather as gather_ops
+from ..ops.cuda.splat_kernel import splat_render_cuda
 from ..ops.gather import BoundingCube, SpatialTSDF
 from ..ops.integrate import FrameInput, integrate
+from ..ops.raycast import RaycastResult, raycast
+
+RENDERERS = ("auto", "raycast", "splat", "splat_pallas")
 
 logger = logging.getLogger("disinfect_slam_tpu_torch.tsdf_grid")
 
@@ -98,6 +104,46 @@ class TSDFGrid:
                         "grid_origin.", oob, extent,
                     )
                     self._warned_oob = True
+
+    def ray_cast(
+        self,
+        max_depth: float,
+        virtual_cam: Tuple[Tuple[float, float, float, float], int, int],
+        cam_T_world: np.ndarray,
+        renderer: str = "raycast",
+    ) -> RaycastResult:
+        """TSDFGrid::RayCast (voxel_tsdf.cu:490-506); virtual_cam =
+        ((fx, fy, cx, cy), img_h, img_w).
+
+        "raycast" is the parity ray marcher (the reference's trilinear
+        refinement and shading).  "splat" and "splat_pallas" are the
+        splat renderer, geometry within about a voxel of the raycaster
+        (ops/render_fast.py); both launch the two splat kernels on a
+        CUDA device and run their plain versions on the CPU.  "auto" is
+        the kernels on a CUDA device and the raycaster elsewhere."""
+        if renderer not in RENDERERS:
+            raise ValueError(f"renderer must be one of {RENDERERS}, got {renderer!r}")
+        if renderer == "auto":
+            renderer = "splat" if self.device.type == "cuda" else "raycast"
+        intr, img_h, img_w = virtual_cam
+        cam = CameraParams.create(CameraIntrinsics.create(*intr), img_h, img_w)
+        pose = SE3.from_matrix(cam_T_world)
+        # integrate updates the volume in place: hold the lock across the
+        # render (the reference serialises with mtx_read_,
+        # tsdf_module.cc:40-49)
+        with self._lock:
+            if renderer == "raycast":
+                res = raycast(self.volume, cam, pose, float(max_depth))
+            else:
+                res = splat_render_cuda(self.volume, cam, pose, float(max_depth))
+        # dropped surface blocks must be observable; the read syncs, so it
+        # runs only with DEBUG logging on
+        if logger.isEnabledFor(logging.DEBUG) and res.surf_overflow is not None:
+            ov = int(res.surf_overflow)
+            if ov:
+                logger.debug("[TSDF] splat surf_cap exceeded: %d surface blocks "
+                             "dropped from this render", ov)
+        return res
 
     def gather_valid(self) -> SpatialTSDF:
         """TSDFGrid::GatherValid (voxel_tsdf.cu:399-425)."""

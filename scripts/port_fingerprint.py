@@ -9,7 +9,10 @@ and writes a summary of the fused volume to
 disinfect_slam_tpu_torch/data/orbit_vga_bench_fingerprint.json: active
 blocks, oob count, the data.bin record count, a sha256 of the sorted
 packed keys of the live blocks, and float64 sums of |tsdf|, weight and
-prob over the live voxels.
+prob over the live voxels.  Under "render" it adds a summary of two splat
+renders of the fused volume (ops/render_fast.splat_render, op by op):
+the frame-0 view at 640x480 and the offline app's final view (last pose,
+640x360), both at max depth 4 m.
 
 chip_smoke.py holds the port's GPU replay against this file, because the
 GPU host has no JAX.  It takes minutes and several GB of host memory:
@@ -33,18 +36,43 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 from disinfect_slam_tpu.config import TSDFConfig  # noqa: E402
+from disinfect_slam_tpu.core.geometry import (  # noqa: E402
+    SE3, CameraIntrinsics, CameraParams,
+)
 from disinfect_slam_tpu.io.config_reader import (  # noqa: E402
     get_depth_factor, get_intrinsics, load_yaml,
 )
 from disinfect_slam_tpu.io.dataset import LoggedReplay  # noqa: E402
+from disinfect_slam_tpu.ops import render_fast  # noqa: E402
 from disinfect_slam_tpu.ops.gather import to_numpy_records  # noqa: E402
 from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid  # noqa: E402
 from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH  # noqa: E402
 from disinfect_slam_tpu_torch.ops.gather import volume_fingerprint  # noqa: E402
+from disinfect_slam_tpu_torch.ops.render_fast import render_fingerprint  # noqa: E402
 
 DATASET = os.path.join(ROOT, "datasets", "orbit_vga")
 OUT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
                    "orbit_vga_bench_fingerprint.json")
+
+
+# the views held against the port: (pose index, image height, width)
+RENDER_VIEWS = {"frame0": (0, 480, 640), "app": (-1, 360, 640)}
+
+
+def render_views(vol, intrinsics, poses) -> dict:
+    """Fingerprints of the JAX splat render of each RENDER_VIEWS view."""
+    out = {}
+    for name, (i, hgt, wid) in RENDER_VIEWS.items():
+        cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), hgt, wid)
+        pose = SE3.from_matrix(poses[i])
+        res = render_fast.splat_render(vol, cam, pose, BENCH_MAX_DEPTH)
+        vis, overflow = render_fast._surf_visible(
+            vol, cam, pose, 1.25, render_fast.DEFAULT_SURF_CAP)
+        out[name] = render_fingerprint(
+            res.hit, res.depth, res.rgba, res.normal, res.surf_overflow,
+            np.asarray(vis.count) + np.asarray(overflow))
+        print(f"[fingerprint] render {name}: {out[name]}", flush=True)
+    return out
 
 
 def main():
@@ -55,7 +83,9 @@ def main():
     grid = TSDFGrid(cfg.voxel_size, cfg.truncation, cfg=cfg)
     t0 = time.perf_counter()
     n = 0
+    poses = []
     for frame in replay:
+        poses.append(frame.cam_T_world)
         grid.integrate(frame.rgb, frame.depth, frame.ht, frame.lt,
                        BENCH_MAX_DEPTH, intrinsics, frame.cam_T_world)
         n += 1
@@ -74,6 +104,7 @@ def main():
         "preset": "bench",
         "max_depth": BENCH_MAX_DEPTH,
         **fp,
+        "render": render_views(vol, intrinsics, poses),
     }
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1)

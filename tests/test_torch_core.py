@@ -31,6 +31,11 @@ def test_config_matches_jax_field_for_field():
     assert dataclasses.asdict(tconfig.TINY_DENSE) == dataclasses.asdict(
         jconfig.TINY_DENSE
     )
+    for cfg_j in (jconfig.TSDFConfig(), jconfig.TINY_DENSE,
+                  jconfig.TSDFConfig(voxel_size=0.004, truncation=0.024)):
+        cfg_t = tconfig.TSDFConfig(**dataclasses.asdict(cfg_j))
+        for step in (0.001, 0.004, 0.012, 0.03, 0.075, 0.5):
+            assert cfg_t.refine_iters(step) == cfg_j.refine_iters(step), step
 
 
 def test_round_half_away_matches_jax():
@@ -69,6 +74,23 @@ def test_pack_unpack_and_offsets_match_jax():
         tvx.index_to_offset(torch.from_numpy(idx), cfg_t).numpy(),
         np.asarray(jvx.index_to_offset(jnp.asarray(idx), cfg_j)),
     )
+
+
+def test_point_block_offset_maps_match_jax():
+    cfg_j, cfg_t = jconfig.TINY_DENSE, tconfig.TINY_DENSE
+    pts = np.random.default_rng(6).integers(-300, 300, (4096, 3)).astype(np.int32)
+    pts[:3] = [[-1, -8, -9], [7, 8, -16], [0, -7, 15]]  # floor, not truncation
+    for name in ("point_to_block", "point_to_offset"):
+        ours = getattr(tvx, name)(torch.from_numpy(pts), cfg_t).numpy()
+        np.testing.assert_array_equal(ours, np.asarray(getattr(jvx, name)(jnp.asarray(pts), cfg_j)))
+    np.testing.assert_array_equal(tvx.point_to_block(torch.from_numpy(pts), cfg_t).numpy(),
+                                  pts // 8)
+    off = tvx.point_to_offset(torch.from_numpy(pts), cfg_t)
+    np.testing.assert_array_equal(
+        tvx.offset_to_index(off, cfg_t).numpy(),
+        np.asarray(jvx.offset_to_index(jnp.asarray(off.numpy()), cfg_j)))
+    np.testing.assert_array_equal(
+        tvx.index_to_offset(tvx.offset_to_index(off, cfg_t), cfg_t).numpy(), off.numpy())
 
 
 def _rotation(kind: str) -> np.ndarray:
@@ -111,6 +133,32 @@ def test_se3_quaternion_path_matches_jax(kind):
     want = ref.apply_xyz(*(jnp.asarray(p) for p in pts))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("kind", ["trace", "x", "orbit_frame0"])
+def test_se3_rotate_and_identity_match_jax(kind):
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = _rotation(kind)
+    vecs = np.random.default_rng(3).uniform(-1, 1, (500, 3)).astype(np.float32)
+    ours = SE3.from_matrix(m).rotate(torch.from_numpy(vecs)).numpy()
+    ref = np.asarray(JSE3.from_matrix(m).rotate(jnp.asarray(vecs)))
+    # jnp.cross is jit-compiled and XLA:CPU contracts its a*b - c*d into
+    # an FMA, which the port never does: a few ulp of the unit scale
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=4 * F32_ULP)
+    ident = SE3.identity()
+    np.testing.assert_array_equal(ident.q, np.asarray(JSE3.identity().q))
+    np.testing.assert_array_equal(ident.rotate(torch.from_numpy(vecs)).numpy(), vecs)
+    np.testing.assert_array_equal(ident.inverse().t, np.zeros(3, np.float32))
+
+
+def test_camera_project_matches_jax():
+    k = (525.1, 525.3, 319.6, 239.7)
+    pts = np.random.default_rng(4).uniform(-2, 2, (300, 3)).astype(np.float32)
+    for ours, ref in ((CameraIntrinsics.create(*k), JIntr.create(*k)),
+                      (CameraIntrinsics.create(*k).inverse(), JIntr.create(*k).inverse())):
+        # the same float32 multiplies and adds, op by op: equal
+        np.testing.assert_array_equal(ours.project(torch.from_numpy(pts)).numpy(),
+                                      np.asarray(ref.project(jnp.asarray(pts))))
 
 
 def test_camera_inverse_and_depth_to_range_match_jax():

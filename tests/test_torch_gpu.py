@@ -1,7 +1,10 @@
 """PyTorch port on the card: each CUDA kernel against its plain torch
 version on the same CUDA tensors, at small shapes, with the edge cases
 of the fusion formulas (zero weights, probabilities of 0 and 1, depth at
-max_depth, prob_eps, off-image voxels, rows past the live count).
+max_depth, prob_eps, off-image voxels, rows past the live count) and of
+the splat merges (depth ties, payload words with the top bit set,
+negative and off-image footprints, rows past the live count, no live
+row), and the renders through TSDFGrid.ray_cast on the card.
 
 Needs a CUDA device and nvcc; skipped without a card.  This file imports
 no JAX, so it runs on a GPU host without it:
@@ -14,8 +17,10 @@ import pytest
 import torch
 
 from disinfect_slam_tpu_torch.config import TSDFConfig
+from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
 from disinfect_slam_tpu_torch.io.checkpoint import volume_to_numpy
-from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel, sample_kernel
+from disinfect_slam_tpu_torch.ops import render_fast
+from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel, sample_kernel, splat_kernel
 from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
 
 from .scenes import checker_rgb, look_at, render_sphere
@@ -111,6 +116,14 @@ def test_kernels_reject_what_they_cannot_take(cuda):
                               c["gate"], c["pool_idx"], c["count"], c["tsdf"],
                               c["rgbw"], c["prob"], truncation=TRUNC,
                               max_depth=MAX_DEPTH, max_weight=MAX_W)
+    s = _splat_case(cuda, seed=3, count=COUNT, img_h=48, img_w=64)
+    with pytest.raises(ValueError):
+        splat_kernel.splat_zbuf_rows(s["u0"].long(), s["v0"], s["dq"], s["count"], 48, 64)
+    with pytest.raises(ValueError):
+        splat_kernel.splat_payload_rows(s["u0"], s["v0"], s["dq"], s["pool_idx"],
+                                        s["rgbw"], s["prob"].double(), s["count"],
+                                        torch.zeros(48 * 64, dtype=torch.int32,
+                                                    device=cuda), 48, 64)
 
 
 @pytest.mark.parametrize("sampler", ["auto", "pallas"])
@@ -139,3 +152,110 @@ def test_integrate_on_the_card_equals_the_cpu_run(cuda, sampler):
         if f != "prob":
             np.testing.assert_array_equal(a[f], b[f], err_msg=f)
     np.testing.assert_allclose(a["prob"], b["prob"], rtol=0, atol=1e-6)
+
+
+def _splat_case(dev, seed, count, img_h, img_w):
+    """Splat kernel inputs: footprints spilling past every image edge
+    (floor pixels from -3 to size + 2), depths from a set of three so
+    that voxels tie at pixels, 30% of voxels outside the band (BIG), and
+    rows past `count` given the smallest depth, so that they would win
+    every pixel they touch if they were merged."""
+    rng = np.random.default_rng(seed)
+    u0 = rng.integers(-3, img_w + 3, (ROWS, 512)).astype(np.int32)
+    v0 = rng.integers(-3, img_h + 3, (ROWS, 512)).astype(np.int32)
+    dq = rng.choice([1000, 1001, 1002], (ROWS, 512)).astype(np.int32)
+    dq[rng.uniform(size=dq.shape) < 0.3] = splat_kernel.BIG
+    dq[count:] = 7
+    pool_idx = rng.permutation(POOL)[:ROWS].astype(np.int32)
+    pool_idx[count:] = POOL
+    rgbw = (rng.integers(0, 1 << 24, (POOL, 512)) | (rng.integers(0, 41, (POOL, 512)) << 24))
+    prob = rng.uniform(0, 1, (POOL, 512)).astype(np.float32)  # half >= 0.5: top bit
+    prob[rng.uniform(size=prob.shape) < 0.1] = 0.0
+    prob[rng.uniform(size=prob.shape) < 0.1] = 1.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return dict(u0=t(u0), v0=t(v0), dq=t(dq), pool_idx=t(pool_idx),
+                rgbw=t(rgbw.astype(np.int32)), prob=t(prob),
+                count=torch.tensor(count, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("count", [0, COUNT, ROWS])
+@pytest.mark.parametrize("img_hw", [(48, 64), (1080, 1920)])
+def test_splat_kernels_match_plain_versions(cuda, count, img_hw):
+    img_h, img_w = img_hw
+    s = _splat_case(cuda, seed=5, count=count, img_h=img_h, img_w=img_w)
+    rows = (s["u0"], s["v0"], s["dq"])
+    before = (splat_kernel.splat_zbuf_rows.launches, splat_kernel.splat_payload_rows.launches)
+    zbuf = splat_kernel.splat_zbuf_rows(*rows, s["count"], img_h, img_w)
+    pbuf = splat_kernel.splat_payload_rows(*rows, s["pool_idx"], s["rgbw"], s["prob"],
+                                           s["count"], zbuf, img_h, img_w)
+    zref = splat_kernel.splat_zbuf_rows_reference(*rows, s["count"], img_h, img_w)
+    pref = splat_kernel.splat_payload_rows_reference(*rows, s["pool_idx"], s["rgbw"],
+                                                     s["prob"], s["count"], zref,
+                                                     img_h, img_w)
+    torch.cuda.synchronize()
+    assert (splat_kernel.splat_zbuf_rows.launches,
+            splat_kernel.splat_payload_rows.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(zbuf, zref) and torch.equal(pbuf, pref)
+    if count == 0:
+        assert (zbuf == splat_kernel.BIG).all() and (pbuf == 0).all()
+    elif count == COUNT:
+        assert not (zbuf == 7).any()  # rows past count merged nothing
+        assert (pbuf < 0).any()  # u32 words with the top bit set won
+        assert ((zbuf >= 1000) & (zbuf < splat_kernel.BIG)).any()
+    # every footprint pixel of a live voxel in the image is covered
+    if img_h == 48 and count:
+        u0, v0 = s["u0"][:count], s["v0"][:count]
+        live = s["dq"][:count] < splat_kernel.BIG
+        inside = live & (u0 >= 0) & (u0 < img_w) & (v0 >= 0) & (v0 < img_h)
+        assert (zbuf[(v0 * img_w + u0)[inside].long()] < splat_kernel.BIG).all()
+
+
+def _fused_grid(device):
+    cfg = TSDFConfig(num_blocks_log2=10, max_candidates=2048, max_visible=1024,
+                     max_new_per_round=512, grid_log2=6)
+    k, w, h = (52.7, 53.3, 31.71, 23.43), 64, 48
+    grid = TSDFGrid(0.05, 0.15, cfg=cfg, device=device)
+    rng = np.random.default_rng(4)
+    poses = []
+    for i in range(4):
+        ang = 0.13 * i - 0.12
+        pose = look_at((np.sin(ang) * 2.5 + 0.013, 0.1 * i - 0.027,
+                        -2.5 * np.cos(ang) + 1.0), (0.013, -0.021, 1.007))
+        depth = render_sphere(w, h, k, pose, (0.013, -0.021, 1.007), 0.613)
+        ht, lt = rng.uniform(0.05, 0.95, (2, h, w)).astype(np.float32)
+        grid.integrate(checker_rgb(w, h), depth, ht, lt, 4.0, k, pose)
+        poses.append(pose)
+    return grid, poses, (k, h, w)
+
+
+def test_ray_cast_auto_on_the_card_equals_the_plain_path(cuda):
+    """renderer="auto" on the card launches each splat kernel once and
+    gives the bits of the plain splat on the same CUDA volume."""
+    grid, poses, (k, h, w) = _fused_grid(cuda)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    for pose in poses[:2]:
+        before = (splat_kernel.splat_zbuf_rows.launches,
+                  splat_kernel.splat_payload_rows.launches)
+        res = grid.ray_cast(4.0, (k, h, w), pose, renderer="auto")
+        assert (splat_kernel.splat_zbuf_rows.launches,
+                splat_kernel.splat_payload_rows.launches) == (before[0] + 1, before[1] + 1)
+        ref = render_fast.splat_render(grid.volume, cam, SE3.from_matrix(pose), 4.0)
+        for f in ("hit", "depth", "rgba", "normal"):
+            assert torch.equal(getattr(res, f), getattr(ref, f)), f
+        assert int(res.surf_overflow) == 0 and res.hit.float().mean() > 0.1
+        bufs = splat_kernel.splat_buffers_cuda(grid.volume, cam, SE3.from_matrix(pose), 4.0)
+        ref_bufs = render_fast.splat_buffers(grid.volume, cam, SE3.from_matrix(pose), 4.0)
+        for a, b in zip(bufs, ref_bufs):
+            assert torch.equal(a, b)
+
+
+def test_raycast_on_the_card_agrees_with_the_cpu(cuda):
+    """The parity raycaster on the card against the CPU on the same
+    fused volume: the hit masks agree on all but 0.5% of pixels (a sum
+    over three products may round differently on the two devices)."""
+    grid, poses, cam = _fused_grid(cuda)
+    cpu, _, _ = _fused_grid("cpu")
+    a = grid.ray_cast(4.0, cam, poses[0], renderer="raycast")
+    b = cpu.ray_cast(4.0, cam, poses[0], renderer="raycast")
+    assert a.hit.device.type == "cuda" and b.hit.any()
+    assert (a.hit.cpu() != b.hit).float().mean() <= 0.005

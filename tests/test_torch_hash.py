@@ -116,6 +116,39 @@ def test_dense_delete_then_reinsert_matches_jax():
     assert_index_equal(vol_t, vol_j)
 
 
+def test_voxel_reads_match_jax():
+    """read_voxels / read_tsdf / read_tsdf_miss at voxel coords inside
+    allocated blocks, in free cells, at negative coordinates and beyond
+    the dense grid (misses read the default voxel)."""
+    vol_j = JVolume.create(CFG)
+    blocks, valid = _candidates(11)
+    vol_j, _ = jax.jit(jh.insert)(vol_j, jnp.asarray(blocks), jnp.asarray(valid))
+    rng = np.random.default_rng(12)
+    shape = vol_j.tsdf.shape
+    vol_j = vol_j.replace(
+        tsdf=jnp.asarray(rng.uniform(-1, 1, shape).astype(np.float32)),
+        rgbw=jnp.asarray(rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+                         & np.uint32(0x28FFFFFF)),
+        prob=jnp.asarray(rng.uniform(0, 1, shape).astype(np.float32)))
+    vol_t = port_from_jax(vol_j)
+    cand = blocks[valid]
+    pts = np.concatenate([
+        cand * 8 + rng.integers(0, 8, cand.shape),  # allocated or free cells
+        rng.integers(-40 * 8, 40 * 8, (400, 3)),  # free cells, negative, off-grid
+    ]).astype(np.int32)
+    ours = th.read_voxels(vol_t, torch.from_numpy(pts))
+    ref = jh.read_voxels(vol_j, jnp.asarray(pts))
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    t, miss = th.read_tsdf_miss(vol_t, torch.from_numpy(pts))
+    t_j, miss_j = jh.read_tsdf_miss(vol_j, jnp.asarray(pts))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(t_j))
+    np.testing.assert_array_equal(miss.numpy(), np.asarray(miss_j))
+    np.testing.assert_array_equal(th.read_tsdf(vol_t, torch.from_numpy(pts)).numpy(),
+                                  np.asarray(t_j))
+    assert 0 < miss.float().mean() < 1 and (ours[0][miss] == 1.0).all()
+
+
 def test_hash_backend_is_not_ported():
     cfg = tconfig.TSDFConfig(backend="hash", num_blocks_log2=6, num_buckets_log2=6)
     vol = th.TSDFVolume.create(cfg)

@@ -188,6 +188,12 @@ def test_port_runs_without_loading_jax():
         "g.integrate(checker_rgb(64, 48), render_wall(64, 48, K, pose, 2.0131),\n"
         "            None, None, 4.0, K, pose)\n"
         "assert g.num_active_blocks() > 0\n"
+        "import disinfect_slam_tpu_torch.ops.render_fast\n"
+        "import disinfect_slam_tpu_torch.ops.raycast\n"
+        "import disinfect_slam_tpu_torch.ops.cuda.splat_kernel\n"
+        "import disinfect_slam_tpu_torch.viz.headless\n"
+        "for r in ('raycast', 'splat'):\n"
+        "    assert g.ray_cast(4.0, (K, 48, 64), pose, renderer=r).hit.any()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'disinfect_slam_tpu')\n"
         "       or m.startswith(('jax.', 'disinfect_slam_tpu.'))]\n"
         "assert not bad, bad\n"
