@@ -28,6 +28,20 @@ exits non-zero:
      reference's render fingerprint; the parity raycaster on the frame-0
      view, timed, with its divergence from the splat.
 
+  6. the online slice (segmentation feeding fusion): InferenceEngine on
+     frame 0 for both shipped nets against the JAX reference's seg
+     fingerprint, timed end to end (seg_ms) and on a staged input
+     (seg_dev_ms); FusedOnlineStep at the bench preset over the first 30
+     frames (u8 rgb, raw u16 depth) with the shipped UNet, three times on
+     fresh volumes (online_fps, timed after alloc_every warm-up frames),
+     each volume against the JAX online fingerprint, then once with
+     FastSeg (online_fps_fast); fuse_rows launches once per frame and
+     sample_rows never; one profiled pass (device time, launches, idle
+     share) and one pass split into upload, seg and fusion by CUDA
+     events; then apps.online over all 60 frames, --fused with
+     --render-dir (fuse_rows once per frame, two 640x360 RGBA PNGs) and
+     the asynchronous DISINFSystem path at --fps 120.
+
 Phase 2 also holds splat_zbuf_rows and splat_payload_rows against their
 plain versions at the render's capacity (16384 rows, 640x480 and
 1920x1080), bit for bit.
@@ -65,6 +79,19 @@ TOL_COUNT, TOL_TSDF, TOL_WP = 1e-3, 1e-4, 1e-3
 TOL_RENDER = 1e-3
 SPLAT_ROWS, SPLAT_COUNT = 16384, 14000  # the render's surf_cap; live rows
 RENDER_MAX_DEPTH = 4.0
+ONLINE_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                                  "orbit_vga_online_fingerprint.json")
+ONLINE_FRAMES = 30
+# seg of frame 0 against the JAX reference, from the limits of
+# tests/test_torch_seg.py (mean |dp| per arch, thresholded labels on at
+# most 0.5% of pixels): each map's sum within mean-limit x pixels, each
+# count above 0.5 within 0.5% of the pixels
+SEG_MEAN_TOL = {"unet": 5e-3, "fast": 2e-3}
+SEG_LABEL_TOL = 5e-3
+# the 30-frame online volume: the seg reaches fusion only through prob,
+# so counts, sum|tsdf| and sum weight hold the offline limits; sum prob
+# within 5e-3 relative (the port on the CPU: 9.0e-4 from the reference)
+TOL_ONLINE_PROB = 5e-3
 
 
 def log(msg: str) -> None:
@@ -268,7 +295,7 @@ def replay(offline, sampler: str, save: str, render_dir=None):
     return offline.main(argv)
 
 
-def check_fingerprint(grid, records, ref, label):
+def check_fingerprint(grid, records, ref, label, prob_tol=TOL_WP):
     from disinfect_slam_tpu_torch.io.checkpoint import volume_to_numpy
     from disinfect_slam_tpu_torch.ops.gather import volume_fingerprint
 
@@ -280,7 +307,7 @@ def check_fingerprint(grid, records, ref, label):
         "records": (rel("records"), TOL_COUNT),
         "sum_abs_tsdf": (rel("sum_abs_tsdf"), TOL_TSDF),
         "sum_weight": (rel("sum_weight"), TOL_WP),
-        "sum_prob": (rel("sum_prob"), TOL_WP),
+        "sum_prob": (rel("sum_prob"), prob_tol),
     }
     for k, (dev_, tol) in checks.items():
         log(f"[chip_smoke] {label} {k}: port {fp[k]} reference {ref[k]} "
@@ -457,6 +484,234 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     return report, launches, err
 
 
+def check_seg(seg, dev, rgb0, ref):
+    """Phase 6, seg: both shipped nets on frame 0 against the JAX seg
+    fingerprint; seg_ms end to end (host u8 in, numpy out) and seg_dev_ms
+    on a staged input, medians of 10."""
+    out, models = {}, {}
+    for arch in ("unet", "fast"):
+        model = seg.load_model(arch, device=dev)
+        eng = seg.InferenceEngine(model)
+        ht, lt = eng.infer_one(rgb0)
+        pixels = ht.size
+        fp = {"shape": list(ht.shape), "sum_ht": float(ht.astype(np.float64).sum()),
+              "sum_lt": float(lt.astype(np.float64).sum()),
+              "ht_above_half": int((ht > 0.5).sum()), "lt_above_half": int((lt > 0.5).sum())}
+        want = ref[arch]
+        failed = [] if fp["shape"] == want["shape"] else ["shape"]
+        for k in ("sum_ht", "sum_lt", "ht_above_half", "lt_above_half"):
+            tol = (SEG_MEAN_TOL[arch] if k.startswith("sum") else SEG_LABEL_TOL) * pixels
+            log(f"[chip_smoke] seg {arch} {k}: port {fp[k]} reference {want[k]} "
+                f"|d| {abs(fp[k] - want[k]):.4g} (limit {tol:g})")
+            if not abs(fp[k] - want[k]) <= tol:
+                failed.append(k)
+        if failed:
+            raise AssertionError(f"seg {arch} differs from the reference in {failed}")
+        ms = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            eng.infer_one(rgb0)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        staged = torch.from_numpy(rgb0).to(dev).float()  # as bench.py stages it
+        dev_ms = cuda_time_ms(lambda: seg.segment(model, staged, seg.OUTPUT_H, seg.OUTPUT_W))
+        out[arch] = {**fp, "seg_ms": statistics.median(ms[1:]), "seg_dev_ms": dev_ms}
+        log(f"[chip_smoke] seg {arch}: {out[arch]['seg_ms']:.3f} ms end to end "
+            f"(u8 in, numpy out), {dev_ms:.3f} ms on a staged input (medians of 10)")
+        models[arch] = model
+    return out, models
+
+
+def warm_then_time(step, frames, warm):
+    """Steps the first `warm` frames, then times the rest with the device
+    synchronised at the end; returns frames per second of the timed part."""
+    for f in frames[:warm]:
+        step.step(*f)
+    step.block_until_ready()
+    t0 = time.perf_counter()
+    for f in frames[warm:]:
+        step.step(*f)
+    step.block_until_ready()
+    return (len(frames) - warm) / (time.perf_counter() - t0)
+
+
+def online_split(make_step, frames, warm, model, dev):
+    """Phase 6, where the time goes: six frames after warm-up split by CUDA
+    events into upload + conversion, seg and fusion, as
+    FusedOnlineStep.step_device runs them, then one profiled pass over six
+    more (device kernel time, kernel launches, idle share).  The split
+    comes first, so that no profiler state is left to slow it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.models.segmentation import segment
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput, integrate
+
+    step = make_step(model)
+    for f in frames[:warm]:
+        step.step(*f)
+    n = 6  # two alloc_every cycles at the bench preset
+    names = ("upload + conversion", "seg", "fusion", "frame")
+    stages = {k: [] for k in names}
+    df = torch.full((), 5000.0, device=dev)
+    for i, (rgb, depth, pose) in enumerate(frames[warm:warm + n], start=warm):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        rgb_t = torch.from_numpy(rgb).to(dev).float()
+        depth_t = torch.from_numpy(depth).to(dev).float() / df
+        ev[1].record()
+        ht, lt = segment(model, rgb_t, H, W)
+        ev[2].record()
+        step.volume = integrate(step.volume, FrameInput(rgb_t, depth_t, ht, lt), step.cam,
+                                SE3.from_matrix(pose), step.max_depth,
+                                allocate=i % step.cfg.alloc_every == 0)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(names, ((0, 1), (1, 2), (2, 3), (0, 3))):
+            stages[k].append(ev[a].elapsed_time(ev[b]))
+    split = {k: statistics.mean(v) for k, v in stages.items()}
+    log(f"[chip_smoke] online split, CUDA-event ms/frame (mean of {n}, frames "
+        f"{warm}-{warm + n - 1}): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    # the step's own allocation tick did not advance over the split, which
+    # is a whole number of alloc_every cycles: the cadence stays the same
+    timed = frames[warm + n:warm + 2 * n]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in timed:
+            step.step(*f)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    prof_res = {"frames": n, "wall_ms_per_frame": wall_ms / n,
+                "device_ms_per_frame": device_ms / n, "kernels_per_frame": len(events) / n,
+                "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+    log(f"[chip_smoke] online profile (frames {warm + n}-{warm + 2 * n - 1}): wall "
+        f"{wall_ms / n:.3f} ms/frame, device kernel time {device_ms / n:.3f} ms/frame in "
+        f"{len(events) / n:.1f} kernels/frame, idle share "
+        + (f"{prof_res['idle_share']:.3f}" if device_ms else "not measured"))
+
+    # the net alone on a staged frame: its device kernel time and launches
+    rgb_t = torch.from_numpy(frames[0][0]).to(dev).float()
+    segment(model, rgb_t, H, W)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            segment(model, rgb_t, H, W)
+        torch.cuda.synchronize()
+        seg_wall = 1e3 * (time.perf_counter() - t0) / 5
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    seg_prof = {"wall_ms": seg_wall,
+                "device_ms": sum(e.time_range.elapsed_us() for e in events) / 5e3,
+                "kernels": len(events) / 5}
+    log(f"[chip_smoke] seg profile (UNet, 5 forwards at {W}x{H}): wall "
+        f"{seg_prof['wall_ms']:.3f} ms, device kernel time {seg_prof['device_ms']:.3f} ms "
+        f"in {seg_prof['kernels']:.1f} kernels per forward")
+    return {"profile": prof_res, "seg_profile": seg_prof, "split_ms_per_frame": split,
+            "split_frames": stages}
+
+
+def online_app(online, fuse_kernel, read_png, render_dir):
+    """Phase 6, the app: both paths over all 60 frames through main(argv),
+    beside the replay's PNG decode alone (host ms/frame), which the apps'
+    frame loops include."""
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+
+    t0 = time.perf_counter()
+    n = sum(1 for _ in LoggedReplay(DATASET, 5000.0))
+    decode_ms = 1e3 * (time.perf_counter() - t0) / n
+    log(f"[chip_smoke] app replay decode alone: {decode_ms:.3f} ms/frame over {n} frames")
+    base = ["--logdir", DATASET, "--config", os.path.join(DATASET, "cam.yaml"),
+            "--segment", "--device", "cuda"]
+    res = {"decode_ms_per_frame": decode_ms}
+    for name, extra in (("fused", ["--fused", "--render-dir", render_dir]),
+                        ("async", ["--fps", "120"])):
+        fuse_kernel.fuse_rows.launches = 0
+        r = online.main(base + extra)
+        launches = fuse_kernel.fuse_rows.launches
+        log(f"[chip_smoke] app {name}: {r['frames']} frames, {r['fps']:.3f} FPS, "
+            f"{r['active_blocks']} active blocks, fuse_rows launches {launches}")
+        if r["frames"] != 60 or r["active_blocks"] <= 0 or launches != 60:
+            raise AssertionError(f"app {name}: {r['frames']} frames, {r['active_blocks']} "
+                                 f"blocks, fuse_rows launched {launches} times")
+        res[name] = {k: r[k] for k in ("frames", "fps", "wall_s", "active_blocks")}
+        res[name]["fuse_rows_launches"] = launches
+        if name == "fused":
+            for path in r["render_paths"]:
+                img = read_png(path)
+                if img.shape != (360, 640, 4) or img.dtype != np.uint8:
+                    raise AssertionError(f"{path}: {img.dtype} {img.shape}")
+            res[name]["render_paths"] = [os.path.relpath(p, ROOT) for p in r["render_paths"]]
+        del r
+        torch.cuda.empty_cache()
+    return res
+
+
+def online_slice(fuse_kernel, sample_kernel, dev, smi, render_dir):
+    """Phase 6 (see the docstring); returns the report entry."""
+    from disinfect_slam_tpu_torch.apps import online
+    from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+    from disinfect_slam_tpu_torch.io.png_io import read_image, read_png
+    from disinfect_slam_tpu_torch.models import segmentation as seg
+    from disinfect_slam_tpu_torch.ops.gather import gather_valid
+    from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
+
+    with open(ONLINE_FINGERPRINT) as f:
+        ref = json.load(f)
+    intrinsics = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
+    frames = []
+    for fid, pose in LoggedReplay(DATASET, 5000.0).entries[:ONLINE_FRAMES]:
+        base = os.path.join(DATASET, str(fid))
+        frames.append((read_image(base + "_rgb.png"),
+                       read_image(base + "_depth.png", unchanged=True), pose))
+    if frames[0][0].dtype != np.uint8 or frames[0][1].dtype != np.uint16:
+        raise AssertionError("orbit_vga frames are not u8 rgb / u16 depth")
+
+    seg_res, models = check_seg(seg, dev, frames[0][0], ref["seg_frame0"])
+    warm = BENCH.alloc_every
+
+    def make_step(model):
+        return FusedOnlineStep(BENCH, intrinsics, H, W, BENCH_MAX_DEPTH, seg_model=model,
+                               depth_factor=5000.0, device=dev)
+
+    def run(arch, label):
+        reset_launches(fuse_kernel.fuse_rows, sample_kernel.sample_rows)
+        step = make_step(models[arch])
+        fps = warm_then_time(step, frames, warm)
+        launches = (fuse_kernel.fuse_rows.launches, sample_kernel.sample_rows.launches)
+        if launches != (len(frames), 0):
+            raise AssertionError(f"{label}: fuse_rows / sample_rows launched {launches} "
+                                 f"times for {len(frames)} frames")
+        # FastSeg is not the reference's net: its volume holds the
+        # geometry limits, and prob is not compared
+        fp = check_fingerprint(step, int(gather_valid(step.volume).count), ref, label,
+                               prob_tol=TOL_ONLINE_PROB if arch == "unet" else float("inf"))
+        del step
+        torch.cuda.empty_cache()
+        log(f"[chip_smoke] {label}: {fps:.3f} FPS over frames {warm}-{len(frames) - 1}; "
+            f"fuse_rows launches {launches[0]}, sample_rows {launches[1]}")
+        return fps, launches[0], fp
+
+    runs = [run("unet", f"online run {i}") for i in range(3)]
+    online_fps = statistics.median(r[0] for r in runs)
+    fast_fps, fast_launches, fp_fast = run("fast", "online fastseg")
+    log(f"[chip_smoke] online_fps {[r[0] for r in runs]} -> median {online_fps:.3f}; "
+        f"online_fps_fast {fast_fps:.3f} ({smi})")
+    split = online_split(make_step, frames, warm, models["unet"], dev)
+    del models
+    torch.cuda.empty_cache()
+    app = online_app(online, fuse_kernel, read_png, render_dir)
+    return {"seg": seg_res, "online_fps_runs": [r[0] for r in runs], "online_fps": online_fps,
+            "online_fps_fast": fast_fps, "online_launches": runs[-1][1],
+            "online_fast_launches": fast_launches, "fingerprint_online": runs[-1][2],
+            "fingerprint_online_fast": fp_fast, **split, "app": app}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -569,6 +824,17 @@ def main() -> int:
     log(f"[chip_smoke] phase 5: render slice ok; splat {render['splat_ms']:.3f} "
         f"ms/render, raycast {render['raycast_ms']:.3f} ms ({smi}) "
         f"({time.perf_counter() - t_start:.1f} s)")
+    del grid
+    torch.cuda.empty_cache()
+
+    # phase 6: the online slice, segmentation feeding fuse_rows
+    t6 = time.perf_counter()
+    online = online_slice(fuse_kernel, sample_kernel, dev, smi,
+                          os.path.join(str(build.BUILD_DIR), "online_render"))
+    log(f"[chip_smoke] phase 6: online slice ok; online_fps {online['online_fps']:.3f}, "
+        f"online_fps_fast {online['online_fps_fast']:.3f}, seg_ms "
+        f"{online['seg']['unet']['seg_ms']:.3f} (UNet) ({smi}) "
+        f"({time.perf_counter() - t6:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
     report = {
         "card": smi,
@@ -579,6 +845,7 @@ def main() -> int:
         "splat_640x480": splat,
         "splat_1080p": splat_1080,
         "render": render,
+        "online": online,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
         "fingerprint_fused": fp_fused,
@@ -593,7 +860,8 @@ def main() -> int:
          "source": "disinfect_slam_tpu_torch/csrc/fuse_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:262",
          "also_replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:519",
-         "launches": fused_launches, **fuse},
+         "launches": fused_launches, "online_launches": online["online_launches"],
+         "online_app_launches": online["app"]["fused"]["fuse_rows_launches"], **fuse},
         {"name": "sample_rows", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/sample_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/sample_kernel.py:359",

@@ -27,6 +27,7 @@ from ..ops.cuda.splat_kernel import splat_render_cuda
 from ..ops.gather import BoundingCube, SpatialTSDF
 from ..ops.integrate import FrameInput, integrate
 from ..ops.raycast import RaycastResult, raycast
+from ..utils.device import resolve_device
 
 RENDERERS = ("auto", "raycast", "splat", "splat_pallas")
 
@@ -45,9 +46,7 @@ class TSDFGrid:
         self.cfg = dataclasses.replace(
             cfg, voxel_size=voxel_size, truncation=truncation
         )
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+        self.device = resolve_device(device)
         self.volume = TSDFVolume.create(self.cfg, self.device)
         # frames integrated so far: drives the alloc_every cadence and the
         # out-of-coverage watchdog

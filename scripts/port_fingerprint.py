@@ -14,12 +14,21 @@ renders of the fused volume (ops/render_fast.splat_render, op by op):
 the frame-0 view at 640x480 and the offline app's final view (last pose,
 640x360), both at max depth 4 m.
 
-chip_smoke.py holds the port's GPU replay against this file, because the
-GPU host has no JAX.  It takes minutes and several GB of host memory:
+With --online it writes disinfect_slam_tpu_torch/data/
+orbit_vga_online_fingerprint.json instead: the JAX FusedOnlineStep (same
+config, exact sampler, the shipped UNet in bfloat16) over the first 30
+frames, fed the dataset's own u8 rgb and raw u16 depth PNGs (depth factor
+5000), summarised the same way, plus the segmentation of frame 0 by
+InferenceEngine for both shipped nets: float64 sums of the 640x360 ht and
+lt maps and their pixel counts above 0.5.
 
-  python scripts/port_fingerprint.py
+chip_smoke.py holds the port's GPU runs against these files, because the
+GPU host has no JAX.  Each takes minutes and several GB of host memory:
+
+  python scripts/port_fingerprint.py [--online]
 """
 
+import argparse
 import dataclasses
 import json
 import os
@@ -43,16 +52,21 @@ from disinfect_slam_tpu.io.config_reader import (  # noqa: E402
     get_depth_factor, get_intrinsics, load_yaml,
 )
 from disinfect_slam_tpu.io.dataset import LoggedReplay  # noqa: E402
+from disinfect_slam_tpu.io.png_io import read_image  # noqa: E402
+from disinfect_slam_tpu.models import segmentation as seg  # noqa: E402
 from disinfect_slam_tpu.ops import render_fast  # noqa: E402
 from disinfect_slam_tpu.ops.gather import to_numpy_records  # noqa: E402
+from disinfect_slam_tpu.systems.online_step import FusedOnlineStep  # noqa: E402
 from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid  # noqa: E402
 from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH  # noqa: E402
 from disinfect_slam_tpu_torch.ops.gather import volume_fingerprint  # noqa: E402
 from disinfect_slam_tpu_torch.ops.render_fast import render_fingerprint  # noqa: E402
 
 DATASET = os.path.join(ROOT, "datasets", "orbit_vga")
-OUT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
-                   "orbit_vga_bench_fingerprint.json")
+DATA = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data")
+OUT = os.path.join(DATA, "orbit_vga_bench_fingerprint.json")
+OUT_ONLINE = os.path.join(DATA, "orbit_vga_online_fingerprint.json")
+ONLINE_FRAMES = 30
 
 
 # the views held against the port: (pose index, image height, width)
@@ -73,6 +87,68 @@ def render_views(vol, intrinsics, poses) -> dict:
             np.asarray(vis.count) + np.asarray(overflow))
         print(f"[fingerprint] render {name}: {out[name]}", flush=True)
     return out
+
+
+def seg_fingerprint(ht, lt) -> dict:
+    """Summary of one frame's 640x360 ht and lt maps."""
+    return {"shape": list(ht.shape),
+            "sum_ht": float(ht.astype(np.float64).sum()),
+            "sum_lt": float(lt.astype(np.float64).sum()),
+            "ht_above_half": int((ht > 0.5).sum()),
+            "lt_above_half": int((lt > 0.5).sum())}
+
+
+def online():
+    cam = load_yaml(os.path.join(DATASET, "cam.yaml"))
+    intrinsics = get_intrinsics(cam)
+    depth_factor = get_depth_factor(cam)
+    replay = LoggedReplay(DATASET, depth_factor)
+    cfg = TSDFConfig(**dataclasses.replace(BENCH, sampler="gather").__dict__)
+    frames = []
+    for fid, pose in replay.entries[:ONLINE_FRAMES]:
+        base = os.path.join(DATASET, str(fid))
+        frames.append((read_image(base + "_rgb.png"),
+                       read_image(base + "_depth.png", unchanged=True), pose))
+    rgb0, depth0, _ = frames[0]
+    assert rgb0.dtype == np.uint8 and depth0.dtype == np.uint16
+    segs = {}
+    for arch in ("unet", "fast"):
+        eng = seg.InferenceEngine(seg.create_model(arch=arch), seg.load_default_params(arch))
+        segs[arch] = seg_fingerprint(*eng.infer_one(rgb0))
+        print(f"[fingerprint] seg {arch}: {segs[arch]}", flush=True)
+    step = FusedOnlineStep(cfg, intrinsics, *depth0.shape, BENCH_MAX_DEPTH,
+                           seg_model=seg.create_model(),
+                           seg_params=seg.load_default_params("unet"),
+                           depth_factor=depth_factor)
+    t0 = time.perf_counter()
+    for i, (rgb, depth, pose) in enumerate(frames):
+        step.step(rgb, depth, pose)
+        if (i + 1) % 10 == 0:
+            step.block_until_ready()
+            print(f"[fingerprint] online frame {i + 1}: {step.num_active_blocks()} "
+                  f"blocks, {time.perf_counter() - t0:.0f} s", flush=True)
+    vol = step.volume
+    fp = volume_fingerprint({f: np.asarray(getattr(vol, f)) for f in (
+        "entry_key", "entry_block", "oob_count", "tsdf", "rgbw", "prob")})
+    grid = TSDFGrid(cfg.voxel_size, cfg.truncation, cfg=cfg)
+    grid.volume = vol
+    fp["records"] = int(to_numpy_records(grid.gather_valid()).shape[0])
+    out = {
+        "reference": "disinfect_slam_tpu FusedOnlineStep on CPU, sampler='gather', "
+                     "shipped UNet (bfloat16)",
+        "dataset": "datasets/orbit_vga",
+        "frames": len(frames),
+        "inputs": "u8 rgb, raw u16 depth",
+        "depth_factor": depth_factor,
+        "preset": "bench",
+        "max_depth": BENCH_MAX_DEPTH,
+        **fp,
+        "seg_frame0": segs,
+    }
+    with open(OUT_ONLINE, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps(out, indent=1))
 
 
 def main():
@@ -113,4 +189,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--online", action="store_true",
+                    help="write the online step's fingerprint instead")
+    if ap.parse_args().online:
+        online()
+    else:
+        main()

@@ -4,13 +4,18 @@ of the fusion formulas (zero weights, probabilities of 0 and 1, depth at
 max_depth, prob_eps, off-image voxels, rows past the live count) and of
 the splat merges (depth ties, payload words with the top bit set,
 negative and off-image footprints, rows past the live count, no live
-row), and the renders through TSDFGrid.ray_cast on the card.
+row), the renders through TSDFGrid.ray_cast on the card, and the online
+slice: the segmentation nets and FusedOnlineStep on the card against the
+port on the CPU.
 
 Needs a CUDA device and nvcc; skipped without a card.  This file imports
 no JAX, so it runs on a GPU host without it:
 
   python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+
+import copy
+import os
 
 import numpy as np
 import pytest
@@ -19,11 +24,14 @@ import torch
 from disinfect_slam_tpu_torch.config import TSDFConfig
 from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
 from disinfect_slam_tpu_torch.io.checkpoint import volume_to_numpy
+from disinfect_slam_tpu_torch.io.png_io import read_image
+from disinfect_slam_tpu_torch.models import segmentation as seg
 from disinfect_slam_tpu_torch.ops import render_fast
 from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel, sample_kernel, splat_kernel
+from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
 from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
 
-from .scenes import checker_rgb, look_at, render_sphere
+from .scenes import checker_rgb, look_at, render_sphere, render_wall
 
 pytestmark = pytest.mark.gpu
 
@@ -259,3 +267,110 @@ def test_raycast_on_the_card_agrees_with_the_cpu(cuda):
     b = cpu.ray_cast(4.0, cam, poses[0], renderer="raycast")
     assert a.hit.device.type == "cuda" and b.hit.any()
     assert (a.hit.cpu() != b.hit).float().mean() <= 0.005
+
+
+# ----------------------------------------------------------------------
+# the online slice: segmentation feeding fuse_rows
+# ----------------------------------------------------------------------
+ORBIT_RGB = os.path.join(os.path.dirname(__file__), "..", "datasets", "orbit_vga",
+                         "0_rgb.png")
+# the shipped nets in bfloat16: the limits tests/test_torch_seg.py holds
+# the port on the CPU to against JAX (max, mean |dp|), and thresholded
+# labels differing on at most 0.5% of pixels
+SHIPPED_TOL = {"unet": (0.1, 5e-3), "fast": (0.05, 2e-3)}
+
+
+@pytest.mark.parametrize("arch", ["unet", "fast"])
+def test_shipped_seg_on_the_card_matches_the_cpu(cuda, arch):
+    rgb = read_image(ORBIT_RGB)
+    ref = seg.InferenceEngine(seg.load_model(arch)).infer_one(rgb)
+    ours = seg.InferenceEngine(seg.load_model(arch, device=cuda)).infer_one(rgb)
+    for a, b in zip(ref, ours):
+        assert b.shape == (360, 640) and b.dtype == np.float32
+        err = np.abs(a - b)
+        max_tol, mean_tol = SHIPPED_TOL[arch]
+        assert err.max() <= max_tol and err.mean() <= mean_tol, (err.max(), err.mean())
+        assert ((a > 0.5) != (b > 0.5)).mean() <= 0.005
+
+
+@pytest.mark.parametrize("arch", ["unet", "fast"])
+def test_float32_seg_on_the_card_runs_without_tf32(cuda, arch):
+    """A float32 net through `segment` on the card equals the CPU within
+    1e-4: TF32 (10-bit mantissas) in the convs or the resize matmuls
+    would move the maps by about 1e-3."""
+    net = seg.create_model((8, 16, 32, 32), dtype=torch.float32, arch=arch,
+                           generator=torch.Generator().manual_seed(5))
+    rgb = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (96, 128, 3),
+                                                            dtype=np.uint8))
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    ref = seg.segment(net, rgb, 96, 128)
+    ours = seg.segment(copy.deepcopy(net).to(cuda), rgb.to(cuda), 96, 128).cpu()
+    assert ours.shape == (2, 96, 128)
+    assert (ours - ref).abs().max().item() <= 1e-4
+    # the global flags are left as they were
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+
+
+ONLINE_CFG = TSDFConfig(voxel_size=0.05, truncation=0.15, num_blocks_log2=10,
+                        max_candidates=2048, max_visible=1024, max_new_per_round=512,
+                        grid_log2=6, alloc_every=2)
+ONLINE_K, ONLINE_W, ONLINE_H, DEPTH_FACTOR = (52.7, 53.3, 31.71, 23.43), 64, 48, 5000.0
+# prob on the card against the CPU: the maps reach fusion only through
+# prob; float32 nets differ by conv summation order only, bfloat16 ones by
+# single bf16 roundings as well (the limits of tests/test_torch_online.py)
+ONLINE_PROB_TOL = {"none": 1e-6, "float32": 1e-4, "bfloat16": 0.05}
+
+
+def _online_frames(n=4):
+    """The golden scene of tests/test_online_step.py: a sphere before a
+    wall, u8 rgb and u16 depth counts."""
+    k, w, h = ONLINE_K, ONLINE_W, ONLINE_H
+    rgb = checker_rgb(w, h).astype(np.uint8)
+    out = []
+    for i in range(n):
+        pose = look_at((0.03 * i, -0.02, -1.5), (0.1, 0.0, 1.5))
+        d1 = render_sphere(w, h, k, pose, center=(0.1, 0.0, 1.5), radius=0.45)
+        d2 = render_wall(w, h, k, pose, wall_z=2.4131)
+        depth = np.where(d1 > 0, d1, d2).astype(np.float32)
+        out.append((rgb, np.clip(depth * DEPTH_FACTOR, 0, 65535).astype(np.uint16),
+                    np.asarray(pose, np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["none", "float32", "bfloat16"])
+def test_online_step_on_the_card_equals_the_cpu(cuda, dtype):
+    """FusedOnlineStep over 4 frames (allocation every 2nd) on the card
+    and on the CPU: fuse_rows launched once per frame on the card and
+    sample_rows never; every field but prob equal; prob within
+    ONLINE_PROB_TOL."""
+    net = None
+    if dtype != "none":
+        net = seg.create_model((8, 16, 32, 32), dtype=getattr(torch, dtype),
+                               generator=torch.Generator().manual_seed(6))
+    steps = [FusedOnlineStep(ONLINE_CFG, ONLINE_K, ONLINE_H, ONLINE_W, 4.0,
+                             seg_model=copy.deepcopy(net), depth_factor=DEPTH_FACTOR,
+                             device=d) for d in ("cpu", cuda)]
+    frames = _online_frames()
+    before = (fuse_kernel.fuse_rows.launches, sample_kernel.sample_rows.launches)
+    for f in frames:
+        for s in steps:
+            s.step(*f)
+    steps[1].block_until_ready()
+    assert (fuse_kernel.fuse_rows.launches - before[0],
+            sample_kernel.sample_rows.launches - before[1]) == (len(frames), 0)
+    a, b = (volume_to_numpy(s.volume) for s in steps)
+    assert (a["entry_block"] >= 0).sum() > 10
+    for f in a:
+        if f != "prob":
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    np.testing.assert_allclose(a["prob"], b["prob"], rtol=0, atol=ONLINE_PROB_TOL[dtype])
+
+
+def test_cuda_requests_raise_without_cuda(monkeypatch):
+    """The model loader and the online step never drop to the CPU: a CUDA
+    device without CUDA raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seg.load_model("fast", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedOnlineStep(ONLINE_CFG, ONLINE_K, ONLINE_H, ONLINE_W, 4.0, device="cuda")
