@@ -5,18 +5,22 @@ Phases, each printed as it ends; any failure raises and the process
 exits non-zero:
 
   0. the card (nvidia-smi name and power limit) and torch / CUDA versions;
-  1. builds the CUDA kernels from csrc/ (nvcc, sm_90a);
+  1. builds the CUDA kernels from csrc/ (nvcc, sm_90a; one library per
+     source, all compiled at once);
   2. holds each kernel against its plain torch version on the card at the
-     slice's shapes (32768 visible blocks, 640x480 frame, a 2^18-row pool)
-     plus fuse_rows on a 1920x1080 frame, and times both (CUDA events,
-     median of 10);
+     slice's shapes (32768 visible blocks, 640x480 frame, a 2^18-row pool):
+     fuse_rows on synthetic block rows placed in the frustum at 640x480
+     and 1920x1080 (tests/torch_cases.py's block_case: rows behind the
+     camera, off the image and, at 1080p, voxels at camera z = 0);
   3. the slice: apps.offline over all 60 frames of datasets/orbit_vga at
      the bench preset through the fused kernel, three times; fuse_rows
      must launch once per frame, and the fused volume must agree with
      the JAX reference's fingerprint (disinfect_slam_tpu_torch/data/);
      the last of the three also renders the app's final view
      (--render-dir), which must launch splat_zbuf_rows and
-     splat_payload_rows once each and write two 640x360 RGBA PNGs;
+     splat_payload_rows once each and write two 640x360 RGBA PNGs; then
+     where the fusion's time goes on a fresh volume (frames 45-59, its
+     stages by CUDA events);
   4. the same replay through the two-stage path (sample_rows + torch
      fusion math), once, with the same checks;
   5. the render slice on the last fused volume: TSDFGrid.ray_cast
@@ -26,8 +30,9 @@ exits non-zero:
      both buffers and all four images, to the plain torch splat on the
      same volume; the frame-0 and the app's view held against the JAX
      reference's render fingerprint; the parity raycaster on the frame-0
-     view, timed, with its divergence from the splat.
-
+     view, timed, with its divergence from the splat; then fuse_rows
+     against its plain version on frame 30's visible set of the fused
+     volume, with its yardsticks (below);
   6. the online slice (segmentation feeding fusion): InferenceEngine on
      frame 0 for both shipped nets against the JAX reference's seg
      fingerprint, timed end to end (seg_ms) and on a staged input
@@ -40,11 +45,24 @@ exits non-zero:
      share) and one pass split into upload, seg and fusion by CUDA
      events; then apps.online over all 60 frames, --fused with
      --render-dir (fuse_rows once per frame, two 640x360 RGBA PNGs) and
-     the asynchronous DISINFSystem path at --fps 120.
+     the asynchronous DISINFSystem path at --fps 120;
+  7. device times, after every end-to-end measurement (a profiler trace
+     leaves the host slower for the rest of the process): the fusion
+     profile (frames 45-59 of a fresh volume: device time, kernels per
+     frame, idle share; then the fuse stage, fuse_visible, on frame 59's
+     visible set); phase 2's checks again, now with each kernel's
+     yardsticks: its device time (and one call's, CUDA events) beside its
+     bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s), its
+     plain version's time and, where one torch call computes the same
+     function, that call's device time; and the probes of
+     splat_zbuf_rows (P8's A/B of the per-voxel atomics against the tile
+     kernel, P9's tile-shape sweep).
 
 Phase 2 also holds splat_zbuf_rows and splat_payload_rows against their
 plain versions at the render's capacity (16384 rows, 640x480 and
-1920x1080), bit for bit.
+1920x1080), bit for bit, with rows spread wider than splat_zbuf_rows'
+tile so that both its branches are taken and counted; phase 5 counts
+them on the frame-0 render too.
 
 The line before the last is a JSON object describing each kernel; the
 last line is the JSON result.  The full report, and the data.bin of the
@@ -82,6 +100,7 @@ RENDER_MAX_DEPTH = 4.0
 ONLINE_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
                                   "orbit_vga_online_fingerprint.json")
 ONLINE_FRAMES = 30
+SPLIT_FIRST, SPLIT_LAST = 45, 59  # the replay frames fusion_split and fusion_profile measure
 # seg of frame 0 against the JAX reference, from the limits of
 # tests/test_torch_seg.py (mean |dp| per arch, thresholded labels on at
 # most 0.5% of pixels): each map's sum within mean-limit x pixels, each
@@ -92,6 +111,17 @@ SEG_LABEL_TOL = 5e-3
 # so counts, sum|tsdf| and sum weight hold the offline limits; sum prob
 # within 5e-3 relative (the port on the CPU: 9.0e-4 from the reference)
 TOL_ONLINE_PROB = 5e-3
+# the least time for a kernel's work on an H100 SXM (NVIDIA's data sheet,
+# 700 W): its bytes (each input read once, each output written once, the
+# frame counted once) over the 3.35 TB/s of HBM3, or its operations over
+# the 67 TFLOP/s of float32 outside the tensor cores, whichever is larger
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# operations per voxel, counted from the sources (a division, exp or log
+# counted as 8): sample_rows clips, bounds-checks and indexes (12);
+# fuse_rows projects (48 and 2 divisions) and fuses (60 and 9 divisions,
+# 2 exp, 2 log): 228; a splat merge's 4 footprint tests and merges (16)
+OPS_PER_VOXEL = {"sample_rows": 12, "fuse_rows": 228, "splat": 16}
 
 
 def log(msg: str) -> None:
@@ -113,7 +143,70 @@ def cuda_time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, name=None, reps: int = 10) -> float:
+    """Device time per call of fn() from a profiler trace of reps calls
+    after one warm-up: the median launch of the kernel whose name holds
+    `name`, or (name None) the sum over the kernels a call launches of
+    each one's median.  No launch overhead or host time, which
+    cuda_time_ms includes.  A trace can drop a device event or two, so
+    medians stand in for the launches; a trace that lost most of them is
+    taken again, three times at most.  The profiler leaves the host
+    slower for the rest of the process, so these run after the
+    end-to-end measurements they could slow."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA" and (name is None or name in e.name):
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_name and all(len(v) >= reps // 2 for v in by_name.values()):
+            # launches per call of each kernel, from the counts traced
+            return sum(statistics.median(v) * max(1, round(len(v) / reps))
+                       for v in by_name.values()) / 1e3
+    raise AssertionError(f"the traces lost the device events of {name or 'fn'}")
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and what sets it, for a kernel moving nbytes and doing ops
+    float32 operations (see PEAK_BYTES_PER_S)."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_F32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def time_kernel(res: dict, fn, name: str) -> None:
+    """res["ms"]: the kernel's device time (kernel_ms); res["call_ms"]: one
+    call of its wrapper bracketed by CUDA events (cuda_time_ms, this
+    script's earlier measure), launch overhead and output allocation
+    included."""
+    res["ms"] = kernel_ms(fn, name)
+    res["call_ms"] = cuda_time_ms(fn)
+
+
+def print_yardsticks(label: str, res: dict) -> None:
+    lib = res.get("library_ms")
+    log(f"[chip_smoke] {label}: kernel {res['ms']:.4f} ms (one call {res['call_ms']:.4f} "
+        f"ms), bound {res['bound_ms']:.4f} ms by {res['bound_by']} "
+        f"({res['bytes'] / 1e6:.1f} MB, {res['ops'] / 1e9:.2f} GOP): "
+        f"{res['bound_ms'] / res['ms']:.1%} of the bound; plain torch {res['plain_ms']:.4f} "
+        f"ms; library call " + (f"{lib:.4f} ms" if lib is not None else "none")
+        + (f" (the scatter as render_fast calls it, every footprint entry and a dump "
+           f"slot: {res['library_dump_ms']:.4f} ms)" if "library_dump_ms" in res else "")
+        + (f"; the per-voxel-atomic body the tile replaced, on the same rows "
+           f"{res['atomic_body_ms']:.4f} ms" if "atomic_body_ms" in res else ""))
+
+
 def make_frame(rng, img_h, img_w, dev):
+    """sample_rows inputs: a random 8-channel frame and V rows of pixels."""
     img = np.zeros((img_h, img_w, 8), np.float32)
     img[..., 0] = rng.uniform(0.3, 4.4, (img_h, img_w))
     img[..., 0][rng.uniform(size=(img_h, img_w)) < 0.05] = 0.0
@@ -128,11 +221,8 @@ def make_frame(rng, img_h, img_w, dev):
     v = rng.integers(0, img_h - 14, (V, 1)) + rng.integers(0, 14, (V, 512))
     off = rng.uniform(size=(V, 512)) < 0.01
     u[off] = np.where(rng.uniform(size=off.sum()) < 0.5, -3, img_w + 2)
-    uc, vc = np.clip(u, 0, img_w - 1), np.clip(v, 0, img_h - 1)
-    z = img[vc, uc, 0] + rng.uniform(-0.03, 0.02, (V, 512))
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)  # noqa: E731
-    return (t(img, np.float32), t(u, np.int32), t(v, np.int32),
-            t(z, np.float32), off)
+    return t(img, np.float32), t(u, np.int32), t(v, np.int32)
 
 
 def make_pool(dev, seed):
@@ -148,55 +238,129 @@ def make_pool(dev, seed):
     return tsdf, rgb | (w << 24), prob
 
 
-def check_fuse_rows(fuse_kernel, img_h, img_w, seed, dev, timed):
-    rng = np.random.default_rng(seed)
-    img, u, v, z, off = make_frame(rng, img_h, img_w, dev)
-    us, vs = u.clamp(0, img_w - 1), v.clamp(0, img_h - 1)
-    gate = torch.from_numpy((rng.uniform(size=(V, 512)) < 0.9) & ~off).to(dev)
-    gate[COUNT:] = False
-    pool_idx = torch.from_numpy(rng.permutation(POOL)[:V].astype(np.int32)).to(dev)
-    pool_idx[COUNT:] = POOL  # padding rows, as compact_mask leaves them
-    count = torch.tensor(COUNT, dtype=torch.int32, device=dev)
-    tsdf, rgbw, prob = make_pool(dev, seed)
-    ref = [a.clone() for a in (tsdf, rgbw, prob)]
-    rgbw0 = rgbw.clone()
-    minabs = fuse_kernel.fuse_rows(img, us, vs, z, gate, pool_idx, count,
-                                   tsdf, rgbw, prob, **CONSTS)
-    minabs_ref = fuse_kernel.fuse_rows_reference(img, us, vs, z, gate, pool_idx,
-                                                 count, *ref, **CONSTS)
+def block_rows(seed, img_h, img_w, about_z, dev):
+    """fuse_rows inputs at the slice's shapes (tests/torch_cases.py's
+    block_case at the bench preset's 4 mm voxels, V rows, COUNT live):
+    (frame, block_pos, pool_idx, geometry kwargs) on the card."""
+    from tests.torch_cases import block_case
+
+    c = block_case(seed, img_h, img_w, V, COUNT, POOL, voxel_size=0.004, about_z=about_z,
+                   with_pool=False)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(c["img"]), t(c["block_pos"]), t(c["pool_idx"]),
+            dict(cam_T_world=c["pose"], intrinsics=c["intrinsics"],
+                 voxel_size=c["voxel_size"]))
+
+
+def updated_voxels(fuse_kernel, img, block_pos, count, consts) -> int:
+    """Voxels of the live rows that take the update (in the image, with a
+    valid depth, not far behind the surface), from the plain projection:
+    the ones whose rgbw and prob words fuse_rows must read."""
+    n = int(count)
+    img_h, img_w, _ = img.shape
+    u, v, z = fuse_kernel.project_rows(block_pos[:n], consts["cam_T_world"],
+                                       consts["intrinsics"], consts["voxel_size"])
+    in_img = (u >= 0) & (u < img_w) & (v >= 0) & (v < img_h)
+    pix = (v.clamp_(0, img_h - 1) * img_w + u.clamp_(0, img_w - 1)).long()
+    del u, v
+    flat = img.view(-1, 8)
+    depth, d2r = flat[:, 0][pix], flat[:, 1][pix]
+    sdf = d2r * (depth - z)
+    upd = (in_img & (depth > 0) & (depth <= consts["max_depth"])
+           & (sdf > -consts["truncation"]))
+    return int(upd.sum().item())
+
+
+def compare_fuse(fuse_kernel, img, block_pos, pool_idx, count, pool, consts, label):
+    """fuse_rows against its plain version on copies of the pool arrays
+    (each clone of a bench pool is 0.5 GB): tsdf, rgbw and min |tsdf| of
+    the live rows bit-equal, prob within 1e-6 (expf/logf of the kernel vs
+    torch's exp/log).  Returns (max_abs_err, pool words written, voxels
+    updated)."""
+    n = int(count)
+    live = pool_idx[:n].long()
+    ours = [a.clone() for a in pool]
+    ref = [a.clone() for a in pool]
+    minabs = fuse_kernel.fuse_rows(img, block_pos, pool_idx, count, *ours, **consts)
+    minabs_ref = fuse_kernel.fuse_rows_reference(img, block_pos, pool_idx, count, *ref,
+                                                 **consts)
     torch.cuda.synchronize()
     err = {
-        "tsdf": (tsdf - ref[0]).abs().max().item(),
-        "rgbw": int((rgbw != ref[1]).sum().item()),
-        "prob": (prob - ref[2]).abs().max().item(),
-        "minabs": (minabs[:COUNT] - minabs_ref[:COUNT]).abs().max().item(),
+        "tsdf": (ours[0] - ref[0]).abs().max().item(),
+        "rgbw": int((ours[1] != ref[1]).sum().item()),
+        "prob": (ours[2] - ref[2]).abs().max().item(),
+        "minabs": (minabs[:n] - minabs_ref[:n]).abs().max().item(),
     }
-    changed = (rgbw != rgbw0).float().mean().item()
-    del rgbw0
-    log(f"[chip_smoke] fuse_rows {img_w}x{img_h}, V={V}, count={COUNT}: "
+    # pool words this call must write: those it changed
+    written = sum(int((a[live] != a0[live]).sum().item()) for a, a0 in zip(ours, pool))
+    updated = updated_voxels(fuse_kernel, img, block_pos, count, consts)
+    log(f"[chip_smoke] fuse_rows {label}, V={block_pos.shape[0]}, count={n}: "
         f"max|dtsdf|={err['tsdf']:.3g} rgbw words differing={err['rgbw']} "
         f"max|dprob|={err['prob']:.3g} max|dminabs|={err['minabs']:.3g} "
-        f"(fraction of pool words updated {changed:.4f})")
-    # tsdf, rgbw and minabs bit-equal (same float32 ops, no contraction);
-    # prob within 1e-6 (expf/logf of the kernel vs torch's exp/log)
+        f"(pool words of the live rows changed {written / (3 * 512 * max(n, 1)):.4f}, "
+        f"voxels updated {updated / (512 * max(n, 1)):.4f})")
     if err["tsdf"] != 0 or err["rgbw"] != 0 or err["minabs"] != 0 or err["prob"] > 1e-6:
-        raise AssertionError(f"fuse_rows disagrees with its plain version: {err}")
+        raise AssertionError(f"fuse_rows disagrees with its plain version ({label}): {err}")
+    if written == 0:
+        raise AssertionError(f"fuse_rows {label}: nothing fused")
     # rgbw enters as the largest difference of its r, g, b and weight bytes
-    rgbw_err = (rgbw.view(torch.uint8).int() - ref[1].view(torch.uint8).int()).abs().max().item()
-    res = {"max_abs_err": max(err["tsdf"], err["prob"], err["minabs"], rgbw_err)}
-    if timed:
-        res["ms"] = cuda_time_ms(lambda: fuse_kernel.fuse_rows(
-            img, us, vs, z, gate, pool_idx, count, tsdf, rgbw, prob, **CONSTS))
-        res["plain_ms"] = cuda_time_ms(lambda: fuse_kernel.fuse_rows_reference(
-            img, us, vs, z, gate, pool_idx, count, *ref, **CONSTS))
-        log(f"[chip_smoke] fuse_rows {img_w}x{img_h}: kernel {res['ms']:.4f} ms, "
-            f"plain torch {res['plain_ms']:.4f} ms (median of 10)")
+    rgbw_err = (ours[1].view(torch.uint8).int() - ref[1].view(torch.uint8).int()).abs().max()
+    del ours, ref
+    return max(err["tsdf"], err["prob"], err["minabs"], rgbw_err.item()), written, updated
+
+
+def fuse_rows_yardsticks(fuse_kernel, img, block_pos, pool_idx, count, pool, consts,
+                         written, updated, label):
+    """Kernel and plain times (the plain one on a copy of the pool) and
+    the bound: the live rows' block coordinates and pool indices, count,
+    the tsdf word of every live voxel (min |tsdf| and the update test
+    need it) and the rgbw and prob words of the updated voxels, the
+    changed words written, min |tsdf| per live row, the frame."""
+    n = int(count)
+    voxels = n * 512
+    res = bound(16 * n + 4 + 4 * voxels + 8 * updated + 4 * written + 4 * n
+                + img.numel() * 4, OPS_PER_VOXEL["fuse_rows"] * voxels)
+    res["library_ms"] = None  # no single torch call computes it
+    time_kernel(res, lambda: fuse_kernel.fuse_rows(
+        img, block_pos, pool_idx, count, *pool, **consts), "fuse_rows_kernel")
+    ref = [a.clone() for a in pool]
+    res["plain_ms"] = cuda_time_ms(lambda: fuse_kernel.fuse_rows_reference(
+        img, block_pos, pool_idx, count, *ref, **consts))
+    del ref
+    print_yardsticks(f"fuse_rows {label}", res)
     return res
 
 
-def check_sample_rows(sample_kernel, dev):
+def check_fuse_rows(fuse_kernel, img_h, img_w, seed, dev, about_z, timed):
+    """fuse_rows against its plain version on synthetic rows placed in the
+    frustum (phase 2); with `timed`, then its yardsticks (phase 7)."""
+    img, block_pos, pool_idx, geometry = block_rows(seed, img_h, img_w, about_z, dev)
+    count = torch.tensor(COUNT, dtype=torch.int32, device=dev)
+    pool = make_pool(dev, seed)
+    consts = dict(CONSTS, **geometry)
+    # the corners the case claims, from the plain projection
+    u, v, z = fuse_kernel.project_rows(block_pos[:COUNT], geometry["cam_T_world"],
+                                       geometry["intrinsics"], geometry["voxel_size"])
+    in_img = ((u >= 0) & (u < img_w) & (v >= 0) & (v < img_h)).float().mean().item()
+    corners = {"in_image": in_img, "behind": (z < 0).float().mean().item(),
+               "z0": int((z == 0).sum().item())}
+    del u, v, z
+    log(f"[chip_smoke] fuse_rows {img_w}x{img_h} rows: voxels in the image {in_img:.4f}, "
+        f"behind the camera {corners['behind']:.4f}, at z = 0 {corners['z0']}")
+    if not (corners["behind"] > 0 and in_img < 1 and (corners["z0"] > 0) == about_z):
+        raise AssertionError(f"fuse_rows rows miss a corner: {corners}")
+    err, written, updated = compare_fuse(fuse_kernel, img, block_pos, pool_idx, count, pool,
+                                         consts, f"{img_w}x{img_h}")
+    res = {"max_abs_err": err, **corners}
+    if timed:
+        res.update(fuse_rows_yardsticks(fuse_kernel, img, block_pos, pool_idx, count, pool,
+                                        consts, written, updated, f"{img_w}x{img_h}"))
+    return res
+
+
+def check_sample_rows(sample_kernel, dev, timed):
     rng = np.random.default_rng(7)
-    img, u, v, _, _ = make_frame(rng, H, W, dev)
+    img, u, v = make_frame(rng, H, W, dev)
     count = torch.tensor(COUNT, dtype=torch.int32, device=dev)
     chans, valid = sample_kernel.sample_rows(img, u, v, count)
     chans_ref, valid_ref = sample_kernel.sample_rows_reference(img, u, v, count)
@@ -209,19 +373,30 @@ def check_sample_rows(sample_kernel, dev):
     if err != 0 or bad_valid:
         raise AssertionError("sample_rows disagrees with its plain version")
     res = {"max_abs_err": err}
-    res["ms"] = cuda_time_ms(lambda: sample_kernel.sample_rows(img, u, v, count))
+    if not timed:
+        return res
+    # u, v of the live voxels and count; 8 channels and validity out; the frame
+    voxels = COUNT * 512
+    res.update(bound(8 * voxels + 4 + 33 * voxels + img.numel() * 4,
+                     OPS_PER_VOXEL["sample_rows"] * voxels))
+    time_kernel(res, lambda: sample_kernel.sample_rows(img, u, v, count), "sample_rows_kernel")
     res["plain_ms"] = cuda_time_ms(
         lambda: sample_kernel.sample_rows_reference(img, u, v, count))
-    log(f"[chip_smoke] sample_rows: kernel {res['ms']:.4f} ms, plain torch "
-        f"{res['plain_ms']:.4f} ms (median of 10)")
+    # the library yardstick: one index_select of the live voxels' 32-byte
+    # pixel rows (indices built outside the timed window)
+    flat = (v[:COUNT].clamp(0, H - 1) * W + u[:COUNT].clamp(0, W - 1)).reshape(-1).long()
+    rows8 = img.view(-1, 8)
+    res["library_ms"] = kernel_ms(lambda: rows8.index_select(0, flat))
+    print_yardsticks("sample_rows 640x480", res)
     return res
 
 
-def make_splat_rows(rng, img_h, img_w, dev):
+def make_splat_rows(rng, img_h, img_w, dev, wide=False):
     """Splat kernel inputs at the render's capacity: each block's voxels
     fall in a 12x12 px footprint, 1% of them off the image (some at
     negative pixels), 40% of voxels outside the band (BIG), depths drawn
-    from 16 values so that many voxels tie at a pixel."""
+    from 16 values so that many voxels tie at a pixel; with `wide`, 5% of
+    the live rows spread wider than splat_zbuf_rows' tile."""
     s = SPLAT_ROWS
     u0 = rng.integers(-2, img_w - 10, (s, 1)) + rng.integers(0, 12, (s, 512))
     v0 = rng.integers(-2, img_h - 10, (s, 1)) + rng.integers(0, 12, (s, 512))
@@ -231,6 +406,13 @@ def make_splat_rows(rng, img_h, img_w, dev):
     dq[rng.uniform(size=(s, 512)) < 0.4] = 1 << 30
     pool_idx = rng.permutation(POOL)[:s]
     pool_idx[SPLAT_COUNT:] = POOL  # padding rows, as the compaction leaves them
+    if wide:
+        # 5% of the live rows spread over up to 60x60 pixels, as blocks
+        # near the camera do: more than the kernel's tile holds
+        rows = rng.permutation(SPLAT_COUNT)[: SPLAT_COUNT // 20]
+        n = rows.size
+        u0[rows] = rng.integers(-2, img_w - 50, (n, 1)) + rng.integers(0, 60, (n, 512))
+        v0[rows] = rng.integers(-2, img_h - 50, (n, 1)) + rng.integers(0, 60, (n, 512))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)  # noqa: E731
     return t(u0), t(v0), t(dq), t(pool_idx)
 
@@ -240,12 +422,18 @@ def u32_err(a, b) -> int:
     return int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)).abs().max().item())
 
 
-def check_splat(splat_kernel, img_h, img_w, seed, dev, timed):
+def check_splat(splat_kernel, img_h, img_w, seed, dev, timed, wide=False):
+    """The two splat kernels against their plain versions, bit for bit;
+    splat_zbuf_rows' rows on its tile and atomic branches counted (with
+    `wide`, both must be taken); with `timed`, the yardsticks."""
+    from disinfect_slam_tpu_torch.ops.cuda import splat_probe
+
     rng = np.random.default_rng(seed)
-    u0, v0, dq, pool_idx = make_splat_rows(rng, img_h, img_w, dev)
+    u0, v0, dq, pool_idx = make_splat_rows(rng, img_h, img_w, dev, wide)
     _, rgbw, prob = make_pool(dev, seed)
     count = torch.tensor(SPLAT_COUNT, dtype=torch.int32, device=dev)
-    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, count, img_h, img_w)
+    branches = torch.zeros(2, dtype=torch.int32, device=dev)
+    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, count, img_h, img_w, branches)
     pbuf = splat_kernel.splat_payload_rows(u0, v0, dq, pool_idx, rgbw, prob, count,
                                            zbuf, img_h, img_w)
     zref = splat_kernel.splat_zbuf_rows_reference(u0, v0, dq, count, img_h, img_w)
@@ -255,30 +443,100 @@ def check_splat(splat_kernel, img_h, img_w, seed, dev, timed):
     z_err, p_err = u32_err(zbuf, zref), u32_err(pbuf, pref)
     covered = (zbuf < splat_kernel.BIG).float().mean().item()
     top = (pbuf < 0).float().mean().item()
-    log(f"[chip_smoke] splat {img_w}x{img_h}, S={SPLAT_ROWS}, count={SPLAT_COUNT}: "
+    label = f"{img_w}x{img_h}" + (" wide" if wide else "")
+    tile_rows, atomic_rows = branches.tolist()
+    log(f"[chip_smoke] splat {label}, S={SPLAT_ROWS}, count={SPLAT_COUNT}: "
         f"zbuf max|d|={z_err}, pbuf max|d|={p_err} (pixels covered {covered:.4f}, "
-        f"payload words with the top bit set {top:.4f})")
+        f"payload words with the top bit set {top:.4f}); splat_zbuf_rows rows on the "
+        f"tile branch {tile_rows}, on the atomic branch {atomic_rows}")
     if not (torch.equal(zbuf, zref) and torch.equal(pbuf, pref)):
-        raise AssertionError(f"splat kernels disagree with their plain versions "
-                             f"at {img_w}x{img_h}")
+        raise AssertionError(f"splat kernels disagree with their plain versions at {label}")
     if top == 0 or covered == 0:
         raise AssertionError("splat inputs exercised no top-bit payload")
-    res = {"zbuf": {"max_abs_err": z_err}, "payload": {"max_abs_err": p_err}}
-    if timed:
-        res["zbuf"]["ms"] = cuda_time_ms(lambda: splat_kernel.splat_zbuf_rows(
-            u0, v0, dq, count, img_h, img_w))
-        res["zbuf"]["plain_ms"] = cuda_time_ms(lambda: splat_kernel.splat_zbuf_rows_reference(
-            u0, v0, dq, count, img_h, img_w))
-        res["payload"]["ms"] = cuda_time_ms(lambda: splat_kernel.splat_payload_rows(
+    if wide and not (tile_rows and atomic_rows):
+        raise AssertionError(f"splat {label}: a branch of splat_zbuf_rows was not taken")
+    res = {"zbuf": {"max_abs_err": z_err, "branches": [tile_rows, atomic_rows]},
+           "payload": {"max_abs_err": p_err}}
+    if not timed:
+        return res
+    zres, pres = splat_bound_and_library(splat_kernel, u0, v0, dq, pool_idx, rgbw, prob,
+                                         zbuf, pbuf, img_h, img_w)
+    res["zbuf"].update(zres)
+    res["payload"].update(pres)
+    time_kernel(res["zbuf"], lambda: splat_kernel.splat_zbuf_rows(
+        u0, v0, dq, count, img_h, img_w), "splat_zbuf_tile_kernel")
+    res["zbuf"]["plain_ms"] = cuda_time_ms(lambda: splat_kernel.splat_zbuf_rows_reference(
+        u0, v0, dq, count, img_h, img_w))
+    time_kernel(res["payload"], lambda: splat_kernel.splat_payload_rows(
+        u0, v0, dq, pool_idx, rgbw, prob, count, zbuf, img_h, img_w), "splat_payload_kernel")
+    res["payload"]["plain_ms"] = cuda_time_ms(
+        lambda: splat_kernel.splat_payload_rows_reference(
             u0, v0, dq, pool_idx, rgbw, prob, count, zbuf, img_h, img_w))
-        res["payload"]["plain_ms"] = cuda_time_ms(
-            lambda: splat_kernel.splat_payload_rows_reference(
-                u0, v0, dq, pool_idx, rgbw, prob, count, zbuf, img_h, img_w))
-        log(f"[chip_smoke] splat {img_w}x{img_h}: splat_zbuf_rows kernel "
-            f"{res['zbuf']['ms']:.4f} ms, plain torch {res['zbuf']['plain_ms']:.4f} ms; "
-            f"splat_payload_rows kernel {res['payload']['ms']:.4f} ms, plain torch "
-            f"{res['payload']['plain_ms']:.4f} ms (median of 10)")
+    # the z-buffer body the tile replaced (one global atomic per footprint
+    # pixel, kept in the probe's source) on the same rows
+    res["zbuf"]["atomic_body_ms"] = kernel_ms(lambda: splat_probe.zbuf_atomic(
+        u0, v0, dq, count, img_h, img_w), "probe_zbuf_atomic_kernel")
+    for name, key in (("splat_zbuf_rows", "zbuf"), ("splat_payload_rows", "payload")):
+        print_yardsticks(f"{name} {img_w}x{img_h}", res[key])
     return res
+
+
+def splat_bound_and_library(splat_kernel, u0, v0, dq, pool_idx, rgbw, prob, zbuf, pbuf,
+                            img_h, img_w):
+    """The splat merges' bounds from these inputs, and their library
+    yardsticks: one scatter_reduce_ ("amin" into the z-buffer, "amax" of
+    the winners' words into the payload buffer) over the in-image
+    footprint pixels, with the indices built outside the timed window;
+    each must give the kernel's buffer.  Returns the z-buffer's and the
+    payload's entries."""
+    rf = splat_kernel.rf
+    n_pix = img_h * img_w
+    count = int((pool_idx < POOL).sum().item())  # live rows come first
+    band = torch.zeros_like(dq, dtype=torch.bool)
+    band[:count] = dq[:count] < splat_kernel.BIG
+    n_band = int(band.sum().item())
+    pix = rf.footprint(u0, v0, band, img_h, img_w)
+    keep = pix < n_pix
+    dq4 = dq.expand(pix.shape)
+    won = keep & (dq4 == zbuf[pix.clamp(max=n_pix - 1)])
+    winners = int(won.any(0).sum().item())
+    live = count * 512
+    # dq of the live voxels, (u0, v0) of those in the band, count; the z-buffer
+    z_bytes = 4 * live + 8 * n_band + 4 + 4 * n_pix
+    # and pool_idx, the final z-buffer read, the winners' rgbw and prob
+    # words, the payload buffer
+    p_bytes = z_bytes + 4 * count + 8 * winners + 4 * n_pix
+    zres = bound(z_bytes, OPS_PER_VOXEL["splat"] * n_band)
+    pres = bound(p_bytes, OPS_PER_VOXEL["splat"] * n_band)
+    z_idx, z_val = pix[keep], dq4[keep]
+    p_idx = pix[won]
+    pool = pool_idx.clamp(0, rgbw.shape[0] - 1).long()
+    packed = rf.pack_payload_rgbw(rgbw[pool], prob[pool])
+    p_val = packed.expand(pix.shape)[won]
+    pix_all, dq4_all = pix.reshape(-1), dq4.reshape(-1)
+    won_all = torch.where(won, pix, n_pix).reshape(-1)
+    packed_all = packed.expand(pix.shape).reshape(-1)
+    del pix, keep, dq4, won, band, packed
+    z_base = torch.full((n_pix,), splat_kernel.BIG, dtype=torch.int32, device=dq.device)
+    p_base = torch.zeros((n_pix,), dtype=torch.int64, device=dq.device)
+    lib_z = z_base.scatter_reduce(0, z_idx, z_val, "amin")
+    lib_p = p_base.scatter_reduce(0, p_idx, p_val, "amax")
+    lib_p = torch.where(lib_p >= 1 << 31, lib_p - (1 << 32), lib_p).to(torch.int32)
+    if not (torch.equal(lib_z, zbuf) and torch.equal(lib_p, pbuf)):
+        raise AssertionError("the splat library yardsticks compute another function")
+    zres["library_ms"] = kernel_ms(lambda: z_base.scatter_reduce(0, z_idx, z_val, "amin"))
+    pres["library_ms"] = kernel_ms(lambda: p_base.scatter_reduce(0, p_idx, p_val, "amax"))
+    # beside them, the same calls as render_fast makes them: every
+    # footprint entry, those that merge nothing sent to a dump slot
+    dump_z = torch.full((n_pix + 1,), splat_kernel.BIG, dtype=torch.int32, device=dq.device)
+    dump_p = torch.zeros((n_pix + 1,), dtype=torch.int64, device=dq.device)
+    zres["library_dump_ms"] = kernel_ms(lambda: dump_z.scatter_reduce(
+        0, pix_all, dq4_all, "amin"))
+    pres["library_dump_ms"] = kernel_ms(lambda: dump_p.scatter_reduce(
+        0, won_all, packed_all, "amax"))
+    log(f"[chip_smoke] splat {img_w}x{img_h}: {count} live rows, {n_band} voxels in the "
+        f"band, {winners} winners, {z_idx.numel()} footprint pixels")
+    return zres, pres
 
 
 def reset_launches(*fns) -> None:
@@ -406,7 +664,14 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     # the render's own stages, device time by CUDA events (median of 10)
     u0, v0, dq, vis, _ = splat_kernel._kernel_inputs(vol, cam, pose0, RENDER_MAX_DEPTH,
                                                      1.25, render_fast.DEFAULT_SURF_CAP)
-    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, vis.count, H, W)
+    branches = torch.zeros(2, dtype=torch.int32, device=dq.device)
+    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, vis.count, H, W, branches)
+    if not torch.equal(zbuf, plain_bufs[0]):
+        raise AssertionError("splat_zbuf_rows differs from the plain z-buffer on frame 0")
+    zbuf_branches = branches.tolist()
+    log(f"[chip_smoke] render frame 0: splat_zbuf_rows bit-equal to the plain z-buffer; "
+        f"surface blocks on the tile branch {zbuf_branches[0]}, on the atomic branch "
+        f"{zbuf_branches[1]}")
     stages = {
         "prep (visibility, surface compaction, projection)": cuda_time_ms(
             lambda: splat_kernel._kernel_inputs(vol, cam, pose0, RENDER_MAX_DEPTH, 1.25,
@@ -426,7 +691,7 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     }
     log("[chip_smoke] render frame 0 stages, CUDA-event ms (median of 10): "
         + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
-    del u0, v0, dq, zbuf, plain_bufs, plain
+    del plain_bufs, plain
 
     # device busy share of the render, from a profiler trace of five renders
     from torch.profiler import ProfilerActivity, profile
@@ -445,6 +710,15 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     log(f"[chip_smoke] render profile (5 renders): wall {wall_ms:.3f} ms, device "
         f"kernel time {device_ms:.3f} ms in {n_kernels} kernels"
         + (f", idle share {1 - busy:.3f}" if busy is not None else ", idle share not measured"))
+    # the two kernels' device times on this render, after its profile
+    kernel_times = {
+        "splat_zbuf_rows": kernel_ms(lambda: splat_kernel.splat_zbuf_rows(
+            u0, v0, dq, vis.count, H, W), "splat_zbuf_tile_kernel"),
+        "splat_payload_rows": kernel_ms(lambda: splat_kernel.splat_payload_rows(
+            u0, v0, dq, vis.pool_idx, vol.rgbw, vol.prob, vis.count, zbuf, H, W),
+            "splat_payload_kernel")}
+    log(f"[chip_smoke] render frame 0 kernels, device ms: {kernel_times}")
+    del u0, v0, dq, zbuf
     reset_launches(*kernels)  # the profiled renders are not the main path's
 
     # the JAX reference's fingerprints of the frame-0 view and the app's view
@@ -477,6 +751,7 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     if not ray.hit.any():
         raise AssertionError("the parity raycaster hit nothing")
     report = {"splat_ms_per_render": passes, "splat_ms": splat_ms,
+              "zbuf_branches": zbuf_branches, "kernel_ms_frame0": kernel_times,
               "surface_blocks": kept + overflow, "surf_overflow": overflow,
               "stages_ms": stages, "profile": {"wall_ms": wall_ms, "device_ms": device_ms,
                                                "kernels": n_kernels},
@@ -712,6 +987,191 @@ def online_slice(fuse_kernel, sample_kernel, dev, smi, render_dir):
             "fingerprint_online_fast": fp_fast, **split, "app": app}
 
 
+def bench_frames(first: int, n: int):
+    """Frames first..first+n-1 of the bench replay as the offline app
+    reads them, with the camera and the depth factor of its cam.yaml."""
+    from disinfect_slam_tpu_torch.core.geometry import CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.io.config_reader import (
+        get_depth_factor, get_intrinsics, load_yaml,
+    )
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+
+    cam_yaml = load_yaml(os.path.join(DATASET, "cam.yaml"))
+    replay = LoggedReplay(DATASET, get_depth_factor(cam_yaml))
+    cam = CameraParams.create(CameraIntrinsics.create(*get_intrinsics(cam_yaml)), H, W)
+    return cam, [replay.load_frame(*e) for e in replay.entries[first:first + n]]
+
+
+def upload_frame(fr, dev):
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput
+
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    return FrameInput(up(fr.rgb), up(fr.depth), up(fr.ht), up(fr.lt))
+
+
+def check_fuse_real_frame(fuse_kernel, grid, index, dev):
+    """Phase 5: fuse_rows against its plain version on the visible set of
+    frame `index` of the bench replay over the fused volume (copies of its
+    pool arrays: the volume stays as it is), and its yardsticks there."""
+    from disinfect_slam_tpu_torch.config import BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.ops.integrate import depth_to_range, gather_visible, stack_frame
+
+    cam, (fr,) = bench_frames(index, 1)
+    pose = SE3.from_matrix(fr.cam_T_world)
+    vol, cfg = grid.volume, grid.cfg
+    img = stack_frame(upload_frame(fr, dev), depth_to_range(cam, dev))
+    vis = gather_visible(vol, cam, pose)
+    consts = dict(truncation=cfg.truncation, max_depth=BENCH_MAX_DEPTH,
+                  max_weight=cfg.max_weight, prob_eps=cfg.prob_eps, cam_T_world=pose,
+                  intrinsics=cam.intrinsics, voxel_size=cfg.voxel_size)
+    label = f"real frame {index}"
+    err, written, updated = compare_fuse(fuse_kernel, img, vis.block_pos, vis.pool_idx,
+                                         vis.count, (vol.tsdf, vol.rgbw, vol.prob), consts,
+                                         label)
+    pool = [a.clone() for a in (vol.tsdf, vol.rgbw, vol.prob)]
+    res = {"max_abs_err": err, "count": int(vis.count)}
+    res.update(fuse_rows_yardsticks(fuse_kernel, img, vis.block_pos, vis.pool_idx,
+                                    vis.count, pool, consts, written, updated, label))
+    del pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def fresh_bench_grid(offline, dev, n_frames: int):
+    """A fresh volume at the offline app's bench preset (fused sampler),
+    with the camera, the first n_frames frames of the replay, the
+    intrinsics tuple and the max depth."""
+    from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
+
+    cfg, voxel, trunc, max_depth = offline.make_config(offline.parse_args(
+        ["--logdir", DATASET, "--preset", "bench", "--sampler", "pallas_fused"]))
+    cam, frames = bench_frames(0, n_frames)
+    k = cam.intrinsics
+    return (TSDFGrid(voxel, trunc, cfg=cfg, device=dev), cam, frames,
+            (k.fx, k.fy, k.cx, k.cy), max_depth)
+
+
+def fusion_split(offline, fuse_kernel, dev):
+    """Phase 3, where the offline fusion's time goes at the bench preset,
+    on a fresh volume: frames 0-44 through TSDFGrid.integrate, then frames
+    45-59 through integrate's own stages split by CUDA events (the frame
+    upload, depth_to_range, allocation on every alloc_every-th frame, the
+    visibility sweep and compaction, fuse_visible, the carve).  It uses
+    only what every tree of the port has, so scripts/port_fuse_stage.py
+    runs it on another checkout's package too."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.ops import integrate as itg
+
+    grid, cam, frames, intr, max_depth = fresh_bench_grid(offline, dev, SPLIT_LAST + 1)
+    for fr in frames[:SPLIT_FIRST]:
+        grid.integrate(fr.rgb, fr.depth, fr.ht, fr.lt, max_depth, intr, fr.cam_T_world)
+    names = ("upload", "depth_to_range", "allocate", "visible", "fuse", "carve", "frame")
+    stages = {n: [] for n in names}
+    launches0 = fuse_kernel.fuse_rows.launches
+    vol = grid.volume
+    for i, fr in enumerate(frames[SPLIT_FIRST:], start=SPLIT_FIRST):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        pose = SE3.from_matrix(fr.cam_T_world)
+        torch.cuda.synchronize()
+        ev[0].record()
+        frame = upload_frame(fr, dev)
+        ev[1].record()
+        d2r = itg.depth_to_range(cam, dev)
+        ev[2].record()
+        if i % grid.cfg.alloc_every == 0:
+            vol = itg.allocate_blocks(vol, frame.depth, d2r, cam, pose, max_depth)
+        ev[3].record()
+        vis = itg.gather_visible(vol, cam, pose)
+        ev[4].record()
+        vol, min_abs = itg.fuse_visible(vol, vis, frame, d2r, cam, pose, max_depth)
+        ev[5].record()
+        vol = itg.space_carve(vol, vis, min_abs)
+        ev[6].record()
+        torch.cuda.synchronize()
+        for n, (a, b) in zip(names, ((0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (0, 6))):
+            stages[n].append(ev[a].elapsed_time(ev[b]))
+    n_split = SPLIT_LAST + 1 - SPLIT_FIRST
+    if fuse_kernel.fuse_rows.launches - launches0 != n_split:
+        raise AssertionError("the split frames did not launch fuse_rows once each")
+    split = {n: statistics.mean(v) for n, v in stages.items()}
+    log(f"[chip_smoke] fusion split, CUDA-event ms/frame (mean of frames {SPLIT_FIRST}-"
+        f"{SPLIT_LAST}, {len(range(SPLIT_FIRST, SPLIT_LAST + 1, grid.cfg.alloc_every))} "
+        f"allocating): " + ", ".join(f"{n} {v:.3f}" for n, v in split.items()))
+    return {"split_ms_per_frame": split, "split_frames": stages}
+
+
+def fusion_profile(offline, dev):
+    """Phase 7: a fresh volume at the bench preset over frames 0-44
+    through TSDFGrid.integrate, then frames 45-59 under the profiler
+    (device kernel time, kernels per frame, idle share), then the fuse
+    stage alone on frame 59's visible set: fuse_visible's device time
+    (every kernel it launches), the fuse_rows kernel's within it, and one
+    call by CUDA events.  Like fusion_split, it runs on any tree of the
+    port."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.ops import integrate as itg
+
+    grid, cam, frames, intr, max_depth = fresh_bench_grid(offline, dev, SPLIT_LAST + 1)
+    for fr in frames[:SPLIT_FIRST]:
+        grid.integrate(fr.rgb, fr.depth, fr.ht, fr.lt, max_depth, intr, fr.cam_T_world)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for fr in frames[SPLIT_FIRST:]:
+            grid.integrate(fr.rgb, fr.depth, fr.ht, fr.lt, max_depth, intr, fr.cam_T_world)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    n = len(frames[SPLIT_FIRST:])
+    res = {"frames": [SPLIT_FIRST, SPLIT_LAST], "wall_ms_per_frame": wall_ms / n,
+           "device_ms_per_frame": device_ms / n, "kernels_per_frame": len(events) / n,
+           "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+    log(f"[chip_smoke] fusion profile (frames {SPLIT_FIRST}-{SPLIT_LAST}): wall "
+        f"{wall_ms / n:.3f} ms/frame, device kernel time {device_ms / n:.3f} ms/frame in "
+        f"{len(events) / n:.1f} kernels/frame, idle share "
+        + (f"{res['idle_share']:.3f}" if device_ms else "not measured"))
+
+    fr = frames[-1]
+    pose = SE3.from_matrix(fr.cam_T_world)
+    frame = upload_frame(fr, dev)
+    d2r = itg.depth_to_range(cam, dev)
+    vis = itg.gather_visible(grid.volume, cam, pose)
+    stage = lambda: itg.fuse_visible(grid.volume, vis, frame, d2r, cam, pose,  # noqa: E731
+                                     max_depth)
+    res["fuse_stage"] = {"rows": int(vis.count), "device_ms": kernel_ms(stage),
+                         "fuse_rows_ms": kernel_ms(stage, "fuse_rows_kernel"),
+                         "call_ms": cuda_time_ms(stage)}
+    log(f"[chip_smoke] fuse stage on frame {SPLIT_LAST}'s {res['fuse_stage']['rows']} "
+        f"visible rows: fuse_visible {res['fuse_stage']['device_ms']:.4f} ms of device "
+        f"time (one call {res['fuse_stage']['call_ms']:.4f} ms), of which the fuse_rows "
+        f"kernel {res['fuse_stage']['fuse_rows_ms']:.4f} ms")
+    return res
+
+
+def probes(splat_probe, dev):
+    """Phase 7: the probes of splat_zbuf_rows, each kernel timed by its
+    device time."""
+    t0 = time.perf_counter()
+    probe = splat_probe.run(dev, timer=kernel_ms)
+    p8 = probe["p8"]
+    log(f"[chip_smoke] probe P8 (S={p8['rows']}, 640x480, footprints <= 14 px): per-voxel "
+        f"atomics {p8['atomic_ms']:.4f} ms, tile kernel {p8['tile_ms']:.4f} ms, both "
+        f"bit-equal to the plain scatter-min; tile rows on the tile / atomic branch "
+        f"{p8['tile_branches']}")
+    for r in probe["p9"]:
+        log(f"[chip_smoke] probe P9 tile {r['tile'][0]}x{r['tile'][1]}: {r['registers']} "
+            f"registers, {r['local_bytes']} local (spill) bytes, {r['shared_bytes']} shared "
+            f"bytes; P8 rows {r['p8']['ms']:.4f} ms (branches {r['p8']['branches']}), wide "
+            f"rows {r['wide']['ms']:.4f} ms (branches {r['wide']['branches']}); launches "
+            f"and agrees")
+    log(f"[chip_smoke] probes ok ({time.perf_counter() - t0:.1f} s)")
+    return probe
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -723,7 +1183,7 @@ def main() -> int:
     from disinfect_slam_tpu_torch.io.png_io import read_png
     from disinfect_slam_tpu_torch.ops import render_fast
     from disinfect_slam_tpu_torch.ops.cuda import (
-        build, fuse_kernel, sample_kernel, splat_kernel,
+        build, fuse_kernel, sample_kernel, splat_kernel, splat_probe,
     )
 
     t_start = time.perf_counter()
@@ -740,20 +1200,28 @@ def main() -> int:
 
     # phase 1: build
     t0 = time.perf_counter()
-    path, build_log, nvcc_s = build.build()
-    build.library()
+    paths, build_log, nvcc_s = build.build()  # every source at once
+    for lib in paths:
+        build.library(lib)
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[chip_smoke] ptxas: {line.strip()}")
-    log(f"[chip_smoke] phase 1: kernels built in {nvcc_s:.1f} s "
-        f"(load {time.perf_counter() - t0:.1f} s) -> {os.path.relpath(path, ROOT)}")
+    log(f"[chip_smoke] phase 1: {len(paths)} kernel libraries built in {nvcc_s:.1f} s "
+        f"(load {time.perf_counter() - t0:.1f} s) -> "
+        f"{sorted(os.path.relpath(p, ROOT) for p in paths.values())}")
 
     # phase 2: kernels against their plain versions at the slice's shapes
-    fuse = check_fuse_rows(fuse_kernel, H, W, seed=1, dev=dev, timed=True)
-    fuse_1080 = check_fuse_rows(fuse_kernel, 1080, 1920, seed=2, dev=dev, timed=True)
-    sample = check_sample_rows(sample_kernel, dev)
-    splat = check_splat(splat_kernel, H, W, seed=3, dev=dev, timed=True)
-    splat_1080 = check_splat(splat_kernel, 1080, 1920, seed=4, dev=dev, timed=True)
+    # (their times come in phase 7: a profiler trace would slow what follows)
+    checks = [lambda timed: check_fuse_rows(fuse_kernel, H, W, 1, dev, False, timed),
+              lambda timed: check_fuse_rows(fuse_kernel, 1080, 1920, 2, dev, True, timed),
+              lambda timed: check_sample_rows(sample_kernel, dev, timed),
+              lambda timed: check_splat(splat_kernel, H, W, 3, dev, timed),
+              lambda timed: check_splat(splat_kernel, 1080, 1920, 4, dev, timed)]
+    for check in checks:
+        check(False)
+        torch.cuda.empty_cache()
+    splat_wide = [check_splat(splat_kernel, h, w, 5, dev, False, wide=True)
+                  for h, w in ((H, W), (1080, 1920))]
     torch.cuda.empty_cache()
     log(f"[chip_smoke] phase 2: kernels agree with their plain versions "
         f"({time.perf_counter() - t_start:.1f} s)")
@@ -798,6 +1266,8 @@ def main() -> int:
     log(f"[chip_smoke] phase 3: fused replay ms/frame {ms_runs} -> median "
         f"{fused_ms:.3f} ({smi}); fuse_rows launches {fused_launches} "
         f"({time.perf_counter() - t_start:.1f} s)")
+    # where the fusion's time goes
+    fusion = fusion_split(offline, fuse_kernel, dev)
 
     # phase 4: the two-stage path
     fuse_kernel.fuse_rows.launches = 0
@@ -824,6 +1294,8 @@ def main() -> int:
     log(f"[chip_smoke] phase 5: render slice ok; splat {render['splat_ms']:.3f} "
         f"ms/render, raycast {render['raycast_ms']:.3f} ms ({smi}) "
         f"({time.perf_counter() - t_start:.1f} s)")
+    # fuse_rows on a real frame's visible set of the fused volume
+    fuse_real = check_fuse_real_frame(fuse_kernel, grid, 30, dev)
     del grid
     torch.cuda.empty_cache()
 
@@ -836,14 +1308,28 @@ def main() -> int:
         f"{online['seg']['unet']['seg_ms']:.3f} (UNet) ({smi}) "
         f"({time.perf_counter() - t6:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
+    # phase 7: device times, after every end-to-end measurement
+    t7 = time.perf_counter()
+    fusion["profile"] = fusion_profile(offline, dev)
+    torch.cuda.empty_cache()
+    fuse, fuse_1080, sample, splat, splat_1080 = (check(True) for check in checks)
+    probe = probes(splat_probe, dev)
+    log(f"[chip_smoke] phase 7: device times ({smi}) ({time.perf_counter() - t7:.1f} s added, "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     report = {
         "card": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "nvcc_s": nvcc_s,
+        "fuse_rows_640x480": fuse,
         "fuse_rows_1080p": fuse_1080,
+        "fuse_rows_real_frame": fuse_real,
+        "fusion": fusion,
         "splat_640x480": splat,
         "splat_1080p": splat_1080,
+        "splat_wide": splat_wide,
+        "probe": probe,
         "render": render,
         "online": online,
         "fused_replay_ms_per_frame": ms_runs,
@@ -861,7 +1347,11 @@ def main() -> int:
          "replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:262",
          "also_replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:519",
          "launches": fused_launches, "online_launches": online["online_launches"],
-         "online_app_launches": online["app"]["fused"]["fuse_rows_launches"], **fuse},
+         "online_app_launches": online["app"]["fused"]["fuse_rows_launches"], **fuse,
+         "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
+                            fuse_real["max_abs_err"]),
+         "ms_1080p": fuse_1080["ms"], "bound_ms_1080p": fuse_1080["bound_ms"],
+         "ms_real_frame": fuse_real["ms"], "bound_ms_real_frame": fuse_real["bound_ms"]},
         {"name": "sample_rows", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/sample_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/sample_kernel.py:359",
@@ -870,8 +1360,11 @@ def main() -> int:
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:149",
          "launches": splat_launches[0], **splat["zbuf"],
-         "max_abs_err": max(splat["zbuf"]["max_abs_err"],
-                            splat_1080["zbuf"]["max_abs_err"], render_err["zbuf"])},
+         "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
+                            *(w["zbuf"]["max_abs_err"] for w in splat_wide),
+                            render_err["zbuf"]),
+         "branches_wide": [w["zbuf"]["branches"] for w in splat_wide],
+         "branches_real_render": render["zbuf_branches"]},
         {"name": "splat_payload_rows", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:438",

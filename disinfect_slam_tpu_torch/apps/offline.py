@@ -10,6 +10,8 @@ Usage:
   python -m disinfect_slam_tpu_torch.apps.offline --logdir datasets/orbit_vga \
       --config datasets/orbit_vga/cam.yaml --preset bench --save data.bin \
       --render-dir out --renderer auto
+
+It runs on the CUDA device unless asked for another (--device cpu).
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import argparse
 import dataclasses
 
 import numpy as np
-import torch
 
 from ..config import BENCH, BENCH_MAX_DEPTH, TSDFConfig
 from ..io.config_reader import (
@@ -30,6 +31,7 @@ from ..io.config_reader import (
 from ..io.dataset import LoggedReplay
 from ..ops.gather import dump_spatial_tsdf
 from ..systems.tsdf_grid import RENDERERS, TSDFGrid
+from ..utils.device import resolve_device
 from ..utils.timing import StageTimer
 from ..viz.headless import render_to_png
 
@@ -66,8 +68,9 @@ def parse_args(argv=None) -> argparse.Namespace:
              "splat on a CUDA device, raycast elsewhere",
     )
     ap.add_argument(
-        "--device", default="cuda" if torch.cuda.is_available() else "cpu",
-        help="torch device for the volume and the kernels",
+        "--device", default="cuda",
+        help="torch device for the volume and the kernels; without CUDA "
+             "the run stops unless this is cpu",
     )
     return ap.parse_args(argv)
 
@@ -109,6 +112,7 @@ def run(args) -> dict:
     """Replay the dataset; returns the grid, per-frame integrate seconds,
     with --save the number of records written and with --render-dir the
     PNG paths and the render time."""
+    device = resolve_device(args.device)
     if args.config:
         cam_yaml = load_yaml(args.config)
         intrinsics = get_intrinsics(cam_yaml)
@@ -123,7 +127,7 @@ def run(args) -> dict:
     print(f"[offline] {len(replay)} frames")
 
     cfg, voxel, trunc, max_depth = make_config(args)
-    grid = TSDFGrid(voxel, trunc, cfg=cfg, device=args.device)
+    grid = TSDFGrid(voxel, trunc, cfg=cfg, device=device)
     timer = StageTimer(grid.device)
     n = 0
     last_pose = np.eye(4, dtype=np.float32)

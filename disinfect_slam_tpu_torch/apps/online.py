@@ -20,6 +20,8 @@ msgpack checkpoints are not read).  --stereo is not ported.
 Usage:
   python -m disinfect_slam_tpu_torch.apps.online --logdir datasets/orbit_vga \
       --config datasets/orbit_vga/cam.yaml --segment --fused --render-dir out
+
+It runs on the CUDA device unless asked for another (--device cpu).
 """
 
 from __future__ import annotations
@@ -67,8 +69,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="depth from stereo block matching (not ported)")
     ap.add_argument("--render-dir")
     ap.add_argument("--preset", choices=["full", "small"], default="full")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
-                    help="torch device for the volume, the net and the kernels")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for the volume, the net and the kernels; "
+                         "without CUDA the run stops unless this is cpu")
     args = ap.parse_args(argv)
     if args.stereo:
         ap.error("--stereo: stereo depth is not ported yet (ROADMAP Queue 1 item 9)")

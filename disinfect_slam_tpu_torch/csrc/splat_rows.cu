@@ -6,60 +6,37 @@
 // whole z-buffer in VMEM, build a compact [16, 32] patch per surface
 // block with masked lane reductions, roll it into an aligned window and
 // send blocks whose footprint does not fit through a capped XLA scatter.
-// On Hopper the merge is what it computes: one atomicMin (z-buffer) or
-// atomicMax (payload) per footprint pixel in global memory.  Min and max
-// do not depend on the order of the updates, so the buffers equal the
-// plain torch scatter reductions bit for bit, with no footprint limit.
 //
-// Layout: one CTA of 512 threads per surface-block row, one thread per
-// voxel (the layout of fuse_rows.cu); rows at or past the device-side
-// live count return at once, and a voxel outside the surface band
-// (dq == BIG) returns after one 4-byte load.
+// K4 merges each surface block's footprint in a shared-memory tile of
+// kTileH x kTileW pixels and sends the tile's pixels to the z-buffer with
+// one global atomicMin each; blocks whose footprint does not fit (near
+// the camera) merge per voxel with global atomics (splat_zbuf_tile.cuh,
+// where the design and its bound are described; the tile shape is the
+// one the probe's sweep chose, splat_probe.cu).
 //
-// What bounds them: device memory traffic and the atomics.  K4 reads
-// 12 B per surface voxel (u0, v0, dq) and issues at most four 4-byte
-// atomics to an image that stays in the 50 MB L2 (1.2 MB at VGA, 8.3 MB
-// at 1080p); voxels tie at a pixel, so atomics to one address serialise
-// in L2.  K5 reads the same 12 B plus the final depth at the footprint,
-// and the stored RGBW word and probability of only those voxels that win
-// a pixel, read in place from the pool through pool_idx (no [S, 512] row
+// K5 is one atomicMax (u32) per winning footprint pixel in global memory:
+// one CTA of 512 threads per surface-block row, one thread per voxel;
+// rows at or past the device-side live count return at once, and a voxel
+// outside the surface band (dq == BIG) returns after one 4-byte load.  It
+// reads 12 B per surface voxel plus the final depth at the footprint, and
+// the stored RGBW word and probability of only those voxels that win a
+// pixel, read in place from the pool through pool_idx (no [S, 512] row
 // gathers as on the TPU).
+//
+// Min and max do not depend on the order of the updates, so the buffers
+// equal the plain torch scatter reductions bit for bit, with no footprint
+// limit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "persistent_grid.cuh"
+#include "splat_zbuf_tile.cuh"
+
 namespace {
 
-constexpr int kVoxels = 512;
-constexpr int kBig = 1 << 30;
-
-// Pixel index of footprint pixel k (du = k >> 1, dv = k & 1) of a voxel
-// whose floor pixel is (u0, v0), or -1 off the image.  Unsigned sums wrap
-// instead of overflowing, so u0 = -1 keeps its du = 1 pixel only.
-__device__ __forceinline__ int footprint_pixel(int u0, int v0, int k,
-                                               int img_h, int img_w) {
-  const unsigned u = static_cast<unsigned>(u0) + static_cast<unsigned>(k >> 1);
-  const unsigned v = static_cast<unsigned>(v0) + static_cast<unsigned>(k & 1);
-  if (u >= static_cast<unsigned>(img_w) || v >= static_cast<unsigned>(img_h)) return -1;
-  return static_cast<int>(v) * img_w + static_cast<int>(u);
-}
-
-__global__ void __launch_bounds__(kVoxels) splat_zbuf_kernel(
-    const int* __restrict__ u0s, const int* __restrict__ v0s,
-    const int* __restrict__ dqs, const int* __restrict__ count,
-    int img_h, int img_w, int* __restrict__ zbuf) {
-  const int row = blockIdx.x;
-  if (row >= __ldg(count)) return;
-  const size_t vi = static_cast<size_t>(row) * kVoxels + threadIdx.x;
-  const int dq = dqs[vi];
-  if (dq >= kBig) return;
-  const int u0 = u0s[vi];
-  const int v0 = v0s[vi];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int p = footprint_pixel(u0, v0, k, img_h, img_w);
-    if (p >= 0) atomicMin(zbuf + p, dq);
-  }
-}
+constexpr int kVoxels = kSplatVoxels;
+constexpr int kBig = kSplatBig;
+constexpr int kTileH = 32, kTileW = 32;
 
 __global__ void __launch_bounds__(kVoxels) splat_payload_kernel(
     const int* __restrict__ u0s, const int* __restrict__ v0s,
@@ -100,13 +77,18 @@ __global__ void __launch_bounds__(kVoxels) splat_payload_kernel(
 
 }  // namespace
 
+// branches: null, or two counters that take the rows merged through the
+// tile and through the per-voxel atomics
 extern "C" int dst_splat_zbuf_rows(const int* u0s, const int* v0s,
                                    const int* dqs, const int* count, int rows,
-                                   int img_h, int img_w, int* zbuf,
+                                   int img_h, int img_w, int* zbuf, int* branches,
                                    void* stream) {
   if (rows > 0) {
-    splat_zbuf_kernel<<<rows, kVoxels, 0, static_cast<cudaStream_t>(stream)>>>(
-        u0s, v0s, dqs, count, img_h, img_w, zbuf);
+    auto kernel = splat_zbuf_tile_kernel<kTileH, kTileW>;
+    static const int ctas = resident_ctas(kernel, kVoxels);
+    kernel<<<min(rows, ctas), kVoxels, 0,
+             static_cast<cudaStream_t>(stream)>>>(u0s, v0s, dqs, count, rows, img_h,
+                                                  img_w, zbuf, branches);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,7 @@ import torch
 
 from ..config import TSDFConfig
 from ..core.state import TSDFVolume
+from ..utils.device import resolve_device
 
 _FIELDS = (
     "entry_key",
@@ -59,8 +60,10 @@ def save_volume(path: str, vol: TSDFVolume) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_volume(path: str, device="cpu") -> TSDFVolume:
-    """Read a checkpoint written by either package's save_volume."""
+def load_volume(path: str, device="cuda") -> TSDFVolume:
+    """Read a checkpoint written by either package's save_volume onto
+    `device` (CUDA unless the caller asks for another)."""
+    device = resolve_device(device)
     with np.load(path) as data:
         fields = json.loads(bytes(data["__config__"]).decode())
         # drop keys this version does not know; JSON has no tuples

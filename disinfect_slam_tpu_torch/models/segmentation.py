@@ -347,13 +347,14 @@ def state_dict_from_flax(flat: Dict[str, np.ndarray], model: nn.Module) -> Dict[
     return out
 
 
-def load_model(arch: str = "unet", path: Optional[str] = None, device="cpu") -> nn.Module:
+def load_model(arch: str = "unet", path: Optional[str] = None, device="cuda") -> nn.Module:
     """The shipped net (or the npz checkpoint at `path`) in bfloat16 on
-    `device`."""
+    `device` (CUDA unless the caller asks for another)."""
+    device = resolve_device(device)
     path = path or default_weights_path(arch)
     model = create_model(arch=arch)
     model.load_state_dict(state_dict_from_flax(load_params_npz(path), model))
-    return model.to(resolve_device(device))
+    return model.to(device)
 
 
 # ----------------------------------------------------------------------

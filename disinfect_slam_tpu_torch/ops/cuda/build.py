@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by nvcc into one shared library with a
-plain C interface, at first use, into `disinfect_slam_tpu_torch/_build/`
-under a name keyed by a hash of the sources and flags, and loaded with
-ctypes.  Nothing here runs at import time; the CPU-only tests import the
-kernel modules without ever building.
+Every `csrc/<name>.cu` file is compiled by nvcc into a shared library of
+its own with a plain C interface, at first use, into
+`disinfect_slam_tpu_torch/_build/` under a name keyed by a hash of the
+source, the headers the sources include (`csrc/*.cuh`) and the flags, and
+loaded with ctypes.  One source that fails to build (a probe, say) leaves
+the other kernels loadable.  Nothing here runs at import time; the
+CPU-only tests import the kernel modules without ever building.
 
 `-fmad=false`: the plain versions are eager torch ops, which never
 contract a multiply and an add into one FMA; with contraction the kernel
@@ -29,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+ERRORS = "errors"  # csrc/errors.cu: the error text every entry point's code maps to
 
 
 def _nvcc() -> str:
@@ -41,47 +44,71 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> tuple[pathlib.Path, str, float]:
-    """Compile the kernels unless the library for these sources and flags
-    exists.  Returns (library path, compiler output, seconds compiling)."""
-    sources = sorted(CSRC.glob("*.cu"))
+def sources() -> list[str]:
+    """The names of the kernel sources, csrc/<name>.cu."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where csrc/<name>.cu's library goes: keyed by the flags, the source
+    and every header."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libdstorch_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out, "", 0.0
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> tuple[dict, str, float]:
+    """Compile the named sources (all of them by default) whose library
+    for these sources and flags does not exist yet: one nvcc for each,
+    all started together.  Returns ({name: library path}, compiler
+    output, wall seconds compiling)."""
+    names = sources() if names is None else list(names)
+    paths = {n: library_path(n) for n in names}
+    missing = [n for n in names if not paths[n].exists()]
+    if not missing:
+        return paths, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename, so that a concurrent or
-    # interrupted build never leaves a partial library under the final name
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = {}
+    for n in missing:
+        # compile to a temporary name and rename, so that a concurrent or
+        # interrupted build never leaves a partial library under the final name
+        tmp = paths[n].with_name(f"{paths[n].name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu: nvcc exited with code {proc.returncode}:\n{out}")
+        else:
+            os.replace(tmp, paths[n])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr, seconds
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths, "".join(logs), seconds
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    lib.dst_error_string.argtypes = [ctypes.c_int]
-    lib.dst_error_string.restype = ctypes.c_char_p
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (built on first use)."""
+    paths, _, _ = build([name])
+    lib = ctypes.CDLL(str(paths[name]))
+    if name == ERRORS:
+        lib.dst_error_string.argtypes = [ctypes.c_int]
+        lib.dst_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def entry(name: str, argtypes: list) -> "ctypes._CFuncPtr":
-    """A C entry point of the library with its argument types declared;
-    every entry returns a cudaError_t as int."""
-    fn = getattr(library(), name)
+def entry(source: str, name: str, argtypes: list) -> "ctypes._CFuncPtr":
+    """The C entry point `name` of csrc/<source>.cu's library with its
+    argument types declared; every entry returns a cudaError_t as int."""
+    fn = getattr(library(source), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -90,7 +117,7 @@ def entry(name: str, argtypes: list) -> "ctypes._CFuncPtr":
 def check(err: int, name: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:
-        msg = library().dst_error_string(err).decode()
+        msg = library(ERRORS).dst_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 

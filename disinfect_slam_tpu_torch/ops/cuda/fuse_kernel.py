@@ -1,17 +1,23 @@
-"""fuse_rows: frame sampling + semantic TSDF fusion, in place on the pool.
+"""fuse_rows: projection, frame sampling and semantic TSDF fusion of the
+visible blocks, in place on the pool.
 
 Counterpart of the TPU kernels `fuse_rows_packed` (K2) and `fuse_rows`
-(K3) of disinfect_slam_tpu/ops/pallas/fuse_kernel.py.  The CUDA kernel
-(csrc/fuse_rows.cu) runs one 512-thread CTA per visible block, loads each
-voxel's pixel directly (no patch, no frame-size limit, so it covers K3's
-large frames too), reads and writes the block's pool rows in place
-through pool_idx, and reduces min |tsdf| per row for carving.  What bounds
-it on an H100 is device memory traffic (see the source's header).
+(K3) of disinfect_slam_tpu/ops/pallas/fuse_kernel.py, together with the
+projection of the visible voxels that feeds them.  The CUDA kernel
+(csrc/fuse_rows.cu) takes the visible blocks' coordinates and the pose,
+projects each voxel in registers, loads its pixel directly (no patch, no
+frame-size limit, so it covers K3's large frames too), reads the block's
+pool rows through a TMA ring and writes the changed words back in place
+through pool_idx, and reduces min |tsdf| per row for carving.  What
+bounds it on an H100 is device memory traffic (see the source's header).
 
 `fuse_rows` launches the kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it runs `fuse_rows_reference`, the plain torch version
-with the same signature.  `fuse_math` holds the fusion formulas as torch
-ops; the reference and the two-stage sampler path share it.
+with the same signature: `project_rows` followed by
+`fuse_rows_rows_reference`, the rows contract the TPU kernels compute
+(pixel, depth and gate planes in).  `fuse_math` holds the fusion formulas
+as torch ops; the rows reference and the two-stage sampler path share it,
+and the two-stage path shares `project_rows`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from ...core.geometry import SE3, CameraIntrinsics
 from ...core.voxel import round_half_away
 from . import build
 
@@ -107,7 +114,35 @@ def fuse_math(
     )
 
 
-def fuse_rows_reference(
+def project_rows(
+    block_pos: torch.Tensor,
+    cam_T_world: SE3,
+    intrinsics: CameraIntrinsics,
+    voxel_size: float,
+    block_len_log2: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every voxel of every block row -> (u, v) i32 [V, N], the rounded
+    pixel (roundf, not clipped), and camera z f32 [V, N].  block_pos i32
+    [V, 3]; N = 8 ** block_len_log2 voxels per block, x fastest (512 for
+    the kernels' 8x8x8 blocks).  The float32 ops in the JAX package's
+    order (fuse_visible, disinfect_slam_tpu/ops/integrate.py)."""
+    bl = block_len_log2
+    lmask = (1 << bl) - 1
+    vidx = torch.arange(1 << (3 * bl), dtype=torch.int32, device=block_pos.device)
+    ox = (vidx & lmask)[None, :]
+    oy = ((vidx >> bl) & lmask)[None, :]
+    oz = ((vidx >> (2 * bl)) & lmask)[None, :]
+    px = ((block_pos[:, 0:1] << bl) + ox).float() * voxel_size
+    py = ((block_pos[:, 1:2] << bl) + oy).float() * voxel_size
+    pz = ((block_pos[:, 2:3] << bl) + oz).float() * voxel_size
+    xc, yc, z = cam_T_world.apply_xyz(px, py, pz)  # [V, 512] camera coords
+    del px, py, pz
+    u = round_half_away((intrinsics.fx * xc + intrinsics.cx * z) / z).to(torch.int32)
+    v = round_half_away((intrinsics.fy * yc + intrinsics.cy * z) / z).to(torch.int32)
+    return u, v, z
+
+
+def fuse_rows_rows_reference(
     img: torch.Tensor,
     us: torch.Tensor,
     vs: torch.Tensor,
@@ -124,13 +159,14 @@ def fuse_rows_reference(
     max_weight: float,
     prob_eps: float = 0.0,
 ) -> torch.Tensor:
-    """Plain version.  img f32 [H, W, 8]; us, vs i32 [V, 512] clipped
-    pixel coordinates; z f32 [V, 512]; gate bool [V, 512] (live row and
-    in-image voxel); pool_idx i32 [V]; count i32 [] live rows (each with a
-    distinct pool row); tsdf f32, rgbw i32, prob f32 [B, 512] pool arrays.
+    """The rows contract of the TPU kernels, in plain torch.  img f32
+    [H, W, 8]; us, vs i32 [V, 512] clipped pixel coordinates; z f32
+    [V, 512]; gate bool [V, 512] (live row and in-image voxel); pool_idx
+    i32 [V]; count i32 [] live rows (each with a distinct pool row); tsdf
+    f32, rgbw i32, prob f32 [B, 512] pool arrays.
 
     Fuses rows < count into their pool rows in place and returns min
-    |tsdf| per row f32 [V] (rows at or past count are unspecified)."""
+    |tsdf| per row f32 [V] (0 for rows at or past count)."""
     n = int(count)
     img_h, img_w, _ = img.shape
     rows = pool_idx[:n].long()
@@ -148,22 +184,58 @@ def fuse_rows_reference(
     return minabs
 
 
-def _check_inputs(img, us, vs, z, gate, pool_idx, count, tsdf, rgbw, prob):
+def fuse_rows_reference(
+    img: torch.Tensor,
+    block_pos: torch.Tensor,
+    pool_idx: torch.Tensor,
+    count: torch.Tensor,
+    tsdf: torch.Tensor,
+    rgbw: torch.Tensor,
+    prob: torch.Tensor,
+    *,
+    cam_T_world: SE3,
+    intrinsics: CameraIntrinsics,
+    voxel_size: float,
+    truncation: float,
+    max_depth: float,
+    max_weight: float,
+    prob_eps: float = 0.0,
+) -> torch.Tensor:
+    """Plain version.  img f32 [H, W, 8] (depth, depth->range, r, g, b,
+    ht, lt, pad); block_pos i32 [V, 3] block coordinates of the visible
+    rows; pool_idx i32 [V]; count i32 [] live rows (each with a distinct
+    pool row); tsdf f32, rgbw i32, prob f32 [B, 512] pool arrays; the
+    pose, pinhole intrinsics and voxel size of project_rows.
+
+    Projects every voxel of the live rows, samples the frame at its pixel
+    (voxels outside the image, behind the camera included wherever their
+    pixel lands, take no update), fuses rows < count into their pool rows
+    in place and returns min |tsdf| per row f32 [V] (rows at or past count
+    are unspecified)."""
+    img_h, img_w, _ = img.shape
+    u, v, z = project_rows(block_pos, cam_T_world, intrinsics, voxel_size)
+    live = torch.arange(block_pos.shape[0], device=img.device) < count
+    in_img = (u >= 0) & (u < img_w) & (v >= 0) & (v < img_h)
+    return fuse_rows_rows_reference(
+        img, u.clamp_(0, img_w - 1), v.clamp_(0, img_h - 1), z, live[:, None] & in_img,
+        pool_idx, count, tsdf, rgbw, prob, truncation=truncation, max_depth=max_depth,
+        max_weight=max_weight, prob_eps=prob_eps,
+    )
+
+
+def _check_inputs(img, block_pos, pool_idx, count, tsdf, rgbw, prob):
     dev = img.device
     if dev.type != "cuda":
         raise ValueError(f"fuse_rows takes CPU or CUDA tensors, got {dev}")
     if img.dtype != torch.float32 or img.dim() != 3 or img.shape[2] != 8:
         raise ValueError(f"img must be f32 [H, W, 8], got {img.dtype} {tuple(img.shape)}")
-    rows = us.shape[0]
+    rows, blocks = block_pos.shape[0], tsdf.shape[0]
     want = {
-        "us": (us, torch.int32, (rows, 512)),
-        "vs": (vs, torch.int32, (rows, 512)),
-        "z": (z, torch.float32, (rows, 512)),
-        "gate": (gate, torch.bool, (rows, 512)),
+        "block_pos": (block_pos, torch.int32, (rows, 3)),
         "pool_idx": (pool_idx, torch.int32, (rows,)),
-        "tsdf": (tsdf, torch.float32, (tsdf.shape[0], 512)),
-        "rgbw": (rgbw, torch.int32, (tsdf.shape[0], 512)),
-        "prob": (prob, torch.float32, (tsdf.shape[0], 512)),
+        "tsdf": (tsdf, torch.float32, (blocks, 512)),
+        "rgbw": (rgbw, torch.int32, (blocks, 512)),
+        "prob": (prob, torch.float32, (blocks, 512)),
     }
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -172,56 +244,62 @@ def _check_inputs(img, us, vs, z, gate, pool_idx, count, tsdf, rgbw, prob):
             )
     if count.dtype != torch.int32 or count.numel() != 1:
         raise ValueError("count must be a one-element i32 tensor")
-    for t in (img, us, vs, z, gate, pool_idx, count, tsdf, rgbw, prob):
+    for t in (img, block_pos, pool_idx, count, tsdf, rgbw, prob):
         if t.device != dev:
             raise ValueError("all tensors must be on one device")
         if not t.is_contiguous():
             raise ValueError("all tensors must be contiguous")
-    if img.data_ptr() % 16:
-        raise ValueError("img must be 16-byte aligned")
+    # 16-byte pixel loads; 16-byte aligned bulk copies of the pool rows
+    for name, t in (("img", img), ("tsdf", tsdf), ("rgbw", rgbw), ("prob", prob)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def fuse_rows(
     img: torch.Tensor,
-    us: torch.Tensor,
-    vs: torch.Tensor,
-    z: torch.Tensor,
-    gate: torch.Tensor,
+    block_pos: torch.Tensor,
     pool_idx: torch.Tensor,
     count: torch.Tensor,
     tsdf: torch.Tensor,
     rgbw: torch.Tensor,
     prob: torch.Tensor,
     *,
+    cam_T_world: SE3,
+    intrinsics: CameraIntrinsics,
+    voxel_size: float,
     truncation: float,
     max_depth: float,
     max_weight: float,
     prob_eps: float = 0.0,
 ) -> torch.Tensor:
-    """Fuse the live rows into the pool in place; see fuse_rows_reference
-    for the contract."""
-    args = (img, us, vs, z, gate, pool_idx, count, tsdf, rgbw, prob)
-    consts = dict(truncation=truncation, max_depth=max_depth,
-                  max_weight=max_weight, prob_eps=prob_eps)
+    """Project, sample and fuse the live rows into the pool in place; see
+    fuse_rows_reference for the contract."""
+    args = (img, block_pos, pool_idx, count, tsdf, rgbw, prob)
+    consts = dict(cam_T_world=cam_T_world, intrinsics=intrinsics, voxel_size=voxel_size,
+                  truncation=truncation, max_depth=max_depth, max_weight=max_weight,
+                  prob_eps=prob_eps)
     if img.device.type == "cpu":
         return fuse_rows_reference(*args, **consts)
     _check_inputs(*args)
-    rows = us.shape[0]
+    rows = block_pos.shape[0]
     minabs = torch.empty(rows, dtype=torch.float32, device=img.device)
-    fn = build.entry("dst_fuse_rows", [
-        _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
-        _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-        _C.c_float, _C.c_float, _C.c_float, _C.c_float, _C.c_float,
-        _C.c_void_p,
+    # the scalars the torch path multiplies by, rounded to float32 as torch
+    # rounds a Python float against a float32 tensor
+    pose = (_C.c_float * 12)(*cam_T_world.rotation_entries(),
+                             *(float(x) for x in cam_T_world.t))
+    intr = (_C.c_float * 4)(intrinsics.fx, intrinsics.fy, intrinsics.cx, intrinsics.cy)
+    fn = build.entry("fuse_rows", "dst_fuse_rows", [
+        _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.POINTER(_C.c_float), _C.POINTER(_C.c_float), _C.c_float, _C.c_float,
+        _C.c_float, _C.c_float, _C.c_float, _C.c_float, _C.c_void_p,
     ])
     with torch.cuda.device(img.device):
         err = fn(
-            build.ptr(img), img.shape[0], img.shape[1], build.ptr(us),
-            build.ptr(vs), build.ptr(z), build.ptr(gate), build.ptr(pool_idx),
-            build.ptr(count), rows, tsdf.shape[0], build.ptr(tsdf),
-            build.ptr(rgbw), build.ptr(prob), build.ptr(minabs),
-            truncation, max_depth, max_weight, prob_eps,
+            build.ptr(img), img.shape[0], img.shape[1], build.ptr(block_pos),
+            build.ptr(pool_idx), build.ptr(count), rows, tsdf.shape[0],
+            build.ptr(tsdf), build.ptr(rgbw), build.ptr(prob), build.ptr(minabs),
+            pose, intr, voxel_size, truncation, max_depth, max_weight, prob_eps,
             # the upper clamp bound 1 - prob_eps, rounded to f32 from the
             # double as the torch version rounds it
             1.0 - prob_eps,

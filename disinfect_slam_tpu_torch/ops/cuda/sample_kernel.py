@@ -73,7 +73,7 @@ def sample_rows(
     rows = u.shape[0]
     chans = torch.empty((8, rows, 512), dtype=torch.float32, device=img.device)
     valid = torch.empty((rows, 512), dtype=torch.bool, device=img.device)
-    fn = build.entry("dst_sample_rows", [
+    fn = build.entry("sample_rows", "dst_sample_rows", [
         _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
         _C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
     ])

@@ -4,9 +4,12 @@ of the splat renderer, and the renders built on them.
 Counterparts of the TPU kernels `splat_zbuf_rows` (K4) and
 `splat_payload_rows` (K5) in disinfect_slam_tpu/ops/pallas/splat_kernel.py
 and of its `splat_depth_pallas` / `splat_render_pallas`.  The CUDA
-kernels (csrc/splat_rows.cu) merge with one atomic per footprint pixel,
-so there is no compact patch, no footprint limit and no overflow scatter:
-the buffers equal the plain torch scatter reductions of
+kernels (csrc/splat_rows.cu, csrc/splat_zbuf_tile.cuh): K4 merges each
+surface block's footprint in a shared-memory tile and sends each covered
+pixel to the z-buffer with one global atomic, or, for a footprint larger
+than the tile, merges per voxel with global atomics; K5 takes one global
+atomic per winning footprint pixel.  There is no footprint limit and no
+overflow scatter: the buffers equal the plain torch scatter reductions of
 ops/render_fast.py bit for bit.
 
 Each wrapper launches its kernel for CUDA tensors and raises if it
@@ -17,7 +20,7 @@ version with the same signature.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,21 +107,32 @@ def _check_inputs(img_h: int, img_w: int, **named) -> torch.device:
 
 def splat_zbuf_rows(
     u0: torch.Tensor, v0: torch.Tensor, dq: torch.Tensor, count: torch.Tensor,
-    img_h: int, img_w: int,
+    img_h: int, img_w: int, branch_counts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Min-merge the surface voxels' depths into a z-buffer; see
-    splat_zbuf_rows_reference for the contract."""
+    splat_zbuf_rows_reference for the contract.  branch_counts, an i32
+    [2] CUDA tensor, takes the rows the kernel merged through its
+    shared-memory tile and through per-voxel global atomics (rows with no
+    footprint pixel in the image take neither); the plain version has no
+    branches and leaves it alone."""
     if u0.device.type == "cpu":
         return splat_zbuf_rows_reference(u0, v0, dq, count, img_h, img_w)
     dev = _check_inputs(img_h, img_w, u0=u0, v0=v0, dq=dq, count=count)
+    if branch_counts is not None and (
+            branch_counts.dtype != torch.int32 or tuple(branch_counts.shape) != (2,)
+            or branch_counts.device != dev or not branch_counts.is_contiguous()):
+        raise ValueError("branch_counts must be a contiguous i32 [2] tensor on the "
+                         "kernel's device")
     zbuf = torch.full((img_h * img_w,), BIG, dtype=torch.int32, device=dev)
-    fn = build.entry("dst_splat_zbuf_rows", [
+    fn = build.entry("splat_rows", "dst_splat_zbuf_rows", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
-        _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
     ])
+    branches = None if branch_counts is None else build.ptr(branch_counts)
     with torch.cuda.device(dev):
         err = fn(build.ptr(u0), build.ptr(v0), build.ptr(dq), build.ptr(count),
-                 u0.shape[0], img_h, img_w, build.ptr(zbuf), build.stream_of(u0))
+                 u0.shape[0], img_h, img_w, build.ptr(zbuf), branches,
+                 build.stream_of(u0))
     splat_zbuf_rows.launches += 1
     build.check(err, "splat_zbuf_rows")
     return zbuf
@@ -141,7 +155,7 @@ def splat_payload_rows(
     dev = _check_inputs(img_h, img_w, u0=u0, v0=v0, dq=dq, count=count,
                         pool_idx=pool_idx, rgbw=rgbw, prob=prob, zbuf=zbuf)
     pbuf = torch.zeros((img_h * img_w,), dtype=torch.int32, device=dev)
-    fn = build.entry("dst_splat_payload_rows", [
+    fn = build.entry("splat_rows", "dst_splat_payload_rows", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
         _C.c_void_p, _C.c_void_p, _C.c_void_p,

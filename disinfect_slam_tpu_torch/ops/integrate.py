@@ -7,9 +7,10 @@ voxel_tsdf.cu:347-375).
   visible    any-corner frustum test over every entry, cumsum + scatter
              compaction into max_visible rows; the count stays on the
              device as a 0-d tensor that the kernels read (no host sync)
-  fuse       the fused sample+fusion kernel (ops/cuda/fuse_kernel.py), or
-             the sample kernel (ops/cuda/sample_kernel.py) followed by the
-             same fusion formulas as torch ops
+  fuse       the fused projection+sample+fusion kernel
+             (ops/cuda/fuse_kernel.py), or the projection as torch ops, the
+             sample kernel (ops/cuda/sample_kernel.py) and the same fusion
+             formulas as torch ops
   carve      delete visible blocks whose min |tsdf| >= carve_threshold
 
 The arithmetic is written op for op as in the JAX package (same operand
@@ -30,7 +31,7 @@ from ..core import voxel as vx
 from ..core.geometry import SE3, CameraParams
 from ..core.state import TSDFVolume
 from . import hash as h
-from .cuda.fuse_kernel import fuse_math, fuse_rows
+from .cuda.fuse_kernel import fuse_math, fuse_rows, project_rows
 from .cuda.sample_kernel import sample_rows
 
 
@@ -283,6 +284,17 @@ def gather_visible(
 # ----------------------------------------------------------------------
 # fusion (tsdf_integrate_kernel, voxel_tsdf.cu:149-205)
 # ----------------------------------------------------------------------
+def stack_frame(frame: FrameInput, d2r: torch.Tensor) -> torch.Tensor:
+    """One stacked image carrying every per-pixel channel the fusion
+    samples: depth, depth->range, r, g, b, ht, lt, pad (f32 [H, W, 8],
+    32 B per pixel)."""
+    return torch.stack(
+        [frame.depth, d2r, frame.rgb[..., 0], frame.rgb[..., 1],
+         frame.rgb[..., 2], frame.ht, frame.lt, torch.zeros_like(frame.depth)],
+        dim=-1,
+    ).contiguous()
+
+
 def fuse_visible(
     vol: TSDFVolume,
     vis: VisibleSet,
@@ -296,39 +308,18 @@ def fuse_visible(
     voxels, in place on the pool rows.  Returns (volume, min |tsdf| per
     visible row; rows past vis.count are unspecified)."""
     cfg = vol.cfg
-    bl = cfg.block_len_log2
-    lmask = cfg.block_len - 1
-    dev = vol.device
-    vidx = torch.arange(cfg.block_volume, dtype=torch.int32, device=dev)
-    ox = (vidx & lmask)[None, :]
-    oy = ((vidx >> bl) & lmask)[None, :]
-    oz = ((vidx >> (2 * bl)) & lmask)[None, :]
-    vsz = cfg.voxel_size
-    px = ((vis.block_pos[:, 0:1] << bl) + ox).float() * vsz
-    py = ((vis.block_pos[:, 1:2] << bl) + oy).float() * vsz
-    pz = ((vis.block_pos[:, 2:3] << bl) + oz).float() * vsz
-    xc, yc, z = cam_T_world.apply_xyz(px, py, pz)  # [V, 512] camera coords
-    del px, py, pz
-    intr = cam.intrinsics
-    u = vx.round_half_away((intr.fx * xc + intr.cx * z) / z).to(torch.int32)
-    v = vx.round_half_away((intr.fy * yc + intr.cy * z) / z).to(torch.int32)
-    del xc, yc
-
-    # one stacked image carries every per-pixel channel: depth, depth->
-    # range, r, g, b, ht, lt, pad (32 B per pixel)
-    stacked = torch.stack(
-        [frame.depth, d2r, frame.rgb[..., 0], frame.rgb[..., 1],
-         frame.rgb[..., 2], frame.ht, frame.lt, torch.zeros_like(frame.depth)],
-        dim=-1,
-    ).contiguous()
+    stacked = stack_frame(frame, d2r)
     consts = dict(
         truncation=cfg.truncation, max_depth=max_depth,
         max_weight=cfg.max_weight, prob_eps=cfg.prob_eps,
     )
 
     if cfg.sampler in ("gather", "pallas"):
-        # two stages: the sample kernel, then the fusion formulas as torch
-        # ops on the gathered pool rows, written back to the live rows
+        # two stages: the projection as torch ops over [V, 512], the sample
+        # kernel, then the fusion formulas as torch ops on the gathered
+        # pool rows, written back to the live rows
+        u, v, z = project_rows(vis.block_pos, cam_T_world, cam.intrinsics,
+                               cfg.voxel_size, cfg.block_len_log2)
         chans, sample_ok = sample_rows(stacked, u, v, vis.count)
         pool = vis.pool_idx.clamp(0, cfg.num_blocks - 1).long()
         t_fin, w_fin, p_fin = fuse_math(
@@ -340,12 +331,11 @@ def fuse_visible(
         h.put_drop_(vol.prob, vis.pool_idx, p_fin, vis.mask)
         return vol, t_fin.abs().amin(dim=-1)
 
-    in_img = (u >= 0) & (u < cam.img_w) & (v >= 0) & (v < cam.img_h)
-    us = u.clamp_(0, cam.img_w - 1)
-    vs = v.clamp_(0, cam.img_h - 1)
+    # fused: the kernel projects the voxels of the live rows itself
     min_abs = fuse_rows(
-        stacked, us, vs, z, vis.mask[:, None] & in_img, vis.pool_idx,
-        vis.count, vol.tsdf, vol.rgbw, vol.prob, **consts,
+        stacked, vis.block_pos, vis.pool_idx, vis.count, vol.tsdf, vol.rgbw,
+        vol.prob, cam_T_world=cam_T_world, intrinsics=cam.intrinsics,
+        voxel_size=cfg.voxel_size, **consts,
     )
     return vol, min_abs
 

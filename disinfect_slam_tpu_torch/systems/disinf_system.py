@@ -42,7 +42,7 @@ class DISINFSystem:
         half_scale: bool = True,
         auto_recenter: bool = False,
         host_spill: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         if auto_recenter:
             raise NotImplementedError(

@@ -49,7 +49,7 @@ class FusedOnlineStep:
         max_depth: float,
         seg_model: Optional[nn.Module] = None,
         depth_factor: float = 1000.0,
-        device="cpu",
+        device="cuda",
     ):
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -40,7 +40,7 @@ class TSDFGrid:
         voxel_size: float = 0.01,
         truncation: float = 0.06,
         cfg: Optional[TSDFConfig] = None,
-        device="cpu",
+        device="cuda",
     ):
         cfg = cfg or TSDFConfig()
         self.cfg = dataclasses.replace(

@@ -54,7 +54,7 @@ class TSDFSystem:
         extrinsics: Optional[np.ndarray] = None,
         cfg: Optional[TSDFConfig] = None,
         host_spill: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         if host_spill:
             raise NotImplementedError(

@@ -1,0 +1,94 @@
+"""PyTorch port, devices and the import guarantee: every engine object,
+loader and app of the port runs on the CUDA device unless the caller asks
+for the CPU, so without CUDA each of them called without a device raises
+(the apps exit non-zero) naming CUDA; and no module of the port, nor
+chip_smoke.py, imports JAX or the JAX package."""
+
+import dataclasses
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from disinfect_slam_tpu_torch.config import TINY_DENSE
+from disinfect_slam_tpu_torch.io.checkpoint import load_volume
+from disinfect_slam_tpu_torch.models.segmentation import load_model
+from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
+from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
+from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
+from disinfect_slam_tpu_torch.systems.tsdf_system import TSDFSystem
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+K = (52.7, 53.3, 31.71, 23.43)
+CFG = dataclasses.replace(TINY_DENSE, voxel_size=0.05, truncation=0.15)
+
+DEFAULT_DEVICE_CALLS = {
+    "TSDFGrid": lambda: TSDFGrid(0.05, 0.15, cfg=CFG),
+    "TSDFSystem": lambda: TSDFSystem(0.05, 0.15, 4.0, K, cfg=CFG),
+    "DISINFSystem": lambda: DISINFSystem(K, cfg=CFG),
+    "FusedOnlineStep": lambda: FusedOnlineStep(CFG, K, 48, 64, 4.0),
+    "load_model": lambda: load_model("fast"),
+    # the device is resolved before the file is opened
+    "load_volume": lambda: load_volume(str(ROOT / "no_such_checkpoint.npz")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_CALLS))
+def test_default_device_is_cuda(monkeypatch, name):
+    """Called without a device on a host without CUDA, each raises
+    instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DEFAULT_DEVICE_CALLS[name]()
+
+
+@pytest.mark.parametrize("app", ["offline", "online"])
+def test_apps_without_device_exit_nonzero_naming_cuda(app, tmp_path):
+    """The CLI as a user runs it, with CUDA hidden and no --device: it
+    stops with a non-zero exit code and says that CUDA is missing."""
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"sys.argv = ['{app}', '--logdir', {str(tmp_path)!r}]\n"
+        f"runpy.run_module('disinfect_slam_tpu_torch.apps.{app}', run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr, proc.stderr[-2000:]
+
+
+# an import statement of jax, flax or the JAX package (not of the port,
+# whose name only starts like it)
+FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|flax|disinfect_slam_tpu)(?:\.|\s|,|$)", re.M)
+
+
+def test_forbidden_import_pattern():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "    from disinfect_slam_tpu.ops import integrate",
+                 "import disinfect_slam_tpu", "from flax import linen"):
+        assert FORBIDDEN_IMPORT.search(line), line
+    for line in ("from disinfect_slam_tpu_torch.ops import integrate",
+                 "import disinfect_slam_tpu_torch", "import jaxtyping_free",
+                 "# no jax here"):
+        assert not FORBIDDEN_IMPORT.search(line), line
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = sorted((ROOT / "disinfect_slam_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 30
+    bad = {}
+    for path in files:
+        hits = FORBIDDEN_IMPORT.findall(path.read_text())
+        if hits:
+            bad[str(path.relative_to(ROOT))] = hits
+    assert not bad, bad

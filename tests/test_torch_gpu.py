@@ -1,12 +1,14 @@
 """PyTorch port on the card: each CUDA kernel against its plain torch
 version on the same CUDA tensors, at small shapes, with the edge cases
-of the fusion formulas (zero weights, probabilities of 0 and 1, depth at
-max_depth, prob_eps, off-image voxels, rows past the live count) and of
-the splat merges (depth ties, payload words with the top bit set,
+of fuse_rows' projection and fusion formulas (rows behind the camera, off
+the image and at camera z = 0, zero weights, probabilities of 0 and 1,
+depth at max_depth, prob_eps, rows past the live count, no live row) and
+of the splat merges (depth ties, payload words with the top bit set,
 negative and off-image footprints, rows past the live count, no live
-row), the renders through TSDFGrid.ray_cast on the card, and the online
-slice: the segmentation nets and FusedOnlineStep on the card against the
-port on the CPU.
+row, footprints on both of splat_zbuf_rows' branches), the probes of
+splat_zbuf_rows, the renders through TSDFGrid.ray_cast on the card, and
+the online slice: the segmentation nets and FusedOnlineStep on the card
+against the port on the CPU.
 
 Needs a CUDA device and nvcc; skipped without a card.  This file imports
 no JAX, so it runs on a GPU host without it:
@@ -32,6 +34,7 @@ from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
 from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
+from .torch_cases import block_case
 
 pytestmark = pytest.mark.gpu
 
@@ -47,48 +50,40 @@ def cuda():
 
 
 def _case(dev, seed=0, img_h=48, img_w=64):
+    """sample_rows inputs: a random 8-channel frame and pixels spilling
+    past every image edge."""
     rng = np.random.default_rng(seed)
-    img = np.zeros((img_h, img_w, 8), np.float32)
-    img[..., 0] = rng.uniform(0.3, 4.4, (img_h, img_w))
-    img[..., 0][rng.uniform(size=(img_h, img_w)) < 0.1] = 0.0
-    img[..., 0][rng.uniform(size=(img_h, img_w)) < 0.1] = MAX_DEPTH
-    img[..., 1] = rng.uniform(1.0, 1.3, (img_h, img_w))
-    img[..., 2:5] = rng.integers(0, 256, (img_h, img_w, 3))
-    img[..., 5:7] = rng.uniform(0, 1, (img_h, img_w, 2))
-    img[..., 5][rng.uniform(size=(img_h, img_w)) < 0.1] = 0.0
-    img[..., 6][rng.uniform(size=(img_h, img_w)) < 0.1] = 1.0
+    img = rng.uniform(0, 4.4, (img_h, img_w, 8)).astype(np.float32)
     u = rng.integers(-4, img_w + 4, (ROWS, 512)).astype(np.int32)
     v = rng.integers(-4, img_h + 4, (ROWS, 512)).astype(np.int32)
-    uc, vc = np.clip(u, 0, img_w - 1), np.clip(v, 0, img_h - 1)
-    in_img = (u == uc) & (v == vc)
-    z = img[vc, uc, 0] + rng.uniform(-0.08, 0.05, (ROWS, 512)).astype(np.float32)
-    gate = in_img & (rng.uniform(size=(ROWS, 512)) < 0.9)
-    gate[COUNT:] = False
-    pool_idx = rng.permutation(POOL)[:ROWS].astype(np.int32)
-    pool_idx[COUNT:] = POOL
-    tsdf = rng.uniform(-1, 1, (POOL, 512)).astype(np.float32)
-    w = rng.integers(0, 41, (POOL, 512))
-    w[rng.uniform(size=w.shape) < 0.3] = 0
-    rgbw = (rng.integers(0, 1 << 24, (POOL, 512)) | (w << 24)).astype(np.int32)
-    prob = rng.uniform(0, 1, (POOL, 512)).astype(np.float32)
-    prob[rng.uniform(size=prob.shape) < 0.1] = 0.0
-    prob[rng.uniform(size=prob.shape) < 0.1] = 1.0
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return dict(img=t(img), u=t(u), v=t(v), us=t(uc.astype(np.int32)),
-                vs=t(vc.astype(np.int32)), z=t(z.astype(np.float32)), gate=t(gate),
-                pool_idx=t(pool_idx), count=torch.tensor(COUNT, dtype=torch.int32, device=dev),
-                tsdf=t(tsdf), rgbw=t(rgbw), prob=t(prob))
+    return dict(img=t(img), u=t(u), v=t(v),
+                count=torch.tensor(COUNT, dtype=torch.int32, device=dev))
 
 
+def _block_case(dev, seed, img_h, img_w, about_z=False, count=COUNT):
+    c = block_case(seed, img_h, img_w, ROWS, count, POOL, about_z=about_z)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = {k: t(c[k]) for k in ("img", "block_pos", "pool_idx", "tsdf", "rgbw", "prob")}
+    out["count"] = torch.tensor(count, dtype=torch.int32, device=dev)
+    out["geometry"] = dict(cam_T_world=c["pose"], intrinsics=c["intrinsics"],
+                           voxel_size=c["voxel_size"])
+    return out
+
+
+@pytest.mark.parametrize("about_z", [False, True])
 @pytest.mark.parametrize("prob_eps", [0.0, 1e-6])
 @pytest.mark.parametrize("img_hw", [(48, 64), (1080, 1920)])
-def test_fuse_rows_kernel_matches_plain_version(cuda, prob_eps, img_hw):
-    c = _case(cuda, seed=1, img_h=img_hw[0], img_w=img_hw[1])
+def test_fuse_rows_kernel_matches_plain_version(cuda, prob_eps, img_hw, about_z):
+    """The kernel projects, samples and fuses as its plain version does
+    on the card: rows behind the camera, off the image and (about_z)
+    voxels at camera z = 0 included."""
+    c = _block_case(cuda, seed=1, img_h=img_hw[0], img_w=img_hw[1], about_z=about_z)
     pools = [c[k].clone() for k in ("tsdf", "rgbw", "prob")]
     refs = [c[k].clone() for k in ("tsdf", "rgbw", "prob")]
-    args = [c[k] for k in ("img", "us", "vs", "z", "gate", "pool_idx", "count")]
+    args = [c[k] for k in ("img", "block_pos", "pool_idx", "count")]
     consts = dict(truncation=TRUNC, max_depth=MAX_DEPTH, max_weight=MAX_W,
-                  prob_eps=prob_eps)
+                  prob_eps=prob_eps, **c["geometry"])
     before = fuse_kernel.fuse_rows.launches
     m = fuse_kernel.fuse_rows(*args, *pools, **consts)
     m_ref = fuse_kernel.fuse_rows_reference(*args, *refs, **consts)
@@ -101,6 +96,17 @@ def test_fuse_rows_kernel_matches_plain_version(cuda, prob_eps, img_hw):
     assert (pools[2] - refs[2]).abs().max().item() <= 1e-6
     assert torch.equal(m[:COUNT], m_ref[:COUNT])
     assert not torch.equal(pools[1], c["rgbw"])  # something fused
+
+
+def test_fuse_rows_kernel_with_no_live_row(cuda):
+    c = _block_case(cuda, seed=2, img_h=48, img_w=64, count=0)
+    pools = [c[k].clone() for k in ("tsdf", "rgbw", "prob")]
+    fuse_kernel.fuse_rows(c["img"], c["block_pos"], c["pool_idx"], c["count"], *pools,
+                          truncation=TRUNC, max_depth=MAX_DEPTH, max_weight=MAX_W,
+                          **c["geometry"])
+    torch.cuda.synchronize()
+    for a, k in zip(pools, ("tsdf", "rgbw", "prob")):
+        assert torch.equal(a, c[k])
 
 
 def test_sample_rows_kernel_matches_plain_version(cuda):
@@ -119,11 +125,15 @@ def test_kernels_reject_what_they_cannot_take(cuda):
     c = _case(cuda, seed=3)
     with pytest.raises(ValueError):
         sample_kernel.sample_rows(c["img"], c["u"].long(), c["v"], c["count"])
+    b = _block_case(cuda, seed=3, img_h=48, img_w=64)
     with pytest.raises(ValueError):
-        fuse_kernel.fuse_rows(c["img"][..., :4].contiguous(), c["us"], c["vs"], c["z"],
-                              c["gate"], c["pool_idx"], c["count"], c["tsdf"],
-                              c["rgbw"], c["prob"], truncation=TRUNC,
-                              max_depth=MAX_DEPTH, max_weight=MAX_W)
+        fuse_kernel.fuse_rows(b["img"][..., :4].contiguous(), b["block_pos"], b["pool_idx"],
+                              b["count"], b["tsdf"], b["rgbw"], b["prob"], truncation=TRUNC,
+                              max_depth=MAX_DEPTH, max_weight=MAX_W, **b["geometry"])
+    with pytest.raises(ValueError):
+        fuse_kernel.fuse_rows(b["img"], b["block_pos"].long(), b["pool_idx"],
+                              b["count"], b["tsdf"], b["rgbw"], b["prob"], truncation=TRUNC,
+                              max_depth=MAX_DEPTH, max_weight=MAX_W, **b["geometry"])
     s = _splat_case(cuda, seed=3, count=COUNT, img_h=48, img_w=64)
     with pytest.raises(ValueError):
         splat_kernel.splat_zbuf_rows(s["u0"].long(), s["v0"], s["dq"], s["count"], 48, 64)
@@ -218,6 +228,46 @@ def test_splat_kernels_match_plain_versions(cuda, count, img_hw):
         assert (zbuf[(v0 * img_w + u0)[inside].long()] < splat_kernel.BIG).all()
 
 
+@pytest.mark.parametrize("img_hw", [(48, 64), (1080, 1920)])
+def test_splat_zbuf_tile_and_atomic_branches_match_plain_version(cuda, img_hw):
+    """Rows whose footprints fit the kernel's shared tile and rows spread
+    wider than it (blocks near the camera): both branches taken, counted,
+    and the z-buffer bit-equal to the plain scatter-min."""
+    img_h, img_w = img_hw
+    rng = np.random.default_rng(8)
+    spread = np.where(np.arange(ROWS) % 4 == 0, 60, 12)[:, None]
+    base_u = rng.integers(-4, img_w - 8, (ROWS, 1))
+    base_v = rng.integers(-4, img_h - 8, (ROWS, 1))
+    u0 = base_u + (rng.uniform(size=(ROWS, 512)) * spread).astype(np.int64)
+    v0 = base_v + (rng.uniform(size=(ROWS, 512)) * spread).astype(np.int64)
+    dq = rng.choice([1000, 1001, 1002, 1003], (ROWS, 512))
+    dq[rng.uniform(size=dq.shape) < 0.3] = splat_kernel.BIG
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)  # noqa: E731
+    u0, v0, dq = t(u0), t(v0), t(dq)
+    count = torch.tensor(COUNT, dtype=torch.int32, device=cuda)
+    branches = torch.zeros(2, dtype=torch.int32, device=cuda)
+    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, count, img_h, img_w, branches)
+    ref = splat_kernel.splat_zbuf_rows_reference(u0, v0, dq, count, img_h, img_w)
+    torch.cuda.synchronize()
+    assert torch.equal(zbuf, ref)
+    tile_rows, atomic_rows = branches.tolist()
+    assert tile_rows > 0 and atomic_rows > 0 and tile_rows + atomic_rows <= COUNT
+
+
+def test_splat_probes_agree(cuda):
+    """P8's A/B and P9's tile-shape sweep run and agree with the plain
+    scatter-min (each raises otherwise)."""
+    from disinfect_slam_tpu_torch.ops.cuda import splat_probe
+
+    calls = []
+    res = splat_probe.run(cuda, timer=lambda fn, name: calls.append(name) or 0.0)
+    assert len(calls) == 2 + 2 * len(splat_probe.TILE_SHAPES)
+    assert res["p8"]["atomic_equal"] and res["p8"]["tile_equal"]
+    assert [r["tile"] for r in res["p9"]] == [list(s) for s in splat_probe.TILE_SHAPES]
+    assert res["p9"][0]["wide"]["branches"][1] > 0  # 16x32 sends wide rows to atomics
+    assert res["p9"][2]["wide"]["branches"][1] == 0  # 64x64 holds them all
+
+
 def _fused_grid(device):
     cfg = TSDFConfig(num_blocks_log2=10, max_candidates=2048, max_visible=1024,
                      max_new_per_round=512, grid_log2=6)
@@ -283,7 +333,7 @@ SHIPPED_TOL = {"unet": (0.1, 5e-3), "fast": (0.05, 2e-3)}
 @pytest.mark.parametrize("arch", ["unet", "fast"])
 def test_shipped_seg_on_the_card_matches_the_cpu(cuda, arch):
     rgb = read_image(ORBIT_RGB)
-    ref = seg.InferenceEngine(seg.load_model(arch)).infer_one(rgb)
+    ref = seg.InferenceEngine(seg.load_model(arch, device="cpu")).infer_one(rgb)
     ours = seg.InferenceEngine(seg.load_model(arch, device=cuda)).infer_one(rgb)
     for a, b in zip(ref, ours):
         assert b.shape == (360, 640) and b.dtype == np.float32

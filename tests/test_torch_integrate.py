@@ -112,6 +112,18 @@ def test_integrate_matches_jax_gather(scene, alloc_every):
     assert_matches_jax(vol_t, vol_j)
 
 
+@pytest.mark.parametrize("scene", ["wall", "sphere"])
+def test_fused_integrate_matches_jax_gather(scene):
+    """The fused path (fuse_rows' plain version on the CPU: the projection
+    it moved into the kernel, then the rows contract) against the JAX
+    package's exact path, allocating every third frame."""
+    frames = _scene(scene, 4)
+    cfg = port_cfg(CFG)
+    vol_t = _run_port(frames, dataclasses.replace(cfg, sampler="pallas_fused"), 3)
+    vol_j = _run_jax(frames, CFG, 3)
+    assert_matches_jax(vol_t, vol_j)
+
+
 def test_two_stage_sampler_equals_fused_path_on_cpu():
     """sampler="gather" (sample + torch fusion math) and the fused path
     run the same formulas: identical volumes."""
@@ -142,7 +154,7 @@ def test_checkpoint_carries_state_across_packages(tmp_path):
     vol_j = _run_jax(frames[:3], CFG)
     path = str(tmp_path / "vol.npz")
     jckpt.save_volume(path, vol_j)
-    vol_t = tckpt.load_volume(path)
+    vol_t = tckpt.load_volume(path, device="cpu")
     assert vol_t.cfg == port_cfg(CFG)
     vol_t = _run_port(frames[3:], vol_t.cfg, vol=vol_t)
     vol_j = _run_jax(frames[3:], CFG, vol=vol_j)

@@ -1,6 +1,9 @@
-"""PyTorch port, kernels: the plain versions of sample_rows and fuse_rows
-against the JAX package's Pallas kernels, run in interpret mode on the
-same numpy inputs.  (The CUDA kernels themselves are checked against
+"""PyTorch port, kernels: the plain versions of sample_rows and of
+fuse_rows' rows contract (fuse_rows_rows_reference, what the TPU kernels
+compute from pixel, depth and gate planes) against the JAX package's
+Pallas kernels, run in interpret mode on the same numpy inputs; and
+fuse_rows' plain version against the projection followed by the rows
+contract.  (The CUDA kernels themselves are checked against
 these plain versions on the card: tests/test_torch_gpu.py and
 chip_smoke.py.)"""
 
@@ -12,9 +15,11 @@ import torch
 from disinfect_slam_tpu.ops.pallas.fuse_kernel import fuse_rows as j_fuse_rows
 from disinfect_slam_tpu.ops.pallas.fuse_kernel import fuse_rows_packed
 from disinfect_slam_tpu.ops.pallas.sample_kernel import sample_patches
+from disinfect_slam_tpu_torch.core.voxel import round_half_away
 from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel, sample_kernel
 
 from .test_sample_kernel import make_case
+from .torch_cases import block_case
 
 torch.set_num_threads(1)
 
@@ -77,11 +82,12 @@ def _fuse_case(seed, img_h, img_w, rows=32, count=27, pool_rows=64):
 
 
 def _run_reference(c, prob_eps):
-    """fuse_rows (CPU tensors: the plain version) on a copy of the pool."""
+    """The rows contract's plain version (fuse_rows' plain version after
+    its projection) on a copy of the pool."""
     tsdf = torch.from_numpy(c["tsdf"].copy())
     rgbw = torch.from_numpy(c["rgbw"].view(np.int32).copy())
     prob = torch.from_numpy(c["prob"].copy())
-    minabs = fuse_kernel.fuse_rows(
+    minabs = fuse_kernel.fuse_rows_rows_reference(
         torch.from_numpy(c["img"]), torch.from_numpy(c["u"]),
         torch.from_numpy(c["v"]), torch.from_numpy(c["z"]),
         torch.from_numpy(c["gate"]), torch.from_numpy(c["pool_idx"]),
@@ -149,3 +155,60 @@ def test_fuse_rows_reference_matches_patch_dma_pallas_at_1080p():
                for a, s in ((r_j, 0), (g_j, 8), (b_j, 16), (w_j, 24)))
     ours = _run_reference(c, 0.0)
     _assert_close(ours, (t_j, word, p_j, np.asarray(m_j)[:, 0]), c["count"])
+
+
+def _projection_as_integrate_wrote_it(block_pos, pose, intr, voxel_size):
+    """The torch projection fuse_visible ran before the kernel took it
+    over (ops/integrate.py), written out here as it was."""
+    vidx = torch.arange(512, dtype=torch.int32)
+    ox, oy, oz = (vidx & 7)[None, :], ((vidx >> 3) & 7)[None, :], ((vidx >> 6) & 7)[None, :]
+    px = ((block_pos[:, 0:1] << 3) + ox).float() * voxel_size
+    py = ((block_pos[:, 1:2] << 3) + oy).float() * voxel_size
+    pz = ((block_pos[:, 2:3] << 3) + oz).float() * voxel_size
+    xc, yc, z = pose.apply_xyz(px, py, pz)
+    u = round_half_away((intr.fx * xc + intr.cx * z) / z).to(torch.int32)
+    v = round_half_away((intr.fy * yc + intr.cy * z) / z).to(torch.int32)
+    return u, v, z
+
+
+@pytest.mark.parametrize("about_z", [False, True])
+@pytest.mark.parametrize("prob_eps", [0.0, 1e-6])
+def test_fuse_rows_reference_is_projection_then_rows_contract(about_z, prob_eps):
+    """fuse_rows' plain version (CPU tensors) equals the projection
+    fuse_visible ran, the in-image gate and clamp, then the rows contract,
+    bit for bit; with rows behind the camera and off the image, and (a
+    pose about the optical axis) voxels at camera z = 0."""
+    c = block_case(seed=41 + about_z, img_h=48, img_w=64, rows=40, count=33,
+                   pool_rows=96, about_z=about_z)
+    t = {k: torch.from_numpy(c[k].copy()) for k in ("img", "block_pos", "pool_idx",
+                                                     "tsdf", "rgbw", "prob")}
+    count = torch.tensor(c["count"], dtype=torch.int32)
+    consts = dict(truncation=TRUNC, max_depth=MAX_DEPTH, max_weight=MAX_W, prob_eps=prob_eps)
+    ours = [t[k].clone() for k in ("tsdf", "rgbw", "prob")]
+    m = fuse_kernel.fuse_rows(t["img"], t["block_pos"], t["pool_idx"], count, *ours,
+                              cam_T_world=c["pose"], intrinsics=c["intrinsics"],
+                              voxel_size=c["voxel_size"], **consts)
+    assert fuse_kernel.fuse_rows.launches == 0  # CPU: no kernel launch
+
+    u, v, z = _projection_as_integrate_wrote_it(t["block_pos"], c["pose"], c["intrinsics"],
+                                                c["voxel_size"])
+    pu, pv, pz = fuse_kernel.project_rows(t["block_pos"], c["pose"], c["intrinsics"],
+                                          c["voxel_size"])
+    assert torch.equal(pu, u) and torch.equal(pv, v) and torch.equal(pz, z)
+    live = c["count"]
+    in_img = (u >= 0) & (u < 64) & (v >= 0) & (v < 48)
+    gate = in_img & (torch.arange(40) < live)[:, None]
+    ref = [t[k].clone() for k in ("tsdf", "rgbw", "prob")]
+    m_ref = fuse_kernel.fuse_rows_rows_reference(
+        t["img"], u.clamp(0, 63), v.clamp(0, 47), z, gate, t["pool_idx"], count, *ref,
+        **consts)
+    for a, b in zip(ours, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(m[:live], m_ref[:live])
+    # the case holds what it claims: behind-camera voxels, off-image
+    # voxels, in-image voxels that fused, and z = 0 about the optical axis
+    zl = z[:live]
+    assert (zl < 0).any() and (~in_img[:live]).any() and in_img[:live].float().mean() > 0.3
+    assert not torch.equal(ours[1], t["rgbw"])
+    if about_z:
+        assert (zl == 0).any()

@@ -72,7 +72,7 @@ def test_online_step_matches_jax(seg):
     ref = JStep(CFG, K, H, W, MAX_DEPTH, seg_model=jm, seg_params=params,
                 depth_factor=DEPTH_FACTOR)
     ours = FusedOnlineStep(port_cfg(CFG), K, H, W, MAX_DEPTH, seg_model=tm,
-                           depth_factor=DEPTH_FACTOR)
+                           depth_factor=DEPTH_FACTOR, device="cpu")
     for rgb, depth, pose in _frames(4):
         ref.step(rgb, depth, pose)
         ours.step(rgb, depth, pose)
@@ -98,8 +98,8 @@ def test_sensor_format_matches_f32():
     volume of pre-converted float32 inputs bit for bit (the same float32
     division by depth_factor)."""
     cfg = port_cfg(CFG)
-    a = FusedOnlineStep(cfg, K, H, W, MAX_DEPTH, depth_factor=DEPTH_FACTOR)
-    b = FusedOnlineStep(cfg, K, H, W, MAX_DEPTH, depth_factor=DEPTH_FACTOR)
+    a = FusedOnlineStep(cfg, K, H, W, MAX_DEPTH, depth_factor=DEPTH_FACTOR, device="cpu")
+    b = FusedOnlineStep(cfg, K, H, W, MAX_DEPTH, depth_factor=DEPTH_FACTOR, device="cpu")
     for rgb, depth, pose in _frames():
         a.step(rgb, depth, pose)
         b.step(rgb.astype(np.float32),
@@ -114,8 +114,8 @@ def test_no_seg_step_equals_grid_integrate():
     """Without a net the step is TSDFGrid.integrate with ht = lt = 1 on the
     alloc_every cadence."""
     cfg = port_cfg(CFG)
-    step = FusedOnlineStep(cfg, K, H, W, MAX_DEPTH, depth_factor=DEPTH_FACTOR)
-    grid = TSDFGrid(cfg.voxel_size, cfg.truncation, cfg=cfg)
+    step = FusedOnlineStep(cfg, K, H, W, MAX_DEPTH, depth_factor=DEPTH_FACTOR, device="cpu")
+    grid = TSDFGrid(cfg.voxel_size, cfg.truncation, cfg=cfg, device="cpu")
     for rgb, depth, pose in _frames(4):
         step.step(rgb, depth, pose)
         grid.integrate(rgb.astype(np.float32),
@@ -138,7 +138,7 @@ def _wall(w=W, h=H, k=K):
 
 
 def test_tsdf_system_async_integration_and_query():
-    sys_ = TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG)
+    sys_ = TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG, device="cpu")
     pose, depth = _wall()
     rgb = np.full((H, W, 3), 128, np.float32)
     for _ in range(2):
@@ -152,7 +152,7 @@ def test_tsdf_system_async_integration_and_query():
 
 
 def test_tsdf_system_missing_masks_default_to_ones():
-    sys_ = TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG)
+    sys_ = TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG, device="cpu")
     pose, depth = _wall()
     sys_.integrate(pose, np.full((H, W, 3), 128, np.float32), depth)  # no ht/lt
     sys_.flush()
@@ -166,7 +166,7 @@ def test_tsdf_system_missing_masks_default_to_ones():
 def test_tsdf_system_counts_a_dropped_frame():
     """A frame that fails to integrate is counted and dropped; the
     integration thread goes on with the next one."""
-    sys_ = TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG)
+    sys_ = TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG, device="cpu")
     pose, depth = _wall()
     sys_.integrate(pose, np.zeros((H, W), np.float32), depth)  # rgb of the wrong shape
     sys_.integrate(pose, np.full((H, W, 3), 128, np.float32), depth)
@@ -191,7 +191,8 @@ def test_disinf_facade_pipeline(with_segmenter):
         return np.full((H, W), 0.8, np.float32), np.full((H, W), 0.3, np.float32)
 
     with DISINFSystem(K, depth_factor=1000.0, voxel_size=0.05, truncation=0.15,
-                      cfg=SYS_CFG, segmenter=segmenter if with_segmenter else None) as s:
+                      cfg=SYS_CFG, segmenter=segmenter if with_segmenter else None,
+                      device="cpu") as s:
         s.feed_pose(100, pose)
         s.feed_rgbd_frame(rgb, depth * 1000.0, 100)
         s.tsdf.flush()
@@ -301,7 +302,8 @@ def test_online_modules_import_without_jax():
         "pose = look_at((0.03, -0.04, 0.02), (0.11, 0.07, 2.0131))\n"
         "net = s.create_model((8, 8, 8, 8), dtype=torch.float32)\n"
         "cfg = dataclasses.replace(TINY_DENSE, voxel_size=0.05, truncation=0.15)\n"
-        "st = FusedOnlineStep(cfg, K, 48, 64, 4.0, seg_model=net, depth_factor=5000.0)\n"
+        "st = FusedOnlineStep(cfg, K, 48, 64, 4.0, seg_model=net, depth_factor=5000.0,\n"
+        "                     device='cpu')\n"
         "depth = (render_wall(64, 48, K, pose, 2.0131) * 5000).astype(np.uint16)\n"
         "st.step(checker_rgb(64, 48).astype(np.uint8), depth, pose)\n"
         "assert st.num_active_blocks() > 0\n"

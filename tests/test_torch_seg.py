@@ -167,7 +167,7 @@ def test_shipped_inference_engine_matches_jax(arch):
     rgb = j_read_image(ORBIT_RGB)
     assert rgb.shape == (480, 640, 3) and rgb.dtype == np.uint8
     ref = js.InferenceEngine(js.create_model(arch=arch), js.load_default_params(arch))
-    ours = ts.InferenceEngine(ts.load_model(arch))
+    ours = ts.InferenceEngine(ts.load_model(arch, device="cpu"))
     for a, b in zip(ref.infer_one(rgb), ours.infer_one(rgb)):
         assert b.shape == (360, 640) and b.dtype == np.float32
         err = np.abs(a - b)
@@ -185,7 +185,7 @@ def test_shipped_unet_holdout_iou():
     scenes (the seed tests/test_seg_weights.py holds out): IoU > 0.7 on
     both channels."""
     imgs, labels = make_batch(np.random.default_rng(987654), 2, 352, 640)
-    model = ts.load_model("unet")
+    model = ts.load_model("unet", device="cpu")
     with torch.no_grad():
         logits = model(torch.from_numpy(np.asarray(imgs, np.float32)).permute(0, 3, 1, 2))
     pred = (torch.sigmoid(logits).permute(0, 2, 3, 1).numpy() > 0.5)
