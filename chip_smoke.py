@@ -17,8 +17,8 @@ exits non-zero:
      must launch once per frame, and the fused volume must agree with
      the JAX reference's fingerprint (disinfect_slam_tpu_torch/data/);
      the last of the three also renders the app's final view
-     (--render-dir), which must launch splat_zbuf_rows and
-     splat_payload_rows once each and write two 640x360 RGBA PNGs; then
+     (--render-dir), which must launch splat_zbuf_blocks and
+     splat_payload_blocks once each and write two 640x360 RGBA PNGs; then
      where the fusion's time goes on a fresh volume (frames 45-59, its
      stages by CUDA events);
   4. the same replay through the two-stage path (sample_rows + torch
@@ -28,8 +28,13 @@ exits non-zero:
      640x480, one warm-up and three timed passes of five renders; one
      launch of each kernel per render; the frame-0 render bit-equal, in
      both buffers and all four images, to the plain torch splat on the
-     same volume; the frame-0 and the app's view held against the JAX
-     reference's render fingerprint; the parity raycaster on the frame-0
+     same volume, each kernel's branches counted there; the render split
+     into the surface set, the plain projection (off the card path: the
+     kernels project), each kernel and the image assembly by CUDA events,
+     and profiled (render_split, which scripts/port_render_stage.py also
+     runs on another tree); the frame-0 and the app's view held against
+     the JAX reference's render fingerprint; the parity raycaster on the
+     frame-0
      view, timed, with its divergence from the splat; then fuse_rows
      against its plain version on frame 30's visible set of the fused
      volume, with its yardsticks (below);
@@ -54,15 +59,22 @@ exits non-zero:
      yardsticks: its device time (and one call's, CUDA events) beside its
      bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s), its
      plain version's time and, where one torch call computes the same
-     function, that call's device time; and the probes of
-     splat_zbuf_rows (P8's A/B of the per-voxel atomics against the tile
-     kernel, P9's tile-shape sweep).
+     function, that call's device time; and the probes: of the splat
+     tile (P8's A/B of the per-voxel atomics against the tile kernel,
+     P9's tile-shape sweep), the feature probe (P7: every primitive's
+     check must pass) and the probes of the sampler and of fuse_rows'
+     stages (P1-P6: K1's direct modes, the patch and one-hot mma
+     selections, fuse_rows stripped stage by stage), each mode against
+     its plain version.
 
-Phase 2 also holds splat_zbuf_rows and splat_payload_rows against their
-plain versions at the render's capacity (16384 rows, 640x480 and
-1920x1080), bit for bit, with rows spread wider than splat_zbuf_rows'
-tile so that both its branches are taken and counted; phase 5 counts
-them on the frame-0 render too.
+Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
+they project block rows in registers) against their plain versions at
+the render's capacity (16384 block rows, 14000 live, 640x480 and
+1920x1080; tests/torch_cases.py's splat_block_case: rows behind the
+camera and off the image, 5% of the live rows near the camera, and a
+second pair of runs with voxels at camera z = 0), bit for bit, with both
+branches of each kernel taken and counted; phase 5 counts them on the
+frame-0 render too.
 
 The line before the last is a JSON object describing each kernel; the
 last line is the JSON result.  The full report, and the data.bin of the
@@ -96,6 +108,7 @@ TOL_COUNT, TOL_TSDF, TOL_WP = 1e-3, 1e-4, 1e-3
 # 0.1% of the surface-block count
 TOL_RENDER = 1e-3
 SPLAT_ROWS, SPLAT_COUNT = 16384, 14000  # the render's surf_cap; live rows
+SPLAT_VOXEL, SPLAT_TRUNC = 0.004, 0.024  # the bench preset's voxel size and truncation
 RENDER_MAX_DEPTH = 4.0
 ONLINE_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
                                   "orbit_vga_online_fingerprint.json")
@@ -117,11 +130,15 @@ TOL_ONLINE_PROB = 5e-3
 # the 67 TFLOP/s of float32 outside the tensor cores, whichever is larger
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# operations per voxel, counted from the sources (a division, exp or log
-# counted as 8): sample_rows clips, bounds-checks and indexes (12);
-# fuse_rows projects (48 and 2 divisions) and fuses (60 and 9 divisions,
-# 2 exp, 2 log): 228; a splat merge's 4 footprint tests and merges (16)
-OPS_PER_VOXEL = {"sample_rows": 12, "fuse_rows": 228, "splat": 16}
+# operations per voxel, counted from the sources (a division, exp, log or
+# square root counted as 8): sample_rows clips, bounds-checks and indexes
+# (12); fuse_rows projects (48 and 2 divisions) and fuses (60 and 9
+# divisions, 2 exp, 2 log): 228; the splat kernels test every live voxel's
+# tsdf against the band (2), project those inside it (48 and 2 divisions,
+# then the range, its root, the depth correction with a division and the
+# floor pixel: 94) and merge the surface-band voxels' 4 footprint pixels
+# (16)
+OPS_PER_VOXEL = {"sample_rows": 12, "fuse_rows": 228, "splat_project": 94, "splat": 16}
 
 
 def log(msg: str) -> None:
@@ -143,20 +160,23 @@ def cuda_time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, name=None, reps: int = 10) -> float:
+def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
     """Device time per call of fn() from a profiler trace of reps calls
     after one warm-up: the median launch of the kernel whose name holds
     `name`, or (name None) the sum over the kernels a call launches of
     each one's median.  No launch overhead or host time, which
     cuda_time_ms includes.  A trace can drop a device event or two, so
-    medians stand in for the launches; a trace that lost most of them is
-    taken again, three times at most.  The profiler leaves the host
-    slower for the rest of the process, so these run after the
+    medians stand in for the launches; a trace that lost most of them, or
+    that reads less than floor_ms (the kernel's bound: no run can be
+    faster, so such a reading is a fault of the trace), is taken again,
+    three times at most, then the call raises.  The profiler leaves the
+    host slower for the rest of the process, so these run after the
     end-to-end measurements they could slow."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    readings = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -168,9 +188,15 @@ def kernel_ms(fn, name=None, reps: int = 10) -> float:
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if by_name and all(len(v) >= reps // 2 for v in by_name.values()):
             # launches per call of each kernel, from the counts traced
-            return sum(statistics.median(v) * max(1, round(len(v) / reps))
-                       for v in by_name.values()) / 1e3
-    raise AssertionError(f"the traces lost the device events of {name or 'fn'}")
+            ms = sum(statistics.median(v) * max(1, round(len(v) / reps))
+                     for v in by_name.values()) / 1e3
+            if ms >= floor_ms:
+                return ms
+            readings.append(ms)
+            log(f"[chip_smoke] {name or 'fn'}: a trace read {ms:.4f} ms, below the bound "
+                f"{floor_ms:.4f} ms; taken again")
+    raise AssertionError(f"the traces of {name or 'fn'} lost their device events or read "
+                         f"below the bound {floor_ms:.4f} ms: {readings}")
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -188,7 +214,7 @@ def time_kernel(res: dict, fn, name: str) -> None:
     call of its wrapper bracketed by CUDA events (cuda_time_ms, this
     script's earlier measure), launch overhead and output allocation
     included."""
-    res["ms"] = kernel_ms(fn, name)
+    res["ms"] = kernel_ms(fn, name, floor_ms=res["bound_ms"])
     res["call_ms"] = cuda_time_ms(fn)
 
 
@@ -391,30 +417,47 @@ def check_sample_rows(sample_kernel, dev, timed):
     return res
 
 
-def make_splat_rows(rng, img_h, img_w, dev, wide=False):
-    """Splat kernel inputs at the render's capacity: each block's voxels
-    fall in a 12x12 px footprint, 1% of them off the image (some at
-    negative pixels), 40% of voxels outside the band (BIG), depths drawn
-    from 16 values so that many voxels tie at a pixel; with `wide`, 5% of
-    the live rows spread wider than splat_zbuf_rows' tile."""
-    s = SPLAT_ROWS
-    u0 = rng.integers(-2, img_w - 10, (s, 1)) + rng.integers(0, 12, (s, 512))
-    v0 = rng.integers(-2, img_h - 10, (s, 1)) + rng.integers(0, 12, (s, 512))
-    off = rng.uniform(size=(s, 512)) < 0.01
-    u0[off] = np.where(rng.uniform(size=off.sum()) < 0.5, -3, img_w + 1)
-    dq = rng.choice(np.arange(8000, 8016), (s, 512))
-    dq[rng.uniform(size=(s, 512)) < 0.4] = 1 << 30
-    pool_idx = rng.permutation(POOL)[:s]
-    pool_idx[SPLAT_COUNT:] = POOL  # padding rows, as the compaction leaves them
-    if wide:
-        # 5% of the live rows spread over up to 60x60 pixels, as blocks
-        # near the camera do: more than the kernel's tile holds
-        rows = rng.permutation(SPLAT_COUNT)[: SPLAT_COUNT // 20]
-        n = rows.size
-        u0[rows] = rng.integers(-2, img_w - 50, (n, 1)) + rng.integers(0, 60, (n, 512))
-        v0[rows] = rng.integers(-2, img_h - 50, (n, 1)) + rng.integers(0, 60, (n, 512))
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)  # noqa: E731
-    return t(u0), t(v0), t(dq), t(pool_idx)
+def make_splat_pool(dev, seed, voxel_size, truncation):
+    """The pool of make_pool, its tsdf redrawn for the splat kernels
+    (tests/torch_cases.py's splat_pool, on the card): 60% of voxels
+    inside the surface band, from 8 levels so that neighbouring voxels tie
+    at a pixel, the rest outside it."""
+    _, rgbw, prob = make_pool(dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    band = 1.25 * voxel_size / truncation
+    shape = (POOL, 512)
+    levels = torch.arange(-3.5, 4.0, device=dev) / 4.0 * band
+    inside = levels[torch.randint(0, 8, shape, generator=g, device=dev)]
+    sign = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    outside = sign * (1.01 * band + torch.rand(shape, generator=g, device=dev)
+                      * (1.0 - 1.01 * band))
+    tsdf = torch.where(torch.rand(shape, generator=g, device=dev) < 0.6, inside, outside)
+    return tsdf.float().contiguous(), rgbw, prob
+
+
+def make_splat_blocks(seed, img_h, img_w, dev, about_z=False):
+    """Splat kernel inputs at the render's capacity: tests/torch_cases.py's
+    splat_block_case at the bench preset's 4 mm voxels and 24 mm
+    truncation, SPLAT_ROWS rows of which SPLAT_COUNT live, placed about a
+    surface in front of the camera, with rows behind the camera and off
+    the image, 5% of the live rows near the camera (footprints wider than
+    the kernels' 32x32 tile) and, with about_z, voxels at camera z = 0 and
+    each block layer at one depth; the pool of make_splat_pool.  -> (rows
+    (block_pos, pool_idx, count), pool (tsdf, rgbw, prob), geometry
+    keywords) on the card."""
+    from disinfect_slam_tpu_torch.core.geometry import CameraParams
+    from tests.torch_cases import splat_block_case
+
+    c = splat_block_case(seed, img_h, img_w, SPLAT_ROWS, SPLAT_COUNT, POOL,
+                         voxel_size=SPLAT_VOXEL, truncation=SPLAT_TRUNC, about_z=about_z,
+                         with_pool=False)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    rows = (t(c["block_pos"]), t(c["pool_idx"]),
+            torch.tensor(SPLAT_COUNT, dtype=torch.int32, device=dev))
+    geometry = dict(cam_T_world=c["pose"], cam=CameraParams.create(c["intrinsics"], img_h, img_w),
+                    voxel_size=c["voxel_size"], truncation=c["truncation"],
+                    max_depth=c["max_depth"], band=c["band"])
+    return rows, make_splat_pool(dev, seed, SPLAT_VOXEL, SPLAT_TRUNC), geometry
 
 
 def u32_err(a, b) -> int:
@@ -422,96 +465,118 @@ def u32_err(a, b) -> int:
     return int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)).abs().max().item())
 
 
-def check_splat(splat_kernel, img_h, img_w, seed, dev, timed, wide=False):
-    """The two splat kernels against their plain versions, bit for bit;
-    splat_zbuf_rows' rows on its tile and atomic branches counted (with
-    `wide`, both must be taken); with `timed`, the yardsticks."""
+def splat_corners(splat_kernel, fuse_kernel, rows, geometry, planes) -> dict:
+    """The corners the synthetic splat rows claim, from the plain
+    projection of the live rows: the share of voxels behind the camera,
+    the voxels at camera z = 0, the share in the surface band."""
+    n = int(rows[2])
+    _, _, z = fuse_kernel.project_rows(rows[0][:n], geometry["cam_T_world"],
+                                       geometry["cam"].intrinsics, geometry["voxel_size"])
+    return {"behind": (z < 0).float().mean().item(), "z0": int((z == 0).sum().item()),
+            "surface_band": (planes[2][:n] < splat_kernel.BIG).float().mean().item()}
+
+
+def check_splat(splat_kernel, fuse_kernel, img_h, img_w, seed, dev, timed, about_z=False):
+    """The two splat kernels against their plain versions on block rows,
+    bit for bit; each kernel's rows on its tile and atomic branches
+    counted (both must be taken); with `timed`, the yardsticks."""
     from disinfect_slam_tpu_torch.ops.cuda import splat_probe
 
-    rng = np.random.default_rng(seed)
-    u0, v0, dq, pool_idx = make_splat_rows(rng, img_h, img_w, dev, wide)
-    _, rgbw, prob = make_pool(dev, seed)
-    count = torch.tensor(SPLAT_COUNT, dtype=torch.int32, device=dev)
-    branches = torch.zeros(2, dtype=torch.int32, device=dev)
-    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, count, img_h, img_w, branches)
-    pbuf = splat_kernel.splat_payload_rows(u0, v0, dq, pool_idx, rgbw, prob, count,
-                                           zbuf, img_h, img_w)
-    zref = splat_kernel.splat_zbuf_rows_reference(u0, v0, dq, count, img_h, img_w)
-    pref = splat_kernel.splat_payload_rows_reference(u0, v0, dq, pool_idx, rgbw, prob,
-                                                     count, zref, img_h, img_w)
+    rows, pool, geometry = make_splat_blocks(seed, img_h, img_w, dev, about_z)
+    tsdf = pool[0]
+    branches = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(2)]
+    zbuf = splat_kernel.splat_zbuf_blocks(*rows, tsdf, **geometry, branch_counts=branches[0])
+    pbuf = splat_kernel.splat_payload_blocks(*rows, *pool, zbuf, **geometry,
+                                             branch_counts=branches[1])
+    zref = splat_kernel.splat_zbuf_blocks_reference(*rows, tsdf, **geometry)
+    pref = splat_kernel.splat_payload_blocks_reference(*rows, *pool, zref, **geometry)
     torch.cuda.synchronize()
     z_err, p_err = u32_err(zbuf, zref), u32_err(pbuf, pref)
     covered = (zbuf < splat_kernel.BIG).float().mean().item()
     top = (pbuf < 0).float().mean().item()
-    label = f"{img_w}x{img_h}" + (" wide" if wide else "")
-    tile_rows, atomic_rows = branches.tolist()
+    planes = splat_kernel.splat_planes(*rows, tsdf, **geometry)
+    corners = splat_corners(splat_kernel, fuse_kernel, rows, geometry, planes)
+    label = f"{img_w}x{img_h}" + (" about z" if about_z else "")
+    zb, pb = (b.tolist() for b in branches)
     log(f"[chip_smoke] splat {label}, S={SPLAT_ROWS}, count={SPLAT_COUNT}: "
         f"zbuf max|d|={z_err}, pbuf max|d|={p_err} (pixels covered {covered:.4f}, "
-        f"payload words with the top bit set {top:.4f}); splat_zbuf_rows rows on the "
-        f"tile branch {tile_rows}, on the atomic branch {atomic_rows}")
+        f"payload words with the top bit set {top:.4f}; live voxels in the surface band "
+        f"{corners['surface_band']:.4f}, behind the camera {corners['behind']:.4f}, at z = 0 "
+        f"{corners['z0']}); rows on the tile / atomic branch: splat_zbuf_blocks {zb}, "
+        f"splat_payload_blocks {pb}")
     if not (torch.equal(zbuf, zref) and torch.equal(pbuf, pref)):
         raise AssertionError(f"splat kernels disagree with their plain versions at {label}")
     if top == 0 or covered == 0:
         raise AssertionError("splat inputs exercised no top-bit payload")
-    if wide and not (tile_rows and atomic_rows):
-        raise AssertionError(f"splat {label}: a branch of splat_zbuf_rows was not taken")
-    res = {"zbuf": {"max_abs_err": z_err, "branches": [tile_rows, atomic_rows]},
-           "payload": {"max_abs_err": p_err}}
+    if not (corners["behind"] > 0 and (corners["z0"] > 0) == about_z):
+        raise AssertionError(f"splat rows miss a corner: {corners}")
+    if not all(zb + pb):
+        raise AssertionError(f"splat {label}: a branch of a splat kernel was not taken")
+    res = {"zbuf": {"max_abs_err": z_err, "branches": zb},
+           "payload": {"max_abs_err": p_err, "branches": pb}, "corners": corners}
     if not timed:
         return res
-    zres, pres = splat_bound_and_library(splat_kernel, u0, v0, dq, pool_idx, rgbw, prob,
-                                         zbuf, pbuf, img_h, img_w)
+    zres, pres = splat_bound_and_library(splat_kernel, rows, pool, geometry, planes, zbuf, pbuf)
     res["zbuf"].update(zres)
     res["payload"].update(pres)
-    time_kernel(res["zbuf"], lambda: splat_kernel.splat_zbuf_rows(
-        u0, v0, dq, count, img_h, img_w), "splat_zbuf_tile_kernel")
-    res["zbuf"]["plain_ms"] = cuda_time_ms(lambda: splat_kernel.splat_zbuf_rows_reference(
-        u0, v0, dq, count, img_h, img_w))
-    time_kernel(res["payload"], lambda: splat_kernel.splat_payload_rows(
-        u0, v0, dq, pool_idx, rgbw, prob, count, zbuf, img_h, img_w), "splat_payload_kernel")
+    time_kernel(res["zbuf"], lambda: splat_kernel.splat_zbuf_blocks(*rows, tsdf, **geometry),
+                "splat_zbuf_tile_kernel")
+    res["zbuf"]["plain_ms"] = cuda_time_ms(
+        lambda: splat_kernel.splat_zbuf_blocks_reference(*rows, tsdf, **geometry))
+    time_kernel(res["payload"], lambda: splat_kernel.splat_payload_blocks(
+        *rows, *pool, zbuf, **geometry), "splat_payload_tile_kernel")
     res["payload"]["plain_ms"] = cuda_time_ms(
-        lambda: splat_kernel.splat_payload_rows_reference(
-            u0, v0, dq, pool_idx, rgbw, prob, count, zbuf, img_h, img_w))
+        lambda: splat_kernel.splat_payload_blocks_reference(*rows, *pool, zbuf, **geometry))
     # the z-buffer body the tile replaced (one global atomic per footprint
-    # pixel, kept in the probe's source) on the same rows
+    # pixel, kept in the probe's source, projecting as K4 does) on the same
+    # rows
     res["zbuf"]["atomic_body_ms"] = kernel_ms(lambda: splat_probe.zbuf_atomic(
-        u0, v0, dq, count, img_h, img_w), "probe_zbuf_atomic_kernel")
-    for name, key in (("splat_zbuf_rows", "zbuf"), ("splat_payload_rows", "payload")):
+        *rows, tsdf, **geometry), "probe_zbuf_atomic_kernel", floor_ms=res["zbuf"]["bound_ms"])
+    for name, key in (("splat_zbuf_blocks", "zbuf"), ("splat_payload_blocks", "payload")):
         print_yardsticks(f"{name} {img_w}x{img_h}", res[key])
     return res
 
 
-def splat_bound_and_library(splat_kernel, u0, v0, dq, pool_idx, rgbw, prob, zbuf, pbuf,
-                            img_h, img_w):
+def splat_bound_and_library(splat_kernel, rows, pool, geometry, planes, zbuf, pbuf):
     """The splat merges' bounds from these inputs, and their library
     yardsticks: one scatter_reduce_ ("amin" into the z-buffer, "amax" of
     the winners' words into the payload buffer) over the in-image
     footprint pixels, with the indices built outside the timed window;
     each must give the kernel's buffer.  Returns the z-buffer's and the
-    payload's entries."""
+    payload's entries.
+
+    Bytes: 16 per live row (block position, pool index), the tsdf word of
+    every live voxel, then for K4 the z-buffer written once; for K5 the
+    z-buffer read once, 8 per winning voxel (its RGBW word and
+    probability) and the payload buffer written once.  Operations: the
+    band test of every live voxel, the projection of the voxels inside
+    the tsdf band, the footprint merges of the surface-band voxels."""
     rf = splat_kernel.rf
+    u0, v0, dq = planes
+    block_pos, pool_idx, count_t = rows
+    tsdf, rgbw, prob = pool
+    img_h, img_w = geometry["cam"].img_h, geometry["cam"].img_w
     n_pix = img_h * img_w
-    count = int((pool_idx < POOL).sum().item())  # live rows come first
+    count = int(count_t)
     band = torch.zeros_like(dq, dtype=torch.bool)
     band[:count] = dq[:count] < splat_kernel.BIG
     n_band = int(band.sum().item())
+    band_tsdf = geometry["band"] * geometry["voxel_size"] / geometry["truncation"]
+    projected = int((tsdf[pool_idx[:count].long()].abs() < band_tsdf).sum().item())
     pix = rf.footprint(u0, v0, band, img_h, img_w)
     keep = pix < n_pix
     dq4 = dq.expand(pix.shape)
     won = keep & (dq4 == zbuf[pix.clamp(max=n_pix - 1)])
     winners = int(won.any(0).sum().item())
     live = count * 512
-    # dq of the live voxels, (u0, v0) of those in the band, count; the z-buffer
-    z_bytes = 4 * live + 8 * n_band + 4 + 4 * n_pix
-    # and pool_idx, the final z-buffer read, the winners' rgbw and prob
-    # words, the payload buffer
-    p_bytes = z_bytes + 4 * count + 8 * winners + 4 * n_pix
-    zres = bound(z_bytes, OPS_PER_VOXEL["splat"] * n_band)
-    pres = bound(p_bytes, OPS_PER_VOXEL["splat"] * n_band)
+    rows_bytes = 16 * count + 4 + 4 * live
+    ops = 2 * live + OPS_PER_VOXEL["splat_project"] * projected + OPS_PER_VOXEL["splat"] * n_band
+    zres = bound(rows_bytes + 4 * n_pix, ops)
+    pres = bound(rows_bytes + 4 * n_pix + 8 * winners + 4 * n_pix, ops)
     z_idx, z_val = pix[keep], dq4[keep]
     p_idx = pix[won]
-    pool = pool_idx.clamp(0, rgbw.shape[0] - 1).long()
-    packed = rf.pack_payload_rgbw(rgbw[pool], prob[pool])
+    pool_rows = pool_idx.clamp(0, rgbw.shape[0] - 1).long()
+    packed = rf.pack_payload_rgbw(rgbw[pool_rows], prob[pool_rows])
     p_val = packed.expand(pix.shape)[won]
     pix_all, dq4_all = pix.reshape(-1), dq4.reshape(-1)
     won_all = torch.where(won, pix, n_pix).reshape(-1)
@@ -534,8 +599,9 @@ def splat_bound_and_library(splat_kernel, u0, v0, dq, pool_idx, rgbw, prob, zbuf
         0, pix_all, dq4_all, "amin"))
     pres["library_dump_ms"] = kernel_ms(lambda: dump_p.scatter_reduce(
         0, won_all, packed_all, "amax"))
-    log(f"[chip_smoke] splat {img_w}x{img_h}: {count} live rows, {n_band} voxels in the "
-        f"band, {winners} winners, {z_idx.numel()} footprint pixels")
+    log(f"[chip_smoke] splat {img_w}x{img_h}: {count} live rows, {projected} voxels in the "
+        f"tsdf band (projected), {n_band} in the surface band, {winners} winners, "
+        f"{z_idx.numel()} footprint pixels")
     return zres, pres
 
 
@@ -614,12 +680,73 @@ def check_render_fingerprint(fp, ref, label):
         raise AssertionError(f"{label}: render fingerprint outside tolerance: {failed}")
 
 
+def render_split(grid, intrinsics, poses) -> dict:
+    """Where a render's time goes, in any tree of the port (it uses only
+    what every tree has; scripts/port_render_stage.py runs it against
+    another checkout's package): on the frame-0 view of `grid` at 640x480,
+    CUDA-event ms (median of 10) of the surface set
+    (render_fast._surf_visible), the plain projection of the surface rows
+    (render_fast._project_for_splat, surface set included: the card path's
+    projection while the kernels read [S, 512] planes, the plain path's
+    alone once they project in registers), the card path's buffers
+    (splat_kernel.splat_buffers_cuda), the image assembly and the whole
+    render (TSDFGrid.ray_cast, renderer "auto"), and the two kernels'
+    device times within the card path's buffers (profiler, by name); then
+    five renders (the poses of frames 0-4) under the profiler: wall and
+    device kernel ms, kernels per render, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.ops import render_fast as rf
+    from disinfect_slam_tpu_torch.ops.cuda import splat_kernel as sk
+
+    vol, view = grid.volume, (intrinsics, H, W)
+    cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), H, W)
+    pose0, cap = SE3.from_matrix(poses[0]), rf.DEFAULT_SURF_CAP
+    bufs = sk.splat_buffers_cuda(vol, cam, pose0, RENDER_MAX_DEPTH)
+    stages = {
+        "surface set": cuda_time_ms(lambda: rf._surf_visible(vol, cam, pose0, 1.25, cap)),
+        "plain projection, with the surface set": cuda_time_ms(
+            lambda: rf._project_for_splat(vol, cam, pose0, RENDER_MAX_DEPTH, 1.25, cap)),
+        "card path buffers": cuda_time_ms(
+            lambda: sk.splat_buffers_cuda(vol, cam, pose0, RENDER_MAX_DEPTH)),
+        "images_from_buffers": cuda_time_ms(
+            lambda: rf.images_from_buffers(bufs[0], bufs[1], cam)),
+        "render": cuda_time_ms(
+            lambda: grid.ray_cast(RENDER_MAX_DEPTH, view, poses[0], renderer="auto")),
+    }
+    log("[chip_smoke] render frame 0 split, CUDA-event ms (median of 10): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    frames = poses[:5]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for pose in frames:
+            grid.ray_cast(RENDER_MAX_DEPTH, view, pose, renderer="auto")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    n = len(frames)
+    prof_res = {"renders": n, "wall_ms": wall_ms, "device_ms": device_ms,
+                "kernels": len(events), "wall_ms_per_render": wall_ms / n,
+                "device_ms_per_render": device_ms / n, "kernels_per_render": len(events) / n,
+                "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+    log(f"[chip_smoke] render profile ({n} renders): wall {wall_ms / n:.3f} ms/render, device "
+        f"kernel time {device_ms / n:.3f} ms/render in {len(events) / n:.1f} kernels/render, "
+        f"idle share " + (f"{prof_res['idle_share']:.3f}" if device_ms else "not measured"))
+    card = lambda: sk.splat_buffers_cuda(vol, cam, pose0, RENDER_MAX_DEPTH)  # noqa: E731
+    kernels = {k: kernel_ms(card, k) for k in ("splat_zbuf", "splat_payload")}
+    log(f"[chip_smoke] render frame 0 kernels, device ms: {kernels}")
+    return {"stages_ms": stages, "profile": prof_res, "kernel_ms": kernels}
+
+
 def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     """Phase 5: the render slice on the fused volume (see the docstring).
     Returns the report entries and the main path's launch counts."""
     from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
 
-    kernels = (splat_kernel.splat_zbuf_rows, splat_kernel.splat_payload_rows)
+    kernels = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
     view = (intrinsics, H, W)
     cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), H, W)
     frames = poses[:5]
@@ -643,7 +770,7 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
                              f"{n_renders} renders")
 
     # frame 0: kernels against the plain torch splat on the same volume
-    vol, pose0 = grid.volume, SE3.from_matrix(frames[0])
+    vol, pose0, cfg = grid.volume, SE3.from_matrix(frames[0]), grid.cfg
     res = grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="auto")
     bufs = splat_kernel.splat_buffers_cuda(vol, cam, pose0, RENDER_MAX_DEPTH)
     plain_bufs = render_fast.splat_buffers(vol, cam, pose0, RENDER_MAX_DEPTH)
@@ -661,29 +788,41 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
         raise AssertionError(f"the splat kernels' render differs from the plain one: {equal}")
     err = {"zbuf": u32_err(bufs[0], plain_bufs[0]), "pbuf": u32_err(bufs[1], plain_bufs[1])}
 
-    # the render's own stages, device time by CUDA events (median of 10)
-    u0, v0, dq, vis, _ = splat_kernel._kernel_inputs(vol, cam, pose0, RENDER_MAX_DEPTH,
-                                                     1.25, render_fast.DEFAULT_SURF_CAP)
-    branches = torch.zeros(2, dtype=torch.int32, device=dq.device)
-    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, vis.count, H, W, branches)
-    if not torch.equal(zbuf, plain_bufs[0]):
-        raise AssertionError("splat_zbuf_rows differs from the plain z-buffer on frame 0")
-    zbuf_branches = branches.tolist()
-    log(f"[chip_smoke] render frame 0: splat_zbuf_rows bit-equal to the plain z-buffer; "
-        f"surface blocks on the tile branch {zbuf_branches[0]}, on the atomic branch "
-        f"{zbuf_branches[1]}")
+    # the two kernels on the frame-0 surface rows, their branches counted
+    vis, _ = render_fast.splat_visible(vol, cam, pose0, 1.25, render_fast.DEFAULT_SURF_CAP)
+    rows = (vis.block_pos, vis.pool_idx, vis.count)
+    geometry = dict(cam_T_world=pose0, cam=cam, voxel_size=cfg.voxel_size,
+                    truncation=cfg.truncation, max_depth=RENDER_MAX_DEPTH, band=1.25)
+    branches = [torch.zeros(2, dtype=torch.int32, device=vol.device) for _ in range(2)]
+    zbuf = splat_kernel.splat_zbuf_blocks(*rows, vol.tsdf, **geometry,
+                                          branch_counts=branches[0])
+    pbuf = splat_kernel.splat_payload_blocks(*rows, vol.tsdf, vol.rgbw, vol.prob, zbuf,
+                                             **geometry, branch_counts=branches[1])
+    if not (torch.equal(zbuf, plain_bufs[0]) and torch.equal(pbuf, plain_bufs[1])):
+        raise AssertionError("the splat kernels differ from the plain buffers on frame 0")
+    zbuf_branches, payload_branches = (b.tolist() for b in branches)
+    log(f"[chip_smoke] render frame 0: both kernels bit-equal to the plain buffers; "
+        f"surface blocks on the tile / atomic branch: splat_zbuf_blocks {zbuf_branches}, "
+        f"splat_payload_blocks {payload_branches}")
+    # the render's own stages, device time by CUDA events (median of 10):
+    # the projection runs in the kernels on the card path; the plain one is
+    # timed beside them
+    pool = (vol.tsdf, vol.rgbw, vol.prob)
     stages = {
-        "prep (visibility, surface compaction, projection)": cuda_time_ms(
-            lambda: splat_kernel._kernel_inputs(vol, cam, pose0, RENDER_MAX_DEPTH, 1.25,
-                                                render_fast.DEFAULT_SURF_CAP)),
-        "splat_zbuf_rows": cuda_time_ms(lambda: splat_kernel.splat_zbuf_rows(
-            u0, v0, dq, vis.count, H, W)),
-        "splat_payload_rows": cuda_time_ms(lambda: splat_kernel.splat_payload_rows(
-            u0, v0, dq, vis.pool_idx, vol.rgbw, vol.prob, vis.count, zbuf, H, W)),
-        "plain zbuf": cuda_time_ms(lambda: splat_kernel.splat_zbuf_rows_reference(
-            u0, v0, dq, vis.count, H, W)),
-        "plain payload": cuda_time_ms(lambda: splat_kernel.splat_payload_rows_reference(
-            u0, v0, dq, vis.pool_idx, vol.rgbw, vol.prob, vis.count, zbuf, H, W)),
+        "surface set (splat_visible)": cuda_time_ms(lambda: render_fast.splat_visible(
+            vol, cam, pose0, 1.25, render_fast.DEFAULT_SURF_CAP)),
+        "plain projection (not on the card path)": cuda_time_ms(
+            lambda: render_fast.project_splat_rows(
+                *rows, vol.tsdf, pose0, cam, cfg.voxel_size, cfg.truncation, RENDER_MAX_DEPTH,
+                1.25)),
+        "splat_zbuf_blocks": cuda_time_ms(lambda: splat_kernel.splat_zbuf_blocks(
+            *rows, vol.tsdf, **geometry)),
+        "splat_payload_blocks": cuda_time_ms(lambda: splat_kernel.splat_payload_blocks(
+            *rows, *pool, zbuf, **geometry)),
+        "plain zbuf": cuda_time_ms(lambda: splat_kernel.splat_zbuf_blocks_reference(
+            *rows, vol.tsdf, **geometry)),
+        "plain payload": cuda_time_ms(lambda: splat_kernel.splat_payload_blocks_reference(
+            *rows, *pool, zbuf, **geometry)),
         "images_from_buffers": cuda_time_ms(
             lambda: render_fast.images_from_buffers(bufs[0], bufs[1], cam)),
         "plain splat_render": cuda_time_ms(
@@ -691,34 +830,9 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     }
     log("[chip_smoke] render frame 0 stages, CUDA-event ms (median of 10): "
         + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
-    del plain_bufs, plain
-
-    # device busy share of the render, from a profiler trace of five renders
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for pose in frames:
-            grid.ray_cast(RENDER_MAX_DEPTH, view, pose, renderer="auto")
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    n_kernels = len(events)
-    busy = device_ms / wall_ms if device_ms else None
-    log(f"[chip_smoke] render profile (5 renders): wall {wall_ms:.3f} ms, device "
-        f"kernel time {device_ms:.3f} ms in {n_kernels} kernels"
-        + (f", idle share {1 - busy:.3f}" if busy is not None else ", idle share not measured"))
-    # the two kernels' device times on this render, after its profile
-    kernel_times = {
-        "splat_zbuf_rows": kernel_ms(lambda: splat_kernel.splat_zbuf_rows(
-            u0, v0, dq, vis.count, H, W), "splat_zbuf_tile_kernel"),
-        "splat_payload_rows": kernel_ms(lambda: splat_kernel.splat_payload_rows(
-            u0, v0, dq, vis.pool_idx, vol.rgbw, vol.prob, vis.count, zbuf, H, W),
-            "splat_payload_kernel")}
-    log(f"[chip_smoke] render frame 0 kernels, device ms: {kernel_times}")
-    del u0, v0, dq, zbuf
+    del plain_bufs, plain, zbuf, pbuf
+    # the split every tree of the port shares, with the render's profile
+    split = render_split(grid, intrinsics, poses)
     reset_launches(*kernels)  # the profiled renders are not the main path's
 
     # the JAX reference's fingerprints of the frame-0 view and the app's view
@@ -751,11 +865,11 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
     if not ray.hit.any():
         raise AssertionError("the parity raycaster hit nothing")
     report = {"splat_ms_per_render": passes, "splat_ms": splat_ms,
-              "zbuf_branches": zbuf_branches, "kernel_ms_frame0": kernel_times,
-              "surface_blocks": kept + overflow, "surf_overflow": overflow,
-              "stages_ms": stages, "profile": {"wall_ms": wall_ms, "device_ms": device_ms,
-                                               "kernels": n_kernels},
-              "fingerprints": fps, "raycast_ms": raycast_ms, "divergence": divergence}
+              "zbuf_branches": zbuf_branches, "payload_branches": payload_branches,
+              "kernel_ms_frame0": split["kernel_ms"], "surface_blocks": kept + overflow,
+              "surf_overflow": overflow, "stages_ms": stages, "split": split["stages_ms"],
+              "profile": split["profile"], "fingerprints": fps, "raycast_ms": raycast_ms,
+              "divergence": divergence}
     return report, launches, err
 
 
@@ -1152,24 +1266,124 @@ def fusion_profile(offline, dev):
     return res
 
 
-def probes(splat_probe, dev):
-    """Phase 7: the probes of splat_zbuf_rows, each kernel timed by its
-    device time."""
+def probe_timer(fn, name, nbytes=0) -> float:
+    """The probes' timer: kernel_ms, with the bound of nbytes as its
+    floor."""
+    return kernel_ms(fn, name, floor_ms=bound(nbytes, 0)["bound_ms"])
+
+
+def probe_launches(splat_probe, feature_probe, sp) -> list:
+    """The probe wrappers that count their launches."""
+    return [splat_probe.zbuf_atomic, splat_probe.zbuf_tile, feature_probe.launch,
+            sp.sample_patch, sp.sample_mma, sp.sample_direct, sp.fuse_stage]
+
+
+def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
+    """Phase 7: the probes, each kernel timed by its device time: P8/P9 of
+    splat_zbuf_blocks' tile (splat_probe, on phase 2's block rows at
+    640x480 and 1080p), P7's primitives (feature_probe: every check must
+    pass; its kernels' device time and its plain torch version's), and
+    P1-P6 (sample_probe: K1's direct modes, the patch and mma selections
+    and fuse_rows' stages, each against its plain version, at K1's and
+    fuse_rows' phase 2 rows)."""
     t0 = time.perf_counter()
-    probe = splat_probe.run(dev, timer=kernel_ms)
+    cases = {"640x480": make_splat_blocks(3, H, W, dev),
+             "1080p": make_splat_blocks(4, 1080, 1920, dev)}
+    probe = splat_probe.run(dev, probe_timer, cases)
+    del cases
+    torch.cuda.empty_cache()
     p8 = probe["p8"]
-    log(f"[chip_smoke] probe P8 (S={p8['rows']}, 640x480, footprints <= 14 px): per-voxel "
-        f"atomics {p8['atomic_ms']:.4f} ms, tile kernel {p8['tile_ms']:.4f} ms, both "
-        f"bit-equal to the plain scatter-min; tile rows on the tile / atomic branch "
-        f"{p8['tile_branches']}")
+    log(f"[chip_smoke] probe P8 (block rows, S={p8['rows']}, count {p8['count']}, "
+        f"{p8['image'][1]}x{p8['image'][0]}): per-voxel atomics {p8['atomic_ms']:.4f} ms, "
+        f"tile kernel {p8['tile_ms']:.4f} ms, both bit-equal to the plain scatter-min; tile "
+        f"rows on the tile / atomic branch {p8['tile_branches']}")
     for r in probe["p9"]:
         log(f"[chip_smoke] probe P9 tile {r['tile'][0]}x{r['tile'][1]}: {r['registers']} "
             f"registers, {r['local_bytes']} local (spill) bytes, {r['shared_bytes']} shared "
-            f"bytes; P8 rows {r['p8']['ms']:.4f} ms (branches {r['p8']['branches']}), wide "
-            f"rows {r['wide']['ms']:.4f} ms (branches {r['wide']['branches']}); launches "
-            f"and agrees")
+            f"bytes; " + "; ".join(f"{k} rows {r[k]['ms']:.4f} ms (branches "
+                                   f"{r[k]['branches']})" for k in ("640x480", "1080p"))
+            + "; launches and agrees")
+
+    checks = feature_probe.run(dev)
+    kernels_fn, plain_fn, nbytes = feature_probe.timed_pair(dev)
+    probe["p7"] = {"checks": checks, "ms": probe_timer(kernels_fn, "feature_", nbytes),
+                   "plain_ms": cuda_time_ms(plain_fn), **bound(nbytes, 0),
+                   "max_abs_err": max(r["max_abs_err"] for r in checks.values())}
+    log(f"[chip_smoke] probe P7: every check passed {checks}; its kernels "
+        f"{probe['p7']['ms']:.4f} ms of device time, the torch version "
+        f"{probe['p7']['plain_ms']:.4f} ms")
+
+    img, u, v = make_frame(np.random.default_rng(7), H, W, dev)
+    count = torch.tensor(COUNT, dtype=torch.int32, device=dev)
+    fimg, block_pos, pool_idx, geometry = block_rows(1, H, W, False, dev)
+    pool = make_pool(dev, 1)
+    consts = dict(CONSTS, **geometry)
+    res = sp.run(dev, probe_timer, (img, u, v, count),
+                 (fimg, block_pos, pool_idx, count, pool, consts),
+                 fuse_kernel.fuse_rows)
+    for group in ("p4", "patch", "p5"):
+        for r in res[group]:
+            if "bytes" in r:
+                r.update(bound(r["bytes"], 0))
+            log(f"[chip_smoke] probe {group} {r.get('mode', r.get('stage'))}: {r['ms']:.4f} ms"
+                + (f", bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB), "
+                   f"{r['bound_ms'] / r['ms']:.1%} of it" if "bound_ms" in r else "")
+                + (f"; skipped {r['skipped_voxels']} voxels in {r['skipped_rows']} rows"
+                   if "skipped_voxels" in r else "")
+                + (f"; voxels let through {r['voxels_through']}"
+                   if "voxels_through" in r else ""))
+    u0, v0 = sp.patch_origins(u, v, H, W)
+    res["plain_ms"] = {
+        "direct": cuda_time_ms(lambda: sp.sample_direct_reference(img, u, v, count, 0)),
+        "patch": cuda_time_ms(lambda: sp.patch_sample_reference(img, u, v, count, u0, v0,
+                                                                *sp.PATCH_SHAPES[0])),
+        "fuse_stage": cuda_time_ms(lambda: sp.fuse_stage_reference(
+            0, fimg, block_pos, pool_idx, count, *pool, **consts)),
+    }
+    probe["sample"] = res
+    del pool, img, fimg
+    torch.cuda.empty_cache()
     log(f"[chip_smoke] probes ok ({time.perf_counter() - t0:.1f} s)")
     return probe
+
+
+def probe_kernels(probe, launches: dict) -> list:
+    """The probes' entries of the kernels line: one per probe kernel,
+    timed at its mode named in `mode` (the others in the report), with its
+    wrapper's launches on the main path (`launches`, by wrapper name) and
+    the largest difference from its plain version over every mode it
+    ran."""
+    src = "disinfect_slam_tpu_torch/csrc/"
+    sample = probe["sample"]
+    pick = lambda group, key, name: next(r for r in sample[group] if r[key] == name)  # noqa: E731
+    worst = lambda rows: max(r["max_abs_err"] for r in rows if "max_abs_err" in r)  # noqa: E731
+    patch = pick("patch", "mode", "patch 24x32, 4 rows a CTA")
+    mma = sample["patch"][-1]
+    direct = pick("p4", "mode", "full")
+    stage = pick("p5", "stage", "ring")
+    entry = lambda name, source, replaces, r, plain, mode, n, err: {  # noqa: E731
+        "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+        "launches": n, "max_abs_err": err, "ms": r["ms"], "plain_ms": plain,
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "mode": mode}
+    p7 = probe["p7"]
+    return [
+        entry("probe sample_patch_kernel (P1/P2/P6)", "sample_probe.cu",
+              "scripts/probe_sample2.py:132", patch, sample["plain_ms"]["patch"], patch["mode"],
+              launches["sample_patch"], worst(sample["patch"][:-1])),
+        entry("probe sample_mma_kernel (P3)", "sample_probe.cu", "scripts/probe_sample4.py:132",
+              mma, sample["plain_ms"]["patch"], mma["mode"], launches["sample_mma"],
+              mma["max_abs_err"]),
+        entry("probe sample_direct_kernel (P4)", "sample_probe.cu",
+              "scripts/probe_sample_overhead.py:131", direct, sample["plain_ms"]["direct"],
+              direct["mode"], launches["sample_direct"], worst(sample["p4"])),
+        entry("probe fuse_rows_kernel stages (P5)", "fuse_rows.cuh",
+              "scripts/probe_kernel_stages.py:187", stage, sample["plain_ms"]["fuse_stage"],
+              stage["stage"], launches["fuse_stage"], worst(sample["p5"])),
+        {"name": "probe feature kernels (P7)", "route": "cuda", "source": src + "feature_probe.cu",
+         "replaces": "scripts/probe_mosaic_features.py:39", "launches": launches["launch"],
+         "max_abs_err": p7["max_abs_err"], "ms": p7["ms"], "plain_ms": p7["plain_ms"],
+         "bound_ms": p7["bound_ms"], "bound_by": p7["bound_by"], "library_ms": None},
+    ]
 
 
 def main() -> int:
@@ -1183,7 +1397,8 @@ def main() -> int:
     from disinfect_slam_tpu_torch.io.png_io import read_png
     from disinfect_slam_tpu_torch.ops import render_fast
     from disinfect_slam_tpu_torch.ops.cuda import (
-        build, fuse_kernel, sample_kernel, splat_kernel, splat_probe,
+        build, feature_probe, fuse_kernel, sample_kernel, sample_probe, splat_kernel,
+        splat_probe,
     )
 
     t_start = time.perf_counter()
@@ -1215,13 +1430,14 @@ def main() -> int:
     checks = [lambda timed: check_fuse_rows(fuse_kernel, H, W, 1, dev, False, timed),
               lambda timed: check_fuse_rows(fuse_kernel, 1080, 1920, 2, dev, True, timed),
               lambda timed: check_sample_rows(sample_kernel, dev, timed),
-              lambda timed: check_splat(splat_kernel, H, W, 3, dev, timed),
-              lambda timed: check_splat(splat_kernel, 1080, 1920, 4, dev, timed)]
+              lambda timed: check_splat(splat_kernel, fuse_kernel, H, W, 3, dev, timed),
+              lambda timed: check_splat(splat_kernel, fuse_kernel, 1080, 1920, 4, dev,
+                                        timed)]
     for check in checks:
         check(False)
         torch.cuda.empty_cache()
-    splat_wide = [check_splat(splat_kernel, h, w, 5, dev, False, wide=True)
-                  for h, w in ((H, W), (1080, 1920))]
+    splat_about_z = [check_splat(splat_kernel, fuse_kernel, h, w, 5, dev, False, about_z=True)
+                     for h, w in ((H, W), (1080, 1920))]
     torch.cuda.empty_cache()
     log(f"[chip_smoke] phase 2: kernels agree with their plain versions "
         f"({time.perf_counter() - t_start:.1f} s)")
@@ -1230,10 +1446,14 @@ def main() -> int:
         ref = json.load(f)
     save = os.path.join(str(build.BUILD_DIR), "data.bin")
     render_dir = os.path.join(str(build.BUILD_DIR), "render")
-    splat_fns = (splat_kernel.splat_zbuf_rows, splat_kernel.splat_payload_rows)
+    splat_fns = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
 
     # phase 3: the slice through the fused kernel; the last replay also
-    # renders the app's final view through the splat kernels
+    # renders the app's final view through the splat kernels.  The probes
+    # count their launches from here to the end of phase 6: the main path
+    # must launch none
+    probe_fns = probe_launches(splat_probe, feature_probe, sample_probe)
+    reset_launches(*probe_fns)
     ms_runs = []
     for i in range(3):
         reset_launches(fuse_kernel.fuse_rows, sample_kernel.sample_rows, *splat_fns)
@@ -1308,12 +1528,15 @@ def main() -> int:
         f"{online['seg']['unet']['seg_ms']:.3f} (UNet) ({smi}) "
         f"({time.perf_counter() - t6:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
+    probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
+    log(f"[chip_smoke] probe launches on the main path (phases 3-6): {probe_main_launches}")
+
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
     fusion["profile"] = fusion_profile(offline, dev)
     torch.cuda.empty_cache()
     fuse, fuse_1080, sample, splat, splat_1080 = (check(True) for check in checks)
-    probe = probes(splat_probe, dev)
+    probe = probes(dev, splat_probe, feature_probe, sample_probe, fuse_kernel)
     log(f"[chip_smoke] phase 7: device times ({smi}) ({time.perf_counter() - t7:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
 
@@ -1328,7 +1551,7 @@ def main() -> int:
         "fusion": fusion,
         "splat_640x480": splat,
         "splat_1080p": splat_1080,
-        "splat_wide": splat_wide,
+        "splat_about_z": splat_about_z,
         "probe": probe,
         "render": render,
         "online": online,
@@ -1344,6 +1567,7 @@ def main() -> int:
     kernels = [
         {"name": "fuse_rows", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/fuse_rows.cu",
+         "also_source": ["disinfect_slam_tpu_torch/csrc/fuse_rows.cuh"],
          "replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:262",
          "also_replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:519",
          "launches": fused_launches, "online_launches": online["online_launches"],
@@ -1356,21 +1580,28 @@ def main() -> int:
          "source": "disinfect_slam_tpu_torch/csrc/sample_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/sample_kernel.py:359",
          "launches": sample_launches, **sample},
-        {"name": "splat_zbuf_rows", "route": "cuda",
+        {"name": "splat_zbuf_blocks", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
+         "also_source": ["disinfect_slam_tpu_torch/csrc/splat_zbuf_tile.cuh",
+                         "disinfect_slam_tpu_torch/csrc/splat_project.cuh"],
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:149",
          "launches": splat_launches[0], **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
-                            *(w["zbuf"]["max_abs_err"] for w in splat_wide),
+                            *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
                             render_err["zbuf"]),
-         "branches_wide": [w["zbuf"]["branches"] for w in splat_wide],
+         "branches_about_z": [w["zbuf"]["branches"] for w in splat_about_z],
          "branches_real_render": render["zbuf_branches"]},
-        {"name": "splat_payload_rows", "route": "cuda",
+        {"name": "splat_payload_blocks", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:438",
          "launches": splat_launches[1], **splat["payload"],
          "max_abs_err": max(splat["payload"]["max_abs_err"],
-                            splat_1080["payload"]["max_abs_err"], render_err["pbuf"])},
+                            splat_1080["payload"]["max_abs_err"],
+                            *(w["payload"]["max_abs_err"] for w in splat_about_z),
+                            render_err["pbuf"]),
+         "branches_about_z": [w["payload"]["branches"] for w in splat_about_z],
+         "branches_real_render": render["payload_branches"]},
+        *probe_kernels(probe, probe_main_launches),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

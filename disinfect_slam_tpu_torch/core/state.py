@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from ..config import TSDFConfig
+from ..utils.device import resolve_device
 from .voxel import unpack_block_coord
 
 EMPTY = -1
@@ -52,7 +53,10 @@ class TSDFVolume:
     cfg: TSDFConfig
 
     @classmethod
-    def create(cls, cfg: TSDFConfig, device="cpu") -> "TSDFVolume":
+    def create(cls, cfg: TSDFConfig, device="cuda") -> "TSDFVolume":
+        """A fresh volume on `device` (CUDA unless the caller asks for
+        another; without CUDA the default raises)."""
+        device = resolve_device(device)
         cfg.validate()
         e, b, v = cfg.num_entries, cfg.num_blocks, cfg.block_volume
         table_size = cfg.grid_cells if cfg.backend == "dense" else 1

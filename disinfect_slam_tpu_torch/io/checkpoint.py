@@ -39,9 +39,11 @@ def volume_to_numpy(vol: TSDFVolume) -> dict:
     return out
 
 
-def volume_from_numpy(arrays: dict, cfg: TSDFConfig, device="cpu") -> TSDFVolume:
-    """Build a port volume from the JAX fields as numpy arrays (rgbw as
-    uint32 or int32)."""
+def volume_from_numpy(arrays: dict, cfg: TSDFConfig, device="cuda") -> TSDFVolume:
+    """Build a port volume on `device` (CUDA unless the caller asks for
+    another) from the JAX fields as numpy arrays (rgbw as uint32 or
+    int32)."""
+    device = resolve_device(device)
     kwargs = {}
     for f in _FIELDS:
         a = np.asarray(arrays[f])

@@ -255,6 +255,35 @@ def _check_inputs(img, block_pos, pool_idx, count, tsdf, rgbw, prob):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+# dst_fuse_rows' arguments (and the tail of the stage probe's,
+# csrc/sample_probe.cu)
+ARGTYPES = [
+    _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+    _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+    _C.POINTER(_C.c_float), _C.POINTER(_C.c_float), _C.c_float, _C.c_float,
+    _C.c_float, _C.c_float, _C.c_float, _C.c_float, _C.c_void_p,
+]
+
+
+def c_args(img, block_pos, pool_idx, count, tsdf, rgbw, prob, minabs, *, cam_T_world,
+           intrinsics, voxel_size, truncation, max_depth, max_weight, prob_eps=0.0) -> tuple:
+    """The C arguments of dst_fuse_rows (ARGTYPES) for fuse_rows' inputs
+    and its min |tsdf| output."""
+    # the scalars the torch path multiplies by, rounded to float32 as torch
+    # rounds a Python float against a float32 tensor
+    pose = (_C.c_float * 12)(*cam_T_world.rotation_entries(),
+                             *(float(x) for x in cam_T_world.t))
+    intr = (_C.c_float * 4)(intrinsics.fx, intrinsics.fy, intrinsics.cx, intrinsics.cy)
+    return (build.ptr(img), img.shape[0], img.shape[1], build.ptr(block_pos),
+            build.ptr(pool_idx), build.ptr(count), block_pos.shape[0], tsdf.shape[0],
+            build.ptr(tsdf), build.ptr(rgbw), build.ptr(prob), build.ptr(minabs),
+            pose, intr, voxel_size, truncation, max_depth, max_weight, prob_eps,
+            # the upper clamp bound 1 - prob_eps, rounded to f32 from the
+            # double as the torch version rounds it
+            1.0 - prob_eps,
+            build.stream_of(img))
+
+
 def fuse_rows(
     img: torch.Tensor,
     block_pos: torch.Tensor,
@@ -281,30 +310,10 @@ def fuse_rows(
     if img.device.type == "cpu":
         return fuse_rows_reference(*args, **consts)
     _check_inputs(*args)
-    rows = block_pos.shape[0]
-    minabs = torch.empty(rows, dtype=torch.float32, device=img.device)
-    # the scalars the torch path multiplies by, rounded to float32 as torch
-    # rounds a Python float against a float32 tensor
-    pose = (_C.c_float * 12)(*cam_T_world.rotation_entries(),
-                             *(float(x) for x in cam_T_world.t))
-    intr = (_C.c_float * 4)(intrinsics.fx, intrinsics.fy, intrinsics.cx, intrinsics.cy)
-    fn = build.entry("fuse_rows", "dst_fuse_rows", [
-        _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-        _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-        _C.POINTER(_C.c_float), _C.POINTER(_C.c_float), _C.c_float, _C.c_float,
-        _C.c_float, _C.c_float, _C.c_float, _C.c_float, _C.c_void_p,
-    ])
+    minabs = torch.empty(block_pos.shape[0], dtype=torch.float32, device=img.device)
+    fn = build.entry("fuse_rows", "dst_fuse_rows", ARGTYPES)
     with torch.cuda.device(img.device):
-        err = fn(
-            build.ptr(img), img.shape[0], img.shape[1], build.ptr(block_pos),
-            build.ptr(pool_idx), build.ptr(count), rows, tsdf.shape[0],
-            build.ptr(tsdf), build.ptr(rgbw), build.ptr(prob), build.ptr(minabs),
-            pose, intr, voxel_size, truncation, max_depth, max_weight, prob_eps,
-            # the upper clamp bound 1 - prob_eps, rounded to f32 from the
-            # double as the torch version rounds it
-            1.0 - prob_eps,
-            build.stream_of(img),
-        )
+        err = fn(*c_args(*args, minabs, **consts))
     fuse_rows.launches += 1
     build.check(err, "fuse_rows")
     return minabs

@@ -15,10 +15,12 @@ surface band pushes itself into the image:
      the reference's diffusivity and semantic overlay
      (voxel_tsdf.cu:292-299)
 
-`splat_render` here is the plain torch version of steps 2-3 (scatter
-reductions with a dump slot); ops/cuda/splat_kernel.py runs the same
-steps as two CUDA kernels and shares steps 1 and 4 with it.  Min and max
-merges do not depend on order, so the two give the same bits.
+`splat_render` here is the plain torch version of the projection
+(`project_splat_rows`) and steps 2-3 (scatter reductions with a dump
+slot); ops/cuda/splat_kernel.py runs the same as two CUDA kernels that
+project in registers, and shares the surface compaction of step 1
+(`splat_visible`) and step 4 with it.  Min and max merges do not depend
+on order, so the two give the same bits.
 """
 
 from __future__ import annotations
@@ -75,52 +77,89 @@ def _surf_visible(
     ), torch.clamp(n_surf - cap, min=0)
 
 
-def _project_for_splat(vol, cam, cam_T_world, max_depth, band, surf_cap=None):
-    """Per-voxel splat inputs shared by the plain path and the kernels:
-    float pixel coords, quantized corrected depth, the surface-band mask.
-
-    Returns (uf, vf, depth_q, surf, vis, surf_overflow): [V, 512] f32,
-    f32, i32, bool, the VisibleSet, and a 0-d i32."""
-    cfg = vol.cfg
-    hgt, wid = cam.img_h, cam.img_w
+def splat_visible(
+    vol: TSDFVolume, cam: CameraParams, cam_T_world: SE3, band: float, surf_cap=None
+) -> Tuple[VisibleSet, torch.Tensor]:
+    """The rows a splat render merges: the surface blocks (_surf_visible)
+    up to surf_cap, or with surf_cap None every visible block.  Returns
+    (set, surface blocks dropped, 0-d i32)."""
     if surf_cap is not None:
-        vis, overflow = _surf_visible(vol, cam, cam_T_world, band, surf_cap)
-    else:
-        vis = gather_visible(vol, cam, cam_T_world)
-        overflow = torch.zeros((), dtype=torch.int32, device=vol.device)
-    dev = vol.device
-    bl = cfg.block_len_log2
-    lmask = cfg.block_len - 1
-    vidx = torch.arange(cfg.block_volume, dtype=torch.int32, device=dev)
+        return _surf_visible(vol, cam, cam_T_world, band, surf_cap)
+    return (gather_visible(vol, cam, cam_T_world),
+            torch.zeros((), dtype=torch.int32, device=vol.device))
+
+
+def project_splat_rows(
+    block_pos: torch.Tensor,
+    pool_idx: torch.Tensor,
+    count: torch.Tensor,
+    tsdf_pool: torch.Tensor,
+    cam_T_world: SE3,
+    cam: CameraParams,
+    voxel_size: float,
+    truncation: float,
+    max_depth: float,
+    band: float,
+    block_len_log2: int = 3,
+):
+    """Every voxel of the splat rows, projected: block_pos i32 [S, 3],
+    pool_idx i32 [S] (clipped into the pool), count i32 [] live rows,
+    tsdf_pool f32 [B, N] (N = 8 ** block_len_log2 voxels a block, x
+    fastest).  The torch ops the splat kernels repeat in registers
+    (csrc/splat_project.cuh), in this order.
+
+    Returns (uf, vf, depth_q, surf) [S, N]: float pixel coordinates,
+    quantized corrected camera depth (i32), and the surface-band mask
+    (live row, pixel in the image, 0 < z <= max_depth, |tsdf| under the
+    band)."""
+    dev = block_pos.device
+    bl = block_len_log2
+    lmask = (1 << bl) - 1
+    vidx = torch.arange(1 << (3 * bl), dtype=torch.int32, device=dev)
     ox = (vidx & lmask)[None, :]
     oy = ((vidx >> bl) & lmask)[None, :]
     oz = ((vidx >> (2 * bl)) & lmask)[None, :]
-    vsz = cfg.voxel_size
-    px = ((vis.block_pos[:, 0:1] << bl) + ox).float() * vsz
-    py = ((vis.block_pos[:, 1:2] << bl) + oy).float() * vsz
-    pz = ((vis.block_pos[:, 2:3] << bl) + oz).float() * vsz
-    xc, yc, z = cam_T_world.apply_xyz(px, py, pz)  # [V, 512] camera coords
+    px = ((block_pos[:, 0:1] << bl) + ox).float() * voxel_size
+    py = ((block_pos[:, 1:2] << bl) + oy).float() * voxel_size
+    pz = ((block_pos[:, 2:3] << bl) + oz).float() * voxel_size
+    xc, yc, z = cam_T_world.apply_xyz(px, py, pz)  # [S, N] camera coords
     del px, py, pz
     intr = cam.intrinsics
     uf = (intr.fx * xc + intr.cx * z) / z
     vf = (intr.fy * yc + intr.cy * z) / z
     u = vx.round_half_away(uf).to(torch.int32)
     v = vx.round_half_away(vf).to(torch.int32)
-    in_img = (u >= 0) & (u < wid) & (v >= 0) & (v < hgt) & (z > 0) & (z <= max_depth)
+    in_img = ((u >= 0) & (u < cam.img_w) & (v >= 0) & (v < cam.img_h) & (z > 0)
+              & (z <= max_depth))
     del u, v
 
-    tsdf = vol.tsdf[vis.pool_idx.clamp(0, cfg.num_blocks - 1).long()]
+    tsdf = tsdf_pool[pool_idx.clamp(0, tsdf_pool.shape[0] - 1).long()]
     # surface band: within ~band voxels of the zero crossing, no weight
     # gate (the reference renders zero-weight voxels near max_depth too)
-    band_tsdf = band * cfg.voxel_size / cfg.truncation
-    surf = vis.mask[:, None] & in_img & (tsdf.abs() < band_tsdf)
+    band_tsdf = band * voxel_size / truncation
+    live = torch.arange(block_pos.shape[0], device=dev) < count
+    surf = live[:, None] & in_img & (tsdf.abs() < band_tsdf)
 
     # depth moved along the ray by tsdf, the sub-voxel correction to the
     # zero crossing: delta_z = tsdf * truncation * z / range; the root is
     # taken in float64 and rounded once (see ops/raycast.py:_norm)
     rng_cam = torch.sqrt((xc * xc + yc * yc + z * z).double()).float()
-    z_corr = z + tsdf * cfg.truncation * z / torch.where(rng_cam == 0, 1.0, rng_cam)
+    z_corr = z + tsdf * truncation * z / torch.where(rng_cam == 0, 1.0, rng_cam)
     depth_q = torch.clamp(z_corr * 4096.0, 0, float(2**29)).to(torch.int32)
+    return uf, vf, depth_q, surf
+
+
+def _project_for_splat(vol, cam, cam_T_world, max_depth, band, surf_cap=None):
+    """Per-voxel splat inputs of the plain path: float pixel coords,
+    quantized corrected depth, the surface-band mask of the splat rows.
+
+    Returns (uf, vf, depth_q, surf, vis, surf_overflow): [V, 512] f32,
+    f32, i32, bool, the VisibleSet, and a 0-d i32."""
+    cfg = vol.cfg
+    vis, overflow = splat_visible(vol, cam, cam_T_world, band, surf_cap)
+    uf, vf, depth_q, surf = project_splat_rows(
+        vis.block_pos, vis.pool_idx, vis.count, vol.tsdf, cam_T_world, cam, cfg.voxel_size,
+        cfg.truncation, max_depth, band, cfg.block_len_log2)
     return uf, vf, depth_q, surf, vis, overflow
 
 

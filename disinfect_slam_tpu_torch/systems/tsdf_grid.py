@@ -5,7 +5,7 @@ utils/tsdf/voxel_tsdf.cuh:32-124).
 Owns a TSDFVolume on one device; integrate takes numpy frames, uploads
 them and updates the volume in place; ray_cast renders a virtual view
 with the parity raycaster or the splat renderer (on a CUDA device, the
-splat_zbuf_rows / splat_payload_rows kernels).  Not ported yet: the
+splat_zbuf_blocks / splat_payload_blocks kernels).  Not ported yet: the
 dense-window recenter and the host spill store.
 """
 

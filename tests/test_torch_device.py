@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from disinfect_slam_tpu_torch.config import TINY_DENSE
-from disinfect_slam_tpu_torch.io.checkpoint import load_volume
+from disinfect_slam_tpu_torch.core.state import TSDFVolume
+from disinfect_slam_tpu_torch.io.checkpoint import load_volume, volume_from_numpy, volume_to_numpy
 from disinfect_slam_tpu_torch.models.segmentation import load_model
 from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
 from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
@@ -36,6 +37,9 @@ DEFAULT_DEVICE_CALLS = {
     "load_model": lambda: load_model("fast"),
     # the device is resolved before the file is opened
     "load_volume": lambda: load_volume(str(ROOT / "no_such_checkpoint.npz")),
+    "TSDFVolume.create": lambda: TSDFVolume.create(CFG),
+    "volume_from_numpy": lambda: volume_from_numpy(
+        volume_to_numpy(TSDFVolume.create(CFG, device="cpu")), CFG),
 }
 
 

@@ -3,10 +3,13 @@ version on the same CUDA tensors, at small shapes, with the edge cases
 of fuse_rows' projection and fusion formulas (rows behind the camera, off
 the image and at camera z = 0, zero weights, probabilities of 0 and 1,
 depth at max_depth, prob_eps, rows past the live count, no live row) and
-of the splat merges (depth ties, payload words with the top bit set,
-negative and off-image footprints, rows past the live count, no live
-row, footprints on both of splat_zbuf_rows' branches), the probes of
-splat_zbuf_rows, the renders through TSDFGrid.ray_cast on the card, and
+of the splat kernels' projection and merges (depth ties, payload words
+with the top bit set, rows behind the camera, off the image and at camera
+z = 0, rows past the live count, no live row, rows near the camera on
+both branches of each kernel, voxels one float32 ulp either side of the
+band and depth thresholds), the probes (splat_zbuf_blocks' tile, the
+feature probe, the sampler's and fuse_rows' stage probes), the renders
+through TSDFGrid.ray_cast on the card, and
 the online slice: the segmentation nets and FusedOnlineStep on the card
 against the port on the CPU.
 
@@ -34,7 +37,7 @@ from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
 from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
-from .torch_cases import block_case
+from .torch_cases import block_case, splat_block_case, splat_edge_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -134,14 +137,18 @@ def test_kernels_reject_what_they_cannot_take(cuda):
         fuse_kernel.fuse_rows(b["img"], b["block_pos"].long(), b["pool_idx"],
                               b["count"], b["tsdf"], b["rgbw"], b["prob"], truncation=TRUNC,
                               max_depth=MAX_DEPTH, max_weight=MAX_W, **b["geometry"])
-    s = _splat_case(cuda, seed=3, count=COUNT, img_h=48, img_w=64)
+    (block_pos, pool_idx, count), (tsdf, rgbw, prob), geometry = _splat_case(
+        cuda, 3, COUNT, 48, 64)
     with pytest.raises(ValueError):
-        splat_kernel.splat_zbuf_rows(s["u0"].long(), s["v0"], s["dq"], s["count"], 48, 64)
+        splat_kernel.splat_zbuf_blocks(block_pos.long(), pool_idx, count, tsdf, **geometry)
     with pytest.raises(ValueError):
-        splat_kernel.splat_payload_rows(s["u0"], s["v0"], s["dq"], s["pool_idx"],
-                                        s["rgbw"], s["prob"].double(), s["count"],
-                                        torch.zeros(48 * 64, dtype=torch.int32,
-                                                    device=cuda), 48, 64)
+        splat_kernel.splat_zbuf_blocks(block_pos, pool_idx, count, tsdf[:, :256].contiguous(),
+                                       **geometry)
+    with pytest.raises(ValueError):
+        splat_kernel.splat_payload_blocks(block_pos, pool_idx, count, tsdf, rgbw,
+                                          prob.double(),
+                                          torch.zeros(48 * 64, dtype=torch.int32, device=cuda),
+                                          **geometry)
 
 
 @pytest.mark.parametrize("sampler", ["auto", "pallas"])
@@ -172,100 +179,161 @@ def test_integrate_on_the_card_equals_the_cpu_run(cuda, sampler):
     np.testing.assert_allclose(a["prob"], b["prob"], rtol=0, atol=1e-6)
 
 
-def _splat_case(dev, seed, count, img_h, img_w):
-    """Splat kernel inputs: footprints spilling past every image edge
-    (floor pixels from -3 to size + 2), depths from a set of three so
-    that voxels tie at pixels, 30% of voxels outside the band (BIG), and
-    rows past `count` given the smallest depth, so that they would win
-    every pixel they touch if they were merged."""
-    rng = np.random.default_rng(seed)
-    u0 = rng.integers(-3, img_w + 3, (ROWS, 512)).astype(np.int32)
-    v0 = rng.integers(-3, img_h + 3, (ROWS, 512)).astype(np.int32)
-    dq = rng.choice([1000, 1001, 1002], (ROWS, 512)).astype(np.int32)
-    dq[rng.uniform(size=dq.shape) < 0.3] = splat_kernel.BIG
-    dq[count:] = 7
-    pool_idx = rng.permutation(POOL)[:ROWS].astype(np.int32)
-    pool_idx[count:] = POOL
-    rgbw = (rng.integers(0, 1 << 24, (POOL, 512)) | (rng.integers(0, 41, (POOL, 512)) << 24))
-    prob = rng.uniform(0, 1, (POOL, 512)).astype(np.float32)  # half >= 0.5: top bit
-    prob[rng.uniform(size=prob.shape) < 0.1] = 0.0
-    prob[rng.uniform(size=prob.shape) < 0.1] = 1.0
+def _splat_case(dev, seed, count, img_h, img_w, about_z=False, voxel_size=0.008,
+                truncation=0.024, near_share=0.05):
+    """The splat kernels' block rows (tests/torch_cases.py): rows behind
+    the camera and off the image, near_share of the live rows near the
+    camera, with about_z voxels at camera z = 0 and depth ties along
+    block layers; a pool with 60% of its voxels in the band and payload
+    words with the top bit set.  -> (rows, pool, geometry) on `dev`."""
+    c = splat_block_case(seed, img_h, img_w, ROWS, COUNT, POOL, voxel_size=voxel_size,
+                         truncation=truncation, about_z=about_z, near_share=near_share)
+    return _splat_tensors(c, dev, count, img_h, img_w)
+
+
+def _splat_tensors(c, dev, count, img_h, img_w):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return dict(u0=t(u0), v0=t(v0), dq=t(dq), pool_idx=t(pool_idx),
-                rgbw=t(rgbw.astype(np.int32)), prob=t(prob),
-                count=torch.tensor(count, dtype=torch.int32, device=dev))
+    rows = (t(c["block_pos"]), t(c["pool_idx"]),
+            torch.tensor(count, dtype=torch.int32, device=dev))
+    pool = (t(c["tsdf"]), t(c["rgbw"]), t(c["prob"]))
+    geometry = dict(cam_T_world=c["pose"], cam=CameraParams.create(c["intrinsics"], img_h, img_w),
+                    voxel_size=c["voxel_size"], truncation=c["truncation"],
+                    max_depth=c["max_depth"], band=c["band"])
+    return rows, pool, geometry
 
 
+def _splat_both(rows, pool, geometry, branches=None):
+    """Both kernels and both plain versions on the same rows -> (zbuf,
+    pbuf, zref, pref); branches: two i32 [2] counters, K4's and K5's."""
+    tsdf, rgbw, prob = pool
+    kz = {} if branches is None else {"branch_counts": branches[0]}
+    kp = {} if branches is None else {"branch_counts": branches[1]}
+    zbuf = splat_kernel.splat_zbuf_blocks(*rows, tsdf, **geometry, **kz)
+    pbuf = splat_kernel.splat_payload_blocks(*rows, tsdf, rgbw, prob, zbuf, **geometry, **kp)
+    zref = splat_kernel.splat_zbuf_blocks_reference(*rows, tsdf, **geometry)
+    pref = splat_kernel.splat_payload_blocks_reference(*rows, tsdf, rgbw, prob, zref,
+                                                       **geometry)
+    torch.cuda.synchronize()
+    return zbuf, pbuf, zref, pref
+
+
+@pytest.mark.parametrize("about_z", [False, True])
 @pytest.mark.parametrize("count", [0, COUNT, ROWS])
 @pytest.mark.parametrize("img_hw", [(48, 64), (1080, 1920)])
-def test_splat_kernels_match_plain_versions(cuda, count, img_hw):
+def test_splat_kernels_match_plain_versions(cuda, count, img_hw, about_z):
+    """K4 and K5 project the block rows in registers and merge exactly as
+    their plain versions do on the card: both buffers bit-equal, one
+    launch each; no live row merges nothing; u32 words with the top bit
+    set win."""
     img_h, img_w = img_hw
-    s = _splat_case(cuda, seed=5, count=count, img_h=img_h, img_w=img_w)
-    rows = (s["u0"], s["v0"], s["dq"])
-    before = (splat_kernel.splat_zbuf_rows.launches, splat_kernel.splat_payload_rows.launches)
-    zbuf = splat_kernel.splat_zbuf_rows(*rows, s["count"], img_h, img_w)
-    pbuf = splat_kernel.splat_payload_rows(*rows, s["pool_idx"], s["rgbw"], s["prob"],
-                                           s["count"], zbuf, img_h, img_w)
-    zref = splat_kernel.splat_zbuf_rows_reference(*rows, s["count"], img_h, img_w)
-    pref = splat_kernel.splat_payload_rows_reference(*rows, s["pool_idx"], s["rgbw"],
-                                                     s["prob"], s["count"], zref,
-                                                     img_h, img_w)
-    torch.cuda.synchronize()
-    assert (splat_kernel.splat_zbuf_rows.launches,
-            splat_kernel.splat_payload_rows.launches) == (before[0] + 1, before[1] + 1)
+    rows, pool, geometry = _splat_case(cuda, 5, count, img_h, img_w, about_z=about_z)
+    before = (splat_kernel.splat_zbuf_blocks.launches,
+              splat_kernel.splat_payload_blocks.launches)
+    zbuf, pbuf, zref, pref = _splat_both(rows, pool, geometry)
+    assert (splat_kernel.splat_zbuf_blocks.launches,
+            splat_kernel.splat_payload_blocks.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(zbuf, zref) and torch.equal(pbuf, pref)
     if count == 0:
         assert (zbuf == splat_kernel.BIG).all() and (pbuf == 0).all()
-    elif count == COUNT:
-        assert not (zbuf == 7).any()  # rows past count merged nothing
-        assert (pbuf < 0).any()  # u32 words with the top bit set won
-        assert ((zbuf >= 1000) & (zbuf < splat_kernel.BIG)).any()
-    # every footprint pixel of a live voxel in the image is covered
-    if img_h == 48 and count:
-        u0, v0 = s["u0"][:count], s["v0"][:count]
-        live = s["dq"][:count] < splat_kernel.BIG
-        inside = live & (u0 >= 0) & (u0 < img_w) & (v0 >= 0) & (v0 < img_h)
-        assert (zbuf[(v0 * img_w + u0)[inside].long()] < splat_kernel.BIG).all()
+    else:
+        assert (zbuf < splat_kernel.BIG).any() and (pbuf < 0).any()
 
 
 @pytest.mark.parametrize("img_hw", [(48, 64), (1080, 1920)])
-def test_splat_zbuf_tile_and_atomic_branches_match_plain_version(cuda, img_hw):
-    """Rows whose footprints fit the kernel's shared tile and rows spread
-    wider than it (blocks near the camera): both branches taken, counted,
-    and the z-buffer bit-equal to the plain scatter-min."""
+def test_splat_tile_and_atomic_branches_match_plain_version(cuda, img_hw):
+    """Rows whose footprints fit the kernels' shared tile and rows near
+    the camera spread wider than it: both branches of each kernel taken,
+    counted, and both buffers bit-equal to the plain versions."""
     img_h, img_w = img_hw
-    rng = np.random.default_rng(8)
-    spread = np.where(np.arange(ROWS) % 4 == 0, 60, 12)[:, None]
-    base_u = rng.integers(-4, img_w - 8, (ROWS, 1))
-    base_v = rng.integers(-4, img_h - 8, (ROWS, 1))
-    u0 = base_u + (rng.uniform(size=(ROWS, 512)) * spread).astype(np.int64)
-    v0 = base_v + (rng.uniform(size=(ROWS, 512)) * spread).astype(np.int64)
-    dq = rng.choice([1000, 1001, 1002, 1003], (ROWS, 512))
-    dq[rng.uniform(size=dq.shape) < 0.3] = splat_kernel.BIG
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)  # noqa: E731
-    u0, v0, dq = t(u0), t(v0), t(dq)
-    count = torch.tensor(COUNT, dtype=torch.int32, device=cuda)
-    branches = torch.zeros(2, dtype=torch.int32, device=cuda)
-    zbuf = splat_kernel.splat_zbuf_rows(u0, v0, dq, count, img_h, img_w, branches)
-    ref = splat_kernel.splat_zbuf_rows_reference(u0, v0, dq, count, img_h, img_w)
-    torch.cuda.synchronize()
-    assert torch.equal(zbuf, ref)
-    tile_rows, atomic_rows = branches.tolist()
-    assert tile_rows > 0 and atomic_rows > 0 and tile_rows + atomic_rows <= COUNT
+    # blocks of 0.8 m fill a 64x48 view; blocks of 16 mm fit the tile at 1080p
+    voxel = 0.1 if img_h == 48 else 0.002
+    rows, pool, geometry = _splat_case(cuda, 8, COUNT, img_h, img_w, voxel_size=voxel,
+                                       truncation=3 * voxel, near_share=0.25)
+    branches = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(2)]
+    zbuf, pbuf, zref, pref = _splat_both(rows, pool, geometry, branches)
+    assert torch.equal(zbuf, zref) and torch.equal(pbuf, pref)
+    for b in branches:
+        tile_rows, atomic_rows = b.tolist()
+        assert tile_rows > 0 and atomic_rows > 0 and tile_rows + atomic_rows <= COUNT
+    assert torch.equal(branches[0], branches[1])  # one footprint box per row
+
+
+@pytest.mark.parametrize("case", splat_edge_cases(), ids=lambda c: c[0] if isinstance(c, tuple) else "")
+def test_splat_kernels_at_the_float32_thresholds(cuda, case):
+    """A voxel one float32 ulp either side of max_depth and of the band
+    edge: the plain projection on the card puts it where the CPU does, and
+    both kernels equal their plain versions bit for bit."""
+    label, c, (row, vox), in_band = case
+    rows, pool, geometry = _splat_tensors(c, cuda, c["count"], 48, 64)
+    _, _, _, surf = render_fast.project_splat_rows(
+        *rows, pool[0], geometry["cam_T_world"], geometry["cam"], c["voxel_size"],
+        c["truncation"], c["max_depth"], c["band"])
+    assert bool(surf[row, vox]) == in_band, label
+    zbuf, pbuf, zref, pref = _splat_both(rows, pool, geometry)
+    assert torch.equal(zbuf, zref) and torch.equal(pbuf, pref), label
 
 
 def test_splat_probes_agree(cuda):
-    """P8's A/B and P9's tile-shape sweep run and agree with the plain
-    scatter-min (each raises otherwise)."""
+    """P8's A/B and P9's tile-shape sweep run on block rows, project as K4
+    does and agree with the plain scatter-min (each raises otherwise);
+    the smaller the tile, the more wide rows take the atomic branch."""
     from disinfect_slam_tpu_torch.ops.cuda import splat_probe
 
+    cases = {"narrow": _splat_case(cuda, 5, COUNT, 48, 64),
+             "wide": _splat_case(cuda, 8, COUNT, 48, 64, voxel_size=0.1, truncation=0.3,
+                                 near_share=0.25)}
     calls = []
-    res = splat_probe.run(cuda, timer=lambda fn, name: calls.append(name) or 0.0)
+    before = (splat_probe.zbuf_atomic.launches, splat_probe.zbuf_tile.launches)
+    res = splat_probe.run(cuda, lambda fn, name, nbytes=0: calls.append(name) or 0.0, cases)
     assert len(calls) == 2 + 2 * len(splat_probe.TILE_SHAPES)
-    assert res["p8"]["atomic_equal"] and res["p8"]["tile_equal"]
+    assert splat_probe.zbuf_atomic.launches > before[0]
+    assert splat_probe.zbuf_tile.launches > before[1]
+    assert res["p8"]["max_abs_err"] == 0 and res["p8"]["count"] == COUNT
     assert [r["tile"] for r in res["p9"]] == [list(s) for s in splat_probe.TILE_SHAPES]
-    assert res["p9"][0]["wide"]["branches"][1] > 0  # 16x32 sends wide rows to atomics
-    assert res["p9"][2]["wide"]["branches"][1] == 0  # 64x64 holds them all
+    atomic_rows = [r["wide"]["branches"][1] for r in res["p9"]]
+    assert atomic_rows[0] > 0 and atomic_rows == sorted(atomic_rows, reverse=True)
+    assert all(r[k]["max_abs_err"] == 0 for r in res["p9"] for k in cases)
+
+
+def test_feature_probe_passes_every_check(cuda):
+    """P7's Hopper counterpart: every primitive compiles, launches and
+    gives the numerics its check expects (run raises otherwise)."""
+    from disinfect_slam_tpu_torch.ops.cuda import feature_probe
+
+    before = feature_probe.launch.launches
+    res = feature_probe.run(cuda)
+    assert set(res) == {fn.__name__ for fn in feature_probe.CHECKS}
+    assert all(r["ok"] and r["max_abs_err"] == 0 for r in res.values())
+    assert feature_probe.launch.launches == before + len(feature_probe.CHECKS)
+
+
+def test_sample_probe_modes_agree(cuda):
+    """P1-P6's Hopper counterparts: every direct, patch and mma mode and
+    every stripped stage of fuse_rows launches and agrees with its plain
+    version (run raises otherwise); pixels scattered over the frame leave
+    voxels outside the patches, skipped and counted."""
+    from disinfect_slam_tpu_torch.ops.cuda import sample_probe
+
+    c = _case(cuda, seed=9)
+    b = _block_case(cuda, seed=9, img_h=48, img_w=64)
+    consts = dict(truncation=TRUNC, max_depth=MAX_DEPTH, max_weight=MAX_W, **b["geometry"])
+    calls = []
+    res = sample_probe.run(
+        cuda, lambda fn, name, nbytes: calls.append(name) or 0.0,
+        (c["img"], c["u"], c["v"], c["count"]),
+        (b["img"], b["block_pos"], b["pool_idx"], b["count"],
+         (b["tsdf"], b["rgbw"], b["prob"]), consts), fuse_kernel.fuse_rows)
+    n_patch = len(sample_probe.PATCH_SHAPES) * len(sample_probe.ROWS_PER_CTA) + 1
+    assert len(res["p4"]) == len(sample_probe.DIRECT_MODES) + 1
+    assert len(res["patch"]) == n_patch and len(res["p5"]) == len(sample_probe.FUSE_STAGES) + 1
+    assert len(calls) == len(res["p4"]) + n_patch + len(res["p5"])
+    assert all(r["max_abs_err"] == 0 for g in ("p4", "patch", "p5") for r in res[g]
+               if "max_abs_err" in r)
+    through = [r["voxels_through"] for r in res["p5"][:-1]]
+    assert through[0] == 512 * int(b["count"]) and through == sorted(through, reverse=True)
+    # the 48x64 patch covers this 48x64 frame; the 24x32 one does not
+    assert all((r["skipped_voxels"] > 0 and r["skipped_rows"] > 0) == ("24x32" in r["mode"])
+               for r in res["patch"])
 
 
 def _fused_grid(device):
@@ -292,11 +360,11 @@ def test_ray_cast_auto_on_the_card_equals_the_plain_path(cuda):
     grid, poses, (k, h, w) = _fused_grid(cuda)
     cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
     for pose in poses[:2]:
-        before = (splat_kernel.splat_zbuf_rows.launches,
-                  splat_kernel.splat_payload_rows.launches)
+        before = (splat_kernel.splat_zbuf_blocks.launches,
+                  splat_kernel.splat_payload_blocks.launches)
         res = grid.ray_cast(4.0, (k, h, w), pose, renderer="auto")
-        assert (splat_kernel.splat_zbuf_rows.launches,
-                splat_kernel.splat_payload_rows.launches) == (before[0] + 1, before[1] + 1)
+        assert (splat_kernel.splat_zbuf_blocks.launches,
+                splat_kernel.splat_payload_blocks.launches) == (before[0] + 1, before[1] + 1)
         ref = render_fast.splat_render(grid.volume, cam, SE3.from_matrix(pose), 4.0)
         for f in ("hit", "depth", "rgba", "normal"):
             assert torch.equal(getattr(res, f), getattr(ref, f)), f
@@ -305,6 +373,29 @@ def test_ray_cast_auto_on_the_card_equals_the_plain_path(cuda):
         ref_bufs = render_fast.splat_buffers(grid.volume, cam, SE3.from_matrix(pose), 4.0)
         for a, b in zip(bufs, ref_bufs):
             assert torch.equal(a, b)
+
+
+def test_card_path_writes_no_plane(cuda, monkeypatch):
+    """On the card, the splat buffers, the depth and the render come from
+    the two kernels alone: the torch projection that writes [S, 512]
+    planes (render_fast.project_splat_rows, _project_for_splat) is never
+    called."""
+    grid, poses, (k, h, w) = _fused_grid(cuda)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    pose = SE3.from_matrix(poses[0])
+    ref = render_fast.splat_buffers(grid.volume, cam, pose, 4.0)
+
+    def planes(*args, **kwargs):
+        raise AssertionError("the card path projected in torch")
+
+    monkeypatch.setattr(render_fast, "project_splat_rows", planes)
+    monkeypatch.setattr(render_fast, "_project_for_splat", planes)
+    bufs = splat_kernel.splat_buffers_cuda(grid.volume, cam, pose, 4.0)
+    depth, hit = splat_kernel.splat_depth(grid.volume, cam, pose, 4.0)
+    res = grid.ray_cast(4.0, (k, h, w), poses[0], renderer="auto")
+    for a, b in zip(bufs, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(hit, res.hit) and torch.equal(depth, res.depth)
 
 
 def test_raycast_on_the_card_agrees_with_the_cpu(cuda):

@@ -32,7 +32,7 @@ def jax_arrays(vol) -> dict:
 
 
 def port_from_jax(vol_j):
-    return volume_from_numpy(jax_arrays(vol_j), port_cfg(vol_j.cfg))
+    return volume_from_numpy(jax_arrays(vol_j), port_cfg(vol_j.cfg), device="cpu")
 
 
 def port_arrays(vol) -> dict:
@@ -151,6 +151,6 @@ def test_voxel_reads_match_jax():
 
 def test_hash_backend_is_not_ported():
     cfg = tconfig.TSDFConfig(backend="hash", num_blocks_log2=6, num_buckets_log2=6)
-    vol = th.TSDFVolume.create(cfg)
+    vol = th.TSDFVolume.create(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         th.insert(vol, torch.zeros((1, 3), dtype=torch.int32), torch.ones(1, dtype=torch.bool))

@@ -79,7 +79,7 @@ def _run_jax(frames, cfg, alloc_every=1, vol=None):
 
 def _run_port(frames, cfg, alloc_every=1, vol=None):
     cam = CameraParams.create(CameraIntrinsics.create(*K), H, W)
-    vol = TSDFVolume.create(cfg) if vol is None else vol
+    vol = TSDFVolume.create(cfg, device="cpu") if vol is None else vol
     for i, (rgb, depth, ht, lt, pose) in enumerate(frames):
         fr = FrameInput(*(torch.from_numpy(a) for a in (rgb, depth, ht, lt)))
         vol = integrate(vol, fr, cam, SE3.from_matrix(pose), MAX_DEPTH,

@@ -224,9 +224,9 @@ def test_ray_cast_renderers_on_the_cpu(port_grid, renderer):
     the splat names run the kernels' plain versions (equal to the plain
     splat), and auto is the raycaster there."""
     grid, poses = port_grid
-    before = (sk.splat_zbuf_rows.launches, sk.splat_payload_rows.launches)
+    before = (sk.splat_zbuf_blocks.launches, sk.splat_payload_blocks.launches)
     res = grid.ray_cast(4.0, (div.K, div.H, div.W), poses[1], renderer=renderer)
-    assert (sk.splat_zbuf_rows.launches, sk.splat_payload_rows.launches) == before
+    assert (sk.splat_zbuf_blocks.launches, sk.splat_payload_blocks.launches) == before
     vol, pose = grid.volume, SE3.from_matrix(poses[1])
     cam = CameraParams.create(CameraIntrinsics.create(*div.K), div.H, div.W)
     if renderer in ("raycast", "auto"):

@@ -1,19 +1,22 @@
-"""Seeded numpy inputs for fuse_rows' block-position contract, shared by
-the port's CPU and GPU tests and chip_smoke.py (no JAX here: the GPU host
-has none).
+"""Seeded numpy inputs for the block-position contract of fuse_rows and
+of the splat kernels, shared by the port's CPU and GPU tests and
+chip_smoke.py (no JAX here: the GPU host has none).
 
 A smooth synthetic frame and visible block rows placed about its surface
 through a pinhole camera and a pose, so that most voxels project into the
 image near their pixel's depth, plus the corners the kernel must place
 where the torch path does: rows behind the camera, rows projecting off
 the image and, with a pose that rotates about the optical axis, voxels at
-camera z = 0 exactly (z = pz + t2 with t2 = -pz)."""
+camera z = 0 exactly (z = pz + t2 with t2 = -pz), and, for the splat
+kernels, rows near the camera whose footprints outgrow the kernels' tile
+and voxels one float32 ulp either side of the band and depth thresholds."""
 
 import numpy as np
 
 from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics
 
 MAX_DEPTH = 4.0
+SPLAT_BAND = 1.25  # the splat renderer's band half-width in voxels
 Z0_INDEX = 40  # voxel z index (block 5, offset 0) that lands at camera z = 0
 
 
@@ -30,12 +33,14 @@ def _rotation(rng, about_z: bool) -> np.ndarray:
 
 
 def block_case(seed, img_h, img_w, rows, count, pool_rows, voxel_size=0.008,
-               about_z=False, with_pool=True):
+               about_z=False, with_pool=True, near_share=0.0):
     """(dict of numpy arrays and Python values) for fuse_rows: img f32
     [H, W, 8]; block_pos i32 [rows, 3]; pool_idx i32 [rows] (padding past
     count); count; tsdf/rgbw/prob pools [pool_rows, 512] (left out
     without `with_pool`, for callers that fill a large pool on the
-    device); pose (SE3), intrinsics (CameraIntrinsics), voxel_size."""
+    device); pose (SE3), intrinsics (CameraIntrinsics), voxel_size.
+    near_share: the share of the live rows placed 0.12-0.3 m from the
+    camera instead of about the surface."""
     rng = np.random.default_rng(seed)
     f = 0.8 * img_w
     intr = CameraIntrinsics.create(f, f * 1.01, img_w / 2 - 0.37, img_h / 2 + 0.21)
@@ -76,6 +81,12 @@ def block_case(seed, img_h, img_w, rows, count, pool_rows, voxel_size=0.008,
     behind = np.zeros(rows, bool)
     behind[rng.choice(count, max(2, count // 20) if count >= 2 else 0, replace=False)] = True
     d[behind] = -rng.uniform(0.2, 2.0, behind.sum())
+    if near_share > 0:
+        near = rng.choice(np.flatnonzero(~behind[:count]), int(near_share * count),
+                          replace=False)
+        pu[near] = rng.uniform(0.2, 0.8, near.size) * img_w
+        pv[near] = rng.uniform(0.2, 0.8, near.size) * img_h
+        d[near] = rng.uniform(0.12, 0.3, near.size)
     cam_pts = np.stack([(pu - intr.cx) / intr.fx * d, (pv - intr.cy) / intr.fy * d, d], -1)
     world = (cam_pts - m[:3, 3]) @ rot  # R^T (p - t)
     block_pos = np.floor(world / (8 * voxel_size) - 0.5).astype(np.int32)
@@ -97,3 +108,96 @@ def block_case(seed, img_h, img_w, rows, count, pool_rows, voxel_size=0.008,
     prob[rng.uniform(size=prob.shape) < 0.05] = 0.0
     prob[rng.uniform(size=prob.shape) < 0.05] = 1.0
     return dict(case, tsdf=tsdf, rgbw=rgbw, prob=prob)
+
+
+def splat_pool(rng, pool_rows, voxel_size, truncation, band=SPLAT_BAND):
+    """tsdf f32, rgbw i32, prob f32 [pool_rows, 512] for the splat
+    kernels: 60% of voxels inside the surface band, their tsdf from 8
+    levels so that neighbouring voxels tie at a pixel; random payload
+    words, half the probabilities at or above 0.5 (packed words with the
+    top bit set), 10% of them 0 and 10% 1."""
+    band_tsdf = band * voxel_size / truncation
+    levels = (np.arange(-3.5, 4.0) / 4.0 * band_tsdf).astype(np.float32)
+    outside = np.where(rng.uniform(size=(pool_rows, 512)) < 0.5, -1.0, 1.0) * rng.uniform(
+        1.01 * band_tsdf, max(1.0, 1.02 * band_tsdf), (pool_rows, 512))
+    tsdf = np.where(rng.uniform(size=(pool_rows, 512)) < 0.6,
+                    rng.choice(levels, (pool_rows, 512)), outside).astype(np.float32)
+    w = rng.integers(0, 41, (pool_rows, 512))
+    rgbw = (rng.integers(0, 1 << 24, (pool_rows, 512)) | (w << 24)).astype(np.int32)
+    prob = rng.uniform(0, 1, (pool_rows, 512)).astype(np.float32)
+    prob[rng.uniform(size=prob.shape) < 0.1] = 0.0
+    prob[rng.uniform(size=prob.shape) < 0.1] = 1.0
+    return tsdf, rgbw, prob
+
+
+def splat_block_case(seed, img_h, img_w, rows, count, pool_rows, voxel_size=0.008,
+                     truncation=0.024, about_z=False, near_share=0.05, with_pool=True):
+    """(dict) for the splat kernels' block contract: block_pos i32 [rows,
+    3] and pool_idx i32 [rows] from block_case (rows behind the camera and
+    off the image, with `about_z` voxels at camera z = 0 and, about the
+    optical axis, every voxel of a block layer at one depth, so that more
+    voxels tie), near_share of the live rows near the camera (footprints
+    wider than the kernels' 32x32 tile), count; pose, intrinsics,
+    voxel_size, truncation, max_depth, band; with `with_pool` the pool
+    arrays of splat_pool."""
+    c = block_case(seed, img_h, img_w, rows, count, pool_rows, voxel_size=voxel_size,
+                   about_z=about_z, with_pool=False, near_share=near_share)
+    del c["img"]
+    case = dict(c, truncation=truncation, max_depth=MAX_DEPTH, band=SPLAT_BAND)
+    if not with_pool:
+        return case
+    tsdf, rgbw, prob = splat_pool(np.random.default_rng(seed + 7919), pool_rows, voxel_size,
+                                  truncation)
+    return dict(case, tsdf=tsdf, rgbw=rgbw, prob=prob)
+
+
+def _next32(x, toward):
+    return float(np.nextafter(np.float32(x), np.float32(toward)))
+
+
+def splat_edge_cases(seed=3, img_h=48, img_w=64, rows=16, count=12, pool_rows=64):
+    """Variants of one splat_block_case that put one voxel (row 0's
+    first voxel well inside the image) at the float32 thresholds the
+    kernels share with the torch projection, with whether it must be in
+    the surface band: -> [(label, case, (row, voxel), in_band)].
+
+    Depth: max_depth equal to the voxel's camera z, one float32 ulp either
+    side, and a Python float below z that rounds to z in float32 (torch
+    compares in float32; a float64 comparison would leave the voxel out).
+    Band: |tsdf| equal to band_tsdf rounded to float32 and one ulp below,
+    of either sign, band_tsdf being a Python float that float32 rounds
+    down (so a float64 comparison would take the voxel in)."""
+    import torch
+
+    from disinfect_slam_tpu_torch.ops.cuda.fuse_kernel import project_rows
+
+    base = splat_block_case(seed, img_h, img_w, rows, count, pool_rows, near_share=0.0)
+    u, v, z = (a.numpy() for a in project_rows(torch.from_numpy(base["block_pos"]),
+                                                base["pose"], base["intrinsics"],
+                                                base["voxel_size"]))
+    ok = ((u >= 2) & (u < img_w - 2) & (v >= 2) & (v < img_h - 2) & (z > 0.5)
+          & (z < MAX_DEPTH - 0.5))
+    ok[count:] = False
+    row, vox = (int(i) for i in np.argwhere(ok)[0])
+    zv = float(z[row, vox])
+    pool = int(base["pool_idx"][row])
+    band_tsdf = base["band"] * base["voxel_size"] / base["truncation"]
+    bt32 = float(np.float32(band_tsdf))
+    assert bt32 < band_tsdf, (bt32, band_tsdf)
+
+    def case(label, in_band, max_depth=MAX_DEPTH, tsdf=0.0):
+        c = dict(base, max_depth=max_depth, tsdf=base["tsdf"].copy())
+        c["tsdf"][pool, vox] = tsdf
+        return (label, c, (row, vox), in_band)
+
+    ulp = zv - _next32(zv, 0.0)
+    return [
+        case("z == max_depth", True, max_depth=zv),
+        case("z one ulp above max_depth", False, max_depth=_next32(zv, 0.0)),
+        case("z one ulp below max_depth", True, max_depth=_next32(zv, np.inf)),
+        case("max_depth rounds up to z", True, max_depth=zv - 0.25 * ulp),
+        case("tsdf == band", False, tsdf=bt32),
+        case("tsdf == -band", False, tsdf=-bt32),
+        case("tsdf one ulp inside the band", True, tsdf=_next32(bt32, 0.0)),
+        case("-tsdf one ulp inside the band", True, tsdf=-_next32(bt32, 0.0)),
+    ]
