@@ -51,6 +51,23 @@ exits non-zero:
      events; then apps.online over all 60 frames, --fused with
      --render-dir (fuse_rows once per frame, two 640x360 RGBA PNGs) and
      the asynchronous DISINFSystem path at --fps 120;
+  6b. the export slice, on phase 3's last volume and dump: the mesh
+     (extract_mesh_chunked, f32 then q16, each transfer's wall ms) against
+     the JAX reference's export fingerprint (triangles, merged vertices
+     and faces within 0.1%, clipped chunks equal, vertex sums within 1e-4
+     of their largest possible size), its first 4 chunks against the
+     port's own CPU run of the same blocks (equal counts, vertices within
+     1e-6 m, no triangle wound the other way); the bridge's 2 m bbox query
+     (median of 5 calls); apps.tsdf2mesh on phase 3's data.bin, .ply as a
+     user runs it and .obj in process (the rebuilt volume's gather_valid
+     gives the dump's records back exactly, as a set; the mesh against the
+     fingerprint); the hash-backend replay (apps.offline --backend hash,
+     fused sampler: fuse_rows once per frame, the volume against the
+     fingerprint, a frame-0 render launching each splat kernel once,
+     bit-equal in both buffers to the plain splat); and apps.offline
+     --preset small --grid-log2 6 --auto-recenter, whose window moves
+     (every live entry's table cell points back at it, no live block
+     outside the window);
   7. device times, after every end-to-end measurement (a profiler trace
      leaves the host slower for the rest of the process): the fusion
      profile (frames 45-59 of a fresh volume: device time, kernels per
@@ -77,8 +94,9 @@ branches of each kernel taken and counted; phase 5 counts them on the
 frame-0 render too.
 
 The line before the last is a JSON object describing each kernel; the
-last line is the JSON result.  The full report, and the data.bin of the
-last replay, go to disinfect_slam_tpu_torch/_build/.  Run from the
+last line is the JSON result.  The full report, the data.bin of phase 3's
+last replay (and data_two_stage.bin, data_hash.bin of the others) and the
+meshes go to disinfect_slam_tpu_torch/_build/.  Run from the
 repository root, with no arguments:  python3 chip_smoke.py
 """
 
@@ -112,6 +130,14 @@ SPLAT_VOXEL, SPLAT_TRUNC = 0.004, 0.024  # the bench preset's voxel size and tru
 RENDER_MAX_DEPTH = 4.0
 ONLINE_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
                                   "orbit_vga_online_fingerprint.json")
+EXPORT_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                                  "orbit_vga_export_fingerprint.json")
+# meshes against the JAX reference's (its volume agrees within the limits
+# above, not bit for bit): counts within 0.1%; each axis's vertex sum
+# within 1e-4 of the largest it could be (points x the bbox's reach)
+TOL_MESH_COUNT, TOL_MESH_SUM = 1e-3, 1e-4
+MESH_CPU_CHUNKS = 4  # chunks held against the port's CPU run
+RECENTER_GRID_LOG2 = 6  # a 64-block window of 8 cm blocks: the camera starts near its edge
 ONLINE_FRAMES = 30
 SPLIT_FIRST, SPLIT_LAST = 45, 59  # the replay frames fusion_split and fusion_profile measure
 # seg of frame 0 against the JAX reference, from the limits of
@@ -169,7 +195,9 @@ def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
     medians stand in for the launches; a trace that lost most of them, or
     that reads less than floor_ms (the kernel's bound: no run can be
     faster, so such a reading is a fault of the trace), is taken again,
-    three times at most, then the call raises.  The profiler leaves the
+    three times at most; when all three lost the device events, the calls
+    are timed by CUDA events (cuda_time_ms, launch overhead included) and
+    the log says so; else the call raises.  The profiler leaves the
     host slower for the rest of the process, so these run after the
     end-to-end measurements they could slow."""
     from torch.profiler import ProfilerActivity, profile
@@ -195,6 +223,15 @@ def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
             readings.append(ms)
             log(f"[chip_smoke] {name or 'fn'}: a trace read {ms:.4f} ms, below the bound "
                 f"{floor_ms:.4f} ms; taken again")
+    if not readings:
+        # three traces without the device events: time the calls with CUDA
+        # events, which include each call's launch overhead (an upper
+        # bound of the device time), and say so
+        ms = cuda_time_ms(fn, reps)
+        log(f"[chip_smoke] {name or 'fn'}: three traces lost their device events; "
+            f"CUDA events instead: {ms:.4f} ms a call")
+        if ms >= floor_ms:
+            return ms
     raise AssertionError(f"the traces of {name or 'fn'} lost their device events or read "
                          f"below the bound {floor_ms:.4f} ms: {readings}")
 
@@ -610,10 +647,10 @@ def reset_launches(*fns) -> None:
         fn.launches = 0
 
 
-def replay(offline, sampler: str, save: str, render_dir=None):
+def replay(offline, sampler: str, save: str, render_dir=None, extra=()):
     argv = ["--logdir", DATASET, "--config", os.path.join(DATASET, "cam.yaml"),
             "--preset", "bench", "--device", "cuda", "--sampler", sampler,
-            "--save", save]
+            "--save", save, *extra]
     if render_dir:
         argv += ["--render-dir", render_dir, "--renderer", "auto"]
     return offline.main(argv)
@@ -1266,6 +1303,260 @@ def fusion_profile(offline, dev):
     return res
 
 
+def check_mesh_fingerprint(fp, ref, label) -> None:
+    """A mesh fingerprint (ops/mesh.py mesh_fingerprint or
+    indexed_mesh_fingerprint) against the JAX reference's: counts within
+    TOL_MESH_COUNT, clipped chunks equal, each axis's vertex sum within
+    TOL_MESH_SUM of the largest it could be (its points times the bbox's
+    reach on that axis; a sum of coordinates of both signs can sit near
+    0, where a relative limit would mean nothing)."""
+    failed = {}
+    for k in ("triangles", "merged_vertices", "merged_faces"):
+        if k in ref:
+            dev_ = abs(fp[k] - ref[k]) / max(ref[k], 1)
+            log(f"[chip_smoke] {label} {k}: port {fp[k]} reference {ref[k]} rel dev "
+                f"{dev_:.3e} (limit {TOL_MESH_COUNT:g})")
+            if not dev_ <= TOL_MESH_COUNT:
+                failed[k] = dev_
+    if "clipped_chunks" in ref:
+        log(f"[chip_smoke] {label} clipped chunks: port {fp['clipped_chunks']} reference "
+            f"{ref['clipped_chunks']}")
+        if fp["clipped_chunks"] != ref["clipped_chunks"]:
+            failed["clipped_chunks"] = fp["clipped_chunks"]
+    points = 3 * ref["triangles"] if "triangles" in ref else ref["merged_vertices"]
+    for a in range(3):
+        reach = points * max(abs(ref["bbox_min"][a]), abs(ref["bbox_max"][a]), 1e-3)
+        dev_ = abs(fp["vertex_sum"][a] - ref["vertex_sum"][a]) / reach
+        log(f"[chip_smoke] {label} vertex sum axis {a}: port {fp['vertex_sum'][a]:.3f} "
+            f"reference {ref['vertex_sum'][a]:.3f} dev {dev_:.3e} of its reach (limit "
+            f"{TOL_MESH_SUM:g})")
+        if not dev_ <= TOL_MESH_SUM:
+            failed[f"vertex_sum[{a}]"] = dev_
+    if failed:
+        raise AssertionError(f"{label}: mesh fingerprint outside tolerance: {failed}")
+
+
+def timed_mesh(vol, transfer):
+    """extract_mesh_chunked (device work and the one copy to the host),
+    wall ms, then the fingerprint (the weld on the host, timed apart)."""
+    from disinfect_slam_tpu_torch.ops import mesh as tmesh
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tmesh.counting_clips() as clipped:
+        tris = tmesh.extract_mesh_chunked(vol, transfer=transfer)
+    ms = 1e3 * (time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    fp = tmesh.mesh_fingerprint(tris, clipped[0])
+    return tris, {"ms": ms, "weld_ms": 1e3 * (time.perf_counter() - t1), **fp}
+
+
+def mesh_chunks_against_cpu(vol) -> dict:
+    """The first MESH_CPU_CHUNKS chunks of extract_mesh_chunked's
+    candidate blocks on the card and on a CPU copy of the volume: equal
+    triangle counts, vertices within 1e-6 m, no triangle wound the other
+    way."""
+    import dataclasses
+
+    from disinfect_slam_tpu_torch.ops import mesh as tmesh
+
+    cpu = dataclasses.replace(vol, **{f.name: getattr(vol, f.name).cpu()
+                                      for f in dataclasses.fields(vol) if f.name != "cfg"})
+    idx = torch.nonzero(tmesh._candidates(vol)).flatten()
+    worst, tris = 0.0, 0
+    for c in range(MESH_CPU_CHUNKS):
+        sel = idx[c * 512:(c + 1) * 512]
+        out = []
+        for v in (vol, cpu):
+            s = sel.to(v.device)
+            m = tmesh._extract_from_blocks(v, v.entry_pos[s], v.entry_block[s],
+                                           torch.ones(len(s), dtype=torch.bool, device=v.device),
+                                           1 << 18)
+            out.append(m.vertices[:int(m.count)].cpu().numpy())
+        a, b = out
+        if a.shape != b.shape:
+            raise AssertionError(f"mesh chunk {c}: {a.shape[0]} triangles on the card, "
+                                 f"{b.shape[0]} on the CPU")
+        n_a = np.cross(a[:, 1] - a[:, 0], a[:, 2] - a[:, 0])
+        n_b = np.cross(b[:, 1] - b[:, 0], b[:, 2] - b[:, 0])
+        big = np.linalg.norm(n_b, axis=-1) > 1e-12
+        flips = int(((n_a * n_b).sum(-1)[big] <= 0).sum())
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        worst, tris = max(worst, err), tris + a.shape[0]
+        if err > 1e-6 or flips:
+            raise AssertionError(f"mesh chunk {c}: card against CPU max |dv| {err}, "
+                                 f"{flips} flipped triangles")
+    del cpu
+    log(f"[chip_smoke] mesh: first {MESH_CPU_CHUNKS} chunks ({tris} triangles) on the card "
+        f"equal the CPU run's: max |dv| {worst:.3g} m, no flips")
+    return {"chunks": MESH_CPU_CHUNKS, "triangles": tris, "max_abs_err": worst}
+
+
+def tsdf2mesh_phase(dump: str, ref, smi) -> dict:
+    """apps.tsdf2mesh on phase 3's dump: the .ply as a user runs it (a
+    process of its own, wall seconds), the mesh against the reference's
+    (c); the .obj in process with the dump's voxel size, whose rebuilt
+    volume must give the dump's records back exactly, as a set."""
+    from disinfect_slam_tpu_torch.apps import tsdf2mesh
+    from disinfect_slam_tpu_torch.ops.cuda import build
+    from disinfect_slam_tpu_torch.ops.gather import (
+        gather_valid, load_spatial_tsdf, to_numpy_records,
+    )
+
+    out = os.path.join(str(build.BUILD_DIR), "dump_mesh")
+    ply = out + ".ply"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "disinfect_slam_tpu_torch.apps.tsdf2mesh",
+                           dump, ply], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"tsdf2mesh failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[chip_smoke] {line}")
+    last = proc.stdout.strip().splitlines()[-1].split()
+    n_v, n_f = int(last[1]), int(last[4])
+    head = open(ply, "rb").read(512).split(b"end_header")[0].decode()
+    if f"element vertex {n_v}" not in head or "ht_probability" not in head:
+        raise AssertionError(f"{ply}: unexpected header {head!r}")
+    fp = {"merged_vertices": n_v, "merged_faces": n_f}
+    for k in fp:
+        dev_ = abs(fp[k] - ref["mesh"][k]) / ref["mesh"][k]
+        log(f"[chip_smoke] tsdf2mesh {k}: port {fp[k]} reference {ref['mesh'][k]} rel dev "
+            f"{dev_:.3e} (limit {TOL_MESH_COUNT:g})")
+        if not dev_ <= TOL_MESH_COUNT:
+            raise AssertionError(f"tsdf2mesh {k} outside tolerance")
+    res = tsdf2mesh.main([dump, out + ".obj", "--voxel", str(SPLAT_VOXEL)])
+    rec = load_spatial_tsdf(dump)
+    back = to_numpy_records(gather_valid(res["volume"]))
+
+    def by_voxel(r):
+        """The records in voxel order (one int64 key a voxel)."""
+        v = np.rint(r[:, :3] / SPLAT_VOXEL).astype(np.int64) + (1 << 20)
+        return r[np.argsort((v[:, 0] << 42) | (v[:, 1] << 21) | v[:, 2], kind="stable")]
+
+    same = back.shape == rec.shape and np.array_equal(by_voxel(back).view(np.int32),
+                                                      by_voxel(rec).view(np.int32))
+    log(f"[chip_smoke] tsdf2mesh: {res['blocks']} blocks (reference {ref['active_blocks']}); "
+        f"the rebuilt volume's gather_valid gives the {rec.shape[0]} records back as a set: "
+        f"{same}; wall {wall_s:.2f} s for the .ply ({smi}); in process load "
+        f"{res['load_s']:.2f} s, mesh {res['mesh_s']:.2f} s")
+    if not same or res["blocks"] != ref["active_blocks"]:
+        raise AssertionError("tsdf2mesh: the rebuilt volume does not hold the dump")
+    return {"wall_s": wall_s, **fp, "load_s": res["load_s"], "mesh_s": res["mesh_s"],
+            "records": int(rec.shape[0]), "blocks": res["blocks"]}
+
+
+def hash_replay(offline, splat_kernel, fuse_kernel, intrinsics, poses, ref, fused_ms) -> dict:
+    """apps.offline --backend hash with the fused sampler: fuse_rows once a
+    frame, the volume against the reference's hash replay, then one
+    frame-0 render (renderer "auto") launching each splat kernel once,
+    bit-equal in both buffers to the plain splat on the card."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.ops import render_fast
+    from disinfect_slam_tpu_torch.ops.cuda import build
+
+    splat_fns = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
+    reset_launches(fuse_kernel.fuse_rows, *splat_fns)
+    save = os.path.join(str(build.BUILD_DIR), "data_hash.bin")
+    res = replay(offline, "pallas_fused", save, extra=["--backend", "hash"])
+    grid = res["grid"]
+    if grid.cfg.backend != "hash" or fuse_kernel.fuse_rows.launches != res["frames"]:
+        raise AssertionError(f"hash replay: {grid.cfg.backend}, fuse_rows launched "
+                             f"{fuse_kernel.fuse_rows.launches} times for {res['frames']} frames")
+    fuse_launches = fuse_kernel.fuse_rows.launches
+    check_dump(save, res["records"])
+    fp = check_fingerprint(grid, res["records"], ref, "hash replay")
+    ms = 1e3 * statistics.mean(res["integrate_s"])
+    grid.ray_cast(RENDER_MAX_DEPTH, (intrinsics, H, W), poses[0], renderer="auto")
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in splat_fns]
+    if launches != [1, 1]:
+        raise AssertionError(f"hash render: splat kernels launched {launches} times")
+    cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), H, W)
+    pose = SE3.from_matrix(poses[0])
+    ours = splat_kernel.splat_buffers_cuda(grid.volume, cam, pose, RENDER_MAX_DEPTH)
+    plain = render_fast.splat_buffers(grid.volume, cam, pose, RENDER_MAX_DEPTH)
+    equal = all(torch.equal(a, b) for a, b in zip(ours, plain))
+    log(f"[chip_smoke] hash replay: {ms:.3f} ms/frame (dense fused replay {fused_ms:.3f}); "
+        f"fuse_rows launches {fuse_launches}; frame-0 render splat launches {launches}, "
+        f"buffers bit-equal to the plain splat: {equal} ({int(ours[3])} surface blocks)")
+    if not equal:
+        raise AssertionError("hash render: the kernels' buffers differ from the plain splat")
+    return {"ms_per_frame": ms, "fuse_rows_launches": fuse_launches,
+            "splat_launches": launches, "fingerprint": fp, "frames": res["frames"]}
+
+
+def recenter_replay(offline) -> dict:
+    """apps.offline --preset small --grid-log2 RECENTER_GRID_LOG2
+    --auto-recenter on orbit_vga: the window moves, every live entry's
+    table cell points back at it, and no live block lies outside it."""
+    from disinfect_slam_tpu_torch.ops import hash as th
+
+    res = offline.main(["--logdir", DATASET, "--config", os.path.join(DATASET, "cam.yaml"),
+                        "--preset", "small", "--grid-log2", str(RECENTER_GRID_LOG2),
+                        "--auto-recenter", "--device", "cuda"])
+    vol = res["grid"].volume
+    live = vol.entry_block >= 0
+    cell, in_window = th.table_index(vol.entry_pos, vol.cfg)
+    entries = torch.arange(vol.cfg.num_entries, device=vol.device, dtype=torch.int32)
+    back = vol.block_table[cell.long()] == entries
+    n_live = int(live.sum())
+    n_table = int((vol.block_table >= 0).sum())
+    ok = bool((back | ~live).all()) and bool((in_window | ~live).all()) and n_table == n_live
+    log(f"[chip_smoke] recenter replay: the window moved at frames {res['recenter_frames']} to "
+        f"origin {vol.cfg.grid_origin}; {n_live} live blocks, {n_table} table cells, each live "
+        f"entry's cell points back at it and lies in the window: {ok}; oob_count "
+        f"{int(vol.oob_count)}")
+    if not res["recenter_frames"] or not ok or n_live == 0:
+        raise AssertionError("recenter replay: the window did not move or its directory is bad")
+    return {"moves": res["recenter_frames"], "origin": list(vol.cfg.grid_origin),
+            "live_blocks": n_live, "oob_count": int(vol.oob_count)}
+
+
+def export_slice(offline, grid, dump, fuse_kernel, splat_kernel, intrinsics, poses, fused_ms,
+                 smi, dev) -> dict:
+    """Phase 6b (see the docstring)."""
+    from types import SimpleNamespace
+
+    from disinfect_slam_tpu_torch.ops.gather import BoundingCube
+    from disinfect_slam_tpu_torch.ops.mesh import indexed_mesh_fingerprint
+    from disinfect_slam_tpu_torch.systems.bridge import ReconstructionBridge
+
+    with open(EXPORT_FINGERPRINT) as f:
+        ref = json.load(f)
+    vol = grid.volume
+    mesh = {}
+    for transfer in ("f32", "q16"):
+        _, mesh[transfer] = timed_mesh(vol, transfer)
+        log(f"[chip_smoke] mesh {transfer}: {mesh[transfer]['ms']:.1f} ms wall "
+            f"(extract and the one copy; the weld on the host "
+            f"{mesh[transfer]['weld_ms']:.1f} ms) ({smi})")
+        check_mesh_fingerprint(mesh[transfer], ref["mesh"][transfer], f"mesh {transfer}")
+    mesh["cpu_chunks"] = mesh_chunks_against_cpu(vol)
+    torch.cuda.empty_cache()
+
+    bridge = ReconstructionBridge(SimpleNamespace(tsdf=SimpleNamespace(tsdf=grid)),
+                                  BoundingCube(*ref["bridge"]["cube"]))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        verts, faces = bridge.query_mesh()
+        times.append(1e3 * (time.perf_counter() - t0))
+    bfp = indexed_mesh_fingerprint(verts, faces)
+    log(f"[chip_smoke] bridge query (2 m cube): median {statistics.median(times):.1f} ms of "
+        f"{[round(t, 1) for t in times]} (the reference publishes every 200 ms) ({smi})")
+    check_mesh_fingerprint(bfp, ref["bridge"], "bridge query")
+    torch.cuda.empty_cache()
+
+    dump_res = tsdf2mesh_phase(dump, ref["dump"], smi)
+    torch.cuda.empty_cache()
+    hash_res = hash_replay(offline, splat_kernel, fuse_kernel, intrinsics, poses,
+                           ref["hash_replay"], fused_ms)
+    torch.cuda.empty_cache()
+    return {"mesh": mesh, "bridge": {"median_ms": statistics.median(times), "ms": times, **bfp},
+            "tsdf2mesh": dump_res, "hash": hash_res, "recenter": recenter_replay(offline)}
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -1450,7 +1741,7 @@ def main() -> int:
 
     # phase 3: the slice through the fused kernel; the last replay also
     # renders the app's final view through the splat kernels.  The probes
-    # count their launches from here to the end of phase 6: the main path
+    # count their launches from here to the end of phase 6b: the main path
     # must launch none
     probe_fns = probe_launches(splat_probe, feature_probe, sample_probe)
     reset_launches(*probe_fns)
@@ -1492,13 +1783,14 @@ def main() -> int:
     # phase 4: the two-stage path
     fuse_kernel.fuse_rows.launches = 0
     sample_kernel.sample_rows.launches = 0
-    res = replay(offline, "pallas", save)
+    save_two = os.path.join(str(build.BUILD_DIR), "data_two_stage.bin")
+    res = replay(offline, "pallas", save_two)
     sample_launches = sample_kernel.sample_rows.launches
     if sample_launches != res["frames"] or fuse_kernel.fuse_rows.launches:
         raise AssertionError(f"two-stage replay: sample_rows launched "
                              f"{sample_launches} times, fuse_rows "
                              f"{fuse_kernel.fuse_rows.launches}")
-    check_dump(save, res["records"])
+    check_dump(save_two, res["records"])
     fp_two = check_fingerprint(res["grid"], res["records"], ref, "two-stage replay")
     two_ms = 1e3 * statistics.mean(res["integrate_s"])
     log(f"[chip_smoke] phase 4: two-stage replay {two_ms:.3f} ms/frame; "
@@ -1516,7 +1808,6 @@ def main() -> int:
         f"({time.perf_counter() - t_start:.1f} s)")
     # fuse_rows on a real frame's visible set of the fused volume
     fuse_real = check_fuse_real_frame(fuse_kernel, grid, 30, dev)
-    del grid
     torch.cuda.empty_cache()
 
     # phase 6: the online slice, segmentation feeding fuse_rows
@@ -1528,8 +1819,21 @@ def main() -> int:
         f"{online['seg']['unet']['seg_ms']:.3f} (UNet) ({smi}) "
         f"({time.perf_counter() - t6:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
+    # phase 6b: the export slice on phase 3's volume and dump
+    t6b = time.perf_counter()
+    export = export_slice(offline, grid, save, fuse_kernel, splat_kernel, intrinsics, poses,
+                          fused_ms, smi, dev)
+    del grid
+    torch.cuda.empty_cache()
+    log(f"[chip_smoke] phase 6b: export slice ok; mesh f32 {export['mesh']['f32']['ms']:.1f} "
+        f"ms, q16 {export['mesh']['q16']['ms']:.1f} ms, bridge query "
+        f"{export['bridge']['median_ms']:.1f} ms, tsdf2mesh {export['tsdf2mesh']['wall_s']:.2f} "
+        f"s, hash replay {export['hash']['ms_per_frame']:.3f} ms/frame (dense {fused_ms:.3f}) "
+        f"({smi}) ({time.perf_counter() - t6b:.1f} s added, "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
-    log(f"[chip_smoke] probe launches on the main path (phases 3-6): {probe_main_launches}")
+    log(f"[chip_smoke] probe launches on the main path (phases 3-6b): {probe_main_launches}")
 
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
@@ -1555,6 +1859,7 @@ def main() -> int:
         "probe": probe,
         "render": render,
         "online": online,
+        "export": export,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
         "fingerprint_fused": fp_fused,
@@ -1571,7 +1876,8 @@ def main() -> int:
          "replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:262",
          "also_replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:519",
          "launches": fused_launches, "online_launches": online["online_launches"],
-         "online_app_launches": online["app"]["fused"]["fuse_rows_launches"], **fuse,
+         "online_app_launches": online["app"]["fused"]["fuse_rows_launches"],
+         "hash_launches": export["hash"]["fuse_rows_launches"], **fuse,
          "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
                             fuse_real["max_abs_err"]),
          "ms_1080p": fuse_1080["ms"], "bound_ms_1080p": fuse_1080["bound_ms"],
@@ -1585,7 +1891,8 @@ def main() -> int:
          "also_source": ["disinfect_slam_tpu_torch/csrc/splat_zbuf_tile.cuh",
                          "disinfect_slam_tpu_torch/csrc/splat_project.cuh"],
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:149",
-         "launches": splat_launches[0], **splat["zbuf"],
+         "launches": splat_launches[0], "hash_launches": export["hash"]["splat_launches"][0],
+         **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
                             *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
                             render_err["zbuf"]),
@@ -1594,7 +1901,8 @@ def main() -> int:
         {"name": "splat_payload_blocks", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:438",
-         "launches": splat_launches[1], **splat["payload"],
+         "launches": splat_launches[1], "hash_launches": export["hash"]["splat_launches"][1],
+         **splat["payload"],
          "max_abs_err": max(splat["payload"]["max_abs_err"],
                             splat_1080["payload"]["max_abs_err"],
                             *(w["payload"]["max_abs_err"] for w in splat_about_z),

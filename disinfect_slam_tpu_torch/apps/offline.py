@@ -3,13 +3,14 @@ reference examples/tsdf/offline.cc).
 
 Replays a logged dataset (trajectory.txt + {id}_rgb/_depth[/_ht/_no_ht]
 PNGs) through TSDFGrid, reports the integrate time per frame, can dump
-the fused volume as VoxelSpatialTSDF records (data.bin) and render the
-final view to PNGs.
+the fused volume as VoxelSpatialTSDF records (data.bin), mesh it (OBJ)
+and render the final view to PNGs.  --auto-recenter moves the dense
+window after the camera; --grid-log2 widens it.
 
 Usage:
   python -m disinfect_slam_tpu_torch.apps.offline --logdir datasets/orbit_vga \
       --config datasets/orbit_vga/cam.yaml --preset bench --save data.bin \
-      --render-dir out --renderer auto
+      --mesh out.obj --render-dir out --renderer auto
 
 It runs on the CUDA device unless asked for another (--device cpu).
 """
@@ -30,6 +31,7 @@ from ..io.config_reader import (
 )
 from ..io.dataset import LoggedReplay
 from ..ops.gather import dump_spatial_tsdf
+from ..ops.mesh import extract_mesh_chunked, merge_vertices, save_obj
 from ..systems.tsdf_grid import RENDERERS, TSDFGrid
 from ..utils.device import resolve_device
 from ..utils.timing import StageTimer
@@ -49,6 +51,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-depth", type=float, help="depth cut-off in metres")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--save", help="dump VoxelSpatialTSDF binary here")
+    ap.add_argument("--mesh", help="extract the mesh and save it here as OBJ")
+    ap.add_argument("--mesh-q16", action="store_true",
+                    help="16-bit fixed-point mesh transfer (half the bytes, at most "
+                         "1/32 voxel of error; ops/mesh.py extract_mesh_chunked)")
     ap.add_argument(
         "--sampler", choices=["auto", "gather", "pallas", "pallas_fused"],
         default="auto",
@@ -60,6 +66,15 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="volume capacity preset (small: quick CPU runs; bench: the "
              "benchmark's 2^18-block, 4 mm configuration)",
     )
+    ap.add_argument("--backend", choices=["dense", "hash"], default="dense",
+                    help="spatial index: the dense window, or the reference's "
+                         "coordinate-unbounded hash (with the sort dedup)")
+    ap.add_argument("--grid-log2", type=int, default=0, metavar="L",
+                    help="dense backend: 2^L blocks of coverage a side (the window "
+                         "spans 2^L * 8 * voxel metres); 0 = the preset's")
+    ap.add_argument("--auto-recenter", action="store_true",
+                    help="dense backend: move the coverage window after the camera "
+                         "when it nears the window's edge (TSDFGrid.maybe_recenter)")
     ap.add_argument("--render-dir", help="write the final view's PNGs here")
     ap.add_argument(
         "--renderer", choices=list(RENDERERS), default="auto",
@@ -105,13 +120,18 @@ def make_config(args) -> tuple[TSDFConfig, float, float, float]:
     else:
         cfg = TSDFConfig()
     cfg = dataclasses.replace(cfg, sampler=args.sampler)
+    if args.grid_log2:
+        cfg = dataclasses.replace(cfg, grid_log2=args.grid_log2)
+    if args.backend == "hash":
+        cfg = dataclasses.replace(cfg, backend="hash", alloc_dedup="sort")
     return cfg, voxel, trunc, max_depth
 
 
 def run(args) -> dict:
-    """Replay the dataset; returns the grid, per-frame integrate seconds,
-    with --save the number of records written and with --render-dir the
-    PNG paths and the render time."""
+    """Replay the dataset; returns the grid, frames, per-frame integrate
+    seconds, the frames at which the window moved, with --save the number
+    of records written, with --mesh the vertex and face counts and the
+    mesh time, and with --render-dir the PNG paths and the render time."""
     device = resolve_device(args.device)
     if args.config:
         cam_yaml = load_yaml(args.config)
@@ -130,6 +150,7 @@ def run(args) -> dict:
     grid = TSDFGrid(voxel, trunc, cfg=cfg, device=device)
     timer = StageTimer(grid.device)
     n = 0
+    moves = []
     last_pose = np.eye(4, dtype=np.float32)
     for frame in replay:
         if n == 0:
@@ -142,6 +163,11 @@ def run(args) -> dict:
                 print(f"[offline] WARNING: intrinsics (cx={intrinsics[2]:.1f}, "
                       f"cy={intrinsics[3]:.1f}) look wrong for {fw}x{fh} frames "
                       "-- pass --config with the dataset's camera YAML")
+        if args.auto_recenter:
+            cam_pos = np.linalg.inv(np.asarray(frame.cam_T_world, np.float64))[:3, 3]
+            if grid.maybe_recenter(cam_pos, max_depth=max_depth):
+                moves.append(n)
+                print(f"[offline] recentered coverage window at frame {n}")
         with timer.span("integrate"):
             grid.integrate(frame.rgb, frame.depth, frame.ht, frame.lt,
                            max_depth, intrinsics, frame.cam_T_world)
@@ -158,11 +184,21 @@ def run(args) -> dict:
     print(f"[offline] done: {n} frames on {grid.device}, integrate "
           f"{ms:.3f} ms/frame, {grid.num_active_blocks()} blocks")
     result = {"grid": grid, "frames": n,
-              "integrate_s": list(timer.samples["integrate"]), "records": None,
-              "render_paths": None, "render_ms": None}
+              "integrate_s": list(timer.samples["integrate"]), "recenter_frames": moves,
+              "records": None, "mesh": None, "render_paths": None, "render_ms": None}
     if args.save:
         result["records"] = dump_spatial_tsdf(grid.gather_valid(), args.save)
         print(f"[offline] saved {result['records']} voxels to {args.save}")
+    if args.mesh:
+        with timer.span("mesh"):
+            tris = extract_mesh_chunked(grid.volume,
+                                        transfer="q16" if args.mesh_q16 else "f32")
+            verts, faces = merge_vertices(tris)
+        save_obj(args.mesh, verts, faces)
+        result["mesh"] = {"vertices": len(verts), "faces": len(faces),
+                          "ms": timer.mean_ms("mesh")}
+        print(f"[offline] mesh: {len(verts)} verts, {len(faces)} faces -> {args.mesh} "
+              f"({result['mesh']['ms']:.1f} ms)")
     if args.render_dir:
         # the final view at 640x360 from the last pose, as apps/offline.py
         with timer.span("render"):

@@ -67,6 +67,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(systems/online_step.py), no host round trip between them")
     ap.add_argument("--stereo", action="store_true",
                     help="depth from stereo block matching (not ported)")
+    ap.add_argument("--auto-recenter", action="store_true",
+                    help="dense backend: move the coverage window after the camera "
+                         "near its edge (TSDFGrid.maybe_recenter; the asynchronous "
+                         "path)")
     ap.add_argument("--render-dir")
     ap.add_argument("--preset", choices=["full", "small"], default="full")
     ap.add_argument("--device", default="cuda",
@@ -75,6 +79,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.stereo:
         ap.error("--stereo: stereo depth is not ported yet (ROADMAP Queue 1 item 9)")
+    if args.auto_recenter and args.fused:
+        ap.error("--auto-recenter drives DISINFSystem, the path without --fused")
     return args
 
 
@@ -150,7 +156,8 @@ def run(args) -> dict:
     with DISINFSystem(intrinsics, depth_factor=1.0,  # the replay scales depth
                       voxel_size=args.voxel, truncation=args.trunc,
                       max_depth=args.max_depth, segmenter=segmenter,
-                      half_scale=False, cfg=cfg, device=device) as system:
+                      half_scale=False, cfg=cfg, auto_recenter=args.auto_recenter,
+                      device=device) as system:
         period = 1.0 / args.fps
         t_start = time.perf_counter()
 

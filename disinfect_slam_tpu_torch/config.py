@@ -37,7 +37,6 @@ class TSDFConfig:
     carve_threshold: float = 0.9
     prob_eps: float = 0.0
     coord_bits: int = 10
-    # only "dense" is ported; "hash" raises NotImplementedError in ops/hash.py
     backend: str = "dense"
     grid_log2: int = 8
     grid_origin: tuple | None = None
@@ -47,7 +46,8 @@ class TSDFConfig:
     # not ported yet: integrate() raises when set
     cull_occluded: bool = False
     raycast_skip: bool = True
-    # only "filter" is ported (dense backend)
+    # "filter" applies to the dense backend; the hash backend, and
+    # "sort" on either, dedup the candidates by sorting them
     alloc_dedup: str = "filter"
     index_hints: bool = True  # TPU-only, ignored
     scatter_window_log2: int = -1  # TPU-only, ignored
@@ -68,11 +68,27 @@ class TSDFConfig:
         return 1 << (3 * self.block_len_log2)
 
     @property
+    def num_buckets(self) -> int:
+        return 1 << self.num_buckets_log2
+
+    @property
+    def entries_per_bucket(self) -> int:
+        return 1 << self.entries_per_bucket_log2
+
+    @property
     def num_entries(self) -> int:
         # dense backend: the pool IS the entry list (slot i <-> pool i)
         if self.backend == "dense":
             return 1 << self.num_blocks_log2
         return 1 << (self.num_buckets_log2 + self.entries_per_bucket_log2)
+
+    @property
+    def entry_mask(self) -> int:
+        return self.num_entries - 1
+
+    @property
+    def bucket_mask(self) -> int:
+        return self.num_buckets - 1
 
     @property
     def num_blocks(self) -> int:
@@ -115,7 +131,12 @@ class TSDFConfig:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.alloc_stride < 1 or self.alloc_every < 1:
             raise ValueError("alloc_stride and alloc_every must be >= 1")
-        if self.backend == "dense":
+        if self.backend == "hash":
+            if self.max_probe < self.entries_per_bucket:
+                raise ValueError("max_probe must cover a bucket's entries")
+            if self.num_blocks > self.num_entries:
+                raise ValueError("the hash table needs an entry per pool block")
+        else:
             if self.grid_log2 > self.coord_bits:
                 raise ValueError("grid_log2 must not exceed coord_bits")
             if self.grid_origin is not None:
@@ -128,6 +149,17 @@ class TSDFConfig:
                             "grid [origin, origin+side) must fit the packed "
                             "coord range")
 
+
+# small configs for the tests (the JAX package's TINY and TINY_DENSE)
+TINY = TSDFConfig(
+    num_buckets_log2=8,
+    num_blocks_log2=8,
+    max_probe=8,
+    max_candidates=512,
+    max_visible=256,
+    max_new_per_round=256,
+    backend="hash",
+)
 
 TINY_DENSE = TSDFConfig(
     num_blocks_log2=8,

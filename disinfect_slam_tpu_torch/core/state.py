@@ -6,7 +6,9 @@ Unlike the JAX pytree, the port's volume is mutable: ops update its
 tensors in place where that saves a copy of a pool-sized array, and say
 so where they do.
 
-Entry states in `entry_block`: >= 0 pool index, EMPTY (-1) free.
+Entry states in `entry_block`: >= 0 pool index, EMPTY (-1) free,
+TOMBSTONE (-2) a deleted hash entry that probes walk through; every
+liveness test is `entry_block >= 0`.
 
 Payloads: tsdf f32, prob f32 and the packed VoxelRGBW word
 r | g << 8 | b << 16 | weight << 24 (voxel_types.cuh:10-19).  torch has
@@ -26,6 +28,7 @@ from ..utils.device import resolve_device
 from .voxel import unpack_block_coord
 
 EMPTY = -1
+TOMBSTONE = -2
 
 # unallocated voxels read as tsdf=+1, prob=0 (voxel_types.cu:8-12)
 DEFAULT_TSDF = 1.0
@@ -42,8 +45,8 @@ class TSDFVolume:
     """Mutable TSDF volume state; every tensor lives on one device."""
 
     entry_key: torch.Tensor  # int32 [E] packed block coordinate
-    entry_block: torch.Tensor  # int32 [E] pool idx / EMPTY
-    block_table: torch.Tensor  # int32 [G^3] grid cell -> pool idx (dense)
+    entry_block: torch.Tensor  # int32 [E] pool idx / EMPTY / TOMBSTONE
+    block_table: torch.Tensor  # int32 [G^3] grid cell -> pool idx (dense); [1] (hash)
     heap: torch.Tensor  # int32 [B] stack of free pool indices
     num_free: torch.Tensor  # int32 [] stack top (= number of free blocks)
     oob_count: torch.Tensor  # int32 [] dropped out-of-coverage candidates

@@ -70,6 +70,12 @@ def unpack_block_coord(key: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:
     )
 
 
+def in_coord_range(block: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:
+    """Mask [...] of block coords [..., 3] that pack_block_coord can
+    represent."""
+    return ((block >= cfg.coord_min) & (block <= cfg.coord_max)).all(dim=-1)
+
+
 def sentinel_key(cfg: TSDFConfig) -> int:
     """Pack key larger than any valid key (marks an empty candidate)."""
     return 1 << (3 * cfg.coord_bits)

@@ -18,8 +18,9 @@
 // blocks' coordinates and the pose, projects each voxel in registers,
 // loads its 32-byte pixel directly (no patch, no frame-size limit, so K3
 // is this kernel at 1920x1080), and writes the updated pool words back in
-// place through pool_idx.  Dense-backend pool indices of live rows are
-// unique, so no two CTAs touch one row.
+// place through pool_idx.  The pool indices of the live rows are unique
+// on both backends (dense: ascending; hash: in hash-slot order), and no
+// order is assumed, so no two CTAs touch one row.
 //
 // Per voxel, op for op as the plain version (ops/cuda/fuse_kernel.py
 // project_rows, then fuse_math): the world point

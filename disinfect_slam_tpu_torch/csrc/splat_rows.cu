@@ -11,7 +11,9 @@
 // Both kernels here take the surface blocks' positions and pool indices,
 // the pose and the camera, and project each voxel in registers from its
 // tsdf word, read in place from the pool (splat_project.cuh): no [S, 512]
-// plane is written or read.  Both run a persistent grid of CTAs (K4: 512
+// plane is written or read.  The kernels only read pool rows; the live
+// rows' pool indices are unique on both backends (dense: ascending; hash:
+// in hash-slot order) and no order is assumed.  Both run a persistent grid of CTAs (K4: 512
 // threads, a voxel each; K5: 128 threads, four voxels each), one
 // surface-block row at a time up to the live count they read on the
 // device, and reduce the row's footprint box (splat_zbuf_tile.cuh).

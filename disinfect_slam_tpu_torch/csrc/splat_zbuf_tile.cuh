@@ -10,7 +10,9 @@
 // fast memory, on Hopper: each CTA takes one surface-block row at a time
 // (a persistent loop up to the live count it reads on the device, with
 // the next row's inputs loaded while the current row merges), projects
-// its voxels (BlockRows, splat_project.cuh), reduces the bounding box of its
+// its voxels (BlockRows, splat_project.cuh; the rows' pool indices are
+// unique on both backends, in no assumed order, and only read), reduces
+// the bounding box of its
 // in-band voxels' in-image 2x2 footprints (warp reductions, then each
 // warp over the 16 partials), and
 //   - if the box fits a TH x TW tile, min-merges the voxels into the tile

@@ -2,8 +2,9 @@
 disinfect_slam_tpu/ops/integrate.py; reference TSDFGrid::Integrate,
 voxel_tsdf.cu:347-375).
 
-  allocate   per-pixel DDA candidates -> presence filter against the dense
-             table -> compaction -> full-visibility gate -> batched insert
+  allocate   per-pixel DDA candidates -> dedup (the presence filter
+             against the dense table, or a sort: the hash backend and
+             alloc_dedup="sort") -> full-visibility gate -> batched insert
   visible    any-corner frustum test over every entry, cumsum + scatter
              compaction into max_visible rows; the count stays on the
              device as a 0-d tensor that the kernels read (no host sync)
@@ -177,6 +178,22 @@ def generate_candidates(
     return torch.cat(keys), oob
 
 
+def unique_keys(keys: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """The ascending distinct values of keys, cut to or padded to `size`
+    with `fill` (jnp.unique(keys, size=size, fill_value=fill)): a sort,
+    then the first key of every run compacted by its rank into `size`
+    slots, slot `size` a scratch slot for the rest.  Unlike torch.unique
+    it keeps the output shape fixed, so the device is never waited on."""
+    s = torch.sort(keys).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    rank = h.cumsum_i32(first) - 1
+    slot = torch.where(first & (rank < size), rank, size).long()
+    out = s.new_full((size + 1,), fill)
+    out[slot] = s
+    return out[:size]
+
+
 def allocate_blocks(
     vol: TSDFVolume,
     frame_depth: torch.Tensor,
@@ -186,14 +203,12 @@ def allocate_blocks(
     max_depth: float,
 ) -> TSDFVolume:
     """Dedup candidates and batch-insert them (Allocate,
-    voxel_tsdf.cu:377-386), the JAX package's alloc_dedup="filter" path:
-    candidates whose cell is already allocated need no insert, so only
-    genuinely new keys are compacted (no sort)."""
+    voxel_tsdf.cu:377-386).  On the dense backend with
+    alloc_dedup="filter", candidates whose cell is already allocated need
+    no insert, so only genuinely new keys are compacted (no sort); the
+    hash backend, and alloc_dedup="sort", sort the candidate keys and keep
+    the first max_candidates distinct ones."""
     cfg = vol.cfg
-    if cfg.alloc_dedup != "filter" or cfg.backend != "dense":
-        raise NotImplementedError(
-            "only alloc_dedup='filter' on the dense backend is ported"
-        )
     keys, oob = generate_candidates(
         frame_depth, d2r, cam, cam_T_world, cam_T_world.inverse(), max_depth, cfg
     )
@@ -202,7 +217,30 @@ def allocate_blocks(
     # the insert's claim)
     left = torch.cat([keys.new_full((1,), -1), keys[:-1]])
     keys = torch.where(keys == left, sent, keys)
+    if cfg.alloc_dedup == "filter" and cfg.backend == "dense":
+        coords, valid, oob = _filter_new(vol, keys, oob)
+    else:
+        uniq = unique_keys(keys, cfg.max_candidates, sent)
+        valid = uniq < sent
+        coords = vx.unpack_block_coord(uniq, cfg)
+        if cfg.backend == "dense":
+            # candidates beyond the dense grid are dropped: count them
+            _, in_range = h.table_index(coords, cfg)
+            oob = oob + _i32_sum(valid & ~in_range)
+    valid = valid & block_visibility(coords, cam_T_world, cam, cfg, full=True)
+    vol, _ = h.insert(vol, coords, valid)
+    vol.oob_count = vol.oob_count + oob
+    return vol
 
+
+def _filter_new(vol: TSDFVolume, keys: torch.Tensor, oob: torch.Tensor):
+    """The presence filter of the dense backend: the candidate keys whose
+    cell holds no block yet, compacted into max_candidates slots ->
+    (coords [C, 3], valid [C], oob count with the off-grid keys added).
+    Duplicates within the frame survive; the insert's claim resolves
+    them."""
+    cfg = vol.cfg
+    sent = vx.sentinel_key(cfg)
     live = keys < sent
     ks = torch.where(live, keys, 0)
     cb = cfg.coord_bits
@@ -225,11 +263,7 @@ def allocate_blocks(
     compact[slot] = keys
     compact = compact[:cap]
     valid = compact < sent
-    coords = vx.unpack_block_coord(torch.where(valid, compact, 0), cfg)
-    valid = valid & block_visibility(coords, cam_T_world, cam, cfg, full=True)
-    vol, _ = h.insert(vol, coords, valid)
-    vol.oob_count = vol.oob_count + oob
-    return vol
+    return vx.unpack_block_coord(torch.where(valid, compact, 0), cfg), valid, oob
 
 
 # ----------------------------------------------------------------------
@@ -275,7 +309,8 @@ def gather_visible(
     """check_visibility_kernel (voxel_tsdf.cu:82-93): any-corner frustum
     test over every live entry, then compaction."""
     if vol.cfg.cull_occluded:
-        raise NotImplementedError("cull_occluded is not ported yet")
+        raise NotImplementedError(
+            "cull_occluded is not ported yet (ROADMAP Queue 1 item 3)")
     live = vol.entry_block >= 0
     vis = block_visibility(vol.entry_pos, cam_T_world, cam, vol.cfg, full=False)
     return compact_mask(vol, live & vis)
@@ -349,6 +384,14 @@ def space_carve(
     return h.delete_entries(vol, vis.entry_idx, doomed)
 
 
+class IntegrateStats(NamedTuple):
+    """Per-frame device scalars of integrate(return_stats=True).  The JAX
+    package also counts the sampler's patch-overflow blocks; the port's
+    kernels load every pixel directly and have none."""
+
+    visible_count: torch.Tensor  # i32 [] visible blocks this frame
+
+
 def integrate(
     vol: TSDFVolume,
     frame: FrameInput,
@@ -356,8 +399,11 @@ def integrate(
     cam_T_world: SE3,
     max_depth: float,
     allocate: bool = True,
-) -> TSDFVolume:
-    """One frame of semantic TSDF fusion, in place on `vol`.
+    return_stats: bool = False,
+):
+    """One frame of semantic TSDF fusion, in place on `vol`; with
+    return_stats, (vol, IntegrateStats) (the same frame: the stats are
+    read from the visible set, never recomputed).
 
     allocate=False skips block allocation (the alloc_every cadence):
     geometry first seen on a skipped frame starts fusing on a later one,
@@ -368,4 +414,7 @@ def integrate(
         vol = allocate_blocks(vol, frame.depth, d2r, cam, cam_T_world, max_depth)
     vis = gather_visible(vol, cam, cam_T_world)
     vol, min_abs = fuse_visible(vol, vis, frame, d2r, cam, cam_T_world, max_depth)
-    return space_carve(vol, vis, min_abs)
+    vol = space_carve(vol, vis, min_abs)
+    if return_stats:
+        return vol, IntegrateStats(visible_count=vis.count)
+    return vol

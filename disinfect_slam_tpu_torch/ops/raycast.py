@@ -12,9 +12,9 @@ renderer (ops/render_fast.py) is held against, not a fast path.
 
 Empty-space skipping: a sample inside an unallocated block provably
 reads the default +1, so the march jumps whole steps that stay inside
-that block, or inside its 4x4x4-block superblock when the whole
-superblock is empty (a -3 sentinel folded into the block table once per
-render).  Every sample the brute-force march would take is either taken
+that block, or, on the dense backend, inside its 4x4x4-block superblock
+when the whole superblock is empty (a -3 sentinel folded into the block
+table once per render; the hash backend has no table to fold it into).  Every sample the brute-force march would take is either taken
 or provably +1, so skipping changes no image.
 """
 
@@ -76,8 +76,6 @@ def raycast(
     """Render a virtual view (TSDFGrid::RayCast, voxel_tsdf.cu:490-506);
     step_size defaults to truncation / 2 like the host call site (:497)."""
     cfg = vol.cfg
-    if cfg.backend != "dense":
-        raise NotImplementedError("raycast is ported for the dense backend only")
     if step_size is None:
         step_size = cfg.truncation / 2.0
     dev = vol.device
@@ -101,7 +99,7 @@ def raycast(
 
     bl = cfg.block_len_log2
     sb_log2 = bl + 2
-    use_super = cfg.raycast_skip and cfg.grid_side >= 8
+    use_super = cfg.raycast_skip and cfg.backend == "dense" and cfg.grid_side >= 8
     if use_super:
         g = cfg.grid_side
         s = g >> 2

@@ -5,9 +5,9 @@ API of disinfect_slam/disinfect_slam.{h,cc}).
 The reference composes ORB_SLAM3 + TSDFSystem + pose_manager with TSDF
 parameters voxel 0.05 m / trunc 0.2 m / max depth 4 m
 (disinfect_slam.cc:13-17).  The pose source is pluggable (trajectory
-replay or an external SLAM bridge); poses are kept by PoseManager.
-`auto_recenter` is not ported yet: the port's dense backend has no
-recenter (ROADMAP Queue 1 item 2).
+replay or an external SLAM bridge); poses are kept by PoseManager.  With
+`auto_recenter` the dense window follows the camera (TSDFGrid.
+maybe_recenter before each frame is queued).
 """
 
 from __future__ import annotations
@@ -44,15 +44,12 @@ class DISINFSystem:
         host_spill: bool = False,
         device="cuda",
     ):
-        if auto_recenter:
-            raise NotImplementedError(
-                "auto_recenter: the port's dense backend has no recenter yet "
-                "(ROADMAP Queue 1 item 2, recenter_dense)")
         self.depth_factor = float(depth_factor)
         self.half_scale = half_scale
         self.segmenter = segmenter
         self.pose_source = pose_source  # object with feed_stereo(...)
         self.camera_pose_manager = PoseManager()
+        self.auto_recenter = auto_recenter
         self.max_depth = float(max_depth)
         self.tsdf = TSDFSystem(
             voxel_size, truncation, max_depth, intrinsics, extrinsics,
@@ -82,6 +79,12 @@ class DISINFSystem:
         if self.segmenter is not None:
             ht, lt = self.segmenter(img_rgb)
         pose = self.camera_pose_manager.query_pose(timestamp_ms)
+        if self.auto_recenter:
+            # follow the robot past the dense window's edge (a no-op on the
+            # hash backend and away from the edge); frames queued across a
+            # move drop their out-of-window fringe again
+            cam_pos = np.linalg.inv(np.asarray(pose, np.float64))[:3, 3]
+            self.tsdf.tsdf.maybe_recenter(cam_pos, max_depth=self.max_depth)
         self.tsdf.integrate(pose, np.asarray(img_rgb, np.float32), depth, ht, lt)
 
     def feed_stereo_imu(

@@ -5,8 +5,9 @@ utils/tsdf/voxel_tsdf.cuh:32-124).
 Owns a TSDFVolume on one device; integrate takes numpy frames, uploads
 them and updates the volume in place; ray_cast renders a virtual view
 with the parity raycaster or the splat renderer (on a CUDA device, the
-splat_zbuf_blocks / splat_payload_blocks kernels).  Not ported yet: the
-dense-window recenter and the host spill store.
+splat_zbuf_blocks / splat_payload_blocks kernels); recenter and
+maybe_recenter move the dense window after the camera.  Not ported yet:
+the host spill store (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..core.state import TSDFVolume
 from ..ops import gather as gather_ops
 from ..ops.cuda.splat_kernel import splat_render_cuda
 from ..ops.gather import BoundingCube, SpatialTSDF
+from ..ops.hash import needs_recenter, recenter_dense, recenter_origin_for, window_origin
 from ..ops.integrate import FrameInput, integrate
 from ..ops.raycast import RaycastResult, raycast
 from ..utils.device import resolve_device
@@ -52,6 +54,9 @@ class TSDFGrid:
         # out-of-coverage watchdog
         self._tick = 0
         self._warned_oob = False
+        # oob_count is cumulative: the watchdog warns about growth past
+        # this baseline, which a recenter advances
+        self._oob_base = 0
         self._lock = threading.Lock()
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -79,20 +84,33 @@ class TSDFGrid:
         )
         cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), h, w)
         pose = SE3.from_matrix(cam_T_world)
+        # under DEBUG the block counts and the visible count are logged; each
+        # read waits for the device, so none is made without DEBUG
+        debug = logger.isEnabledFor(logging.DEBUG)
         with self._lock:
+            if debug:
+                logger.debug("[TSDF] pre integrate: %d active blocks",
+                             int(self.volume.num_active_blocks))
             # cfg.alloc_every: allocation runs on every N-th frame (frame 0
             # always allocates); fusion runs every frame
-            self.volume = integrate(
+            out = integrate(
                 self.volume, frame, cam, pose, float(max_depth),
-                allocate=self._tick % self.cfg.alloc_every == 0,
+                allocate=self._tick % self.cfg.alloc_every == 0, return_stats=debug,
             )
+            if debug:
+                self.volume, stats = out
+                logger.debug("[TSDF] visible blocks: %d", int(stats.visible_count))
+                logger.debug("[TSDF] post integrate: %d active blocks",
+                             int(self.volume.num_active_blocks))
+            else:
+                self.volume = out
             self._tick += 1
             # the dense grid bounds the scene (the reference's hash does
             # not, voxel_hash.cuh:13-25), so dropped candidates must be
             # loud; the read syncs, so it runs every 30 frames until it
             # fires
             if not self._warned_oob and self._tick % 30 == 0:
-                oob = int(self.volume.oob_count)
+                oob = int(self.volume.oob_count) - self._oob_base
                 if oob:
                     cfg = self.cfg
                     extent = cfg.grid_side * cfg.block_len * cfg.voxel_size
@@ -159,6 +177,37 @@ class TSDFGrid:
         the integration lock (integrate updates the tensors in place)."""
         with self._lock:
             return self.volume.clone()
+
+    def recenter(self, center_world_m) -> bool:
+        """Move the dense window so that `center_world_m` (metres, e.g. the
+        robot's position) sits at its centre (ops/hash.py recenter_dense;
+        the hash backend has no window and never moves).  Payloads and
+        absolute coordinates stay; blocks leaving the window are released.
+        Returns True if the window moved."""
+        if self.cfg.backend != "dense":
+            return False
+        org = recenter_origin_for(self.cfg, center_world_m)
+        with self._lock:
+            if org == window_origin(self.cfg):
+                return False
+            self.volume = recenter_dense(self.volume, org)
+            self.cfg = self.volume.cfg
+            # the window moved: the watchdog may warn again, about drops
+            # after the move only
+            self._warned_oob = False
+            self._oob_base = int(self.volume.oob_count)
+            logger.info("[TSDF] recentered dense window to origin %s blocks", org)
+            return True
+
+    def maybe_recenter(self, cam_pos_world_m, margin_blocks: Optional[int] = None,
+                       max_depth: Optional[float] = None) -> bool:
+        """Recenter when the camera is within the margin of the window's
+        edge (ops/hash.py needs_recenter: host arithmetic, so safe to call
+        every frame).  Pass max_depth for a margin as deep as the frustum,
+        so that the window moves before observations fall past its edge."""
+        if not needs_recenter(self.cfg, cam_pos_world_m, margin_blocks, max_depth):
+            return False
+        return self.recenter(cam_pos_world_m)
 
     def num_active_blocks(self) -> int:
         with self._lock:

@@ -22,10 +22,20 @@ frames, fed the dataset's own u8 rgb and raw u16 depth PNGs (depth factor
 InferenceEngine for both shipped nets: float64 sums of the 640x360 ht and
 lt maps and their pixel counts above 0.5.
 
+With --export it writes disinfect_slam_tpu_torch/data/
+orbit_vga_export_fingerprint.json instead, the export slice over the same
+60-frame replay volume (ops/mesh.py's mesh_fingerprint and
+indexed_mesh_fingerprint, gather.py's volume_fingerprint): (a)
+extract_mesh_chunked, f32 and q16; (b) ReconstructionBridge.query_mesh on
+a 2 m BoundingCube centred 1.5 m ahead of the frame-0 camera; (c) the replay's dump
+through volume_from_spatial_records, its rebuilt config and block count,
+and the mesh of that volume; (d) the replay with backend="hash" and
+alloc_dedup="sort".
+
 chip_smoke.py holds the port's GPU runs against these files, because the
 GPU host has no JAX.  Each takes minutes and several GB of host memory:
 
-  python scripts/port_fingerprint.py [--online]
+  python scripts/port_fingerprint.py [--online | --export]
 """
 
 import argparse
@@ -66,6 +76,11 @@ DATASET = os.path.join(ROOT, "datasets", "orbit_vga")
 DATA = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data")
 OUT = os.path.join(DATA, "orbit_vga_bench_fingerprint.json")
 OUT_ONLINE = os.path.join(DATA, "orbit_vga_online_fingerprint.json")
+OUT_EXPORT = os.path.join(DATA, "orbit_vga_export_fingerprint.json")
+# the bridge query's cube: 2 m on a side, centred BRIDGE_AHEAD_M along the
+# frame-0 camera's view axis (the camera stands 1.5 m before the nearest
+# surface, so a cube centred on the camera itself holds none)
+BRIDGE_HALF_M, BRIDGE_AHEAD_M = 1.0, 1.5
 ONLINE_FRAMES = 30
 
 
@@ -151,6 +166,86 @@ def online():
     print(json.dumps(out, indent=1))
 
 
+def replay_volume(cfg):
+    """The JAX TSDFGrid after every frame of the replay, and the poses."""
+    cam = load_yaml(os.path.join(DATASET, "cam.yaml"))
+    intrinsics = get_intrinsics(cam)
+    grid = TSDFGrid(cfg.voxel_size, cfg.truncation, cfg=cfg)
+    poses = []
+    t0 = time.perf_counter()
+    for n, frame in enumerate(LoggedReplay(DATASET, get_depth_factor(cam)), start=1):
+        poses.append(frame.cam_T_world)
+        grid.integrate(frame.rgb, frame.depth, frame.ht, frame.lt,
+                       BENCH_MAX_DEPTH, intrinsics, frame.cam_T_world)
+        if n % 10 == 0:
+            grid.block_until_ready()
+            print(f"[fingerprint] {cfg.backend} frame {n}: {grid.num_active_blocks()} "
+                  f"blocks, {time.perf_counter() - t0:.0f} s", flush=True)
+    return grid, poses
+
+
+def mesh_of(vol, transfer="f32") -> dict:
+    from disinfect_slam_tpu.ops.mesh import extract_mesh_chunked
+    from disinfect_slam_tpu_torch.ops.mesh import counting_clips, mesh_fingerprint
+
+    t0 = time.perf_counter()
+    with counting_clips("disinfect_slam_tpu.ops.mesh") as clipped:
+        tris = extract_mesh_chunked(vol, transfer=transfer)
+    fp = mesh_fingerprint(tris, clipped[0])
+    print(f"[fingerprint] mesh {transfer}: {fp} ({time.perf_counter() - t0:.0f} s)",
+          flush=True)
+    return fp
+
+
+def export():
+    from types import SimpleNamespace
+
+    from disinfect_slam_tpu.ops.gather import BoundingCube, volume_from_spatial_records
+    from disinfect_slam_tpu.systems.bridge import ReconstructionBridge
+    from disinfect_slam_tpu_torch.ops.mesh import indexed_mesh_fingerprint
+
+    cfg = TSDFConfig(**dataclasses.replace(BENCH, sampler="gather").__dict__)
+    grid, poses = replay_volume(cfg)
+    out = {"reference": "disinfect_slam_tpu on CPU, sampler='gather'",
+           "dataset": "datasets/orbit_vga", "frames": len(poses), "preset": "bench",
+           "max_depth": BENCH_MAX_DEPTH}
+    # (a) the replay volume's mesh
+    out["mesh"] = {t: mesh_of(grid.volume, t) for t in ("f32", "q16")}
+    # (b) the bridge's 2 m query before the frame-0 camera
+    world_T_cam = np.linalg.inv(np.asarray(poses[0], np.float64))
+    c = world_T_cam[:3, 3] + BRIDGE_AHEAD_M * world_T_cam[:3, 2]
+    h = BRIDGE_HALF_M
+    cube = BoundingCube(c[0] - h, c[0] + h, c[1] - h, c[1] + h, c[2] - h, c[2] + h)
+    bridge = ReconstructionBridge(SimpleNamespace(tsdf=SimpleNamespace(tsdf=grid)), cube)
+    out["bridge"] = {"cube": [float(x) for x in cube],
+                     **indexed_mesh_fingerprint(*bridge.query_mesh())}
+    print(f"[fingerprint] bridge: {out['bridge']}", flush=True)
+    # (c) the dump, rebuilt by the loader, and its mesh
+    rec = to_numpy_records(grid.gather_valid())
+    del grid
+    t0 = time.perf_counter()
+    vol = volume_from_spatial_records(rec)
+    load_s = time.perf_counter() - t0
+    out["dump"] = {"records": int(rec.shape[0]),
+                   "config": dataclasses.asdict(vol.cfg),
+                   "active_blocks": int(np.asarray(vol.num_active_blocks)),
+                   "load_s_on_cpu": load_s,
+                   "mesh": mesh_of(vol)}
+    del vol, rec
+    # (d) the hash-backend replay
+    hcfg = dataclasses.replace(cfg, backend="hash", alloc_dedup="sort")
+    hgrid, _ = replay_volume(hcfg)
+    vol = hgrid.volume
+    fp = volume_fingerprint({f: np.asarray(getattr(vol, f)) for f in (
+        "entry_key", "entry_block", "oob_count", "tsdf", "rgbw", "prob")})
+    fp["records"] = int(to_numpy_records(hgrid.gather_valid()).shape[0])
+    out["hash_replay"] = {"backend": "hash", "alloc_dedup": "sort", **fp}
+    with open(OUT_EXPORT, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps(out, indent=1))
+
+
 def main():
     cam = load_yaml(os.path.join(DATASET, "cam.yaml"))
     intrinsics = get_intrinsics(cam)
@@ -190,9 +285,15 @@ def main():
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--online", action="store_true",
-                    help="write the online step's fingerprint instead")
-    if ap.parse_args().online:
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--online", action="store_true",
+                       help="write the online step's fingerprint instead")
+    which.add_argument("--export", action="store_true",
+                       help="write the export slice's fingerprint instead")
+    args = ap.parse_args()
+    if args.online:
         online()
+    elif args.export:
+        export()
     else:
         main()

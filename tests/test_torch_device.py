@@ -11,6 +11,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,7 @@ from disinfect_slam_tpu_torch.config import TINY_DENSE
 from disinfect_slam_tpu_torch.core.state import TSDFVolume
 from disinfect_slam_tpu_torch.io.checkpoint import load_volume, volume_from_numpy, volume_to_numpy
 from disinfect_slam_tpu_torch.models.segmentation import load_model
+from disinfect_slam_tpu_torch.ops.gather import volume_from_spatial_records
 from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
 from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
 from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
@@ -40,6 +42,8 @@ DEFAULT_DEVICE_CALLS = {
     "TSDFVolume.create": lambda: TSDFVolume.create(CFG),
     "volume_from_numpy": lambda: volume_from_numpy(
         volume_to_numpy(TSDFVolume.create(CFG, device="cpu")), CFG),
+    "volume_from_spatial_records": lambda: volume_from_spatial_records(
+        np.array([[0.0, 0.0, 0.0, 0.5], [0.05, 0.0, 0.0, -0.5]], np.float32)),
 }
 
 
@@ -52,14 +56,16 @@ def test_default_device_is_cuda(monkeypatch, name):
         DEFAULT_DEVICE_CALLS[name]()
 
 
-@pytest.mark.parametrize("app", ["offline", "online"])
+@pytest.mark.parametrize("app", ["offline", "online", "tsdf2mesh"])
 def test_apps_without_device_exit_nonzero_naming_cuda(app, tmp_path):
     """The CLI as a user runs it, with CUDA hidden and no --device: it
     stops with a non-zero exit code and says that CUDA is missing."""
+    args = ([str(tmp_path / "data.bin"), str(tmp_path / "out.ply")] if app == "tsdf2mesh"
+            else ["--logdir", str(tmp_path)])
     code = (
         "import runpy, sys, torch\n"
         "torch.cuda.is_available = lambda: False\n"
-        f"sys.argv = ['{app}', '--logdir', {str(tmp_path)!r}]\n"
+        f"sys.argv = ['{app}', *{args!r}]\n"
         f"runpy.run_module('disinfect_slam_tpu_torch.apps.{app}', run_name='__main__')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -90,6 +96,10 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "disinfect_slam_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    # the export slice's modules are among them
+    for mod in ("ops/mesh.py", "systems/bridge.py", "apps/tsdf2mesh.py", "ops/gather.py",
+                "ops/hash.py"):
+        assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:
         hits = FORBIDDEN_IMPORT.findall(path.read_text())

@@ -9,9 +9,10 @@ z = 0, rows past the live count, no live row, rows near the camera on
 both branches of each kernel, voxels one float32 ulp either side of the
 band and depth thresholds), the probes (splat_zbuf_blocks' tile, the
 feature probe, the sampler's and fuse_rows' stage probes), the renders
-through TSDFGrid.ray_cast on the card, and
-the online slice: the segmentation nets and FusedOnlineStep on the card
-against the port on the CPU.
+through TSDFGrid.ray_cast on the card, the online slice (the segmentation
+nets and FusedOnlineStep on the card against the port on the CPU), and
+the export slice: the hash backend's inserts, fusion and renders, mesh
+chunks, and a splat clipped at its surface cap (surf_overflow > 0).
 
 Needs a CUDA device and nvcc; skipped without a card.  This file imports
 no JAX, so it runs on a GPU host without it:
@@ -515,3 +516,130 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
         seg.load_model("fast", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         FusedOnlineStep(ONLINE_CFG, ONLINE_K, ONLINE_H, ONLINE_W, 4.0, device="cuda")
+
+
+# ----------------------------------------------------------------------
+# the export slice: the hash backend, meshing, a clipped splat
+# ----------------------------------------------------------------------
+def _to(vol, dev):
+    """A copy of a volume on another device."""
+    import dataclasses
+
+    return dataclasses.replace(vol, **{f.name: getattr(vol, f.name).to(dev)
+                                       for f in dataclasses.fields(vol) if f.name != "cfg"})
+
+
+def test_hash_insert_and_lookup_on_the_card_equal_the_cpu(cuda):
+    """Claim rounds, tombstones and heap pops of the hash backend on the
+    card: the same tables as the port on the CPU, batch after batch."""
+    from disinfect_slam_tpu_torch.config import TINY
+    from disinfect_slam_tpu_torch.core.state import TSDFVolume
+    from disinfect_slam_tpu_torch.ops import hash as th
+
+    rng = np.random.default_rng(11)
+    universe = np.unique(rng.integers(-12, 12, (96, 3)).astype(np.int32), axis=0)
+    vols = [TSDFVolume.create(TINY, device=d) for d in ("cpu", cuda)]
+    for r in range(10):
+        coords = torch.from_numpy(universe[rng.integers(0, len(universe), 40)])
+        valid = torch.from_numpy(rng.uniform(size=40) < 0.9)
+        drops = [th.insert(v, coords.to(v.device), valid.to(v.device))[1].cpu() for v in vols]
+        assert torch.equal(*drops)
+        if r % 2:
+            q = torch.from_numpy(universe[rng.integers(0, len(universe), 8)])
+            for v in vols:
+                entry = th.lookup_entry(v, q.to(v.device))
+                # one delete per entry, as carving makes them
+                first = torch.ones_like(entry, dtype=torch.bool)
+                first[1:] = entry[1:] != entry[:-1]
+                th.delete_entries(v, entry, first)
+        a, b = (volume_to_numpy(v) for v in vols)
+        for f in a:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    u = torch.from_numpy(universe)
+    for fn in (th.lookup, th.lookup_entry):
+        assert torch.equal(fn(vols[0], u), fn(vols[1], u.to(cuda)).cpu())
+    assert (vols[0].entry_block == -2).any()  # tombstones were walked
+
+
+def _hash_grid(device):
+    """The golden sphere orbit of _fused_grid, fused on the hash backend
+    with the sort dedup."""
+    cfg = TSDFConfig(num_blocks_log2=10, num_buckets_log2=12, max_candidates=2048,
+                     max_visible=1024, max_new_per_round=512, backend="hash",
+                     alloc_dedup="sort", alloc_every=2)
+    k, w, h = (52.7, 53.3, 31.71, 23.43), 64, 48
+    grid = TSDFGrid(0.05, 0.15, cfg=cfg, device=device)
+    rng = np.random.default_rng(4)
+    poses = []
+    for i in range(5):
+        ang = 0.13 * i - 0.12
+        pose = look_at((np.sin(ang) * 2.5 + 0.013, 0.1 * i - 0.027,
+                        -2.5 * np.cos(ang) + 1.0), (0.013, -0.021, 1.007))
+        depth = render_sphere(w, h, k, pose, (0.013, -0.021, 1.007), 0.613)
+        ht, lt = rng.uniform(0.05, 0.95, (2, h, w)).astype(np.float32)
+        grid.integrate(checker_rgb(w, h), depth, ht, lt, 4.0, k, pose)
+        poses.append(pose)
+    return grid, poses, (k, h, w)
+
+
+def test_hash_backend_fuses_and_renders_on_the_card(cuda):
+    """fuse_rows on hash-slot-ordered rows, then the splat kernels on the
+    hash volume: the volume equals the CPU run's (prob within 1e-6, as
+    test_integrate_on_the_card_equals_the_cpu_run), and renderer "auto"
+    launches K4 and K5 once each, bit-equal to the plain splat."""
+    before = fuse_kernel.fuse_rows.launches
+    grid, poses, (k, h, w) = _hash_grid(cuda)
+    assert fuse_kernel.fuse_rows.launches == before + len(poses)
+    cpu, _, _ = _hash_grid("cpu")
+    a, b = volume_to_numpy(cpu.volume), volume_to_numpy(grid.volume)
+    assert (a["entry_block"] >= 0).sum() > 10
+    for f in a:
+        if f != "prob":
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    np.testing.assert_allclose(a["prob"], b["prob"], rtol=0, atol=1e-6)
+    kernels = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
+    n0 = [fn.launches for fn in kernels]
+    res = grid.ray_cast(4.0, (k, h, w), poses[0], renderer="auto")
+    assert [fn.launches - n for fn, n in zip(kernels, n0)] == [1, 1]
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    ref = render_fast.splat_render(grid.volume, cam, SE3.from_matrix(poses[0]), 4.0)
+    for f in ("hit", "depth", "rgba", "normal"):
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+    assert res.hit.float().mean() > 0.1
+    assert grid.ray_cast(4.0, (k, h, w), poses[0], renderer="raycast").hit.any()
+
+
+def test_mesh_chunks_on_the_card_equal_the_cpu(cuda):
+    """extract_mesh_chunked on the card against the CPU on the same
+    volume, f32 and q16: equal triangle counts, vertices within 1e-6 m,
+    no triangle wound the other way."""
+    from disinfect_slam_tpu_torch.ops import mesh as tmesh
+
+    grid, _, _ = _fused_grid("cpu")
+    vols = [grid.volume, _to(grid.volume, cuda)]
+    for transfer in ("f32", "q16"):
+        a, b = (tmesh.extract_mesh_chunked(v, chunk=16, transfer=transfer) for v in vols)
+        assert a.shape == b.shape and a.shape[0] > 300
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        n_a = np.cross(a[:, 1] - a[:, 0], a[:, 2] - a[:, 0])
+        n_b = np.cross(b[:, 1] - b[:, 0], b[:, 2] - b[:, 0])
+        big = np.linalg.norm(n_a, axis=-1) > 1e-10
+        assert ((n_a * n_b).sum(-1)[big] > 0).all()
+
+
+def test_clipped_splat_on_the_card_equals_the_plain_splat(cuda):
+    """surf_overflow > 0 on the card: a surface cap at half the surface
+    blocks drops the same blocks from the kernels' render and from the
+    plain splat, with the same count and the same images."""
+    grid, poses, (k, h, w) = _fused_grid(cuda)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    pose = SE3.from_matrix(poses[0])
+    n_surf = int(render_fast.splat_buffers(grid.volume, cam, pose, 4.0)[3])
+    cap = n_surf // 2
+    ours = splat_kernel.splat_render_cuda(grid.volume, cam, pose, 4.0, surf_cap=cap)
+    ref = render_fast.splat_render(grid.volume, cam, pose, 4.0, surf_cap=cap)
+    assert int(ours.surf_overflow) == int(ref.surf_overflow) == n_surf - cap > 0
+    for f in ("hit", "depth", "rgba", "normal"):
+        assert torch.equal(getattr(ours, f), getattr(ref, f)), f
+    full = splat_kernel.splat_render_cuda(grid.volume, cam, pose, 4.0)
+    assert ours.hit.sum() < full.hit.sum()

@@ -150,7 +150,17 @@ def test_voxel_reads_match_jax():
 
 
 def test_hash_backend_is_not_ported():
+    """The hash backend is ported (tests/test_torch_hash_backend.py); what
+    of it is not, the occlusion cull, raises naming its ROADMAP item."""
     cfg = tconfig.TSDFConfig(backend="hash", num_blocks_log2=6, num_buckets_log2=6)
     vol = th.TSDFVolume.create(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        th.insert(vol, torch.zeros((1, 3), dtype=torch.int32), torch.ones(1, dtype=torch.bool))
+    vol, dropped = th.insert(vol, torch.zeros((1, 3), dtype=torch.int32),
+                             torch.ones(1, dtype=torch.bool))
+    assert not dropped.any() and int(vol.num_active_blocks) == 1
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.ops.integrate import gather_visible
+
+    vol.cfg = dataclasses.replace(cfg, cull_occluded=True)
+    cam = CameraParams.create(CameraIntrinsics.create(50.0, 50.0, 31.5, 23.5), 48, 64)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        gather_visible(vol, cam, SE3.identity())
