@@ -68,6 +68,23 @@ exits non-zero:
      --preset small --grid-log2 6 --auto-recenter, whose window moves
      (every live entry's table cell points back at it, no live block
      outside the window);
+  8. the tracking slice (pose-free dense SLAM): (a) apps.dense_slam over
+     all 60 frames with --loop-closure --evaluate auto --out-traj --save
+     --mesh at its defaults (2 cm voxels, 6 cm truncation, 4 m, the
+     default TSDFConfig: 2^16-block pool, 16384 visible rows): fuse_rows
+     once per frame, splat_zbuf_blocks once per tracked frame,
+     splat_payload_blocks never, one pose read per tracked frame (plus one
+     per loop verification); the trajectory, ok flags, ATE and volume
+     against the JAX DenseSLAM's fingerprint
+     (data/orbit_vga_slam_fingerprint.json) within TOL_SLAM_*; (b)
+     DenseSLAM in process at track_res_scale 1 and 2, ms/frame over
+     frames 3-59 with one sync at the end, three fresh runs each, lost
+     frames and ATE, then one pass split by CUDA events (upload, model
+     depth, pyramids, ICP, the pose read, fusion, keyframe work); (c) K4
+     on the app's SLAM volume at 640x480 and 320x240, bit-equal to its
+     plain version, its branches counted; (d) LoopClosureManager on the
+     card over tests/test_loop_closure.py's drifted out-and-back keyframes
+     (tests/torch_cases.py): the loop closes and the error falls;
   7. device times, after every end-to-end measurement (a profiler trace
      leaves the host slower for the rest of the process): the fusion
      profile (frames 45-59 of a fresh volume: device time, kernels per
@@ -82,9 +99,12 @@ exits non-zero:
      check must pass) and the probes of the sampler and of fuse_rows'
      stages (P1-P6: K1's direct modes, the patch and one-hot mma
      selections, fuse_rows stripped stage by stage), each mode against
-     its plain version.
+     its plain version; K4 at 320x240 on phase 8's SLAM volume (its
+     bound, its plain version, scatter_reduce "amin"); and the SLAM frame
+     profiled (frames 45-59: device time, kernels, idle share; ICP alone:
+     kernels, device time and the host time of its ops).
 
-Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
+Phases run 0-6b, then 8, then 7.  Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
 they project block rows in registers) against their plain versions at
 the render's capacity (16384 block rows, 14000 live, 640x480 and
 1920x1080; tests/torch_cases.py's splat_block_case: rows behind the
@@ -165,6 +185,18 @@ PEAK_F32_OPS_PER_S = 67e12
 # floor pixel: 94) and merge the surface-band voxels' 4 footprint pixels
 # (16)
 OPS_PER_VOXEL = {"sample_rows": 12, "fuse_rows": 228, "splat_project": 94, "splat": 16}
+SLAM_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                                "orbit_vga_slam_fingerprint.json")
+# the SLAM app run against the JAX DenseSLAM's fingerprint (PERF.md §2):
+# ICP on this orbit amplifies ulps along its weakly constrained direction,
+# so these are 3x the larger of two gaps measured on the CPU over the 60
+# frames: the port against JAX (6.6 mm, 1.32 mrad, ATE 0.22 mm, blocks
+# 0.97%, sums 1.19%) and JAX against itself with every depth one float32
+# ulp up (5.4 mm, blocks 0, sums 0.19%); ATE keeps the looser 1 mm set
+# before those measurements
+TOL_SLAM_T, TOL_SLAM_R, TOL_SLAM_ATE = 0.020, 0.004, 0.001
+TOL_SLAM_COUNT, TOL_SLAM_SUM = 0.03, 0.04
+SLAM_WARM = 3  # frames before the SLAM timing window (frames 3-59)
 
 
 def log(msg: str) -> None:
@@ -1557,6 +1589,391 @@ def export_slice(offline, grid, dump, fuse_kernel, splat_kernel, intrinsics, pos
             "tsdf2mesh": dump_res, "hash": hash_res, "recenter": recenter_replay(offline)}
 
 
+# ----------------------------------------------------------------------
+# phase 8: the tracking slice (pose-free dense SLAM)
+# ----------------------------------------------------------------------
+def slam_app_args(out_dir: str, *extra) -> list:
+    """apps.dense_slam as a user runs it on orbit_vga with loop closure,
+    scoring, the trajectory, the checkpoint and the mesh, at its defaults."""
+    return ["--logdir", DATASET, "--config", os.path.join(DATASET, "cam.yaml"),
+            "--loop-closure", "--evaluate", "auto",
+            "--out-traj", os.path.join(out_dir, "traj.txt"),
+            "--save", os.path.join(out_dir, "slam_volume.npz"),
+            "--mesh", os.path.join(out_dir, "slam_mesh.obj"), *extra]
+
+
+def pose_gaps(poses: np.ndarray, ref: np.ndarray):
+    """Per-frame camera-centre distance (m) and rotation angle (rad)
+    between two cam_T_world stacks [N, 4, 4].  The angle comes from the
+    skew part of R_a R_b^T (atan2 of |vee| / 2 against (trace - 1) / 2):
+    the tracked rotations drift from orthonormal by ~1e-6 over the frames,
+    which an arccos of the trace alone reads as milliradians."""
+    c_a = np.linalg.inv(poses.astype(np.float64))[:, :3, 3]
+    c_b = np.linalg.inv(ref.astype(np.float64))[:, :3, 3]
+    r = np.einsum("nij,nkj->nik", poses[:, :3, :3].astype(np.float64),
+                  ref[:, :3, :3].astype(np.float64))
+    vee = np.stack([r[:, 2, 1] - r[:, 1, 2], r[:, 0, 2] - r[:, 2, 0],
+                    r[:, 1, 0] - r[:, 0, 1]], -1)
+    angle = np.arctan2(0.5 * np.linalg.norm(vee, axis=1),
+                       0.5 * (np.trace(r, axis1=1, axis2=2) - 1.0))
+    return np.linalg.norm(c_a - c_b, axis=1), angle
+
+
+def check_slam_fingerprint(res, vol_fp, ref) -> dict:
+    """The app run against the JAX DenseSLAM's fingerprint, within the
+    TOL_SLAM_* limits (PERF.md §2): the same ok flags, lost, keyframe and
+    closure counts; each frame's pose; ATE; the volume."""
+    fids = ref["frame_ids"]
+    ok = [res["ok"][f] for f in fids]
+    poses = np.stack([res["poses"][f] for f in fids])
+    dt, dr = pose_gaps(poses, np.asarray(ref["cam_T_world"], np.float32))
+    lc = res["slam"].lc
+    ate = res["evaluation"]["ate"]
+    out = {"frames": len(fids), "ok_equal": ok == ref["ok"], "lost": res["slam"].lost_count,
+           "keyframes": lc.count, "closures": lc.closures,
+           "max_translation_gap_m": float(dt.max()), "max_rotation_gap_rad": float(dr.max()),
+           "ate": ate, "ate_rmse_gap_m": abs(ate["rmse"] - ref["ate"]["rmse"]),
+           "rpe": res["evaluation"]["rpe"], "volume": vol_fp,
+           "volume_rel": {k: vol_fp[k] / ref["volume"][k] - 1.0
+                          for k in ("active_blocks", "sum_abs_tsdf", "sum_weight",
+                                    "sum_prob")}}
+    log(f"[chip_smoke] slam app against the JAX fingerprint: ok flags equal "
+        f"{out['ok_equal']}, lost {out['lost']} (ref {ref['lost']}), keyframes "
+        f"{out['keyframes']} ({ref['keyframes']}), closures {out['closures']} "
+        f"({ref['closures']}); max per-frame gap {out['max_translation_gap_m'] * 1e3:.3f} mm "
+        f"(limit {TOL_SLAM_T * 1e3:.0f}), {out['max_rotation_gap_rad'] * 1e3:.4f} mrad "
+        f"(limit {TOL_SLAM_R * 1e3:.0f}); ATE rmse {ate['rmse']:.6f} m against "
+        f"{ref['ate']['rmse']:.6f} (limit +-{TOL_SLAM_ATE * 1e3:.0f} mm); volume relative to "
+        f"the reference {out['volume_rel']} (limits {TOL_SLAM_COUNT}, {TOL_SLAM_SUM})")
+    bad = []
+    if not out["ok_equal"] or (out["lost"], out["keyframes"], out["closures"]) != (
+            ref["lost"], ref["keyframes"], ref["closures"]):
+        bad.append("ok flags or lost / keyframe / closure counts")
+    if out["max_translation_gap_m"] > TOL_SLAM_T or out["max_rotation_gap_rad"] > TOL_SLAM_R:
+        bad.append("per-frame poses")
+    if out["ate_rmse_gap_m"] > TOL_SLAM_ATE:
+        bad.append("ATE")
+    rel = out["volume_rel"]
+    if abs(rel["active_blocks"]) > TOL_SLAM_COUNT or any(
+            abs(rel[k]) > TOL_SLAM_SUM for k in ("sum_abs_tsdf", "sum_weight", "sum_prob")):
+        bad.append("volume")
+    if bad:
+        raise AssertionError(f"slam app outside the fingerprint limits: {bad}")
+    return out
+
+
+def slam_app(fuse_kernel, splat_kernel, odometry) -> dict:
+    """Phase 8 (a): apps.dense_slam over all 60 frames through main(argv),
+    every count set to 0 just before and read just after."""
+    from disinfect_slam_tpu_torch.apps import dense_slam as app
+    from disinfect_slam_tpu_torch.io.checkpoint import volume_to_numpy
+    from disinfect_slam_tpu_torch.ops.gather import volume_fingerprint
+
+    with open(SLAM_FINGERPRINT) as f:
+        ref = json.load(f)
+    from disinfect_slam_tpu_torch.ops.cuda import build
+
+    out_dir = os.path.join(str(build.BUILD_DIR), "slam")
+    os.makedirs(out_dir, exist_ok=True)
+    reset_launches(fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
+                   splat_kernel.splat_payload_blocks)
+    odometry.read_result.reads = 0
+    t0 = time.perf_counter()
+    r = app.main(slam_app_args(out_dir))
+    wall_s = time.perf_counter() - t0
+    launches = {"fuse_rows": fuse_kernel.fuse_rows.launches,
+                "splat_zbuf_blocks": splat_kernel.splat_zbuf_blocks.launches,
+                "splat_payload_blocks": splat_kernel.splat_payload_blocks.launches}
+    reads = odometry.read_result.reads
+    lc = r["slam"].lc
+    tracked = r["frames"] - 1
+    log(f"[chip_smoke] slam app: {r['frames']} frames in {r['seconds']:.2f} s of frame loop "
+        f"({wall_s:.2f} s with the mesh and the checkpoint), launches {launches}, pose reads "
+        f"{reads} ({tracked} tracked frames + {lc.verifications} loop verifications), mesh "
+        f"{r['mesh']}")
+    if r["frames"] != ref["frames"] or launches != {
+            "fuse_rows": r["frames"], "splat_zbuf_blocks": tracked, "splat_payload_blocks": 0}:
+        raise AssertionError(f"slam app: {r['frames']} frames, launches {launches}")
+    if reads != tracked + lc.verifications:
+        raise AssertionError(f"slam app: {reads} pose reads for {tracked} tracked frames")
+    for name in ("traj.txt", "slam_volume.npz", "slam_mesh.obj"):
+        if os.path.getsize(os.path.join(out_dir, name)) == 0:
+            raise AssertionError(f"slam app wrote an empty {name}")
+    fp = check_slam_fingerprint(r, volume_fingerprint(volume_to_numpy(r["slam"].volume)), ref)
+    res = {"frames": r["frames"], "loop_s": r["seconds"], "wall_s": wall_s,
+           "launches": launches, "pose_reads": reads, "verifications": lc.verifications,
+           "mesh": r["mesh"], **fp}
+    return res, r["slam"]
+
+
+def slam_frames():
+    """The 60 orbit_vga frames as the app feeds them (float32 rgb, depth in
+    metres), decoded before any timed window."""
+    from disinfect_slam_tpu_torch.io.png_io import read_image
+
+    out = []
+    for i in range(60):
+        base = os.path.join(DATASET, str(i))
+        out.append((read_image(base + "_rgb.png").astype(np.float32),
+                    read_image(base + "_depth.png", unchanged=True).astype(np.float32)
+                    / 5000.0))
+    return out
+
+
+def new_slam(dev, scale):
+    """DenseSLAM at the app's defaults (2 cm, 6 cm, 4 m, the default
+    TSDFConfig, loop closure every 10 frames, a 60-frame gap)."""
+    from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
+    from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
+
+    intr = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
+    return DenseSLAM(intr, H, W, voxel_size=0.02, truncation=0.06, max_depth=4.0,
+                     loop_closure=True, kf_every=10, lc_kwargs=dict(min_gap_frames=60),
+                     track_res_scale=scale, device=dev)
+
+
+SLAM_STAGES = ("upload", "model_depth", "pyramids", "icp", "pose_read", "fusion")
+
+
+def slam_timing(dev, frames, smi) -> dict:
+    """Phase 8 (b): ms/frame over frames 3-59 with one sync at the end,
+    three fresh runs at each track_res_scale; lost frames and ATE against
+    trajectory.txt; then one pass split by CUDA events at each mark of the
+    tracked step (and the host clock beside them), keyframe work after."""
+    from disinfect_slam_tpu_torch.utils import trajectory_eval as te
+
+    ts_gt, gt = te.load_trajectory(os.path.join(DATASET, "trajectory.txt"))
+    out = {}
+    for scale in (1, 2):
+        ms, lost, ates = [], [], []
+        for _ in range(3):
+            slam = new_slam(dev, scale)
+            poses = []
+            for i, (rgb, depth) in enumerate(frames):
+                if i == SLAM_WARM:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                poses.append(slam.process_frame(rgb, depth))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / (len(frames) - SLAM_WARM))
+            if not np.array_equal(ts_gt, np.arange(len(frames))):
+                raise AssertionError("trajectory.txt does not list frames 0-59 in order")
+            oks = torch.stack([ok for _, ok in poses]).cpu().numpy()
+            est = np.linalg.inv(torch.stack([p for p, _ in poses]).cpu().numpy()[oks])
+            ates.append(te.ate(gt[oks], est)["rmse"])
+            lost.append(slam.lost_count)
+            del slam
+        # one pass split at the marks (frames SLAM_WARM-59)
+        slam = new_slam(dev, scale)
+        dev_ms = {n: [] for n in (*SLAM_STAGES, "keyframe", "frame")}
+        host_ms = {n: [] for n in dev_ms}
+        for i, (rgb, depth) in enumerate(frames):
+            if i < SLAM_WARM:
+                slam.process_frame(rgb, depth)
+                continue
+            ev, host = {}, {}
+
+            def mark(name, ev=ev, host=host):
+                ev[name] = torch.cuda.Event(enable_timing=True)
+                ev[name].record()
+                host[name] = time.perf_counter()
+
+            torch.cuda.synchronize()
+            mark("start")
+            slam.process_frame(rgb, depth, mark=mark)
+            mark("end")
+            torch.cuda.synchronize()
+            names = ("start", *SLAM_STAGES, "end")
+            for a, b in zip(names, names[1:]):
+                key = "keyframe" if b == "end" else b
+                dev_ms[key].append(ev[a].elapsed_time(ev[b]))
+                host_ms[key].append(1e3 * (host[b] - host[a]))
+            dev_ms["frame"].append(ev["start"].elapsed_time(ev["end"]))
+            host_ms["frame"].append(1e3 * (host["end"] - host["start"]))
+        split = {n: statistics.mean(v) for n, v in dev_ms.items()}
+        host_split = {n: statistics.mean(v) for n, v in host_ms.items()}
+        del slam
+        torch.cuda.empty_cache()
+        out[scale] = {"ms_per_frame_runs": ms, "ms_per_frame": statistics.median(ms),
+                      "lost": lost, "ate_rmse_m": ates, "split_ms": split,
+                      "host_split_ms": host_split}
+        log(f"[chip_smoke] slam track_res_scale={scale}: ms/frame over frames {SLAM_WARM}-59 "
+            f"{ms} -> median {statistics.median(ms):.3f} ({smi}); lost {lost}, ATE rmse {ates}")
+        log(f"[chip_smoke] slam split, CUDA-event ms/frame (host clock): " + ", ".join(
+            f"{n} {split[n]:.3f} ({host_split[n]:.3f})" for n in split))
+        if any(lost):
+            raise AssertionError(f"slam timing at scale {scale}: lost frames {lost}")
+    return out
+
+
+def slam_volume_rows(splat_kernel, vol, scale, pose):
+    """The surface rows of a SLAM volume seen from `pose` at the
+    tracking camera of track_res_scale `scale`, as DenseSLAM's model
+    depth gives them to K4 -> (rows, pool, geometry)."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
+
+    fx, fy, cx, cy = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
+    cam = CameraParams.create(CameraIntrinsics.create(fx / scale, fy / scale, cx / scale,
+                                                      cy / scale), H // scale, W // scale)
+    se3 = SE3.from_matrix(pose)
+    vis, _overflow, geometry = splat_kernel._rows(vol, cam, se3, 4.0, 1.25,
+                                                  splat_kernel.rf.DEFAULT_SURF_CAP)
+    return ((vis.block_pos, vis.pool_idx, vis.count), (vol.tsdf, vol.rgbw, vol.prob),
+            geometry)
+
+
+def check_slam_zbuf(splat_kernel, vol, pose, dev) -> dict:
+    """Phase 8 (c): K4 on the app's final SLAM volume from the last
+    tracked pose at 640x480 and 320x240, bit-equal to its plain version,
+    with the rows on each of its branches counted."""
+    out = {}
+    for scale in (1, 2):
+        rows, pool, geometry = slam_volume_rows(splat_kernel, vol, scale, pose)
+        branches = torch.zeros(2, dtype=torch.int32, device=dev)
+        zbuf = splat_kernel.splat_zbuf_blocks(*rows, pool[0], **geometry,
+                                              branch_counts=branches)
+        zref = splat_kernel.splat_zbuf_blocks_reference(*rows, pool[0], **geometry)
+        err = u32_err(zbuf, zref)
+        cam = geometry["cam"]
+        label = f"{cam.img_w}x{cam.img_h}"
+        out[label] = {"rows": int(rows[2]), "branches": branches.tolist(), "max_abs_err": err,
+                      "covered": (zbuf < splat_kernel.BIG).float().mean().item()}
+        log(f"[chip_smoke] slam K4 {label}: {out[label]['rows']} surface rows, zbuf max|d| "
+            f"{err}, pixels covered {out[label]['covered']:.4f}, rows on the tile / atomic "
+            f"branch {out[label]['branches']}")
+        if not torch.equal(zbuf, zref) or out[label]["covered"] == 0:
+            raise AssertionError(f"slam K4 {label} disagrees with its plain version")
+    return out
+
+
+def slam_loop_closure(dev) -> dict:
+    """Phase 8 (d): the port's LoopClosureManager on the card over the
+    drifted out-and-back keyframes of tests/test_loop_closure.py (its
+    JAX-free copy, tests/torch_cases.py): a loop closes, first at keyframe
+    5 or later, and the optimised keyframes' error falls below 60% of the
+    drifted estimates' (the CPU test's limits)."""
+    from disinfect_slam_tpu_torch.systems.loop_closure import LoopClosureManager
+    from tests.torch_cases import LC_ARGS, LC_H, LC_K, LC_W, out_and_back_keyframes
+
+    true_poses, est_poses, depths = out_and_back_keyframes()
+    lc = LoopClosureManager(LC_K, LC_H, LC_W, device=dev, **LC_ARGS)
+    t0 = time.perf_counter()
+    firsts = [k for k, (d, e) in enumerate(zip(depths, est_poses))
+              if lc.add_keyframe(d, e, frame_id=10 * k) is not None]
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    err = lambda poses: float(np.mean([np.linalg.norm(p[:3, 3] - g[:3, 3])  # noqa: E731
+                                       for p, g in zip(poses, true_poses)]))
+    res = {"closures": lc.closures, "corrections_at": firsts, "verifications": lc.verifications,
+           "err_est_m": err(est_poses), "err_opt_m": err(lc.kf_pose_opt),
+           "wall_ms_12_keyframes": wall_ms}
+    log(f"[chip_smoke] slam loop closure on the card: {res}")
+    if not (lc.closures >= 1 and firsts and firsts[0] >= 5
+            and res["err_opt_m"] < 0.6 * res["err_est_m"]):
+        raise AssertionError(f"loop closure on the card did not close the chain: {res}")
+    return res
+
+
+def slam_zbuf_yardsticks(splat_kernel, vol, pose) -> dict:
+    """Phase 7, K4 at the tracking resolution: on phase 8's SLAM volume
+    from the last pose at 320x240 (track_res_scale=2), its device time
+    beside its bound, its plain version's time and scatter_reduce "amin"
+    (splat_bound_and_library's K4 entry; the payload buffer it also needs
+    comes from K5's plain version)."""
+    rows, pool, geometry = slam_volume_rows(splat_kernel, vol, 2, pose)
+    zbuf = splat_kernel.splat_zbuf_blocks(*rows, pool[0], **geometry)
+    pbuf = splat_kernel.splat_payload_blocks_reference(*rows, *pool, zbuf, **geometry)
+    planes = splat_kernel.splat_planes(*rows, pool[0], **geometry)
+    res, _ = splat_bound_and_library(splat_kernel, rows, pool, geometry, planes, zbuf, pbuf)
+    time_kernel(res, lambda: splat_kernel.splat_zbuf_blocks(*rows, pool[0], **geometry),
+                "splat_zbuf_tile_kernel")
+    res["plain_ms"] = cuda_time_ms(
+        lambda: splat_kernel.splat_zbuf_blocks_reference(*rows, pool[0], **geometry))
+    print_yardsticks("splat_zbuf_blocks 320x240 (SLAM volume)", res)
+    return res
+
+
+def slam_profile(dev) -> dict:
+    """Phase 7, the SLAM frame under the profiler: a fresh DenseSLAM at
+    track_res_scale 1 over frames 0-44, then frames 45-59 profiled (wall
+    and device kernel time a frame, kernels a frame, idle share); then
+    ICP alone (ICPOdometry._track on frame 59 against the model depth,
+    five calls): kernels, device and wall ms a call, and the torch ops
+    that take the most host time in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.utils.device import upload
+
+    frames = slam_frames()
+    slam = new_slam(dev, 1)
+    for rgb, depth in frames[:SPLIT_FIRST]:
+        slam.process_frame(rgb, depth)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rgb, depth in frames[SPLIT_FIRST:]:
+            slam.process_frame(rgb, depth)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    n = len(frames) - SPLIT_FIRST
+    res = {"frames": [SPLIT_FIRST, len(frames) - 1], "wall_ms_per_frame": wall_ms / n,
+           "device_ms_per_frame": device_ms / n, "kernels_per_frame": len(events) / n,
+           "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+
+    prev = np.linalg.inv(slam.world_T_cam)
+    tracker = slam.tracker
+    pyr_ref = tracker._prep(slam._model_depth(SE3.from_matrix(prev)))
+    pyr_cur = tracker._prep(upload(frames[-1][1], dev))
+    poses = upload(np.stack([slam.world_T_cam, prev]), dev)
+    calls = 5
+    tracker._track(poses[0], pyr_cur, pyr_ref, poses[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            tracker._track(poses[0], pyr_cur, pyr_ref, poses[1])
+        torch.cuda.synchronize()
+        icp_wall = 1e3 * (time.perf_counter() - t0) / calls
+    icp_events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    top = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total, reverse=True)[:8]
+    res["icp"] = {"wall_ms_per_call": icp_wall, "kernels_per_call": len(icp_events) / calls,
+                  "device_ms_per_call": sum(e.time_range.elapsed_us() for e in icp_events)
+                  / 1e3 / calls,
+                  "top_host_ops_ms_per_call": {a.key: a.self_cpu_time_total / 1e3 / calls
+                                               for a in top}}
+    log(f"[chip_smoke] slam profile (frames {SPLIT_FIRST}-{len(frames) - 1}): wall "
+        f"{wall_ms / n:.3f} ms/frame, device kernel time {device_ms / n:.3f} ms/frame in "
+        f"{len(events) / n:.1f} kernels/frame, idle share "
+        + (f"{res['idle_share']:.3f}" if device_ms else "not measured")
+        + f"; ICP alone {res['icp']['wall_ms_per_call']:.3f} ms a call, "
+        f"{res['icp']['kernels_per_call']:.1f} kernels, "
+        f"{res['icp']['device_ms_per_call']:.3f} ms of device time; host time by op "
+        f"(ms a call): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     res["icp"]["top_host_ops_ms_per_call"].items()))
+    del slam
+    torch.cuda.empty_cache()
+    return res
+
+
+def slam_slice(fuse_kernel, splat_kernel, dev, smi) -> dict:
+    """Phase 8 (a)-(d); returns the report entry and the SLAM volume and
+    last pose that phase 7 times K4 on."""
+    from disinfect_slam_tpu_torch.systems import odometry
+
+    app, slam = slam_app(fuse_kernel, splat_kernel, odometry)
+    pose = np.linalg.inv(slam.world_T_cam)
+    zbuf = check_slam_zbuf(splat_kernel, slam.volume, pose, dev)
+    vol = slam.volume
+    del slam
+    torch.cuda.empty_cache()
+    timing = slam_timing(dev, slam_frames(), smi)
+    lc = slam_loop_closure(dev)
+    return {"app": app, "timing": timing, "zbuf": zbuf, "loop_closure": lc}, vol, pose
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -1832,8 +2249,17 @@ def main() -> int:
         f"({smi}) ({time.perf_counter() - t6b:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    # phase 8: the tracking slice (pose-free dense SLAM)
+    t8 = time.perf_counter()
+    slam, slam_vol, slam_pose = slam_slice(fuse_kernel, splat_kernel, dev, smi)
+    torch.cuda.empty_cache()
+    log(f"[chip_smoke] phase 8: tracking slice ok; slam ms/frame "
+        f"{slam['timing'][1]['ms_per_frame']:.3f} at track_res_scale 1, "
+        f"{slam['timing'][2]['ms_per_frame']:.3f} at 2 ({smi}) "
+        f"({time.perf_counter() - t8:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+
     probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
-    log(f"[chip_smoke] probe launches on the main path (phases 3-6b): {probe_main_launches}")
+    log(f"[chip_smoke] probe launches on the main path (phases 3-8): {probe_main_launches}")
 
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
@@ -1841,6 +2267,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fuse, fuse_1080, sample, splat, splat_1080 = (check(True) for check in checks)
     probe = probes(dev, splat_probe, feature_probe, sample_probe, fuse_kernel)
+    splat_slam = slam_zbuf_yardsticks(splat_kernel, slam_vol, slam_pose)
+    del slam_vol
+    slam["profile"] = slam_profile(dev)
     log(f"[chip_smoke] phase 7: device times ({smi}) ({time.perf_counter() - t7:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
 
@@ -1860,6 +2289,8 @@ def main() -> int:
         "render": render,
         "online": online,
         "export": export,
+        "slam": slam,
+        "splat_zbuf_slam_320x240": splat_slam,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
         "fingerprint_fused": fp_fused,
@@ -1877,7 +2308,8 @@ def main() -> int:
          "also_replaces": "disinfect_slam_tpu/ops/pallas/fuse_kernel.py:519",
          "launches": fused_launches, "online_launches": online["online_launches"],
          "online_app_launches": online["app"]["fused"]["fuse_rows_launches"],
-         "hash_launches": export["hash"]["fuse_rows_launches"], **fuse,
+         "hash_launches": export["hash"]["fuse_rows_launches"],
+         "slam_launches": slam["app"]["launches"]["fuse_rows"], **fuse,
          "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
                             fuse_real["max_abs_err"]),
          "ms_1080p": fuse_1080["ms"], "bound_ms_1080p": fuse_1080["bound_ms"],
@@ -1892,16 +2324,22 @@ def main() -> int:
                          "disinfect_slam_tpu_torch/csrc/splat_project.cuh"],
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:149",
          "launches": splat_launches[0], "hash_launches": export["hash"]["splat_launches"][0],
+         "slam_launches": slam["app"]["launches"]["splat_zbuf_blocks"],
          **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
                             *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
-                            render_err["zbuf"]),
+                            render_err["zbuf"],
+                            *(v["max_abs_err"] for v in slam["zbuf"].values())),
+         "ms_slam_320x240": splat_slam["ms"], "bound_ms_slam_320x240": splat_slam["bound_ms"],
+         "plain_ms_slam_320x240": splat_slam["plain_ms"],
+         "library_ms_slam_320x240": splat_slam["library_ms"],
          "branches_about_z": [w["zbuf"]["branches"] for w in splat_about_z],
          "branches_real_render": render["zbuf_branches"]},
         {"name": "splat_payload_blocks", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:438",
          "launches": splat_launches[1], "hash_launches": export["hash"]["splat_launches"][1],
+         "slam_launches": slam["app"]["launches"]["splat_payload_blocks"],
          **splat["payload"],
          "max_abs_err": max(splat["payload"]["max_abs_err"],
                             splat_1080["payload"]["max_abs_err"],

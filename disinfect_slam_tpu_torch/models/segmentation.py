@@ -30,7 +30,6 @@ the card).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 import re
@@ -41,24 +40,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.device import resolve_device
+from ..utils.device import exact_fp32, resolve_device
 
 # reference contract (inference.cc:49-50, 25)
 INFER_W, INFER_H = 640, 352
 OUTPUT_W, OUTPUT_H = 640, 360
-
-
-@contextlib.contextmanager
-def exact_fp32():
-    """Full float32 convolutions and matmuls on CUDA (TF32 off) for the
-    duration of the block; the previous settings come back after it."""
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @functools.lru_cache(maxsize=None)

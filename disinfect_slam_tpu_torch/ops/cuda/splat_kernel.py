@@ -290,12 +290,14 @@ def splat_buffers_cuda(
 
 def splat_depth(
     vol, cam, cam_T_world, max_depth: float, band: float = 1.25,
-    surf_cap=rf.DEFAULT_SURF_CAP, **_tpu_only,
+    surf_cap=rf.DEFAULT_SURF_CAP, plain: bool = False, **_tpu_only,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depth (camera z) and hit images [H, W] from the z-buffer kernel
-    alone (splat_depth_pallas)."""
+    alone (splat_depth_pallas); plain=True takes the z-buffer from its
+    plain version on any device instead (the same bits)."""
     vis, _, geometry = _rows(vol, cam, cam_T_world, max_depth, band, surf_cap)
-    zbuf = splat_zbuf_blocks(vis.block_pos, vis.pool_idx, vis.count, vol.tsdf, **geometry)
+    zbuf_fn = splat_zbuf_blocks_reference if plain else splat_zbuf_blocks
+    zbuf = zbuf_fn(vis.block_pos, vis.pool_idx, vis.count, vol.tsdf, **geometry)
     hit = (zbuf < BIG).reshape(cam.img_h, cam.img_w)
     depth = torch.where(hit, zbuf.reshape(hit.shape).float() / 4096.0, 0.0)
     return depth, hit

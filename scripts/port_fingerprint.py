@@ -32,10 +32,20 @@ through volume_from_spatial_records, its rebuilt config and block count,
 and the mesh of that volume; (d) the replay with backend="hash" and
 alloc_dedup="sort".
 
+With --slam it writes disinfect_slam_tpu_torch/data/
+orbit_vga_slam_fingerprint.json instead: the JAX DenseSLAM (the pose-free
+tracker, splat_impl="xla", the exact gather sampler) over all 60 frames
+as apps/dense_slam.py runs them with --loop-closure at its defaults (2 cm
+voxels, 6 cm truncation, 4 m, the default TSDFConfig, keyframes every 10
+frames, a 60-frame loop gap), fed the dataset's u8 rgb as float32 and its
+u16 depth over the depth factor: the per-frame cam_T_world and ok flags,
+the lost, keyframe and closure counts, ATE and RPE against the dataset's
+trajectory.txt, and the final volume's volume_fingerprint.
+
 chip_smoke.py holds the port's GPU runs against these files, because the
 GPU host has no JAX.  Each takes minutes and several GB of host memory:
 
-  python scripts/port_fingerprint.py [--online | --export]
+  python scripts/port_fingerprint.py [--online | --export | --slam]
 """
 
 import argparse
@@ -77,6 +87,11 @@ DATA = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data")
 OUT = os.path.join(DATA, "orbit_vga_bench_fingerprint.json")
 OUT_ONLINE = os.path.join(DATA, "orbit_vga_online_fingerprint.json")
 OUT_EXPORT = os.path.join(DATA, "orbit_vga_export_fingerprint.json")
+OUT_SLAM = os.path.join(DATA, "orbit_vga_slam_fingerprint.json")
+# apps/dense_slam.py's defaults: voxel, truncation, max depth (m), keyframe
+# cadence and loop gap (frames)
+SLAM_VOXEL, SLAM_TRUNC, SLAM_MAX_DEPTH, SLAM_KF_EVERY, SLAM_LC_MIN_GAP = (
+    0.02, 0.06, 4.0, 10, 60)
 # the bridge query's cube: 2 m on a side, centred BRIDGE_AHEAD_M along the
 # frame-0 camera's view axis (the camera stands 1.5 m before the nearest
 # surface, so a cube centred on the camera itself holds none)
@@ -246,6 +261,69 @@ def export():
     print(json.dumps(out, indent=1))
 
 
+def slam():
+    from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
+    from disinfect_slam_tpu.utils import trajectory_eval as te
+
+    cam = load_yaml(os.path.join(DATASET, "cam.yaml"))
+    intrinsics = get_intrinsics(cam)
+    depth_factor = get_depth_factor(cam)
+    fids = [fid for fid, _ in LoggedReplay(DATASET, depth_factor).entries]
+    base = os.path.join(DATASET, str(fids[0]))
+    h, w = read_image(base + "_depth.png", unchanged=True).shape
+    cfg = TSDFConfig(voxel_size=SLAM_VOXEL, truncation=SLAM_TRUNC, sampler="gather")
+    dslam = DenseSLAM(intrinsics, h, w, voxel_size=SLAM_VOXEL, truncation=SLAM_TRUNC,
+                      max_depth=SLAM_MAX_DEPTH, cfg=cfg, splat_impl="xla",
+                      loop_closure=True, kf_every=SLAM_KF_EVERY,
+                      lc_kwargs=dict(min_gap_frames=SLAM_LC_MIN_GAP))
+    poses, oks = [], []
+    t0 = time.perf_counter()
+    for n, fid in enumerate(fids, start=1):
+        base = os.path.join(DATASET, str(fid))
+        depth = read_image(base + "_depth.png", unchanged=True).astype(np.float32) / depth_factor
+        rgb = read_image(base + "_rgb.png").astype(np.float32)
+        pose, ok = dslam.process_frame(rgb, depth)
+        poses.append(np.asarray(pose, np.float32))
+        oks.append(bool(ok))
+        if n % 10 == 0:
+            print(f"[fingerprint] slam frame {n}: ok {sum(oks)}, "
+                  f"{time.perf_counter() - t0:.0f} s", flush=True)
+    lc = dslam.lc
+    if lc.closures:
+        raise AssertionError("a loop closed: the fingerprint would need the corrected "
+                             "trajectory")
+    ts_gt, gt = te.load_trajectory(os.path.join(DATASET, "trajectory.txt"))
+    ok_ids = [fid for fid, ok in zip(fids, oks) if ok]
+    est = np.stack([np.linalg.inv(p) for p, ok in zip(poses, oks) if ok])
+    pairs = te.associate(ts_gt, np.array(ok_ids, np.float64), max_dt=0.5)
+    ig = [i for i, _ in pairs]
+    ie = [j for _, j in pairs]
+    ate = te.ate(gt[ig], est[ie])
+    vol = dslam.volume
+    out = {
+        "reference": "disinfect_slam_tpu DenseSLAM on CPU, splat_impl='xla', "
+                     "sampler='gather', loop closure on",
+        "dataset": "datasets/orbit_vga",
+        "frames": len(fids),
+        "voxel": SLAM_VOXEL, "trunc": SLAM_TRUNC, "max_depth": SLAM_MAX_DEPTH,
+        "kf_every": SLAM_KF_EVERY, "lc_min_gap": SLAM_LC_MIN_GAP,
+        "frame_ids": fids,
+        "ok": oks,
+        "cam_T_world": [p.tolist() for p in poses],
+        "lost": dslam.lost_count,
+        "keyframes": lc.count,
+        "closures": lc.closures,
+        "ate": {k: float(ate[k]) for k in ("rmse", "mean", "max")},
+        "rpe": te.rpe(gt[ig], est[ie], delta=1),
+        "volume": volume_fingerprint({f: np.asarray(getattr(vol, f)) for f in (
+            "entry_key", "entry_block", "oob_count", "tsdf", "rgbw", "prob")}),
+    }
+    with open(OUT_SLAM, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items() if k != "cam_T_world"}, indent=1))
+
+
 def main():
     cam = load_yaml(os.path.join(DATASET, "cam.yaml"))
     intrinsics = get_intrinsics(cam)
@@ -290,10 +368,14 @@ if __name__ == "__main__":
                        help="write the online step's fingerprint instead")
     which.add_argument("--export", action="store_true",
                        help="write the export slice's fingerprint instead")
+    which.add_argument("--slam", action="store_true",
+                       help="write the pose-free dense SLAM's fingerprint instead")
     args = ap.parse_args()
     if args.online:
         online()
     elif args.export:
         export()
+    elif args.slam:
+        slam()
     else:
         main()

@@ -20,7 +20,11 @@ from disinfect_slam_tpu_torch.core.state import TSDFVolume
 from disinfect_slam_tpu_torch.io.checkpoint import load_volume, volume_from_numpy, volume_to_numpy
 from disinfect_slam_tpu_torch.models.segmentation import load_model
 from disinfect_slam_tpu_torch.ops.gather import volume_from_spatial_records
+from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
 from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
+from disinfect_slam_tpu_torch.systems.loop_closure import LoopClosureManager
+from disinfect_slam_tpu_torch.systems.odometry import ICPOdometry
+from disinfect_slam_tpu_torch.systems.slam import ICPSource
 from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
 from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
 from disinfect_slam_tpu_torch.systems.tsdf_system import TSDFSystem
@@ -44,6 +48,10 @@ DEFAULT_DEVICE_CALLS = {
         volume_to_numpy(TSDFVolume.create(CFG, device="cpu")), CFG),
     "volume_from_spatial_records": lambda: volume_from_spatial_records(
         np.array([[0.0, 0.0, 0.0, 0.5], [0.05, 0.0, 0.0, -0.5]], np.float32)),
+    "DenseSLAM": lambda: DenseSLAM(K, 48, 64, cfg=CFG),
+    "ICPOdometry": lambda: ICPOdometry(K, 48, 64),
+    "ICPSource": lambda: ICPSource(K, 48, 64),
+    "LoopClosureManager": lambda: LoopClosureManager(K, 48, 64),
 }
 
 
@@ -56,7 +64,7 @@ def test_default_device_is_cuda(monkeypatch, name):
         DEFAULT_DEVICE_CALLS[name]()
 
 
-@pytest.mark.parametrize("app", ["offline", "online", "tsdf2mesh"])
+@pytest.mark.parametrize("app", ["offline", "online", "tsdf2mesh", "dense_slam"])
 def test_apps_without_device_exit_nonzero_naming_cuda(app, tmp_path):
     """The CLI as a user runs it, with CUDA hidden and no --device: it
     stops with a non-zero exit code and says that CUDA is missing."""
@@ -73,6 +81,25 @@ def test_apps_without_device_exit_nonzero_naming_cuda(app, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr, proc.stderr[-2000:]
+
+
+def test_evaluate_app_needs_no_device(tmp_path):
+    """apps.evaluate scores trajectory files on the host: with CUDA hidden
+    it runs to its end (exit 0) and uses no device."""
+    rows = "".join(f"{i} 1 0 0 {0.01 * i} 0 1 0 0 0 0 1 {0.002 * i * i}\n" for i in range(6))
+    for name in ("gt.txt", "est.txt"):
+        (tmp_path / name).write_text(rows)
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"sys.argv = ['evaluate', '{tmp_path / 'gt.txt'}', '{tmp_path / 'est.txt'}']\n"
+        "runpy.run_module('disinfect_slam_tpu_torch.apps.evaluate', run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert '"pairs": 6' in proc.stdout
 
 
 # an import statement of jax, flax or the JAX package (not of the port,
@@ -96,9 +123,11 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "disinfect_slam_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
-    # the export slice's modules are among them
+    # the export and tracking slices' modules are among them
     for mod in ("ops/mesh.py", "systems/bridge.py", "apps/tsdf2mesh.py", "ops/gather.py",
-                "ops/hash.py"):
+                "ops/hash.py", "systems/odometry.py", "systems/dense_slam.py",
+                "systems/loop_closure.py", "systems/slam.py", "systems/imu.py",
+                "utils/trajectory_eval.py", "apps/dense_slam.py", "apps/evaluate.py"):
         assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:

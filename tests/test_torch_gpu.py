@@ -12,7 +12,10 @@ feature probe, the sampler's and fuse_rows' stage probes), the renders
 through TSDFGrid.ray_cast on the card, the online slice (the segmentation
 nets and FusedOnlineStep on the card against the port on the CPU), and
 the export slice: the hash backend's inserts, fusion and renders, mesh
-chunks, and a splat clipped at its surface cap (surf_overflow > 0).
+chunks, and a splat clipped at its surface cap (surf_overflow > 0), and
+the tracking slice: K4 at the tracking resolutions, the model depth's
+smoothing, DenseSLAM on the card against the CPU (one pose read and one
+sync a tracked frame, TF32 off in ICP) and loop closure on the card.
 
 Needs a CUDA device and nvcc; skipped without a card.  This file imports
 no JAX, so it runs on a GPU host without it:
@@ -643,3 +646,148 @@ def test_clipped_splat_on_the_card_equals_the_plain_splat(cuda):
         assert torch.equal(getattr(ours, f), getattr(ref, f)), f
     full = splat_kernel.splat_render_cuda(grid.volume, cam, pose, 4.0)
     assert ours.hit.sum() < full.hit.sum()
+
+
+# ----------------------------------------------------------------------
+# the tracking slice: K4 at the tracking resolution, DenseSLAM on the card
+# ----------------------------------------------------------------------
+SLAM_K, SLAM_W, SLAM_H = (131.7, 132.3, 79.7, 59.4), 160, 120
+SLAM_CENTER = np.array([0.1, 0.0, 1.5])
+SLAM_CFG = TSDFConfig(voxel_size=0.05, truncation=0.15, num_blocks_log2=12,
+                      max_candidates=8192, max_visible=4096, max_new_per_round=2048,
+                      grid_log2=6)
+# card against CPU, per-frame cam_T_world over the 6-frame orbit: fusion,
+# the splat and the smoothing give the same bits on both; ICP's reductions
+# (the normal equations, the rmse) run in other orders, which moves the
+# poses by ulps that the next frames' correspondences carry (the CPU tests'
+# limit against the JAX tracker, tests/test_torch_dense_slam.py)
+SLAM_POSE_TOL = 2e-4
+
+
+def _slam_depth(pose):
+    """tests/test_dense_slam.py's scene: two spheres before a wall."""
+    d1 = render_sphere(SLAM_W, SLAM_H, SLAM_K, pose, center=SLAM_CENTER, radius=0.45)
+    d2 = render_wall(SLAM_W, SLAM_H, SLAM_K, pose, wall_z=2.4131)
+    d3 = render_sphere(SLAM_W, SLAM_H, SLAM_K, pose, center=(-0.5, 0.3, 1.9), radius=0.3)
+    d = np.where(d1 > 0, d1, d2)
+    return np.where(d3 > 0, d3, d).astype(np.float32)
+
+
+def _slam_orbit():
+    return [look_at((np.sin(a) * 1.8, 0.01 * a, -1.8 * np.cos(a) + 0.3), SLAM_CENTER)
+            for a in np.linspace(0, 0.12, 6)]
+
+
+@pytest.mark.parametrize("img_hw", [(240, 320), (480, 640)])
+def test_splat_zbuf_at_the_tracking_resolutions(cuda, img_hw):
+    """K4 alone, as DenseSLAM's model depth launches it, at 320x240
+    (track_res_scale=2) and 640x480: bit-equal to its plain version on the
+    block rows, both branches taken and counted."""
+    img_h, img_w = img_hw
+    rows, pool, geometry = _splat_case(cuda, 9, COUNT, img_h, img_w, voxel_size=0.02,
+                                       truncation=0.06, near_share=0.25)
+    branches = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = splat_kernel.splat_zbuf_blocks.launches
+    zbuf = splat_kernel.splat_zbuf_blocks(*rows, pool[0], **geometry, branch_counts=branches)
+    zref = splat_kernel.splat_zbuf_blocks_reference(*rows, pool[0], **geometry)
+    assert splat_kernel.splat_zbuf_blocks.launches == before + 1
+    assert torch.equal(zbuf, zref) and (zbuf < splat_kernel.BIG).any()
+    tile_rows, atomic_rows = branches.tolist()
+    assert tile_rows > 0 and atomic_rows > 0
+
+
+def test_model_depth_smoothing_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """The validity-aware box smoothing (nine shifted adds, no cuDNN
+    convolution and so no TF32) gives the CPU's bits."""
+    from disinfect_slam_tpu_torch.systems.dense_slam import smooth_model_depth
+
+    rng = np.random.default_rng(12)
+    d = rng.uniform(0.5, 4.0, (240, 320)).astype(np.float32)
+    d[rng.random(d.shape) < 0.3] = 0.0
+    # the default: the smoothing must not care
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    ref = smooth_model_depth(torch.from_numpy(d))
+    ours = smooth_model_depth(torch.from_numpy(d).to(cuda)).cpu()
+    assert torch.equal(ours, ref)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_dense_slam_on_the_card_equals_the_cpu(cuda, monkeypatch, scale):
+    """DenseSLAM over the 6-frame orbit on the card and on the CPU, with
+    TF32 switched on globally beforehand: the same ok flags, poses within
+    SLAM_POSE_TOL; on the card one pose read and one stream sync per
+    tracked frame (torch's sync debug mode counts them), none on frame 0;
+    K4 once per tracked frame at the tracking camera, K5 never, fuse_rows
+    once per frame; ICP ran with TF32 off and the global flags are left as
+    they were."""
+    import warnings
+
+    from disinfect_slam_tpu_torch.systems import dense_slam as tds
+    from disinfect_slam_tpu_torch.systems import odometry
+
+    rgb = checker_rgb(SLAM_W, SLAM_H)
+    flags_in_icp = []
+    real_level = odometry._icp_level
+
+    def spy(*a, **k):
+        flags_in_icp.append((torch.backends.cudnn.allow_tf32,
+                             torch.backends.cuda.matmul.allow_tf32))
+        return real_level(*a, **k)
+
+    monkeypatch.setattr(odometry, "_icp_level", spy)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    runs = {}
+    for dev in ("cpu", cuda):
+        slam = tds.DenseSLAM(SLAM_K, SLAM_H, SLAM_W, voxel_size=0.02, truncation=0.06,
+                             cfg=SLAM_CFG, track_res_scale=scale, device=dev)
+        launches = [splat_kernel.splat_zbuf_blocks.launches,
+                    splat_kernel.splat_payload_blocks.launches, fuse_kernel.fuse_rows.launches]
+        reads, syncs, poses, oks = [], [], [], []
+        for pose in _slam_orbit():
+            r0 = odometry.read_result.reads
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if dev != "cpu":
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    p, ok = slam.process_frame(rgb, _slam_depth(pose))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sum("synchronizing" in str(w.message) for w in caught))
+            reads.append(odometry.read_result.reads - r0)
+            assert p.device.type == torch.device(dev).type and p.shape == (4, 4)
+            poses.append(p.cpu().numpy())
+            oks.append(bool(ok))
+        launches = [n - b for n, b in zip(
+            [splat_kernel.splat_zbuf_blocks.launches,
+             splat_kernel.splat_payload_blocks.launches, fuse_kernel.fuse_rows.launches],
+            launches)]
+        runs[torch.device(dev).type] = (np.stack(poses), oks, reads, syncs, launches)
+    (cp, cok, creads, _, clx), (gp, gok, greads, gsyncs, glx) = runs["cpu"], runs["cuda"]
+    assert gok == cok == [True] * 6
+    np.testing.assert_allclose(gp, cp, rtol=0, atol=SLAM_POSE_TOL)
+    assert greads == creads == [0, 1, 1, 1, 1, 1]
+    assert gsyncs == [0, 1, 1, 1, 1, 1], gsyncs
+    assert glx == [5, 0, 6] and clx == [0, 0, 0]
+    assert flags_in_icp and all(f == (False, False) for f in flags_in_icp)
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+
+
+def test_loop_closure_on_the_card_closes_the_drifted_chain(cuda):
+    """LoopClosureManager on the card over tests/test_loop_closure.py's
+    out-and-back keyframes: a loop closes (first at keyframe 5 or later),
+    each verification reads once, and the optimised keyframes fall below
+    60% of the drifted estimates' error (the CPU test's limits)."""
+    from disinfect_slam_tpu_torch.systems.loop_closure import LoopClosureManager
+
+    from .torch_cases import LC_ARGS, LC_H, LC_K, LC_W, out_and_back_keyframes
+
+    true_poses, est_poses, depths = out_and_back_keyframes()
+    lc = LoopClosureManager(LC_K, LC_H, LC_W, device=cuda, **LC_ARGS)
+    firsts = [k for k, (d, e) in enumerate(zip(depths, est_poses))
+              if lc.add_keyframe(d, e, frame_id=10 * k) is not None]
+    assert lc.closures >= 1 and firsts[0] >= 5 and lc.db_desc.device.type == "cuda"
+    err = lambda poses: np.mean([np.linalg.norm(p[:3, 3] - g[:3, 3])  # noqa: E731
+                                 for p, g in zip(poses, true_poses)])
+    assert err(lc.kf_pose_opt) < 0.6 * err(est_poses)

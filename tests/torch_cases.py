@@ -201,3 +201,42 @@ def splat_edge_cases(seed=3, img_h=48, img_w=64, rows=16, count=12, pool_rows=64
         case("tsdf one ulp inside the band", True, tsdf=_next32(bt32, 0.0)),
         case("-tsdf one ulp inside the band", True, tsdf=-_next32(bt32, 0.0)),
     ]
+
+
+# the loop-closure fixture of tests/test_loop_closure.py (which imports
+# JAX), restated for the GPU tests and chip_smoke.py; a CPU test pins the
+# two copies together
+LC_K, LC_W, LC_H = (131.7, 132.3, 79.7, 59.4), 160, 120
+LC_CENTER = np.array([0.1, 0.0, 1.5])
+LC_ARGS = dict(kf_every=1, min_gap_frames=50, sim_thresh=0.97, verify_max_rmse=0.05,
+               verify_min_inliers=800, max_keyframes=64)
+
+
+def lc_scene_depth(pose):
+    """Two spheres before a wall at 160x120."""
+    from .scenes import render_sphere, render_wall
+
+    d1 = render_sphere(LC_W, LC_H, LC_K, pose, center=LC_CENTER, radius=0.45)
+    d2 = render_wall(LC_W, LC_H, LC_K, pose, wall_z=2.4131)
+    d3 = render_sphere(LC_W, LC_H, LC_K, pose, center=(-0.5, 0.3, 1.9), radius=0.3)
+    d = np.where(d1 > 0, d1, d2)
+    return np.where(d3 > 0, d3, d).astype(np.float32)
+
+
+def out_and_back_keyframes():
+    """12 keyframes out along +x and back to the start pose, with a
+    growing injected world-frame drift on the estimates: (true world_T_cam,
+    estimated world_T_cam, depth) lists."""
+    from .scenes import look_at
+
+    xs = [0.0, 0.06, 0.12, 0.18, 0.24, 0.30, 0.30, 0.24, 0.18, 0.12, 0.06, 0.0]
+    true_poses, est_poses, depths = [], [], []
+    for k, x in enumerate(xs):
+        pose_cw = look_at((x, 0.0, -1.5), LC_CENTER + np.array([x * 0.3, 0, 0]))
+        wc = np.linalg.inv(pose_cw).astype(np.float32)
+        drift = np.eye(4, dtype=np.float32)
+        drift[:3, 3] = [0.006 * k, 0.0, 0.003 * k]
+        true_poses.append(wc)
+        est_poses.append((drift @ wc).astype(np.float32))
+        depths.append(lc_scene_depth(pose_cw))
+    return true_poses, est_poses, depths
