@@ -104,7 +104,33 @@ exits non-zero:
      profiled (frames 45-59: device time, kernels, idle share; ICP alone:
      kernels, device time and the host time of its ops).
 
-Phases run 0-6b, then 8, then 7.  Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
+  9. the served map, on phase 3's volume: (a) ReconstructionService
+     over a DISINFSystem at the bench preset on 127.0.0.1 (make_server in a
+     thread): all 60 frames POSTed as npz (rgb, depth, the logged ht/lt
+     and pose), fuse_rows once a frame, the served volume bit-equal to
+     phase 3's and within its fingerprint limits; /render at frame 0's
+     pose, 640x480, five times (median HTTP round trip), each splat kernel
+     once a request, bit-equal to ray_cast(renderer="auto") and the plain
+     splat; /query on the bridge's 2 m cube equal to gather_voxels; /stats
+     and /mesh timed; (d) the bench replay in process with the occlusion
+     cull off and on: both volumes bit-equal to phase 3's, fewer visible
+     rows with it, fusion ms/frame of each; (e) apps.view_volume on a
+     checkpoint of phase 3's volume, each splat kernel once a view; (c)
+     the dense window recentred away from phase 3's volume so that every
+     block spills to the host store and back (spill and restore ms, host
+     bytes; rows bit-equal, store empty, validate_volume clean), then
+     apps.offline --preset small --grid-log2 6 --auto-recenter --spill
+     --page-radius 1.0 --debug --save (the window moves) and the same
+     without --grid-log2 and --auto-recenter (the scene outgrows the
+     4096-block pool and paging evicts to the store): fuse_rows once a
+     frame, the volume validated after every frame, the dump plus the
+     appended store records covering every block the card and the store
+     hold; (b)
+     apps.serve --synthetic 30 as its own process on the card: the viewer
+     page, the replay started and run to its end, /stats with 30 frames,
+     a PNG from /render, the process stopped with no traceback on stderr.
+
+Phases run 0-6b, then 9, then 8, then 7.  Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
 they project block rows in registers) against their plain versions at
 the render's capacity (16384 block rows, 14000 live, 640x480 and
 1920x1080; tests/torch_cases.py's splat_block_case: rows behind the
@@ -120,12 +146,16 @@ meshes go to disinfect_slam_tpu_torch/_build/.  Run from the
 repository root, with no arguments:  python3 chip_smoke.py
 """
 
+import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -227,9 +257,10 @@ def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
     medians stand in for the launches; a trace that lost most of them, or
     that reads less than floor_ms (the kernel's bound: no run can be
     faster, so such a reading is a fault of the trace), is taken again,
-    three times at most; when all three lost the device events, the calls
-    are timed by CUDA events (cuda_time_ms, launch overhead included) and
-    the log says so; else the call raises.  The profiler leaves the
+    five times at most; when none gave a reading at or above the bound,
+    the calls are timed by CUDA events (cuda_time_ms, launch overhead
+    included) and the log says so, and a time below the bound raises.
+    The profiler leaves the
     host slower for the rest of the process, so these run after the
     end-to-end measurements they could slow."""
     from torch.profiler import ProfilerActivity, profile
@@ -237,7 +268,7 @@ def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
     fn()
     torch.cuda.synchronize()
     readings = []
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -255,17 +286,17 @@ def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
             readings.append(ms)
             log(f"[chip_smoke] {name or 'fn'}: a trace read {ms:.4f} ms, below the bound "
                 f"{floor_ms:.4f} ms; taken again")
-    if not readings:
-        # three traces without the device events: time the calls with CUDA
-        # events, which include each call's launch overhead (an upper
-        # bound of the device time), and say so
-        ms = cuda_time_ms(fn, reps)
-        log(f"[chip_smoke] {name or 'fn'}: three traces lost their device events; "
-            f"CUDA events instead: {ms:.4f} ms a call")
-        if ms >= floor_ms:
-            return ms
-    raise AssertionError(f"the traces of {name or 'fn'} lost their device events or read "
-                         f"below the bound {floor_ms:.4f} ms: {readings}")
+    # no trace read at or above the bound (the rest lost their device
+    # events): time the calls with CUDA events, which include each call's
+    # launch overhead (an upper bound of the device time), and say so
+    ms = cuda_time_ms(fn, reps)
+    log(f"[chip_smoke] {name or 'fn'}: no trace read at or above the bound (readings "
+        f"{[round(r, 4) for r in readings]}, the rest lost their device events); CUDA events "
+        f"instead: {ms:.4f} ms a call")
+    if ms >= floor_ms:
+        return ms
+    raise AssertionError(f"{name or 'fn'}: CUDA events read {ms:.4f} ms, below the bound "
+                         f"{floor_ms:.4f} ms; the traces read {readings}")
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -682,7 +713,7 @@ def reset_launches(*fns) -> None:
 def replay(offline, sampler: str, save: str, render_dir=None, extra=()):
     argv = ["--logdir", DATASET, "--config", os.path.join(DATASET, "cam.yaml"),
             "--preset", "bench", "--device", "cuda", "--sampler", sampler,
-            "--save", save, *extra]
+            "--prefetch", "0", "--save", save, *extra]
     if render_dir:
         argv += ["--render-dir", render_dir, "--renderer", "auto"]
     return offline.main(argv)
@@ -1974,6 +2005,439 @@ def slam_slice(fuse_kernel, splat_kernel, dev, smi) -> dict:
     return {"app": app, "timing": timing, "zbuf": zbuf, "loop_closure": lc}, vol, pose
 
 
+# ----------------------------------------------------------------------
+# phase 9: the served map (the HTTP service and its app, host block
+# streaming, the occlusion cull, apps.view_volume)
+# ----------------------------------------------------------------------
+VOLUME_FIELDS = ("entry_key", "entry_block", "block_table", "heap", "num_free", "oob_count",
+                 "tsdf", "rgbw", "prob")
+SERVE_RENDERS = 5  # /render requests timed (median)
+SERVE_MAX_DEPTH = 10.0  # ReconstructionService.render's default, as the JAX service's
+SERVE_APP_FRAMES = 30
+VIEW_FRAMES = 4
+
+
+def http_get(url: str, timeout: float = 600.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read(), r.headers.get("Content-Type")
+
+
+def http_npz(url: str):
+    return np.load(io.BytesIO(http_get(url)[0]))
+
+
+def http_json(url: str):
+    return json.loads(http_get(url)[0])
+
+
+def post_npz(url: str, **arrays):
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return np.load(io.BytesIO(r.read()))
+
+
+def timed_ms(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def volumes_equal(a, b) -> dict:
+    """Which of two volumes' tensors are equal, bit for bit."""
+    return {f: torch.equal(getattr(a, f), getattr(b, f)) for f in VOLUME_FIELDS}
+
+
+def bench_service(offline, dev):
+    """A DISINFSystem at the offline app's bench preset with orbit_vga's
+    camera behind ReconstructionService, served on 127.0.0.1 at a free
+    port by a thread -> (system, server, base url, replay, intrinsics)."""
+    from disinfect_slam_tpu_torch.io.config_reader import (
+        get_depth_factor, get_extrinsics, get_intrinsics, load_yaml,
+    )
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+    from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
+    from disinfect_slam_tpu_torch.systems.server import ReconstructionService, make_server
+
+    cfg, voxel, trunc, max_depth = offline.make_config(offline.parse_args(
+        ["--logdir", DATASET, "--preset", "bench", "--sampler", "pallas_fused"]))
+    cam_yaml = load_yaml(os.path.join(DATASET, "cam.yaml"))
+    intrinsics = get_intrinsics(cam_yaml)
+    replay = LoggedReplay(DATASET, get_depth_factor(cam_yaml), get_extrinsics(cam_yaml))
+    system = DISINFSystem(intrinsics, depth_factor=1.0, voxel_size=voxel, truncation=trunc,
+                          max_depth=max_depth, cfg=cfg, half_scale=False, device=dev)
+    httpd = make_server(ReconstructionService(system), "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return system, httpd, f"http://127.0.0.1:{httpd.server_address[1]}", replay, intrinsics
+
+
+def served_map(offline, grid, fuse_kernel, splat_kernel, ref, export_ref, smi, dev) -> dict:
+    """Phase 9a: the service in process.  POST every frame of the bench
+    replay (rgb, depth, ht, lt, pose as npz); fuse_rows launches once a
+    frame; the served volume equals phase 3's bit for bit and meets the
+    fingerprint; /render at frame 0's pose launches each splat kernel once
+    a request and gives ray_cast(renderer="auto")'s and the plain splat's
+    bits; /query on the bridge's 2 m cube gives gather_voxels' records;
+    /stats, /query and /mesh timed."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.ops import render_fast
+    from disinfect_slam_tpu_torch.ops.gather import BoundingCube, to_numpy_records
+
+    splat_fns = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
+    system, httpd, base, replay, intrinsics = bench_service(offline, dev)
+    try:
+        reset_launches(fuse_kernel.fuse_rows, *splat_fns)
+        post_ms = []
+        t0 = time.perf_counter()
+        for i, fr in enumerate(replay):
+            out, ms = timed_ms(lambda: post_npz(
+                f"{base}/frame", rgb=fr.rgb, depth=fr.depth, timestamp_ms=np.asarray(33 * i),
+                ht=fr.ht, lt=fr.lt, pose=fr.cam_T_world))
+            post_ms.append(ms)
+            if not bool(out["ok"]) or not np.array_equal(out["pose"], fr.cam_T_world):
+                raise AssertionError(f"/frame {i}: ok {out['ok']}, pose {out['pose']}")
+        stats, stats_ms = timed_ms(lambda: http_json(f"{base}/stats"))  # drains the queue
+        stream_s = time.perf_counter() - t0
+        launches = fuse_kernel.fuse_rows.launches
+        served = system.tsdf.tsdf
+        if launches != len(replay) or stats["frames"] != len(replay) or any(
+                fn.launches for fn in splat_fns) or system.tsdf.dropped_frames:
+            raise AssertionError(f"served replay: fuse_rows {launches}, stats {stats}, splat "
+                                 f"{[fn.launches for fn in splat_fns]}, dropped "
+                                 f"{system.tsdf.dropped_frames}")
+        equal = volumes_equal(served.volume, grid.volume)
+        log(f"[chip_smoke] served replay: {len(replay)} frames POSTed in {stream_s:.2f} s "
+            f"(median {statistics.median(post_ms):.1f} ms a POST, npz of rgb, depth, ht, lt, "
+            f"pose), fuse_rows launches {launches}; the served volume equals phase 3's bit "
+            f"for bit: {equal} ({smi})")
+        if not all(equal.values()):
+            raise AssertionError(f"served volume differs from phase 3's: {equal}")
+        fp = check_fingerprint(served, int(served.gather_valid().count), ref, "served volume")
+
+        pose0 = replay.entries[0][1]
+        fx = float(intrinsics[0])
+        csv = ",".join(repr(float(x)) for x in np.asarray(pose0, np.float32).ravel())
+        url = f"{base}/render?fx={fx!r}&w={W}&h={H}&pose={csv}"
+        reset_launches(*splat_fns)
+        renders, render_ms = [], []
+        for _ in range(SERVE_RENDERS):
+            r, ms = timed_ms(lambda: http_npz(url))
+            renders.append(r)
+            render_ms.append(ms)
+        render_launches = [fn.launches for fn in splat_fns]
+        if render_launches != [SERVE_RENDERS] * 2:
+            raise AssertionError(f"/render launched the splat kernels {render_launches} times "
+                                 f"for {SERVE_RENDERS} requests")
+        view = ((fx, fx, (W - 1) / 2, (H - 1) / 2), H, W)
+        auto = served.ray_cast(SERVE_MAX_DEPTH, view, pose0, renderer="auto")
+        plain = render_fast.splat_render(served.volume,
+                                         CameraParams.create(CameraIntrinsics.create(*view[0]),
+                                                             H, W),
+                                         SE3.from_matrix(pose0), SERVE_MAX_DEPTH)
+        equal = {k: all(np.array_equal(r[k], getattr(want, k).cpu().numpy())
+                        for r in renders for want in (auto, plain))
+                 for k in ("rgba", "normal", "depth")}
+        hits = float((renders[0]["depth"] > 0).mean())
+        log(f"[chip_smoke] /render 640x480 at frame 0's pose: median {statistics.median(render_ms):.1f} "
+            f"ms of {[round(t, 1) for t in render_ms]} (HTTP round trip, npz); splat launches "
+            f"{render_launches}; bit-equal to ray_cast(auto) and the plain splat: {equal}; hit "
+            f"{hits:.3f} ({smi})")
+        if not all(equal.values()) or hits < 0.1:
+            raise AssertionError(f"/render differs from the in-process render: {equal}, hit {hits}")
+
+        cube = export_ref["bridge"]["cube"]
+        q = ",".join(repr(float(x)) for x in cube)
+        rec, query_ms = timed_ms(lambda: http_npz(f"{base}/query?bbox={q}")["records"])
+        local = to_numpy_records(served.gather_voxels(BoundingCube(*cube)))
+        log(f"[chip_smoke] /query (the bridge's 2 m cube): {rec.shape[0]} records in "
+            f"{query_ms:.1f} ms, equal to gather_voxels in process: {np.array_equal(rec, local)}")
+        if rec.shape[0] == 0 or not np.array_equal(rec, local):
+            raise AssertionError("/query differs from gather_voxels")
+        mesh, mesh_ms = timed_ms(lambda: http_npz(f"{base}/mesh"))
+        nv, nf = mesh["verts"].shape[0], mesh["faces"].shape[0]
+        want = export_ref["mesh"]["f32"]
+        dev_ = max(abs(nv - want["merged_vertices"]) / want["merged_vertices"],
+                   abs(nf - want["merged_faces"]) / want["merged_faces"])
+        log(f"[chip_smoke] /mesh: {nv} vertices, {nf} faces in {mesh_ms:.1f} ms (extract, weld, "
+            f"npz); the reference's {want['merged_vertices']} / {want['merged_faces']}, rel dev "
+            f"{dev_:.3e} (limit {TOL_MESH_COUNT:g}); /stats {stats_ms:.1f} ms ({smi})")
+        if not dev_ <= TOL_MESH_COUNT:
+            raise AssertionError("/mesh counts outside tolerance")
+        del mesh
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        system.terminate()
+    return {"fuse_rows_launches": launches, "splat_launches": render_launches,
+            "post_ms_median": statistics.median(post_ms), "stream_s": stream_s,
+            "render_ms": render_ms, "render_ms_median": statistics.median(render_ms),
+            "query_ms": query_ms, "query_records": int(rec.shape[0]), "stats_ms": stats_ms,
+            "mesh_ms": mesh_ms, "mesh": [int(nv), int(nf)], "fingerprint": fp, "hit": hits}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_app(smi) -> dict:
+    """Phase 9b: apps.serve --synthetic 30 as a user runs it (its own
+    process, no --device: the card): the viewer page, the replay started
+    and run to its end, /stats reporting every frame, a PNG from /render;
+    then the process is stopped, and its stderr holds no traceback."""
+    from disinfect_slam_tpu_torch.io.png_io import read_png
+    from disinfect_slam_tpu_torch.ops.cuda import build
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    out_path = os.path.join(str(build.BUILD_DIR), "serve_app.log")
+    err_path = os.path.join(str(build.BUILD_DIR), "serve_app.err")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "disinfect_slam_tpu_torch.apps.serve", "--synthetic",
+             str(SERVE_APP_FRAMES), "--port", str(port)], cwd=ROOT, stdout=out, stderr=err)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"apps.serve exited with {proc.returncode}")
+                try:
+                    http_get(f"{base}/stats", timeout=5)
+                    break
+                except OSError:
+                    if time.perf_counter() - t0 > 300:
+                        raise
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            page, ctype = http_get(f"{base}/")
+            if not ctype.startswith("text/html") or b"arcball" not in page.lower():
+                raise AssertionError(f"/ served {ctype}, not the viewer")
+            t1 = time.perf_counter()
+            http_json(f"{base}/ctrl?cmd=start")
+            while not http_json(f"{base}/ctrl?cmd=status")["done"]:
+                if time.perf_counter() - t1 > 300:
+                    raise AssertionError("the replay did not end")
+                time.sleep(0.1)
+            stats = http_json(f"{base}/stats")
+            replay_s = time.perf_counter() - t1
+            png, ctype = http_get(f"{base}/render?fmt=png&view=rgba")
+            path = os.path.join(str(build.BUILD_DIR), "serve_app_render.png")
+            with open(path, "wb") as f:
+                f.write(png)
+            img = read_png(path)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    with open(err_path) as f:
+        stderr = f.read()
+    log(f"[chip_smoke] apps.serve --synthetic {SERVE_APP_FRAMES}: up in {up_s:.1f} s, replay "
+        f"{replay_s:.2f} s, /stats {stats}; /render PNG {img.shape} {img.dtype}; stopped "
+        f"(exit {proc.returncode}); traceback on stderr: {'Traceback' in stderr} ({smi})")
+    if (stats["frames"] != SERVE_APP_FRAMES or not stats["replay"]["done"]
+            or stats["active_blocks"] == 0 or img.shape != (360, 640, 4)
+            or "Traceback" in stderr):
+        raise AssertionError(f"apps.serve: stats {stats}, render {img.shape}, stderr "
+                             f"{stderr[-2000:]}")
+    return {"up_s": up_s, "replay_s": replay_s, "stats": stats}
+
+
+def live_block_rows(vol):
+    """(sorted live keys, their tsdf, rgbw and prob rows) on the device."""
+    live = (vol.entry_block >= 0).nonzero().flatten()
+    keys, order = torch.sort(vol.entry_key[live])
+    rows = vol.entry_block[live][order].long()
+    return keys, vol.tsdf[rows], vol.rgbw[rows], vol.prob[rows]
+
+
+def spill_at_scale(grid, smi) -> dict:
+    """Phase 9c: on phase 3's volume, the dense window recentred away so
+    that every block spills to a host store, then back: the store empties,
+    each block's rows come back bit for bit, and the volume validates."""
+    from disinfect_slam_tpu_torch.ops.hash import window_origin
+    from disinfect_slam_tpu_torch.systems.block_streaming import HostBlockStore
+    from disinfect_slam_tpu_torch.utils.validate import validate_volume
+
+    cfg = grid.cfg
+    before = live_block_rows(grid.volume)
+    n_live = before[0].numel()
+    origin = window_origin(cfg)
+    bs = cfg.block_len * cfg.voxel_size
+    # a window one side further along x: no live block stays in it
+    away = ((cfg.grid_side + 1.5) * bs, 0.0, 0.0)
+    grid.spill_store = HostBlockStore()
+    try:
+        torch.cuda.synchronize()
+        moved, spill_ms = timed_ms(lambda: grid.recenter(away))
+        spilled, active = len(grid.spill_store), grid.num_active_blocks()
+        nbytes = grid.spill_store.nbytes()
+        moved_back, restore_ms = timed_ms(lambda: grid.recenter((0.0, 0.0, 0.0)))
+        torch.cuda.synchronize()
+        after = live_block_rows(grid.volume)
+        equal = [torch.equal(a, b) for a, b in zip(after, before)]
+        left = len(grid.spill_store)
+    finally:
+        grid.spill_store = None
+    errors = validate_volume(grid.volume, strict=False)
+    log(f"[chip_smoke] spill at scale: {n_live} live blocks; the window moved away "
+        f"({moved}): {spilled} blocks spilled in {spill_ms:.1f} ms ({nbytes / 1e6:.1f} MB on "
+        f"the host), {active} left on the card; back ({moved_back}, origin "
+        f"{window_origin(grid.cfg)} == {origin}): restored in {restore_ms:.1f} ms, {left} "
+        f"left in the store; keys and rows bit-equal {equal}; validate {errors} ({smi})")
+    if (not (moved and moved_back) or spilled != n_live or active != 0 or left
+            or not all(equal) or errors or window_origin(grid.cfg) != origin):
+        raise AssertionError("spill at scale: the roundtrip lost or changed blocks")
+    return {"blocks": n_live, "spill_ms": spill_ms, "restore_ms": restore_ms,
+            "nbytes": nbytes}
+
+
+def paged_app(offline, fuse_kernel, smi, label, *flags) -> dict:
+    """Phase 9c, the app: apps.offline --preset small --spill --page-radius
+    1.0 --debug --save over the 60 frames with `flags`: fuse_rows once a
+    frame, validate_volume after every frame, and the dump with the store's
+    records appended covers every block the card and the store hold."""
+    from disinfect_slam_tpu_torch.ops.cuda import build
+    from disinfect_slam_tpu_torch.ops.gather import load_spatial_tsdf
+
+    save = os.path.join(str(build.BUILD_DIR), f"data_{label}.bin")
+    reset_launches(fuse_kernel.fuse_rows)
+    res = offline.main(["--logdir", DATASET, "--config", os.path.join(DATASET, "cam.yaml"),
+                        "--preset", "small", *flags, "--spill", "--page-radius", "1.0",
+                        "--debug", "--save", save, "--device", "cuda"])
+    launches = fuse_kernel.fuse_rows.launches
+    grid, store = res["grid"], res["grid"].spill_store
+    rec = load_spatial_tsdf(save)
+    blocks = np.unique(np.floor(np.round(rec[:, :3] / grid.cfg.voxel_size)
+                                / grid.cfg.block_len).astype(np.int64), axis=0)
+    vol = grid.volume
+    on_card = vol.entry_pos[vol.entry_block >= 0].cpu().numpy().astype(np.int64)
+    stored = np.array(list(store._store), np.int64).reshape(-1, 3)
+    held = np.unique(np.concatenate([on_card, stored]), axis=0)
+    covered = (rec.shape[0] == res["records"] + res["spilled_records"]
+               and np.array_equal(blocks, held))
+    evicted = sum(e for _, _, e in res["pages"])
+    log(f"[chip_smoke] paged app ({label}: {' '.join(flags) or 'the preset window'}): "
+        f"{res['frames']} frames, "
+        f"fuse_rows launches {launches}, validated {res['validated']} frames, window moved at "
+        f"{res['recenter_frames']}, pages (frame, restored, evicted) {res['pages']}, "
+        f"{on_card.shape[0]} blocks on the card and {stored.shape[0]} in the store; the dump "
+        f"({res['records']} + {res['spilled_records']} records) covers every block either "
+        f"holds: {covered}; integrate {1e3 * statistics.mean(res['integrate_s']):.3f} "
+        f"ms/frame ({smi})")
+    if (launches != res["frames"] or res["frames"] != 60 or res["validated"] != 60
+            or not covered):
+        raise AssertionError(f"paged app ({label}): launches, validation or the dump's "
+                             f"coverage failed")
+    return {"fuse_rows_launches": launches, "moves": res["recenter_frames"],
+            "pages": res["pages"], "evicted": evicted, "stored_blocks": int(stored.shape[0]),
+            "card_blocks": int(on_card.shape[0]), "spilled_records": res["spilled_records"]}
+
+
+def cull_replay(offline, grid, fuse_kernel, fused_ms, smi, dev) -> dict:
+    """Phase 9d: the bench replay through integrate, in process, with the
+    occlusion cull off and on (each frame synchronised at both ends,
+    uploads outside): both volumes equal phase 3's bit for bit, the cull
+    keeps fewer visible rows a frame, and each run's fusion ms/frame."""
+    import dataclasses
+
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.core.state import TSDFVolume
+    from disinfect_slam_tpu_torch.ops.integrate import integrate
+
+    cfg, voxel, trunc, max_depth = offline.make_config(offline.parse_args(
+        ["--logdir", DATASET, "--preset", "bench", "--sampler", "pallas_fused"]))
+    cfg = dataclasses.replace(cfg, voxel_size=voxel, truncation=trunc)
+    cam, frames = bench_frames(0, 60)
+    out = {}
+    for cull in (False, True):
+        vol = TSDFVolume.create(dataclasses.replace(cfg, cull_occluded=cull), dev)
+        reset_launches(fuse_kernel.fuse_rows)
+        ms, rows = [], []
+        for i, fr in enumerate(frames):
+            frame, pose = upload_frame(fr, dev), SE3.from_matrix(fr.cam_T_world)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vol, stats = integrate(vol, frame, cam, pose, max_depth,
+                                   allocate=i % cfg.alloc_every == 0, return_stats=True)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            rows.append(int(stats.visible_count))
+        equal = volumes_equal(vol, grid.volume)
+        out["on" if cull else "off"] = {
+            "ms_per_frame": statistics.mean(ms), "visible_rows_mean": statistics.mean(rows),
+            "fuse_rows_launches": fuse_kernel.fuse_rows.launches, "equal": all(equal.values())}
+        del vol
+        torch.cuda.empty_cache()
+    on, off = out["on"], out["off"]
+    log(f"[chip_smoke] cull replay: visible rows a frame {on['visible_rows_mean']:.1f} with the "
+        f"cull against {off['visible_rows_mean']:.1f} without; fusion {on['ms_per_frame']:.3f} "
+        f"against {off['ms_per_frame']:.3f} ms/frame (phase 3's app replay {fused_ms:.3f}); "
+        f"fuse_rows launches {on['fuse_rows_launches']} / {off['fuse_rows_launches']}; both "
+        f"volumes bit-equal to phase 3's: {on['equal']} / {off['equal']} ({smi})")
+    if (not (on["equal"] and off["equal"])
+            or not on["visible_rows_mean"] < off["visible_rows_mean"]
+            or on["fuse_rows_launches"] != 60):
+        raise AssertionError("cull replay: the volume changed or nothing was culled")
+    return out
+
+
+def view_volume_app(grid, splat_kernel, smi) -> dict:
+    """Phase 9e: apps.view_volume on a checkpoint of phase 3's volume:
+    each splat kernel launches once a view, and the PNGs decode."""
+    from disinfect_slam_tpu_torch.apps import view_volume
+    from disinfect_slam_tpu_torch.io.checkpoint import save_volume
+    from disinfect_slam_tpu_torch.io.png_io import read_png
+    from disinfect_slam_tpu_torch.ops.cuda import build
+
+    path = os.path.join(str(build.BUILD_DIR), "phase3_volume.npz")
+    _, save_ms = timed_ms(lambda: save_volume(path, grid.volume))
+    splat_fns = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
+    reset_launches(*splat_fns)
+    res, view_ms = timed_ms(lambda: view_volume.main(
+        ["--volume", path, "--out", os.path.join(str(build.BUILD_DIR), "views"), "--frames",
+         str(VIEW_FRAMES), "--device", "cuda"]))
+    launches = [fn.launches for fn in splat_fns]
+    shapes = {read_png(p).shape for p in res["paths"]}
+    os.remove(path)
+    log(f"[chip_smoke] apps.view_volume: checkpoint written in {save_ms:.0f} ms; {VIEW_FRAMES} "
+        f"views in {view_ms:.0f} ms (load included), splat launches {launches}, hit "
+        f"{[round(h, 3) for h in res['hit']]}, {len(res['paths'])} PNGs of {shapes} ({smi})")
+    if (launches != [VIEW_FRAMES] * 2 or len(res["paths"]) != 2 * VIEW_FRAMES
+            or shapes != {(360, 640, 4)} or min(res["hit"]) <= 0):
+        raise AssertionError("apps.view_volume: launches, PNGs or hits wrong")
+    return {"splat_launches": launches, "ms": view_ms, "save_ms": save_ms, "hit": res["hit"]}
+
+
+def served_map_slice(offline, grid, fuse_kernel, splat_kernel, ref, fused_ms, smi, dev) -> dict:
+    """Phase 9 (see the docstring), in an order that leaves phase 3's
+    volume as it is until the spill roundtrip moves its pool rows."""
+    with open(EXPORT_FINGERPRINT) as f:
+        export_ref = json.load(f)
+    out = {"service": served_map(offline, grid, fuse_kernel, splat_kernel, ref, export_ref,
+                                 smi, dev)}
+    torch.cuda.empty_cache()
+    out["cull"] = cull_replay(offline, grid, fuse_kernel, fused_ms, smi, dev)
+    out["view"] = view_volume_app(grid, splat_kernel, smi)
+    out["spill"] = spill_at_scale(grid, smi)
+    # the window of RECENTER_GRID_LOG2 moves (once: the orbit stays near
+    # its centre after); the preset's own 2^7 window holds the whole scene,
+    # whose blocks outgrow the 4096-block pool, so that paging evicts
+    out["paged_app"] = paged_app(offline, fuse_kernel, smi, "recenter", "--grid-log2",
+                                 str(RECENTER_GRID_LOG2), "--auto-recenter")
+    out["paging_app"] = paged_app(offline, fuse_kernel, smi, "paging")
+    if not out["paged_app"]["moves"] or not (out["paging_app"]["evicted"]
+                                             and out["paging_app"]["stored_blocks"]):
+        raise AssertionError("paged apps: the window did not move or nothing was paged out")
+    torch.cuda.empty_cache()
+    out["app"] = serve_app(smi)
+    return out
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -2240,7 +2704,6 @@ def main() -> int:
     t6b = time.perf_counter()
     export = export_slice(offline, grid, save, fuse_kernel, splat_kernel, intrinsics, poses,
                           fused_ms, smi, dev)
-    del grid
     torch.cuda.empty_cache()
     log(f"[chip_smoke] phase 6b: export slice ok; mesh f32 {export['mesh']['f32']['ms']:.1f} "
         f"ms, q16 {export['mesh']['q16']['ms']:.1f} ms, bridge query "
@@ -2248,6 +2711,20 @@ def main() -> int:
         f"s, hash replay {export['hash']['ms_per_frame']:.3f} ms/frame (dense {fused_ms:.3f}) "
         f"({smi}) ({time.perf_counter() - t6b:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
+
+    # phase 9: the served map on phase 3's volume
+    t9 = time.perf_counter()
+    served = served_map_slice(offline, grid, fuse_kernel, splat_kernel, ref, fused_ms, smi, dev)
+    del grid
+    torch.cuda.empty_cache()
+    log(f"[chip_smoke] phase 9: served map ok; /render "
+        f"{served['service']['render_ms_median']:.1f} ms, /query "
+        f"{served['service']['query_ms']:.1f} ms, /mesh {served['service']['mesh_ms']:.0f} ms, "
+        f"spill {served['spill']['spill_ms']:.1f} ms, restore "
+        f"{served['spill']['restore_ms']:.1f} ms of {served['spill']['blocks']} blocks, cull "
+        f"rows {served['cull']['on']['visible_rows_mean']:.1f} of "
+        f"{served['cull']['off']['visible_rows_mean']:.1f} ({smi}) "
+        f"({time.perf_counter() - t9:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
     # phase 8: the tracking slice (pose-free dense SLAM)
     t8 = time.perf_counter()
@@ -2259,7 +2736,7 @@ def main() -> int:
         f"({time.perf_counter() - t8:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
     probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
-    log(f"[chip_smoke] probe launches on the main path (phases 3-8): {probe_main_launches}")
+    log(f"[chip_smoke] probe launches on the main path (phases 3-9): {probe_main_launches}")
 
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
@@ -2290,6 +2767,7 @@ def main() -> int:
         "online": online,
         "export": export,
         "slam": slam,
+        "served": served,
         "splat_zbuf_slam_320x240": splat_slam,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
@@ -2309,7 +2787,11 @@ def main() -> int:
          "launches": fused_launches, "online_launches": online["online_launches"],
          "online_app_launches": online["app"]["fused"]["fuse_rows_launches"],
          "hash_launches": export["hash"]["fuse_rows_launches"],
-         "slam_launches": slam["app"]["launches"]["fuse_rows"], **fuse,
+         "slam_launches": slam["app"]["launches"]["fuse_rows"],
+         "serve_launches": served["service"]["fuse_rows_launches"],
+         "paged_app_launches": [served[k]["fuse_rows_launches"]
+                                for k in ("paged_app", "paging_app")],
+         "cull_launches": served["cull"]["on"]["fuse_rows_launches"], **fuse,
          "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
                             fuse_real["max_abs_err"]),
          "ms_1080p": fuse_1080["ms"], "bound_ms_1080p": fuse_1080["bound_ms"],
@@ -2325,6 +2807,8 @@ def main() -> int:
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:149",
          "launches": splat_launches[0], "hash_launches": export["hash"]["splat_launches"][0],
          "slam_launches": slam["app"]["launches"]["splat_zbuf_blocks"],
+         "serve_launches": served["service"]["splat_launches"][0],
+         "view_launches": served["view"]["splat_launches"][0],
          **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
                             *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
@@ -2340,6 +2824,8 @@ def main() -> int:
          "replaces": "disinfect_slam_tpu/ops/pallas/splat_kernel.py:438",
          "launches": splat_launches[1], "hash_launches": export["hash"]["splat_launches"][1],
          "slam_launches": slam["app"]["launches"]["splat_payload_blocks"],
+         "serve_launches": served["service"]["splat_launches"][1],
+         "view_launches": served["view"]["splat_launches"][1],
          **splat["payload"],
          "max_abs_err": max(splat["payload"]["max_abs_err"],
                             splat_1080["payload"]["max_abs_err"],

@@ -2,10 +2,14 @@
 reference examples/tsdf/offline.cc).
 
 Replays a logged dataset (trajectory.txt + {id}_rgb/_depth[/_ht/_no_ht]
-PNGs) through TSDFGrid, reports the integrate time per frame, can dump
+PNGs, or a TUM RGB-D sequence with --tum) through TSDFGrid, decoding
+--prefetch frames ahead, reports the integrate time per frame, can dump
 the fused volume as VoxelSpatialTSDF records (data.bin), mesh it (OBJ)
 and render the final view to PNGs.  --auto-recenter moves the dense
-window after the camera; --grid-log2 widens it.
+window after the camera; --grid-log2 widens it; --spill keeps the blocks
+the window leaves in host memory and --page-radius pages them under pool
+pressure.  --debug validates the volume after every frame; --profile
+writes a torch.profiler trace of the replay.
 
 Usage:
   python -m disinfect_slam_tpu_torch.apps.offline --logdir datasets/orbit_vga \
@@ -18,9 +22,13 @@ It runs on the CUDA device unless asked for another (--device cpu).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import logging
+import os
 
 import numpy as np
+import torch
 
 from ..config import BENCH, BENCH_MAX_DEPTH, TSDFConfig
 from ..io.config_reader import (
@@ -29,12 +37,13 @@ from ..io.config_reader import (
     get_intrinsics,
     load_yaml,
 )
-from ..io.dataset import LoggedReplay
+from ..io.dataset import LoggedReplay, PrefetchReplay, TUMReplay
 from ..ops.gather import dump_spatial_tsdf
 from ..ops.mesh import extract_mesh_chunked, merge_vertices, save_obj
 from ..systems.tsdf_grid import RENDERERS, TSDFGrid
 from ..utils.device import resolve_device
 from ..utils.timing import StageTimer
+from ..utils.validate import validate_volume
 from ..viz.headless import render_to_png
 
 # (voxel m, truncation m, max depth m) when the flags leave them unset
@@ -43,9 +52,14 @@ _BENCH_DEFAULTS = (BENCH.voxel_size, BENCH.truncation, BENCH_MAX_DEPTH)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="The JAX app's --scatter-window is not taken: it bounds an XLA "
+               "scatter operand on the TPU, and fuse_rows writes the pool in place. "
+               "--devices / --save-dist (the sharded volume) are not ported yet.")
     ap.add_argument("--logdir", required=True, help="dataset directory")
     ap.add_argument("--config", help="camera YAML (Camera.fx..., depthmap_factor)")
+    ap.add_argument("--tum", action="store_true", help="TUM RGB-D layout")
     ap.add_argument("--voxel", type=float, help="voxel size in metres")
     ap.add_argument("--trunc", type=float, help="truncation in metres")
     ap.add_argument("--max-depth", type=float, help="depth cut-off in metres")
@@ -75,6 +89,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--auto-recenter", action="store_true",
                     help="dense backend: move the coverage window after the camera "
                          "when it nears the window's edge (TSDFGrid.maybe_recenter)")
+    ap.add_argument("--spill", action="store_true",
+                    help="keep the blocks the window leaves (--auto-recenter) or paging "
+                         "evicts (--page-radius) in host memory and restore them on "
+                         "return (systems/block_streaming.py); --save appends them")
+    ap.add_argument("--page-radius", type=float, default=0.0, metavar="M",
+                    help="with --spill: every 10 frames, evict the blocks farther "
+                         "than M metres from the camera when the pool nears "
+                         "exhaustion and restore stored blocks within M "
+                         "(TSDFGrid.maybe_page)")
+    ap.add_argument("--prefetch", type=int, default=4, metavar="N",
+                    help="decode N frames ahead of the device (0: read each frame "
+                         "when it is fused, as the reference does)")
+    ap.add_argument("--debug", action="store_true",
+                    help="debug logging and the volume's invariants validated after "
+                         "every frame (utils/validate.py)")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler trace of the replay to DIR/trace.json")
     ap.add_argument("--render-dir", help="write the final view's PNGs here")
     ap.add_argument(
         "--renderer", choices=list(RENDERERS), default="auto",
@@ -127,30 +158,9 @@ def make_config(args) -> tuple[TSDFConfig, float, float, float]:
     return cfg, voxel, trunc, max_depth
 
 
-def run(args) -> dict:
-    """Replay the dataset; returns the grid, frames, per-frame integrate
-    seconds, the frames at which the window moved, with --save the number
-    of records written, with --mesh the vertex and face counts and the
-    mesh time, and with --render-dir the PNG paths and the render time."""
-    device = resolve_device(args.device)
-    if args.config:
-        cam_yaml = load_yaml(args.config)
-        intrinsics = get_intrinsics(cam_yaml)
-        depth_factor = get_depth_factor(cam_yaml)
-        extrinsics = get_extrinsics(cam_yaml)
-    else:
-        # TUM freiburg1 defaults (configs/tum_rgbd_1.yaml)
-        intrinsics = (517.3, 516.5, 318.6, 255.3)
-        depth_factor = 5000.0
-        extrinsics = np.eye(4, dtype=np.float32)
-    replay = LoggedReplay(args.logdir, depth_factor, extrinsics)
-    print(f"[offline] {len(replay)} frames")
-
-    cfg, voxel, trunc, max_depth = make_config(args)
-    grid = TSDFGrid(voxel, trunc, cfg=cfg, device=device)
-    timer = StageTimer(grid.device)
+def _replay(args, replay, grid, timer, intrinsics, max_depth, moves, pages):
+    """The frame loop of run(): returns (frames, last pose)."""
     n = 0
-    moves = []
     last_pose = np.eye(4, dtype=np.float32)
     for frame in replay:
         if n == 0:
@@ -163,16 +173,25 @@ def run(args) -> dict:
                 print(f"[offline] WARNING: intrinsics (cx={intrinsics[2]:.1f}, "
                       f"cy={intrinsics[3]:.1f}) look wrong for {fw}x{fh} frames "
                       "-- pass --config with the dataset's camera YAML")
-        if args.auto_recenter:
+        paging = args.spill and args.page_radius > 0
+        if args.auto_recenter or paging:
             cam_pos = np.linalg.inv(np.asarray(frame.cam_T_world, np.float64))[:3, 3]
-            if grid.maybe_recenter(cam_pos, max_depth=max_depth):
+            if args.auto_recenter and grid.maybe_recenter(cam_pos, max_depth=max_depth):
                 moves.append(n)
                 print(f"[offline] recentered coverage window at frame {n}")
+            if paging and n % 10 == 0:
+                r, e = grid.maybe_page(cam_pos, radius_m=args.page_radius)
+                if r or e:
+                    pages.append((n, r, e))
+                    print(f"[offline] paged at frame {n}: restored {r}, evicted {e}")
         with timer.span("integrate"):
             grid.integrate(frame.rgb, frame.depth, frame.ht, frame.lt,
                            max_depth, intrinsics, frame.cam_T_world)
         last_pose = frame.cam_T_world
         n += 1
+        if args.debug:
+            with timer.span("validate"):
+                validate_volume(grid.snapshot())
         if n % 25 == 0:
             print(f"[offline] frame {n}: integrate "
                   f"{timer.mean_ms('integrate'):.2f} ms/frame, "
@@ -180,15 +199,91 @@ def run(args) -> dict:
         if args.max_frames and n >= args.max_frames:
             break
     grid.block_until_ready()
+    return n, last_pose
+
+
+def run(args) -> dict:
+    """Replay the dataset; returns the grid, frames, per-frame integrate
+    seconds, the frames at which the window moved, the pages (frame,
+    restored, evicted), with --debug the frames validated, with --save
+    the number of records written (the host store's appended after the
+    device's), with --mesh the vertex and face counts and the mesh time,
+    and with --render-dir the PNG paths and the render time."""
+    device = resolve_device(args.device)
+    if args.config:
+        cam_yaml = load_yaml(args.config)
+        intrinsics = get_intrinsics(cam_yaml)
+        depth_factor = get_depth_factor(cam_yaml)
+        extrinsics = get_extrinsics(cam_yaml)
+    else:
+        # TUM freiburg1 defaults (configs/tum_rgbd_1.yaml)
+        intrinsics = (517.3, 516.5, 318.6, 255.3)
+        depth_factor = 5000.0
+        extrinsics = np.eye(4, dtype=np.float32)
+    if args.tum:
+        replay = TUMReplay(args.logdir, depth_factor)
+    else:
+        replay = LoggedReplay(args.logdir, depth_factor, extrinsics)
+    print(f"[offline] {len(replay)} frames")
+    if args.prefetch > 0:
+        # decode ahead of the device (the reference reads inside its
+        # render loop, offline.cc:157-160)
+        replay = PrefetchReplay(replay, depth=args.prefetch)
+
+    cfg, voxel, trunc, max_depth = make_config(args)
+    grid = TSDFGrid(voxel, trunc, cfg=cfg, device=device, host_spill=args.spill)
+    timer = StageTimer(grid.device)
+    moves, pages = [], []
+    # --debug: the package's DEBUG lines (TSDFGrid.integrate's block
+    # counts) for this run only
+    pkg_log = logging.getLogger("disinfect_slam_tpu_torch")
+    log_level = pkg_log.level
+    if args.debug:
+        pkg_log.setLevel(logging.DEBUG)
+    prof = contextlib.nullcontext()
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if grid.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+    try:
+        with prof:
+            n, last_pose = _replay(args, replay, grid, timer, intrinsics, max_depth, moves,
+                                   pages)
+    finally:
+        pkg_log.setLevel(log_level)
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(f"[offline] profiler trace written to {args.profile}/trace.json")
     ms = timer.mean_ms("integrate")
     print(f"[offline] done: {n} frames on {grid.device}, integrate "
           f"{ms:.3f} ms/frame, {grid.num_active_blocks()} blocks")
+    if args.debug:
+        print(f"[offline] volume invariants OK every frame "
+              f"(validate {timer.mean_ms('validate'):.1f} ms/frame)")
+    store = grid.spill_store
     result = {"grid": grid, "frames": n,
               "integrate_s": list(timer.samples["integrate"]), "recenter_frames": moves,
-              "records": None, "mesh": None, "render_paths": None, "render_ms": None}
+              "pages": pages, "validated": len(timer.samples["validate"]),
+              "records": None, "spilled_records": 0, "mesh": None, "render_paths": None,
+              "render_ms": None}
     if args.save:
         result["records"] = dump_spatial_tsdf(grid.gather_valid(), args.save)
         print(f"[offline] saved {result['records']} voxels to {args.save}")
+        if store is not None and len(store):
+            # the store's blocks live in host memory, not in the volume:
+            # append their records so that the dump covers the whole map
+            rec = store.spatial_records(grid.cfg)
+            with open(args.save, "ab") as f:
+                rec.astype("<f4").tofile(f)
+            result["spilled_records"] = rec.shape[0]
+            print(f"[offline] appended {rec.shape[0]} spilled voxels "
+                  f"({len(store)} blocks from the host store)")
+    if args.mesh and store is not None and len(store):
+        print(f"[offline] WARNING: --mesh covers the on-device window only; "
+              f"{len(store)} spilled blocks are in the host store (page them back "
+              "in or mesh per region)")
     if args.mesh:
         with timer.span("mesh"):
             tris = extract_mesh_chunked(grid.volume,
@@ -217,4 +312,5 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
     main()

@@ -43,7 +43,8 @@ class TSDFConfig:
     # "gather" / "pallas": sample kernel + torch fusion math (two stages);
     # "auto" / "pallas_fused": the fused sample+fusion kernel
     sampler: str = "auto"
-    # not ported yet: integrate() raises when set
+    # drop the visible blocks the frame's nearer surface occludes
+    # (integrate.occluded_blocks); fusion's outcome stays the same
     cull_occluded: bool = False
     raycast_skip: bool = True
     # "filter" applies to the dense backend; the hash backend, and

@@ -5,9 +5,11 @@ voxel_tsdf.cu:347-375).
   allocate   per-pixel DDA candidates -> dedup (the presence filter
              against the dense table, or a sort: the hash backend and
              alloc_dedup="sort") -> full-visibility gate -> batched insert
-  visible    any-corner frustum test over every entry, cumsum + scatter
-             compaction into max_visible rows; the count stays on the
-             device as a 0-d tensor that the kernels read (no host sync)
+  visible    any-corner frustum test over every entry (with
+             cfg.cull_occluded, less the blocks the frame's nearer surface
+             occludes), cumsum + scatter compaction into max_visible
+             rows; the count stays on the device as a 0-d tensor that the
+             kernels read (no host sync)
   fuse       the fused projection+sample+fusion kernel
              (ops/cuda/fuse_kernel.py), or the projection as torch ops, the
              sample kernel (ops/cuda/sample_kernel.py) and the same fusion
@@ -23,9 +25,10 @@ place.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import TSDFConfig
 from ..core import voxel as vx
@@ -304,16 +307,102 @@ def compact_mask(vol: TSDFVolume, mask: torch.Tensor) -> VisibleSet:
 
 
 def gather_visible(
-    vol: TSDFVolume, cam: CameraParams, cam_T_world: SE3
+    vol: TSDFVolume,
+    cam: CameraParams,
+    cam_T_world: SE3,
+    frame_depth: Optional[torch.Tensor] = None,
+    d2r: Optional[torch.Tensor] = None,
 ) -> VisibleSet:
     """check_visibility_kernel (voxel_tsdf.cu:82-93): any-corner frustum
-    test over every live entry, then compaction."""
-    if vol.cfg.cull_occluded:
-        raise NotImplementedError(
-            "cull_occluded is not ported yet (ROADMAP Queue 1 item 3)")
+    test over every live entry, then compaction.
+
+    With cfg.cull_occluded and a depth frame, blocks that nearer surface
+    provably occludes are dropped: if the largest observed range over the
+    block's screen box plus the truncation is still closer than the
+    block's nearest point, no voxel can pass sdf > -truncation, so fusion
+    leaves it as it is and the working set shrinks."""
+    cfg = vol.cfg
     live = vol.entry_block >= 0
-    vis = block_visibility(vol.entry_pos, cam_T_world, cam, vol.cfg, full=False)
-    return compact_mask(vol, live & vis)
+    vis = block_visibility(vol.entry_pos, cam_T_world, cam, cfg, full=False)
+    mask = live & vis
+    if cfg.cull_occluded and frame_depth is not None and d2r is not None:
+        mask = mask & ~occluded_blocks(vol.entry_pos, cam, cam_T_world, frame_depth,
+                                       d2r, cfg)
+    return compact_mask(vol, mask)
+
+
+def occluded_blocks(
+    block_pos: torch.Tensor,
+    cam: CameraParams,
+    cam_T_world: SE3,
+    frame_depth: torch.Tensor,
+    d2r: torch.Tensor,
+    cfg: TSDFConfig,
+) -> torch.Tensor:
+    """Mask [E] of blocks whose whole screen box observes range strictly
+    closer than (the block's nearest range - truncation): a max-range mip
+    pyramid of the frame, each block's 8 corners projected, the box grown
+    by a pixel, and the level where the box spans at most 2x2 tiles.  Op
+    for op as the JAX package's _occluded_blocks (its corners go through
+    the quaternion rotation, SE3.apply, not the rotation entries)."""
+    # observed range; invalid depth reads +inf, which never culls
+    cur = torch.where(frame_depth > 0, frame_depth * d2r, math.inf)
+    hgt, wid = cur.shape
+    levels = []
+    tile = 1
+    while tile < max(hgt, wid):
+        cur = F.pad(cur, (0, cur.shape[1] % 2, 0, cur.shape[0] % 2), value=-math.inf)
+        cur = cur.reshape(cur.shape[0] // 2, 2, cur.shape[1] // 2, 2).amax(dim=(1, 3))
+        tile *= 2
+        levels.append(cur)
+
+    base = vx.block_to_point(block_pos, cfg)
+    bl = cfg.block_len - 1
+    intr = cam.intrinsics
+    t = torch.as_tensor(cam_T_world.t, device=block_pos.device)
+    us, vs, rngs, valid = [], [], [], None
+    for i in range(8):
+        off = torch.tensor([(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1], dtype=torch.int32,
+                           device=block_pos.device) * bl
+        pos_cam = cam_T_world.rotate((base + off).float() * cfg.voxel_size) + t
+        pih = intr.project(pos_cam)
+        z = pih[..., 2]
+        us.append(pih[..., 0] / z)
+        vs.append(pih[..., 1] / z)
+        x, y = pos_cam[..., 0], pos_cam[..., 1]
+        # the correctly rounded float32 root, as XLA takes it
+        rngs.append(torch.sqrt((x * x + y * y + z * z).double()).float())
+        valid = z > 0 if valid is None else valid & (z > 0)
+    # the box grown by 1 px (voxels round to their nearest pixel), clamped
+    # into the image
+    us, vs = torch.stack(us), torch.stack(vs)
+    u_min = torch.clamp(us.amin(0) - 1.0, 0.0, wid - 1.0)
+    u_max = torch.clamp(us.amax(0) + 1.0, 0.0, wid - 1.0)
+    v_min = torch.clamp(vs.amin(0) - 1.0, 0.0, hgt - 1.0)
+    v_max = torch.clamp(vs.amax(0) + 1.0, 0.0, hgt - 1.0)
+    # nearest possible voxel range: the corners' minimum less the block's
+    # diagonal (the interior minimum need not lie at a corner)
+    diag = cfg.block_len * cfg.voxel_size * 1.7320508
+    blk_near = torch.stack(rngs).amin(0) - diag
+
+    # the first level whose tiles hold the box in at most 2x2 of them
+    span = torch.maximum(u_max - u_min, v_max - v_min)
+    chosen = torch.zeros_like(valid)
+    region_max = torch.full_like(span, math.inf)
+    for li, lv in enumerate(levels):
+        tile = 2 ** (li + 1)
+        fits = (span <= tile) & ~chosen
+        lh, lw = lv.shape
+        # float to int after the clamp, truncating as the JAX astype does
+        tu = torch.clamp((u_min / tile).to(torch.int32), 0, lw - 1).long()
+        tv = torch.clamp((v_min / tile).to(torch.int32), 0, lh - 1).long()
+        tu1 = torch.clamp(tu + 1, 0, lw - 1)
+        tv1 = torch.clamp(tv + 1, 0, lh - 1)
+        m = torch.maximum(torch.maximum(lv[tv, tu], lv[tv, tu1]),
+                          torch.maximum(lv[tv1, tu], lv[tv1, tu1]))
+        region_max = torch.where(fits, m, region_max)
+        chosen = chosen | fits
+    return valid & (region_max + cfg.truncation < blk_near)
 
 
 # ----------------------------------------------------------------------
@@ -412,7 +501,7 @@ def integrate(
     d2r = depth_to_range(cam, vol.device)
     if allocate:
         vol = allocate_blocks(vol, frame.depth, d2r, cam, cam_T_world, max_depth)
-    vis = gather_visible(vol, cam, cam_T_world)
+    vis = gather_visible(vol, cam, cam_T_world, frame.depth, d2r)
     vol, min_abs = fuse_visible(vol, vis, frame, d2r, cam, cam_T_world, max_depth)
     vol = space_carve(vol, vis, min_abs)
     if return_stats:

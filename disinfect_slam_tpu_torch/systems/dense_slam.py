@@ -35,9 +35,10 @@ from ..config import TSDFConfig
 from ..core.geometry import SE3, CameraIntrinsics, CameraParams
 from ..core.state import TSDFVolume
 from ..ops.cuda import splat_kernel
-from ..ops.hash import needs_recenter, recenter_dense, recenter_origin_for, window_origin
+from ..ops.hash import needs_recenter, recenter_origin_for, window_origin
 from ..ops.integrate import FrameInput, integrate
 from ..utils.device import resolve_device, upload
+from .block_streaming import HostBlockStore, recenter_through
 from .odometry import ICPOdometry, read_result
 
 SPLAT_IMPLS = ("auto", "xla", "pallas")
@@ -97,10 +98,6 @@ class DenseSLAM:
         # pyramid) at 1/scale resolution while fusion stays full res.
         if splat_impl not in SPLAT_IMPLS:
             raise ValueError(f"splat_impl must be one of {SPLAT_IMPLS}, got {splat_impl!r}")
-        if host_spill:
-            raise NotImplementedError(
-                "host_spill: the port has no host spill store yet "
-                "(ROADMAP Queue 1 item 11, systems/block_streaming.py)")
         self.device = resolve_device(device)
         if cfg is None:
             cfg = TSDFConfig(voxel_size=voxel_size, truncation=truncation)
@@ -111,6 +108,9 @@ class DenseSLAM:
         self.intrinsics = intrinsics
         self.cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), img_h, img_w)
         self.volume = TSDFVolume.create(cfg, self.device)
+        # host-RAM store of the blocks a recenter releases
+        # (systems/block_streaming.py)
+        self.spill_store = HostBlockStore() if host_spill else None
         ts = int(track_res_scale)
         if ts < 1 or img_h % ts or img_w % ts:
             raise ValueError(f"track_res_scale {ts} must divide the image dims "
@@ -273,7 +273,7 @@ class DenseSLAM:
         org = recenter_origin_for(cfg, cam_pos)
         if org == window_origin(cfg):
             return False
-        self.volume = recenter_dense(self.volume, org)
+        self.volume = recenter_through(self.spill_store, self.volume, org)
         return True
 
     @property

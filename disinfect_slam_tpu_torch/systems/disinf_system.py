@@ -63,19 +63,21 @@ class DISINFSystem:
         img_depth: np.ndarray,
         timestamp_ms: int,
         mask: Optional[np.ndarray] = None,
+        ht: Optional[np.ndarray] = None,
+        lt: Optional[np.ndarray] = None,
     ) -> None:
         """disinfect_slam.cc:31-67: (optionally) half-scale, apply the
         depth factor, zero masked depth, segment, borrow a pose by
-        timestamp, enqueue."""
+        timestamp, enqueue.  ht / lt: per-pixel semantics the caller
+        already has (a logged frame POSTed to the service); a segmenter
+        replaces them, and without either the fusion takes ones."""
         if self.half_scale:
             img_rgb = img_rgb[::2, ::2]
             img_depth = img_depth[::2, ::2]
-            if mask is not None:
-                mask = mask[::2, ::2]
+            mask, ht, lt = (None if a is None else a[::2, ::2] for a in (mask, ht, lt))
         depth = np.asarray(img_depth, np.float32) / self.depth_factor
         if mask is not None:
             depth = np.where(mask > 0, 0.0, depth)
-        ht = lt = None
         if self.segmenter is not None:
             ht, lt = self.segmenter(img_rgb)
         pose = self.camera_pose_manager.query_pose(timestamp_ms)

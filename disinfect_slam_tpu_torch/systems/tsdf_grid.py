@@ -6,8 +6,10 @@ Owns a TSDFVolume on one device; integrate takes numpy frames, uploads
 them and updates the volume in place; ray_cast renders a virtual view
 with the parity raycaster or the splat renderer (on a CUDA device, the
 splat_zbuf_blocks / splat_payload_blocks kernels); recenter and
-maybe_recenter move the dense window after the camera.  Not ported yet:
-the host spill store (ROADMAP Queue 1 item 11).
+maybe_recenter move the dense window after the camera.  With host_spill
+the blocks a recenter releases go to a host store (systems/
+block_streaming.py) and come back when the window returns, and
+maybe_page evicts and restores blocks under pool pressure.
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ from ..core.state import TSDFVolume
 from ..ops import gather as gather_ops
 from ..ops.cuda.splat_kernel import splat_render_cuda
 from ..ops.gather import BoundingCube, SpatialTSDF
-from ..ops.hash import needs_recenter, recenter_dense, recenter_origin_for, window_origin
+from ..ops.hash import needs_recenter, recenter_origin_for, window_origin
 from ..ops.integrate import FrameInput, integrate
 from ..ops.raycast import RaycastResult, raycast
 from ..utils.device import resolve_device
+from .block_streaming import HostBlockStore, recenter_through
 
 RENDERERS = ("auto", "raycast", "splat", "splat_pallas")
 
@@ -43,6 +46,7 @@ class TSDFGrid:
         truncation: float = 0.06,
         cfg: Optional[TSDFConfig] = None,
         device="cuda",
+        host_spill: bool = False,
     ):
         cfg = cfg or TSDFConfig()
         self.cfg = dataclasses.replace(
@@ -58,6 +62,10 @@ class TSDFGrid:
         # this baseline, which a recenter advances
         self._oob_base = 0
         self._lock = threading.Lock()
+        # host-RAM store of the blocks a recenter or paging evicts (the
+        # reference's reserved, unbuilt CPU streaming mode,
+        # voxel_mem.cuh:76-77)
+        self.spill_store = HostBlockStore() if host_spill else None
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
@@ -182,15 +190,17 @@ class TSDFGrid:
         """Move the dense window so that `center_world_m` (metres, e.g. the
         robot's position) sits at its centre (ops/hash.py recenter_dense;
         the hash backend has no window and never moves).  Payloads and
-        absolute coordinates stay; blocks leaving the window are released.
-        Returns True if the window moved."""
+        absolute coordinates stay; blocks leaving the window are released,
+        or with host_spill moved to the host store, which then gives back
+        the stored blocks the new window covers.  Returns True if the
+        window moved."""
         if self.cfg.backend != "dense":
             return False
         org = recenter_origin_for(self.cfg, center_world_m)
         with self._lock:
             if org == window_origin(self.cfg):
                 return False
-            self.volume = recenter_dense(self.volume, org)
+            self.volume = recenter_through(self.spill_store, self.volume, org)
             self.cfg = self.volume.cfg
             # the window moved: the watchdog may warn again, about drops
             # after the move only
@@ -208,6 +218,36 @@ class TSDFGrid:
         if not needs_recenter(self.cfg, cam_pos_world_m, margin_blocks, max_depth):
             return False
         return self.recenter(cam_pos_world_m)
+
+    def maybe_page(self, cam_pos_world_m, radius_m: float, min_free_frac: float = 0.05,
+                   target_free_frac: float = 0.15) -> Tuple[int, int]:
+        """Pool-pressure paging against the host store (host_spill=True):
+        when free blocks fall below min_free_frac of the pool, evict the
+        live blocks farthest from the camera (beyond radius_m) until
+        target_free_frac is free; then restore the stored blocks within
+        radius_m while the pool has room.  A bounded pool then maps an
+        unbounded drive, where the reference's pool simply stops
+        allocating (voxel_mem.cu AquireBlock).  Reads num_free (a sync):
+        call at waypoint cadence.  Returns (restored, evicted)."""
+        if self.spill_store is None:
+            return (0, 0)
+        with self._lock:
+            b = self.cfg.num_blocks
+            free = int(self.volume.num_free)
+            restored = evicted = 0
+            # evict first: after a long drive the pool is full of far
+            # blocks, and the near restores need their rows
+            if free < min_free_frac * b:
+                self.volume, evicted = self.spill_store.spill_cold(
+                    self.volume, cam_pos_world_m, int(target_free_frac * b) - free,
+                    keep_radius_m=radius_m)
+                free = int(self.volume.num_free)
+            room = free - int(min_free_frac * b)
+            if room > 0 and len(self.spill_store):
+                self.volume, restored = self.spill_store.restore_into_window(
+                    self.volume, center_m=cam_pos_world_m, radius_m=radius_m,
+                    max_restore=room)
+            return (restored, evicted)
 
     def num_active_blocks(self) -> int:
         with self._lock:

@@ -56,11 +56,8 @@ class TSDFSystem:
         host_spill: bool = False,
         device="cuda",
     ):
-        if host_spill:
-            raise NotImplementedError(
-                "host_spill: the port's TSDFGrid has no host spill store yet "
-                "(ROADMAP Queue 1 item 11, systems/block_streaming.py)")
-        self.tsdf = TSDFGrid(voxel_size, truncation, cfg=cfg, device=device)
+        self.tsdf = TSDFGrid(voxel_size, truncation, cfg=cfg, device=device,
+                             host_spill=host_spill)
         self.max_depth = float(max_depth)
         self.intrinsics = tuple(float(x) for x in intrinsics)
         self.cam_T_posecam = (

@@ -2,7 +2,7 @@
 loader and app of the port runs on the CUDA device unless the caller asks
 for the CPU, so without CUDA each of them called without a device raises
 (the apps exit non-zero) naming CUDA; and no module of the port, nor
-chip_smoke.py, imports JAX or the JAX package."""
+chip_smoke.py, imports JAX, the JAX package or bench.py."""
 
 import dataclasses
 import os
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from disinfect_slam_tpu_torch.apps import serve
 from disinfect_slam_tpu_torch.config import TINY_DENSE
 from disinfect_slam_tpu_torch.core.state import TSDFVolume
 from disinfect_slam_tpu_torch.io.checkpoint import load_volume, volume_from_numpy, volume_to_numpy
@@ -37,6 +38,10 @@ CFG = dataclasses.replace(TINY_DENSE, voxel_size=0.05, truncation=0.15)
 
 DEFAULT_DEVICE_CALLS = {
     "TSDFGrid": lambda: TSDFGrid(0.05, 0.15, cfg=CFG),
+    "TSDFGrid(host_spill)": lambda: TSDFGrid(0.05, 0.15, cfg=CFG, host_spill=True),
+    # the service as apps.serve builds it, over a DISINFSystem
+    "ReconstructionService": lambda: serve.build(serve.parse_args(["--port", "0"])),
+    "DenseSLAM(host_spill)": lambda: DenseSLAM(K, 48, 64, cfg=CFG, host_spill=True),
     "TSDFSystem": lambda: TSDFSystem(0.05, 0.15, 4.0, K, cfg=CFG),
     "DISINFSystem": lambda: DISINFSystem(K, cfg=CFG),
     "FusedOnlineStep": lambda: FusedOnlineStep(CFG, K, 48, 64, 4.0),
@@ -64,12 +69,19 @@ def test_default_device_is_cuda(monkeypatch, name):
         DEFAULT_DEVICE_CALLS[name]()
 
 
-@pytest.mark.parametrize("app", ["offline", "online", "tsdf2mesh", "dense_slam"])
+APP_ARGS = {
+    "tsdf2mesh": lambda d: [str(d / "data.bin"), str(d / "out.ply")],
+    "serve": lambda d: ["--port", "0", "--synthetic", "2"],
+    "view_volume": lambda d: ["--volume", str(d / "vol.npz"), "--out", str(d / "views")],
+}
+
+
+@pytest.mark.parametrize("app", ["offline", "online", "tsdf2mesh", "dense_slam", "serve",
+                                 "view_volume"])
 def test_apps_without_device_exit_nonzero_naming_cuda(app, tmp_path):
     """The CLI as a user runs it, with CUDA hidden and no --device: it
     stops with a non-zero exit code and says that CUDA is missing."""
-    args = ([str(tmp_path / "data.bin"), str(tmp_path / "out.ply")] if app == "tsdf2mesh"
-            else ["--logdir", str(tmp_path)])
+    args = APP_ARGS.get(app, lambda d: ["--logdir", str(d)])(tmp_path)
     code = (
         "import runpy, sys, torch\n"
         "torch.cuda.is_available = lambda: False\n"
@@ -102,20 +114,21 @@ def test_evaluate_app_needs_no_device(tmp_path):
     assert '"pairs": 6' in proc.stdout
 
 
-# an import statement of jax, flax or the JAX package (not of the port,
-# whose name only starts like it)
+# an import statement of jax, flax, the JAX package (not of the port,
+# whose name only starts like it) or the repo's bench.py
 FORBIDDEN_IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|flax|disinfect_slam_tpu)(?:\.|\s|,|$)", re.M)
+    r"^\s*(?:from|import)\s+(?:jax|flax|disinfect_slam_tpu|bench)(?:\.|\s|,|$)", re.M)
 
 
 def test_forbidden_import_pattern():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                  "    from disinfect_slam_tpu.ops import integrate",
-                 "import disinfect_slam_tpu", "from flax import linen"):
+                 "import disinfect_slam_tpu", "from flax import linen", "import bench",
+                 "    from bench import make_orbit_frames"):
         assert FORBIDDEN_IMPORT.search(line), line
     for line in ("from disinfect_slam_tpu_torch.ops import integrate",
                  "import disinfect_slam_tpu_torch", "import jaxtyping_free",
-                 "# no jax here"):
+                 "# no jax here", "import benchmark_tools"):
         assert not FORBIDDEN_IMPORT.search(line), line
 
 
@@ -127,7 +140,10 @@ def test_port_and_chip_smoke_import_no_jax():
     for mod in ("ops/mesh.py", "systems/bridge.py", "apps/tsdf2mesh.py", "ops/gather.py",
                 "ops/hash.py", "systems/odometry.py", "systems/dense_slam.py",
                 "systems/loop_closure.py", "systems/slam.py", "systems/imu.py",
-                "utils/trajectory_eval.py", "apps/dense_slam.py", "apps/evaluate.py"):
+                "utils/trajectory_eval.py", "apps/dense_slam.py", "apps/evaluate.py",
+                "systems/block_streaming.py", "systems/server.py", "viz/viewer_html.py",
+                "utils/validate.py", "io/dataset.py", "io/orbit_scene.py", "apps/serve.py",
+                "apps/view_volume.py"):
         assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:

@@ -791,3 +791,116 @@ def test_loop_closure_on_the_card_closes_the_drifted_chain(cuda):
     err = lambda poses: np.mean([np.linalg.norm(p[:3, 3] - g[:3, 3])  # noqa: E731
                                  for p, g in zip(poses, true_poses)])
     assert err(lc.kf_pose_opt) < 0.6 * err(est_poses)
+
+
+# ----------------------------------------------------------------------
+# the served-map slice: the service's render, the host store, the cull
+# ----------------------------------------------------------------------
+def test_service_render_on_the_card_equals_ray_cast(cuda):
+    """ReconstructionService.render of a CUDA volume launches each splat
+    kernel once and gives ray_cast(renderer="auto")'s bits, numpy out."""
+    from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
+    from disinfect_slam_tpu_torch.systems.server import ReconstructionService
+
+    k, w, h = (52.7, 53.3, 31.71, 23.43), 64, 48
+    cfg = TSDFConfig(num_blocks_log2=10, max_candidates=2048, max_visible=1024,
+                     max_new_per_round=512, grid_log2=6)
+    pose = look_at((0.05, 0.02, -1.5), (0.013, -0.021, 1.007)).astype(np.float32)
+    depth = render_sphere(w, h, k, pose, (0.013, -0.021, 1.007), 0.613)
+    with DISINFSystem(k, depth_factor=1.0, voxel_size=0.05, truncation=0.15, cfg=cfg,
+                      half_scale=False, device=cuda) as system:
+        svc = ReconstructionService(system)
+        svc.process_frame(checker_rgb(w, h), depth, 0, pose=pose)
+        before = (splat_kernel.splat_zbuf_blocks.launches,
+                  splat_kernel.splat_payload_blocks.launches)
+        rgba, normal, dep = svc.render(52.7, h, w, pose=pose)
+        assert (splat_kernel.splat_zbuf_blocks.launches,
+                splat_kernel.splat_payload_blocks.launches) == (before[0] + 1, before[1] + 1)
+        ref = system.tsdf.tsdf.ray_cast(10.0, ((52.7, 52.7, (w - 1) / 2, (h - 1) / 2), h, w),
+                                        pose, renderer="auto")
+    for ours, want in ((rgba, ref.rgba), (normal, ref.normal), (dep, ref.depth)):
+        np.testing.assert_array_equal(ours, want.cpu().numpy())
+    assert (dep > 0).mean() > 0.1
+
+
+def _wall_grid(device, host_spill=True, cull=False):
+    cfg = TSDFConfig(num_blocks_log2=12, max_candidates=8192, max_visible=2048,
+                     max_new_per_round=1024, grid_log2=5, cull_occluded=cull)
+    return TSDFGrid(0.05, 0.2, cfg=cfg, device=device, host_spill=host_spill)
+
+
+def _block_rows(grid):
+    """Each live block's (key, tsdf, rgbw, prob) rows in key order."""
+    a = volume_to_numpy(grid.volume)
+    live = a["entry_block"] >= 0
+    order = np.argsort(a["entry_key"][live])
+    rows = a["entry_block"][live][order]
+    return [a["entry_key"][live][order]] + [a[f][rows] for f in ("tsdf", "rgbw", "prob")]
+
+
+def test_spill_roundtrip_on_the_card(cuda):
+    """Recenter away (every block of the wall band spills) and back on the
+    card: each block's rows come back bit for bit, the store empties, and
+    the card's store and volume equal the CPU run's at each step (prob
+    within 1e-6, as the fusion leaves it: CUDA expf/logf against the
+    CPU's)."""
+    k, w, h = (60.0, 60.0, 39.5, 29.5), 80, 60
+    pose = look_at((0.0, 0.0, 0.0), (0.0, 0.0, 2.0)).astype(np.float32)
+    depth = render_wall(w, h, k, pose, wall_z=1.5)
+    grids = [_wall_grid(d) for d in ("cpu", cuda)]
+    for g in grids:
+        for _ in range(2):
+            g.integrate(checker_rgb(w, h), depth, None, None, 4.0, k, pose)
+    before = _block_rows(grids[1])
+    assert before[0].size > 8
+    for center in ((0.0, 0.0, 8.0), (0.0, 0.0, 0.0)):
+        for g in grids:
+            assert g.recenter(center)
+        stores = [g.spill_store._store for g in grids]
+        assert list(stores[0]) == list(stores[1])
+        for key in stores[0]:
+            (t0, c0, p0), (t1, c1, p1) = stores[0][key], stores[1][key]
+            np.testing.assert_array_equal(t0, t1)
+            np.testing.assert_array_equal(c0, c1)
+            np.testing.assert_allclose(p0, p1, rtol=0, atol=1e-6)
+        a, b = (volume_to_numpy(g.volume) for g in grids)
+        for f in a:
+            if f != "prob":
+                np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+        np.testing.assert_allclose(a["prob"], b["prob"], rtol=0, atol=1e-6)
+    assert len(grids[1].spill_store) == 0
+    for x, y in zip(_block_rows(grids[1]), before):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_cull_on_the_card_leaves_the_volume_bit_equal(cuda):
+    """A sphere in front of a wall from two viewpoints, twice: with the
+    occlusion cull the card's volume equals its volume without it and the
+    CPU's with it; the culled visible set is smaller."""
+    from disinfect_slam_tpu_torch.ops import integrate as tint
+
+    k, w, h = (52.7, 53.3, 31.71, 23.43), 64, 48
+    frames = []
+    for eye in [(-0.6, 0.0, -1.3), (0.6, 0.05, -1.3)] * 2:
+        pose = look_at(eye, (0.013, -0.021, 1.2)).astype(np.float32)
+        sphere = render_sphere(w, h, k, pose, (0.013, -0.021, 0.8), 0.55)
+        wall = render_wall(w, h, k, pose, wall_z=2.4131)
+        frames.append((pose, np.where(sphere > 0, sphere, wall).astype(np.float32)))
+    grids = [_wall_grid(cuda, False, True), _wall_grid(cuda, False, False),
+             _wall_grid("cpu", False, True)]
+    for pose, depth in frames:
+        for g in grids:
+            g.integrate(checker_rgb(w, h), depth, None, None, 4.0, k, pose)
+    on, off, cpu = (volume_to_numpy(g.volume) for g in grids)
+    assert (on["entry_block"] >= 0).sum() > 20
+    for f in on:
+        np.testing.assert_array_equal(on[f], off[f], err_msg=f)
+        if f != "prob":
+            np.testing.assert_array_equal(on[f], cpu[f], err_msg=f)
+    np.testing.assert_allclose(on["prob"], cpu["prob"], rtol=0, atol=1e-6)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    pose, depth = frames[-1]
+    se3, d = SE3.from_matrix(pose), torch.from_numpy(depth).to(cuda)
+    vol = grids[0].volume
+    culled = tint.gather_visible(vol, cam, se3, d, tint.depth_to_range(cam, cuda))
+    assert int(culled.count) < int(tint.gather_visible(vol, cam, se3).count)

@@ -150,8 +150,10 @@ def test_voxel_reads_match_jax():
 
 
 def test_hash_backend_is_not_ported():
-    """The hash backend is ported (tests/test_torch_hash_backend.py); what
-    of it is not, the occlusion cull, raises naming its ROADMAP item."""
+    """The hash backend is ported (tests/test_torch_hash_backend.py), and
+    so is its occlusion cull (tests/test_torch_cull.py): without a depth
+    frame the visible set is the plain one, and a frame whose surface
+    lies behind the block culls nothing."""
     cfg = tconfig.TSDFConfig(backend="hash", num_blocks_log2=6, num_buckets_log2=6)
     vol = th.TSDFVolume.create(cfg, device="cpu")
     vol, dropped = th.insert(vol, torch.zeros((1, 3), dtype=torch.int32),
@@ -162,5 +164,11 @@ def test_hash_backend_is_not_ported():
 
     vol.cfg = dataclasses.replace(cfg, cull_occluded=True)
     cam = CameraParams.create(CameraIntrinsics.create(50.0, 50.0, 31.5, 23.5), 48, 64)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        gather_visible(vol, cam, SE3.identity())
+    from disinfect_slam_tpu_torch.ops.integrate import depth_to_range
+
+    pose = SE3.from_matrix(np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 1.0],
+                                     [0, 0, 0, 1]], np.float32))
+    plain = gather_visible(vol, cam, pose)
+    far = gather_visible(vol, cam, pose, torch.full((48, 64), 3.0),
+                         depth_to_range(cam, "cpu"))
+    assert int(plain.count) == int(far.count) == 1

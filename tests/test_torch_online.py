@@ -207,15 +207,16 @@ def test_disinf_facade_pipeline(with_segmenter):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG, host_spill=True)
-    # auto_recenter is ported (tests/test_torch_hash_backend.py); the
-    # occlusion cull is not
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TSDFGrid(0.05, 0.15, cfg=dataclasses.replace(SYS_CFG, cull_occluded=True),
-                 device="cpu").integrate(np.zeros((8, 8, 3), np.float32),
-                                         np.ones((8, 8), np.float32), None, None, 4.0,
-                                         (8.0, 8.0, 3.5, 3.5), np.eye(4, dtype=np.float32))
+    # host_spill, auto_recenter and the occlusion cull are ported
+    # (tests/test_torch_{block_streaming,hash_backend,cull}.py); stereo
+    # is not
+    with TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG, host_spill=True, device="cpu") as s:
+        assert len(s.tsdf.spill_store) == 0
+    grid = TSDFGrid(0.05, 0.15, cfg=dataclasses.replace(SYS_CFG, cull_occluded=True),
+                    device="cpu")
+    grid.integrate(np.zeros((8, 8, 3), np.float32), np.ones((8, 8), np.float32), None, None,
+                   4.0, (8.0, 8.0, 3.5, 3.5), np.eye(4, dtype=np.float32))
+    assert grid.num_active_blocks() > 0
     with pytest.raises(SystemExit) as exc:
         online.parse_args(["--logdir", ".", "--stereo"])
     assert exc.value.code != 0
