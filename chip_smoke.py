@@ -130,7 +130,33 @@ exits non-zero:
      page, the replay started and run to its end, /stats with 30 frames,
      a PNG from /render, the process stopped with no traceback on stderr.
 
-Phases run 0-6b, then 9, then 8, then 7.  Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
+  10. training the seg net, the sharded volume and the host library:
+     (a) UNetSeg and FastSeg at their shipped widths, 10 steps each of
+     models/train.py's make_train_step at 352x640, batch 8, on make_batch
+     scenes: the loss finite and falling, step ms (CUDA events, median of
+     the last 8), peak memory, and (at the end of the phase) the kernels of
+     one profiled step; a narrow net's first step on the card against the
+     CPU from the same parameters, float32 and bfloat16 (TRAIN_TOL); (b)
+     apps.train_seg as its own process (no --device) for 600 steps at its
+     defaults: its npz beats IoU 0.7 on both channels of
+     tests/test_seg_training.py's held-out set (printed beside the shipped
+     checkpoint's), and its msgpack save_checkpoint drives apps.online
+     --seg-ckpt --fused over 5 logged frames; (c) DistributedTSDF at the
+     bench preset (2^18 blocks in four 2^16-block shards) over [cuda:0] * 4
+     and [cuda:0], all 60 frames: fuse_rows 4 x 60 and 60 times, each
+     within the JAX sharded volume's fingerprint
+     (data/orbit_vga_dist_fingerprint.json), the two bit-equal block by
+     block unless a printed capacity cut explains it; query_bbox of phase
+     6b's cube equal to the 1-shard volume's; a 640x480 render at frame 0's
+     pose launching K4 and K5 four times, hit and depth within
+     tests/test_parallel.py's limits of the 1-shard render; the elastic
+     checkpoint restored onto 1 and 2 shards bit-equal; apps.offline
+     --preset bench --devices 1 --save-dist as its own process, its
+     checkpoint equal to the 1-shard volume; ms/frame of both replays; (d)
+     FrameLogger writes 30 frames that LoggedReplay reads back bit-equal,
+     and the native runtime builds and answers as PoseManager.
+
+Phases run 0-6b, then 9, then 8, then 10, then 7.  Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
 they project block rows in registers) against their plain versions at
 the render's capacity (16384 block rows, 14000 live, 640x480 and
 1920x1080; tests/torch_cases.py's splat_block_case: rows behind the
@@ -149,10 +175,12 @@ repository root, with no arguments:  python3 chip_smoke.py
 import io
 import json
 import os
+import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -2438,6 +2466,560 @@ def served_map_slice(offline, grid, fuse_kernel, splat_kernel, ref, fused_ms, sm
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 10: training the seg net, the sharded volume, the host library
+# ----------------------------------------------------------------------
+DIST_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                                "orbit_vga_dist_fingerprint.json")
+DIST_SHARDS = 4
+TRAIN_STEPS = 10  # full-width steps timed per net (median of the last 8)
+TRAIN_BATCH, TRAIN_H, TRAIN_W = 8, 352, 640  # the inference contract's 352x640
+TRAIN_APP_STEPS = 600
+# the first step on the card against the CPU's from the same parameters
+# (a narrow net, 48x64): float32 within tests/test_torch_train.py's
+# limits against JAX (loss 1e-5, each gradient 1e-4 relative by norm:
+# TF32 would move them by ~1e-3); bfloat16 within its bfloat16 ones (loss
+# 5e-4, the gradients together 0.1), and the two updates at cosine 0.9 or
+# more: Adam's first step moves each parameter by about lr times the sign
+# of its gradient, so a near-zero gradient rounded to the other sign
+# moves its parameter 2 lr the other way (port against JAX on the CPU:
+# the updates 0.31 apart by norm)
+TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (5e-4, 0.1)}
+TRAIN_UPDATE_COS = 0.9
+# tests/test_seg_training.py:test_shipped_weights_iou's held-out set and bar
+IOU_SEED, IOU_N, IOU_H, IOU_W, IOU_BAR = 77, 6, 96, 160, 0.7
+HOST_LOG_FRAMES = 30
+SEG_CKPT_FRAMES = 5
+
+
+def train_batches(n: int, dev):
+    """n batches of make_batch scenes at the contract's size, on the card."""
+    from disinfect_slam_tpu_torch.models.synth_data import make_batch
+
+    rng = np.random.default_rng(0)
+    return [tuple(torch.from_numpy(a).to(dev) for a in
+                  make_batch(rng, TRAIN_BATCH, TRAIN_H, TRAIN_W)) for _ in range(n)]
+
+
+def train_full_width(dev, batches, smi) -> dict:
+    """Phase 10a: UNetSeg and FastSeg at their shipped widths, TRAIN_STEPS
+    steps of make_train_step each (AdamW at 3e-3, the rate
+    tests/test_seg_training.py's falling-loss test uses): the loss finite
+    and falling, the step's ms (CUDA events, median of the last 8) and
+    the peak memory."""
+    from disinfect_slam_tpu_torch.models import train
+
+    res = {}
+    for arch in ("unet", "fast"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = train.create_train_state(arch=arch, lr=3e-3, device=dev,
+                                         generator=torch.Generator().manual_seed(0))
+        step = train.make_train_step(state.model, state.opt)
+        losses, events = [], []
+        for imgs, labs in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss = step(state, imgs, labs)
+            end.record()
+            losses.append(loss)
+            events.append((start, end))
+        torch.cuda.synchronize()
+        losses = [float(v) for v in losses]
+        ms = [a.elapsed_time(b) for a, b in events]
+        r = {"params": sum(p.numel() for p in state.model.parameters()), "losses": losses,
+             "step_ms": ms, "step_ms_median": statistics.median(ms[2:]),
+             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        log(f"[chip_smoke] train {arch} ({r['params'] / 1e6:.2f} M params) at {TRAIN_H}x"
+            f"{TRAIN_W} batch {TRAIN_BATCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, step "
+            f"{r['step_ms_median']:.2f} ms (median of the last {len(ms) - 2}; first "
+            f"{ms[0]:.1f} ms), peak memory {r['peak_gb']:.2f} GB ({smi})")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train {arch}: the loss did not fall: {losses}")
+        res[arch] = r
+        del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _first_step(device, dtype):
+    """The first train step of a narrow UNetSeg (8, 16, 16, 16) at 48x64,
+    batch 2, from seed-0 parameters: (loss, gradients, update)."""
+    from disinfect_slam_tpu_torch.models import segmentation as seg
+    from disinfect_slam_tpu_torch.models import synth_data, train
+
+    net = seg.create_model((8, 16, 16, 16), dtype=dtype,
+                           generator=torch.Generator().manual_seed(0))
+    before = [p.detach().clone().cpu() for p in net.parameters()]
+    state = train.create_train_state(net, lr=1e-3, device=device)
+    imgs, labs = (torch.from_numpy(a).to(device) for a in
+                  synth_data.make_batch(np.random.default_rng(0), 2, 48, 64))
+    state, loss = train.make_train_step(state.model, state.opt)(state, imgs, labs)
+    ps = list(state.model.parameters())
+    grads = torch.cat([p.grad.detach().cpu().flatten() for p in ps])
+    update = torch.cat([(p.detach().cpu() - b).flatten() for p, b in zip(ps, before)])
+    per_param = [p.grad.detach().cpu() for p in ps]
+    return float(loss), grads, update, per_param
+
+
+def train_card_vs_cpu() -> dict:
+    """Phase 10a: the first step on the card against the CPU's, float32
+    and bfloat16 (TRAIN_TOL); the TF32 flags as they were after it."""
+    dev = torch.device("cuda", 0)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    res = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        lc, gc, uc, pc = _first_step("cpu", dtype)
+        lg, gg, ug, pg = _first_step(dev, dtype)
+        rel = lambda a, b: float((a - b).norm() / b.norm().clamp(min=1e-30))  # noqa: E731
+        r = {"loss_card": lg, "loss_cpu": lc, "loss_diff": abs(lg - lc),
+             "grad_rel": rel(gg, gc), "grad_rel_worst": max(rel(a, b) for a, b in zip(pg, pc)),
+             "update_cos": float(ug @ uc / (ug.norm() * uc.norm()))}
+        loss_tol, grad_tol = TRAIN_TOL[name]
+        worst = r["grad_rel_worst"] if name == "float32" else r["grad_rel"]
+        log(f"[chip_smoke] first train step {name}, card against CPU: loss {lg:.6f} / "
+            f"{lc:.6f} (diff {r['loss_diff']:.2e}, limit {loss_tol:g}), gradients "
+            f"{r['grad_rel']:.2e} apart (worst tensor {r['grad_rel_worst']:.2e}; limit "
+            f"{grad_tol:g}), updates at cosine {r['update_cos']:.4f}")
+        if not (r["loss_diff"] <= loss_tol and worst <= grad_tol
+                and r["update_cos"] >= TRAIN_UPDATE_COS):
+            raise AssertionError(f"first train step {name}: card and CPU disagree: {r}")
+        res[name] = r
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != flags:
+        raise AssertionError("the train step left the TF32 flags changed")
+    return res
+
+
+def logged_frames(logdir: str, n: int) -> list:
+    """apps/online.py's log layout: FrameLogger writes the first n frames
+    of orbit_vga (u8 rgb, depth at 1/5000 m) and the camera YAML.  Returns
+    what the logger was given."""
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+    from disinfect_slam_tpu_torch.io.logger import FrameLogger
+
+    if os.path.isdir(logdir):
+        shutil.rmtree(logdir)
+    logger = FrameLogger(logdir, depth_factor=5000.0)
+    given = []
+    for fr in LoggedReplay(DATASET, 5000.0):
+        item = (fr.frame_id, fr.rgb.astype(np.uint8), fr.depth, fr.cam_T_world)
+        logger.log_data(item)
+        given.append(item)
+        if len(given) == n:
+            break
+    logger.close()
+    shutil.copy(os.path.join(DATASET, "cam.yaml"), os.path.join(logdir, "cam.yaml"))
+    return given
+
+
+def train_app(fuse_kernel, smi) -> dict:
+    """Phase 10b: apps.train_seg as a user runs it (its own process, no
+    --device: the card) for TRAIN_APP_STEPS steps at its defaults, --out in
+    a temp dir; its npz through load_model against IoU_BAR on the held-out
+    set of tests/test_seg_training.py, beside the shipped checkpoint's IoU
+    there; then a msgpack save_checkpoint of it through apps.online
+    --seg-ckpt --fused over SEG_CKPT_FRAMES logged frames."""
+    from disinfect_slam_tpu_torch.apps import online
+    from disinfect_slam_tpu_torch.models import segmentation as seg
+    from disinfect_slam_tpu_torch.models import synth_data, train
+    from disinfect_slam_tpu_torch.ops.cuda import build
+
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="train_seg_", dir=str(build.BUILD_DIR))
+    out = os.path.join(tmp, "seg_unet_f16.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "disinfect_slam_tpu_torch.apps.train_seg",
+                           "--steps", str(TRAIN_APP_STEPS), "--out", out], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"apps.train_seg failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        log(f"[chip_smoke] {line}")
+    imgs, labs = (torch.from_numpy(a).to(dev) for a in synth_data.make_batch(
+        np.random.default_rng(IOU_SEED), IOU_N, IOU_H, IOU_W))
+    model = seg.load_model("unet", out, device=dev)
+    iou = train.make_eval_step(model)(imgs, labs)["iou"].cpu().numpy()
+    shipped = train.make_eval_step(seg.load_model("unet", device=dev))(imgs, labs)["iou"]
+    shipped = shipped.cpu().numpy()
+    res = {"steps": TRAIN_APP_STEPS, "wall_s": wall_s, "iou": iou.tolist(),
+           "shipped_iou": shipped.tolist(), "last_line": lines[-1]}
+    log(f"[chip_smoke] apps.train_seg {TRAIN_APP_STEPS} steps in {wall_s:.1f} s wall ({smi}); "
+        f"held-out IoU (default_rng({IOU_SEED}), {IOU_N} scenes at {IOU_H}x{IOU_W}) ht "
+        f"{iou[0]:.4f} lt {iou[1]:.4f} against the shipped checkpoint's ht {shipped[0]:.4f} "
+        f"lt {shipped[1]:.4f} (bar {IOU_BAR})")
+    if not (iou > IOU_BAR).all():
+        raise AssertionError(f"the card-trained checkpoint's IoU {iou} is not above {IOU_BAR}")
+
+    ckpt = os.path.join(tmp, "seg_unet.msgpack")
+    train.save_checkpoint(ckpt, model)
+    want = seg.flax_from_state_dict(model.state_dict())
+    got = train.load_params(ckpt)
+    if set(got) != set(want) or any(not np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError("the msgpack checkpoint does not read back its parameters")
+    logdir = os.path.join(tmp, "log5")
+    logged_frames(logdir, SEG_CKPT_FRAMES)
+    fuse_kernel.fuse_rows.launches = 0
+    r = online.main(["--logdir", logdir, "--config", os.path.join(logdir, "cam.yaml"),
+                     "--segment", "--seg-ckpt", ckpt, "--fused", "--device", "cuda"])
+    launches = fuse_kernel.fuse_rows.launches
+    log(f"[chip_smoke] apps.online --seg-ckpt (msgpack) --fused: {r['frames']} frames, "
+        f"{r['active_blocks']} active blocks, fuse_rows launches {launches}")
+    if r["frames"] != SEG_CKPT_FRAMES or launches != SEG_CKPT_FRAMES or r["active_blocks"] <= 0:
+        raise AssertionError(f"apps.online --seg-ckpt: {r['frames']} frames, fuse_rows "
+                             f"launched {launches} times")
+    res["seg_ckpt_app"] = {"frames": r["frames"], "fuse_rows_launches": launches,
+                           "active_blocks": r["active_blocks"]}
+    return res
+
+
+def dist_rows(dist):
+    """Every live block of a DistributedTSDF ordered by key, on the first
+    shard's device: (keys, tsdf rows, rgbw rows, prob rows)."""
+    dev = dist.mesh[0]
+    parts = []
+    for s in dist.shards:
+        live = s.entry_block >= 0
+        rows = s.entry_block[live].long()
+        parts.append([t.to(dev) for t in (s.entry_key[live], s.tsdf[rows], s.rgbw[rows],
+                                          s.prob[rows])])
+    cat = [torch.cat(x) for x in zip(*parts)]
+    order = torch.argsort(cat[0])
+    return [t[order] for t in cat]
+
+
+def same_rows(a, b) -> bool:
+    return all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def dist_replay(frames, intrinsics, mesh, fuse_kernel):
+    """The bench preset's DistributedTSDF over `mesh`, the frames one by
+    one (each integrate synchronised): (volume, ms per frame, fuse_rows
+    launches, the cuts (candidates, visible blocks) summed over frames
+    and shards)."""
+    from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput
+    from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF
+
+    dist = DistributedTSDF(BENCH, mesh)
+    fuse_kernel.fuse_rows.launches = 0
+    ms, cuts = [], []
+    for fr in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.integrate(FrameInput(fr.rgb, fr.depth, fr.ht, fr.lt), intrinsics, fr.cam_T_world,
+                       BENCH_MAX_DEPTH, cuts=cuts)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    cut = [int(sum(int(c[i]) for c in cuts)) for i in range(2)]
+    return dist, ms, fuse_kernel.fuse_rows.launches, cut
+
+
+def dist_slice(fuse_kernel, splat_kernel, intrinsics, poses, fused_ms, export_ref, smi) -> dict:
+    """Phase 10c: the sharded volume at the bench preset (see the
+    docstring)."""
+    from disinfect_slam_tpu_torch.config import BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.core.geometry import CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+    from disinfect_slam_tpu_torch.ops.cuda import build
+    from disinfect_slam_tpu_torch.ops.gather import BoundingCube
+    from disinfect_slam_tpu_torch.parallel.sharding import load_distributed, save_distributed
+
+    with open(DIST_FINGERPRINT) as f:
+        ref = json.load(f)
+    dev = torch.device("cuda", 0)
+    frames = [fr for _, fr in zip(range(ref["frames"]), LoggedReplay(DATASET, 5000.0))]
+    n = len(frames)
+    res = {"frames": n, "shards": DIST_SHARDS}
+    dists = {}
+    for shards in (DIST_SHARDS, 1):
+        dist, ms, launches, cut = dist_replay(frames, intrinsics, [dev] * shards, fuse_kernel)
+        fp = dist.fingerprint()
+        r = {"ms_per_frame": statistics.mean(ms), "ms_per_frame_median": statistics.median(ms),
+             "fuse_rows_launches": launches, "candidate_cut": cut[0], "visible_cut": cut[1],
+             "per_shard_active_blocks": fp["per_shard_active_blocks"], "fingerprint": fp}
+        log(f"[chip_smoke] sharded replay, {shards} shard(s) on one card: {n} frames, "
+            f"{r['ms_per_frame']:.3f} ms/frame (median {r['ms_per_frame_median']:.3f}; phase 3's "
+            f"app replay {fused_ms:.3f}) ({smi}); fuse_rows launches {launches}; active blocks "
+            f"{fp['per_shard_active_blocks']}; candidates cut {cut[0]}, visible blocks cut "
+            f"{cut[1]}")
+        if launches != shards * n:
+            raise AssertionError(f"{shards} shard(s): fuse_rows launched {launches} times for "
+                                 f"{n} frames")
+        fp["records"] = int(dist.gather_all_tsdf().shape[0])
+        want = ref[f"shards_{shards}"]
+        rel = lambda k: abs(fp[k] - want[k]) / abs(want[k])  # noqa: E731
+        checks = {"active_blocks": (rel("active_blocks"), TOL_COUNT),
+                  "records": (rel("records"), TOL_COUNT),
+                  "sum_abs_tsdf": (rel("sum_abs_tsdf"), TOL_TSDF),
+                  "sum_weight": (rel("sum_weight"), TOL_WP), "sum_prob": (rel("sum_prob"), TOL_WP)}
+        for k, (dev_, tol) in checks.items():
+            log(f"[chip_smoke] sharded {shards}: {k} port {fp[k]} JAX ({shards} virtual CPU "
+                f"device(s)) {want[k]} rel dev {dev_:.3e} (limit {tol:g})")
+        log(f"[chip_smoke] sharded {shards}: live-block key hash matches the JAX one exactly: "
+            f"{fp['keys_sha256'] == want['keys_sha256']}")
+        failed = {k: v for k, v in checks.items() if not v[0] <= v[1]}
+        if failed:
+            raise AssertionError(f"sharded {shards}: fingerprint outside tolerance: {failed}")
+        dists[shards] = (dist, r)
+        res[f"shards_{shards}"] = r
+    d4, d1 = dists[DIST_SHARDS][0], dists[1][0]
+    rows1 = dist_rows(d1)
+    equal = same_rows(dist_rows(d4), rows1)
+    cuts = sum(res[f"shards_{s}"][k] for s in (DIST_SHARDS, 1)
+               for k in ("candidate_cut", "visible_cut"))
+    log(f"[chip_smoke] sharded: the {DIST_SHARDS}-shard volume equals the 1-shard one bit for "
+        f"bit (keys, tsdf, rgbw, prob of every block): {equal}; capacity cuts {cuts}")
+    if not equal and not cuts:
+        raise AssertionError("the 4-shard volume differs from the 1-shard one with no cut")
+    res["equal_to_one_shard"] = equal
+
+    path = os.path.join(str(build.BUILD_DIR), "dist4.npz")
+    t0 = time.perf_counter()
+    n_blocks = save_distributed(path, d4)
+    save_s = time.perf_counter() - t0
+    rows4 = dist_rows(d4)
+    restored = {}
+    for shards in (2, 1):
+        t0 = time.perf_counter()
+        r = load_distributed(path, [dev] * shards)
+        load_s = time.perf_counter() - t0
+        restored[shards] = {"load_s": load_s, "equal": same_rows(dist_rows(r), rows4)}
+    del rows4
+    log(f"[chip_smoke] elastic checkpoint: {n_blocks} blocks saved in {save_s:.1f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB); restored onto 1 and 2 shards in "
+        f"{restored[1]['load_s']:.1f} / {restored[2]['load_s']:.1f} s, records identical: "
+        f"{restored[1]['equal']} / {restored[2]['equal']}")
+    if not (restored[1]["equal"] and restored[2]["equal"]):
+        raise AssertionError("an elastic restore differs from the saved volume")
+    res["elastic"] = {"blocks": n_blocks, "save_s": save_s, "mb": os.path.getsize(path) / 1e6,
+                      "restored": restored}
+
+    # the query and the render against one shard holding the same map: the
+    # 1-shard restore of the 4-shard volume (the 1-shard replay's map
+    # differs where its max_candidates cut binds)
+    one = r
+    cube = BoundingCube(*export_ref["bridge"]["cube"])
+    t0 = time.perf_counter()
+    q4 = d4.query_bbox(cube)
+    q_ms = 1e3 * (time.perf_counter() - t0)
+    q1 = one.query_bbox(cube)
+    srt = lambda r: r[np.lexsort((r[:, 3], r[:, 2], r[:, 1], r[:, 0]))]  # noqa: E731
+    q_equal = q4.shape == q1.shape and np.array_equal(srt(q4), srt(q1))
+    log(f"[chip_smoke] sharded query_bbox of the bridge cube: {q4.shape[0]} records in "
+        f"{q_ms:.1f} ms, equal as a set to one shard's holding the same map: {q_equal}")
+    if not q_equal or q4.shape[0] == 0:
+        raise AssertionError(f"sharded query_bbox: {q4.shape} against {q1.shape}")
+    res["query"] = {"records": int(q4.shape[0]), "ms": q_ms}
+
+    cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), H, W)
+    splat_fns = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
+    reset_launches(*splat_fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r4 = d4.render(cam, poses[0], BENCH_MAX_DEPTH)
+    torch.cuda.synchronize()
+    render_ms = 1e3 * (time.perf_counter() - t0)
+    render_launches = [fn.launches for fn in splat_fns]
+    r1 = one.render(cam, poses[0], BENCH_MAX_DEPTH)
+    hit4, hit1 = r4.hit.cpu().numpy(), r1.hit.cpu().numpy()
+    both = hit4 & hit1
+    hit_agree = float((hit4 == hit1).mean())
+    depth_err = float(np.abs(r4.depth.cpu().numpy() - r1.depth.cpu().numpy())[both].max())
+    log(f"[chip_smoke] sharded render at frame 0's pose, {W}x{H}: {render_ms:.1f} ms; splat "
+        f"launches {render_launches}; {int(hit4.sum())} hits, hit agreement with one shard "
+        f"holding the same map {hit_agree:.6f} (limit 0.995), depth max |diff| "
+        f"{depth_err:.2e} (limit 2e-3)")
+    if render_launches != [DIST_SHARDS] * 2 or hit_agree < 0.995 or depth_err > 2e-3:
+        raise AssertionError(f"sharded render: launches {render_launches}, hit agreement "
+                             f"{hit_agree}, depth {depth_err}")
+    res["render"] = {"ms": render_ms, "launches": render_launches, "hits": int(hit4.sum()),
+                     "hit_agreement": hit_agree, "depth_max_err": depth_err}
+    del r4, r1, r, one
+    torch.cuda.empty_cache()
+
+    # where a sharded frame's time goes: frame 59 again on each volume,
+    # profiled (after every timed replay: a trace slows the host)
+    for shards, dist in ((DIST_SHARDS, d4), (1, d1)):
+        res[f"shards_{shards}"]["profile"] = dist_profile(dist, frames[-1], intrinsics)
+
+    app_npz = os.path.join(str(build.BUILD_DIR), "dist_app.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "disinfect_slam_tpu_torch.apps.offline", "--logdir", DATASET,
+         "--config", os.path.join(DATASET, "cam.yaml"), "--preset", "bench", "--devices", "1",
+         "--save-dist", app_npz, "--prefetch", "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    app_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"apps.offline --devices 1 failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[chip_smoke] {line}")
+    if "[offline] shard | active blocks | share" not in proc.stdout:
+        raise AssertionError("apps.offline --devices 1 printed no scaling table")
+    app_equal = same_rows(dist_rows(load_distributed(app_npz, [dev])), rows1)
+    log(f"[chip_smoke] apps.offline --preset bench --devices 1 --save-dist: {app_s:.1f} s wall; "
+        f"its checkpoint restores equal to the in-process 1-shard volume: {app_equal}")
+    if not app_equal:
+        raise AssertionError("the app's elastic checkpoint differs from the 1-shard volume")
+    res["app"] = {"wall_s": app_s, "equal": app_equal}
+    del dists, d4, d1, rows1
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_profile(dist, fr, intrinsics) -> dict:
+    """One integrate of a DistributedTSDF under the profiler: wall ms,
+    device kernel ms, kernels and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.config import BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dist.integrate(FrameInput(fr.rgb, fr.depth, fr.ht, fr.lt), intrinsics, fr.cam_T_world,
+                       BENCH_MAX_DEPTH)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    res = {"wall_ms": wall_ms, "device_ms": device_ms or None, "kernels": len(events) or None,
+           "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+    log(f"[chip_smoke] sharded frame profiled, {dist.n_devices} shard(s): wall {wall_ms:.2f} "
+        "ms, " + (f"device kernel time {device_ms:.3f} ms in {len(events)} kernels, idle share "
+                  f"{res['idle_share']:.3f}" if events else "no device event traced (not "
+                                                            "measured)"))
+    return res
+
+
+def host_library(smi) -> dict:
+    """Phase 10d: FrameLogger writes HOST_LOG_FRAMES orbit_vga frames and
+    LoggedReplay reads them back bit-equal to what the logger was given
+    (u8 rgb, depth after its u16 quantisation at 1/5000 m; poses to the
+    trajectory's 9 decimals); the native runtime builds from its source
+    and its pose buffer answers as PoseManager does over the orbit's
+    poses."""
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+    from disinfect_slam_tpu_torch.native import runtime
+    from disinfect_slam_tpu_torch.ops.cuda import build
+    from disinfect_slam_tpu_torch.systems.pose_manager import PoseManager
+
+    logdir = os.path.join(str(build.BUILD_DIR), "logged30")
+    t0 = time.perf_counter()
+    given = logged_frames(logdir, HOST_LOG_FRAMES)
+    log_s = time.perf_counter() - t0
+    back = list(LoggedReplay(logdir, 5000.0))
+    ok = [f.frame_id for f in back] == [g[0] for g in given]
+    pose_err = 0.0
+    for fr, (_, rgb, depth, pose) in zip(back, given):
+        d16 = np.clip(np.asarray(depth) * 5000.0, 0, 65535).astype(np.uint16)
+        ok &= np.array_equal(fr.rgb, rgb.astype(np.float32))
+        ok &= np.array_equal(fr.depth, d16.astype(np.float32) / 5000.0)
+        pose_err = max(pose_err, float(np.abs(fr.cam_T_world - pose).max()))
+    log(f"[chip_smoke] FrameLogger: {len(back)} frames logged in {log_s:.2f} s and read back "
+        f"by LoggedReplay bit-equal: {ok}; poses within {pose_err:.1e}")
+    if not ok or len(back) != HOST_LOG_FRAMES or pose_err > 1e-6:
+        raise AssertionError("the logged frames do not read back as written")
+
+    t0 = time.perf_counter()
+    built = runtime.available()
+    build_s = time.perf_counter() - t0
+    if not built:
+        raise AssertionError(f"the native runtime did not build ({runtime.compiler()})")
+    rng = np.random.default_rng(0)
+    queries = rng.integers(-20, 33 * HOST_LOG_FRAMES + 20, 200)
+    errs = {}
+    # the orbit's poses by nearest neighbour (the reference's query), and
+    # random rotations interpolated: the orbit's rotations lie near 180
+    # degrees (|w| < 1e-3), where PoseManager's quaternion from
+    # sqrt(1 + trace) loses about 1e-3 and the native branch-wise one does
+    # not, so interpolating them would measure PoseManager's rounding
+    for name, interpolate, poses in (
+            ("orbit, nearest", False, [g[3] for g in given]),
+            ("random, interpolated", True, [random_pose(rng) for _ in range(HOST_LOG_FRAMES)])):
+        buf, ref = runtime.NativePoseBuffer(interpolate), PoseManager(interpolate)
+        for i, pose in enumerate(poses):
+            buf.register_valid_pose(33 * i, pose)
+            ref.register_valid_pose(33 * i, pose)
+        errs[name] = max(float(np.abs(buf.query_pose(int(t)) - ref.query_pose(int(t))).max())
+                         for t in queries)
+    log(f"[chip_smoke] native runtime: built with {runtime.compiler()} in {build_s:.2f} s "
+        f"({os.path.relpath(str(runtime.library_path()), ROOT)}); pose buffer against "
+        f"PoseManager over {len(queries)} queries, max |diff|: "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()) + f" ({smi})")
+    if max(errs.values()) > 2e-6:
+        raise AssertionError(f"the native pose buffer differs from PoseManager: {errs}")
+    return {"logged_frames": len(back), "log_s": log_s, "pose_err": pose_err,
+            "native_build_s": build_s, "native_pose_err": errs}
+
+
+def random_pose(rng) -> np.ndarray:
+    """A 4x4 cam_T_world of a random unit quaternion and translation."""
+    q = rng.standard_normal(4)
+    w, x, y, z = q / np.linalg.norm(q)
+    m = np.eye(4)
+    m[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                 [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                 [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]]
+    m[:3, 3] = rng.uniform(-3, 3, 3)
+    return m
+
+
+def train_profile(batches) -> dict:
+    """Phase 10a's launches a train step: one profiled step per net (after
+    phase 10's timed work: a trace slows the host for the rest of the
+    process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.models import train
+
+    dev = torch.device("cuda", 0)
+    res = {}
+    for arch in ("unet", "fast"):
+        state = train.create_train_state(arch=arch, lr=3e-3, device=dev)
+        step = train.make_train_step(state.model, state.opt)
+        step(state, *batches[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, *batches[1])
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        # a trace that caught no device event measured nothing
+        res[arch] = {"launches": len(events) or None, "device_ms": device_ms or None}
+        log(f"[chip_smoke] train {arch} step profiled: "
+            + (f"{len(events)} kernels, {device_ms:.2f} ms of device time" if events
+               else "no device event traced (not measured)"))
+        del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_dist_host(fuse_kernel, splat_kernel, intrinsics, poses, fused_ms, smi) -> dict:
+    """Phase 10 (see the docstring): a-d, then the train step's profile."""
+    dev = torch.device("cuda", 0)
+    with open(EXPORT_FINGERPRINT) as f:
+        export_ref = json.load(f)
+    t = time.perf_counter()
+    batches = train_batches(TRAIN_STEPS, dev)
+    res = {"batches_s": time.perf_counter() - t}
+    res["train"] = train_full_width(dev, batches, smi)
+    res["train_card_vs_cpu"] = train_card_vs_cpu()
+    res["train_app"] = train_app(fuse_kernel, smi)
+    res["dist"] = dist_slice(fuse_kernel, splat_kernel, intrinsics, poses, fused_ms, export_ref,
+                             smi)
+    res["host"] = host_library(smi)
+    res["train_profile"] = train_profile(batches)
+    del batches
+    torch.cuda.empty_cache()
+    return res
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -2735,8 +3317,21 @@ def main() -> int:
         f"{slam['timing'][2]['ms_per_frame']:.3f} at 2 ({smi}) "
         f"({time.perf_counter() - t8:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
+    # phase 10: training the seg net, the sharded volume, the host library
+    t10 = time.perf_counter()
+    p10 = train_dist_host(fuse_kernel, splat_kernel, intrinsics, poses, fused_ms, smi)
+    dist = p10["dist"]
+    log(f"[chip_smoke] phase 10: training, sharded volume and host library ok; UNet step "
+        f"{p10['train']['unet']['step_ms_median']:.2f} ms, FastSeg "
+        f"{p10['train']['fast']['step_ms_median']:.2f} ms at {TRAIN_H}x{TRAIN_W} batch "
+        f"{TRAIN_BATCH}; train_seg {TRAIN_APP_STEPS} steps {p10['train_app']['wall_s']:.1f} s, "
+        f"IoU {p10['train_app']['iou']}; sharded replay "
+        f"{dist[f'shards_{DIST_SHARDS}']['ms_per_frame']:.3f} ms/frame on {DIST_SHARDS} shards, "
+        f"{dist['shards_1']['ms_per_frame']:.3f} on 1 (phase 3 {fused_ms:.3f}) ({smi}) "
+        f"({time.perf_counter() - t10:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+
     probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
-    log(f"[chip_smoke] probe launches on the main path (phases 3-9): {probe_main_launches}")
+    log(f"[chip_smoke] probe launches on the main path (phases 3-10): {probe_main_launches}")
 
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
@@ -2768,6 +3363,7 @@ def main() -> int:
         "export": export,
         "slam": slam,
         "served": served,
+        "phase10": p10,
         "splat_zbuf_slam_320x240": splat_slam,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
@@ -2791,7 +3387,9 @@ def main() -> int:
          "serve_launches": served["service"]["fuse_rows_launches"],
          "paged_app_launches": [served[k]["fuse_rows_launches"]
                                 for k in ("paged_app", "paging_app")],
-         "cull_launches": served["cull"]["on"]["fuse_rows_launches"], **fuse,
+         "cull_launches": served["cull"]["on"]["fuse_rows_launches"],
+         "dist_launches": [dist[f"shards_{k}"]["fuse_rows_launches"] for k in (DIST_SHARDS, 1)],
+         **fuse,
          "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
                             fuse_real["max_abs_err"]),
          "ms_1080p": fuse_1080["ms"], "bound_ms_1080p": fuse_1080["bound_ms"],
@@ -2809,6 +3407,7 @@ def main() -> int:
          "slam_launches": slam["app"]["launches"]["splat_zbuf_blocks"],
          "serve_launches": served["service"]["splat_launches"][0],
          "view_launches": served["view"]["splat_launches"][0],
+         "dist_launches": dist["render"]["launches"][0],
          **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
                             *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
@@ -2826,6 +3425,7 @@ def main() -> int:
          "slam_launches": slam["app"]["launches"]["splat_payload_blocks"],
          "serve_launches": served["service"]["splat_launches"][1],
          "view_launches": served["view"]["splat_launches"][1],
+         "dist_launches": dist["render"]["launches"][1],
          **splat["payload"],
          "max_abs_err": max(splat["payload"]["max_abs_err"],
                             splat_1080["payload"]["max_abs_err"],

@@ -9,7 +9,11 @@ and render the final view to PNGs.  --auto-recenter moves the dense
 window after the camera; --grid-log2 widens it; --spill keeps the blocks
 the window leaves in host memory and --page-radius pages them under pool
 pressure.  --debug validates the volume after every frame; --profile
-writes a torch.profiler trace of the replay.
+writes a torch.profiler trace of the replay.  --devices N shards the
+volume by block ownership over N devices (parallel/sharding.py: the first
+N CUDA devices, or N CPU shards with --device cpu), prints the per-shard
+table and with --save-dist writes the elastic checkpoint, restorable onto
+any shard count.
 
 Usage:
   python -m disinfect_slam_tpu_torch.apps.offline --logdir datasets/orbit_vga \
@@ -26,6 +30,8 @@ import contextlib
 import dataclasses
 import logging
 import os
+import sys
+import time
 
 import numpy as np
 import torch
@@ -39,7 +45,9 @@ from ..io.config_reader import (
 )
 from ..io.dataset import LoggedReplay, PrefetchReplay, TUMReplay
 from ..ops.gather import dump_spatial_tsdf
+from ..ops.integrate import FrameInput
 from ..ops.mesh import extract_mesh_chunked, merge_vertices, save_obj
+from ..parallel.sharding import DistributedTSDF, make_mesh, save_distributed
 from ..systems.tsdf_grid import RENDERERS, TSDFGrid
 from ..utils.device import resolve_device
 from ..utils.timing import StageTimer
@@ -55,8 +63,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         epilog="The JAX app's --scatter-window is not taken: it bounds an XLA "
-               "scatter operand on the TPU, and fuse_rows writes the pool in place. "
-               "--devices / --save-dist (the sharded volume) are not ported yet.")
+               "scatter operand on the TPU, and fuse_rows writes the pool in place.")
     ap.add_argument("--logdir", required=True, help="dataset directory")
     ap.add_argument("--config", help="camera YAML (Camera.fx..., depthmap_factor)")
     ap.add_argument("--tum", action="store_true", help="TUM RGB-D layout")
@@ -106,6 +113,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "every frame (utils/validate.py)")
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler trace of the replay to DIR/trace.json")
+    ap.add_argument("--devices", type=int, default=0, metavar="N",
+                    help="shard the volume over N devices (DistributedTSDF block-ownership "
+                         "sharding): the first N CUDA devices, or N CPU shards with "
+                         "--device cpu; --save writes every shard's records")
+    ap.add_argument("--save-dist", metavar="NPZ",
+                    help="with --devices: elastic sharded checkpoint, restorable onto "
+                         "ANY shard count (parallel.sharding.load_distributed)")
     ap.add_argument("--render-dir", help="write the final view's PNGs here")
     ap.add_argument(
         "--renderer", choices=list(RENDERERS), default="auto",
@@ -231,6 +245,9 @@ def run(args) -> dict:
         replay = PrefetchReplay(replay, depth=args.prefetch)
 
     cfg, voxel, trunc, max_depth = make_config(args)
+    if args.devices:
+        return _run_distributed(args, replay, intrinsics, cfg, voxel, trunc, max_depth,
+                                device)
     grid = TSDFGrid(voxel, trunc, cfg=cfg, device=device, host_spill=args.spill)
     timer = StageTimer(grid.device)
     moves, pages = [], []
@@ -304,6 +321,59 @@ def run(args) -> dict:
         result["render_ms"] = timer.mean_ms("render")
         print(f"[offline] rendered {paths} ({result['render_ms']:.1f} ms, "
               f"renderer {args.renderer})")
+    return result
+
+
+def _run_distributed(args, replay, intrinsics, cfg, voxel, trunc, max_depth, device) -> dict:
+    """Replay through the block-ownership-sharded volume
+    (parallel/sharding.py) and print the per-shard scaling table; returns
+    the volume, frames, wall seconds, per-shard active blocks and, with
+    --save / --save-dist, the records and blocks written."""
+    if device.type == "cuda":
+        avail = torch.cuda.device_count()
+        if avail < args.devices:
+            print(f"[offline] ERROR: {args.devices} devices requested, {avail} available "
+                  "(--device cpu shards the volume over that many CPU shards)")
+            sys.exit(2)
+        mesh = make_mesh(args.devices)
+    else:
+        mesh = make_mesh(devices=[device] * args.devices)
+    base = dataclasses.replace(cfg, voxel_size=voxel, truncation=trunc)
+    dist = DistributedTSDF(base, mesh)
+    print(f"[offline] distributed: {args.devices} shards, "
+          f"{dist.sub_cfg.num_blocks} blocks/shard")
+
+    n = 0
+    t0 = time.perf_counter()
+    for frame in replay:
+        dist.integrate(FrameInput(rgb=frame.rgb, depth=frame.depth, ht=frame.ht,
+                                  lt=frame.lt), intrinsics, frame.cam_T_world, max_depth)
+        n += 1
+        if args.max_frames and n >= args.max_frames:
+            break
+    dist.block_until_ready()
+    wall = time.perf_counter() - t0
+    # per-shard scaling table: active blocks per shard (the arithmetic
+    # behind a multi-device FPS projection)
+    per_shard = np.asarray(dist.active_blocks_per_shard())
+    print(f"[offline] distributed done: {n} frames in {wall:.1f} s "
+          f"({n / wall:.1f} FPS), {int(per_shard.sum())} active blocks")
+    print("[offline] shard | active blocks | share")
+    for i, a in enumerate(per_shard):
+        print(f"[offline]   {i:3d} | {int(a):13d} | {a / max(per_shard.sum(), 1):.3f}")
+
+    result = {"dist": dist, "frames": n, "wall_s": wall, "per_shard": per_shard.tolist(),
+              "records": None, "dist_blocks": None}
+    if args.save:
+        rec = dist.gather_all_tsdf()  # [N, 4] f32 records, all shards
+        rec.astype("<f4").tofile(args.save)
+        result["records"] = rec.shape[0]
+        print(f"[offline] saved {rec.shape[0]} voxels to {args.save}")
+    if args.save_dist:
+        result["dist_blocks"] = save_distributed(args.save_dist, dist)
+        print(f"[offline] elastic checkpoint: {result['dist_blocks']} blocks -> "
+              f"{args.save_dist} (restorable onto any device count via "
+              "parallel.sharding.load_distributed)")
     return result
 
 

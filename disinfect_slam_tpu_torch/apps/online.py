@@ -14,8 +14,10 @@ Two paths over a logged dataset (the layout apps/offline.py replays):
             TSDF thread fuses.
 
 Segmentation weights are the shipped npz checkpoints of the JAX package
-(--seg-weights takes another file of that format; the JAX app's flax
-msgpack checkpoints are not read).  --stereo is not ported.
+(--seg-weights takes another file of that format, such as
+apps.train_seg writes); --seg-ckpt takes a flax msgpack checkpoint, the
+JAX app's format (models/train.py:save_checkpoint writes it too).
+--stereo is not ported.
 
 Usage:
   python -m disinfect_slam_tpu_torch.apps.online --logdir datasets/orbit_vga \
@@ -40,6 +42,7 @@ from ..io.dataset import LoggedReplay
 from ..models.segmentation import (
     InferenceEngine, default_weights_path, load_model, resize_linear,
 )
+from ..models.train import load_params
 from ..systems.disinf_system import DISINFSystem
 from ..systems.online_step import FusedOnlineStep
 from ..systems.tsdf_grid import TSDFGrid
@@ -59,6 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seg-weights",
                     help="segmentation checkpoint (npz of flat flax names, the "
                          "shipped format); default: the shipped weights")
+    ap.add_argument("--seg-ckpt", help="segmentation checkpoint (flax msgpack, the "
+                                       "JAX app's format); overrides --seg-weights")
     ap.add_argument("--seg-arch", default="unet", choices=["unet", "fast"],
                     help="segmentation model family: 'unet' (quality) or "
                          "'fast' (latency-first 2-resolution trunk)")
@@ -108,7 +113,10 @@ def run(args) -> dict:
         intrinsics = (517.3, 516.5, 318.6, 255.3)
         depth_factor = 5000.0
     model = None
-    if args.segment:
+    if args.segment and args.seg_ckpt:
+        print(f"[online] seg checkpoint {args.seg_ckpt}")
+        model = load_model(args.seg_arch, params=load_params(args.seg_ckpt), device=device)
+    elif args.segment:
         path = args.seg_weights or default_weights_path(args.seg_arch)
         print(f"[online] seg weights {path}")
         model = load_model(args.seg_arch, path, device=device)

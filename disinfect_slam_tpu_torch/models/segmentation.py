@@ -333,13 +333,45 @@ def state_dict_from_flax(flat: Dict[str, np.ndarray], model: nn.Module) -> Dict[
     return out
 
 
-def load_model(arch: str = "unet", path: Optional[str] = None, device="cuda") -> nn.Module:
-    """The shipped net (or the npz checkpoint at `path`) in bfloat16 on
-    `device` (CUDA unless the caller asks for another)."""
+_FLAX_SCOPE = {"conv": "Conv_0", "norm": "GroupNorm_0"}
+_FLAX_LEAF = {("conv", "weight"): "kernel", ("conv", "bias"): "bias",
+              ("norm", "weight"): "scale", ("norm", "bias"): "bias"}
+
+
+def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of state_dict_from_flax: a model's state_dict ->
+    flat flax names -> float32 arrays, conv kernels from OIHW to HWIO."""
+    out = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        if parts[0] == "blocks" and len(parts) == 4 and parts[2] in _FLAX_SCOPE:
+            kind = parts[2]
+            name = f"params/ConvBlock_{parts[1]}/{_FLAX_SCOPE[kind]}/"
+        elif parts[0] in ("convs", "norms") and len(parts) == 3:
+            kind = parts[0][:-1]
+            name = f"params/{'Conv' if kind == 'conv' else 'GroupNorm'}_{parts[1]}/"
+        else:
+            raise KeyError(f"{key}: not a parameter of the segmentation nets")
+        leaf = _FLAX_LEAF.get((kind, parts[-1]))
+        if leaf is None:
+            raise KeyError(f"{key}: not a parameter of the segmentation nets")
+        a = t.detach().float().cpu()
+        if leaf == "kernel":
+            a = a.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        out[name + leaf] = a.contiguous().numpy()
+    return out
+
+
+def load_model(arch: str = "unet", path: Optional[str] = None, device="cuda",
+               params: Optional[Dict[str, np.ndarray]] = None) -> nn.Module:
+    """The shipped net (or the npz checkpoint at `path`, or the flat flax
+    `params` already read) in bfloat16 on `device` (CUDA unless the
+    caller asks for another)."""
     device = resolve_device(device)
-    path = path or default_weights_path(arch)
     model = create_model(arch=arch)
-    model.load_state_dict(state_dict_from_flax(load_params_npz(path), model))
+    if params is None:
+        params = load_params_npz(path or default_weights_path(arch))
+    model.load_state_dict(state_dict_from_flax(params, model))
     return model.to(device)
 
 

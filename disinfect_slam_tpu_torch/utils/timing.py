@@ -1,5 +1,6 @@
-"""Per-stage latency counters (counterpart of StageTimer in
-disinfect_slam_tpu/utils/timing.py; reference offline.cc:168-198).
+"""Per-stage latency counters and the system clock (counterparts of
+StageTimer and get_system_timestamp_ms in disinfect_slam_tpu/utils/
+timing.py; reference offline.cc:168-198, utils/time.hpp).
 
 Work on a CUDA device is asynchronous, so a span that covers device work
 synchronises that device before it reads the clock at each end: the span
@@ -14,6 +15,11 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
+
+
+def get_system_timestamp_ms() -> int:
+    """System-clock milliseconds (GetSystemTimestamp, time.hpp:18-22)."""
+    return time.time_ns() // 1_000_000
 
 
 class StageTimer:

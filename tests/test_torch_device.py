@@ -20,7 +20,9 @@ from disinfect_slam_tpu_torch.config import TINY_DENSE
 from disinfect_slam_tpu_torch.core.state import TSDFVolume
 from disinfect_slam_tpu_torch.io.checkpoint import load_volume, volume_from_numpy, volume_to_numpy
 from disinfect_slam_tpu_torch.models.segmentation import load_model
+from disinfect_slam_tpu_torch.models.train import create_train_state
 from disinfect_slam_tpu_torch.ops.gather import volume_from_spatial_records
+from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF, load_distributed, make_mesh
 from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
 from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
 from disinfect_slam_tpu_torch.systems.loop_closure import LoopClosureManager
@@ -57,6 +59,13 @@ DEFAULT_DEVICE_CALLS = {
     "ICPOdometry": lambda: ICPOdometry(K, 48, 64),
     "ICPSource": lambda: ICPSource(K, 48, 64),
     "LoopClosureManager": lambda: LoopClosureManager(K, 48, 64),
+    "create_train_state": lambda: create_train_state(widths=(8, 16, 16, 16)),
+    "DistributedTSDF": lambda: DistributedTSDF(CFG),
+    "DistributedTSDF(cuda mesh)": lambda: DistributedTSDF(CFG, ["cuda:0"] * 2),
+    "make_mesh": lambda: make_mesh(1),
+    # the mesh is resolved before the file is opened
+    "load_distributed": lambda: load_distributed(str(ROOT / "no_such_checkpoint.npz"),
+                                                 cfg=CFG),
 }
 
 
@@ -73,11 +82,12 @@ APP_ARGS = {
     "tsdf2mesh": lambda d: [str(d / "data.bin"), str(d / "out.ply")],
     "serve": lambda d: ["--port", "0", "--synthetic", "2"],
     "view_volume": lambda d: ["--volume", str(d / "vol.npz"), "--out", str(d / "views")],
+    "train_seg": lambda d: ["--steps", "1", "--out", str(d / "seg.npz")],
 }
 
 
 @pytest.mark.parametrize("app", ["offline", "online", "tsdf2mesh", "dense_slam", "serve",
-                                 "view_volume"])
+                                 "view_volume", "train_seg"])
 def test_apps_without_device_exit_nonzero_naming_cuda(app, tmp_path):
     """The CLI as a user runs it, with CUDA hidden and no --device: it
     stops with a non-zero exit code and says that CUDA is missing."""
@@ -114,17 +124,19 @@ def test_evaluate_app_needs_no_device(tmp_path):
     assert '"pairs": 6' in proc.stdout
 
 
-# an import statement of jax, flax, the JAX package (not of the port,
-# whose name only starts like it) or the repo's bench.py
+# an import statement of jax, flax, optax, msgpack, the JAX package (not
+# of the port, whose name only starts like it) or the repo's bench.py
 FORBIDDEN_IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|flax|disinfect_slam_tpu|bench)(?:\.|\s|,|$)", re.M)
+    r"^\s*(?:from|import)\s+(?:jax|flax|optax|msgpack|disinfect_slam_tpu|bench)(?:\.|\s|,|$)",
+    re.M)
 
 
 def test_forbidden_import_pattern():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                  "    from disinfect_slam_tpu.ops import integrate",
                  "import disinfect_slam_tpu", "from flax import linen", "import bench",
-                 "    from bench import make_orbit_frames"):
+                 "    from bench import make_orbit_frames", "import optax",
+                 "    import msgpack", "from flax.serialization import to_bytes"):
         assert FORBIDDEN_IMPORT.search(line), line
     for line in ("from disinfect_slam_tpu_torch.ops import integrate",
                  "import disinfect_slam_tpu_torch", "import jaxtyping_free",
@@ -143,7 +155,9 @@ def test_port_and_chip_smoke_import_no_jax():
                 "utils/trajectory_eval.py", "apps/dense_slam.py", "apps/evaluate.py",
                 "systems/block_streaming.py", "systems/server.py", "viz/viewer_html.py",
                 "utils/validate.py", "io/dataset.py", "io/orbit_scene.py", "apps/serve.py",
-                "apps/view_volume.py"):
+                "apps/view_volume.py", "models/train.py", "models/synth_data.py",
+                "apps/train_seg.py", "io/flax_msgpack.py", "parallel/sharding.py",
+                "io/sync.py", "io/logger.py", "io/cameras.py", "native/runtime.py"):
         assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:

@@ -904,3 +904,102 @@ def test_cull_on_the_card_leaves_the_volume_bit_equal(cuda):
     vol = grids[0].volume
     culled = tint.gather_visible(vol, cam, se3, d, tint.depth_to_range(cam, cuda))
     assert int(culled.count) < int(tint.gather_visible(vol, cam, se3).count)
+
+
+def _train_case(device, dtype, seed=7):
+    """A narrow UNetSeg's first train step at 48x64, batch 2, from the
+    same parameters on `device`: (loss, gradients, parameters after)."""
+    from disinfect_slam_tpu_torch.models import synth_data, train
+
+    net = seg.create_model((8, 16, 16, 16), dtype=dtype,
+                           generator=torch.Generator().manual_seed(seed))
+    state = train.create_train_state(net, lr=1e-3, device=device)
+    imgs, labs = (torch.from_numpy(a).to(device) for a in
+                  synth_data.make_batch(np.random.default_rng(seed), 2, 48, 64))
+    step = train.make_train_step(state.model, state.opt)
+    state, loss = step(state, imgs, labs)
+    grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    return float(loss), grads, params
+
+
+def test_train_step_on_the_card_runs_without_tf32(cuda):
+    """A float32 train step on the card equals the CPU's: loss within 1e-5
+    and every gradient within 1e-4 relative by norm (TF32's 10-bit
+    mantissas in the convs would move them by about 1e-3); the global
+    flags come back as they were."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    loss_c, grads_c, _ = _train_case("cpu", torch.float32)
+    loss_g, grads_g, params_g = _train_case(cuda, torch.float32)
+    assert abs(loss_g - loss_c) <= 1e-5
+    for n, g in grads_c.items():
+        assert ((grads_g[n] - g).norm() / g.norm().clamp(min=1e-30)).item() <= 1e-4, n
+    assert all(torch.isfinite(p).all() for p in params_g.values())
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+
+
+def test_bfloat16_train_step_on_the_card_matches_the_cpu(cuda):
+    """The working dtype's step: loss within 5e-4 and the gradients
+    together within 0.1 relative by norm, the CPU tests' bfloat16 limits
+    against JAX (tests/test_torch_train.py)."""
+    loss_c, grads_c, _ = _train_case("cpu", torch.bfloat16)
+    loss_g, grads_g, _ = _train_case(cuda, torch.bfloat16)
+    assert abs(loss_g - loss_c) <= 5e-4
+    a = torch.cat([grads_g[n].flatten() for n in grads_c])
+    b = torch.cat([grads_c[n].flatten() for n in grads_c])
+    assert ((a - b).norm() / b.norm()).item() <= 0.1
+
+
+def test_four_coresident_shards_equal_one_shard_on_the_card(cuda):
+    """DistributedTSDF over [cuda:0] * 4 and over [cuda:0] on a few frames
+    of a sphere before a wall: the same records bit for bit, fuse_rows
+    launched once per shard per frame, and the same hits and depths in the
+    render through K4 and K5 (once per shard); equal to the same shards on
+    the CPU."""
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput
+    from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF
+
+    k, w, h = (52.7, 53.3, 31.71, 23.43), 64, 48
+    cfg = TSDFConfig(voxel_size=0.05, truncation=0.15, num_blocks_log2=10,
+                     max_candidates=2048, max_visible=1024, max_new_per_round=512,
+                     grid_log2=6)
+    dists = [DistributedTSDF(cfg, [cuda] * 4), DistributedTSDF(cfg, [cuda]),
+             DistributedTSDF(cfg, ["cpu"] * 4)]
+    fuse_kernel.fuse_rows.launches = 0
+    n = 0
+    for eye in [(-0.6, 0.0, -1.3), (0.6, 0.05, -1.3), (0.0, 0.1, -1.0)]:
+        pose = look_at(eye, (0.013, -0.021, 1.2)).astype(np.float32)
+        sphere = render_sphere(w, h, k, pose, (0.013, -0.021, 0.8), 0.55)
+        depth = np.where(sphere > 0, sphere, render_wall(w, h, k, pose, wall_z=2.4131))
+        frame = FrameInput(checker_rgb(w, h), depth.astype(np.float32),
+                           np.full((h, w), 0.7, np.float32), np.full((h, w), 0.3, np.float32))
+        for d in dists:
+            d.integrate(frame, k, pose, 4.0)
+        n += 1
+    assert fuse_kernel.fuse_rows.launches == 5 * n
+
+    def records(d):
+        r = d.gather_all_tsdf()
+        return r[np.lexsort(r[:, :3].T)]
+
+    four, one, cpu = (records(d) for d in dists)
+    assert four.shape[0] > 20 * 512
+    np.testing.assert_array_equal(four, one)
+    np.testing.assert_array_equal(four[:, :3], cpu[:, :3])
+    np.testing.assert_allclose(four[:, 3], cpu[:, 3], rtol=0, atol=1e-6)
+
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    splat_kernel.splat_zbuf_blocks.launches = splat_kernel.splat_payload_blocks.launches = 0
+    r4 = dists[0].render(cam, pose, 4.0)
+    assert (splat_kernel.splat_zbuf_blocks.launches,
+            splat_kernel.splat_payload_blocks.launches) == (4, 4)
+    r1 = dists[1].render(cam, pose, 4.0)
+    assert r4.hit.sum().item() > 0
+    torch.testing.assert_close(r4.hit, r1.hit, rtol=0, atol=0)
+    torch.testing.assert_close(r4.depth, r1.depth, rtol=0, atol=0)
+    # the JAX merge max-merges the shaded rgba of shards tied at a pixel's
+    # depth channel by channel (equal on 99.86% of the hit pixels on the
+    # CPU); normals shade from each shard's own depth image and differ
+    # along shard borders
+    same = (r4.rgba == r1.rgba).all(-1)[r4.hit].float().mean().item()
+    assert same >= 0.99
