@@ -156,7 +156,34 @@ exits non-zero:
      FrameLogger writes 30 frames that LoggedReplay reads back bit-equal,
      and the native runtime builds and answers as PoseManager.
 
-Phases run 0-6b, then 9, then 8, then 10, then 7.  Phase 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
+  11. stereo-only depth: (a) tests/torch_cases.py's stereo orbit (60
+     pairs at 640x480: datasets/orbit_vga's poses and intrinsics, the
+     right camera 0.12 m along the left one's +x, a world-anchored
+     texture) written through StereoFrameLogger, each pair's checksum
+     against data/orbit_vga_stereo_fingerprint.json (a difference is
+     generator drift); (b) flat and pyramid depth of frame 0 on the card
+     bit-equal to the port's CPU run, then all 60 frames on the card
+     against the JAX reference's per-frame valid counts and sums; (c)
+     stereo_ms of both matchers as bench.py times it (64 disparities,
+     chained, one sync, CUDA events, median of 3); (d) the ZED factory
+     calibration's rectifier without cv2 against cv2's numbers in the
+     fingerprint, its remap on the card bit-equal to the CPU's; (e)
+     apps.online --stereo --segment as its own process (no --device):
+     --fused --render-dir (fuse_rows once a frame, the volume within the
+     JAX stereo app's fingerprint, two 640x360 PNGs) and the asynchronous
+     path at --fps 120 (fuse_rows once a frame, no frame dropped);
+  12. the soak: tests/test_soak.py's corridor out and back, 1000 frames
+     of DenseSLAM with loop closure, host spill, recentering and the
+     keyframe cap on the card, with the JAX soak's assertions and within
+     the JAX soak's counts (data/soak_fingerprint.json; fuse_rows once a
+     frame, splat_zbuf_blocks once a tracked frame); wall time, ms/frame
+     and closures; then K4 on the final volume at the soak's 96x72
+     (partial tiles) bit-equal to its plain version, and K2 on the last
+     frame's visible rows against its plain version.
+
+Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 7 (which
+also profiles the two matchers: kernels and device time a call).  Phase
+2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
 they project block rows in registers) against their plain versions at
 the render's capacity (16384 block rows, 14000 live, 640x480 and
 1920x1080; tests/torch_cases.py's splat_block_case: rows behind the
@@ -753,6 +780,12 @@ def check_fingerprint(grid, records, ref, label, prob_tol=TOL_WP):
 
     fp = volume_fingerprint(volume_to_numpy(grid.volume))
     fp["records"] = records
+    return check_fingerprint_dict(fp, ref, label, prob_tol)
+
+
+def check_fingerprint_dict(fp, ref, label, prob_tol=TOL_WP):
+    """A volume_fingerprint (with its record count) against the
+    reference's, within TOL_COUNT / TOL_TSDF / TOL_WP (prob: prob_tol)."""
     rel = lambda k: abs(fp[k] - ref[k]) / abs(ref[k])  # noqa: E731
     checks = {
         "active_blocks": (rel("active_blocks"), TOL_COUNT),
@@ -1869,17 +1902,43 @@ def slam_volume_rows(splat_kernel, vol, scale, pose):
     """The surface rows of a SLAM volume seen from `pose` at the
     tracking camera of track_res_scale `scale`, as DenseSLAM's model
     depth gives them to K4 -> (rows, pool, geometry)."""
-    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.core.geometry import CameraIntrinsics, CameraParams
     from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
 
     fx, fy, cx, cy = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
     cam = CameraParams.create(CameraIntrinsics.create(fx / scale, fy / scale, cx / scale,
                                                       cy / scale), H // scale, W // scale)
-    se3 = SE3.from_matrix(pose)
-    vis, _overflow, geometry = splat_kernel._rows(vol, cam, se3, 4.0, 1.25,
-                                                  splat_kernel.rf.DEFAULT_SURF_CAP)
+    return volume_rows(splat_kernel, vol, cam, pose, 4.0)
+
+
+def volume_rows(splat_kernel, vol, cam, pose, max_depth):
+    """The surface rows of a volume seen from `pose` (cam_T_world [4, 4])
+    at `cam`, as splat_kernel.splat_depth gives them to K4 -> (rows,
+    pool, geometry)."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+
+    vis, _overflow, geometry = splat_kernel._rows(vol, cam, SE3.from_matrix(pose), max_depth,
+                                                  1.25, splat_kernel.rf.DEFAULT_SURF_CAP)
     return ((vis.block_pos, vis.pool_idx, vis.count), (vol.tsdf, vol.rgbw, vol.prob),
             geometry)
+
+
+def check_zbuf_rows(splat_kernel, rows, pool, geometry, dev, what) -> dict:
+    """K4 on a volume's surface rows, bit-equal to its plain version, with
+    the rows on each of its branches counted and the covered pixels."""
+    branches = torch.zeros(2, dtype=torch.int32, device=dev)
+    zbuf = splat_kernel.splat_zbuf_blocks(*rows, pool[0], **geometry, branch_counts=branches)
+    zref = splat_kernel.splat_zbuf_blocks_reference(*rows, pool[0], **geometry)
+    cam = geometry["cam"]
+    label = f"{what} K4 {cam.img_w}x{cam.img_h}"
+    res = {"rows": int(rows[2]), "branches": branches.tolist(), "max_abs_err": u32_err(zbuf, zref),
+           "covered": (zbuf < splat_kernel.BIG).float().mean().item()}
+    log(f"[chip_smoke] {label}: {res['rows']} surface rows, zbuf max|d| {res['max_abs_err']}, "
+        f"pixels covered {res['covered']:.4f}, rows on the tile / atomic branch "
+        f"{res['branches']}")
+    if not torch.equal(zbuf, zref) or res["covered"] == 0:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return res
 
 
 def check_slam_zbuf(splat_kernel, vol, pose, dev) -> dict:
@@ -1889,20 +1948,9 @@ def check_slam_zbuf(splat_kernel, vol, pose, dev) -> dict:
     out = {}
     for scale in (1, 2):
         rows, pool, geometry = slam_volume_rows(splat_kernel, vol, scale, pose)
-        branches = torch.zeros(2, dtype=torch.int32, device=dev)
-        zbuf = splat_kernel.splat_zbuf_blocks(*rows, pool[0], **geometry,
-                                              branch_counts=branches)
-        zref = splat_kernel.splat_zbuf_blocks_reference(*rows, pool[0], **geometry)
-        err = u32_err(zbuf, zref)
         cam = geometry["cam"]
-        label = f"{cam.img_w}x{cam.img_h}"
-        out[label] = {"rows": int(rows[2]), "branches": branches.tolist(), "max_abs_err": err,
-                      "covered": (zbuf < splat_kernel.BIG).float().mean().item()}
-        log(f"[chip_smoke] slam K4 {label}: {out[label]['rows']} surface rows, zbuf max|d| "
-            f"{err}, pixels covered {out[label]['covered']:.4f}, rows on the tile / atomic "
-            f"branch {out[label]['branches']}")
-        if not torch.equal(zbuf, zref) or out[label]["covered"] == 0:
-            raise AssertionError(f"slam K4 {label} disagrees with its plain version")
+        out[f"{cam.img_w}x{cam.img_h}"] = check_zbuf_rows(splat_kernel, rows, pool, geometry,
+                                                          dev, "slam")
     return out
 
 
@@ -3020,6 +3068,353 @@ def train_dist_host(fuse_kernel, splat_kernel, intrinsics, poses, fused_ms, smi)
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 11: stereo-only depth (the rectifier, flat and pyramid block
+# matching, the online app's --stereo into K2); phase 12: the soak
+# ----------------------------------------------------------------------
+STEREO_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                                  "orbit_vga_stereo_fingerprint.json")
+STEREO_METHODS = ("flat", "pyramid")
+# stereo_ms as bench.py:572-599 times it: the bench's gray frame 0 and its
+# 13-pixel roll at 64 disparities, each call fed the last one's output,
+# one sync; CUDA events around STEREO_ITERS calls, median of STEREO_REPS
+STEREO_REPS, STEREO_ITERS = 3, 10
+# the 60 frames on the card against the JAX reference: the valid count
+# equal and the float64 sums of disparity and depth within 1e-9 relative
+# (the port on the CPU gives the JAX bits on every frame,
+# scripts/port_stereo_fingerprint.py --port, and the card the CPU's; the
+# slack is the host's float64 summation order)
+TOL_STEREO_SUM = 1e-9
+# the factory calibration's rectifier without cv2 against cv2's (the
+# fingerprint): rectified intrinsics within 1e-6 relative, each map's
+# mean within 1e-4 px
+TOL_RECT_INTR, TOL_RECT_MEAN_PX = 1e-6, 1e-4
+SOAK_FRAMES = 1000
+# the stereo app as its own process, as a user runs it (no --device):
+# both paths through main(argv), each volume's fingerprint and fuse_rows'
+# launches printed as the last line
+STEREO_APP_CODE = """
+import json, sys
+from disinfect_slam_tpu_torch.apps import online
+from disinfect_slam_tpu_torch.io.checkpoint import volume_to_numpy
+from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel
+from disinfect_slam_tpu_torch.ops.gather import gather_valid, volume_fingerprint
+logdir, render_dir = sys.argv[1:3]
+base = ["--logdir", logdir, "--config", logdir + "/cam.yaml", "--stereo", "--segment"]
+out = {}
+for name, extra in (("fused", ["--fused", "--render-dir", render_dir]), ("async", ["--fps", "120"])):
+    fuse_kernel.fuse_rows.launches = 0
+    r = online.main(base + extra)
+    vol = r["step"].volume if name == "fused" else r["system"].tsdf.tsdf.volume
+    fp = volume_fingerprint(volume_to_numpy(vol))
+    fp["records"] = int(gather_valid(vol).count)
+    out[name] = {"frames": r["frames"], "fps": r["fps"], "wall_s": r["wall_s"],
+                 "active_blocks": r["active_blocks"], "fingerprint": fp,
+                 "fuse_rows_launches": fuse_kernel.fuse_rows.launches,
+                 "render_paths": r["render_paths"],
+                 "dropped": r["system"].tsdf.dropped_frames if name == "async" else 0}
+print(json.dumps(out))
+"""
+
+
+def stereo_logdir(ref) -> tuple:
+    """The stereo scene's 60 pairs written as a user's capture
+    (tests/torch_cases.py:write_stereo_logdir), each pair's checksum
+    against the fingerprint's: a difference is generator drift."""
+    from disinfect_slam_tpu_torch.ops.cuda import build
+    from tests.torch_cases import write_stereo_logdir
+
+    logdir = os.path.join(str(build.BUILD_DIR), "stereo")
+    if os.path.isdir(logdir):
+        shutil.rmtree(logdir)
+    t0 = time.perf_counter()
+    sums = write_stereo_logdir(logdir, DATASET)
+    gen_s = time.perf_counter() - t0
+    drift = [i for i, (a, b) in enumerate(zip(sums, ref["pairs"])) if a != b]
+    if len(sums) != ref["frames"] or drift:
+        raise AssertionError(f"stereo scene generator drift: {len(sums)} pairs, frames "
+                             f"{drift[:10]} differ from the fingerprint's checksums")
+    log(f"[chip_smoke] stereo logdir: {len(sums)} pairs at 640x480 written in {gen_s:.1f} s, "
+        f"every checksum equal to the fingerprint's")
+    return logdir, gen_s
+
+
+def stereo_depth_frames(logdir, ref, dev) -> dict:
+    """Frame 0, both matchers, on the card against the port's CPU run bit
+    for bit; then all 60 frames on the card against the JAX reference's
+    per-frame summaries."""
+    from disinfect_slam_tpu_torch.io.dataset import LoggedStereoReplay
+    from disinfect_slam_tpu_torch.ops.stereo import stereo_depth
+    from tests.torch_cases import stereo_depth_summary
+
+    kw = dict(fx=ref["fx"], baseline_m=ref["baseline_m"], max_disp=ref["max_disp"],
+              max_depth=ref["max_depth"])
+    frames = list(LoggedStereoReplay(logdir))
+    cpu = torch.device("cpu")
+    for m in STEREO_METHODS:
+        runs = [[t.cpu() for t in stereo_depth(*(torch.from_numpy(x).to(d) for x in
+                                                  (frames[0].left, frames[0].right)),
+                                                method=m, **kw)] for d in (dev, cpu)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"stereo {m}: frame 0 on the card differs from the CPU")
+    worst = {m: 0.0 for m in STEREO_METHODS}
+    valid = {m: 0 for m in STEREO_METHODS}
+    for i, fr in enumerate(frames):
+        left, right = (torch.from_numpy(x).to(dev) for x in (fr.left, fr.right))
+        for m in STEREO_METHODS:
+            got, want = stereo_depth_summary(stereo_depth(left, right, method=m, **kw)), \
+                ref["depth"][m][i]
+            rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in ("sum_disp", "sum_depth"))
+            worst[m] = max(worst[m], rel)
+            valid[m] += got["valid"]
+            if got["valid"] != want["valid"] or rel > TOL_STEREO_SUM:
+                raise AssertionError(f"stereo {m} frame {i}: {got} against the reference's "
+                                     f"{want}")
+    n_px = len(frames) * frames[0].left.shape[0] * frames[0].left.shape[1]
+    log(f"[chip_smoke] stereo depth: frame 0 on the card bit-equal to the CPU (flat and "
+        f"pyramid); {len(frames)} frames: valid counts equal to the JAX reference's, sums "
+        f"within {worst} relative (limit {TOL_STEREO_SUM:g}); valid share "
+        f"{ {m: round(valid[m] / n_px, 4) for m in STEREO_METHODS} }")
+    return {"frames": len(frames), "frame0_bit_equal": True, "max_rel_sum": worst,
+            "valid_share": {m: valid[m] / n_px for m in STEREO_METHODS}}
+
+
+def stereo_bench_pair(dev):
+    """bench.py's stereo input: the gray of orbit_vga's frame 0 and its
+    13-pixel roll, on the card."""
+    from disinfect_slam_tpu_torch.io.png_io import read_image
+
+    gray = read_image(os.path.join(DATASET, "0_rgb.png")).astype(np.float32).mean(axis=-1)
+    return tuple(torch.from_numpy(np.ascontiguousarray(g)).to(dev)
+                 for g in (gray, np.roll(gray, -13, axis=1)))
+
+
+def stereo_timing(dev, smi) -> dict:
+    """stereo_ms for both matchers (bench.py's stereo micro-bench)."""
+    from disinfect_slam_tpu_torch.ops.stereo import block_match, block_match_pyramid
+
+    left, right = stereo_bench_pair(dev)
+    res = {}
+    for name, fn in (("flat", block_match), ("pyramid", block_match_pyramid)):
+        def step(x, fn=fn):
+            disp, valid = fn(x, right, max_disp=64)
+            return x + (disp.sum() + valid.sum()) * 0.0
+
+        x = step(left)
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(STEREO_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            x = left
+            start.record()
+            for _ in range(STEREO_ITERS):
+                x = step(x)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end) / STEREO_ITERS)
+        res[name] = {"ms": statistics.median(runs), "runs_ms": runs}
+    log(f"[chip_smoke] stereo_ms at 640x480, 64 disparities: flat {res['flat']['ms']:.3f} "
+        f"({[round(r, 3) for r in res['flat']['runs_ms']]}), pyramid "
+        f"{res['pyramid']['ms']:.3f} ({[round(r, 3) for r in res['pyramid']['runs_ms']]}) "
+        f"({smi})")
+    return res
+
+
+def stereo_rectifier(ref, dev) -> dict:
+    """The ZED factory calibration's rectifier, built without cv2, against
+    the fingerprint's cv2 numbers; its remap on the card against the CPU,
+    bit for bit, and timed."""
+    from disinfect_slam_tpu_torch.io.zed_calib import rectifier_from_factory_conf
+    from disinfect_slam_tpu_torch.ops.cuda import build
+    from disinfect_slam_tpu_torch.ops.image_ops import bilinear_remap
+    from tests.torch_cases import ZED_FACTORY_CONF
+
+    conf = os.path.join(str(build.BUILD_DIR), "SN12345.conf")
+    with open(conf, "w") as f:
+        f.write(ZED_FACTORY_CONF)
+    t0 = time.perf_counter()
+    rect = rectifier_from_factory_conf(conf, "VGA")
+    build_s = time.perf_counter() - t0
+    want = ref["rectifier"]
+    intr = max(abs(a - b) / abs(b) for a, b in zip(rect.rectified_intrinsics(),
+                                                  want["rectified_intrinsics"]))
+    n_px = want["size"][0] * want["size"][1]
+    mean_px = max(abs(float(np.asarray(m, np.float64).sum()) - b) / n_px
+                  for m, b in zip(rect.maps[:4], want["map_sums"]))
+    if rect.maps_device[0].device.type != "cuda" or not (
+            intr <= TOL_RECT_INTR and mean_px <= TOL_RECT_MEAN_PX):
+        raise AssertionError(f"factory rectifier: intrinsics {rect.rectified_intrinsics()} "
+                             f"(rel {intr:.3e}), map means {mean_px:.3e} px off cv2's")
+    rng = np.random.default_rng(9)
+    left = rng.uniform(0, 255, (*want["size"], 3)).astype(np.float32)
+    right = rng.uniform(0, 255, want["size"]).astype(np.float32)
+    l_card, r_card = rect.rectify(left, right)
+    for img, out, maps in ((left, l_card, rect.maps[:2]), (right, r_card, rect.maps[2:4])):
+        cpu = bilinear_remap(torch.from_numpy(img), *(torch.from_numpy(m) for m in maps))
+        if not np.array_equal(out, cpu.numpy()):
+            raise AssertionError("the remap on the card differs from the CPU's")
+    l_dev, r_dev = (torch.from_numpy(x).to(dev) for x in (left, right))
+    remap_ms = cuda_time_ms(lambda: rect.rectify_device(l_dev, r_dev))
+    log(f"[chip_smoke] factory rectifier (no cv2): built in {build_s:.2f} s, rectified "
+        f"intrinsics {[round(v, 4) for v in rect.rectified_intrinsics()]} within {intr:.2e} "
+        f"relative of cv2's, map means within {mean_px:.2e} px; remap of an RGB + gray "
+        f"672x376 pair on the card bit-equal to the CPU, {remap_ms:.3f} ms")
+    return {"build_s": build_s, "intrinsics_rel": intr, "map_mean_px": mean_px,
+            "remap_ms": remap_ms}
+
+
+def stereo_app(logdir, ref, read_png) -> dict:
+    """apps.online --stereo --segment, --fused with --render-dir and the
+    asynchronous path at --fps 120, in a process of its own on the card."""
+    from disinfect_slam_tpu_torch.ops.cuda import build
+
+    render_dir = os.path.join(str(build.BUILD_DIR), "stereo_render")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STEREO_APP_CODE, logdir, render_dir],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"stereo app failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[chip_smoke] {line}")
+    res = json.loads(lines[-1])
+    n = ref["frames"]
+    for name, r in res.items():
+        if (r["frames"], r["fuse_rows_launches"], r["dropped"]) != (n, n, 0):
+            raise AssertionError(f"stereo app {name}: {r['frames']} frames, fuse_rows "
+                                 f"launched {r['fuse_rows_launches']} times, {r['dropped']} "
+                                 f"dropped")
+    for path in res["fused"]["render_paths"]:
+        img = read_png(path)
+        if img.shape != (360, 640, 4) or img.dtype != np.uint8:
+            raise AssertionError(f"{path}: {img.dtype} {img.shape}")
+    check_fingerprint_dict(res["fused"]["fingerprint"], ref["online"], "stereo app --fused",
+                           TOL_ONLINE_PROB)
+    asy = res["async"]["fingerprint"]
+    log(f"[chip_smoke] stereo app: {wall_s:.1f} s as a process; fused "
+        f"{res['fused']['fps']:.3f} FPS, async {res['async']['fps']:.3f} FPS at --fps 120 "
+        f"(0 dropped), fuse_rows {res['fused']['fuse_rows_launches']} / "
+        f"{res['async']['fuse_rows_launches']} launches; the async volume's blocks "
+        f"{asy['active_blocks']} and sum|tsdf| {asy['sum_abs_tsdf']:.1f} beside the "
+        f"reference's {ref['online']['active_blocks']} / {ref['online']['sum_abs_tsdf']:.1f}")
+    res["process_wall_s"] = wall_s
+    return res
+
+
+def stereo_slice(read_png, smi, dev) -> dict:
+    """Phase 11 (see the docstring)."""
+    with open(STEREO_FINGERPRINT) as f:
+        ref = json.load(f)
+    logdir, gen_s = stereo_logdir(ref)
+    res = {"generate_s": gen_s}
+    res["depth"] = stereo_depth_frames(logdir, ref, dev)
+    torch.cuda.empty_cache()
+    res["stereo_ms"] = stereo_timing(dev, smi)
+    res["rectifier"] = stereo_rectifier(ref, dev)
+    res["app"] = stereo_app(logdir, ref, read_png)
+    torch.cuda.empty_cache()
+    return res
+
+
+def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
+    """Phase 12: tests/test_soak.py's corridor, all SOAK_FRAMES frames,
+    through DenseSLAM on the card (tests/torch_cases.py:run_soak) with the
+    JAX soak's assertions and within the JAX soak's own counts
+    (data/soak_fingerprint.json); fuse_rows once a frame,
+    splat_zbuf_blocks once a tracked frame, and both held against their
+    plain versions on the soak's own inputs after the run."""
+    from tests.torch_cases import check_soak, check_soak_fingerprint, run_soak, soak_fingerprint
+
+    fns = (fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
+           splat_kernel.splat_payload_blocks)
+    reset_launches(*fns)
+    res, slam = run_soak(SOAK_FRAMES, dev)
+    res["launches"] = {fn.__name__: fn.launches for fn in fns}
+    log(f"[chip_smoke] soak: {res['frames']} frames in {res['wall_s']:.1f} s, "
+        f"{res['ms_per_frame']:.3f} ms/frame ({smi}); lost {res['lost']}, recenters "
+        f"{res['recenters']}, spill high {res['spill_high']} blocks, keyframes "
+        f"{res['keyframes']}, evictions {res['evictions']}, closures {res['closures']}, "
+        f"start region {res['start_hist']} -> {res['end_hist']} observed voxels, end "
+        f"position {res['end_t']}; launches {res['launches']}")
+    check_soak(res)
+    want = {"fuse_rows": SOAK_FRAMES, "splat_zbuf_blocks": SOAK_FRAMES - 1,
+            "splat_payload_blocks": 0}
+    if res["launches"] != want:
+        raise AssertionError(f"soak launches {res['launches']}, expected {want}")
+    ref = soak_fingerprint()
+    log(f"[chip_smoke] soak against the JAX soak's counts {ref}")
+    check_soak_fingerprint(res, ref)
+    res["kernels"] = check_soak_kernels(fuse_kernel, splat_kernel, slam, dev)
+    del slam
+    return res
+
+
+def check_soak_kernels(fuse_kernel, splat_kernel, slam, dev) -> dict:
+    """Phase 12's kernels on the soak's own inputs: K4 on the final volume
+    from the last pose at the soak's 96x72 tracking camera (72 rows: its
+    last row of 32x32 tiles is partial), bit-equal to its plain version;
+    K2 on the visible rows of the last frame (x = 0) over that volume
+    (copies of its pool) against its plain version, compare_fuse's
+    tolerances."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.ops.integrate import (FrameInput, depth_to_range,
+                                                        gather_visible, stack_frame)
+    from disinfect_slam_tpu_torch.utils.device import upload
+    from tests.scenes import checker_rgb
+    from tests.torch_cases import soak_corridor_depth
+
+    pose = np.linalg.inv(slam.world_T_cam).astype(np.float32)
+    vol, cam, cfg = slam.volume, slam.cam, slam.cfg
+    rows, pool, geometry = volume_rows(splat_kernel, vol, slam.track_cam, pose, slam.max_depth)
+    res = {"k4": check_zbuf_rows(splat_kernel, rows, pool, geometry, dev, "soak")}
+    depth, _ = soak_corridor_depth(0.0)
+    ones = torch.ones(depth.shape, dtype=torch.float32, device=dev)
+    frame = FrameInput(upload(checker_rgb(cam.img_w, cam.img_h), dev), upload(depth, dev),
+                       ones, ones)
+    d2r = depth_to_range(cam, dev)
+    se3 = SE3.from_matrix(pose)
+    vis = gather_visible(vol, cam, se3, frame.depth, d2r)
+    consts = dict(truncation=cfg.truncation, max_depth=slam.max_depth,
+                  max_weight=cfg.max_weight, prob_eps=cfg.prob_eps, cam_T_world=se3,
+                  intrinsics=cam.intrinsics, voxel_size=cfg.voxel_size)
+    err, written, _ = compare_fuse(fuse_kernel, stack_frame(frame, d2r), vis.block_pos,
+                                   vis.pool_idx, vis.count, pool, consts, "soak last frame")
+    res["k2"] = {"max_abs_err": err, "count": int(vis.count), "written": written}
+    return res
+
+
+def stereo_profile(dev) -> dict:
+    """Phase 7, the matchers under the profiler at 640x480, 64
+    disparities: kernels and device ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.ops.stereo import block_match, block_match_pyramid
+
+    left, right = stereo_bench_pair(dev)
+    res = {}
+    for name, fn in (("flat", block_match), ("pyramid", block_match_pyramid)):
+        fn(left, right, max_disp=64)
+        torch.cuda.synchronize()
+        calls = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(left, right, max_disp=64)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / calls
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        dev_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+        res[name] = {"kernels_per_call": len(events) / calls, "device_ms_per_call": dev_ms,
+                     "wall_ms_per_call": wall,
+                     "idle_share": 1 - dev_ms / wall if dev_ms else None}
+    log(f"[chip_smoke] stereo profile: " + "; ".join(
+        f"{k} {v['kernels_per_call']:.1f} kernels, {v['device_ms_per_call']:.3f} ms of device "
+        f"time in {v['wall_ms_per_call']:.3f} ms a call" for k, v in res.items()))
+    return res
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -3330,8 +3725,25 @@ def main() -> int:
         f"{dist['shards_1']['ms_per_frame']:.3f} on 1 (phase 3 {fused_ms:.3f}) ({smi}) "
         f"({time.perf_counter() - t10:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
+    # phase 11: stereo-only depth
+    t11 = time.perf_counter()
+    stereo = stereo_slice(read_png, smi, dev)
+    log(f"[chip_smoke] phase 11: stereo slice ok; stereo_ms flat "
+        f"{stereo['stereo_ms']['flat']['ms']:.3f}, pyramid "
+        f"{stereo['stereo_ms']['pyramid']['ms']:.3f}; stereo app --fused "
+        f"{stereo['app']['fused']['fps']:.3f} FPS ({smi}) "
+        f"({time.perf_counter() - t11:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+
+    # phase 12: the soak
+    t12 = time.perf_counter()
+    soak_res = soak(fuse_kernel, splat_kernel, dev, smi)
+    torch.cuda.empty_cache()
+    log(f"[chip_smoke] phase 12: soak ok; {soak_res['frames']} frames, "
+        f"{soak_res['ms_per_frame']:.3f} ms/frame, {soak_res['closures']} closures ({smi}) "
+        f"({time.perf_counter() - t12:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+
     probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
-    log(f"[chip_smoke] probe launches on the main path (phases 3-10): {probe_main_launches}")
+    log(f"[chip_smoke] probe launches on the main path (phases 3-12): {probe_main_launches}")
 
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
@@ -3342,6 +3754,7 @@ def main() -> int:
     splat_slam = slam_zbuf_yardsticks(splat_kernel, slam_vol, slam_pose)
     del slam_vol
     slam["profile"] = slam_profile(dev)
+    stereo["profile"] = stereo_profile(dev)
     log(f"[chip_smoke] phase 7: device times ({smi}) ({time.perf_counter() - t7:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
 
@@ -3364,6 +3777,8 @@ def main() -> int:
         "slam": slam,
         "served": served,
         "phase10": p10,
+        "stereo": stereo,
+        "soak": soak_res,
         "splat_zbuf_slam_320x240": splat_slam,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
@@ -3389,9 +3804,12 @@ def main() -> int:
                                 for k in ("paged_app", "paging_app")],
          "cull_launches": served["cull"]["on"]["fuse_rows_launches"],
          "dist_launches": [dist[f"shards_{k}"]["fuse_rows_launches"] for k in (DIST_SHARDS, 1)],
+         "stereo_app_launches": [stereo["app"][k]["fuse_rows_launches"]
+                                 for k in ("fused", "async")],
+         "soak_launches": soak_res["launches"]["fuse_rows"],
          **fuse,
          "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
-                            fuse_real["max_abs_err"]),
+                            fuse_real["max_abs_err"], soak_res["kernels"]["k2"]["max_abs_err"]),
          "ms_1080p": fuse_1080["ms"], "bound_ms_1080p": fuse_1080["bound_ms"],
          "ms_real_frame": fuse_real["ms"], "bound_ms_real_frame": fuse_real["bound_ms"]},
         {"name": "sample_rows", "route": "cuda",
@@ -3408,10 +3826,11 @@ def main() -> int:
          "serve_launches": served["service"]["splat_launches"][0],
          "view_launches": served["view"]["splat_launches"][0],
          "dist_launches": dist["render"]["launches"][0],
+         "soak_launches": soak_res["launches"]["splat_zbuf_blocks"],
          **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
                             *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
-                            render_err["zbuf"],
+                            render_err["zbuf"], soak_res["kernels"]["k4"]["max_abs_err"],
                             *(v["max_abs_err"] for v in slam["zbuf"].values())),
          "ms_slam_320x240": splat_slam["ms"], "bound_ms_slam_320x240": splat_slam["bound_ms"],
          "plain_ms_slam_320x240": splat_slam["plain_ms"],

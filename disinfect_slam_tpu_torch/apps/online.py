@@ -17,7 +17,15 @@ Segmentation weights are the shipped npz checkpoints of the JAX package
 (--seg-weights takes another file of that format, such as
 apps.train_seg writes); --seg-ckpt takes a flax msgpack checkpoint, the
 JAX app's format (models/train.py:save_checkpoint writes it too).
---stereo is not ported.
+
+--stereo reads a logdir of rectified {id}_left.png / {id}_right.png pairs
+(io/logger.StereoFrameLogger's layout) instead of RGB-D frames: depth
+comes from block matching on the device (ops/stereo.py; --stereo-method
+flat or pyramid, --max-disp, --baseline in metres, fx from --config),
+rgb is the left view, and a frame without a trajectory row takes the
+identity pose on the --fused path and no pose on the asynchronous one.
+On the --fused path the depth stays on the device
+(FusedOnlineStep.step_device); the asynchronous one takes host frames.
 
 Usage:
   python -m disinfect_slam_tpu_torch.apps.online --logdir datasets/orbit_vga \
@@ -38,11 +46,14 @@ import torch
 
 from ..config import TSDFConfig
 from ..io.config_reader import get_depth_factor, get_intrinsics, load_yaml
-from ..io.dataset import LoggedReplay
+from ..io.dataset import LoggedReplay, LoggedStereoReplay, ReplayFrame
+from ..io.png_io import read_png
 from ..models.segmentation import (
     InferenceEngine, default_weights_path, load_model, resize_linear,
 )
 from ..models.train import load_params
+from ..ops.stereo import METHODS as STEREO_METHODS
+from ..ops.stereo import StereoDepthEstimator
 from ..systems.disinf_system import DISINFSystem
 from ..systems.online_step import FusedOnlineStep
 from ..systems.tsdf_grid import TSDFGrid
@@ -71,7 +82,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="synchronous loop of seg + fusion per frame "
                          "(systems/online_step.py), no host round trip between them")
     ap.add_argument("--stereo", action="store_true",
-                    help="depth from stereo block matching (not ported)")
+                    help="logdir holds {id}_left/_right.png stereo pairs; depth is "
+                         "computed by block matching instead of read from _depth.png")
+    ap.add_argument("--baseline", type=float, default=0.12,
+                    help="stereo baseline in metres (ZED: 0.12)")
+    ap.add_argument("--stereo-method", choices=STEREO_METHODS, default="flat",
+                    help="block matcher: the flat full cost volume or the "
+                         "coarse-to-fine pyramid (less work)")
+    ap.add_argument("--max-disp", type=int, default=64)
     ap.add_argument("--auto-recenter", action="store_true",
                     help="dense backend: move the coverage window after the camera "
                          "near its edge (TSDFGrid.maybe_recenter; the asynchronous "
@@ -82,11 +100,50 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device for the volume, the net and the kernels; "
                          "without CUDA the run stops unless this is cpu")
     args = ap.parse_args(argv)
-    if args.stereo:
-        ap.error("--stereo: stereo depth is not ported yet (ROADMAP Queue 1 item 9)")
     if args.auto_recenter and args.fused:
         ap.error("--auto-recenter drives DISINFSystem, the path without --fused")
     return args
+
+
+class StereoDepthReplay:
+    """A stereo logdir replayed as RGB-D frames (the JAX app's
+    _StereoAsRGBD): depth from the block matcher, rgb the left view
+    (three channels), ht zeros and lt ones, the identity where the
+    trajectory has no pose.  `entries` keep the logged poses (None where
+    missing)."""
+
+    def __init__(self, logdir: str, estimator: StereoDepthEstimator):
+        self.stereo = LoggedStereoReplay(logdir)
+        self.estimator = estimator
+        self.entries = self.stereo.entries
+
+    def __len__(self) -> int:
+        return len(self.stereo)
+
+    def frame_shape(self):
+        fid = self.entries[0][0]
+        return read_png(f"{self.stereo.logdir}/{fid}_left.png").shape[:2]
+
+    def __iter__(self):
+        for fr in self.stereo:
+            depth = self.estimator(fr.left, fr.right)
+            rgb = fr.left if fr.left.ndim == 3 else np.repeat(fr.left[..., None], 3, axis=-1)
+            pose = np.eye(4, dtype=np.float32) if fr.cam_T_world is None else fr.cam_T_world
+            yield ReplayFrame(fr.frame_id, pose, rgb, depth, np.zeros_like(depth),
+                              np.ones_like(depth))
+
+    def device_frames(self):
+        """(rgb [H, W, 3], depth f32 [H, W], cam_T_world) a frame, the
+        images on the estimator's device (FusedOnlineStep.step_device):
+        the pair uploads once and the depth never leaves the device."""
+        device = self.estimator.device
+        for fr in self.stereo:
+            left = torch.from_numpy(np.ascontiguousarray(fr.left)).to(device)
+            right = torch.from_numpy(np.ascontiguousarray(fr.right)).to(device)
+            depth = self.estimator.depth_device(left, right)
+            rgb = left if left.ndim == 3 else left[..., None].expand(*left.shape, 3)
+            pose = np.eye(4, dtype=np.float32) if fr.cam_T_world is None else fr.cam_T_world
+            yield rgb, depth, pose
 
 
 def _render(grid, args, intrinsics, last_pose):
@@ -120,22 +177,42 @@ def run(args) -> dict:
         path = args.seg_weights or default_weights_path(args.seg_arch)
         print(f"[online] seg weights {path}")
         model = load_model(args.seg_arch, path, device=device)
-    replay = LoggedReplay(args.logdir, depth_factor)
+    if args.stereo:
+        # a stereo-only sensor: no RGB-D camera needed (the reference
+        # requires an L515 here, online.cc:23-70)
+        est = StereoDepthEstimator(fx=intrinsics[0], baseline_m=args.baseline,
+                                   max_disp=args.max_disp, max_depth=args.max_depth,
+                                   method=args.stereo_method, device=device)
+        replay = StereoDepthReplay(args.logdir, est)
+        print(f"[online] stereo replay: depth by {args.stereo_method} block matching "
+              f"(baseline {args.baseline} m, max_disp {args.max_disp})")
+    else:
+        replay = LoggedReplay(args.logdir, depth_factor)
     print(f"[online] {len(replay)} frames @ {args.fps} fps playback on {device}")
     last_pose = replay.entries[-1][1]
+    if last_pose is None:  # a stereo capture without trajectory rows
+        last_pose = np.eye(4, dtype=np.float32)
     out = {"render_paths": None}
 
     if args.fused:
-        fh, fw = replay.load_frame(*replay.entries[0]).depth.shape
+        if args.stereo:
+            fh, fw = replay.frame_shape()
+        else:
+            fh, fw = replay.load_frame(*replay.entries[0]).depth.shape
         ocfg = dataclasses.replace(cfg or TSDFConfig(), voxel_size=args.voxel,
                                    truncation=args.trunc)
         step = FusedOnlineStep(ocfg, intrinsics, fh, fw, args.max_depth,
                                seg_model=model, device=device)
         t0 = time.perf_counter()
         n = 0
-        for frame in replay:
-            step.step(frame.rgb, frame.depth, frame.cam_T_world)
-            n += 1
+        if args.stereo:
+            for rgb, depth, pose in replay.device_frames():
+                step.step_device(rgb, depth, pose)
+                n += 1
+        else:
+            for frame in replay:
+                step.step(frame.rgb, frame.depth, frame.cam_T_world)
+                n += 1
         step.block_until_ready()
         wall = time.perf_counter() - t0
         blocks = step.num_active_blocks()
@@ -172,6 +249,8 @@ def run(args) -> dict:
         def pose_thread():
             # plays the trajectory as the "SLAM" stream, slightly ahead
             for i, (_, pose) in enumerate(replay.entries):
+                if pose is None:  # a stereo capture without trajectory rows
+                    continue
                 system.feed_pose(int(i * 1000 * period), pose)
                 time.sleep(period * 0.5)
 

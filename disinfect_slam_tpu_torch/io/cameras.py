@@ -100,8 +100,9 @@ class SyntheticRGBDCamera(RGBDCamera):
 class ReplayStereoCamera(StereoCamera):
     """ZEDNative stand-in: side-by-side stereo from logged pairs with
     optional rectification (zed_native.cc:24-33).  `rectifier` is any
-    object with rectify(left, right) -> (left, right), such as the JAX
-    package's StereoRectifier; the port has none of its own yet."""
+    object with rectify(left, right) -> (left, right), such as the port's
+    ops/image_ops.StereoRectifier (io/zed_calib.rectifier_from_factory_conf
+    builds one from a ZED factory calibration)."""
 
     def __init__(self, pairs, rectifier=None, fps: float = 30.0):
         self._iter = iter(pairs)  # iterable of (left, right)

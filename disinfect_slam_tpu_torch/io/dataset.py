@@ -8,6 +8,9 @@ Two formats:
    row-major cam_T_world); frames are `<id>_rgb.png`, `<id>_depth.png`
    (16-bit, divided by depthmap_factor) and optional `<id>_ht.png` /
    `<id>_no_ht.png` (16-bit, divided by 65535; ht=0, lt=1 when absent).
+   A stereo logdir (io/logger.StereoFrameLogger) holds `<id>_left.png` /
+   `<id>_right.png` pairs instead, and trajectory rows only where a pose
+   was known (LoggedStereoReplay).
 2. TUM RGB-D (rgb.txt / depth.txt / groundtruth.txt with timestamps;
    configs/TUM_RGBD_rgbd_1.yaml: 640x480, depthmap_factor 5000).
 
@@ -58,9 +61,7 @@ class LoggedReplay:
                 parts = line.split()
                 if len(parts) != 13:
                     continue
-                pose = np.eye(4, dtype=np.float32)
-                pose[:3, :4] = np.asarray([float(x) for x in parts[1:]],
-                                          np.float32).reshape(3, 4)
+                pose = _pose_from_row([float(x) for x in parts[1:]])
                 # extrinsics * pose (offline.cc:58)
                 self.entries.append((int(parts[0]), self.extrinsics @ pose))
 
@@ -85,6 +86,51 @@ class LoggedReplay:
             ht = np.zeros_like(depth)
             lt = np.ones_like(depth)
         return ReplayFrame(fid, pose, rgb, depth, ht, lt)
+
+
+@dataclasses.dataclass
+class StereoReplayFrame:
+    frame_id: int
+    cam_T_world: Optional[np.ndarray]  # 4x4 f32, None if no trajectory row
+    left: np.ndarray  # f32 [H, W, 3] in [0, 255]
+    right: np.ndarray
+
+
+def _pose_from_row(vals) -> np.ndarray:
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :4] = np.asarray(vals, np.float32).reshape(3, 4)
+    return pose
+
+
+class LoggedStereoReplay:
+    """Replays a StereoFrameLogger logdir: {id}_left/_right.png pairs,
+    with poses when trajectory.txt has rows (stereo-only captures may
+    omit them: the pose then comes from SLAM, as on the reference's live
+    path zed_native.cc:24-33 -> slam_module.cc:100-120)."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        poses = {}
+        traj = os.path.join(logdir, "trajectory.txt")
+        if os.path.exists(traj):
+            with open(traj) as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) == 13:
+                        poses[int(parts[0])] = _pose_from_row([float(x) for x in parts[1:]])
+        ids = sorted(int(f.split("_")[0]) for f in os.listdir(logdir) if f.endswith("_left.png"))
+        self.entries: List[Tuple[int, Optional[np.ndarray]]] = [
+            (fid, poses.get(fid)) for fid in ids]
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __iter__(self) -> Iterator[StereoReplayFrame]:
+        for fid, pose in self.entries:
+            base = os.path.join(self.logdir, str(fid))
+            left = read_image(base + "_left.png").astype(np.float32)
+            right = read_image(base + "_right.png").astype(np.float32)
+            yield StereoReplayFrame(fid, pose, left, right)
 
 
 def _quat_to_mat(qx, qy, qz, qw) -> np.ndarray:

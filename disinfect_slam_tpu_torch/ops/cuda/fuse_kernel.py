@@ -213,14 +213,16 @@ def fuse_rows_reference(
     in place and returns min |tsdf| per row f32 [V] (rows at or past count
     are unspecified)."""
     img_h, img_w, _ = img.shape
-    u, v, z = project_rows(block_pos, cam_T_world, intrinsics, voxel_size)
-    live = torch.arange(block_pos.shape[0], device=img.device) < count
+    n = int(count)  # only the live rows are projected
+    u, v, z = project_rows(block_pos[:n], cam_T_world, intrinsics, voxel_size)
     in_img = (u >= 0) & (u < img_w) & (v >= 0) & (v < img_h)
-    return fuse_rows_rows_reference(
-        img, u.clamp_(0, img_w - 1), v.clamp_(0, img_h - 1), z, live[:, None] & in_img,
-        pool_idx, count, tsdf, rgbw, prob, truncation=truncation, max_depth=max_depth,
-        max_weight=max_weight, prob_eps=prob_eps,
+    minabs = torch.zeros(block_pos.shape[0], dtype=torch.float32, device=img.device)
+    minabs[:n] = fuse_rows_rows_reference(
+        img, u.clamp_(0, img_w - 1), v.clamp_(0, img_h - 1), z, in_img, pool_idx[:n], count,
+        tsdf, rgbw, prob, truncation=truncation, max_depth=max_depth, max_weight=max_weight,
+        prob_eps=prob_eps,
     )
+    return minabs
 
 
 def _check_inputs(img, block_pos, pool_idx, count, tsdf, rgbw, prob):

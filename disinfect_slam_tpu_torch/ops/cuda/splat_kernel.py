@@ -96,6 +96,16 @@ def splat_planes(
     return u0, v0, torch.where(surf, depth_q, BIG)
 
 
+def _host_live_rows(block_pos: torch.Tensor, pool_idx: torch.Tensor, count: torch.Tensor):
+    """The rows a plain version projects: on the host only the live ones
+    (the rows past count are masked out either way, and a host count
+    reads without a sync); on a device all of them."""
+    if count.device.type != "cpu":
+        return block_pos, pool_idx
+    n = int(count)
+    return block_pos[:n], pool_idx[:n]
+
+
 def splat_zbuf_blocks_reference(
     block_pos: torch.Tensor, pool_idx: torch.Tensor, count: torch.Tensor,
     tsdf: torch.Tensor, *, cam_T_world: SE3, cam: CameraParams, voxel_size: float,
@@ -111,6 +121,7 @@ def splat_zbuf_blocks_reference(
     Returns the z-buffer i32 [cam.img_h * cam.img_w]: the min of the
     quantized corrected depth of the live rows' surface-band voxels over
     their 2x2 footprints in the image, BIG where none lands."""
+    block_pos, pool_idx = _host_live_rows(block_pos, pool_idx, count)
     u0, v0, dq = splat_planes(block_pos, pool_idx, count, tsdf, cam_T_world=cam_T_world,
                               cam=cam, voxel_size=voxel_size, truncation=truncation,
                               max_depth=max_depth, band=band)
@@ -131,6 +142,7 @@ def splat_payload_blocks_reference(
     the max as u32 of the packed words (p8 << 24 | r << 16 | g << 8 | b)
     of the surface voxels whose depth equals the z-buffer there; 0 where
     none does."""
+    block_pos, pool_idx = _host_live_rows(block_pos, pool_idx, count)
     u0, v0, dq = splat_planes(block_pos, pool_idx, count, tsdf, cam_T_world=cam_T_world,
                               cam=cam, voxel_size=voxel_size, truncation=truncation,
                               max_depth=max_depth, band=band)

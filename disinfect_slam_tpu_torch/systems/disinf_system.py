@@ -18,6 +18,7 @@ import numpy as np
 
 from ..config import TSDFConfig
 from ..ops.gather import BoundingCube, SpatialTSDF
+from ..ops.image_ops import half_scale, scale_depth
 from .pose_manager import PoseManager
 from .tsdf_system import TSDFSystem
 
@@ -72,10 +73,9 @@ class DISINFSystem:
         already has (a logged frame POSTed to the service); a segmenter
         replaces them, and without either the fusion takes ones."""
         if self.half_scale:
-            img_rgb = img_rgb[::2, ::2]
-            img_depth = img_depth[::2, ::2]
-            mask, ht, lt = (None if a is None else a[::2, ::2] for a in (mask, ht, lt))
-        depth = np.asarray(img_depth, np.float32) / self.depth_factor
+            img_rgb, img_depth = half_scale(img_rgb), half_scale(img_depth)
+            mask, ht, lt = (None if a is None else half_scale(a) for a in (mask, ht, lt))
+        depth = scale_depth(np.asarray(img_depth), self.depth_factor)
         if mask is not None:
             depth = np.where(mask > 0, 0.0, depth)
         if self.segmenter is not None:

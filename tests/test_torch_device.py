@@ -1,8 +1,9 @@
 """PyTorch port, devices and the import guarantee: every engine object,
 loader and app of the port runs on the CUDA device unless the caller asks
 for the CPU, so without CUDA each of them called without a device raises
-(the apps exit non-zero) naming CUDA; and no module of the port, nor
-chip_smoke.py, imports JAX, the JAX package or bench.py."""
+(the apps exit non-zero) naming CUDA; no module of the port, nor
+chip_smoke.py, imports JAX, the JAX package, cv2 or bench.py; and the
+host modules the port restates equal the JAX package's."""
 
 import dataclasses
 import os
@@ -18,9 +19,13 @@ import torch
 from disinfect_slam_tpu_torch.apps import serve
 from disinfect_slam_tpu_torch.config import TINY_DENSE
 from disinfect_slam_tpu_torch.core.state import TSDFVolume
+from disinfect_slam_tpu_torch.io.config_reader import load_yaml
+from disinfect_slam_tpu_torch.io.zed_calib import rectifier_from_factory_conf
 from disinfect_slam_tpu_torch.io.checkpoint import load_volume, volume_from_numpy, volume_to_numpy
 from disinfect_slam_tpu_torch.models.segmentation import load_model
 from disinfect_slam_tpu_torch.models.train import create_train_state
+from disinfect_slam_tpu_torch.ops.image_ops import StereoRectifier
+from disinfect_slam_tpu_torch.ops.stereo import StereoDepthEstimator
 from disinfect_slam_tpu_torch.ops.gather import volume_from_spatial_records
 from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF, load_distributed, make_mesh
 from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
@@ -66,6 +71,12 @@ DEFAULT_DEVICE_CALLS = {
     # the mesh is resolved before the file is opened
     "load_distributed": lambda: load_distributed(str(ROOT / "no_such_checkpoint.npz"),
                                                  cfg=CFG),
+    "StereoDepthEstimator": lambda: StereoDepthEstimator(100.0, 0.12),
+    "StereoRectifier.from_yaml": lambda: StereoRectifier.from_yaml(
+        load_yaml(str(ROOT / "configs" / "zed_native_stereo.yaml"))),
+    # the device is resolved before the file is read
+    "rectifier_from_factory_conf": lambda: rectifier_from_factory_conf(
+        str(ROOT / "no_such_calibration.conf"), "VGA"),
 }
 
 
@@ -124,11 +135,11 @@ def test_evaluate_app_needs_no_device(tmp_path):
     assert '"pairs": 6' in proc.stdout
 
 
-# an import statement of jax, flax, optax, msgpack, the JAX package (not
-# of the port, whose name only starts like it) or the repo's bench.py
+# an import statement of jax, flax, optax, msgpack, cv2, the JAX package
+# (not of the port, whose name only starts like it) or the repo's bench.py
 FORBIDDEN_IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|flax|optax|msgpack|disinfect_slam_tpu|bench)(?:\.|\s|,|$)",
-    re.M)
+    r"^\s*(?:from|import)\s+(?:jax|flax|optax|msgpack|cv2|disinfect_slam_tpu|bench)"
+    r"(?:\.|\s|,|$)", re.M)
 
 
 def test_forbidden_import_pattern():
@@ -136,11 +147,12 @@ def test_forbidden_import_pattern():
                  "    from disinfect_slam_tpu.ops import integrate",
                  "import disinfect_slam_tpu", "from flax import linen", "import bench",
                  "    from bench import make_orbit_frames", "import optax",
-                 "    import msgpack", "from flax.serialization import to_bytes"):
+                 "    import msgpack", "from flax.serialization import to_bytes",
+                 "    import cv2", "from cv2 import remap"):
         assert FORBIDDEN_IMPORT.search(line), line
     for line in ("from disinfect_slam_tpu_torch.ops import integrate",
                  "import disinfect_slam_tpu_torch", "import jaxtyping_free",
-                 "# no jax here", "import benchmark_tools"):
+                 "# no jax here", "import benchmark_tools", "import cv2x"):
         assert not FORBIDDEN_IMPORT.search(line), line
 
 
@@ -157,7 +169,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "utils/validate.py", "io/dataset.py", "io/orbit_scene.py", "apps/serve.py",
                 "apps/view_volume.py", "models/train.py", "models/synth_data.py",
                 "apps/train_seg.py", "io/flax_msgpack.py", "parallel/sharding.py",
-                "io/sync.py", "io/logger.py", "io/cameras.py", "native/runtime.py"):
+                "io/sync.py", "io/logger.py", "io/cameras.py", "native/runtime.py",
+                "io/zed_calib.py", "ops/image_ops.py", "ops/stereo.py"):
         assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:
@@ -165,3 +178,54 @@ def test_port_and_chip_smoke_import_no_jax():
         if hits:
             bad[str(path.relative_to(ROOT))] = hits
     assert not bad, bad
+
+
+def test_stereo_slice_runs_without_jax_or_cv2(tmp_path):
+    """The stereo slice in a process where jax, the JAX package and cv2
+    cannot be imported: the rectifier of a factory calibration, its remap,
+    both matchers and the online app's module."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'disinfect_slam_tpu', 'cv2'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "import disinfect_slam_tpu_torch.apps.online\n"
+        "from disinfect_slam_tpu_torch.io.zed_calib import rectifier_from_factory_conf\n"
+        "from disinfect_slam_tpu_torch.ops.stereo import StereoDepthEstimator\n"
+        "from tests.torch_cases import ZED_FACTORY_CONF\n"
+        f"path = {str(tmp_path / 'SN1.conf')!r}\n"
+        "open(path, 'w').write(ZED_FACTORY_CONF)\n"
+        "rect = rectifier_from_factory_conf(path, 'VGA', device='cpu')\n"
+        "img = np.random.default_rng(0).uniform(0, 255, (376, 672)).astype(np.float32)\n"
+        "l, r = rect.rectify(img, np.roll(img, -5, 1))\n"
+        "for m in ('flat', 'pyramid'):\n"
+        "    est = StereoDepthEstimator(rect.rectified_intrinsics()[0], 0.12, max_disp=16,\n"
+        "                               method=m, device='cpu')\n"
+        "    assert est(l[:96, :160], r[:96, :160]).shape == (96, 160)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_zed_calib_restated_matches_jax(tmp_path):
+    """io/zed_calib.py is a restatement of the JAX package's jax-free
+    module: the same resolutions, Rodrigues matrices bit for bit, and the
+    same parse of a factory file."""
+    from disinfect_slam_tpu.io import zed_calib as jzc
+    from disinfect_slam_tpu_torch.io import zed_calib as tzc
+
+    from .torch_cases import ZED_FACTORY_CONF
+
+    assert tzc.RESOLUTIONS == jzc.RESOLUTIONS
+    assert tzc.FactoryCalib._fields == jzc.FactoryCalib._fields
+    rng = np.random.default_rng(8)
+    for rvec in [np.zeros(3), np.full(3, 1e-13), *rng.normal(0, 0.5, (20, 3))]:
+        np.testing.assert_array_equal(tzc._rodrigues(rvec), jzc._rodrigues(rvec))
+    conf = tmp_path / "SN1.conf"
+    conf.write_text(ZED_FACTORY_CONF)
+    for res in ("VGA", "HD"):  # HD: its sections and keys missing, read as 0
+        a, b = tzc.parse_factory_conf(str(conf), res), jzc.parse_factory_conf(str(conf), res)
+        for f in jzc.FactoryCalib._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f)))

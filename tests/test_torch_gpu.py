@@ -1003,3 +1003,73 @@ def test_four_coresident_shards_equal_one_shard_on_the_card(cuda):
     # along shard borders
     same = (r4.rgba == r1.rgba).all(-1)[r4.hit].float().mean().item()
     assert same >= 0.99
+
+
+# ----------------------------------------------------------------------
+# the stereo slice: block matching and the remap on the card
+# ----------------------------------------------------------------------
+def _stereo_frame0():
+    """Frame 0 of tests/torch_cases.py's stereo orbit at 640x480."""
+    from .torch_cases import (
+        ORBIT_VGA_K, STEREO_SEED, _noise_tables, orbit_vga_poses, stereo_pair,
+    )
+
+    root = os.path.join(os.path.dirname(__file__), "..", "datasets", "orbit_vga")
+    left, right = stereo_pair(orbit_vga_poses(root)[0], 640, 480, ORBIT_VGA_K,
+                              _noise_tables(STEREO_SEED))
+    return left.astype(np.float32), right.astype(np.float32), ORBIT_VGA_K[0]
+
+
+@pytest.mark.parametrize("method", ["flat", "pyramid"])
+def test_stereo_on_the_card_equals_the_cpu(cuda, method):
+    """640x480, 64 disparities, the 7x9 patch: disparity, depth and the
+    valid mask on the card equal the CPU's bit for bit (every op is
+    elementwise, a gather, a min or an argmin; the sums run in a fixed
+    order and the fused multiply-adds in float64)."""
+    from disinfect_slam_tpu_torch.ops.stereo import stereo_depth
+
+    left, right, fx = _stereo_frame0()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        res = stereo_depth(torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev),
+                           fx=fx, baseline_m=0.12, max_disp=64, max_depth=4.0, method=method)
+        assert res.depth.device.type == dev.type
+        out.append([t.cpu() for t in res])
+    assert out[1][2].float().mean() > 0.8
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_remap_on_the_card_equals_the_cpu(cuda, channels, tmp_path):
+    """The factory calibration's rectifier (its maps on the card) against
+    the same remap on the CPU, bit for bit, gray and RGB."""
+    from disinfect_slam_tpu_torch.io.zed_calib import rectifier_from_factory_conf
+    from disinfect_slam_tpu_torch.ops.image_ops import bilinear_remap
+
+    from .torch_cases import ZED_FACTORY_CONF
+
+    conf = tmp_path / "SN1.conf"
+    conf.write_text(ZED_FACTORY_CONF)
+    rect = rectifier_from_factory_conf(str(conf), "VGA")
+    assert all(m.device.type == "cuda" for m in rect.maps_device)
+    rng = np.random.default_rng(channels)
+    shape = (376, 672) if channels == 1 else (376, 672, 3)
+    left, right = (rng.uniform(0, 255, shape).astype(np.float32) for _ in range(2))
+    l_card, r_card = rect.rectify(left, right)
+    for img, out, maps in ((left, l_card, rect.maps[:2]), (right, r_card, rect.maps[2:4])):
+        cpu = bilinear_remap(torch.from_numpy(img), *(torch.from_numpy(m) for m in maps))
+        np.testing.assert_array_equal(out, cpu.numpy())
+
+
+def test_stereo_estimator_runs_on_the_card_by_default(cuda):
+    from disinfect_slam_tpu_torch.ops.stereo import StereoDepthEstimator
+
+    left, right, fx = _stereo_frame0()
+    est = StereoDepthEstimator(fx, 0.12, max_depth=4.0)
+    assert est.device.type == "cuda"
+    dev = est.depth_device(left.astype(np.uint8), right.astype(np.uint8))
+    assert dev.device.type == "cuda" and dev.dtype == torch.float32
+    host = est(left.astype(np.uint8), right.astype(np.uint8))
+    np.testing.assert_array_equal(host, dev.cpu().numpy())
+    assert (host > 0).mean() > 0.8

@@ -2,8 +2,10 @@
 against the JAX package's on a TUM directory the test writes;
 PrefetchReplay's order, its error hand-off and its early exit;
 validate_volume's messages on healthy and corrupted volumes against the
-JAX package's; and the offline app's --tum --prefetch --debug --spill
---page-radius on a small TUM sequence."""
+JAX package's; the offline app's --tum --prefetch --debug --spill
+--page-radius on a small TUM sequence; the ZED factory calibration
+(io/zed_calib.py) and its rectifier, and LoggedStereoReplay, each against
+the JAX package's."""
 
 import dataclasses
 import os
@@ -28,6 +30,7 @@ from .scenes import checker_rgb, look_at, render_wall
 from .test_torch_hash import jax_arrays, port_cfg
 from .test_tum import make_tum_fixture
 from .test_validate import CFG_DENSE, CFG_HASH, _fused_volume
+from .torch_cases import ZED_FACTORY_CONF
 
 torch.set_num_threads(1)
 
@@ -208,3 +211,78 @@ def test_offline_app_tum_prefetch_debug_spill_page(tum_drive, tmp_path):
     stored = set(grid.spill_store._store)
     assert on_card and on_card.isdisjoint(stored)
     assert blocks == on_card | stored
+
+
+# ----------------------------------------------------------------------
+# stereo capture: the ZED factory calibration and the stereo replay
+# ----------------------------------------------------------------------
+def test_zed_factory_conf_matches_jax(tmp_path):
+    """Both packages parse the same K/D/R/T/size, with the reference's
+    quirks (baseline negated mm->m, the pitch under CV_, missing keys 0),
+    and both refuse an unknown resolution."""
+    from disinfect_slam_tpu.io import zed_calib as jzc
+    from disinfect_slam_tpu_torch.io import zed_calib as tzc
+
+    conf = tmp_path / "SN12345.conf"
+    conf.write_text(ZED_FACTORY_CONF)
+    ours, ref = tzc.parse_factory_conf(str(conf), "VGA"), jzc.parse_factory_conf(str(conf), "VGA")
+    for f in ref._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(ours, f)), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(ours.T, [-0.119887, 0.05e-3, -0.21e-3])
+    assert ours.D_l[4] == 0.0 and ours.D_r[2] == 0.0002 and ours.size == (672, 376)
+    for mod in (tzc, jzc):
+        with pytest.raises(ValueError):
+            mod.parse_factory_conf(str(conf), "8K")
+
+
+def test_rectifier_from_factory_conf_matches_jax(tmp_path):
+    """The rectifier of the factory calibration (t_x < 0): maps within
+    1e-2 px of the JAX package's (its cv2 branch here), rectified
+    intrinsics within 1e-6 relative, and a rectified pair of the image
+    size."""
+    pytest.importorskip("cv2")
+    from disinfect_slam_tpu.io import zed_calib as jzc
+    from disinfect_slam_tpu_torch.io import zed_calib as tzc
+
+    conf = tmp_path / "SN12345.conf"
+    conf.write_text(ZED_FACTORY_CONF)
+    ours = tzc.rectifier_from_factory_conf(str(conf), "VGA", device="cpu")
+    ref = jzc.rectifier_from_factory_conf(str(conf), "VGA")
+    for a, b in zip(ours.maps[:4], ref.maps[:4]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(ours.rectified_intrinsics(), ref.rectified_intrinsics(),
+                               rtol=1e-6)
+    img = np.random.default_rng(0).integers(0, 255, (376, 672), np.uint8)
+    left, right = ours.rectify(img.astype(np.float32), img.astype(np.float32))
+    assert left.shape == right.shape == (376, 672)
+
+
+@pytest.mark.parametrize("with_poses", [True, False])
+def test_logged_stereo_replay_matches_jax(tmp_path, with_poses):
+    """A StereoFrameLogger logdir (u8 RGB and gray pairs; poses for some
+    frames, or none) read by both packages: the same ids, poses (None
+    where the trajectory has no row) and float32 images."""
+    from disinfect_slam_tpu_torch.io.logger import StereoFrameLogger
+
+    rng = np.random.default_rng(4)
+    log = StereoFrameLogger(str(tmp_path))
+    for fid in (0, 3, 7, 12):
+        shape = (24, 32, 3) if fid % 2 == 0 else (24, 32)
+        left, right = (rng.integers(0, 255, shape).astype(np.uint8) for _ in range(2))
+        pose = look_at((0.1 * fid, 0.0, -1.0), (0.0, 0.0, 1.0)) if with_poses and fid != 7 else None
+        log.log_data((fid, left, right, pose))
+        log.flush()
+    log.close()
+    ours, ref = tds.LoggedStereoReplay(str(tmp_path)), jds.LoggedStereoReplay(str(tmp_path))
+    assert len(ours) == len(ref) == 4
+    for (fa, pa), (fb, pb) in zip(ours.entries, ref.entries):
+        assert fa == fb and (pa is None) == (pb is None) == (not with_poses or fa == 7)
+        if pa is not None:
+            np.testing.assert_array_equal(pa, pb)
+    for a, b in zip(ours, ref):
+        assert a.frame_id == b.frame_id
+        for f in ("left", "right"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype == np.float32 and x.shape == (24, 32, 3), f
+            np.testing.assert_array_equal(x, y, err_msg=f)

@@ -3,8 +3,8 @@ package's (sampler="gather", the exact path) on the golden scenes of
 tests/test_online_step.py with no seg, a float32 and a bfloat16 narrow
 UNet; the u8/u16 sensor formats; TSDFSystem and DISINFSystem (ports of
 tests/test_systems.py's system tests); PoseManager against the JAX one;
-the online app in both paths; the JAX-free import guarantee and the
-device checks."""
+the online app in both paths, on RGB-D and on stereo logdirs; the JAX-free
+import guarantee and the device checks."""
 
 import dataclasses
 import os
@@ -36,6 +36,7 @@ from .test_torch_integrate import assert_matches_jax
 from .test_torch_offline import K as TINY_K
 from .test_torch_offline import tiny_dataset  # noqa: F401  (fixture)
 from .test_torch_seg import carried_pair
+from .torch_cases import ORBIT_VGA_K, STEREO_BASELINE, write_stereo_logdir
 
 torch.set_num_threads(1)
 
@@ -208,8 +209,8 @@ def test_disinf_facade_pipeline(with_segmenter):
 
 def test_unported_options_raise():
     # host_spill, auto_recenter and the occlusion cull are ported
-    # (tests/test_torch_{block_streaming,hash_backend,cull}.py); stereo
-    # is not
+    # (tests/test_torch_{block_streaming,hash_backend,cull}.py), and so is
+    # --stereo (test_online_app_stereo_matches_jax below)
     with TSDFSystem(0.05, 0.15, 4.0, K, cfg=SYS_CFG, host_spill=True, device="cpu") as s:
         assert len(s.tsdf.spill_store) == 0
     grid = TSDFGrid(0.05, 0.15, cfg=dataclasses.replace(SYS_CFG, cull_occluded=True),
@@ -217,9 +218,6 @@ def test_unported_options_raise():
     grid.integrate(np.zeros((8, 8, 3), np.float32), np.ones((8, 8), np.float32), None, None,
                    4.0, (8.0, 8.0, 3.5, 3.5), np.eye(4, dtype=np.float32))
     assert grid.num_active_blocks() > 0
-    with pytest.raises(SystemExit) as exc:
-        online.parse_args(["--logdir", ".", "--stereo"])
-    assert exc.value.code != 0
     with pytest.raises(SystemExit) as exc:  # the fused loop has no window follow
         online.parse_args(["--logdir", ".", "--fused", "--auto-recenter"])
     assert exc.value.code != 0
@@ -288,6 +286,87 @@ def test_online_app_segments_in_both_paths(tiny_dataset, tmp_path):  # noqa: F81
         pool = a["entry_block"][a["entry_block"] >= 0]
         prob = a["prob"][pool][(a["rgbw"][pool] >> 24) > 0]
         assert np.abs(prob - 0.5).max() > 0.01
+
+
+# the stereo app: tests/torch_cases.py's orbit pairs at 160x120 (K / 4),
+# 16 disparities, the small preset
+STEREO_W, STEREO_H, STEREO_N, STEREO_DISP = 160, 120, 4, 16
+STEREO_K = tuple(k / 4 for k in ORBIT_VGA_K)
+
+
+@pytest.fixture(scope="module")
+def stereo_logdir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("stereo"))
+    write_stereo_logdir(d, os.path.join(ROOT, "datasets", "orbit_vga"), STEREO_N, STEREO_W,
+                        STEREO_H, STEREO_K)
+    return d
+
+
+def _jax_stereo_step(logdir, identity_poses=False, method="flat"):
+    """The JAX app's --stereo --fused loop (apps/online.py:132-169 and
+    :186-215) with the exact sampler: depth from its estimator (`method`
+    its --stereo-method), rgb the left view, the logged pose or the
+    identity."""
+    from disinfect_slam_tpu.config import TSDFConfig as JConfig
+    from disinfect_slam_tpu.io.dataset import LoggedStereoReplay as JStereo
+    from disinfect_slam_tpu.ops.stereo import StereoDepthEstimator as JEst
+
+    cfg = JConfig(voxel_size=0.05, truncation=0.15, num_blocks_log2=12,
+                  max_candidates=8192, max_visible=4096, max_new_per_round=2048,
+                  grid_log2=7, sampler="gather")
+    est = JEst(fx=STEREO_K[0], baseline_m=STEREO_BASELINE, max_disp=STEREO_DISP,
+               max_depth=4.0, method=method)
+    ref = JStep(cfg, STEREO_K, STEREO_H, STEREO_W, 4.0)
+    for fr in JStereo(logdir):
+        pose = np.eye(4, dtype=np.float32) if identity_poses else fr.cam_T_world
+        ref.step(fr.left, est(fr.left, fr.right), pose)
+    return ref
+
+
+def _stereo_args(logdir, *extra):
+    return _app_args(logdir, "--stereo", "--max-disp", str(STEREO_DISP),
+                     "--baseline", str(STEREO_BASELINE), *extra)
+
+
+def test_online_app_stereo_matches_jax(stereo_logdir):
+    """--stereo --fused with either matcher: the volume of the JAX app's
+    loop over the same pairs with the same matcher, with
+    test_torch_integrate.py's tolerances (the same blocks and rgbw words,
+    tsdf within 1e-5: the depth maps are equal bit for bit,
+    tests/test_torch_stereo.py).  The asynchronous path fuses every frame
+    into the JAX flat loop's blocks, in the same pool rows; its tsdf is
+    not held to the loop's, because its poses come through PoseManager's
+    quaternion form and differ from the logged ones in their last bits."""
+    res = online.main(_stereo_args(stereo_logdir, "--fused"))
+    assert res["frames"] == STEREO_N and res["active_blocks"] > 10
+    ref = _jax_stereo_step(stereo_logdir).volume
+    assert_matches_jax(res["step"].volume, ref)
+    pyr = online.main(_stereo_args(stereo_logdir, "--fused", "--stereo-method", "pyramid"))
+    assert pyr["frames"] == STEREO_N and pyr["active_blocks"] > 10
+    assert_matches_jax(pyr["step"].volume, _jax_stereo_step(stereo_logdir, method="pyramid").volume)
+    asy = online.main(_stereo_args(stereo_logdir, "--fps", "200"))
+    assert asy["frames"] == STEREO_N and asy["system"].tsdf.dropped_frames == 0
+    a, b = port_arrays(asy["system"].tsdf.tsdf.volume), jax_arrays(ref)
+    for f in ("entry_key", "entry_block", "block_table", "heap", "num_free", "oob_count"):
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    assert asy["active_blocks"] == int((b["entry_block"] >= 0).sum())
+
+
+def test_online_app_stereo_without_poses(stereo_logdir, tmp_path):
+    """A stereo capture without trajectory rows: the fused path takes the
+    identity pose for every frame (as the JAX app) and renders from it;
+    the asynchronous path feeds no pose and still fuses every frame."""
+    import shutil
+
+    d = tmp_path / "nopose"
+    shutil.copytree(stereo_logdir, d)
+    (d / "trajectory.txt").write_text("")
+    res = online.main(_stereo_args(str(d), "--fused", "--render-dir", str(tmp_path / "r")))
+    assert res["frames"] == STEREO_N and len(res["render_paths"]) == 2
+    assert_matches_jax(res["step"].volume,
+                       _jax_stereo_step(str(d), identity_poses=True).volume)
+    asy = online.main(_stereo_args(str(d), "--fps", "200"))
+    assert asy["frames"] == STEREO_N and asy["system"].tsdf.dropped_frames == 0
 
 
 # ----------------------------------------------------------------------

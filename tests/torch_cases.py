@@ -240,3 +240,299 @@ def out_and_back_keyframes():
         est_poses.append((drift @ wc).astype(np.float32))
         depths.append(lc_scene_depth(pose_cw))
     return true_poses, est_poses, depths
+
+
+# the soak of tests/test_soak.py (which imports JAX): its corridor, its
+# configuration and its assertions, restated for tests/test_torch_soak.py
+# and chip_smoke.py; tests/test_torch_soak.py pins the corridor to the JAX
+# test's
+SOAK_W, SOAK_H = 96, 72
+SOAK_K = (80.0, 80.0, 47.5, 35.5)
+SOAK_WALL_Z = 2.4
+SOAK_CORRIDOR_M = 8.0  # beyond the 32-block (10.24 m) grid half-extent
+SOAK_KF_CAP = 24
+SOAK_START_BBOX = (-1.2, 1.6, -1.2, 1.2, 0.5, 2.6)
+
+
+def soak_corridor_depth(x: float):
+    """(depth f32 [72, 96], cam_T_world) of a camera at (x, 0, -0.5)
+    looking +z: the back wall and spheres spaced along the corridor with
+    varied offsets and radii (period 9.6 m, longer than the corridor)."""
+    from .scenes import look_at, render_sphere, render_wall
+
+    pose = look_at((x, 0.0, -0.5), (x, 0.0, 2.0))
+    d = render_wall(SOAK_W, SOAK_H, SOAK_K, pose, wall_z=SOAK_WALL_Z)
+    k0 = max(int((x - 1.6) / 0.8), -1)
+    for k in range(k0, k0 + 6):
+        c = (0.8 * k + 0.2, 0.25 * (-1) ** k, 1.25 + 0.15 * (k % 3))
+        r = 0.16 + 0.03 * (k % 4)
+        ds = render_sphere(SOAK_W, SOAK_H, SOAK_K, pose, center=c, radius=r)
+        d = np.where(ds > 0, ds, d)
+    return d.astype(np.float32), pose
+
+
+def run_soak(n_frames: int, device):
+    """The corridor out and back through DenseSLAM with loop closure, host
+    spill, maybe_recenter every 25 frames and the keyframe cap -> (the
+    counts the soak asserts on and the wall time, the DenseSLAM after its
+    last frame, x = 0)."""
+    import time
+
+    import torch
+
+    from disinfect_slam_tpu_torch.config import TSDFConfig
+    from disinfect_slam_tpu_torch.ops.gather import BoundingCube, gather_voxels
+    from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
+
+    from .scenes import checker_rgb
+
+    half = n_frames // 2
+    cfg = TSDFConfig(voxel_size=0.04, truncation=0.12, num_blocks_log2=10,
+                     max_candidates=4096, max_visible=1024, max_new_per_round=512,
+                     backend="dense", grid_log2=5)
+    slam = DenseSLAM(SOAK_K, SOAK_H, SOAK_W, voxel_size=0.04, truncation=0.12,
+                     max_depth=4.0, cfg=cfg, host_spill=True, loop_closure=True,
+                     kf_every=10, lc_kwargs=dict(max_keyframes=SOAK_KF_CAP,
+                                                 min_gap_frames=200,
+                                                 verify_min_inliers=400),
+                     device=device)
+    rgb = checker_rgb(SOAK_W, SOAK_H)
+    bbox = BoundingCube(*SOAK_START_BBOX)
+
+    def observed():
+        st = gather_voxels(slam.volume, bbox)
+        return int((st.weight[st.mask] > 0).sum())
+
+    recenters = spill_high = 0
+    start_hist = None
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        x = (i if i < half else (n_frames - 1 - i)) * (SOAK_CORRIDOR_M / half)
+        depth, _ = soak_corridor_depth(x)
+        slam.process_frame(rgb, depth)
+        if i % 25 == 24:
+            if slam.maybe_recenter():
+                recenters += 1
+            spill_high = max(spill_high, len(slam.spill_store))
+        if i == 100:  # history near the start, before it spills out
+            start_hist = observed()
+    if slam.device.type == "cuda":
+        torch.cuda.synchronize(slam.device)
+    wall_s = time.perf_counter() - t0
+    res = {"frames": n_frames, "wall_s": wall_s, "ms_per_frame": 1e3 * wall_s / n_frames,
+           "lost": slam.lost_count, "recenters": recenters, "spill_high": spill_high,
+           "keyframes": slam.lc.count, "evictions": slam.lc.evictions,
+           "closures": slam.lc.closures, "start_hist": start_hist, "end_hist": observed(),
+           "end_t": np.asarray(slam.world_T_cam, np.float64)[:3, 3].tolist()}
+    return res, slam
+
+
+def check_soak(res: dict) -> None:
+    """tests/test_soak.py's assertions on run_soak's counts."""
+    n = res["frames"]
+    # tracking survived the whole corridor
+    assert res["lost"] <= n // 100, f"lost {res['lost']} frames"
+    # the corridor outruns the grid: recentering and spill ran
+    assert res["recenters"] >= 2, res["recenters"]
+    assert res["spill_high"] > 0, "host spill never engaged"
+    # the keyframe database stayed bounded and kept operating past the cap
+    assert res["keyframes"] <= SOAK_KF_CAP, res["keyframes"]
+    assert res["evictions"] > 0, "cap eviction never exercised"
+    # returning to the start closed a loop
+    assert res["closures"] >= 1, "no loop closed on return"
+    # history kept across spill and restore
+    start, end = res["start_hist"], res["end_hist"]
+    assert start and start > 500, start
+    assert end >= 0.9 * start, (start, end)
+    # the tracked end pose came back near the start
+    end_t = np.asarray(res["end_t"])
+    assert np.linalg.norm(end_t - np.array([0.0, 0.0, -0.5])) < 0.5, end_t
+
+
+# the counts of data/soak_fingerprint.json (scripts/port_soak_fingerprint.py)
+SOAK_FP_KEYS = ("lost", "recenters", "spill_high", "keyframes", "evictions", "closures",
+                "start_hist", "end_hist", "end_t")
+
+
+def soak_fingerprint() -> dict:
+    """The JAX soak's counts at 1000 frames (data/soak_fingerprint.json)."""
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "disinfect_slam_tpu_torch", "data", "soak_fingerprint.json")
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_soak_fingerprint(res: dict, ref: dict) -> None:
+    """run_soak's counts against the JAX soak's on the same corridor: the
+    loss, recenter, keyframe, eviction and closure counts equal; the rest
+    within about 3x the larger gap of the port on the CPU and on the card
+    at 1000 frames (gaps: spill high 1 block, the start region 1 voxel,
+    the end region 1536 of 31232 voxels, the end position 0.033 m;
+    limits: 3 blocks, 8 voxels (0.1%), 15%, 0.1 m; measured with
+    scripts/port_soak_fingerprint.py --port and chip_smoke.py), since the
+    corridor's weakly constrained x direction amplifies ulps."""
+    assert res["frames"] == ref["frames"], (res["frames"], ref["frames"])
+    for key in ("lost", "recenters", "keyframes", "evictions", "closures"):
+        assert res[key] == ref[key], (key, res[key], ref[key])
+    for key, limit in (("spill_high", 3), ("start_hist", 8),
+                       ("end_hist", 0.15 * ref["end_hist"])):
+        assert abs(res[key] - ref[key]) <= limit, (key, res[key], ref[key], limit)
+    gap = float(np.linalg.norm(np.asarray(res["end_t"]) - np.asarray(ref["end_t"])))
+    assert gap < 0.1, ("end_t", res["end_t"], ref["end_t"], gap)
+
+
+# ----------------------------------------------------------------------
+# the stereo scene: io/orbit_scene.py's sphere before a wall seen from two
+# cameras at datasets/orbit_vga's poses and intrinsics, shaded by one
+# world-anchored texture, for the stereo tests, the JAX fingerprint
+# (scripts/port_stereo_fingerprint.py) and chip_smoke.py.  Only numpy's
+# elementwise float64 ops, floor and sqrt run (no BLAS, no reduction, no
+# transcendental function), so every machine makes the same bytes.
+# ----------------------------------------------------------------------
+STEREO_BASELINE = 0.12  # m: the right camera sits this far along the left one's +x
+STEREO_FRAMES = 60
+STEREO_SEED = 11
+ORBIT_VGA_K = (525.1, 525.3, 319.6, 239.7)  # datasets/orbit_vga/cam.yaml
+ORBIT_SPHERE_C, ORBIT_SPHERE_R, ORBIT_WALL_Z = (0.013, -0.021, 1.007), 0.413, 2.213
+# the texture: value noise on a lattice of these cell sizes (m), weighted
+# (1.5 cm is 3-8 px at the scene's 1-3 m: finer than a 7x9 window, and a
+# 256-cell lattice does not repeat within the image)
+STEREO_CELLS, STEREO_WEIGHTS = (0.015, 0.045), (0.6, 0.4)
+
+
+# tests/test_io.py:122-160's ZED factory calibration (VGA, t_x < 0)
+ZED_FACTORY_CONF = (
+    "[LEFT_CAM_VGA]\n"
+    "fx=350.1\nfy=350.7\ncx=336.2\ncy=188.9\n"
+    "k1=-0.17\nk2=0.025\n"
+    "[RIGHT_CAM_VGA]\n"
+    "fx=349.8\nfy=350.2\ncx=336.9\ncy=189.4\n"
+    "k1=-0.171\nk2=0.026\np1=0.0002\n"
+    "[STEREO]\n"
+    "Baseline=119.887\nTY=0.05\nTZ=-0.21\n"
+    "RX_VGA=0.001\nCV_VGA=0.003\nRZ_VGA=-0.0004\n"
+)
+
+
+def orbit_vga_poses(dataset_dir: str) -> list:
+    """cam_T_world float64 [4, 4] of each row of the dataset's
+    trajectory.txt, in file order."""
+    poses = []
+    with open(f"{dataset_dir}/trajectory.txt") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 13:
+                m = np.eye(4)
+                m[:3, :4] = np.array([float(x) for x in parts[1:]]).reshape(3, 4)
+                poses.append(m)
+    return poses
+
+
+def _noise_tables(seed: int):
+    rng = np.random.default_rng(seed)
+    return [(rng.permutation(256), rng.uniform(0.0, 1.0, (3, 256))) for _ in STEREO_CELLS]
+
+
+def _value_noise(px, py, pz, cell, perm, vals):
+    """Trilinear value noise of the world point, three channels."""
+    gx, gy, gz = px / cell, py / cell, pz / cell
+    ix, iy, iz = np.floor(gx), np.floor(gy), np.floor(gz)
+    fx, fy, fz = gx - ix, gy - iy, gz - iz
+    sx, sy, sz = (f * f * (3.0 - 2.0 * f) for f in (fx, fy, fz))
+    ix, iy, iz = (a.astype(np.int64) for a in (ix, iy, iz))
+    out = np.zeros((3,) + px.shape)
+    for cx in (0, 1):
+        wx = sx if cx else 1.0 - sx
+        for cy in (0, 1):
+            wy = sy if cy else 1.0 - sy
+            for cz in (0, 1):
+                wz = sz if cz else 1.0 - sz
+                h = perm[(perm[(perm[(ix + cx) & 255] + iy + cy) & 255] + iz + cz) & 255]
+                w = wx * wy * wz
+                for c in range(3):
+                    out[c] = out[c] + w * vals[c][h]
+    return out
+
+
+def stereo_view(cam_T_world, w, h, K, tables):
+    """u8 [h, w, 3] of the scene from a camera: each pixel's ray hits the
+    sphere or the wall, and the texture is read at that world point."""
+    fx, fy, cx, cy = K
+    R, t = cam_T_world[:3, :3], cam_T_world[:3, 3]
+    # the camera centre in the world, -R^T t, written out
+    c = [-(R[0, i] * t[0] + R[1, i] * t[1] + R[2, i] * t[2]) for i in range(3)]
+    uu, vv = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    dx, dy = (uu - cx) / fx, (vv - cy) / fy
+    d = [R[0, i] * dx + R[1, i] * dy + R[2, i] for i in range(3)]  # z-depth 1 along the ray
+    t_wall = (ORBIT_WALL_Z - c[2]) / d[2]
+    oc = [c[i] - ORBIT_SPHERE_C[i] for i in range(3)]
+    a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    b = 2.0 * (d[0] * oc[0] + d[1] * oc[1] + d[2] * oc[2])
+    cc = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - ORBIT_SPHERE_R * ORBIT_SPHERE_R
+    disc = b * b - 4.0 * a * cc
+    t_sph = (-b - np.sqrt(np.maximum(disc, 0.0))) / (2.0 * a)
+    hit = np.where((disc >= 0) & (t_sph > 0), t_sph, t_wall)
+    p = [c[i] + hit * d[i] for i in range(3)]
+    v = np.zeros((3, h, w))
+    for (perm, vals), cell, wgt in zip(tables, STEREO_CELLS, STEREO_WEIGHTS):
+        v = v + wgt * _value_noise(*p, cell, perm, vals)
+    u8 = np.clip(np.floor(255.0 * v), 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(u8.transpose(1, 2, 0))
+
+
+def stereo_pair(cam_T_world_left, w, h, K, tables, baseline=STEREO_BASELINE):
+    """(left, right) u8 views; the right camera sits `baseline` along the
+    left one's +x: cam_T_world_right = T(-b, 0, 0) @ cam_T_world_left."""
+    right_pose = np.array(cam_T_world_left, np.float64)
+    right_pose[0, 3] -= baseline
+    return (stereo_view(cam_T_world_left, w, h, K, tables),
+            stereo_view(right_pose, w, h, K, tables))
+
+
+def pair_checksum(left, right) -> dict:
+    """crc32 and byte sums of a u8 pair (generator drift shows here)."""
+    import zlib
+
+    return {"crc32": zlib.crc32(right.tobytes(), zlib.crc32(left.tobytes())),
+            "sum_left": int(left.sum(dtype=np.int64)), "sum_right": int(right.sum(dtype=np.int64))}
+
+
+def write_stereo_logdir(logdir: str, dataset_dir: str, n_frames=STEREO_FRAMES, w=640, h=480,
+                        K=ORBIT_VGA_K, seed=STEREO_SEED) -> list:
+    """The scene's first n_frames pairs through the port's StereoFrameLogger
+    (u8 PNGs, the left camera's trajectory) and a cam.yaml of K: returns
+    each pair's checksum."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from disinfect_slam_tpu_torch.io.logger import StereoFrameLogger
+
+    tables = _noise_tables(seed)
+    poses = orbit_vga_poses(dataset_dir)[:n_frames]
+    log = StereoFrameLogger(logdir, queue_depth=n_frames + 1)
+    sums = []
+    # numpy's elementwise ops release the interpreter lock: four threads
+    # render the pairs in about 0.45 of one thread's time, in frame order
+    with ThreadPoolExecutor(4) as pool:
+        pairs = pool.map(lambda pose: stereo_pair(pose, w, h, K, tables), poses)
+        for fid, (pose, (left, right)) in enumerate(zip(poses, pairs)):
+            sums.append(pair_checksum(left, right))
+            log.log_data((fid, left, right, pose))
+    log.close()
+    with open(f"{logdir}/cam.yaml", "w") as f:
+        f.write("".join(f"Camera.{k}: {v}\n" for k, v in zip(("fx", "fy", "cx", "cy"), K)))
+        # the RGB-D apps read a depth factor from every camera file
+        f.write(f"Camera.rows: {h}\nCamera.cols: {w}\ndepthmap_factor: 5000.0\n")
+    return sums
+
+
+def stereo_depth_summary(res) -> dict:
+    """Valid count and float64 sums of disparity and depth over the valid
+    pixels of a StereoDepthResult (numpy or tensors)."""
+    valid, disp, depth = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                          for x in (res.valid, res.disparity, res.depth))
+    return {"valid": int(valid.sum()),
+            "sum_disp": float(disp[valid].astype(np.float64).sum()),
+            "sum_depth": float(depth[valid].astype(np.float64).sum())}
