@@ -180,8 +180,26 @@ exits non-zero:
      and closures; then K4 on the final volume at the soak's 96x72
      (partial tiles) bit-equal to its plain version, and K2 on the last
      frame's visible rows against its plain version.
+  13. the segmentation net over a (data, model) mesh
+     (parallel/seg_parallel.py), the shipped UNet's architecture at its
+     full width, 352x640, batch 8 (phase 10a's shape): over [cuda:0]
+     (1x1) the sharded step bit-equal to make_train_step over 3 steps,
+     loss and every parameter; over [cuda:0] * 4 (2x2) the first step's
+     loss within 1e-5 relative, and in float32 its gradients within 1e-4
+     of each parameter's largest with AdamW held on them bit-equal; ms a
+     step of make_train_step and the sharded step over 1x1 and 2x2
+     (median of the last 8 of 10, CUDA events) and the kernels of one
+     profiled step each; make_sharded_infer of the shipped weights over
+     [cuda:0] * 4 against sigmoid(model), bfloat16 and float32
+     (SEG_PAR_INFER_TOL); no fusion or splat kernel launched;
+  14. the kernels' self-check: utils/kernel_verify.verify_all() on the
+     card (K1 at 640x480, 1080p and with an early count, the two-stage
+     and the fused integrate of a small scene, K4/K5's render of it),
+     every check PASS in under 60 s; its launches are reported apart
+     from the main paths' (verify_launches).
 
-Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 7 (which
+Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 13,
+then 14, then 7 (which
 also profiles the two matchers: kernels and device time a call).  Phase
 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
 they project block rows in registers) against their plain versions at
@@ -3415,6 +3433,256 @@ def stereo_profile(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 13: the segmentation net over a (data, model) mesh on the card;
+# phase 14: the kernels' self-check
+# ----------------------------------------------------------------------
+SEG_PAR_STEPS = 3  # steps the 1x1 mesh must equal make_train_step over, bit for bit
+SEG_PAR_LR = 3e-3  # phase 10a's rate
+# tests/test_torch_seg_parallel.py's limits: the 2x2 step's loss within
+# 1e-5 relative of the unsharded step's; its gradients (a float32 net)
+# within 1e-4 of each parameter's largest.  The sharded inference of the
+# shipped net at 352x640, batch 8, over [cuda:0] * 4 against the unsharded
+# one (this phase, NVIDIA H100 80GB HBM3, 700 W): 1.02e-2 of a probability
+# in bfloat16 (a rounding of a per-shard GroupNorm sum can flip a bf16
+# activation), 1.14e-5 with the same weights in float32; limits about 5x
+# and 9x those
+SEG_PAR_LOSS_RTOL, SEG_PAR_GRAD_RTOL = 1e-5, 1e-4
+SEG_PAR_INFER_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+VERIFY_BUDGET_S = 60.0
+
+
+def _net(dev, dtype=torch.bfloat16):
+    """The shipped UNetSeg's architecture at its full width, seed-0
+    parameters, in training mode on dev."""
+    from disinfect_slam_tpu_torch.models import segmentation as seg
+
+    return seg.create_model(dtype=dtype, generator=torch.Generator().manual_seed(0)).to(dev).train()
+
+
+def _timed_steps(step, state, batches) -> tuple:
+    """One step per batch, each between CUDA events: (state, ms list)."""
+    events = []
+    for imgs, labs in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, imgs, labs)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return state, [a.elapsed_time(b) for a, b in events]
+
+
+def _profiled(step, state, batch) -> dict:
+    """The kernels and device time of one step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, *batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    # a trace that caught no device event measured nothing
+    return {"launches": len(events) or None, "device_ms": device_ms or None}
+
+
+def seg_parallel_checks(dev, batches, mesh_sizes=(1, 4)) -> dict:
+    """Phase 13's checks on any device (the card here; the CPU tests run
+    the same checks at a narrow width): over [dev] (1x1) the sharded step
+    equals make_train_step bit for bit, loss and every parameter, for
+    SEG_PAR_STEPS steps; over [dev] * 4 (2x2) the first step's loss
+    (bfloat16 net) and gradients (the same net in float32) within the CPU
+    tests' limits, AdamW held on the same gradients (bit-equal).  cuDNN
+    keeps to its deterministic algorithms meanwhile: a weight gradient
+    summed by atomics differs between two runs of one step."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _seg_parallel_checks(dev, batches, mesh_sizes)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _seg_parallel_checks(dev, batches, mesh_sizes) -> dict:
+    from disinfect_slam_tpu_torch.models import train
+    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
+
+    res = {}
+    sd = _net(dev).state_dict()
+    ref = train.create_train_state(_net(dev), lr=SEG_PAR_LR, device=dev)
+    ref.model.load_state_dict(sd)
+    ref_step = train.make_train_step(ref.model, ref.opt)
+    mesh = sp.make_mesh_2d(devices=[dev] * mesh_sizes[0])
+    net = _net(dev)
+    net.load_state_dict(sd)
+    state = sp.ShardedTrainState(sp.shard_params(net, mesh))
+    step = sp.make_sharded_train_step(net, dict(lr=SEG_PAR_LR), mesh)
+    for i, (imgs, labs) in enumerate(batches[:SEG_PAR_STEPS]):
+        ref, ref_loss = ref_step(ref, imgs, labs)
+        state, loss = step(state, imgs, labs)
+        if not torch.equal(loss, ref_loss):
+            raise AssertionError(f"1x1 step {i}: loss {float(loss)} != {float(ref_loss)}")
+    params = state.params.full()
+    unequal = [k for k, p in ref.model.named_parameters() if not torch.equal(p, params[k])]
+    if unequal:
+        raise AssertionError(f"1x1 mesh: {len(unequal)} parameters differ: {unequal[:4]}")
+    res["1x1"] = {"steps_bit_equal": SEG_PAR_STEPS, "losses": [float(ref_loss)]}
+    imgs, labs = batches[0]
+    for dtype, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        base = _net(dev, dtype)
+        base.load_state_dict(sd)
+        one = train.create_train_state(_net(dev, dtype), lr=SEG_PAR_LR, device=dev)
+        one.model.load_state_dict(sd)
+        _, one_loss = train.make_train_step(one.model, one.opt)(one, imgs, labs)
+        grads = {k: p.grad for k, p in one.model.named_parameters()}
+        mesh = sp.make_mesh_2d(devices=[dev] * mesh_sizes[1])
+        st = sp.ShardedTrainState(sp.shard_params(base, mesh))
+        st, loss = sp.make_sharded_train_step(base, dict(lr=SEG_PAR_LR), mesh)(st, imgs, labs)
+        loss_rel = abs(float(loss) - float(one_loss)) / abs(float(one_loss))
+        r = {"mesh": list(mesh.shape), "loss": float(loss),
+             "loss_1x1": float(one_loss), "loss_rel": loss_rel}
+        if loss_rel > SEG_PAR_LOSS_RTOL:
+            raise AssertionError(f"2x2 {label}: loss {r}")
+        if dtype == torch.float32:
+            ours = st.params.full_grads()
+            r["grad_rel"] = max(float((ours[k] - g).abs().max() / g.abs().max())
+                                for k, g in grads.items())
+            if r["grad_rel"] > SEG_PAR_GRAD_RTOL:
+                raise AssertionError(f"2x2 float32: gradients {r['grad_rel']:.3e} apart")
+            held = train.create_train_state(_net(dev, dtype), lr=SEG_PAR_LR, device=dev)
+            held.model.load_state_dict(sd)
+            for k, p in held.model.named_parameters():
+                p.grad = ours[k].clone()
+            held.opt.step()
+            full = st.params.full()
+            r["adamw_held_bit_equal"] = all(torch.equal(p, full[k])
+                                            for k, p in held.model.named_parameters())
+            if not r["adamw_held_bit_equal"]:
+                raise AssertionError("2x2 float32: AdamW on the shards differs from AdamW on "
+                                     "the same gradients")
+        res[f"2x2_{label}"] = r
+    return res
+
+
+def seg_parallel_infer(dev, imgs, n_devices=4) -> dict:
+    """Phase 13's inference: make_sharded_infer of the shipped UNet over
+    [dev] * n_devices against sigmoid(model) on the whole batch, in
+    bfloat16 (as shipped) and with the same weights in float32, within
+    SEG_PAR_INFER_TOL."""
+    from disinfect_slam_tpu_torch.models import segmentation as seg
+    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
+    from disinfect_slam_tpu_torch.utils.device import exact_fp32
+
+    mesh = sp.make_mesh_2d(devices=[dev] * n_devices)
+    shipped = seg.load_model("unet", device=dev)
+    res = {}
+    for dtype, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        model = seg.create_model(dtype=dtype).to(dev)
+        model.load_state_dict(shipped.state_dict())
+        with torch.no_grad(), exact_fp32():
+            full = torch.sigmoid(model(imgs.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        probs = sp.make_sharded_infer(model, mesh)(imgs)
+        if probs.shape != full.shape or not bool(torch.isfinite(probs).all()):
+            raise AssertionError(f"sharded inference: {tuple(probs.shape)} vs "
+                                 f"{tuple(full.shape)}")
+        d = (probs - full).abs()
+        res[label] = {"mesh": list(mesh.shape), "max_abs_err": float(d.max()),
+                      "mean_abs_err": float(d.mean()),
+                      "labels_flipped": float(((probs > 0.5) != (full > 0.5)).float().mean())}
+        if res[label]["max_abs_err"] > SEG_PAR_INFER_TOL[label]:
+            raise AssertionError(f"sharded inference off the net ({label}): {res[label]}")
+        del model, full, probs
+    return res
+
+
+def seg_parallel_slice(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dict:
+    """Phase 13 (see the docstring)."""
+    from disinfect_slam_tpu_torch.models import train
+    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
+
+    hand = (fuse_kernel.fuse_rows, sample_kernel.sample_rows, splat_kernel.splat_zbuf_blocks,
+            splat_kernel.splat_payload_blocks)
+    reset_launches(*hand)
+    t = time.perf_counter()
+    batches = train_batches(TRAIN_STEPS, dev)
+    res = {"batches_s": time.perf_counter() - t}
+    res["checks"] = seg_parallel_checks(dev, batches)
+    log(f"[chip_smoke] seg_parallel: 1x1 over [{dev}] bit-equal to make_train_step over "
+        f"{SEG_PAR_STEPS} steps (loss and every parameter); 2x2 over [{dev}] * 4: "
+        + "; ".join(f"{k} loss {v['loss']:.6f} vs {v['loss_1x1']:.6f} (rel {v['loss_rel']:.2e})"
+                    + (f", gradients {v['grad_rel']:.2e} of each largest, AdamW held on them "
+                       f"bit-equal" if "grad_rel" in v else "")
+                    for k, v in res["checks"].items() if k.startswith("2x2")))
+    # ms a step: make_train_step and the sharded step over 1x1 and 2x2,
+    # each from the same parameters, median of the last 8 of TRAIN_STEPS
+    sd = _net(dev).state_dict()
+    timing = {}
+    for label, n in (("make_train_step", 0), ("sharded_1x1", 1), ("sharded_2x2", 4)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        net = _net(dev)
+        net.load_state_dict(sd)
+        if n == 0:
+            state = train.create_train_state(net, lr=SEG_PAR_LR, device=dev)
+            step = train.make_train_step(state.model, state.opt)
+        else:
+            mesh = sp.make_mesh_2d(devices=[dev] * n)
+            state = sp.ShardedTrainState(sp.shard_params(net, mesh))
+            step = sp.make_sharded_train_step(net, dict(lr=SEG_PAR_LR), mesh)
+        state, ms = _timed_steps(step, state, batches)
+        timing[label] = {"step_ms": ms, "step_ms_median": statistics.median(ms[2:]),
+                         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                         "profile": _profiled(step, state, batches[0])}
+        del state, step, net
+    res["timing"] = timing
+    log(f"[chip_smoke] seg_parallel step at {TRAIN_H}x{TRAIN_W} batch {TRAIN_BATCH} (UNet "
+        f"full width, median of the last {TRAIN_STEPS - 2} of {TRAIN_STEPS}, CUDA events): "
+        + "; ".join(f"{k} {v['step_ms_median']:.2f} ms, peak {v['peak_gb']:.2f} GB, profiled "
+                    + (f"{v['profile']['launches']} kernels, {v['profile']['device_ms']:.2f} ms "
+                       f"of device time" if v["profile"]["launches"] else "no device event "
+                       "traced (not measured)")
+                    for k, v in timing.items()) + f" ({smi})")
+    res["infer"] = seg_parallel_infer(dev, batches[0][0])
+    res["hand_kernel_launches"] = {fn.__name__: fn.launches for fn in hand}
+    log(f"[chip_smoke] seg_parallel inference of the shipped UNet over [{dev}] * 4 at "
+        f"{TRAIN_H}x{TRAIN_W} batch {TRAIN_BATCH}: " + "; ".join(
+            f"{k} max |dp| {v['max_abs_err']:.3e} (limit {SEG_PAR_INFER_TOL[k]:g}), mean "
+            f"{v['mean_abs_err']:.3e}, labels flipped {v['labels_flipped']:.2e}"
+            for k, v in res["infer"].items())
+        + f"; hand kernel launches {res['hand_kernel_launches']} (cuDNN and torch ops only)")
+    if any(res["hand_kernel_launches"].values()):
+        raise AssertionError("seg_parallel launched a fusion or splat kernel")
+    del batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dict:
+    """Phase 14: utils/kernel_verify.verify_all() on the card, every check
+    PASS in under VERIFY_BUDGET_S; its comparison launches are counted
+    apart from the main paths'."""
+    from disinfect_slam_tpu_torch.utils import kernel_verify
+
+    fns = (sample_kernel.sample_rows, fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
+           splat_kernel.splat_payload_blocks)
+    reset_launches(*fns)
+    t0 = time.perf_counter()
+    ok = kernel_verify.verify_all(verbose=True, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fns}
+    log(f"[chip_smoke] kernel self-check: {len(kernel_verify.CHECKS)} checks "
+        f"{'PASS' if ok else 'FAIL'} in {wall:.1f} s (budget {VERIFY_BUDGET_S:g} s); "
+        f"comparison launches {launches} ({smi})")
+    if not ok:
+        raise AssertionError("kernel_verify.verify_all failed on the card")
+    if wall > VERIFY_BUDGET_S:
+        raise AssertionError(f"the self-check took {wall:.1f} s")
+    if not all(launches.values()):
+        raise AssertionError(f"the self-check left a kernel unlaunched: {launches}")
+    return {"checks": len(kernel_verify.CHECKS), "wall_s": wall, "launches": launches}
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -3742,8 +4010,24 @@ def main() -> int:
         f"{soak_res['ms_per_frame']:.3f} ms/frame, {soak_res['closures']} closures ({smi}) "
         f"({time.perf_counter() - t12:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
+    # phase 13: the seg net over a (data, model) mesh on the card
+    t13 = time.perf_counter()
+    seg_par = seg_parallel_slice(fuse_kernel, sample_kernel, splat_kernel, dev, smi)
+    log(f"[chip_smoke] phase 13: seg_parallel ok; step "
+        f"{seg_par['timing']['sharded_1x1']['step_ms_median']:.2f} ms (1x1), "
+        f"{seg_par['timing']['sharded_2x2']['step_ms_median']:.2f} ms (2x2) against "
+        f"make_train_step's {seg_par['timing']['make_train_step']['step_ms_median']:.2f} ms "
+        f"({smi}) ({time.perf_counter() - t13:.1f} s added, "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
-    log(f"[chip_smoke] probe launches on the main path (phases 3-12): {probe_main_launches}")
+    log(f"[chip_smoke] probe launches on the main path (phases 3-13): {probe_main_launches}")
+
+    # phase 14: the kernels' self-check
+    t14 = time.perf_counter()
+    verify = kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi)
+    log(f"[chip_smoke] phase 14: kernel self-check ok ({time.perf_counter() - t14:.1f} s added, "
+        f"{time.perf_counter() - t_start:.1f} s)")
 
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
@@ -3779,6 +4063,8 @@ def main() -> int:
         "phase10": p10,
         "stereo": stereo,
         "soak": soak_res,
+        "seg_parallel": seg_par,
+        "kernel_verify": verify,
         "splat_zbuf_slam_320x240": splat_slam,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
@@ -3807,6 +4093,8 @@ def main() -> int:
          "stereo_app_launches": [stereo["app"][k]["fuse_rows_launches"]
                                  for k in ("fused", "async")],
          "soak_launches": soak_res["launches"]["fuse_rows"],
+         "seg_parallel_launches": seg_par["hand_kernel_launches"]["fuse_rows"],
+         "verify_launches": verify["launches"]["fuse_rows"],
          **fuse,
          "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
                             fuse_real["max_abs_err"], soak_res["kernels"]["k2"]["max_abs_err"]),
@@ -3815,7 +4103,9 @@ def main() -> int:
         {"name": "sample_rows", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/sample_rows.cu",
          "replaces": "disinfect_slam_tpu/ops/pallas/sample_kernel.py:359",
-         "launches": sample_launches, **sample},
+         "launches": sample_launches,
+         "seg_parallel_launches": seg_par["hand_kernel_launches"]["sample_rows"],
+         "verify_launches": verify["launches"]["sample_rows"], **sample},
         {"name": "splat_zbuf_blocks", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
          "also_source": ["disinfect_slam_tpu_torch/csrc/splat_zbuf_tile.cuh",
@@ -3827,6 +4117,8 @@ def main() -> int:
          "view_launches": served["view"]["splat_launches"][0],
          "dist_launches": dist["render"]["launches"][0],
          "soak_launches": soak_res["launches"]["splat_zbuf_blocks"],
+         "seg_parallel_launches": seg_par["hand_kernel_launches"]["splat_zbuf_blocks"],
+         "verify_launches": verify["launches"]["splat_zbuf_blocks"],
          **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
                             *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
@@ -3845,6 +4137,8 @@ def main() -> int:
          "serve_launches": served["service"]["splat_launches"][1],
          "view_launches": served["view"]["splat_launches"][1],
          "dist_launches": dist["render"]["launches"][1],
+         "seg_parallel_launches": seg_par["hand_kernel_launches"]["splat_payload_blocks"],
+         "verify_launches": verify["launches"]["splat_payload_blocks"],
          **splat["payload"],
          "max_abs_err": max(splat["payload"]["max_abs_err"],
                             splat_1080["payload"]["max_abs_err"],

@@ -59,6 +59,19 @@ def _cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     )
 
 
+def _quat_mul(q1: np.ndarray, q2: np.ndarray) -> np.ndarray:
+    """Hamilton product of float32 quaternions (w, x, y, z)."""
+    w1, x1, y1, z1 = q1
+    w2, x2, y2, z2 = q2
+    return np.asarray(
+        [w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+         w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+         w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+         w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2],
+        _F,
+    )
+
+
 def _quat_rotate(q: np.ndarray, v: np.ndarray) -> np.ndarray:
     """v' = v + 2w(u x v) + 2(u x (u x v)) for q = (w, u)."""
     u = q[1:4]
@@ -83,6 +96,29 @@ class SE3:
         """From a 3x4 or 4x4 row-major transform matrix."""
         m = np.asarray(m, _F)
         return cls(q=_mat_to_quat(m[:3, :3]), t=m[:3, 3].copy())
+
+    @classmethod
+    def from_numpy(cls, m: np.ndarray) -> "SE3":
+        return cls.from_matrix(np.asarray(m, _F))
+
+    def matrix(self) -> np.ndarray:
+        """As a float32 4x4 matrix (the rotation from the quaternion)."""
+        m = np.eye(4, dtype=_F)
+        m[:3, :3] = np.asarray(self.rotation_entries(), _F).reshape(3, 3)
+        m[:3, 3] = self.t
+        return m
+
+    def apply(self, pts: torch.Tensor) -> torch.Tensor:
+        """Transform float32 points [..., 3] (a tensor): rotate(pts) + t."""
+        return self.rotate(pts) + torch.as_tensor(self.t, device=pts.device)
+
+    def compose(self, other: "SE3") -> "SE3":
+        """self * other (apply `other` first)."""
+        return SE3(q=_quat_mul(self.q, other.q),
+                   t=(_quat_rotate(self.q, other.t) + self.t).astype(_F))
+
+    def __matmul__(self, other: "SE3") -> "SE3":
+        return self.compose(other)
 
     def inverse(self) -> "SE3":
         q_inv = (self.q * np.asarray([1, -1, -1, -1], _F)).astype(_F)
@@ -160,6 +196,15 @@ class CameraIntrinsics:
         return torch.stack(
             [self.fx * x + self.cx * z, self.fy * y + self.cy * z, z], -1
         )
+
+    def unproject(self, uv1):
+        """Apply as a linear map to homogeneous pixels [..., 3] (use on
+        .inverse() to back-project, as intrinsics_inv * (u, v, 1))."""
+        return self.project(uv1)
+
+    def matrix(self) -> np.ndarray:
+        """The float32 3x3 matrix [[fx, 0, cx], [0, fy, cy], [0, 0, 1]]."""
+        return np.asarray([[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]], _F)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -97,6 +97,26 @@ class TSDFVolume:
         """NumActiveBlock (voxel_hash.cu:207), a 0-d device tensor."""
         return self.cfg.num_blocks - self.num_free
 
+    # unpacked payload views (the engine reads .rgbw directly; these are
+    # for exports, tests and tooling)
+    @property
+    def weight(self) -> torch.Tensor:
+        """u8 [B, V] fusion weight (VoxelRGBW.weight view)."""
+        return ((self.rgbw >> 24) & 0xFF).to(torch.uint8)
+
+    @property
+    def rgb(self) -> torch.Tensor:
+        """u8 [B, V, 3] color (VoxelRGBW.rgb view)."""
+        return torch.stack([((self.rgbw >> s) & 0xFF).to(torch.uint8) for s in (0, 8, 16)],
+                           dim=-1)
+
+    def nbytes(self) -> int:
+        """Bytes of the hash table, the free-block stack and the payload
+        pools (the JAX package's count: the scalars are left out)."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.entry_key, self.entry_block, self.block_table, self.heap,
+            self.tsdf, self.rgbw, self.prob))
+
     def clone(self) -> "TSDFVolume":
         """Deep copy of every tensor (a consistent snapshot)."""
         return dataclasses.replace(

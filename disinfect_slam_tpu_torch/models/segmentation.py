@@ -118,9 +118,35 @@ class Conv(nn.Module):
                         self.dilation)
 
 
+def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax.linen.GroupNorm of x [N, C, H, W]: statistics in float32,
+    epsilon 1e-6, float32 scale and bias [C], result in `dtype`."""
+    n, c, h, w = x.shape
+    xf = x.float()
+    g = xf.reshape(n, groups, -1)
+    # flax's fast variance E[x^2] - E[x]^2 (clipped at 0), not torch's
+    # two-pass one: on flat image regions the two differ by far more
+    # than a rounding, and the JAX package's weights saw flax's
+    mu = g.mean(-1)
+    var = torch.clamp((g * g).mean(-1) - mu * mu, min=0.0)
+    return normalize(xf, mu, var, weight, bias, dtype)
+
+
+def normalize(xf: torch.Tensor, mu: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """GroupNorm's affine step: float32 xf [N, C, H, W], per-group mean
+    and variance [N, G] -> (xf - mu) * rsqrt(var + 1e-6) * weight + bias
+    in `dtype`."""
+    rep = xf.shape[1] // mu.shape[1]
+    mul = torch.rsqrt(var + 1e-6).repeat_interleave(rep, 1) * weight
+    mu = mu.repeat_interleave(rep, 1)
+    y = (xf - mu[..., None, None]) * mul[..., None, None] + bias[:, None, None]
+    return y.to(dtype)
+
+
 class GroupNorm(nn.Module):
-    """flax.linen.GroupNorm: statistics in float32, epsilon 1e-6, float32
-    scale and bias, result in `dtype`."""
+    """flax.linen.GroupNorm (group_norm) with float32 scale and bias."""
 
     def __init__(self, groups: int, ch: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -129,18 +155,7 @@ class GroupNorm(nn.Module):
         self.groups, self.dtype = groups, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, c, h, w = x.shape
-        xf = x.float()
-        g = xf.reshape(n, self.groups, -1)
-        # flax's fast variance E[x^2] - E[x]^2 (clipped at 0), not torch's
-        # two-pass one: on flat image regions the two differ by far more
-        # than a rounding, and the JAX package's weights saw flax's
-        mu = g.mean(-1)
-        var = torch.clamp((g * g).mean(-1) - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + 1e-6).repeat_interleave(c // self.groups, 1) * self.weight
-        mu = mu.repeat_interleave(c // self.groups, 1)
-        y = (xf - mu[..., None, None]) * mul[..., None, None] + self.bias[:, None, None]
-        return y.to(self.dtype)
+        return group_norm(x, self.groups, self.weight, self.bias, self.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -268,6 +283,20 @@ def create_model(widths: Sequence[int] = (32, 64, 128, 256),
         raise ValueError(f"arch must be 'unet' or 'fast', got {arch!r}")
     _init_params(model, generator or torch.Generator().manual_seed(0))
     return model.eval()
+
+
+def init_params(model: nn.Module, generator: Optional[torch.Generator] = None,
+                h: int = INFER_H, w: int = INFER_W) -> Dict[str, np.ndarray]:
+    """Initialise `model`'s parameters in place from `generator` (seed 0
+    when None), as create_model does, check that the net takes an
+    [1, 3, h, w] input, and return the parameters under their flat flax
+    names (the JAX package's init_params(model, rng, h, w) tree,
+    flattened)."""
+    _init_params(model, generator or torch.Generator().manual_seed(0))
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        model(torch.zeros((1, 3, h, w), device=dev))
+    return flax_from_state_dict(model.state_dict())
 
 
 # ----------------------------------------------------------------------

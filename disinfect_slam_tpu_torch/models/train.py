@@ -47,6 +47,9 @@ from .segmentation import create_model, flax_from_state_dict, load_params_npz  #
 
 Schedule = Callable[[int], float]
 
+# optax.adamw's constants and create_train_state's default lr
+ADAMW_HPARAMS = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -117,8 +120,8 @@ def create_train_state(model: Optional[nn.Module] = None, lr: Union[float, Sched
         model = create_model(widths=widths, dtype=dtype, arch=arch, generator=generator)
     model = model.to(device).train()
     schedule = lr if callable(lr) else None
-    opt = torch.optim.AdamW(model.parameters(), lr=schedule(0) if schedule else lr,
-                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    opt = torch.optim.AdamW(model.parameters(), **{
+        **ADAMW_HPARAMS, "lr": schedule(0) if schedule else lr})
     return TrainState(model=model, opt=opt, step=0, schedule=schedule)
 
 

@@ -1,10 +1,12 @@
-"""Per-stage latency counters and the system clock (counterparts of
-StageTimer and get_system_timestamp_ms in disinfect_slam_tpu/utils/
-timing.py; reference offline.cc:168-198, utils/time.hpp).
+"""Per-stage latency counters and the clocks (counterpart of
+disinfect_slam_tpu/utils/timing.py; reference offline.cc:168-198,
+utils/time.hpp).
 
 Work on a CUDA device is asynchronous, so a span that covers device work
 synchronises that device before it reads the clock at each end: the span
-then measures the work itself, not its enqueueing.
+then measures the work itself, not its enqueueing.  Each span is also a
+`torch.profiler.record_function` range, so profiler traces carry the
+stage names (the JAX package annotates its spans for jax.profiler).
 """
 
 from __future__ import annotations
@@ -17,9 +19,26 @@ from typing import Dict
 import torch
 
 
+def get_timestamp_ms() -> int:
+    """Steady-clock milliseconds (GetTimestamp<std::chrono::milliseconds>,
+    time.hpp:10-14)."""
+    return time.monotonic_ns() // 1_000_000
+
+
 def get_system_timestamp_ms() -> int:
     """System-clock milliseconds (GetSystemTimestamp, time.hpp:18-22)."""
     return time.time_ns() // 1_000_000
+
+
+class LocalClock:
+    """Offset converter between an external clock and the steady clock
+    (time.hpp:24-33)."""
+
+    def __init__(self, external_now_ms: int):
+        self.offset = get_timestamp_ms() - external_now_ms
+
+    def convert(self, external_ms: int) -> int:
+        return external_ms + self.offset
 
 
 class StageTimer:
@@ -35,12 +54,18 @@ class StageTimer:
 
     @contextlib.contextmanager
     def span(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.samples[name].append(time.perf_counter() - t0)
+        with torch.profiler.record_function(name):
+            self._sync()
+            t0 = time.perf_counter()
+            yield
+            self._sync()
+            dt = time.perf_counter() - t0
+        self.samples[name].append(dt)
 
     def mean_ms(self, name: str) -> float:
         s = self.samples.get(name)
         return 1e3 * sum(s) / len(s) if s else 0.0
+
+    def summary(self) -> Dict[str, float]:
+        """Mean ms of every stage timed so far."""
+        return {k: self.mean_ms(k) for k in self.samples}

@@ -27,6 +27,7 @@ from disinfect_slam_tpu_torch.models.train import create_train_state
 from disinfect_slam_tpu_torch.ops.image_ops import StereoRectifier
 from disinfect_slam_tpu_torch.ops.stereo import StereoDepthEstimator
 from disinfect_slam_tpu_torch.ops.gather import volume_from_spatial_records
+from disinfect_slam_tpu_torch.parallel.seg_parallel import make_mesh_2d
 from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF, load_distributed, make_mesh
 from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
 from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
@@ -36,6 +37,7 @@ from disinfect_slam_tpu_torch.systems.slam import ICPSource
 from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
 from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
 from disinfect_slam_tpu_torch.systems.tsdf_system import TSDFSystem
+from disinfect_slam_tpu_torch.utils.kernel_verify import verify_all
 
 torch.set_num_threads(1)
 
@@ -77,6 +79,8 @@ DEFAULT_DEVICE_CALLS = {
     # the device is resolved before the file is read
     "rectifier_from_factory_conf": lambda: rectifier_from_factory_conf(
         str(ROOT / "no_such_calibration.conf"), "VGA"),
+    "make_mesh_2d": lambda: make_mesh_2d(),
+    "verify_all": lambda: verify_all(verbose=False),
 }
 
 
@@ -158,7 +162,7 @@ def test_forbidden_import_pattern():
 
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "disinfect_slam_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "port_verify.py"]
     assert len(files) > 30
     # the export and tracking slices' modules are among them
     for mod in ("ops/mesh.py", "systems/bridge.py", "apps/tsdf2mesh.py", "ops/gather.py",
@@ -170,7 +174,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "apps/view_volume.py", "models/train.py", "models/synth_data.py",
                 "apps/train_seg.py", "io/flax_msgpack.py", "parallel/sharding.py",
                 "io/sync.py", "io/logger.py", "io/cameras.py", "native/runtime.py",
-                "io/zed_calib.py", "ops/image_ops.py", "ops/stereo.py"):
+                "io/zed_calib.py", "ops/image_ops.py", "ops/stereo.py",
+                "parallel/seg_parallel.py", "utils/kernel_verify.py"):
         assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:

@@ -15,7 +15,9 @@ the export slice: the hash backend's inserts, fusion and renders, mesh
 chunks, and a splat clipped at its surface cap (surf_overflow > 0), and
 the tracking slice: K4 at the tracking resolutions, the model depth's
 smoothing, DenseSLAM on the card against the CPU (one pose read and one
-sync a tracked frame, TF32 off in ICP) and loop closure on the card.
+sync a tracked frame, TF32 off in ICP) and loop closure on the card, the
+kernels' self-check (utils/kernel_verify.py) and the segmentation net
+over a mesh of the one card (parallel/seg_parallel.py).
 
 Needs a CUDA device and nvcc; skipped without a card.  This file imports
 no JAX, so it runs on a GPU host without it:
@@ -1073,3 +1075,51 @@ def test_stereo_estimator_runs_on_the_card_by_default(cuda):
     host = est(left.astype(np.uint8), right.astype(np.uint8))
     np.testing.assert_array_equal(host, dev.cpu().numpy())
     assert (host > 0).mean() > 0.8
+
+
+def test_kernel_self_check_passes_on_the_card(cuda):
+    from disinfect_slam_tpu_torch.utils import kernel_verify
+
+    assert kernel_verify.verify_all(verbose=False, device=cuda)
+    for name, fn in kernel_verify.CHECKS:
+        ok, _, _ = fn(device=cuda, perturb=True)
+        assert not ok, name
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_seg_parallel_on_the_card(cuda, n):
+    """A narrow UNet over [cuda:0] * n: the 1x1 step bit-equal to
+    make_train_step, the 2x2 loss within tests/test_torch_seg_parallel.py's
+    limit; the sharded inference within its float32 limit."""
+    from disinfect_slam_tpu_torch.models import train
+    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
+    from disinfect_slam_tpu_torch.utils.device import exact_fp32
+
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (8, 32, 48, 3)).astype(np.float32)).to(cuda)
+    labs = (torch.from_numpy(rng.uniform(0, 1, (8, 32, 48, 2))) > 0.5).float().to(cuda)
+    net = seg.create_model(widths=(8, 16, 32, 64), dtype=torch.float32).to(cuda)
+    sd = copy.deepcopy(net.state_dict())
+    ref = train.create_train_state(seg.create_model(widths=(8, 16, 32, 64),
+                                                    dtype=torch.float32), lr=1e-3, device=cuda)
+    ref.model.load_state_dict(sd)
+    mesh = sp.make_mesh_2d(devices=[cuda] * n)
+    state = sp.ShardedTrainState(sp.shard_params(net, mesh, tp_min_width=16))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, ref_loss = train.make_train_step(ref.model, ref.opt)(ref, imgs, labs)
+        state, loss = sp.make_sharded_train_step(net, dict(lr=1e-3), mesh)(state, imgs, labs)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if n == 1:
+        assert torch.equal(loss, ref_loss)
+        full = state.params.full()
+        for k, p in ref.model.named_parameters():
+            assert torch.equal(p, full[k]), k
+    else:
+        assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    with torch.no_grad(), exact_fp32():  # TF32 off, as in the sharded inference
+        want = torch.sigmoid(net(imgs.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+    got = sp.make_sharded_infer(net, mesh)(imgs)
+    assert float((got - want).abs().max()) <= 1e-4

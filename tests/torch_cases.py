@@ -271,11 +271,19 @@ def soak_corridor_depth(x: float):
     return d.astype(np.float32), pose
 
 
-def run_soak(n_frames: int, device):
+def soak_x(i: int, n_frames: int) -> float:
+    """The camera's x (m) at frame i of an n_frames soak: out along the
+    corridor for the first half, back for the second."""
+    half = n_frames // 2
+    return (i if i < half else (n_frames - 1 - i)) * (SOAK_CORRIDOR_M / half)
+
+
+def run_soak(n_frames: int, device, on_frame=None):
     """The corridor out and back through DenseSLAM with loop closure, host
     spill, maybe_recenter every 25 frames and the keyframe cap -> (the
     counts the soak asserts on and the wall time, the DenseSLAM after its
-    last frame, x = 0)."""
+    last frame, x = 0).  on_frame(i, slam), when given, runs after each
+    frame's step and recenter."""
     import time
 
     import torch
@@ -286,7 +294,6 @@ def run_soak(n_frames: int, device):
 
     from .scenes import checker_rgb
 
-    half = n_frames // 2
     cfg = TSDFConfig(voxel_size=0.04, truncation=0.12, num_blocks_log2=10,
                      max_candidates=4096, max_visible=1024, max_new_per_round=512,
                      backend="dense", grid_log2=5)
@@ -307,8 +314,7 @@ def run_soak(n_frames: int, device):
     start_hist = None
     t0 = time.perf_counter()
     for i in range(n_frames):
-        x = (i if i < half else (n_frames - 1 - i)) * (SOAK_CORRIDOR_M / half)
-        depth, _ = soak_corridor_depth(x)
+        depth, _ = soak_corridor_depth(soak_x(i, n_frames))
         slam.process_frame(rgb, depth)
         if i % 25 == 24:
             if slam.maybe_recenter():
@@ -316,6 +322,8 @@ def run_soak(n_frames: int, device):
             spill_high = max(spill_high, len(slam.spill_store))
         if i == 100:  # history near the start, before it spills out
             start_hist = observed()
+        if on_frame is not None:
+            on_frame(i, slam)
     if slam.device.type == "cuda":
         torch.cuda.synchronize(slam.device)
     wall_s = time.perf_counter() - t0
