@@ -197,9 +197,19 @@ exits non-zero:
      and the fused integrate of a small scene, K4/K5's render of it),
      every check PASS in under 60 s; its launches are reported apart
      from the main paths' (verify_launches).
+  15. the port's benchmark as a user runs it: `python bench_torch.py` in
+     its own process (no arguments, so on the card), under a time limit:
+     exit 0, its self-check PASS before anything is timed, the timed
+     fusion volume within the JAX reference's fingerprint, and a last
+     line with bench.py's twelve keys (platform "cuda", fallback false,
+     vs_baseline null, every other number positive); fuse_rows launched
+     2 + 60 times by the fusion stage and 30 a net by the online stage,
+     each splat kernel 6 times, sample_rows only in the self-check
+     (bench_launches in the kernels line).  Its line and its summary are
+     printed.
 
 Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 13,
-then 14, then 7 (which
+then 14, then 15, then 7 (which
 also profiles the two matchers: kernels and device time a call).  Phase
 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
 they project block rows in registers) against their plain versions at
@@ -233,6 +243,9 @@ import urllib.request
 import numpy as np
 import torch
 
+from disinfect_slam_tpu_torch.ops.gather import TOL_WP, fingerprint_gaps
+from disinfect_slam_tpu_torch.utils.timing import card_name_and_power, cuda_time_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATASET = os.path.join(ROOT, "datasets", "orbit_vga")
 FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
@@ -241,9 +254,6 @@ V, H, W = 32768, 480, 640
 POOL = 1 << 18
 COUNT = 32207  # visible rows below the capacity, as in the slice's last frames
 CONSTS = dict(truncation=0.024, max_depth=4.0, max_weight=40.0, prob_eps=0.0)
-# agreement with the JAX reference (CPU, with XLA's FMA contraction and
-# its own exp/log) after 60 frames: counts within 0.1%, sums relative
-TOL_COUNT, TOL_TSDF, TOL_WP = 1e-3, 1e-4, 1e-3
 # splat renders of the fused volume against the JAX reference's: hit
 # count and every sum within 1e-3 relative; dropped surface blocks within
 # 0.1% of the surface-block count
@@ -304,21 +314,6 @@ SLAM_WARM = 3  # frames before the SLAM timing window (frames 3-59)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_time_ms(fn, reps: int = 10) -> float:
-    """Median device time of fn() over reps runs, after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
@@ -803,15 +798,8 @@ def check_fingerprint(grid, records, ref, label, prob_tol=TOL_WP):
 
 def check_fingerprint_dict(fp, ref, label, prob_tol=TOL_WP):
     """A volume_fingerprint (with its record count) against the
-    reference's, within TOL_COUNT / TOL_TSDF / TOL_WP (prob: prob_tol)."""
-    rel = lambda k: abs(fp[k] - ref[k]) / abs(ref[k])  # noqa: E731
-    checks = {
-        "active_blocks": (rel("active_blocks"), TOL_COUNT),
-        "records": (rel("records"), TOL_COUNT),
-        "sum_abs_tsdf": (rel("sum_abs_tsdf"), TOL_TSDF),
-        "sum_weight": (rel("sum_weight"), TOL_WP),
-        "sum_prob": (rel("sum_prob"), prob_tol),
-    }
+    reference's, within ops/gather.py's limits (prob: prob_tol)."""
+    checks = fingerprint_gaps(fp, ref, prob_tol)
     for k, (dev_, tol) in checks.items():
         log(f"[chip_smoke] {label} {k}: port {fp[k]} reference {ref[k]} "
             f"rel dev {dev_:.3e} (limit {tol:g})")
@@ -1089,19 +1077,6 @@ def check_seg(seg, dev, rgb0, ref):
     return out, models
 
 
-def warm_then_time(step, frames, warm):
-    """Steps the first `warm` frames, then times the rest with the device
-    synchronised at the end; returns frames per second of the timed part."""
-    for f in frames[:warm]:
-        step.step(*f)
-    step.block_until_ready()
-    t0 = time.perf_counter()
-    for f in frames[warm:]:
-        step.step(*f)
-    step.block_until_ready()
-    return (len(frames) - warm) / (time.perf_counter() - t0)
-
-
 def online_split(make_step, frames, warm, model, dev):
     """Phase 6, where the time goes: six frames after warm-up split by CUDA
     events into upload + conversion, seg and fusion, as
@@ -1221,6 +1196,7 @@ def online_app(online, fuse_kernel, read_png, render_dir):
 def online_slice(fuse_kernel, sample_kernel, dev, smi, render_dir):
     """Phase 6 (see the docstring); returns the report entry."""
     from disinfect_slam_tpu_torch.apps import online
+    from disinfect_slam_tpu_torch.apps.bench import time_online
     from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH
     from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
     from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
@@ -1250,7 +1226,7 @@ def online_slice(fuse_kernel, sample_kernel, dev, smi, render_dir):
     def run(arch, label):
         reset_launches(fuse_kernel.fuse_rows, sample_kernel.sample_rows)
         step = make_step(models[arch])
-        fps = warm_then_time(step, frames, warm)
+        fps = time_online(step, frames, warm)
         launches = (fuse_kernel.fuse_rows.launches, sample_kernel.sample_rows.launches)
         if launches != (len(frames), 0):
             raise AssertionError(f"{label}: fuse_rows / sample_rows launched {launches} "
@@ -2816,11 +2792,7 @@ def dist_slice(fuse_kernel, splat_kernel, intrinsics, poses, fused_ms, export_re
                                  f"{n} frames")
         fp["records"] = int(dist.gather_all_tsdf().shape[0])
         want = ref[f"shards_{shards}"]
-        rel = lambda k: abs(fp[k] - want[k]) / abs(want[k])  # noqa: E731
-        checks = {"active_blocks": (rel("active_blocks"), TOL_COUNT),
-                  "records": (rel("records"), TOL_COUNT),
-                  "sum_abs_tsdf": (rel("sum_abs_tsdf"), TOL_TSDF),
-                  "sum_weight": (rel("sum_weight"), TOL_WP), "sum_prob": (rel("sum_prob"), TOL_WP)}
+        checks = fingerprint_gaps(fp, want)
         for k, (dev_, tol) in checks.items():
             log(f"[chip_smoke] sharded {shards}: {k} port {fp[k]} JAX ({shards} virtual CPU "
                 f"device(s)) {want[k]} rel dev {dev_:.3e} (limit {tol:g})")
@@ -3683,6 +3655,74 @@ def kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dic
     return {"checks": len(kernel_verify.CHECKS), "wall_s": wall, "launches": launches}
 
 
+# ----------------------------------------------------------------------
+# phase 15: the port's benchmark
+# ----------------------------------------------------------------------
+BENCH_TIMEOUT_S = 600
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "platform", "img", "voxel_m",
+              "online_fps", "online_fps_fast", "stereo_ms", "fallback", "dataset"]
+BENCH_FRAMES, BENCH_WARM = 60, 2  # the fusion stage's timed frames; warm-up frames
+BENCH_RENDERS = 6  # a warm-up and five timed splat renders
+
+
+def bench_phase(smi) -> dict:
+    """Phase 15: bench_torch.py in its own process, as a user runs it; its
+    JSON line, summary and launch counts held to the contract (see the
+    docstring)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    err = proc.stderr.splitlines()
+    for line in err:
+        if line.startswith("[bench]") or line.startswith("[port_verify]"):
+            log(f"[chip_smoke] bench_torch.py: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}: "
+                             + "\n".join(err[-30:]))
+    line = proc.stdout.strip().splitlines()[-1]
+    log(f"[chip_smoke] bench_torch.py's line: {line}")
+    payload = json.loads(line)
+    prefix = "[bench] kernel launches: "
+    counts = json.loads(next(x for x in err if x.startswith(prefix))[len(prefix):])
+    numbers = {k: payload[k] for k in ("value", "voxel_m", "online_fps", "online_fps_fast",
+                                       "stereo_ms")}
+    stages = counts["stages"]
+    want = {
+        ("fusion", "fuse_rows"): BENCH_WARM + BENCH_FRAMES,
+        ("online unet", "fuse_rows"): ONLINE_FRAMES, ("online fast", "fuse_rows"): ONLINE_FRAMES,
+        ("splat", "splat_zbuf_blocks"): BENCH_RENDERS,
+        ("splat", "splat_payload_blocks"): BENCH_RENDERS,
+    }
+    got = {k: stages.get(k[0], {}).get(k[1]) for k in want}
+    failed = []
+    if list(payload) != BENCH_KEYS:
+        failed.append(f"keys {list(payload)}")
+    if (payload["platform"], payload["fallback"], payload["vs_baseline"]) != ("cuda", False, None):
+        failed.append("platform / fallback / vs_baseline")
+    if not all(isinstance(v, (int, float)) and v > 0 for v in numbers.values()):
+        failed.append(f"numbers {numbers}")
+    if not payload["dataset"].startswith("orbit_vga"):
+        failed.append(f"dataset {payload['dataset']}")
+    if got != want:
+        failed.append(f"launches {got}, expected {want}")
+    if (counts["total"]["sample_rows"] or not counts["self_check"]
+            or not all(counts["self_check"].values())):
+        failed.append(f"sample_rows on the bench's stages, or a kernel the self-check left "
+                      f"unlaunched: {counts}")
+    if not any("self-check PASS" in x for x in err):
+        failed.append("no self-check PASS")
+    if not any("within the reference's limits" in x for x in err):
+        failed.append("the timed volume was not held to the reference")
+    log(f"[chip_smoke] bench_torch.py: {wall:.1f} s; launches on its stages {counts['total']}, "
+        f"in its self-check {counts['self_check']} ({smi})")
+    if failed:
+        raise AssertionError(f"bench_torch.py broke its contract: {failed}")
+    return {"payload": payload, "launches": counts, "wall_s": wall,
+            "summary": next(x for x in err if x.startswith("[bench] platform="))}
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -3822,10 +3862,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     # phase 0: the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name_and_power()
     log(smi)
     log(f"[chip_smoke] phase 0: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
@@ -4029,6 +4066,14 @@ def main() -> int:
     log(f"[chip_smoke] phase 14: kernel self-check ok ({time.perf_counter() - t14:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    # phase 15: the port's benchmark, as a user runs it
+    t15 = time.perf_counter()
+    bench = bench_phase(smi)
+    log(f"[chip_smoke] phase 15: bench_torch.py ok; tsdf_fusion_fps {bench['payload']['value']}, "
+        f"online_fps {bench['payload']['online_fps']}, stereo_ms "
+        f"{bench['payload']['stereo_ms']} ({smi}) ({time.perf_counter() - t15:.1f} s added, "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
     fusion["profile"] = fusion_profile(offline, dev)
@@ -4065,6 +4110,7 @@ def main() -> int:
         "soak": soak_res,
         "seg_parallel": seg_par,
         "kernel_verify": verify,
+        "bench": bench,
         "splat_zbuf_slam_320x240": splat_slam,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
@@ -4095,6 +4141,8 @@ def main() -> int:
          "soak_launches": soak_res["launches"]["fuse_rows"],
          "seg_parallel_launches": seg_par["hand_kernel_launches"]["fuse_rows"],
          "verify_launches": verify["launches"]["fuse_rows"],
+         "bench_launches": bench["launches"]["total"]["fuse_rows"],
+         "bench_verify_launches": bench["launches"]["self_check"]["fuse_rows"],
          **fuse,
          "max_abs_err": max(fuse["max_abs_err"], fuse_1080["max_abs_err"],
                             fuse_real["max_abs_err"], soak_res["kernels"]["k2"]["max_abs_err"]),
@@ -4105,7 +4153,9 @@ def main() -> int:
          "replaces": "disinfect_slam_tpu/ops/pallas/sample_kernel.py:359",
          "launches": sample_launches,
          "seg_parallel_launches": seg_par["hand_kernel_launches"]["sample_rows"],
-         "verify_launches": verify["launches"]["sample_rows"], **sample},
+         "verify_launches": verify["launches"]["sample_rows"],
+         "bench_launches": bench["launches"]["total"]["sample_rows"],
+         "bench_verify_launches": bench["launches"]["self_check"]["sample_rows"], **sample},
         {"name": "splat_zbuf_blocks", "route": "cuda",
          "source": "disinfect_slam_tpu_torch/csrc/splat_rows.cu",
          "also_source": ["disinfect_slam_tpu_torch/csrc/splat_zbuf_tile.cuh",
@@ -4119,6 +4169,8 @@ def main() -> int:
          "soak_launches": soak_res["launches"]["splat_zbuf_blocks"],
          "seg_parallel_launches": seg_par["hand_kernel_launches"]["splat_zbuf_blocks"],
          "verify_launches": verify["launches"]["splat_zbuf_blocks"],
+         "bench_launches": bench["launches"]["total"]["splat_zbuf_blocks"],
+         "bench_verify_launches": bench["launches"]["self_check"]["splat_zbuf_blocks"],
          **splat["zbuf"],
          "max_abs_err": max(splat["zbuf"]["max_abs_err"], splat_1080["zbuf"]["max_abs_err"],
                             *(w["zbuf"]["max_abs_err"] for w in splat_about_z),
@@ -4139,6 +4191,8 @@ def main() -> int:
          "dist_launches": dist["render"]["launches"][1],
          "seg_parallel_launches": seg_par["hand_kernel_launches"]["splat_payload_blocks"],
          "verify_launches": verify["launches"]["splat_payload_blocks"],
+         "bench_launches": bench["launches"]["total"]["splat_payload_blocks"],
+         "bench_verify_launches": bench["launches"]["self_check"]["splat_payload_blocks"],
          **splat["payload"],
          "max_abs_err": max(splat["payload"]["max_abs_err"],
                             splat_1080["payload"]["max_abs_err"],

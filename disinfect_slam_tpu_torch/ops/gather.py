@@ -219,6 +219,27 @@ def volume_from_spatial_records(records: np.ndarray, voxel_size: float | None = 
     return vol
 
 
+# a fused volume against the JAX reference's fingerprint (the reference
+# on the CPU, with XLA's FMA contraction and its own exp/log): block and
+# record counts within 0.1%, sums relative
+TOL_COUNT, TOL_TSDF, TOL_WP = 1e-3, 1e-4, 1e-3
+
+
+def fingerprint_gaps(fp: dict, ref: dict, prob_tol: float = TOL_WP) -> dict:
+    """{key: (relative deviation of fp from ref, its limit)} for the
+    counts and sums of two volume_fingerprints that carry a "records"
+    count (gather_valid's); a key passes when its deviation is at most
+    its limit.  prob_tol is the limit on sum_prob."""
+    rel = lambda k: abs(fp[k] - ref[k]) / abs(ref[k])  # noqa: E731
+    return {
+        "active_blocks": (rel("active_blocks"), TOL_COUNT),
+        "records": (rel("records"), TOL_COUNT),
+        "sum_abs_tsdf": (rel("sum_abs_tsdf"), TOL_TSDF),
+        "sum_weight": (rel("sum_weight"), TOL_WP),
+        "sum_prob": (rel("sum_prob"), prob_tol),
+    }
+
+
 def volume_fingerprint(arrays: dict) -> dict:
     """Summary of a fused volume for comparing two implementations at
     scale: live-block count, oob count, a sha256 of the sorted packed keys

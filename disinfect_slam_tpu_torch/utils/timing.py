@@ -7,11 +7,16 @@ synchronises that device before it reads the clock at each end: the span
 then measures the work itself, not its enqueueing.  Each span is also a
 `torch.profiler.record_function` range, so profiler traces carry the
 stage names (the JAX package annotates its spans for jax.profiler).
+
+cuda_time_ms and card_name_and_power are the measurement helpers that
+chip_smoke.py and the benchmark (apps/bench.py) share.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict
@@ -69,3 +74,29 @@ class StageTimer:
     def summary(self) -> Dict[str, float]:
         """Mean ms of every stage timed so far."""
         return {k: self.mean_ms(k) for k in self.samples}
+
+
+def cuda_time_ms(fn, reps: int = 10) -> float:
+    """Median device time of fn() over reps runs, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def card_name_and_power() -> str:
+    """The first card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them: a
+    card may be set below its maximum power, and then runs slower under
+    load, so every time taken on it is reported beside this line."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]

@@ -19,7 +19,6 @@ line.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -60,13 +59,11 @@ def main(argv=None) -> int:
         print("port_mesh_stage: no CUDA device available", file=sys.stderr)
         return 2
     import chip_smoke
+    from disinfect_slam_tpu_torch.utils.timing import card_name_and_power
     from disinfect_slam_tpu_torch.apps import offline
     from disinfect_slam_tpu_torch.ops import mesh
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_name_and_power()
     dev = torch.device("cuda", 0)
     grid, _, frames, intr, max_depth = chip_smoke.fresh_bench_grid(offline, dev, 60)
     for fr in frames:

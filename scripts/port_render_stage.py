@@ -30,7 +30,6 @@ git-ignored directory and run parent, change, change, parent on one card:
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,16 +80,14 @@ def main(argv=None) -> int:
         print("port_render_stage: no CUDA device available", file=sys.stderr)
         return 2
     import chip_smoke
+    from disinfect_slam_tpu_torch.utils.timing import card_name_and_power
     import disinfect_slam_tpu_torch
     from disinfect_slam_tpu_torch.apps import offline
 
     pkg = os.path.dirname(os.path.abspath(disinfect_slam_tpu_torch.__file__))
     if os.path.dirname(pkg) != root:
         raise SystemExit(f"disinfect_slam_tpu_torch came from {pkg}, not from {root}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_name_and_power()
     dev = torch.device("cuda", 0)
     grid, _, frames, intr, max_depth = chip_smoke.fresh_bench_grid(offline, dev, 60)
     for fr in frames:

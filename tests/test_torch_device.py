@@ -2,7 +2,8 @@
 loader and app of the port runs on the CUDA device unless the caller asks
 for the CPU, so without CUDA each of them called without a device raises
 (the apps exit non-zero) naming CUDA; no module of the port, nor
-chip_smoke.py, imports JAX, the JAX package, cv2 or bench.py; and the
+chip_smoke.py, bench_torch.py or the port's scripts, imports JAX, the
+JAX package, cv2 or bench.py; and the
 host modules the port restates equal the JAX package's."""
 
 import dataclasses
@@ -98,11 +99,12 @@ APP_ARGS = {
     "serve": lambda d: ["--port", "0", "--synthetic", "2"],
     "view_volume": lambda d: ["--volume", str(d / "vol.npz"), "--out", str(d / "views")],
     "train_seg": lambda d: ["--steps", "1", "--out", str(d / "seg.npz")],
+    "bench": lambda d: [],
 }
 
 
 @pytest.mark.parametrize("app", ["offline", "online", "tsdf2mesh", "dense_slam", "serve",
-                                 "view_volume", "train_seg"])
+                                 "view_volume", "train_seg", "bench"])
 def test_apps_without_device_exit_nonzero_naming_cuda(app, tmp_path):
     """The CLI as a user runs it, with CUDA hidden and no --device: it
     stops with a non-zero exit code and says that CUDA is missing."""
@@ -162,7 +164,8 @@ def test_forbidden_import_pattern():
 
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "disinfect_slam_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "port_verify.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "scripts" / "port_verify.py"]
+    files += [ROOT / "scripts" / f"port_bench_{s}.py" for s in ("dense_slam", "mesh", "stereo")]
     assert len(files) > 30
     # the export and tracking slices' modules are among them
     for mod in ("ops/mesh.py", "systems/bridge.py", "apps/tsdf2mesh.py", "ops/gather.py",
@@ -175,7 +178,7 @@ def test_port_and_chip_smoke_import_no_jax():
                 "apps/train_seg.py", "io/flax_msgpack.py", "parallel/sharding.py",
                 "io/sync.py", "io/logger.py", "io/cameras.py", "native/runtime.py",
                 "io/zed_calib.py", "ops/image_ops.py", "ops/stereo.py",
-                "parallel/seg_parallel.py", "utils/kernel_verify.py"):
+                "parallel/seg_parallel.py", "utils/kernel_verify.py", "apps/bench.py"):
         assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:

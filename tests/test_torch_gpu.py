@@ -26,6 +26,7 @@ no JAX, so it runs on a GPU host without it:
 """
 
 import copy
+import importlib.util
 import os
 
 import numpy as np
@@ -1123,3 +1124,38 @@ def test_seg_parallel_on_the_card(cuda, n):
         want = torch.sigmoid(net(imgs.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
     got = sp.make_sharded_infer(net, mesh)(imgs)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def _port_bench_script(name):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "scripts",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_port_bench_dense_slam_on_the_card(cuda):
+    """scripts/port_bench_dense_slam.py at its full size (40 orbit frames,
+    640x480, 1 cm): every frame tracked."""
+    res = _port_bench_script("port_bench_dense_slam").run(cuda)
+    assert res["frames"] == 37 and res["lost"] == 0 and res["ms_per_frame"] > 0
+    assert np.isfinite(res["final_pose_err_m"])
+
+
+def test_port_bench_mesh_on_the_card(cuda, tmp_path):
+    """scripts/port_bench_mesh.py at the bench configuration over 5
+    frames: both transfers, the OBJ (written, then removed) and the 2 m
+    query, which finds voxels."""
+    res = _port_bench_script("port_bench_mesh").run(cuda, n_frames=5,
+                                                    obj_path=str(tmp_path / "mesh.obj"))
+    assert all(res[k] > 0 for k in ("f32", "q16", "obj", "query", "query_voxels"))
+    assert not (tmp_path / "mesh.obj").exists()
+
+
+def test_port_bench_stereo_on_the_card(cuda):
+    """scripts/port_bench_stereo.py at VGA/64 and HD/128: the flat matcher
+    and the four pyramids timed."""
+    res = _port_bench_script("port_bench_stereo").run(cuda, iters=3)
+    assert set(res) == {(480, 640, 64), (720, 1280, 128)}
+    assert all(len(r) == 5 and min(r.values()) > 0 for r in res.values())
