@@ -43,7 +43,8 @@ exits non-zero:
      fingerprint, timed end to end (seg_ms) and on a staged input
      (seg_dev_ms); FusedOnlineStep at the bench preset over the first 30
      frames (u8 rgb, raw u16 depth) with the shipped UNet, three times on
-     fresh volumes (online_fps, timed after alloc_every warm-up frames),
+     fresh volumes (online_fps, timed after 6 warm-up frames: every key of
+     the captured step),
      each volume against the JAX online fingerprint, then once with
      FastSeg (online_fps_fast); fuse_rows launches once per frame and
      sample_rows never; one profiled pass (device time, launches, idle
@@ -107,8 +108,10 @@ exits non-zero:
   9. the served map, on phase 3's volume: (a) ReconstructionService
      over a DISINFSystem at the bench preset on 127.0.0.1 (make_server in a
      thread): all 60 frames POSTed as npz (rgb, depth, the logged ht/lt
-     and pose), fuse_rows once a frame, the served volume bit-equal to
-     phase 3's and within its fingerprint limits; /render at frame 0's
+     and pose), fuse_rows once a frame; the service drops the POSTed
+     ht/lt in disinf mode, as the JAX service does, so the served volume
+     is bit-equal to a card replay fed ht = lt = None and within that
+     replay's JAX fingerprint (data/orbit_vga_bench_noseg_fingerprint.json); /render at frame 0's
      pose, 640x480, five times (median HTTP round trip), each splat kernel
      once a request, bit-equal to ray_cast(renderer="auto") and the plain
      splat; /query on the bridge's 2 m cube equal to gather_voxels; /stats
@@ -207,9 +210,27 @@ exits non-zero:
      each splat kernel 6 times, sample_rows only in the self-check
      (bench_launches in the kernels line).  Its line and its summary are
      printed.
+  16. the captured steps (utils/graphs.py: each per-frame step one CUDA
+     graph, the pose in device memory, the counterpart of the JAX
+     package's jitted, donated steps): (a) the bench replay, all 60
+     frames through TSDFGrid eager and then captured, three times in
+     turns: every volume array equal, the captured volume within the
+     fingerprint, ms/frame of each over frames 6-59 (CUDA events, the
+     upload included, median of 3), fuse_rows launches and graph replays
+     a frame, clocks.sm and power.draw; (b) FusedOnlineStep with the UNet
+     and with FastSeg over 30 frames, eager and captured: the volumes
+     equal, online_fps of each; (c) the splat render at frames 0-4's
+     poses, eager (splat_render_cuda) and captured (TSDFGrid.ray_cast):
+     every image equal, ms a render of each; (d) DISINFSystem integrating
+     on its own thread against its eager twin; (e) a recenter in the
+     middle of a captured replay: new captures, the volume equal to the
+     eager twin's; then both replays profiled (frames 6-17: device time,
+     kernels, host launch calls and graph launches a frame, idle share).
+     The kernels line gives each kernel's launches made by graph replays
+     over the run (graph_replays).
 
 Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 13,
-then 14, then 15, then 7 (which
+then 14, then 15, then 16, then 7 (which
 also profiles the two matchers: kernels and device time a call).  Phase
 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
 they project block rows in registers) against their plain versions at
@@ -263,6 +284,10 @@ SPLAT_VOXEL, SPLAT_TRUNC = 0.004, 0.024  # the bench preset's voxel size and tru
 RENDER_MAX_DEPTH = 4.0
 ONLINE_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
                                   "orbit_vga_online_fingerprint.json")
+# the bench replay with ht = lt = 1 (scripts/port_fingerprint.py
+# --no-semantics): the service drops POSTed ht / lt in disinf mode
+NOSEG_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                                 "orbit_vga_bench_noseg_fingerprint.json")
 EXPORT_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
                                   "orbit_vga_export_fingerprint.json")
 # meshes against the JAX reference's (its volume agrees within the limits
@@ -436,13 +461,15 @@ def block_rows(seed, img_h, img_w, about_z, dev):
     """fuse_rows inputs at the slice's shapes (tests/torch_cases.py's
     block_case at the bench preset's 4 mm voxels, V rows, COUNT live):
     (frame, block_pos, pool_idx, geometry kwargs) on the card."""
+    from disinfect_slam_tpu_torch.core.geometry import DevicePose
     from tests.torch_cases import block_case
 
     c = block_case(seed, img_h, img_w, V, COUNT, POOL, voxel_size=0.004, about_z=about_z,
                    with_pool=False)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    # the pose in device memory, as the captured steps hand it to the kernel
     return (t(c["img"]), t(c["block_pos"]), t(c["pool_idx"]),
-            dict(cam_T_world=c["pose"], intrinsics=c["intrinsics"],
+            dict(cam_T_world=DevicePose.from_se3(c["pose"], dev), intrinsics=c["intrinsics"],
                  voxel_size=c["voxel_size"]))
 
 
@@ -613,7 +640,7 @@ def make_splat_blocks(seed, img_h, img_w, dev, about_z=False):
     each block layer at one depth; the pool of make_splat_pool.  -> (rows
     (block_pos, pool_idx, count), pool (tsdf, rgbw, prob), geometry
     keywords) on the card."""
-    from disinfect_slam_tpu_torch.core.geometry import CameraParams
+    from disinfect_slam_tpu_torch.core.geometry import CameraParams, DevicePose
     from tests.torch_cases import splat_block_case
 
     c = splat_block_case(seed, img_h, img_w, SPLAT_ROWS, SPLAT_COUNT, POOL,
@@ -622,7 +649,9 @@ def make_splat_blocks(seed, img_h, img_w, dev, about_z=False):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     rows = (t(c["block_pos"]), t(c["pool_idx"]),
             torch.tensor(SPLAT_COUNT, dtype=torch.int32, device=dev))
-    geometry = dict(cam_T_world=c["pose"], cam=CameraParams.create(c["intrinsics"], img_h, img_w),
+    # the pose in device memory, as the captured render hands it to K4/K5
+    geometry = dict(cam_T_world=DevicePose.from_se3(c["pose"], dev),
+                    cam=CameraParams.create(c["intrinsics"], img_h, img_w),
                     voxel_size=c["voxel_size"], truncation=c["truncation"],
                     max_depth=c["max_depth"], band=c["band"])
     return rows, make_splat_pool(dev, seed, SPLAT_VOXEL, SPLAT_TRUNC), geometry
@@ -1217,7 +1246,8 @@ def online_slice(fuse_kernel, sample_kernel, dev, smi, render_dir):
         raise AssertionError("orbit_vga frames are not u8 rgb / u16 depth")
 
     seg_res, models = check_seg(seg, dev, frames[0][0], ref["seg_frame0"])
-    warm = BENCH.alloc_every
+    # every (cadence, staging slot) key of the captured step
+    warm = GRAPH_WARM
 
     def make_step(model):
         return FusedOnlineStep(BENCH, intrinsics, H, W, BENCH_MAX_DEPTH, seg_model=model,
@@ -1283,11 +1313,11 @@ def check_fuse_real_frame(fuse_kernel, grid, index, dev):
     frame `index` of the bench replay over the fused volume (copies of its
     pool arrays: the volume stays as it is), and its yardsticks there."""
     from disinfect_slam_tpu_torch.config import BENCH_MAX_DEPTH
-    from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.core.geometry import DevicePose
     from disinfect_slam_tpu_torch.ops.integrate import depth_to_range, gather_visible, stack_frame
 
     cam, (fr,) = bench_frames(index, 1)
-    pose = SE3.from_matrix(fr.cam_T_world)
+    pose = DevicePose.from_matrix(fr.cam_T_world, dev)
     vol, cfg = grid.volume, grid.cfg
     img = stack_frame(upload_frame(fr, dev), depth_to_range(cam, dev))
     vis = gather_visible(vol, cam, pose)
@@ -2142,11 +2172,30 @@ def bench_service(offline, dev):
     return system, httpd, f"http://127.0.0.1:{httpd.server_address[1]}", replay, intrinsics
 
 
+def noseg_replay(offline, dev):
+    """The bench replay on the card fed ht = lt = None, as the service
+    fuses POSTed frames in disinf mode (it drops their ht / lt): a TSDFGrid
+    at the bench preset."""
+    from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+    from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
+
+    cfg, voxel, trunc, max_depth = offline.make_config(offline.parse_args(
+        ["--logdir", DATASET, "--preset", "bench", "--sampler", "pallas_fused"]))
+    intrinsics = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
+    grid = TSDFGrid(voxel, trunc, cfg=cfg, device=dev)
+    for fr in LoggedReplay(DATASET, 5000.0):
+        grid.integrate(fr.rgb, fr.depth, None, None, max_depth, intrinsics, fr.cam_T_world)
+    return grid
+
+
 def served_map(offline, grid, fuse_kernel, splat_kernel, ref, export_ref, smi, dev) -> dict:
     """Phase 9a: the service in process.  POST every frame of the bench
     replay (rgb, depth, ht, lt, pose as npz); fuse_rows launches once a
-    frame; the served volume equals phase 3's bit for bit and meets the
-    fingerprint; /render at frame 0's pose launches each splat kernel once
+    frame; the service drops the POSTed ht / lt, as the JAX service does,
+    so the served volume equals a card replay fed ht = lt = None bit for
+    bit and meets that replay's JAX fingerprint
+    (data/orbit_vga_bench_noseg_fingerprint.json); /render at frame 0's pose launches each splat kernel once
     a request and gives ray_cast(renderer="auto")'s and the plain splat's
     bits; /query on the bridge's 2 m cube gives gather_voxels' records;
     /stats, /query and /mesh timed."""
@@ -2176,14 +2225,19 @@ def served_map(offline, grid, fuse_kernel, splat_kernel, ref, export_ref, smi, d
             raise AssertionError(f"served replay: fuse_rows {launches}, stats {stats}, splat "
                                  f"{[fn.launches for fn in splat_fns]}, dropped "
                                  f"{system.tsdf.dropped_frames}")
-        equal = volumes_equal(served.volume, grid.volume)
+        noseg = noseg_replay(offline, dev)
+        equal = volumes_equal(served.volume, noseg.volume)
+        del noseg
         log(f"[chip_smoke] served replay: {len(replay)} frames POSTed in {stream_s:.2f} s "
             f"(median {statistics.median(post_ms):.1f} ms a POST, npz of rgb, depth, ht, lt, "
-            f"pose), fuse_rows launches {launches}; the served volume equals phase 3's bit "
-            f"for bit: {equal} ({smi})")
+            f"pose), fuse_rows launches {launches}; the served volume equals the card replay "
+            f"fed ht = lt = None bit for bit: {equal} ({smi})")
         if not all(equal.values()):
-            raise AssertionError(f"served volume differs from phase 3's: {equal}")
-        fp = check_fingerprint(served, int(served.gather_valid().count), ref, "served volume")
+            raise AssertionError(f"served volume differs from the no-semantics replay's: {equal}")
+        with open(NOSEG_FINGERPRINT) as f:
+            noseg_ref = json.load(f)
+        fp = check_fingerprint(served, int(served.gather_valid().count), noseg_ref,
+                               "served volume (no semantics)")
 
         pose0 = replay.entries[0][1]
         fx = float(intrinsics[0])
@@ -3723,6 +3777,297 @@ def bench_phase(smi) -> dict:
             "summary": next(x for x in err if x.startswith("[bench] platform="))}
 
 
+# ----------------------------------------------------------------------
+# phase 16: the captured steps (CUDA graphs of the per-frame steps, the
+# pose in device memory)
+# ----------------------------------------------------------------------
+GRAPH_REPS = 3  # timed runs of each side (median)
+GRAPH_WARM = 6  # frames before the timed ones: every (cadence, slot) key captured
+GRAPH_PROFILED = 12  # frames 6-17 profiled on each side (four allocation cycles)
+
+
+def smi_clocks() -> str:
+    """The card's SM clock and power draw now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def bench_grid(offline, dev, capture: bool):
+    """A TSDFGrid at the offline app's bench preset, captured or eager ->
+    (grid, max_depth)."""
+    from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
+
+    cfg, voxel, trunc, max_depth = offline.make_config(offline.parse_args(
+        ["--logdir", DATASET, "--preset", "bench", "--sampler", "pallas_fused"]))
+    return TSDFGrid(voxel, trunc, cfg=cfg, device=dev, capture=capture), max_depth
+
+
+def replay_frames() -> list:
+    """Every frame of the bench replay, decoded once: (rgb, depth, ht, lt,
+    cam_T_world) host arrays."""
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+
+    return [(fr.rgb, fr.depth, fr.ht, fr.lt, fr.cam_T_world)
+            for fr in LoggedReplay(DATASET, 5000.0)]
+
+
+def timed_replay(offline, dev, frames, intrinsics, capture: bool):
+    """All frames through a fresh bench grid, the upload included; CUDA
+    events around frames GRAPH_WARM.. -> (grid, ms/frame of those)."""
+    grid, max_depth = bench_grid(offline, dev, capture)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i, (rgb, depth, ht, lt, pose) in enumerate(frames):
+        if i == GRAPH_WARM:
+            torch.cuda.synchronize()
+            start.record()
+        grid.integrate(rgb, depth, ht, lt, max_depth, intrinsics, pose)
+    end.record()
+    torch.cuda.synchronize()
+    return grid, start.elapsed_time(end) / (len(frames) - GRAPH_WARM)
+
+
+def replay_profile(offline, dev, frames, intrinsics, capture: bool) -> dict:
+    """Frames GRAPH_WARM.. GRAPH_WARM + GRAPH_PROFILED - 1 of a fresh bench
+    grid under torch.profiler: device kernels and their time a frame, the
+    host's kernel launch calls and graph launches a frame, the idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    grid, max_depth = bench_grid(offline, dev, capture)
+    for rgb, depth, ht, lt, pose in frames[:GRAPH_WARM]:
+        grid.integrate(rgb, depth, ht, lt, max_depth, intrinsics, pose)
+    torch.cuda.synchronize()
+    part = frames[GRAPH_WARM:GRAPH_WARM + GRAPH_PROFILED]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rgb, depth, ht, lt, pose in part:
+            grid.integrate(rgb, depth, ht, lt, max_depth, intrinsics, pose)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    launch_calls = sum(1 for e in events if e.device_type.name == "CPU"
+                       and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                                      "cuLaunchKernelEx"))
+    graph_calls = sum(1 for e in events if e.device_type.name == "CPU"
+                      and e.name in ("cudaGraphLaunch", "cuGraphLaunch"))
+    n = len(part)
+    del grid
+    torch.cuda.empty_cache()
+    return {"frames": n, "wall_ms_per_frame": wall_ms / n, "device_ms_per_frame": device_ms / n,
+            "kernels_per_frame": len(kernels) / n, "launch_calls_per_frame": launch_calls / n,
+            "graph_launches_per_frame": graph_calls / n,
+            "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+
+
+def captured_fusion(offline, dev, frames, intrinsics, ref, fuse_kernel, smi):
+    """Phase 16a: the bench replay eager, then captured, GRAPH_REPS times
+    each in turns; every volume array equal, the captured volume within the
+    fingerprint; ms/frame (CUDA events, median), launches and graph
+    replays a frame, the clocks.  Returns (report, the last captured
+    grid)."""
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
+
+    runs = {"eager": [], "captured": []}
+    counts = {}
+    grid = None
+    for rep in range(GRAPH_REPS):
+        eager, ms = timed_replay(offline, dev, frames, intrinsics, False)
+        runs["eager"].append(ms)
+        launches, replays = fuse_kernel.fuse_rows.launches, REPLAYS["graph"]
+        del grid
+        torch.cuda.empty_cache()
+        grid, ms = timed_replay(offline, dev, frames, intrinsics, True)
+        runs["captured"].append(ms)
+        counts = {"fuse_rows_per_frame": (fuse_kernel.fuse_rows.launches - launches) / len(frames),
+                  "graph_replays_per_frame": (REPLAYS["graph"] - replays) / len(frames),
+                  "graph_replays": REPLAYS["graph"] - replays,
+                  "captures": grid.graphs.captures}
+        equal = volumes_equal(grid.volume, eager.volume)
+        del eager
+        torch.cuda.empty_cache()
+        if not all(equal.values()):
+            raise AssertionError(f"captured replay {rep}: the volume differs from the eager "
+                                 f"one's: {equal}")
+    fp = check_fingerprint(grid, int(grid.gather_valid().count), ref, "captured replay")
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    clocks = smi_clocks()
+    log(f"[chip_smoke] captured bench replay: ms/frame over frames {GRAPH_WARM}-"
+        f"{len(frames) - 1} (CUDA events, upload included) eager {runs['eager']} -> median "
+        f"{med['eager']:.3f}, captured {runs['captured']} -> median {med['captured']:.3f}; "
+        f"every volume array equal; fuse_rows {counts['fuse_rows_per_frame']:.2f} a frame, "
+        f"graph replays {counts['graph_replays_per_frame']:.2f} a frame, {counts['captures']} "
+        f"captures; clocks.sm, power.draw: {clocks} ({smi})")
+    return {"ms_per_frame": runs, "median_ms": med, "counts": counts, "fingerprint": fp,
+            "clocks": clocks}, grid
+
+
+def captured_online(dev, fuse_kernel, smi) -> dict:
+    """Phase 16b: FusedOnlineStep with the UNet and with FastSeg over the
+    first 30 frames, eager and captured: the volumes bit-equal, online_fps
+    of each (bench.time_online, GRAPH_WARM frames of warm-up)."""
+    from disinfect_slam_tpu_torch.apps.bench import time_online
+    from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
+    from disinfect_slam_tpu_torch.io.dataset import LoggedReplay
+    from disinfect_slam_tpu_torch.io.png_io import read_image
+    from disinfect_slam_tpu_torch.models import segmentation as seg
+    from disinfect_slam_tpu_torch.systems.online_step import FusedOnlineStep
+
+    intrinsics = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
+    frames = []
+    for fid, pose in LoggedReplay(DATASET, 5000.0).entries[:ONLINE_FRAMES]:
+        base = os.path.join(DATASET, str(fid))
+        frames.append((read_image(base + "_rgb.png"),
+                       read_image(base + "_depth.png", unchanged=True), pose))
+    out = {}
+    for arch in ("unet", "fast"):
+        model = seg.load_model(arch, device=dev)
+        steps, fps = {}, {}
+        for name, capture in (("eager", False), ("captured", True)):
+            steps[name] = FusedOnlineStep(BENCH, intrinsics, H, W, BENCH_MAX_DEPTH,
+                                          seg_model=model, depth_factor=5000.0, device=dev,
+                                          capture=capture)
+            fps[name] = time_online(steps[name], frames, GRAPH_WARM)
+        equal = volumes_equal(steps["captured"].volume, steps["eager"].volume)
+        replays = steps["captured"].graphs.replays
+        del steps, model
+        torch.cuda.empty_cache()
+        log(f"[chip_smoke] captured online step ({arch}): online_fps eager {fps['eager']:.3f}, "
+            f"captured {fps['captured']:.3f} (frames {GRAPH_WARM}-{ONLINE_FRAMES - 1}); "
+            f"{replays} graph replays; every volume array equal: {all(equal.values())} ({smi})")
+        if not all(equal.values()):
+            raise AssertionError(f"captured online step ({arch}) differs: {equal}")
+        out[arch] = {"online_fps": fps, "graph_replays": replays}
+    return out
+
+
+def captured_render(grid, splat_kernel, intrinsics, poses, smi) -> dict:
+    """Phase 16c: the splat render at frames 0-4's poses, 640x480, captured
+    (TSDFGrid.ray_cast) against eager (splat_render_cuda) on the captured
+    replay's volume: every image bit-equal; ms a render of each (CUDA
+    events over the five, median of GRAPH_REPS passes, after a warm-up)."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+
+    cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), H, W)
+    view = (intrinsics, H, W)
+    views = poses[:5]
+    sides = {
+        "eager": lambda p: splat_kernel.splat_render_cuda(grid.volume, cam, SE3.from_matrix(p),
+                                                          RENDER_MAX_DEPTH),
+        "captured": lambda p: grid.ray_cast(RENDER_MAX_DEPTH, view, p, renderer="splat"),
+    }
+    images, ms = {}, {}
+    for name, render in sides.items():
+        images[name] = [render(p) for p in views]  # the warm-up (and the capture)
+        passes = []
+        for _ in range(GRAPH_REPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            for p in views:
+                render(p)
+            end.record()
+            torch.cuda.synchronize()
+            passes.append(start.elapsed_time(end) / len(views))
+        ms[name] = passes
+    images["captured"] = [sides["captured"](p) for p in views]  # replays
+    equal = all(torch.equal(a, b) for ra, rb in zip(images["eager"], images["captured"])
+                for a, b in zip(ra[:4], rb[:4]))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"[chip_smoke] captured splat render at frames 0-4's poses: ms/render eager {ms['eager']} "
+        f"-> {med['eager']:.3f}, captured {ms['captured']} -> {med['captured']:.3f}; every "
+        f"image bit-equal: {equal} ({smi})")
+    if not equal:
+        raise AssertionError("the captured splat render differs from the eager one")
+    return {"ms_per_render": ms, "median_ms": med}
+
+
+def captured_system(offline, dev, frames, intrinsics, smi) -> dict:
+    """Phase 16d: DISINFSystem at the bench preset integrating on its own
+    thread (captures there: thread-local mode), 30 frames with their
+    poses, against its eager twin: every volume array equal."""
+    from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
+
+    cfg, voxel, trunc, max_depth = offline.make_config(offline.parse_args(
+        ["--logdir", DATASET, "--preset", "bench", "--sampler", "pallas_fused"]))
+    kw = dict(depth_factor=1.0, voxel_size=voxel, truncation=trunc, max_depth=max_depth,
+              cfg=cfg, half_scale=False, device=dev)
+    with DISINFSystem(intrinsics, **kw) as captured, DISINFSystem(intrinsics, **kw) as eager:
+        eager.tsdf.tsdf.capture = False
+        for i, (rgb, depth, _, _, pose) in enumerate(frames[:ONLINE_FRAMES]):
+            for system in (captured, eager):
+                system.feed_pose(33 * i, pose)
+                system.feed_rgbd_frame(rgb, depth, 33 * i)
+        for system in (captured, eager):
+            system.tsdf.flush()
+        grids = [s.tsdf.tsdf for s in (captured, eager)]
+        equal = volumes_equal(grids[0].volume, grids[1].volume)
+        res = {"graph_replays": grids[0].graphs.replays, "captures": grids[0].graphs.captures,
+               "dropped": [s.tsdf.dropped_frames for s in (captured, eager)]}
+    log(f"[chip_smoke] DISINFSystem on its own thread: {res['captures']} captures, "
+        f"{res['graph_replays']} replays over {ONLINE_FRAMES} frames, dropped {res['dropped']}; "
+        f"every volume array equal to the eager twin's: {all(equal.values())} ({smi})")
+    if not all(equal.values()) or any(res["dropped"]) or not res["graph_replays"]:
+        raise AssertionError(f"DISINFSystem captured on its thread: {res}, {equal}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def captured_recenter(offline, dev, frames, intrinsics, smi) -> dict:
+    """Phase 16e: one recenter in the middle of a captured replay (frames
+    0-29, the window moved 1 m along x at frame 15): the captured grid
+    captures anew and still equals its eager twin in every array."""
+    (captured, max_depth), (eager, _) = (bench_grid(offline, dev, c) for c in (True, False))
+    grids = [captured, eager]
+    captures = []
+    for i, (rgb, depth, ht, lt, pose) in enumerate(frames[:ONLINE_FRAMES]):
+        if i == ONLINE_FRAMES // 2:
+            captures.append(grids[0].graphs.captures)
+            cam_pos = np.linalg.inv(np.asarray(pose, np.float64))[:3, 3] + (1.0, 0.0, 0.0)
+            moved = [g.recenter(cam_pos) for g in grids]
+            if moved != [True, True]:
+                raise AssertionError(f"the recenter did not move the window: {moved}")
+        for g in grids:
+            g.integrate(rgb, depth, ht, lt, max_depth, intrinsics, pose)
+    captures.append(grids[0].graphs.captures)
+    equal = volumes_equal(grids[0].volume, grids[1].volume)
+    log(f"[chip_smoke] recenter at frame {ONLINE_FRAMES // 2} of a captured replay: captures "
+        f"{captures[0]} before, {captures[1]} after; every volume array equal to the eager "
+        f"twin's: {all(equal.values())} ({smi})")
+    if not all(equal.values()) or captures[1] <= captures[0]:
+        raise AssertionError(f"recentred captured replay: captures {captures}, {equal}")
+    del grids, captured, eager
+    torch.cuda.empty_cache()
+    return {"captures": captures}
+
+
+def captured_steps(offline, fuse_kernel, splat_kernel, intrinsics, poses, ref, dev, smi) -> dict:
+    """Phase 16 (see the docstring); returns the report entry."""
+    frames = replay_frames()
+    fusion, grid = captured_fusion(offline, dev, frames, intrinsics, ref, fuse_kernel, smi)
+    render = captured_render(grid, splat_kernel, intrinsics, poses, smi)
+    del grid
+    torch.cuda.empty_cache()
+    online = captured_online(dev, fuse_kernel, smi)
+    system = captured_system(offline, dev, frames, intrinsics, smi)
+    recenter = captured_recenter(offline, dev, frames, intrinsics, smi)
+    # the profiles last: a profiler trace leaves the host slower afterwards
+    profile = {name: replay_profile(offline, dev, frames, intrinsics, capture)
+               for name, capture in (("eager", False), ("captured", True))}
+    for name, p in profile.items():
+        log(f"[chip_smoke] {name} bench replay profiled (frames {GRAPH_WARM}-"
+            f"{GRAPH_WARM + GRAPH_PROFILED - 1}): wall {p['wall_ms_per_frame']:.3f} ms/frame, "
+            f"device {p['device_ms_per_frame']:.3f} ms/frame in {p['kernels_per_frame']:.1f} "
+            f"kernels; host launch calls {p['launch_calls_per_frame']:.1f} and graph launches "
+            f"{p['graph_launches_per_frame']:.1f} a frame; idle share "
+            + (f"{p['idle_share']:.3f}" if p["idle_share"] is not None else "not measured"))
+    return {"fusion": fusion, "render": render, "online": online, "system": system,
+            "recenter": recenter, "profile": profile}
+
+
 def probe_timer(fn, name, nbytes=0) -> float:
     """The probes' timer: kernel_ms, with the bound of nbytes as its
     floor."""
@@ -4074,6 +4419,19 @@ def main() -> int:
         f"{bench['payload']['stereo_ms']} ({smi}) ({time.perf_counter() - t15:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    # phase 16: the captured steps
+    t16 = time.perf_counter()
+    captured = captured_steps(offline, fuse_kernel, splat_kernel, intrinsics, poses, ref, dev,
+                              smi)
+    log(f"[chip_smoke] phase 16: captured steps ok; bench replay "
+        f"{captured['fusion']['median_ms']['eager']:.3f} ms/frame eager, "
+        f"{captured['fusion']['median_ms']['captured']:.3f} captured; splat "
+        f"{captured['render']['median_ms']['eager']:.3f} / "
+        f"{captured['render']['median_ms']['captured']:.3f} ms/render; online_fps (UNet) "
+        f"{captured['online']['unet']['online_fps']['eager']:.3f} / "
+        f"{captured['online']['unet']['online_fps']['captured']:.3f} ({smi}) "
+        f"({time.perf_counter() - t16:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
     fusion["profile"] = fusion_profile(offline, dev)
@@ -4086,6 +4444,8 @@ def main() -> int:
     stereo["profile"] = stereo_profile(dev)
     log(f"[chip_smoke] phase 7: device times ({smi}) ({time.perf_counter() - t7:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
+
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS as graph_replays
 
     report = {
         "card": smi,
@@ -4111,6 +4471,8 @@ def main() -> int:
         "seg_parallel": seg_par,
         "kernel_verify": verify,
         "bench": bench,
+        "captured": captured,
+        "graph_replays": dict(graph_replays),
         "splat_zbuf_slam_320x240": splat_slam,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
@@ -4202,6 +4564,9 @@ def main() -> int:
          "branches_real_render": render["payload_branches"]},
         *probe_kernels(probe, probe_main_launches),
     ]
+    # the launches each kernel made through graph replays over the whole run
+    for k in kernels:
+        k["graph_replays"] = graph_replays.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -21,17 +21,25 @@ kernel's launches on the bench's stages and, apart, in the self-check,
 and the card's name and power limit.
 
 Stages, each timed once (warm-up first, one synchronisation at its end);
-a stage that raises fails the run:
+a stage that raises fails the run.  As bench.py times jitted, donated
+steps, the timed stages run the captured steps (utils/graphs.py: a CUDA
+graph a step on the card, after a warm-up that captures every key); the
+same stages run eagerly go on stderr beside them ("... eager"):
 
   self-check  utils/kernel_verify.verify_all on the card; exits 1 on a
               failure, before anything is timed
-  fusion      every frame staged on the device, then one integrate call a
-              frame (`value`, frames/s); at the bench configuration on
-              the orbit_vga replay the volume is held to the JAX
-              reference's fingerprint (data/orbit_vga_bench_fingerprint.json)
-  splat       the K4/K5 splat render at frames 0-4's poses (splat_ms)
+  fusion      every frame and pose staged on the device, then one
+              IntegrateStep a frame (`value`, frames/s), its warm-up on
+              the timed volume, reset in place after it; at the bench
+              configuration on the orbit_vga replay the volume is held to
+              the JAX reference's fingerprint
+              (data/orbit_vga_bench_fingerprint.json), and it must equal
+              the eager replay's bit for bit
+  splat       the K4/K5 splat render (SplatStep) at frames 0-4's poses
+              (splat_ms)
   raycast     the parity raycaster at the same poses (raycast_ms;
-              DSTPU_BENCH_RAYCAST=0 skips it)
+              DSTPU_BENCH_RAYCAST=0 skips it; eager: it reads the host
+              every march step)
   online      FusedOnlineStep with the shipped UNet on u8 rgb and u16
               depth host frames, the upload included (online_fps), and
               with FastSeg on the card (online_fps_fast)
@@ -64,6 +72,7 @@ import argparse
 import dataclasses
 import glob
 import json
+import math
 import os
 import sys
 import time
@@ -72,20 +81,21 @@ import numpy as np
 import torch
 
 from ..config import BENCH, BENCH_MAX_DEPTH
-from ..core.geometry import SE3, CameraIntrinsics, CameraParams
+from ..core.geometry import SE3, CameraIntrinsics, CameraParams, DevicePose
 from ..core.state import TSDFVolume
 from ..io.checkpoint import volume_to_numpy
 from ..io.dataset import LoggedReplay, TUMReplay
 from ..io.orbit_scene import make_orbit_frames
 from ..models import segmentation as seg
 from ..ops import render_fast
-from ..ops.cuda import fuse_kernel, sample_kernel, splat_kernel
+from ..ops.cuda import splat_kernel
 from ..ops.gather import fingerprint_gaps, gather_valid, volume_fingerprint
-from ..ops.integrate import FrameInput, integrate
+from ..ops.integrate import FrameInput, IntegrateStep, integrate
 from ..ops.raycast import raycast
 from ..ops.stereo import block_match
 from ..systems.online_step import FusedOnlineStep
 from ..utils.device import resolve_device, upload
+from ..utils.graphs import counted_kernels
 from ..utils.kernel_verify import verify_all
 from ..utils.timing import card_name_and_power
 
@@ -112,8 +122,7 @@ ONLINE_FRAMES = 30
 STEREO_DISP, STEREO_ROLL = 64, 13
 
 # the hand kernels' wrappers; each counts its launches
-KERNELS = (sample_kernel.sample_rows, fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
-           splat_kernel.splat_payload_blocks)
+KERNELS = counted_kernels()
 
 
 def log(msg: str) -> None:
@@ -211,22 +220,34 @@ def launches() -> dict:
 
 
 def stage_frames(frames, dev: torch.device) -> list:
-    """Every frame on the device as (FrameInput, host SE3 pose)."""
-    return [(FrameInput(*(upload(a, dev) for a in (rgb, depth, ht, lt))), SE3.from_matrix(pose))
-            for pose, rgb, depth, ht, lt in frames]
+    """Every frame on the device as (FrameInput, host SE3 pose, the pose
+    staged on the device as a DevicePose)."""
+    out = []
+    for pose, rgb, depth, ht, lt in frames:
+        se3 = SE3.from_matrix(pose)
+        out.append((FrameInput(*(upload(a, dev) for a in (rgb, depth, ht, lt))), se3,
+                    DevicePose.from_se3(se3, dev)))
+    return out
 
 
-def time_fusion(cfg, cam, staged, max_depth: float, dev, profile_dir=None):
-    """Both allocation variants warmed into a throwaway volume, then every
-    staged frame once into a fresh one, synchronised at the end: (volume,
-    frames/s)."""
+def time_fusion(cfg, cam, staged, max_depth: float, dev, profile_dir=None, captured=True):
+    """Both allocation variants warmed, then every staged frame once into
+    a fresh volume, synchronised at the end: (volume, frames/s).  Captured
+    (IntegrateStep, the device poses), the warm-up runs on the timed
+    volume, so that its keys are captured, and the volume is reset in
+    place after it; eager (integrate, the host poses), into a throwaway
+    volume."""
+    step = IntegrateStep(dev) if captured else integrate
     vol = TSDFVolume.create(cfg, dev)
-    vol = integrate(vol, staged[0][0], cam, staged[0][1], max_depth)
-    if cfg.alloc_every > 1:
-        vol = integrate(vol, staged[1][0], cam, staged[1][1], max_depth, allocate=False)
+    for i in range(min(2, cfg.alloc_every)):
+        fr, pose, dpose = staged[i]
+        step(vol, fr, cam, dpose if captured else pose, max_depth, allocate=i == 0)
     sync(dev)
-    del vol
-    vol = TSDFVolume.create(cfg, dev)
+    if captured:
+        vol.reset_()
+    else:
+        del vol
+        vol = TSDFVolume.create(cfg, dev)
     sync(dev)
     prof = None
     if profile_dir:
@@ -236,8 +257,9 @@ def time_fusion(cfg, cam, staged, max_depth: float, dev, profile_dir=None):
         prof = torch.profiler.profile(activities=acts)
         prof.start()
     t0 = time.perf_counter()
-    for i, (fr, pose) in enumerate(staged):
-        vol = integrate(vol, fr, cam, pose, max_depth, allocate=i % cfg.alloc_every == 0)
+    for i, (fr, pose, dpose) in enumerate(staged):
+        vol = step(vol, fr, cam, dpose if captured else pose, max_depth,
+                   allocate=i % cfg.alloc_every == 0)
     sync(dev)
     dt = time.perf_counter() - t0
     if prof is not None:
@@ -280,8 +302,9 @@ def time_renders(render, vol, cam, poses, max_depth: float, dev) -> float:
 
 
 def time_online(step: FusedOnlineStep, host_frames, warm: int) -> float:
-    """Frames/s of step over host_frames after `warm` warm-up frames (both
-    allocation variants), one synchronisation."""
+    """Frames/s of step over host_frames after `warm` warm-up frames
+    (every key of the captured step: both allocation variants in both
+    staging slots), one synchronisation."""
     for f in host_frames[:warm]:
         step.step(*f)
     step.block_until_ready()
@@ -375,6 +398,17 @@ def run(args) -> dict:
     staged = stage_frames(frames, dev)
     vol, fps = counted("fusion", time_fusion, cfg, cam, staged, max_depth, dev,
                        os.environ.get("DSTPU_PROFILE"))
+    eager_vol, eager_fps = counted("fusion eager", time_fusion, cfg, cam, staged, max_depth,
+                                   dev, None, False)
+    differ = [f for f in ("entry_key", "entry_block", "block_table", "heap", "num_free",
+                          "oob_count", "tsdf", "rgbw", "prob")
+              if not torch.equal(getattr(vol, f), getattr(eager_vol, f))]
+    del eager_vol
+    log(f"[bench] fusion eager: {eager_fps:.2f} frames/s; the captured volume equals the eager "
+        f"one bit for bit: {not differ}")
+    if differ:
+        raise SystemExit(f"[bench] the captured fusion's volume differs from the eager one in "
+                         f"{differ}")
     summary = volume_summary(vol)
     with open(FINGERPRINT) as f:
         ref = json.load(f)
@@ -386,9 +420,13 @@ def run(args) -> dict:
         f"blocks; " + ("within the reference's limits" if held
                        else "not held to the reference (another dataset or size)"))
 
-    poses = [pose for _, pose in staged[:RENDERS]]
+    poses = [pose for _, pose, _ in staged[:RENDERS]]
     render = splat_kernel.splat_render_cuda if on_card else render_fast.splat_render
-    splat_ms = counted("splat", time_renders, render, vol, cam, poses, max_depth, dev)
+    splat_ms = counted("splat", time_renders, splat_kernel.SplatStep(dev), vol, cam,
+                       [dpose for _, _, dpose in staged[:RENDERS]], max_depth, dev)
+    splat_eager_ms = counted("splat eager", time_renders, render, vol, cam, poses, max_depth,
+                             dev)
+    log(f"[bench] splat: {splat_ms:.2f} ms a render captured, {splat_eager_ms:.2f} eager")
     ray_ms = None
     if os.environ.get("DSTPU_BENCH_RAYCAST", "1") == "1":
         ray_ms = counted("raycast", time_renders, raycast, vol, cam, poses, max_depth, dev)
@@ -399,17 +437,21 @@ def run(args) -> dict:
     host_frames = [(np.clip(rgb, 0, 255).astype(np.uint8),
                     np.clip(depth * DEPTH_FACTOR, 0, 65535).astype(np.uint16), pose)
                    for pose, rgb, depth, _, _ in frames[:ONLINE_FRAMES]]
-    warm = max(cfg.alloc_every, 1)
+    # every (allocation cadence, staging slot) key of the captured step
+    warm = math.lcm(max(cfg.alloc_every, 1), 2)
     models = {"unet": seg.load_model("unet", device=dev)}
     if on_card:
         models["fast"] = seg.load_model("fast", device=dev)
-    online = {}
+    online, online_eager = {}, {}
     for arch, model in models.items():
-        step = FusedOnlineStep(cfg, k, h, w, max_depth, seg_model=model,
-                               depth_factor=DEPTH_FACTOR, device=dev)
-        online[arch] = counted(f"online {arch}", time_online, step, host_frames, warm)
-        del step
-        log(f"[bench] online[{arch}] (upload + seg + fuse a frame): {online[arch]:.2f} FPS")
+        for captured, rates, name in ((True, online, f"online {arch}"),
+                                      (False, online_eager, f"online {arch} eager")):
+            step = FusedOnlineStep(cfg, k, h, w, max_depth, seg_model=model,
+                                   depth_factor=DEPTH_FACTOR, device=dev, capture=captured)
+            rates[arch] = counted(name, time_online, step, host_frames, warm)
+            del step
+        log(f"[bench] online[{arch}] (upload + seg + fuse a frame): {online[arch]:.2f} FPS "
+            f"captured, {online_eager[arch]:.2f} eager")
 
     rgb_u8 = np.ascontiguousarray(frames[0][1]).astype(np.uint8)
     seg_iters = int(os.environ.get("DSTPU_BENCH_SEG_ITERS", "10"))
@@ -428,7 +470,10 @@ def run(args) -> dict:
     fmt = lambda v: "none" if v is None else f"{v:.2f}"  # noqa: E731
     log(f"[bench] platform={dev.type} img={w}x{h} voxel={cfg.voxel_size} frames={n_frames} "
         f"active_blocks={summary['active_blocks']} integrate_fps={fps:.2f} "
-        f"raycast_ms={fmt(ray_ms)} splat_ms={splat_ms:.2f} seg_ms={seg_ms:.2f} "
+        f"integrate_eager_fps={eager_fps:.2f} raycast_ms={fmt(ray_ms)} splat_ms={splat_ms:.2f} "
+        f"splat_eager_ms={splat_eager_ms:.2f} "
+        f"online_eager_fps={json.dumps({a: round(v, 2) for a, v in online_eager.items()})} "
+        f"seg_ms={seg_ms:.2f} "
         f"seg_dev_ms={seg_dev_ms:.2f} launches={json.dumps(total, separators=(',', ':'))} "
         f"self_check_launches={json.dumps(verify_launches, separators=(',', ':'))} "
         f"card={card}")
@@ -449,7 +494,8 @@ def run(args) -> dict:
     print(json.dumps(payload), flush=True)
     return {**payload, "stages": {
         "card": card, "frames": n_frames, "fingerprint": summary, "held_to_reference": held,
-        "splat_ms": splat_ms, "raycast_ms": ray_ms, "seg_ms": seg_ms, "seg_dev_ms": seg_dev_ms,
+        "fusion_eager_fps": eager_fps, "splat_eager_ms": splat_eager_ms,
+        "online_eager_fps": online_eager, "splat_ms": splat_ms, "raycast_ms": ray_ms, "seg_ms": seg_ms, "seg_dev_ms": seg_dev_ms,
         "launches": stage_launches, "self_check_launches": verify_launches}}
 
 

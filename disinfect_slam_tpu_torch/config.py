@@ -188,3 +188,7 @@ BENCH = TSDFConfig(
     alloc_every=3,
 )
 BENCH_MAX_DEPTH = 4.0
+
+# the default single-card config, the reference's offline example
+# (examples/tsdf/offline.cc:90: voxel 0.01 m, truncation 0.06 m)
+DEFAULT = TSDFConfig()

@@ -10,6 +10,15 @@ matrix directly, and taking the matrix instead moves poses by an ulp and
 with them the allocated blocks.  The entries then enter the per-voxel
 tensor ops as Python floats holding float32 values, so every op runs in
 float32 on whatever device the voxel tensors live on.
+
+`DevicePose` is the same pose in device memory (the counterpart of the
+traced pose array of the JAX package's jitted steps): one float32 buffer
+of 32 slots that the host fills with SE3's own float32 arithmetic, read
+by the tensor ops as 0-d views and by the kernels through a pointer, so
+that a captured step (utils/graphs.py) reads each frame's pose where a
+Python float would be frozen into the graph.  A float32 0-d tensor times
+a float32 tensor rounds as the Python float holding the same float32
+value does, so the two poses give the same bits.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..utils.device import upload
 
 _F = np.float32
 
@@ -80,8 +91,61 @@ def _quat_rotate(q: np.ndarray, v: np.ndarray) -> np.ndarray:
     return (v + _F(2.0) * (q[0] * uv + uuv)).astype(_F)
 
 
+class _PoseOps:
+    """The per-voxel pose ops, shared by the host pose (SE3: Python floats
+    holding float32 values) and the device pose (DevicePose: 0-d float32
+    views of its buffer).  Each op keeps the JAX package's order,
+    ((r0 x + r1 y) + r2 z) + t, one rounding per op."""
+
+    def rotation_entries(self) -> tuple:
+        raise NotImplementedError
+
+    def _translation(self) -> tuple:
+        raise NotImplementedError
+
+    def _quaternion(self) -> tuple:
+        raise NotImplementedError
+
+    def translation_tensor(self, device) -> torch.Tensor:
+        """The translation as a float32 [3] tensor on `device`."""
+        raise NotImplementedError
+
+    def apply(self, pts: torch.Tensor) -> torch.Tensor:
+        """Transform float32 points [..., 3] (a tensor): rotate(pts) + t."""
+        return self.rotate(pts) + self.translation_tensor(pts.device)
+
+    def apply_xyz(self, px, py, pz):
+        """Transform component tensors (float32) -> component tensors."""
+        r00, r01, r02, r10, r11, r12, r20, r21, r22 = self.rotation_entries()
+        t0, t1, t2 = self._translation()
+        return (
+            r00 * px + r01 * py + r02 * pz + t0,
+            r10 * px + r11 * py + r12 * pz + t1,
+            r20 * px + r21 * py + r22 * pz + t2,
+        )
+
+    def rotate_xyz(self, vx, vy, vz):
+        """Rotate component tensors (no translation)."""
+        r00, r01, r02, r10, r11, r12, r20, r21, r22 = self.rotation_entries()
+        return (
+            r00 * vx + r01 * vy + r02 * vz,
+            r10 * vx + r11 * vy + r12 * vz,
+            r20 * vx + r21 * vy + r22 * vz,
+        )
+
+    def rotate(self, vecs):
+        """Rotate float32 vectors [..., 3] (a tensor) by the quaternion,
+        v + 2w(u x v) + 2(u x (u x v)), the JAX package's formula."""
+        w, ux, uy, uz = self._quaternion()
+        vx, vy, vz = vecs.unbind(-1)
+        cx, cy, cz = uy * vz - uz * vy, uz * vx - ux * vz, ux * vy - uy * vx
+        ccx, ccy, ccz = uy * cz - uz * cy, uz * cx - ux * cz, ux * cy - uy * cx
+        return vecs + 2.0 * (w * torch.stack([cx, cy, cz], -1)
+                             + torch.stack([ccx, ccy, ccz], -1))
+
+
 @dataclasses.dataclass(frozen=True)
-class SE3:
+class SE3(_PoseOps):
     """Rigid transform x' = R x + t, rotation held as a unit quaternion."""
 
     q: np.ndarray  # f32 [4] (w, x, y, z)
@@ -108,10 +172,6 @@ class SE3:
         m[:3, 3] = self.t
         return m
 
-    def apply(self, pts: torch.Tensor) -> torch.Tensor:
-        """Transform float32 points [..., 3] (a tensor): rotate(pts) + t."""
-        return self.rotate(pts) + torch.as_tensor(self.t, device=pts.device)
-
     def compose(self, other: "SE3") -> "SE3":
         """self * other (apply `other` first)."""
         return SE3(q=_quat_mul(self.q, other.q),
@@ -136,34 +196,124 @@ class SE3:
         )
         return tuple(float(_F(v)) for v in r)
 
-    def apply_xyz(self, px, py, pz):
-        """Transform component tensors (float32) -> component tensors."""
-        r00, r01, r02, r10, r11, r12, r20, r21, r22 = self.rotation_entries()
-        t0, t1, t2 = (float(v) for v in self.t)
-        return (
-            r00 * px + r01 * py + r02 * pz + t0,
-            r10 * px + r11 * py + r12 * pz + t1,
-            r20 * px + r21 * py + r22 * pz + t2,
-        )
+    def _translation(self) -> tuple:
+        return tuple(float(v) for v in self.t)
 
-    def rotate_xyz(self, vx, vy, vz):
-        """Rotate component tensors (no translation)."""
-        r00, r01, r02, r10, r11, r12, r20, r21, r22 = self.rotation_entries()
-        return (
-            r00 * vx + r01 * vy + r02 * vz,
-            r10 * vx + r11 * vy + r12 * vz,
-            r20 * vx + r21 * vy + r22 * vz,
-        )
+    def _quaternion(self) -> tuple:
+        return tuple(float(c) for c in self.q)
 
-    def rotate(self, vecs):
-        """Rotate float32 vectors [..., 3] (a tensor) by the quaternion,
-        v + 2w(u x v) + 2(u x (u x v)), the JAX package's formula."""
-        w, ux, uy, uz = (float(c) for c in self.q)
-        vx, vy, vz = vecs.unbind(-1)
-        cx, cy, cz = uy * vz - uz * vy, uz * vx - ux * vz, ux * vy - uy * vx
-        ccx, ccy, ccz = uy * cz - uz * cy, uz * cx - ux * cz, ux * cy - uy * cx
-        return vecs + 2.0 * (w * torch.stack([cx, cy, cz], -1)
-                             + torch.stack([ccx, ccy, ccz], -1))
+    def translation_tensor(self, device) -> torch.Tensor:
+        return torch.as_tensor(self.t, device=device)
+
+
+# The device pose's buffer: the pose's 9 rotation entries (r00..r22), its
+# translation and its quaternion (w, x, y, z), then the same 16 slots of
+# its inverse.  Slots 0-11 and 16-27 are the kernels' pose12 (r00..r22,
+# t0..t2) of the pose and of its inverse.
+POSE_FLOATS = 32
+_HALF = 16
+
+
+def pose_floats(pose: SE3) -> np.ndarray:
+    """The 32 float32 slots of a device pose for `pose`: SE3's own host
+    arithmetic (rotation_entries, inverse), so every slot holds the bits
+    the host pose hands the tensor ops."""
+    out = np.empty(POSE_FLOATS, _F)
+    for half, p in enumerate((pose, pose.inverse())):
+        o = half * _HALF
+        out[o:o + 9] = p.rotation_entries()
+        out[o + 9:o + 12] = p.t
+        out[o + 12:o + 16] = p.q
+    return out
+
+
+class DevicePose(_PoseOps):
+    """An SE3 in device memory: `buf`, a float32 [32] tensor laid out as
+    pose_floats writes it, read in place (the host fills it, and a
+    captured step replays with whatever it holds).  The tensor ops read
+    0-d views of it; the kernels take `kernel_ptr()`, the address of the
+    12 floats r00..r22, t0..t2.  inverse() is the view of the inverse's
+    slots (and the inverse of that view is the pose itself)."""
+
+    def __init__(self, buf: torch.Tensor, half: int = 0):
+        if buf.dtype != torch.float32 or tuple(buf.shape) != (POSE_FLOATS,):
+            raise ValueError(f"a device pose is f32 [{POSE_FLOATS}], got {buf.dtype} "
+                             f"{tuple(buf.shape)}")
+        if not buf.is_contiguous():
+            raise ValueError("a device pose's buffer must be contiguous")
+        self.buf = buf
+        self._half = half
+        o = half * _HALF
+        self._r = tuple(buf[o + i] for i in range(9))
+        self._t = tuple(buf[o + 9 + i] for i in range(3))
+        self._q = tuple(buf[o + 12 + i] for i in range(4))
+
+    @classmethod
+    def empty(cls, device) -> "DevicePose":
+        """A buffer for a captured step's pose (the identity until filled)."""
+        return cls.from_se3(SE3.identity(), device)
+
+    @classmethod
+    def from_se3(cls, pose: SE3, device) -> "DevicePose":
+        """The pose uploaded into a new buffer on `device` (to a CUDA device
+        through pinned memory, without waiting for the stream)."""
+        return cls(upload(pose_floats(pose), torch.device(device)))
+
+    @classmethod
+    def from_matrix(cls, m, device) -> "DevicePose":
+        return cls.from_se3(SE3.from_matrix(m), device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.buf.device
+
+    @property
+    def t(self) -> torch.Tensor:
+        """The translation, f32 [3] (a view)."""
+        o = self._half * _HALF
+        return self.buf[o + 9:o + 12]
+
+    @property
+    def q(self) -> torch.Tensor:
+        """The quaternion (w, x, y, z), f32 [4] (a view)."""
+        o = self._half * _HALF
+        return self.buf[o + 12:o + 16]
+
+    def slots(self) -> torch.Tensor:
+        """The 32 slots with this pose's first, as pose_floats lays them
+        out (the buffer itself, or its halves swapped for an inverse
+        view)."""
+        return self.buf if self._half == 0 else self.buf.roll(_HALF)
+
+    def kernel_ptr(self) -> int:
+        """Device address of the kernels' pose12 (r00..r22, t0..t2)."""
+        return self.buf.data_ptr() + 4 * self._half * _HALF
+
+    def inverse(self) -> "DevicePose":
+        return DevicePose(self.buf, 1 - self._half)
+
+    def rotation_entries(self) -> tuple:
+        return self._r
+
+    def _translation(self) -> tuple:
+        return self._t
+
+    def _quaternion(self) -> tuple:
+        return self._q
+
+    def translation_tensor(self, device) -> torch.Tensor:
+        return self.t
+
+
+def device_pose(pose, device) -> DevicePose:
+    """`pose` as a DevicePose on `device`: a DevicePose there as it is, an
+    SE3 uploaded into a new buffer (eager callers; a captured step holds
+    its pose in a static buffer)."""
+    if isinstance(pose, DevicePose):
+        if pose.device != torch.device(device):
+            raise ValueError(f"the pose lives on {pose.device}, the tensors on {device}")
+        return pose
+    return DevicePose.from_se3(pose, device)
 
 
 @dataclasses.dataclass(frozen=True)

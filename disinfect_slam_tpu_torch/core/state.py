@@ -2,9 +2,12 @@
 disinfect_slam_tpu/core/state.py; reference VoxelMemPool
 voxel_mem.cuh:95-174 and VoxelHashTable voxel_hash.cuh:47-183).
 
-Unlike the JAX pytree, the port's volume is mutable: ops update its
-tensors in place where that saves a copy of a pool-sized array, and say
-so where they do.
+Unlike the JAX pytree, the port's volume is mutable: the per-frame ops
+update its tensors in place, the scalar counters (num_free, oob_count)
+included, so that a captured step (utils/graphs.py) replays into the
+same storage frame after frame; `storage_key` names that storage.  Ops
+that rebuild a field (recenter, paging, restores) bind a new tensor, and
+the key changes with it.
 
 Entry states in `entry_block`: >= 0 pool index, EMPTY (-1) free,
 TOMBSTONE (-2) a deleted hash entry that probes walk through; every
@@ -40,6 +43,12 @@ RESET_TSDF = -1.0
 RESET_PROB = 0.5
 
 
+def _key0(cfg: TSDFConfig) -> int:
+    """The packed key of coordinate (0, 0, 0), as in the JAX package."""
+    off = 1 << (cfg.coord_bits - 1)
+    return off | (off << cfg.coord_bits) | (off << (2 * cfg.coord_bits))
+
+
 @dataclasses.dataclass
 class TSDFVolume:
     """Mutable TSDF volume state; every tensor lives on one device."""
@@ -63,13 +72,10 @@ class TSDFVolume:
         cfg.validate()
         e, b, v = cfg.num_entries, cfg.num_blocks, cfg.block_volume
         table_size = cfg.grid_cells if cfg.backend == "dense" else 1
-        # key of coordinate (0, 0, 0), as in the JAX package
-        off = 1 << (cfg.coord_bits - 1)
-        key0 = off | (off << cfg.coord_bits) | (off << (2 * cfg.coord_bits))
         i32 = dict(dtype=torch.int32, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         return cls(
-            entry_key=torch.full((e,), key0, **i32),
+            entry_key=torch.full((e,), _key0(cfg), **i32),
             entry_block=torch.full((e,), EMPTY, **i32),
             block_table=torch.full((table_size,), EMPTY, **i32),
             # the stack pops from the top, heap[num_free - 1] first
@@ -82,6 +88,21 @@ class TSDFVolume:
             prob=torch.full((b, v), DEFAULT_PROB, **f32),
             cfg=cfg,
         )
+
+    def reset_(self) -> "TSDFVolume":
+        """Back to a fresh volume's contents (create's), in place: the
+        storage stays, and with it the captured steps keyed by it."""
+        self.entry_key.fill_(_key0(self.cfg))
+        self.entry_block.fill_(EMPTY)
+        self.block_table.fill_(EMPTY)
+        self.heap.copy_(torch.arange(self.cfg.num_blocks, dtype=torch.int32,
+                                     device=self.device))
+        self.num_free.fill_(self.cfg.num_blocks)
+        self.oob_count.zero_()
+        self.tsdf.fill_(DEFAULT_TSDF)
+        self.rgbw.zero_()
+        self.prob.fill_(DEFAULT_PROB)
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -116,6 +137,14 @@ class TSDFVolume:
         return sum(t.numel() * t.element_size() for t in (
             self.entry_key, self.entry_block, self.block_table, self.heap,
             self.tsdf, self.rgbw, self.prob))
+
+    def storage_key(self) -> tuple:
+        """The config and the address of every tensor: a captured step
+        replays into these addresses, so a recenter, a restore or a new
+        volume (any field bound to a new tensor) keys a new capture."""
+        return (self.cfg, str(self.device)) + tuple(
+            getattr(self, f.name).data_ptr() for f in dataclasses.fields(self)
+            if f.name != "cfg")
 
     def clone(self) -> "TSDFVolume":
         """Deep copy of every tensor (a consistent snapshot)."""

@@ -1,6 +1,7 @@
 // fuse_rows: projection, frame sampling and semantic TSDF fusion of the
 // visible blocks, in place on the pool (the kernel, its design and its
-// bound: fuse_rows.cuh).
+// bound: fuse_rows.cuh).  pose12 (r00..r22, t0..t2) is a device pointer;
+// the intrinsics and the constants come by value.
 #include "fuse_rows.cuh"
 
 extern "C" int dst_fuse_rows(const float* img, int img_h, int img_w,

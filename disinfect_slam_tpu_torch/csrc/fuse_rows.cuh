@@ -15,7 +15,9 @@
 // gather, hand updated rows back to an XLA scatter, read [V, 512] pixel,
 // depth and gate planes that XLA wrote, and need a second, patch-DMA
 // kernel (K3) for frames over 10 MB.  Here the kernel takes the visible
-// blocks' coordinates and the pose, projects each voxel in registers,
+// blocks' coordinates and a device pointer to the pose (r00..r22, t0..t2,
+// read once per CTA into shared memory, so that a captured CUDA graph
+// replays with each frame's pose), projects each voxel in registers,
 // loads its 32-byte pixel directly (no patch, no frame-size limit, so K3
 // is this kernel at 1920x1080), and writes the updated pool words back in
 // place through pool_idx.  The pool indices of the live rows are unique
@@ -74,6 +76,7 @@ struct Pose {
   float r[9];  // rotation entries r00..r22, row-major
   float t[3];
 };
+static_assert(sizeof(Pose) == 12 * sizeof(float), "Pose is the 12 floats of pose12");
 
 struct Camera {
   float fx, fy, cx, cy;
@@ -110,16 +113,18 @@ __global__ void __launch_bounds__(kVoxels, 4) fuse_rows_kernel(
     const float* __restrict__ img, const int* __restrict__ block_pos,
     const int* __restrict__ pool_idx, const int* __restrict__ count, int rows,
     int num_blocks, float* tsdf, int* rgbw, float* prob, float* __restrict__ minabs,
-    const Pose pose, const Camera cam, const FusionConsts fc) {
+    const float* __restrict__ pose12, const Camera cam, const FusionConsts fc) {
   constexpr bool kProject = kStage >= 1, kSample = kStage >= 2, kFuse = kStage >= 3;
   __shared__ __align__(128) float ring_tsdf[kStages][kVoxels];
   __shared__ __align__(128) int ring_rgbw[kStages][kVoxels];
   __shared__ __align__(128) float ring_prob[kStages][kVoxels];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ float warp_min[2][kWarps];
+  __shared__ Pose pose;  // the frame's pose, read from device memory once
 
   const int t = threadIdx.x;
   const int n = min(__ldg(count), rows);
+  if (t < 12) reinterpret_cast<float*>(&pose)[t] = __ldg(pose12 + t);
   if (t == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
     mbar_init_fence();
@@ -266,7 +271,7 @@ __global__ void __launch_bounds__(kVoxels, 4) fuse_rows_kernel(
 }
 
 // One launch of fuse_rows_kernel<kStage> on a persistent grid (the
-// arguments of dst_fuse_rows).
+// arguments of dst_fuse_rows; pose12 is a device pointer).
 template <int kStage>
 int launch_fuse_rows(const float* img, int img_h, int img_w, const int* block_pos,
                      const int* pool_idx, const int* count, int rows, int num_blocks,
@@ -275,15 +280,12 @@ int launch_fuse_rows(const float* img, int img_h, int img_w, const int* block_po
                      float max_depth, float max_weight, float prob_eps, float prob_hi,
                      cudaStream_t stream) {
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
-  Pose pose;
-  for (int i = 0; i < 9; ++i) pose.r[i] = pose12[i];
-  for (int i = 0; i < 3; ++i) pose.t[i] = pose12[9 + i];
   const Camera cam{intrinsics4[0], intrinsics4[1], intrinsics4[2], intrinsics4[3],
                    img_h, img_w};
   const FusionConsts fc{voxel_size, truncation, max_depth, max_weight, prob_eps, prob_hi};
   static const int ctas = resident_ctas(fuse_rows_kernel<kStage>, kVoxels);
   fuse_rows_kernel<kStage><<<min(rows, ctas), kVoxels, 0, stream>>>(
-      img, block_pos, pool_idx, count, rows, num_blocks, tsdf, rgbw, prob, minabs, pose, cam,
+      img, block_pos, pool_idx, count, rows, num_blocks, tsdf, rgbw, prob, minabs, pose12, cam,
       fc);
   return static_cast<int>(cudaGetLastError());
 }

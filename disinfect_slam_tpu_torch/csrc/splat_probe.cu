@@ -25,10 +25,13 @@ namespace {
 __global__ void __launch_bounds__(kSplatVoxels) probe_zbuf_atomic_kernel(
     const BlockRows in, const int* __restrict__ count, int img_h, int img_w,
     int* __restrict__ zbuf) {
+  __shared__ SplatPose pose;
+  in.load_pose(&pose);
+  __syncthreads();
   const int row = blockIdx.x;
   if (row >= __ldg(count)) return;
   const SplatVoxel vox =
-      in.voxel(in.load<1>(row, in.pool_row(row), threadIdx.x), threadIdx.x, 0);
+      in.voxel(in.load<1>(row, in.pool_row(row), threadIdx.x), threadIdx.x, 0, pose);
   if (vox.dq >= kSplatBig) return;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {

@@ -1,6 +1,9 @@
 // The splat renderer's per-voxel projection in registers: the input stage
 // of splat_zbuf_rows (K4) and splat_payload_rows (K5), splat_rows.cu.
 //
+// The pose comes from device memory (BlockRows::load_pose, once per CTA);
+// the intrinsics and constants by value.
+//
 // Replaces the [S, 512] u0 / v0 / dq planes that eager torch wrote for the
 // kernels (render_fast.project_splat_rows, about 45 ops over every voxel
 // of every surface row): the kernels read each row's block position, its
@@ -46,6 +49,7 @@ struct SplatPose {
   float r[9];  // rotation entries r00..r22, row-major
   float t[3];
 };
+static_assert(sizeof(SplatPose) == 12 * sizeof(float), "SplatPose is the 12 floats of pose12");
 
 struct SplatCamera {
   float fx, fy, cx, cy;

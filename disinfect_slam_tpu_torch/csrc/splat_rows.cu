@@ -9,7 +9,7 @@
 // they read [S, 512] planes of floor pixels and depths that XLA wrote.
 //
 // Both kernels here take the surface blocks' positions and pool indices,
-// the pose and the camera, and project each voxel in registers from its
+// the pose (a device pointer, read once per CTA) and the camera, and project each voxel in registers from its
 // tsdf word, read in place from the pool (splat_project.cuh): no [S, 512]
 // plane is written or read.  The kernels only read pool rows; the live
 // rows' pool indices are unique on both backends (dense: ascending; hash:
@@ -90,9 +90,12 @@ __global__ void __launch_bounds__(kPayloadThreads, 8) splat_payload_tile_kernel(
   __shared__ int zwin[TH * TW];        // the row's window of the final z-buffer
   __shared__ uint32_t ptile[TH * TW];  // the row's payload merge, 0 between rows
   __shared__ int part[2][4][kPayloadWarps];
+  __shared__ SplatPose pose;
   const int t = threadIdx.x;
   const int n = min(__ldg(count), rows);
+  in.load_pose(&pose);
   for (int i = t; i < TH * TW; i += kThreads) ptile[i] = 0;
+  __syncthreads();
 
   // the software pipeline of splat_zbuf_tile_kernel: the current row's
   // inputs and the next row's pool row; during the current row, the next
@@ -114,7 +117,7 @@ __global__ void __launch_bounds__(kPayloadThreads, 8) splat_payload_tile_kernel(
     SplatBox box = empty_box();
 #pragma unroll
     for (int j = 0; j < kVpt; ++j) {
-      vox[j] = in.voxel(raw, t, j);
+      vox[j] = in.voxel(raw, t, j, pose);
       grow_box(box, vox[j], img_h, img_w);
     }
     box = reduce_box<kPayloadWarps>(box, part[it & 1]);
@@ -192,9 +195,9 @@ __global__ void __launch_bounds__(kPayloadThreads, 8) splat_payload_tile_kernel(
 }  // namespace
 
 // The rows: block_pos i32 [rows, 3], pool_idx i32 [rows], count i32 []
-// live rows, the tsdf pool f32 [num_blocks, 512]; pose12: r00..r22, t0..t2;
-// intrinsics4: fx, fy, cx, cy; consts4: voxel_size, truncation, max_depth,
-// band_tsdf (float32, as torch rounds them).  branches: null, or two
+// live rows, the tsdf pool f32 [num_blocks, 512]; pose12: a device pointer
+// to r00..r22, t0..t2; intrinsics4: fx, fy, cx, cy; consts4: voxel_size,
+// truncation, max_depth, band_tsdf (host floats, as torch rounds them).  branches: null, or two
 // counters that take the rows merged through the tile and through the
 // per-voxel atomics.
 extern "C" int dst_splat_zbuf_rows(const int* block_pos, const int* pool_idx,

@@ -64,15 +64,22 @@ __device__ __forceinline__ int footprint_pixel(int u0, int v0, int k, int img_h,
 // a row ahead: pool_row() is the pool row (clipped into the pool, as the
 // plain version clips it), load<N>() the tsdf words of a thread's N voxels
 // (t + j * 512 / N: K4 takes one a thread, K5 four) and the block
-// position.
+// position.  The pose lives in device memory (a captured CUDA graph
+// replays with each frame's pose): each CTA reads it once into shared
+// memory with load_pose() and hands it to voxel().
 struct BlockRows {
   const int* block_pos;  // i32 [rows, 3]
   const int* pool_idx;   // i32 [rows]
   const float* tsdf;     // f32 [num_blocks, 512]
+  const float* pose12;   // f32 [12] in device memory: r00..r22, t0..t2
   int num_blocks;
-  SplatPose pose;
   SplatCamera cam;
   SplatConsts consts;
+
+  // the pose into the CTA's shared `pose` (the caller syncs before use)
+  __device__ __forceinline__ void load_pose(SplatPose* pose) const {
+    if (threadIdx.x < 12) reinterpret_cast<float*>(pose)[threadIdx.x] = __ldg(pose12 + threadIdx.x);
+  }
 
   template <int N>
   struct Raw {
@@ -97,15 +104,16 @@ struct BlockRows {
   }
   // the j-th of the thread's N voxels
   template <int N>
-  __device__ __forceinline__ SplatVoxel voxel(const Raw<N>& r, int t, int j) const {
+  __device__ __forceinline__ SplatVoxel voxel(const Raw<N>& r, int t, int j,
+                                              const SplatPose& pose) const {
     return splat_project(r.bx, r.by, r.bz, t + (kSplatVoxels / N) * j, r.tsdf[j], pose, cam,
                          consts);
   }
 };
 
-// The rows of K4 and K5 from the C entries' arguments: pose12 r00..r22,
-// t0..t2; intrinsics4 fx, fy, cx, cy; consts4 voxel_size, truncation,
-// max_depth, band_tsdf.
+// The rows of K4 and K5 from the C entries' arguments: pose12 a device
+// pointer to r00..r22, t0..t2; intrinsics4 fx, fy, cx, cy and consts4
+// voxel_size, truncation, max_depth, band_tsdf on the host.
 BlockRows block_rows(const int* block_pos, const int* pool_idx, int num_blocks,
                      const float* tsdf, const float* pose12, const float* intrinsics4,
                      int img_h, int img_w, const float* consts4) {
@@ -113,9 +121,8 @@ BlockRows block_rows(const int* block_pos, const int* pool_idx, int num_blocks,
   in.block_pos = block_pos;
   in.pool_idx = pool_idx;
   in.tsdf = tsdf;
+  in.pose12 = pose12;
   in.num_blocks = num_blocks;
-  for (int i = 0; i < 9; ++i) in.pose.r[i] = pose12[i];
-  for (int i = 0; i < 3; ++i) in.pose.t[i] = pose12[9 + i];
   in.cam = SplatCamera{intrinsics4[0], intrinsics4[1], intrinsics4[2], intrinsics4[3],
                        img_h, img_w};
   in.consts = SplatConsts{consts4[0], consts4[1], consts4[2], consts4[3]};
@@ -182,10 +189,13 @@ __global__ void __launch_bounds__(kSplatVoxels, 3) splat_zbuf_tile_kernel(
     int* __restrict__ zbuf, int* __restrict__ branches) {
   __shared__ int tile[TH * TW];
   __shared__ int part[2][4][kSplatWarps];
+  __shared__ SplatPose pose;
   const int t = threadIdx.x;
   const int n = min(__ldg(count), rows);
+  in.load_pose(&pose);
   // the tile stays all BIG between rows: each flush resets what it sent
   for (int i = t; i < TH * TW; i += kSplatVoxels) tile[i] = kSplatBig;
+  __syncthreads();
 
   // software pipeline over this CTA's rows: the current row's inputs and
   // the next row's pool row; during the current row, the next row's inputs
@@ -203,7 +213,7 @@ __global__ void __launch_bounds__(kSplatVoxels, 3) splat_zbuf_tile_kernel(
     if (r1 < n) raw_next = in.load<1>(r1, pool_next, t);
     if (r2 < n) pool_after = in.pool_row(r2);
 
-    const SplatVoxel vox = in.voxel(raw, t, 0);
+    const SplatVoxel vox = in.voxel(raw, t, 0, pose);
     const bool band = vox.dq < kSplatBig;
     SplatBox box = empty_box();
     grow_box(box, vox, img_h, img_w);

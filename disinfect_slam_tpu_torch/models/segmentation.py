@@ -63,8 +63,10 @@ def _linear_resize_matrix_np(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _linear_resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    # kept for the process (a handful of sizes): a captured online step
+    # reads the cached matrices, so they are never freed under it
     return torch.from_numpy(_linear_resize_matrix_np(n_in, n_out).copy()).to(device)
 
 

@@ -4,8 +4,9 @@ visible blocks, in place on the pool.
 Counterpart of the TPU kernels `fuse_rows_packed` (K2) and `fuse_rows`
 (K3) of disinfect_slam_tpu/ops/pallas/fuse_kernel.py, together with the
 projection of the visible voxels that feeds them.  The CUDA kernel
-(csrc/fuse_rows.cu) takes the visible blocks' coordinates and the pose,
-projects each voxel in registers, loads its pixel directly (no patch, no
+(csrc/fuse_rows.cu) takes the visible blocks' coordinates and the pose
+in device memory (a DevicePose: a captured step replays with each frame's
+pose; an SE3 is uploaded first), projects each voxel in registers, loads its pixel directly (no patch, no
 frame-size limit, so it covers K3's large frames too), reads the block's
 pool rows through a TMA ring and writes the changed words back in place
 through pool_idx, and reduces min |tsdf| per row for carving.  What
@@ -27,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from ...core.geometry import SE3, CameraIntrinsics
+from ...core.geometry import SE3, CameraIntrinsics, DevicePose, device_pose
 from ...core.voxel import round_half_away
 from . import build
 
@@ -116,7 +117,7 @@ def fuse_math(
 
 def project_rows(
     block_pos: torch.Tensor,
-    cam_T_world: SE3,
+    cam_T_world: SE3 | DevicePose,
     intrinsics: CameraIntrinsics,
     voxel_size: float,
     block_len_log2: int = 3,
@@ -193,7 +194,7 @@ def fuse_rows_reference(
     rgbw: torch.Tensor,
     prob: torch.Tensor,
     *,
-    cam_T_world: SE3,
+    cam_T_world: SE3 | DevicePose,
     intrinsics: CameraIntrinsics,
     voxel_size: float,
     truncation: float,
@@ -258,32 +259,33 @@ def _check_inputs(img, block_pos, pool_idx, count, tsdf, rgbw, prob):
 
 
 # dst_fuse_rows' arguments (and the tail of the stage probe's,
-# csrc/sample_probe.cu)
+# csrc/sample_probe.cu); the pose is a device pointer
 ARGTYPES = [
     _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
     _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-    _C.POINTER(_C.c_float), _C.POINTER(_C.c_float), _C.c_float, _C.c_float,
+    _C.c_void_p, _C.POINTER(_C.c_float), _C.c_float, _C.c_float,
     _C.c_float, _C.c_float, _C.c_float, _C.c_float, _C.c_void_p,
 ]
 
 
 def c_args(img, block_pos, pool_idx, count, tsdf, rgbw, prob, minabs, *, cam_T_world,
-           intrinsics, voxel_size, truncation, max_depth, max_weight, prob_eps=0.0) -> tuple:
-    """The C arguments of dst_fuse_rows (ARGTYPES) for fuse_rows' inputs
-    and its min |tsdf| output."""
+           intrinsics, voxel_size, truncation, max_depth, max_weight,
+           prob_eps=0.0) -> tuple:
+    """(the C arguments of dst_fuse_rows (ARGTYPES) for fuse_rows' inputs
+    and its min |tsdf| output, the DevicePose they point into: keep it
+    until the launch is issued)."""
+    pose = device_pose(cam_T_world, img.device)
     # the scalars the torch path multiplies by, rounded to float32 as torch
     # rounds a Python float against a float32 tensor
-    pose = (_C.c_float * 12)(*cam_T_world.rotation_entries(),
-                             *(float(x) for x in cam_T_world.t))
     intr = (_C.c_float * 4)(intrinsics.fx, intrinsics.fy, intrinsics.cx, intrinsics.cy)
     return (build.ptr(img), img.shape[0], img.shape[1], build.ptr(block_pos),
             build.ptr(pool_idx), build.ptr(count), block_pos.shape[0], tsdf.shape[0],
             build.ptr(tsdf), build.ptr(rgbw), build.ptr(prob), build.ptr(minabs),
-            pose, intr, voxel_size, truncation, max_depth, max_weight, prob_eps,
+            pose.kernel_ptr(), intr, voxel_size, truncation, max_depth, max_weight, prob_eps,
             # the upper clamp bound 1 - prob_eps, rounded to f32 from the
             # double as the torch version rounds it
             1.0 - prob_eps,
-            build.stream_of(img))
+            build.stream_of(img)), pose
 
 
 def fuse_rows(
@@ -295,7 +297,7 @@ def fuse_rows(
     rgbw: torch.Tensor,
     prob: torch.Tensor,
     *,
-    cam_T_world: SE3,
+    cam_T_world: SE3 | DevicePose,
     intrinsics: CameraIntrinsics,
     voxel_size: float,
     truncation: float,
@@ -314,8 +316,9 @@ def fuse_rows(
     _check_inputs(*args)
     minabs = torch.empty(block_pos.shape[0], dtype=torch.float32, device=img.device)
     fn = build.entry("fuse_rows", "dst_fuse_rows", ARGTYPES)
+    c, _pose = c_args(*args, minabs, **consts)
     with torch.cuda.device(img.device):
-        err = fn(*c_args(*args, minabs, **consts))
+        err = fn(*c)
     fuse_rows.launches += 1
     build.check(err, "fuse_rows")
     return minabs

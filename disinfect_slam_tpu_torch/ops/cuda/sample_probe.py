@@ -181,12 +181,12 @@ def fuse_stage(stage: int, img, block_pos, pool_idx, count, tsdf, rgbw, prob, *,
     [V] over those voxels (inf for none)."""
     minabs = torch.empty(block_pos.shape[0], dtype=torch.float32, device=img.device)
     fn = build.entry(SOURCE, "dst_probe_fuse_stage", [_C.c_int, *fuse_kernel.ARGTYPES])
+    c, _pose = fuse_kernel.c_args(
+        img, block_pos, pool_idx, count, tsdf, rgbw, prob, minabs,
+        cam_T_world=cam_T_world, intrinsics=intrinsics, voxel_size=voxel_size,
+        truncation=truncation, max_depth=max_depth, max_weight=max_weight, prob_eps=prob_eps)
     with torch.cuda.device(img.device):
-        err = fn(stage, *fuse_kernel.c_args(
-            img, block_pos, pool_idx, count, tsdf, rgbw, prob, minabs,
-            cam_T_world=cam_T_world, intrinsics=intrinsics, voxel_size=voxel_size,
-            truncation=truncation, max_depth=max_depth, max_weight=max_weight,
-            prob_eps=prob_eps))
+        err = fn(stage, *c)
     fuse_stage.launches += 1
     build.check(err, f"probe fuse stage {FUSE_STAGES[stage]}")
     return minabs

@@ -6,8 +6,9 @@ Counterparts of the TPU kernels `splat_zbuf_rows` (K4) and
 and of its `splat_depth_pallas` / `splat_render_pallas`.  The CUDA
 kernels (csrc/splat_rows.cu, csrc/splat_zbuf_tile.cuh,
 csrc/splat_project.cuh) take the surface blocks' positions and pool
-indices, the tsdf pool, the pose and the camera, and project every voxel
-in registers (no [S, 512] plane of pixels or depths is written); K4
+indices, the tsdf pool, the pose in device memory (a DevicePose: a
+captured render replays with each view's pose; an SE3 is uploaded first)
+and the camera, and project every voxel in registers (no [S, 512] plane of pixels or depths is written); K4
 merges each block's footprint in a shared-memory tile and sends each
 covered pixel to the z-buffer with one global atomic, K5 stages the
 block's window of the final z-buffer, merges the winners' payload words in
@@ -32,7 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...core.geometry import SE3, CameraParams
+from ...core.geometry import SE3, CameraParams, device_pose
+from ...utils.graphs import StaticInputs, StepGraphs
 from .. import render_fast as rf
 from . import build
 
@@ -180,18 +182,24 @@ def _check_inputs(cam: CameraParams, **named) -> torch.device:
     return dev
 
 
-def c_scalars(cam_T_world: SE3, cam: CameraParams, voxel_size: float, truncation: float,
-             max_depth: float, band: float):
-    """The pose, intrinsics and constants as the C floats the kernels
-    take: rounded to float32 as torch rounds a Python float against a
-    float32 tensor (band_tsdf from the same double expression as the
-    plain version)."""
+def c_scalars(cam: CameraParams, voxel_size: float, truncation: float, max_depth: float,
+              band: float):
+    """The intrinsics and constants as the C floats the kernels take:
+    rounded to float32 as torch rounds a Python float against a float32
+    tensor (band_tsdf from the same double expression as the plain
+    version)."""
     k = cam.intrinsics
-    return ((_C.c_float * 12)(*cam_T_world.rotation_entries(),
-                              *(float(x) for x in cam_T_world.t)),
-            (_C.c_float * 4)(k.fx, k.fy, k.cx, k.cy),
+    return ((_C.c_float * 4)(k.fx, k.fy, k.cx, k.cy),
             (_C.c_float * 4)(voxel_size, truncation, max_depth,
                              band * voxel_size / truncation))
+
+
+def c_geometry(device, cam_T_world, **scalars):
+    """((the pose's device pointer, intrinsics, constants) as the kernels'
+    C entries take them, the DevicePose the pointer points into: keep it
+    until the launch is issued); scalars: c_scalars' arguments."""
+    pose = device_pose(cam_T_world, device)
+    return (pose.kernel_ptr(), *c_scalars(**scalars)), pose
 
 
 def splat_zbuf_blocks(
@@ -216,13 +224,13 @@ def splat_zbuf_blocks(
     zbuf = torch.full((cam.img_h * cam.img_w,), BIG, dtype=torch.int32, device=dev)
     fn = build.entry("splat_rows", "dst_splat_zbuf_rows", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,
-        _C.POINTER(_C.c_float), _C.POINTER(_C.c_float), _C.POINTER(_C.c_float),
+        _C.c_void_p, _C.POINTER(_C.c_float), _C.POINTER(_C.c_float),
         _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
     ])
-    pose, intr, consts = c_scalars(**geometry)
+    scalars, _pose = c_geometry(dev, **geometry)
     with torch.cuda.device(dev):
         err = fn(build.ptr(block_pos), build.ptr(pool_idx), build.ptr(count),
-                 block_pos.shape[0], tsdf.shape[0], build.ptr(tsdf), pose, intr, consts,
+                 block_pos.shape[0], tsdf.shape[0], build.ptr(tsdf), *scalars,
                  cam.img_h, cam.img_w, build.ptr(zbuf),
                  None if branch_counts is None else build.ptr(branch_counts),
                  build.stream_of(block_pos))
@@ -255,15 +263,15 @@ def splat_payload_blocks(
     pbuf = torch.zeros((cam.img_h * cam.img_w,), dtype=torch.int32, device=dev)
     fn = build.entry("splat_rows", "dst_splat_payload_rows", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p, _C.POINTER(_C.c_float), _C.POINTER(_C.c_float),
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.POINTER(_C.c_float),
         _C.POINTER(_C.c_float), _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
         _C.c_void_p, _C.c_void_p,
     ])
-    pose, intr, consts = c_scalars(**geometry)
+    scalars, _pose = c_geometry(dev, **geometry)
     with torch.cuda.device(dev):
         err = fn(build.ptr(block_pos), build.ptr(pool_idx), build.ptr(count),
                  block_pos.shape[0], tsdf.shape[0], build.ptr(tsdf), build.ptr(rgbw),
-                 build.ptr(prob), pose, intr, consts, cam.img_h, cam.img_w,
+                 build.ptr(prob), *scalars, cam.img_h, cam.img_w,
                  build.ptr(zbuf), build.ptr(pbuf),
                  None if branch_counts is None else build.ptr(branch_counts),
                  build.stream_of(block_pos))
@@ -277,7 +285,11 @@ splat_payload_blocks.launches = 0
 
 def _rows(vol, cam, cam_T_world, max_depth, band, surf_cap):
     """The surface rows of a render and the kernels' keywords: (the
-    VisibleSet, surface blocks dropped, geometry keywords)."""
+    VisibleSet, surface blocks dropped, geometry keywords).  On a CUDA
+    device the pose is a DevicePose (an SE3 is uploaded once, for the
+    surface set and both kernels)."""
+    if vol.device.type == "cuda":
+        cam_T_world = device_pose(cam_T_world, vol.device)
     vis, overflow = rf.splat_visible(vol, cam, cam_T_world, band, surf_cap)
     geometry = dict(cam_T_world=cam_T_world, cam=cam, voxel_size=vol.cfg.voxel_size,
                     truncation=vol.cfg.truncation, max_depth=max_depth, band=band)
@@ -324,3 +336,42 @@ def splat_render_cuda(
     zbuf, pbuf, overflow, _ = splat_buffers_cuda(vol, cam, cam_T_world,
                                                  max_depth, band, surf_cap)
     return rf.images_from_buffers(zbuf, pbuf, cam, surf_overflow=overflow)
+
+
+class SplatStep:
+    """splat_render_cuda as one captured step a view (utils/graphs.py;
+    the JAX package's jitted `_splat`): the pose in a static buffer, a
+    CUDA graph on a CUDA device keyed by (image size, intrinsics,
+    max_depth, band, surf_cap, where the pose comes from, the volume's
+    storage_key).  An SE3 pose goes through pinned staging (one slot: a
+    render waits until the last one has read it) and its copy is the
+    step's first op; a DevicePose on the device is copied in before the
+    step.  The images come back as copies, fresh arrays as the jitted call
+    returns them.  On the CPU it runs the plain splat, eagerly."""
+
+    def __init__(self, device, graphs: Optional[StepGraphs] = None):
+        self.device = torch.device(device)
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = StaticInputs({"pose": StaticInputs.pose_spec()}, self.device, slots=1)
+
+    def __call__(self, vol, cam: CameraParams, pose, max_depth: float, band: float = 1.25,
+                 surf_cap=rf.DEFAULT_SURF_CAP):
+        inputs = self._inputs
+        staged = isinstance(pose, SE3)
+        if staged:
+            inputs.fill(0, pose=pose)
+        else:
+            inputs.dev["pose"].copy_(pose.slots())
+
+        def body():
+            if staged:
+                inputs.upload(0)
+            return splat_render_cuda(vol, cam, inputs.pose, max_depth, band, surf_cap)
+
+        key = ("splat", cam.img_h, cam.img_w, cam.intrinsics, float(max_depth), float(band),
+               surf_cap, staged) + vol.storage_key()
+        res = self.graphs.run(key, body)
+        out = type(res)(*(t.clone() if isinstance(t, torch.Tensor) else t for t in res))
+        if staged:
+            inputs.done(0)
+        return out

@@ -31,15 +31,17 @@ _C = ctypes
 TILE_SHAPES = ((16, 32), (32, 32), (64, 64))
 PRODUCTION_TILE = 1  # splat_rows.cu's 32x32
 _ROWS_ARGTYPES = [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,
-                  _C.POINTER(_C.c_float), _C.POINTER(_C.c_float), _C.POINTER(_C.c_float),
+                  _C.c_void_p, _C.POINTER(_C.c_float), _C.POINTER(_C.c_float),
                   _C.c_int, _C.c_int, _C.c_void_p]
 
 
 def _rows_args(block_pos, pool_idx, count, tsdf, geometry, zbuf):
+    """(the rows' C arguments, the DevicePose to keep until the launch)."""
     cam = geometry["cam"]
+    scalars, pose = splat_kernel.c_geometry(block_pos.device, **geometry)
     return (build.ptr(block_pos), build.ptr(pool_idx), build.ptr(count), block_pos.shape[0],
-            tsdf.shape[0], build.ptr(tsdf), *splat_kernel.c_scalars(**geometry), cam.img_h,
-            cam.img_w, build.ptr(zbuf))
+            tsdf.shape[0], build.ptr(tsdf), *scalars, cam.img_h, cam.img_w,
+            build.ptr(zbuf)), pose
 
 
 def _empty_zbuf(block_pos, geometry):
@@ -54,9 +56,9 @@ def zbuf_atomic(block_pos, pool_idx, count, tsdf, **geometry) -> torch.Tensor:
     zbuf = _empty_zbuf(block_pos, geometry)
     fn = build.entry("splat_probe", "dst_probe_splat_zbuf_atomic",
                      [*_ROWS_ARGTYPES, _C.c_void_p])
+    args, _pose = _rows_args(block_pos, pool_idx, count, tsdf, geometry, zbuf)
     with torch.cuda.device(block_pos.device):
-        err = fn(*_rows_args(block_pos, pool_idx, count, tsdf, geometry, zbuf),
-                 build.stream_of(block_pos))
+        err = fn(*args, build.stream_of(block_pos))
     zbuf_atomic.launches += 1
     build.check(err, "probe zbuf_atomic")
     return zbuf
@@ -72,9 +74,10 @@ def zbuf_tile(shape: int, block_pos, pool_idx, count, tsdf, branches=None,
     zbuf = _empty_zbuf(block_pos, geometry)
     fn = build.entry("splat_probe", "dst_probe_splat_zbuf_tile",
                      [_C.c_int, *_ROWS_ARGTYPES, _C.c_void_p, _C.c_void_p])
+    args, _pose = _rows_args(block_pos, pool_idx, count, tsdf, geometry, zbuf)
     with torch.cuda.device(block_pos.device):
-        err = fn(shape, *_rows_args(block_pos, pool_idx, count, tsdf, geometry, zbuf),
-                 None if branches is None else build.ptr(branches), build.stream_of(block_pos))
+        err = fn(shape, *args, None if branches is None else build.ptr(branches),
+                 build.stream_of(block_pos))
     zbuf_tile.launches += 1
     build.check(err, f"probe zbuf_tile {TILE_SHAPES[shape]}")
     return zbuf

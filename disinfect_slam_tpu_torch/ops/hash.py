@@ -12,7 +12,8 @@ claim their cell (dense: a scatter-min of an encoded candidate id) or
 their first free probe slot (hash: a scatter-max of the candidate id, in
 insert_rounds claim rounds), winners pop pool blocks off the free stack by
 prefix-sum rank, and their payload rows reset (voxel_mem.cu:37-51).
-Every update is in place on the volume's tensors and needs no host sync.
+Every update is in place on the volume's tensors, the free-stack top
+included, and needs no host sync.
 
 The dense window moves with recenter_dense, a rebuild of the directory
 that leaves the payloads where they are.
@@ -216,7 +217,7 @@ def _push_free(vol: TSDFVolume, mask: torch.Tensor, blk: torch.Tensor) -> None:
     voxel_mem.cu:57-61), in place."""
     rank = cumsum_i32(mask) - 1
     put_drop_(vol.heap, vol.num_free + rank, blk, mask)
-    vol.num_free = vol.num_free + mask.sum(dtype=torch.int32)
+    vol.num_free.add_(mask.sum(dtype=torch.int32))
 
 
 def _insert_dense(
@@ -268,7 +269,7 @@ def _acquire(vol: TSDFVolume, ok: torch.Tensor, rank: torch.Tensor,
     for the rest; ok implies rank < w)."""
     cfg = vol.cfg
     w, b, dev = cfg.max_new_per_round, cfg.num_blocks, pool_idx.device
-    vol.num_free = vol.num_free - ok.sum(dtype=torch.int32)
+    vol.num_free.sub_(ok.sum(dtype=torch.int32))
     slot = torch.where(ok, rank, w).long()
     compact = torch.full((w + 1,), b, dtype=torch.int32, device=dev)
     compact[slot] = pool_idx
@@ -418,7 +419,9 @@ def needs_recenter(cfg: TSDFConfig, cam_pos_world_m, margin_blocks=None,
 
 def recenter_dense(vol: TSDFVolume, new_origin) -> TSDFVolume:
     """Move the dense directory's window to a new grid_origin, in place,
-    without touching a voxel payload.
+    without touching a voxel payload.  The directory is a new tensor and
+    the config a new one, so the volume's storage_key changes: a captured
+    step captures again.
 
     Entries hold absolute block coordinates (the world frame never moves,
     only the window does, like the coverage of the reference's

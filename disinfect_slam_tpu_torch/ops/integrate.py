@@ -19,21 +19,30 @@ voxel_tsdf.cu:347-375).
 The arithmetic is written op for op as in the JAX package (same operand
 order, float32 throughout), so that the two agree to the ulp where XLA
 does not contract or approximate differently.  The volume is updated in
-place.
+place.  The pose is an SE3 (Python floats) or a DevicePose (0-d views of
+a device buffer): the same bits either way.
+
+`IntegrateStep` runs integrate as one captured step a frame (the frame
+and the pose in static buffers, utils/graphs.py), and `integrate_jit` is
+the JAX package's jitted entry over it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import TSDFConfig
 from ..core import voxel as vx
-from ..core.geometry import SE3, CameraParams
+from ..core.geometry import SE3, CameraIntrinsics, CameraParams
 from ..core.state import TSDFVolume
+from ..utils.graphs import StaticInputs, StepGraphs
 from . import hash as h
 from .cuda.fuse_kernel import fuse_math, fuse_rows, project_rows
 from .cuda.sample_kernel import sample_rows
@@ -58,13 +67,24 @@ def depth_to_range(cam: CameraParams, device) -> torch.Tensor:
     (voxel_tsdf.cu:117-120); the norm is the JAX package's sum of
     squares in the same order.  The square root is taken in float64 and
     rounded once to float32, which is the correctly rounded float32 root
-    on every device (torch's vectorised CPU float32 sqrt is not)."""
-    u = torch.arange(cam.img_w, dtype=torch.float32, device=device)
-    v = torch.arange(cam.img_h, dtype=torch.float32, device=device)
-    uu, vv = torch.meshgrid(u, v, indexing="xy")
+    on every device (torch's vectorised CPU float32 sqrt is not).
+
+    Made once per (inverse intrinsics, image size, device) and kept for
+    the process (a handful of cameras): captured steps read the cached
+    tensor, so it is never freed under them.  Read-only."""
     ki = cam.intrinsics_inv
-    x = ki.fx * uu + ki.cx
-    y = ki.fy * vv + ki.cy
+    return _depth_to_range(ki.fx, ki.fy, ki.cx, ki.cy, cam.img_h, cam.img_w,
+                           torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _depth_to_range(fx: float, fy: float, cx: float, cy: float, img_h: int, img_w: int,
+                    device: torch.device) -> torch.Tensor:
+    u = torch.arange(img_w, dtype=torch.float32, device=device)
+    v = torch.arange(img_h, dtype=torch.float32, device=device)
+    uu, vv = torch.meshgrid(u, v, indexing="xy")
+    x = fx * uu + cx
+    y = fy * vv + cy
     return torch.sqrt((x * x + y * y + 1.0).double()).float()
 
 
@@ -232,7 +252,7 @@ def allocate_blocks(
             oob = oob + _i32_sum(valid & ~in_range)
     valid = valid & block_visibility(coords, cam_T_world, cam, cfg, full=True)
     vol, _ = h.insert(vol, coords, valid)
-    vol.oob_count = vol.oob_count + oob
+    vol.oob_count.add_(oob)
     return vol
 
 
@@ -359,12 +379,13 @@ def occluded_blocks(
     base = vx.block_to_point(block_pos, cfg)
     bl = cfg.block_len - 1
     intr = cam.intrinsics
-    t = torch.as_tensor(cam_T_world.t, device=block_pos.device)
+    t = cam_T_world.translation_tensor(block_pos.device)
     us, vs, rngs, valid = [], [], [], None
     for i in range(8):
-        off = torch.tensor([(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1], dtype=torch.int32,
-                           device=block_pos.device) * bl
-        pos_cam = cam_T_world.rotate((base + off).float() * cfg.voxel_size) + t
+        # the corner's integer offset added per axis: no tensor is made
+        # from host values, so the cull can be captured
+        corner = torch.stack([base[..., k] + ((i >> k) & 1) * bl for k in range(3)], -1)
+        pos_cam = cam_T_world.rotate(corner.float() * cfg.voxel_size) + t
         pih = intr.project(pos_cam)
         z = pih[..., 2]
         us.append(pih[..., 0] / z)
@@ -507,3 +528,134 @@ def integrate(
     if return_stats:
         return vol, IntegrateStats(visible_count=vis.count)
     return vol
+
+
+# ----------------------------------------------------------------------
+# the captured step (the JAX package's jitted, donated integrate)
+# ----------------------------------------------------------------------
+_CHANNELS = ("rgb", "depth", "ht", "lt")
+
+
+class IntegrateStep:
+    """integrate() as one captured step a frame (utils/graphs.py): the
+    frame and the pose go into static buffers, and on a CUDA device the
+    step replays a CUDA graph keyed by (image size, where the inputs come
+    from, intrinsics, max_depth, allocate, stats, staging slot, the
+    volume's storage_key).  The counterpart of the JAX package's
+    `jax.jit(integrate, donate_argnums=0)`: the volume is updated in
+    place, and the same bits come out as from integrate() called eagerly.
+
+    Inputs on the host (numpy frames, an SE3 pose) go through pinned
+    staging, two slots used in turn, and the copies are the step's first
+    ops; inputs on the device (float32 tensors, a DevicePose) are copied
+    into the static buffers before the step.  capture=False runs
+    integrate eagerly instead, with the host pose: the path the captured
+    step is held against."""
+
+    def __init__(self, device, capture: bool = True, graphs: Optional[StepGraphs] = None):
+        self.device = torch.device(device)
+        self.capture = capture
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = {}
+        self._tick = 0
+
+    def _static(self, h: int, w: int) -> StaticInputs:
+        if (h, w) not in self._inputs:
+            shapes = ((h, w, 3), (h, w), (h, w), (h, w))
+            specs = {n: (s, torch.float32) for n, s in zip(_CHANNELS, shapes)}
+            specs["pose"] = StaticInputs.pose_spec()
+            self._inputs[(h, w)] = StaticInputs(specs, self.device)
+        return self._inputs[(h, w)]
+
+    def _eager(self, vol, frame, cam, pose, max_depth, allocate, return_stats):
+        ones = torch.ones((cam.img_h, cam.img_w), dtype=torch.float32, device=vol.device)
+        fr = FrameInput(*(
+            ones if a is None else a.to(vol.device) if isinstance(a, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(vol.device)
+            for a in frame))
+        return integrate(vol, fr, cam, pose, max_depth, allocate=allocate,
+                         return_stats=return_stats)
+
+    def __call__(self, vol: TSDFVolume, frame: FrameInput, cam: CameraParams, pose,
+                 max_depth: float, allocate: bool = True, return_stats: bool = False):
+        """One frame into `vol`, in place; returns vol, or (vol,
+        IntegrateStats) with return_stats (the stats are valid until the
+        next step).  frame: host arrays (cast to float32 as numpy casts)
+        or float32 tensors on the volume's device, ht / lt None read as
+        ones; pose: an SE3, or a DevicePose on the volume's device."""
+        if not self.capture:
+            return self._eager(vol, frame, cam, pose, max_depth, allocate, return_stats)
+        h, w = cam.img_h, cam.img_w
+        inputs = self._static(h, w)
+        chans = dict(zip(_CHANNELS, frame))
+        on_host = [n for n in _CHANNELS
+                   if chans[n] is not None and not isinstance(chans[n], torch.Tensor)]
+        host_pose = isinstance(pose, SE3)
+        staged = on_host + (["pose"] if host_pose else [])
+        slot = None
+        if staged:
+            slot = self._tick % 2
+            self._tick += 1
+            inputs.fill(slot, **{n: pose if n == "pose" else chans[n] for n in staged})
+        for n in _CHANNELS:
+            if chans[n] is None:
+                inputs.dev[n].fill_(1.0)
+            elif n not in on_host:
+                inputs.dev[n].copy_(chans[n])
+        if not host_pose:
+            inputs.dev["pose"].copy_(pose.slots())
+
+        def body():
+            if staged:
+                inputs.upload(slot, staged)
+            fr = FrameInput(*(inputs.dev[n] for n in _CHANNELS))
+            out = integrate(vol, fr, cam, inputs.pose, max_depth, allocate=allocate,
+                            return_stats=return_stats)
+            return out[1].visible_count if return_stats else None
+
+        key = ("integrate", h, w, tuple(staged), cam.intrinsics, float(max_depth),
+               bool(allocate), bool(return_stats), slot) + vol.storage_key()
+        visible = self.graphs.run(key, body)
+        if staged:
+            inputs.done(slot)
+        if return_stats:
+            return vol, IntegrateStats(visible_count=visible)
+        return vol
+
+
+def _host(x) -> np.ndarray:
+    """A host array of x (a tensor on the card is read back, which waits
+    for it)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# the process-wide cache of integrate_jit's captured steps, one a device
+# (jax.jit's cache is process-wide too)
+_JIT_STEPS: dict = {}
+_JIT_LOCK = threading.Lock()
+
+
+def integrate_jit(
+    vol: TSDFVolume,
+    frame: FrameInput,
+    cam_size: Tuple[int, int],
+    cam_intr,
+    max_depth: float,
+    cam_T_world_mat,
+) -> TSDFVolume:
+    """The jitted entry of disinfect_slam_tpu/ops/integrate.py:998
+    (`integrate_jit`): intrinsics as (fx, fy, cx, cy), the pose as a 4x4
+    matrix, the image size (h, w) static.  There the volume is donated;
+    here it is updated in place and returned, through a captured step
+    (IntegrateStep) on a CUDA device and eagerly on the CPU.  The frame's
+    arrays are host arrays or tensors on the volume's device; the
+    intrinsics and the pose are read on the host (a tensor on the card is
+    read back)."""
+    intr = CameraIntrinsics.create(*(float(x) for x in _host(cam_intr).reshape(-1)[:4]))
+    cam = CameraParams.create(intr, int(cam_size[0]), int(cam_size[1]))
+    pose = SE3.from_matrix(_host(cam_T_world_mat))
+    with _JIT_LOCK:
+        step = _JIT_STEPS.get(vol.device)
+        if step is None:
+            step = _JIT_STEPS[vol.device] = IntegrateStep(vol.device)
+        return step(vol, frame, cam, pose, float(max_depth))

@@ -25,6 +25,7 @@ on order, so the two give the same bits.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -265,6 +266,15 @@ def pack_payload_rgbw(rgbw: torch.Tensor, prob: torch.Tensor) -> torch.Tensor:
     return (p8 << 24) | (r8 << 16) | (g8 << 8) | b8
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor_255(device: torch.device) -> torch.Tensor:
+    """255 as a 0-d float32 tensor on `device`, made once a device (a
+    captured render reads it): torch on CUDA multiplies by the reciprocal
+    of a Python scalar divisor, which is not the correctly rounded
+    quotient.  Read-only."""
+    return torch.full((), 255.0, dtype=torch.float32, device=device)
+
+
 def images_from_buffers(
     zbuf: torch.Tensor, pbuf: torch.Tensor, cam: CameraParams, surf_overflow=None
 ) -> RaycastResult:
@@ -302,9 +312,7 @@ def images_from_buffers(
         (ncx / nnw) * (dirx / rn) + (ncy / nnw) * (diry / rn) + (ncz / nnw) / rn)
 
     pb = pbuf.reshape(hgt, wid)
-    # a device-tensor divisor: torch on CUDA multiplies by the reciprocal
-    # of a Python scalar one, which is not the correctly rounded quotient
-    prob = ((pb >> 24) & 0xFF).float() / torch.tensor(255.0, **f32)
+    prob = ((pb >> 24) & 0xFF).float() / _divisor_255(dev)
     rgb = torch.stack([((pb >> 16) & 0xFF).float(), ((pb >> 8) & 0xFF).float(),
                        (pb & 0xFF).float()], -1)
     rgba, normal = _shade(rgb.reshape(-1, 3), prob.reshape(-1),

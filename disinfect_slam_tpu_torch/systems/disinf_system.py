@@ -64,20 +64,19 @@ class DISINFSystem:
         img_depth: np.ndarray,
         timestamp_ms: int,
         mask: Optional[np.ndarray] = None,
-        ht: Optional[np.ndarray] = None,
-        lt: Optional[np.ndarray] = None,
     ) -> None:
         """disinfect_slam.cc:31-67: (optionally) half-scale, apply the
         depth factor, zero masked depth, segment, borrow a pose by
-        timestamp, enqueue.  ht / lt: per-pixel semantics the caller
-        already has (a logged frame POSTed to the service); a segmenter
-        replaces them, and without either the fusion takes ones."""
+        timestamp, enqueue.  Without a segmenter the fusion takes ones
+        for ht / lt."""
         if self.half_scale:
             img_rgb, img_depth = half_scale(img_rgb), half_scale(img_depth)
-            mask, ht, lt = (None if a is None else half_scale(a) for a in (mask, ht, lt))
+            if mask is not None:
+                mask = half_scale(mask)
         depth = scale_depth(np.asarray(img_depth), self.depth_factor)
         if mask is not None:
             depth = np.where(mask > 0, 0.0, depth)
+        ht = lt = None
         if self.segmenter is not None:
             ht, lt = self.segmenter(img_rgb)
         pose = self.camera_pose_manager.query_pose(timestamp_ms)

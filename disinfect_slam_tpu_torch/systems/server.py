@@ -70,9 +70,9 @@ class ReconstructionService:
                 return est.cpu().numpy(), bool(ok)
             if pose is not None:
                 self.system.feed_pose(int(timestamp_ms), pose)
-            # the POSTed ht / lt reach the fusion (the JAX service drops
-            # them in this mode, though /frame takes them)
-            self.system.feed_rgbd_frame(rgb, depth, int(timestamp_ms), ht=ht, lt=lt)
+            # POSTed ht / lt are dropped in this mode, as the JAX service
+            # drops them: DISINFSystem segments, or fuses ones
+            self.system.feed_rgbd_frame(rgb, depth, int(timestamp_ms))
             return self.system.query_camera_pose(int(timestamp_ms)), True
 
     def pose(self, timestamp_ms):

@@ -1,0 +1,204 @@
+"""Captured steps: the counterpart of the JAX package's jit cache.
+
+The JAX package runs each per-frame step as one compiled program, the
+pose a traced device array and the volume donated (`integrate_jit`,
+`TSDFGrid._integrate` / `_splat`, the online step's `_step`).  Eager
+torch issues the same step as hundreds of launches.  Here a step is a
+closure that reads its inputs from static device buffers (a frame, a
+DevicePose) and updates a volume in place, and `StepGraphs.run` runs it
+under a key:
+
+  - the first call of a key runs the step eagerly (on the capture stream:
+    it is also the warm-up), then captures it as a CUDA graph; capture
+    records without running, so nothing is fused twice;
+  - every later call of the key replays the graph.
+
+The key holds what jax.jit holds static (image size, intrinsics,
+max_depth, allocate, stats on or off, the input slot) and the volume's
+`storage_key()` (its config and the address of every tensor), so a
+recenter, a restore or a new volume captures anew instead of replaying
+into freed memory.
+
+On a CUDA device a capture that fails raises: no step drops to eager by
+itself.  On the CPU the step runs eagerly every call, because the caller
+asked for the CPU, as a kernel wrapper runs its plain version there.
+Capture uses capture_error_mode="thread_local", so a step may be
+captured on its own thread (DISINFSystem integrates on one).
+
+The graphs of one StepGraphs share one memory pool: they never run at
+the same time (their owner issues them on one stream under its lock),
+and an output a caller keeps is copied out before the next replay.
+
+Launch counts: a kernel wrapper adds one to its count where Python runs
+it, and a capture runs the wrapper without launching anything, so what
+a capture adds is taken back and added again at every replay.  REPLAYS
+counts the replays ("graph") and the launches they made, by kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable, Optional
+
+import torch
+
+from ..core.geometry import POSE_FLOATS, SE3, DevicePose, pose_floats
+
+# "graph": graph replays; a kernel wrapper's name: its launches made by them
+REPLAYS: collections.Counter = collections.Counter()
+
+
+def counted_kernels() -> tuple:
+    """The hand kernels' wrappers on the captured paths (each counts its
+    launches in `.launches`)."""
+    from ..ops.cuda import fuse_kernel, sample_kernel, splat_kernel
+
+    return (fuse_kernel.fuse_rows, sample_kernel.sample_rows,
+            splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
+
+
+class StaticInputs:
+    """A step's inputs as static device buffers (`dev`), each filled by a
+    copy from a pinned host staging buffer.  There are `slots` staging
+    sets, used in turn by the caller, so that the host fills one while the
+    device may still copy from another; `fill` waits until the device has
+    read the slot's last contents.  specs: {name: (shape, dtype)}; a
+    "pose" entry is a DevicePose buffer (`pose`)."""
+
+    def __init__(self, specs: dict, device, slots: int = 2):
+        self.device = torch.device(device)
+        pin = self.device.type == "cuda"
+        self.dev = {n: torch.zeros(shape, dtype=dt, device=self.device)
+                    for n, (shape, dt) in specs.items()}
+        self._host = [{n: torch.zeros(shape, dtype=dt, pin_memory=pin)
+                       for n, (shape, dt) in specs.items()} for _ in range(slots)]
+        self._read = [None] * slots
+        self.pose = DevicePose(self.dev["pose"]) if "pose" in specs else None
+
+    @staticmethod
+    def pose_spec() -> tuple:
+        return ((POSE_FLOATS,), torch.float32)
+
+    def fill(self, slot: int, **values) -> None:
+        """Write host values into the slot's staging: arrays (cast as
+        numpy casts them), scalars (broadcast), or an SE3 for "pose"."""
+        if self._read[slot] is not None:
+            self._read[slot].synchronize()
+        for name, v in values.items():
+            if isinstance(v, SE3):
+                v = pose_floats(v)
+            self._host[slot][name].numpy()[...] = v
+
+    def upload(self, slot: int, names=None) -> None:
+        """The copies from the slot's staging into the device buffers (all,
+        or `names`): the first ops of a captured step."""
+        for name in self.dev if names is None else names:
+            self.dev[name].copy_(self._host[slot][name], non_blocking=True)
+
+    def done(self, slot: int) -> None:
+        """Mark the slot as read by the work issued so far."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._read[slot] = ev
+
+
+class StepGraphs:
+    """A cache of captured steps of one owner, keyed as the module's
+    docstring says; at most `max_graphs`, the least recently used going
+    first.  `capture(body) -> (replay, outputs)` is the capturer: CUDA
+    graphs on a CUDA device, none on the CPU (eager there); a test may
+    pass its own."""
+
+    def __init__(self, device, capture: Optional[Callable] = None, max_graphs: int = 8):
+        self.device = torch.device(device)
+        if capture is None and self.device.type == "cuda":
+            capture = self._capture_cuda
+        self._capture = capture
+        self.max_graphs = max_graphs
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._pool = None
+        self._stream = None
+        self.captures = 0
+        self.replays = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def keys(self) -> list:
+        return list(self._graphs)
+
+    def run(self, key, body: Callable):
+        """body() under `key`: eager and then captured on the key's first
+        call, replayed after it; returns body's outputs (after a replay,
+        the captured ones, valid until the next replay of this cache)."""
+        if self._capture is None:
+            return body()
+        entry = self._graphs.get(key)
+        if entry is not None:
+            self._graphs.move_to_end(key)
+            replay, out, launched = entry
+            replay()
+            self.replays += 1
+            REPLAYS["graph"] += 1
+            for fn in counted_kernels():
+                fn.launches += launched[fn.__name__]
+                REPLAYS[fn.__name__] += launched[fn.__name__]
+            return out
+        out = self._eager(body)
+        kernels = counted_kernels()
+        before = [fn.launches for fn in kernels]
+        try:
+            replay, captured = self._capture(body)
+        finally:
+            launched = {fn.__name__: fn.launches - n for fn, n in zip(kernels, before)}
+            for fn, n in zip(kernels, before):
+                fn.launches = n
+        self.captures += 1
+        self._graphs[key] = (replay, captured, launched)
+        while len(self._graphs) > self.max_graphs:
+            self._graphs.popitem(last=False)
+        return out
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _eager(self, body: Callable):
+        """The key's first call: eagerly, on the capture stream on a CUDA
+        device (lazy per-stream state, such as cuBLAS workspaces, is made
+        there before the capture), ordered with the caller's stream."""
+        if self.device.type != "cuda":
+            return body()
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side_stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = body()
+        cur.wait_stream(side)
+        return out
+
+    def _capture_cuda(self, body: Callable):
+        """Capture body() as a CUDA graph in this cache's pool; raises if
+        the capture fails (a sync, a host read, an uncapturable call)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side_stream()
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(side):
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                out = body()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is already invalid; body's error is the one to raise
+                raise
+            graph.capture_end()
+        cur.wait_stream(side)
+        return graph.replay, out
+

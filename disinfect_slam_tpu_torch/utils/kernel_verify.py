@@ -16,6 +16,12 @@ no splits=2 tolerance mode, and the XLA gather promises
 (verify_index_hints) and the windowed scatter (verify_scatter_window)
 do not exist in the port.
 
+The kernel side of the K2, K4 and K5 checks takes its pose from device
+memory (a DevicePose, as the captured steps hand it over), the plain side
+the host pose (SE3), at a pose that is not the identity.  One more check
+holds the captured steps (IntegrateStep, SplatStep: CUDA graphs on the
+card) against the same steps run eagerly.
+
 Each check takes perturb=True to feed the kernel side an input that
 differs from the plain side's, which must make it fail.
 """
@@ -32,14 +38,14 @@ import numpy as np
 import torch
 
 from ..config import TSDFConfig
-from ..core.geometry import SE3, CameraIntrinsics, CameraParams
+from ..core.geometry import SE3, CameraIntrinsics, CameraParams, DevicePose
 from ..core.state import TSDFVolume
 from ..ops import integrate as integrate_mod
 from ..ops import render_fast
 from ..ops.cuda.fuse_kernel import fuse_rows_reference
 from ..ops.cuda.sample_kernel import sample_rows, sample_rows_reference
-from ..ops.cuda.splat_kernel import splat_render_cuda
-from ..ops.integrate import FrameInput, integrate
+from ..ops.cuda.splat_kernel import SplatStep, splat_render_cuda
+from ..ops.integrate import FrameInput, IntegrateStep, integrate
 from .device import resolve_device
 
 Result = Tuple[bool, float, str]
@@ -47,6 +53,11 @@ Result = Tuple[bool, float, str]
 # the small scene of the JAX suite (_small_scene_step)
 SCENE_W, SCENE_H = 160, 128
 SCENE_K = (131.3, 131.3, 79.9, 63.9)
+# the scene's camera for the pose checks: turned 2 degrees about y and
+# moved 1 cm, so that every rotation entry and translation is nonzero
+_C2, _S2 = np.cos(np.radians(2.0)), np.sin(np.radians(2.0))
+SCENE_POSE = np.asarray([[_C2, 0.0, _S2, 0.01], [0.0, 1.0, 0.0, -0.01],
+                         [-_S2, 0.0, _C2, 0.005], [0.0, 0.0, 0.0, 1.0]], np.float32)
 
 
 # ----------------------------------------------------------------------
@@ -104,17 +115,14 @@ def _plain(name: str, plain: Callable):
         setattr(integrate_mod, name, kernel)
 
 
-def _small_scene_step(sampler: str, device="cuda", perturb: bool = False) -> TSDFVolume:
-    """Two integrate passes of the JAX suite's small synthetic scene
-    (160x128, voxel 8 mm, 2^12 blocks, a 2^6 dense grid; the second pass
-    fuses onto nonzero weights) under `sampler`: "gather" is the
-    two-stage path (K1 and the fusion formulas as torch ops),
-    "pallas_fused" the fuse_rows kernel (K2).  perturb moves every depth
-    by 1 mm."""
-    device = resolve_device(device)
-    cfg = TSDFConfig(voxel_size=0.008, truncation=0.048, num_blocks_log2=12,
-                     max_candidates=8192, max_visible=2048, max_new_per_round=2048,
-                     backend="dense", grid_log2=6, sampler=sampler)
+def _scene_cfg(sampler: str) -> TSDFConfig:
+    return TSDFConfig(voxel_size=0.008, truncation=0.048, num_blocks_log2=12,
+                      max_candidates=8192, max_visible=2048, max_new_per_round=2048,
+                      backend="dense", grid_log2=6, sampler=sampler)
+
+
+def _scene_frame(device, perturb: bool = False) -> FrameInput:
+    """The small scene's frame: depth 2-2.8 m, random rgb and ht."""
     rng = np.random.default_rng(7)
     depth = (2.0 + 0.8 * rng.random((SCENE_H, SCENE_W))).astype(np.float32)
     rgb = rng.integers(0, 256, (SCENE_H, SCENE_W, 3)).astype(np.float32)
@@ -122,11 +130,27 @@ def _small_scene_step(sampler: str, device="cuda", perturb: bool = False) -> TSD
     if perturb:
         depth = depth + np.float32(0.001)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    frame = FrameInput(rgb=t(rgb), depth=t(depth), ht=t(ht), lt=t(1.0 - ht))
+    return FrameInput(rgb=t(rgb), depth=t(depth), ht=t(ht), lt=t(1.0 - ht))
+
+
+def _small_scene_step(sampler: str, device="cuda", perturb: bool = False,
+                      pose: str = "identity") -> TSDFVolume:
+    """Two integrate passes of the JAX suite's small synthetic scene
+    (160x128, voxel 8 mm, 2^12 blocks, a 2^6 dense grid; the second pass
+    fuses onto nonzero weights) under `sampler`: "gather" is the
+    two-stage path (K1 and the fusion formulas as torch ops),
+    "pallas_fused" the fuse_rows kernel (K2).  perturb moves every depth
+    by 1 mm.  pose: "identity" (the JAX suite's), or SCENE_POSE as an SE3
+    ("host") or a DevicePose ("device")."""
+    device = resolve_device(device)
+    frame = _scene_frame(device, perturb)
     cam = CameraParams.create(CameraIntrinsics.create(*SCENE_K), SCENE_H, SCENE_W)
-    vol = TSDFVolume.create(cfg, device)
+    cam_T_world = {"identity": lambda: SE3.identity(),
+                   "host": lambda: SE3.from_matrix(SCENE_POSE),
+                   "device": lambda: DevicePose.from_matrix(SCENE_POSE, device)}[pose]()
+    vol = TSDFVolume.create(_scene_cfg(sampler), device)
     for _ in range(2):
-        vol = integrate(vol, frame, cam, SE3.identity(), 4.0)
+        vol = integrate(vol, frame, cam, cam_T_world, 4.0)
     return vol
 
 
@@ -151,32 +175,60 @@ def verify_integrate_parity(device="cuda", perturb: bool = False) -> Result:
 
 
 def verify_fused_kernel(device="cuda", perturb: bool = False) -> Result:
-    """The fused integrate with fuse_rows (K2) against the same with
-    fuse_rows_reference, within the JAX suite's limits (tsdf and prob
-    1e-5, rgb one step)."""
+    """The fused integrate with fuse_rows (K2, the pose in device memory)
+    against the same with fuse_rows_reference and the host pose, within
+    the JAX suite's limits (tsdf and prob 1e-5, rgb one step)."""
     with _plain("fuse_rows", fuse_rows_reference):
-        a = _small_scene_step("pallas_fused", device)
-    b = _small_scene_step("pallas_fused", device, perturb)
+        a = _small_scene_step("pallas_fused", device, pose="host")
+    b = _small_scene_step("pallas_fused", device, perturb, pose="device")
     terr, werr, rerr, perr = _payload_gaps(a, b)
     ok = terr < 1e-5 and rerr <= 1 and perr < 1e-5
     return ok, max(terr, perr), "tsdf, prob < 1e-5, rgb <= 1"
 
 
 def verify_splat(device="cuda", perturb: bool = False) -> Result:
-    """splat_render_cuda (K4 and K5) against the plain splat
-    (render_fast.splat_render) on the small scene's volume:
-    bit-identical rgba, normal and depth.  perturb moves the kernels'
-    camera by 1 cm."""
+    """splat_render_cuda (K4 and K5, the pose in device memory) against the
+    plain splat (render_fast.splat_render, the host pose) on the small
+    scene's volume: bit-identical rgba, normal and depth.  perturb moves
+    the kernels' camera by 1 cm."""
+    device = resolve_device(device)
     vol = _small_scene_step("gather", device)
     cam = CameraParams.create(CameraIntrinsics.create(*SCENE_K), SCENE_H, SCENE_W)
-    pose = SE3.identity()
+    pose = SE3.from_matrix(SCENE_POSE)
     moved = SE3(q=pose.q, t=pose.t + np.float32(0.01)) if perturb else pose
     a = render_fast.splat_render(vol, cam, pose, 4.0)
-    b = splat_render_cuda(vol, cam, moved, 4.0)
+    b = splat_render_cuda(vol, cam, DevicePose.from_se3(moved, device), 4.0)
     err = max(int((a.rgba.int() - b.rgba.int()).abs().max()),
               int((a.normal.int() - b.normal.int()).abs().max()))
     derr = float((a.depth - b.depth).abs().max())
     return err == 0 and derr == 0.0, float(err) + derr, "bit-identical"
+
+
+def verify_captured_steps(device="cuda", perturb: bool = False) -> Result:
+    """Three frames of the small scene through IntegrateStep (captured on
+    the card after its first frame of each key, replayed after it) and
+    two SplatStep renders of the result (the second a replay), against the same frames through
+    integrate and splat_render_cuda run eagerly: every volume array and
+    every image bit-identical.  perturb moves the captured side's last
+    frame by 1 mm."""
+    device = resolve_device(device)
+    cam = CameraParams.create(CameraIntrinsics.create(*SCENE_K), SCENE_H, SCENE_W)
+    pose = SE3.from_matrix(SCENE_POSE)
+    frame, moved = _scene_frame(device), _scene_frame(device, perturb)
+    eager = TSDFVolume.create(_scene_cfg("pallas_fused"), device)
+    captured = TSDFVolume.create(_scene_cfg("pallas_fused"), device)
+    step = IntegrateStep(device)
+    for i in range(3):
+        integrate(eager, frame, cam, pose, 4.0, allocate=i != 1)
+        step(captured, moved if i == 2 else frame, cam, pose, 4.0, allocate=i != 1)
+    err = max(float((getattr(eager, f).double() - getattr(captured, f).double()).abs().max())
+              for f in ("entry_block", "num_free", "tsdf", "rgbw", "prob"))
+    a = splat_render_cuda(eager, cam, pose, 4.0)
+    render = SplatStep(device)
+    render(captured, cam, pose, 4.0)  # captured after this call, replayed by the next
+    b = render(captured, cam, pose, 4.0)
+    err += sum(float((x.double() - y.double()).abs().max()) for x, y in zip(a[:3], b[:3]))
+    return err == 0.0, err, "bit-identical"
 
 
 CheckFn = Callable[..., Result]
@@ -191,6 +243,7 @@ CHECKS: List[Tuple[str, CheckFn]] = [
     ("integrate two-stage K1 vs plain (bit-exact)", verify_integrate_parity),
     ("integrate fused K2 vs plain (JAX limits)", verify_fused_kernel),
     ("splat K4/K5 vs plain (bit-identical)", verify_splat),
+    ("captured steps vs eager (bit-identical)", verify_captured_steps),
     # verify_index_hints and verify_scatter_window check XLA gather
     # promises and the windowed scatter, which the port does not have
 ]

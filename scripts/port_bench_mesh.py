@@ -57,7 +57,7 @@ def run(device, n_frames: int = FRAMES, w: int = W, h: int = H, K=K, cfg=BENCH,
     frames = load_replay_frames(n_frames, w, h) or make_orbit_frames(n_frames, w, h, K)
     vol = TSDFVolume.create(cfg, dev)
     print(f"populating volume ({n_frames} frames)...", flush=True)
-    for fr, pose in stage_frames(frames, dev):
+    for fr, pose, _ in stage_frames(frames, dev):
         vol = integrate(vol, fr, cam, pose, BENCH_MAX_DEPTH)
     print(f"active blocks: {int(vol.num_active_blocks)}", flush=True)
     out = {}

@@ -42,10 +42,16 @@ u16 depth over the depth factor: the per-frame cam_T_world and ok flags,
 the lost, keyframe and closure counts, ATE and RPE against the dataset's
 trajectory.txt, and the final volume's volume_fingerprint.
 
+With --no-semantics it writes disinfect_slam_tpu_torch/data/
+orbit_vga_bench_noseg_fingerprint.json instead: the same replay with ht
+and lt left out (the fusion takes ones), as the HTTP service fuses POSTed
+frames in disinf mode (it drops their ht / lt), the volume's summary
+alone.
+
 chip_smoke.py holds the port's GPU runs against these files, because the
 GPU host has no JAX.  Each takes minutes and several GB of host memory:
 
-  python scripts/port_fingerprint.py [--online | --export | --slam]
+  python scripts/port_fingerprint.py [--online | --export | --slam | --no-semantics]
 """
 
 import argparse
@@ -88,6 +94,7 @@ OUT = os.path.join(DATA, "orbit_vga_bench_fingerprint.json")
 OUT_ONLINE = os.path.join(DATA, "orbit_vga_online_fingerprint.json")
 OUT_EXPORT = os.path.join(DATA, "orbit_vga_export_fingerprint.json")
 OUT_SLAM = os.path.join(DATA, "orbit_vga_slam_fingerprint.json")
+OUT_NOSEG = os.path.join(DATA, "orbit_vga_bench_noseg_fingerprint.json")
 # apps/dense_slam.py's defaults: voxel, truncation, max depth (m), keyframe
 # cadence and loop gap (frames)
 SLAM_VOXEL, SLAM_TRUNC, SLAM_MAX_DEPTH, SLAM_KF_EVERY, SLAM_LC_MIN_GAP = (
@@ -324,7 +331,7 @@ def slam():
     print(json.dumps({k: v for k, v in out.items() if k != "cam_T_world"}, indent=1))
 
 
-def main():
+def main(semantics: bool = True):
     cam = load_yaml(os.path.join(DATASET, "cam.yaml"))
     intrinsics = get_intrinsics(cam)
     replay = LoggedReplay(DATASET, get_depth_factor(cam))
@@ -335,8 +342,9 @@ def main():
     poses = []
     for frame in replay:
         poses.append(frame.cam_T_world)
-        grid.integrate(frame.rgb, frame.depth, frame.ht, frame.lt,
-                       BENCH_MAX_DEPTH, intrinsics, frame.cam_T_world)
+        ht, lt = (frame.ht, frame.lt) if semantics else (None, None)
+        grid.integrate(frame.rgb, frame.depth, ht, lt, BENCH_MAX_DEPTH, intrinsics,
+                       frame.cam_T_world)
         n += 1
         if n % 10 == 0:
             grid.block_until_ready()
@@ -353,9 +361,12 @@ def main():
         "preset": "bench",
         "max_depth": BENCH_MAX_DEPTH,
         **fp,
-        "render": render_views(vol, intrinsics, poses),
     }
-    with open(OUT, "w") as f:
+    if semantics:
+        out["render"] = render_views(vol, intrinsics, poses)
+    else:
+        out["semantics"] = "none: ht = lt = 1"
+    with open(OUT if semantics else OUT_NOSEG, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print(json.dumps(out, indent=1))
@@ -370,6 +381,8 @@ if __name__ == "__main__":
                        help="write the export slice's fingerprint instead")
     which.add_argument("--slam", action="store_true",
                        help="write the pose-free dense SLAM's fingerprint instead")
+    which.add_argument("--no-semantics", action="store_true",
+                       help="write the replay's fingerprint with ht = lt = 1 instead")
     args = ap.parse_args()
     if args.online:
         online()
@@ -378,4 +391,4 @@ if __name__ == "__main__":
     elif args.slam:
         slam()
     else:
-        main()
+        main(semantics=not args.no_semantics)

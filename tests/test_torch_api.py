@@ -4,7 +4,10 @@ each pinned against the JAX function on the same inputs: SE3.compose /
 (core/geometry.py), TSDFVolume.weight / rgb / nbytes (core/state.py),
 get_timestamp_ms, LocalClock and StageTimer.summary with its profiler
 ranges (utils/timing.py), segmentation.init_params and
-train.load_params_npz."""
+train.load_params_npz, config.DEFAULT and integrate_jit's signature."""
+
+import dataclasses
+import inspect
 
 import time
 
@@ -15,12 +18,14 @@ import pytest
 import torch
 from flax import traverse_util
 
+from disinfect_slam_tpu import config as jconfig
 from disinfect_slam_tpu.config import TINY_DENSE as J_TINY
 from disinfect_slam_tpu.core import geometry as jgeo
 from disinfect_slam_tpu.core.state import TSDFVolume as JVolume
 from disinfect_slam_tpu.models import segmentation as jseg
 from disinfect_slam_tpu.models import train as jtrain
 from disinfect_slam_tpu.utils import timing as jtiming
+from disinfect_slam_tpu_torch import config
 from disinfect_slam_tpu_torch.config import TINY_DENSE
 from disinfect_slam_tpu_torch.core import geometry as geo
 from disinfect_slam_tpu_torch.io.checkpoint import volume_from_numpy
@@ -158,3 +163,21 @@ def test_train_load_params_npz_matches_jax():
     for k in ref:
         assert ours[k].dtype == np.float32
         np.testing.assert_array_equal(ours[k], ref[k])
+
+
+def test_default_config_is_the_jax_one():
+    """config.DEFAULT: the reference's offline example, field for field."""
+    assert isinstance(config.DEFAULT, config.TSDFConfig)
+    assert dataclasses.asdict(config.DEFAULT) == dataclasses.asdict(jconfig.DEFAULT)
+
+
+def test_integrate_jit_has_the_jax_signature():
+    """ops/integrate.integrate_jit takes the JAX entry's parameters, by name
+    and in order (the JAX one's static image size and donated volume are
+    the port's key and in-place update)."""
+    from disinfect_slam_tpu.ops import integrate as jint
+    from disinfect_slam_tpu_torch.ops import integrate as tint
+
+    params = lambda f: list(inspect.signature(f).parameters)  # noqa: E731
+    assert params(tint.integrate_jit) == params(jint.integrate_jit) == [
+        "vol", "frame", "cam_size", "cam_intr", "max_depth", "cam_T_world_mat"]

@@ -69,7 +69,10 @@ def test_bench_json_line_on_the_cpu(monkeypatch, capsys):
     assert stages["splat_ms"] > 0 and stages["seg_ms"] > 0 and stages["seg_dev_ms"] > 0
     assert not stages["held_to_reference"] and stages["self_check_launches"] == {}
     assert all(n == 0 for s in stages["launches"].values() for n in s.values())
-    assert set(stages["launches"]) == {"fusion", "splat", "online unet", "seg", "stereo"}
+    assert set(stages["launches"]) == {"fusion", "fusion eager", "splat", "splat eager",
+                                       "online unet", "online unet eager", "seg", "stereo"}
+    assert stages["fusion_eager_fps"] > 0 and stages["splat_eager_ms"] > 0
+    assert stages["online_eager_fps"]["unet"] > 0
 
 
 # bench.py's CPU branch (bench.py:227-262), as it builds its config

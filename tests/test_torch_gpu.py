@@ -1159,3 +1159,207 @@ def test_port_bench_stereo_on_the_card(cuda):
     res = _port_bench_script("port_bench_stereo").run(cuda, iters=3)
     assert set(res) == {(480, 640, 64), (720, 1280, 128)}
     assert all(len(r) == 5 and min(r.values()) > 0 for r in res.values())
+
+
+# ----------------------------------------------------------------------
+# the captured steps (utils/graphs.py): CUDA graphs of integrate, the
+# splat render and the online step, the pose in device memory
+# ----------------------------------------------------------------------
+def _sphere_frames(n, seed=4):
+    k, w, h = (52.7, 53.3, 31.71, 23.43), 64, 48
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n):
+        ang = 0.13 * i - 0.12
+        pose = look_at((np.sin(ang) * 2.5 + 0.013, 0.1 * i - 0.027,
+                        -2.5 * np.cos(ang) + 1.0), (0.013, -0.021, 1.007)).astype(np.float32)
+        depth = render_sphere(w, h, k, pose, (0.013, -0.021, 1.007), 0.613)
+        ht, lt = rng.uniform(0.05, 0.95, (2, h, w)).astype(np.float32)
+        frames.append((checker_rgb(w, h), depth, ht, lt, pose))
+    return k, h, w, frames
+
+
+def _graph_cfg(alloc_every, **kw):
+    return TSDFConfig(**{**dict(num_blocks_log2=10, max_candidates=2048, max_visible=1024,
+                                max_new_per_round=512, grid_log2=6), **kw},
+                      alloc_every=alloc_every)
+
+
+def _assert_volumes_equal(a, b):
+    a, b = volume_to_numpy(a), volume_to_numpy(b)
+    assert (a["entry_block"] >= 0).sum() > 10
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("alloc_every", [1, 3])
+def test_captured_grid_equals_the_eager_grid(cuda, alloc_every, cull):
+    """TSDFGrid's captured integrate and splat render (CUDA graphs after
+    each key's first call) against the same grid run eagerly, over eight
+    frames on both cadences, with and without the occlusion cull: every
+    volume array and every image bit-equal; the graphs were replayed."""
+    k, h, w, frames = _sphere_frames(8)
+    cfg = _graph_cfg(alloc_every, cull_occluded=cull)
+    grids = [TSDFGrid(0.05, 0.15, cfg=cfg, device=cuda, capture=c) for c in (True, False)]
+    for rgb, depth, ht, lt, pose in frames:
+        for grid in grids:
+            grid.integrate(rgb, depth, ht, lt, 4.0, k, pose)
+    torch.cuda.synchronize()
+    assert grids[0].graphs.replays >= 8 - 4 and grids[1].graphs.replays == 0
+    _assert_volumes_equal(grids[0].volume, grids[1].volume)
+    for pose in (frames[0][4], frames[-1][4], frames[0][4]):
+        a, b = (grid.ray_cast(4.0, (k, h, w), pose, renderer="splat") for grid in grids)
+        for x, y in zip(a[:4], b[:4]):
+            assert torch.equal(x, y)
+    assert grids[0].graphs.replays >= 8 - 4 + 2
+
+
+def test_captured_online_step_equals_the_eager_step(cuda):
+    """FusedOnlineStep with the shipped FastSeg, u8 rgb and u16 depth from
+    the host, captured against eager over seven frames: the same volume
+    bit for bit (TF32 off in both)."""
+    k, h, w, frames = _sphere_frames(7)
+    model = seg.load_model("fast", device=cuda)
+    steps = [FusedOnlineStep(_graph_cfg(3), k, h, w, 4.0, seg_model=model, depth_factor=1000.0,
+                             device=cuda, capture=c) for c in (True, False)]
+    for rgb, depth, _, _, pose in frames:
+        for s in steps:
+            s.step(rgb.astype(np.uint8), (depth * 1000.0).astype(np.uint16), pose)
+    torch.cuda.synchronize()
+    assert steps[0].graphs.replays == 7 - 4
+    _assert_volumes_equal(steps[0].volume, steps[1].volume)
+
+
+def test_eager_steps_never_sync(cuda):
+    """integrate, the splat render and the online step's ops, the pose in
+    device memory, raise nothing under set_sync_debug_mode("error") (after
+    a warm-up that builds the kernels): the steps hold no host read, so
+    they can be captured."""
+    from disinfect_slam_tpu_torch.core.geometry import DevicePose
+    from disinfect_slam_tpu_torch.core.state import TSDFVolume
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput, integrate
+
+    k, h, w, frames = _sphere_frames(2)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    online = FusedOnlineStep(_graph_cfg(1), k, h, w, 4.0, seg_model=seg.load_model("fast", device=cuda),
+                             depth_factor=1000.0, device=cuda, capture=False)
+    for cull in (False, True):
+        vol = TSDFVolume.create(_graph_cfg(1, cull_occluded=cull), cuda)
+        for i, (rgb, depth, ht, lt, pose) in enumerate(frames):
+            fr = FrameInput(t(rgb), t(depth), t(ht), t(lt))
+            dpose = DevicePose.from_matrix(pose, cuda)
+            rgb8, d16 = t(rgb.astype(np.uint8)), t((depth * 1000.0).astype(np.uint16))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if i else "default")
+            try:
+                integrate(vol, fr, cam, dpose, 4.0)
+                splat_kernel.splat_render_cuda(vol, cam, dpose, 4.0)
+                online._fuse(rgb8, d16, dpose, allocate=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_replays_count_their_kernel_launches(cuda):
+    """N frames through the captured grid: fuse_rows counts N launches,
+    eager first calls and replays alike; REPLAYS counts the replays and
+    their launches; two renders count one launch of each splat kernel
+    each."""
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
+
+    k, h, w, frames = _sphere_frames(9)
+    grid = TSDFGrid(0.05, 0.15, cfg=_graph_cfg(3), device=cuda)
+    before = (fuse_kernel.fuse_rows.launches, REPLAYS["graph"], REPLAYS["fuse_rows"])
+    for rgb, depth, ht, lt, pose in frames:
+        grid.integrate(rgb, depth, ht, lt, 4.0, k, pose)
+    assert fuse_kernel.fuse_rows.launches - before[0] == 9
+    assert REPLAYS["graph"] - before[1] == grid.graphs.replays == 9 - 4
+    assert REPLAYS["fuse_rows"] - before[2] == 9 - 4
+    zb, pb = (splat_kernel.splat_zbuf_blocks.launches, splat_kernel.splat_payload_blocks.launches)
+    for _ in range(2):
+        grid.ray_cast(4.0, (k, h, w), frames[0][4], renderer="splat")
+    assert (splat_kernel.splat_zbuf_blocks.launches - zb,
+            splat_kernel.splat_payload_blocks.launches - pb) == (2, 2)
+
+
+def test_recenter_and_the_integrating_thread_capture_anew(cuda):
+    """A recenter in the middle of a captured replay keys new captures and
+    the volume still equals the eager grid's; DISINFSystem integrating on
+    its own thread (thread-local capture) equals its eager twin."""
+    from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
+
+    k, h, w, frames = _sphere_frames(8)
+    cfg = _graph_cfg(1, grid_log2=5)
+    grids = [TSDFGrid(0.05, 0.15, cfg=cfg, device=cuda, capture=c) for c in (True, False)]
+    for i, (rgb, depth, ht, lt, pose) in enumerate(frames):
+        if i == 4:
+            for grid in grids:
+                assert grid.recenter((0.3, 0.2, 0.9))
+        for grid in grids:
+            grid.integrate(rgb, depth, ht, lt, 4.0, k, pose)
+    assert grids[0].graphs.captures == 4
+    _assert_volumes_equal(grids[0].volume, grids[1].volume)
+
+    kw = dict(depth_factor=1.0, voxel_size=0.05, truncation=0.15, half_scale=False,
+              cfg=_graph_cfg(3), device=cuda)
+    with DISINFSystem(k, **kw) as captured, DISINFSystem(k, **kw) as eager:
+        eager.tsdf.tsdf.capture = False
+        for i, (rgb, depth, _, _, pose) in enumerate(frames):
+            for system in (captured, eager):
+                system.feed_pose(i, pose)
+                system.feed_rgbd_frame(rgb, depth, i)
+        for system in (captured, eager):
+            system.tsdf.flush()
+        assert captured.tsdf.dropped_frames == eager.tsdf.dropped_frames == 0
+        assert captured.tsdf.tsdf.graphs.replays == 8 - 4
+        _assert_volumes_equal(captured.tsdf.tsdf.volume, eager.tsdf.tsdf.volume)
+
+
+def test_kernels_read_a_device_pose(cuda):
+    """K2, K4 and K5 with the pose in device memory (a DevicePose; for K2
+    the second half of a buffer, so the pointer is offset) against their
+    plain versions with the host pose: the same bits (K2's prob within
+    1e-6: CUDA expf/logf)."""
+    from disinfect_slam_tpu_torch.core.geometry import DevicePose, pose_floats
+
+    c = _block_case(cuda, seed=3, img_h=48, img_w=64)
+    pools = [c[k].clone() for k in ("tsdf", "rgbw", "prob")]
+    refs = [c[k].clone() for k in ("tsdf", "rgbw", "prob")]
+    args = [c[k] for k in ("img", "block_pos", "pool_idx", "count")]
+    consts = dict(truncation=TRUNC, max_depth=MAX_DEPTH, max_weight=MAX_W, **c["geometry"])
+    host = consts["cam_T_world"]
+    # a buffer that holds the pose in its second half: the inverse's view
+    dev = DevicePose(torch.from_numpy(np.roll(pose_floats(host), 16)).to(cuda), half=1)
+    m = fuse_kernel.fuse_rows(*args, *pools, **{**consts, "cam_T_world": dev})
+    m_ref = fuse_kernel.fuse_rows_reference(*args, *refs, **consts)
+    torch.cuda.synchronize()
+    assert torch.equal(pools[0], refs[0]) and torch.equal(pools[1], refs[1])
+    assert (pools[2] - refs[2]).abs().max().item() <= 1e-6
+    assert torch.equal(m[:COUNT], m_ref[:COUNT]) and not torch.equal(pools[1], c["rgbw"])
+
+    rows, pool, geometry = _splat_case(cuda, 5, COUNT, 48, 64)
+    tsdf, rgbw, prob = pool
+    dgeo = {**geometry, "cam_T_world": DevicePose.from_se3(geometry["cam_T_world"], cuda)}
+    zbuf = splat_kernel.splat_zbuf_blocks(*rows, tsdf, **dgeo)
+    pbuf = splat_kernel.splat_payload_blocks(*rows, tsdf, rgbw, prob, zbuf, **dgeo)
+    zref = splat_kernel.splat_zbuf_blocks_reference(*rows, tsdf, **geometry)
+    pref = splat_kernel.splat_payload_blocks_reference(*rows, tsdf, rgbw, prob, zref, **geometry)
+    torch.cuda.synchronize()
+    assert torch.equal(zbuf, zref) and torch.equal(pbuf, pref)
+    assert (zbuf < splat_kernel.BIG).any()
+
+
+def test_a_capture_that_syncs_raises(cuda):
+    """A step that reads the device on the host cannot be captured: the
+    capture raises (it never drops to eager), after the key's first, eager
+    call ran; nothing is cached."""
+    from disinfect_slam_tpu_torch.utils.graphs import StepGraphs
+
+    graphs = StepGraphs(cuda)
+    x = torch.arange(4.0, device=cuda)
+    with pytest.raises(RuntimeError):
+        graphs.run("syncs", lambda: float(x.sum()))
+    assert len(graphs) == 0 and graphs.captures == 0
+    assert float(torch.arange(3.0, device=cuda).sum()) == 3.0

@@ -136,10 +136,12 @@ def test_query_and_render_match_the_jax_service():
                 np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
 
 
-def test_posted_semantics_reach_the_fusion():
-    """Frames POSTed with ht / lt and a pose fuse as TSDFGrid.integrate
-    fuses the same arrays: the served volume equals it bit for bit (the
-    JAX service drops POSTed ht / lt when it holds a DISINFSystem)."""
+def test_posted_semantics_are_dropped_as_the_jax_service_drops_them():
+    """Frames POSTed with ht / lt and a pose to the JAX service and to the
+    port's, each over a DISINFSystem: both drop the semantics (disinf
+    mode), so the two served volumes agree within
+    test_torch_integrate.py's limits, and the port's equals a grid fed
+    the same frames with ht = lt = None, bit for bit."""
     from disinfect_slam_tpu_torch.systems.tsdf_grid import TSDFGrid
 
     rng = np.random.default_rng(6)
@@ -150,14 +152,20 @@ def test_posted_semantics_reach_the_fusion():
         frames.append((pose, render_wall(W, H, K, pose, wall_z=2.0131), ht, 1 - ht))
     cfg = port_cfg(CFG_DENSE)
     grid = TSDFGrid(0.05, 0.15, cfg=cfg, device="cpu")
-    with DISINFSystem(K, cfg=cfg, device="cpu", **SYS) as system:
-        with _Served(ReconstructionService(system)) as base:
+    with JSystem(K, cfg=CFG_DENSE, **SYS) as jsys, \
+            DISINFSystem(K, cfg=cfg, device="cpu", **SYS) as tsys:
+        with _Served(JService(jsys), j_make_server) as jbase, \
+                _Served(ReconstructionService(tsys)) as tbase:
             for i, (pose, depth, ht, lt) in enumerate(frames):
-                _post_npz(f"{base}/frame", rgb=RGB, depth=depth, timestamp_ms=np.asarray(i),
-                          ht=ht, lt=lt, pose=pose)
-                grid.integrate(RGB, depth, ht, lt, 4.0, K, pose)
-            assert _get(f"{base}/stats")["frames"] == 3
-        served = port_arrays(system.tsdf.tsdf.volume)
+                for base in (jbase, tbase):
+                    _post_npz(f"{base}/frame", rgb=RGB, depth=depth,
+                              timestamp_ms=np.asarray(i), ht=ht, lt=lt, pose=pose)
+                grid.integrate(RGB, depth, None, None, 4.0, K, pose)
+            assert _get(f"{tbase}/stats")["frames"] == 3
+            jsys.tsdf.flush()
+            tsys.tsdf.flush()
+            assert_matches_jax(tsys.tsdf.tsdf.volume, jsys.tsdf.tsdf.volume)
+            served = port_arrays(tsys.tsdf.tsdf.volume)
     ref = port_arrays(grid.volume)
     assert (ref["entry_block"] >= 0).sum() > 10
     for f in ref:
