@@ -72,16 +72,18 @@ exits non-zero:
   8. the tracking slice (pose-free dense SLAM): (a) apps.dense_slam over
      all 60 frames with --loop-closure --evaluate auto --out-traj --save
      --mesh at its defaults (2 cm voxels, 6 cm truncation, 4 m, the
-     default TSDFConfig: 2^16-block pool, 16384 visible rows): fuse_rows
-     once per frame, splat_zbuf_blocks once per tracked frame,
-     splat_payload_blocks never, one pose read per tracked frame (plus one
-     per loop verification); the trajectory, ok flags, ATE and volume
+     default TSDFConfig: 2^16-block pool, 16384 visible rows), the tracked
+     frame a captured step (systems/dense_slam.TrackFuseStep): fuse_rows
+     once per frame, splat_zbuf_blocks once per tracked frame (graph
+     replays included), splat_payload_blocks never, no pose read outside
+     the loop verifications; the trajectory, ok flags, ATE and volume
      against the JAX DenseSLAM's fingerprint
      (data/orbit_vga_slam_fingerprint.json) within TOL_SLAM_*; (b)
      DenseSLAM in process at track_res_scale 1 and 2, ms/frame over
-     frames 3-59 with one sync at the end, three fresh runs each, lost
-     frames and ATE, then one pass split by CUDA events (upload, model
-     depth, pyramids, ICP, the pose read, fusion, keyframe work); (c) K4
+     frames 3-59 with one sync at the end, three fresh runs each
+     (captured), lost frames and ATE, then one eager pass (capture=False)
+     split by CUDA events (upload, model depth, pyramids, ICP, the gate,
+     fusion, keyframe work); (c) K4
      on the app's SLAM volume at 640x480 and 320x240, bit-equal to its
      plain version, its branches counted; (d) LoopClosureManager on the
      card over tests/test_loop_closure.py's drifted out-and-back keyframes
@@ -224,10 +226,18 @@ exits non-zero:
      every image equal, ms a render of each; (d) DISINFSystem integrating
      on its own thread against its eager twin; (e) a recenter in the
      middle of a captured replay: new captures, the volume equal to the
-     eager twin's; then both replays profiled (frames 6-17: device time,
-     kernels, host launch calls and graph launches a frame, idle share).
-     The kernels line gives each kernel's launches made by graph replays
-     over the run (graph_replays).
+     eager twin's; (f) DenseSLAM (phase 8's configuration) over the 60
+     frames at track_res_scale 1 and 2, eager and captured in turns, twice:
+     every pose, ok flag and volume array equal, ms/frame of each over
+     frames 3-59 (CUDA events), graph replays and K4 / K2 launches a
+     frame, clocks.sm and power.draw; (g) the sharded step at the bench
+     preset over [cuda:0] * 4 and [cuda:0], eager and captured in turns,
+     twice: every block and the capacity cuts equal, ms/frame of each over
+     frames 6-59, graph replays a frame; then every replay profiled
+     (frames 6-17 of the bench replay and the sharded step, 45-59 of
+     SLAM: device time, kernels, host launch calls and graph launches a
+     frame, idle share).  The kernels line gives each kernel's launches
+     made by graph replays over the run (graph_replays).
 
 Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 13,
 then 14, then 15, then 16, then 7 (which
@@ -1805,13 +1815,15 @@ def slam_app(fuse_kernel, splat_kernel, odometry) -> dict:
     tracked = r["frames"] - 1
     log(f"[chip_smoke] slam app: {r['frames']} frames in {r['seconds']:.2f} s of frame loop "
         f"({wall_s:.2f} s with the mesh and the checkpoint), launches {launches}, pose reads "
-        f"{reads} ({tracked} tracked frames + {lc.verifications} loop verifications), mesh "
-        f"{r['mesh']}")
+        f"{reads} ({lc.verifications} loop verifications; the tracked frames read none), "
+        f"graph replays {r['slam'].graphs.replays}, mesh {r['mesh']}")
     if r["frames"] != ref["frames"] or launches != {
             "fuse_rows": r["frames"], "splat_zbuf_blocks": tracked, "splat_payload_blocks": 0}:
         raise AssertionError(f"slam app: {r['frames']} frames, launches {launches}")
-    if reads != tracked + lc.verifications:
-        raise AssertionError(f"slam app: {reads} pose reads for {tracked} tracked frames")
+    if reads != lc.verifications or r["slam"].graphs.replays < tracked - 2:
+        raise AssertionError(f"slam app: {reads} pose reads for {lc.verifications} "
+                             f"verifications, {r['slam'].graphs.replays} graph replays for "
+                             f"{tracked} tracked frames")
     for name in ("traj.txt", "slam_volume.npz", "slam_mesh.obj"):
         if os.path.getsize(os.path.join(out_dir, name)) == 0:
             raise AssertionError(f"slam app wrote an empty {name}")
@@ -1836,26 +1848,26 @@ def slam_frames():
     return out
 
 
-def new_slam(dev, scale):
+def new_slam(dev, scale, capture=True):
     """DenseSLAM at the app's defaults (2 cm, 6 cm, 4 m, the default
-    TSDFConfig, loop closure every 10 frames, a 60-frame gap)."""
+    TSDFConfig, loop closure every 10 frames, a 60-frame gap); capture=False
+    for the eager step."""
     from disinfect_slam_tpu_torch.io.config_reader import get_intrinsics, load_yaml
     from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
 
     intr = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
     return DenseSLAM(intr, H, W, voxel_size=0.02, truncation=0.06, max_depth=4.0,
                      loop_closure=True, kf_every=10, lc_kwargs=dict(min_gap_frames=60),
-                     track_res_scale=scale, device=dev)
-
-
-SLAM_STAGES = ("upload", "model_depth", "pyramids", "icp", "pose_read", "fusion")
+                     track_res_scale=scale, device=dev, capture=capture)
 
 
 def slam_timing(dev, frames, smi) -> dict:
     """Phase 8 (b): ms/frame over frames 3-59 with one sync at the end,
-    three fresh runs at each track_res_scale; lost frames and ATE against
-    trajectory.txt; then one pass split by CUDA events at each mark of the
-    tracked step (and the host clock beside them), keyframe work after."""
+    three fresh runs at each track_res_scale (the captured step); lost
+    frames and ATE against trajectory.txt; then one eager pass split by
+    CUDA events at each mark of the tracked step (and the host clock beside
+    them), keyframe work after."""
+    from disinfect_slam_tpu_torch.systems.dense_slam import STAGES as SLAM_STAGES
     from disinfect_slam_tpu_torch.utils import trajectory_eval as te
 
     ts_gt, gt = te.load_trajectory(os.path.join(DATASET, "trajectory.txt"))
@@ -1879,8 +1891,8 @@ def slam_timing(dev, frames, smi) -> dict:
             ates.append(te.ate(gt[oks], est)["rmse"])
             lost.append(slam.lost_count)
             del slam
-        # one pass split at the marks (frames SLAM_WARM-59)
-        slam = new_slam(dev, scale)
+        # one eager pass split at the marks (frames SLAM_WARM-59)
+        slam = new_slam(dev, scale, capture=False)
         dev_ms = {n: [] for n in (*SLAM_STAGES, "keyframe", "frame")}
         host_ms = {n: [] for n in dev_ms}
         for i, (rgb, depth) in enumerate(frames):
@@ -2025,38 +2037,26 @@ def slam_zbuf_yardsticks(splat_kernel, vol, pose) -> dict:
 
 
 def slam_profile(dev) -> dict:
-    """Phase 7, the SLAM frame under the profiler: a fresh DenseSLAM at
-    track_res_scale 1 over frames 0-44, then frames 45-59 profiled (wall
-    and device kernel time a frame, kernels a frame, idle share); then
-    ICP alone (ICPOdometry._track on frame 59 against the model depth,
-    five calls): kernels, device and wall ms a call, and the torch ops
-    that take the most host time in it."""
+    """Phase 7, the SLAM frame under the profiler: a fresh (captured)
+    DenseSLAM at track_res_scale 1 over frames 0-44, then frames 45-59
+    profiled (step_profile); then ICP alone (ICPOdometry._track, eager,
+    on frame 59 against the model depth, five calls): kernels, device
+    and wall ms a call, and the torch ops that take the most host time in
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     from disinfect_slam_tpu_torch.core.geometry import SE3
+    from disinfect_slam_tpu_torch.systems.dense_slam import model_depth
     from disinfect_slam_tpu_torch.utils.device import upload
 
     frames = slam_frames()
     slam = new_slam(dev, 1)
-    for rgb, depth in frames[:SPLIT_FIRST]:
-        slam.process_frame(rgb, depth)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for rgb, depth in frames[SPLIT_FIRST:]:
-            slam.process_frame(rgb, depth)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    n = len(frames) - SPLIT_FIRST
-    res = {"frames": [SPLIT_FIRST, len(frames) - 1], "wall_ms_per_frame": wall_ms / n,
-           "device_ms_per_frame": device_ms / n, "kernels_per_frame": len(events) / n,
-           "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+    res = slam_frames_profile(slam, frames)
 
     prev = np.linalg.inv(slam.world_T_cam)
     tracker = slam.tracker
-    pyr_ref = tracker._prep(slam._model_depth(SE3.from_matrix(prev)))
+    pyr_ref = tracker._prep(model_depth(slam.volume, slam.track_cam, SE3.from_matrix(prev),
+                                        slam.max_depth))
     pyr_cur = tracker._prep(upload(frames[-1][1], dev))
     poses = upload(np.stack([slam.world_T_cam, prev]), dev)
     calls = 5
@@ -2076,9 +2076,10 @@ def slam_profile(dev) -> dict:
                   "top_host_ops_ms_per_call": {a.key: a.self_cpu_time_total / 1e3 / calls
                                                for a in top}}
     log(f"[chip_smoke] slam profile (frames {SPLIT_FIRST}-{len(frames) - 1}): wall "
-        f"{wall_ms / n:.3f} ms/frame, device kernel time {device_ms / n:.3f} ms/frame in "
-        f"{len(events) / n:.1f} kernels/frame, idle share "
-        + (f"{res['idle_share']:.3f}" if device_ms else "not measured")
+        f"{res['wall_ms_per_frame']:.3f} ms/frame, device kernel time "
+        f"{res['device_ms_per_frame']:.3f} ms/frame in {res['kernels_per_frame']:.1f} "
+        f"kernels/frame, idle share "
+        + (f"{res['idle_share']:.3f}" if res["idle_share"] is not None else "not measured")
         + f"; ICP alone {res['icp']['wall_ms_per_call']:.3f} ms a call, "
         f"{res['icp']['kernels_per_call']:.1f} kernels, "
         f"{res['icp']['device_ms_per_call']:.3f} ms of device time; host time by op "
@@ -3829,37 +3830,16 @@ def timed_replay(offline, dev, frames, intrinsics, capture: bool):
 
 def replay_profile(offline, dev, frames, intrinsics, capture: bool) -> dict:
     """Frames GRAPH_WARM.. GRAPH_WARM + GRAPH_PROFILED - 1 of a fresh bench
-    grid under torch.profiler: device kernels and their time a frame, the
-    host's kernel launch calls and graph launches a frame, the idle
-    share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    grid under torch.profiler (step_profile)."""
     grid, max_depth = bench_grid(offline, dev, capture)
-    for rgb, depth, ht, lt, pose in frames[:GRAPH_WARM]:
-        grid.integrate(rgb, depth, ht, lt, max_depth, intrinsics, pose)
-    torch.cuda.synchronize()
+    go = lambda part: [grid.integrate(*f[:4], max_depth, intrinsics, f[4])  # noqa: E731
+                       for f in part]
+    go(frames[:GRAPH_WARM])
     part = frames[GRAPH_WARM:GRAPH_WARM + GRAPH_PROFILED]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for rgb, depth, ht, lt, pose in part:
-            grid.integrate(rgb, depth, ht, lt, max_depth, intrinsics, pose)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.events()
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    launch_calls = sum(1 for e in events if e.device_type.name == "CPU"
-                       and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                                      "cuLaunchKernelEx"))
-    graph_calls = sum(1 for e in events if e.device_type.name == "CPU"
-                      and e.name in ("cudaGraphLaunch", "cuGraphLaunch"))
-    n = len(part)
+    res = step_profile(lambda: go(part), len(part))
     del grid
     torch.cuda.empty_cache()
-    return {"frames": n, "wall_ms_per_frame": wall_ms / n, "device_ms_per_frame": device_ms / n,
-            "kernels_per_frame": len(kernels) / n, "launch_calls_per_frame": launch_calls / n,
-            "graph_launches_per_frame": graph_calls / n,
-            "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+    return res
 
 
 def captured_fusion(offline, dev, frames, intrinsics, ref, fuse_kernel, smi):
@@ -4044,6 +4024,209 @@ def captured_recenter(offline, dev, frames, intrinsics, smi) -> dict:
     return {"captures": captures}
 
 
+def timed_slam(dev, frames, scale, capture):
+    """All frames through a fresh phase-8 DenseSLAM, CUDA events around
+    frames SLAM_WARM.. -> (slam, [(cam_T_world, ok)] on the host, ms/frame,
+    graph replays and K4 / K2 launches of the run)."""
+    from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel, splat_kernel
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
+
+    counters = lambda: (REPLAYS["graph"], splat_kernel.splat_zbuf_blocks.launches,  # noqa: E731
+                        fuse_kernel.fuse_rows.launches)
+    before = counters()
+    slam = new_slam(dev, scale, capture)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = []
+    for i, (rgb, depth) in enumerate(frames):
+        if i == SLAM_WARM:
+            torch.cuda.synchronize()
+            start.record()
+        out.append(slam.process_frame(rgb, depth))
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (len(frames) - SLAM_WARM)
+    counts = [a - b for a, b in zip(counters(), before)]
+    return slam, [(p.cpu().numpy(), bool(ok)) for p, ok in out], ms, counts
+
+
+def captured_slam(dev, frames, smi) -> dict:
+    """Phase 16f: phase 8's DenseSLAM over the 60 frames, eager then
+    captured, GRAPH_REPS - 1 times in turns at each track_res_scale: every
+    pose, ok flag and volume array equal; ms/frame of each (CUDA events,
+    frames SLAM_WARM-59, median), graph replays and K4 / K2 launches a
+    frame, the clocks."""
+    n = len(frames)
+    out = {}
+    for scale in (1, 2):
+        runs = {"eager": [], "captured": []}
+        counts = {}
+        for rep in range(GRAPH_REPS - 1):
+            sides = {}
+            for name, capture in (("eager", False), ("captured", True)):
+                slam, poses, ms, c = timed_slam(dev, frames, scale, capture)
+                runs[name].append(ms)
+                counts[name] = {"graph_replays_per_frame": c[0] / n, "k4_per_frame": c[1] / n,
+                                "k2_per_frame": c[2] / n}
+                sides[name] = (slam, poses)
+            (es, ep), (cs, cp) = sides["eager"], sides["captured"]
+            same = all(np.array_equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(ep, cp))
+            equal = volumes_equal(cs.volume, es.volume)
+            lost = [cs.lost_count, es.lost_count]
+            del sides, es, cs
+            torch.cuda.empty_cache()
+            if not same or not all(equal.values()) or any(lost):
+                raise AssertionError(f"captured SLAM (scale {scale}, run {rep}): poses and ok "
+                                     f"flags equal {same}, volume {equal}, lost {lost}")
+        med = {k: statistics.median(v) for k, v in runs.items()}
+        clocks = smi_clocks()
+        log(f"[chip_smoke] captured SLAM, track_res_scale={scale}: ms/frame over frames "
+            f"{SLAM_WARM}-{n - 1} (CUDA events) eager {runs['eager']} -> {med['eager']:.3f}, "
+            f"captured {runs['captured']} -> {med['captured']:.3f}; every pose, ok flag and "
+            f"volume array equal; captured a frame: {counts['captured']} (eager "
+            f"{counts['eager']}); clocks.sm, power.draw: {clocks} ({smi})")
+        out[scale] = {"ms_per_frame": runs, "median_ms": med, "counts": counts,
+                      "clocks": clocks}
+    return out
+
+
+def timed_shards(frames, intrinsics, mesh, capture):
+    """The bench preset's DistributedTSDF over `mesh`, every frame with
+    one sync at the end, CUDA events around frames GRAPH_WARM.. -> (dist,
+    ms/frame, the cuts of every frame and shard, graph replays a frame)."""
+    from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput
+    from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
+
+    dist = DistributedTSDF(BENCH, mesh, capture=capture)
+    replays = REPLAYS["graph"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cuts = []
+    for i, (rgb, depth, ht, lt, pose) in enumerate(frames):
+        if i == GRAPH_WARM:
+            torch.cuda.synchronize()
+            start.record()
+        dist.integrate(FrameInput(rgb, depth, ht, lt), intrinsics, pose, BENCH_MAX_DEPTH,
+                       cuts=cuts)
+    end.record()
+    torch.cuda.synchronize()
+    cut_list = [[None if t is None else int(t) for t in c] for c in cuts]
+    return (dist, start.elapsed_time(end) / (len(frames) - GRAPH_WARM), cut_list,
+            (REPLAYS["graph"] - replays) / len(frames))
+
+
+def captured_shards(dev, frames, intrinsics, smi) -> dict:
+    """Phase 16g: the sharded step at the bench preset over [cuda:0] * 4
+    and [cuda:0], eager then captured, GRAPH_REPS - 1 times in turns: every
+    block and every frame's cuts equal; ms/frame of each (CUDA events,
+    frames GRAPH_WARM-59, median), graph replays a frame."""
+    out = {}
+    for shards in (DIST_SHARDS, 1):
+        runs = {"eager": [], "captured": []}
+        replays = 0.0
+        for rep in range(GRAPH_REPS - 1):
+            sides = {}
+            for name, capture in (("eager", False), ("captured", True)):
+                dist, ms, cuts, rp = timed_shards(frames, intrinsics, [dev] * shards, capture)
+                runs[name].append(ms)
+                sides[name] = (dist, cuts)
+                if capture:
+                    replays = rp
+            (ed, ec), (cd, cc) = sides["eager"], sides["captured"]
+            equal = same_rows(dist_rows(cd), dist_rows(ed)) and ec == cc
+            del sides, ed, cd
+            torch.cuda.empty_cache()
+            if not equal:
+                raise AssertionError(f"captured sharded step ({shards} shards, run {rep}) "
+                                     "differs from the eager one")
+        med = {k: statistics.median(v) for k, v in runs.items()}
+        log(f"[chip_smoke] captured sharded step, {shards} shard(s) on one card: ms/frame over "
+            f"frames {GRAPH_WARM}-{len(frames) - 1} (CUDA events, staging included) eager "
+            f"{runs['eager']} -> {med['eager']:.3f}, captured {runs['captured']} -> "
+            f"{med['captured']:.3f}; every block and cut equal; graph replays {replays:.2f} a "
+            f"frame; clocks.sm, power.draw: {smi_clocks()} ({smi})")
+        out[shards] = {"ms_per_frame": runs, "median_ms": med,
+                       "graph_replays_per_frame": replays}
+    return out
+
+
+def step_profile(run_frames, n_frames) -> dict:
+    """run_frames() under torch.profiler, n_frames frames: device kernels
+    and their time a frame, the host's kernel launch calls and graph
+    launches a frame, the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_frames()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    launch_calls = sum(1 for e in events if e.device_type.name == "CPU"
+                       and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                                      "cuLaunchKernelEx"))
+    graph_calls = sum(1 for e in events if e.device_type.name == "CPU"
+                      and e.name in ("cudaGraphLaunch", "cuGraphLaunch"))
+    n = n_frames
+    return {"frames": n, "wall_ms_per_frame": wall_ms / n, "device_ms_per_frame": device_ms / n,
+            "kernels_per_frame": len(kernels) / n, "launch_calls_per_frame": launch_calls / n,
+            "graph_launches_per_frame": graph_calls / n,
+            "idle_share": 1 - device_ms / wall_ms if device_ms else None}
+
+
+def slam_frames_profile(slam, frames) -> dict:
+    """frames[:SPLIT_FIRST] through a fresh DenseSLAM, then the rest under
+    the profiler (step_profile; frame 50 a keyframe)."""
+    for rgb, depth in frames[:SPLIT_FIRST]:
+        slam.process_frame(rgb, depth)
+    part = frames[SPLIT_FIRST:]
+
+    def run():
+        for rgb, depth in part:
+            slam.process_frame(rgb, depth)
+
+    return step_profile(run, len(part))
+
+
+def slam_step_profile(dev, frames, capture) -> dict:
+    """Frames SPLIT_FIRST-59 of a fresh phase-8 DenseSLAM (scale 1) under
+    the profiler."""
+    slam = new_slam(dev, 1, capture)
+    res = slam_frames_profile(slam, frames)
+    del slam
+    torch.cuda.empty_cache()
+    return res
+
+
+def shards_step_profile(dev, frames, intrinsics, shards, capture) -> dict:
+    """Frames GRAPH_WARM.. GRAPH_WARM + GRAPH_PROFILED - 1 of a fresh
+    sharded volume at the bench preset under the profiler."""
+    from disinfect_slam_tpu_torch.config import BENCH, BENCH_MAX_DEPTH
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput
+    from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF
+
+    dist = DistributedTSDF(BENCH, [dev] * shards, capture=capture)
+    go = lambda part: [dist.integrate(FrameInput(*f[:4]), intrinsics, f[4],  # noqa: E731
+                                      BENCH_MAX_DEPTH) for f in part]
+    go(frames[:GRAPH_WARM])
+    part = frames[GRAPH_WARM:GRAPH_WARM + GRAPH_PROFILED]
+    res = step_profile(lambda: go(part), len(part))
+    del dist
+    torch.cuda.empty_cache()
+    return res
+
+
+def log_profile(label: str, p: dict) -> None:
+    log(f"[chip_smoke] {label} profiled: wall {p['wall_ms_per_frame']:.3f} ms/frame, device "
+        f"{p['device_ms_per_frame']:.3f} ms/frame in {p['kernels_per_frame']:.1f} kernels; host "
+        f"launch calls {p['launch_calls_per_frame']:.1f} and graph launches "
+        f"{p['graph_launches_per_frame']:.1f} a frame; idle share "
+        + (f"{p['idle_share']:.3f}" if p["idle_share"] is not None else "not measured"))
+
+
 def captured_steps(offline, fuse_kernel, splat_kernel, intrinsics, poses, ref, dev, smi) -> dict:
     """Phase 16 (see the docstring); returns the report entry."""
     frames = replay_frames()
@@ -4054,18 +4237,25 @@ def captured_steps(offline, fuse_kernel, splat_kernel, intrinsics, poses, ref, d
     online = captured_online(dev, fuse_kernel, smi)
     system = captured_system(offline, dev, frames, intrinsics, smi)
     recenter = captured_recenter(offline, dev, frames, intrinsics, smi)
+    slam_frames_ = slam_frames()
+    slam = captured_slam(dev, slam_frames_, smi)
+    shards = captured_shards(dev, frames, intrinsics, smi)
     # the profiles last: a profiler trace leaves the host slower afterwards
-    profile = {name: replay_profile(offline, dev, frames, intrinsics, capture)
-               for name, capture in (("eager", False), ("captured", True))}
-    for name, p in profile.items():
-        log(f"[chip_smoke] {name} bench replay profiled (frames {GRAPH_WARM}-"
-            f"{GRAPH_WARM + GRAPH_PROFILED - 1}): wall {p['wall_ms_per_frame']:.3f} ms/frame, "
-            f"device {p['device_ms_per_frame']:.3f} ms/frame in {p['kernels_per_frame']:.1f} "
-            f"kernels; host launch calls {p['launch_calls_per_frame']:.1f} and graph launches "
-            f"{p['graph_launches_per_frame']:.1f} a frame; idle share "
-            + (f"{p['idle_share']:.3f}" if p["idle_share"] is not None else "not measured"))
+    last = GRAPH_WARM + GRAPH_PROFILED - 1
+    profile = {}
+    for name, capture in (("eager", False), ("captured", True)):
+        profile[name] = replay_profile(offline, dev, frames, intrinsics, capture)
+        log_profile(f"{name} bench replay (frames {GRAPH_WARM}-{last})", profile[name])
+        profile[f"slam_{name}"] = slam_step_profile(dev, slam_frames_, capture)
+        log_profile(f"{name} SLAM step (frames {SPLIT_FIRST}-59, scale 1)",
+                    profile[f"slam_{name}"])
+        for n in (DIST_SHARDS, 1):
+            profile[f"shards_{n}_{name}"] = shards_step_profile(dev, frames, intrinsics, n,
+                                                                capture)
+            log_profile(f"{name} sharded step, {n} shard(s) (frames {GRAPH_WARM}-{last})",
+                        profile[f"shards_{n}_{name}"])
     return {"fusion": fusion, "render": render, "online": online, "system": system,
-            "recenter": recenter, "profile": profile}
+            "recenter": recenter, "slam": slam, "shards": shards, "profile": profile}
 
 
 def probe_timer(fn, name, nbytes=0) -> float:
@@ -4429,7 +4619,15 @@ def main() -> int:
         f"{captured['render']['median_ms']['eager']:.3f} / "
         f"{captured['render']['median_ms']['captured']:.3f} ms/render; online_fps (UNet) "
         f"{captured['online']['unet']['online_fps']['eager']:.3f} / "
-        f"{captured['online']['unet']['online_fps']['captured']:.3f} ({smi}) "
+        f"{captured['online']['unet']['online_fps']['captured']:.3f}; SLAM "
+        f"{captured['slam'][1]['median_ms']['eager']:.3f} / "
+        f"{captured['slam'][1]['median_ms']['captured']:.3f} ms/frame (scale 1), "
+        f"{captured['slam'][2]['median_ms']['eager']:.3f} / "
+        f"{captured['slam'][2]['median_ms']['captured']:.3f} (scale 2); sharded step "
+        f"{captured['shards'][DIST_SHARDS]['median_ms']['eager']:.3f} / "
+        f"{captured['shards'][DIST_SHARDS]['median_ms']['captured']:.3f} ms/frame ({DIST_SHARDS} "
+        f"shards), {captured['shards'][1]['median_ms']['eager']:.3f} / "
+        f"{captured['shards'][1]['median_ms']['captured']:.3f} (1) ({smi}) "
         f"({time.perf_counter() - t16:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
     # phase 7: device times, after every end-to-end measurement

@@ -18,7 +18,10 @@ by the tensor ops as 0-d views and by the kernels through a pointer, so
 that a captured step (utils/graphs.py) reads each frame's pose where a
 Python float would be frozen into the graph.  A float32 0-d tensor times
 a float32 tensor rounds as the Python float holding the same float32
-value does, so the two poses give the same bits.
+value does, so the two poses give the same bits.  A pose computed on the
+device (DenseSLAM's tracked one) is turned into those slots there, with
+the host's arithmetic (`pose_floats_of_matrix`), and inverted there with
+numpy's bits (`inverse4`).
 """
 
 from __future__ import annotations
@@ -303,6 +306,93 @@ class DevicePose(_PoseOps):
 
     def translation_tensor(self, device) -> torch.Tensor:
         return self.t
+
+
+# the quaternion's numerators (Shepperd's method): row b holds branch b's
+# (w, x, y, z) as indices into [m21-m12, m02-m20, m10-m01, m01+m10,
+# m02+m20, m12+m21]; the diagonal is the branch's own 0.25 s
+_QUAT_NUM = ((0, 0, 1, 2), (0, 0, 3, 4), (1, 3, 0, 5), (2, 4, 5, 0))
+# rotation_entries: r_i = 2 (A_i + sign_i B_i) over the quaternion's outer
+# product (flat index 4 a + b holds q_a q_b), then 1 - r_i on the diagonal
+_ROT_A = (10, 6, 7, 6, 5, 11, 7, 11, 5)
+_ROT_B = (15, 3, 2, 3, 15, 1, 2, 1, 10)
+_ROT_SIGN = (1.0, -1.0, 1.0, 1.0, 1.0, -1.0, -1.0, 1.0, 1.0)
+_ROT_DIAG = (True, False, False, False, True, False, False, False, True)
+_POSE_CONSTS: dict = {}
+
+
+def _pose_consts(dev: torch.device) -> tuple:
+    """The index and sign tables above on `dev`, made once a device (the
+    first call uploads them, through pinned memory without a stream sync;
+    a captured step makes its first call eagerly)."""
+    if dev not in _POSE_CONSTS:
+        tables = (torch.tensor(_QUAT_NUM), torch.tensor(_ROT_A), torch.tensor(_ROT_B),
+                  torch.tensor(_ROT_SIGN, dtype=torch.float32), torch.tensor(_ROT_DIAG),
+                  torch.tensor((1.0, -1.0, -1.0, -1.0), dtype=torch.float32),
+                  torch.eye(4, dtype=torch.bool))
+        if dev.type == "cuda":
+            tables = tuple(t.pin_memory().to(dev, non_blocking=True) for t in tables)
+        _POSE_CONSTS[dev] = tables
+    return _POSE_CONSTS[dev]
+
+
+def _cross_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """_cross on [3] tensors: two products and a difference a component
+    (separate ops, so never a fused multiply-add)."""
+    return a.roll(-1) * b.roll(1) - a.roll(1) * b.roll(-1)
+
+
+def _pose_half_t(q: torch.Tensor, t: torch.Tensor, consts: tuple) -> torch.Tensor:
+    """One half of a device pose's slots: rotation entries, t, q."""
+    _, rot_a, rot_b, rot_sign, rot_diag, _, _ = consts
+    p = (q[:, None] * q[None, :]).reshape(16)
+    r = 2.0 * (p[rot_a] + rot_sign * p[rot_b])
+    return torch.cat([torch.where(rot_diag, 1.0 - r, r), t, q])
+
+
+def pose_floats_of_matrix(m: torch.Tensor) -> torch.Tensor:
+    """pose_floats(SE3.from_matrix(m)) computed on m's device: the 32
+    float32 slots of a device pose for a float32 4x4 (or 3x4) matrix
+    tensor, with the host's numpy float32 ops in the host's order (the
+    quaternion by Shepperd's method in the JAX package's branch order,
+    the rotation entries from it, the inverse's quaternion and
+    translation), so each slot holds the host's bits.  Branch-free and
+    without a host read: a captured step turns a tracked pose into the
+    pose the kernels read."""
+    consts = _pose_consts(m.device)
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = m[:3, :3].reshape(9).unbind()
+    tr = m00 + m11 + m22
+    diag = torch.stack([tr, m00, m11, m22])
+    zero = torch.zeros_like(tr)
+    # 1 + t, then 1 + m_ii - m_jj - m_kk, each in the host's order
+    u = ((1.0 + diag) - torch.stack([zero, m11, m00, m00])) - torch.stack([zero, m22, m22, m11])
+    # the root in float64, rounded once to float32: numpy's correctly
+    # rounded float32 root (torch's float32 root on the CPU is not, by an
+    # ulp at some inputs)
+    s = torch.sqrt(torch.clamp(u, min=1e-12).double()).float() * 2.0
+    pair = torch.stack([m21 - m12, m02 - m20, m10 - m01, m01 + m10, m02 + m20, m12 + m21])
+    quat = pair[consts[0]] / s[:, None]
+    quat = torch.where(consts[6], 0.25 * s[:, None], quat)
+    # t > 0: branch 0; else the first maximum of [t, m00, m11, m22], at least 1
+    branch = torch.where(tr > 0, 0, torch.clamp(torch.argmax(diag), min=1))
+    q = quat.index_select(0, branch.reshape(1))[0]
+    t = m[:3, 3]
+    q_inv = q * consts[5]
+    u_inv = q_inv[1:4]
+    uv = _cross_t(u_inv, -t)
+    t_inv = -t + 2.0 * (q_inv[0] * uv + _cross_t(u_inv, uv))
+    return torch.cat([_pose_half_t(q, t, consts), _pose_half_t(q_inv, t_inv, consts)])
+
+
+def inverse4(m: torch.Tensor) -> torch.Tensor:
+    """The float32 inverse of a 4x4 on its device with numpy's bits:
+    numpy.linalg inverts a float32 matrix in float64 (LAPACK's LU) and
+    rounds the result once; here linalg.inv_ex in float64, without the
+    error check (which would read the LU status on the host), rounded
+    once.  The two float64 inverses may differ in their last bits, which
+    the rounding to float32 absorbs: equal on 20000 poses, near-singular
+    and far ones included."""
+    return torch.linalg.inv_ex(m.double(), check_errors=False).inverse.float()
 
 
 def device_pose(pose, device) -> DevicePose:

@@ -11,10 +11,15 @@ it, with one process and no torch.distributed:
     TSDFVolume of `shard_config(cfg, n)` (1/n of the pool) on devices[d].
     A device may repeat: [cuda:0] * 4 holds four co-resident shards on
     one card, as the JAX tests hold eight on virtual CPU devices;
-  - integrate uploads the frame once per distinct device and runs, per
+  - integrate stages the frame once per distinct device and runs, per
     shard, allocation of the blocks it owns, the visible set (no
     occlusion cull, as the JAX step), fusion (fuse_rows, K2, on a CUDA
-    shard) and carving.  No data crosses shards;
+    shard) and carving, in place.  No data crosses shards.  The shards of
+    one device are one step: on a CUDA device a CUDA graph after its
+    first call of a key (utils/graphs.py; the counterpart of the JAX
+    package's jitted, donated shard_map step), so [cuda:0] * 4 replays
+    one graph a frame and N cards one each, on their own streams;
+    capture=False runs the same steps eagerly;
   - queries gather per shard and concatenate in shard order (the JAX
     all_gather's shard-major result); render splats per shard (K4 and K5
     on a CUDA shard) and merges the images on the first shard's device
@@ -30,6 +35,7 @@ neither.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 from typing import List, Optional, Sequence, Tuple
@@ -54,6 +60,7 @@ from ..ops.integrate import (
 from ..ops.raycast import RaycastResult
 from ..systems.block_streaming import HostBlockStore
 from ..utils.device import resolve_device
+from ..utils.graphs import StaticInputs, StepGraphs
 
 _OWNER_P1 = 126271
 _OWNER_P2 = 522133279
@@ -106,55 +113,112 @@ def shard_config(cfg: TSDFConfig, n_devices: int) -> TSDFConfig:
     return dataclasses.replace(cfg, **kwargs)
 
 
-def _as_tensor(a, device: torch.device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(a, np.float32), device=device)
+_CHANNELS = ("rgb", "depth", "ht", "lt")
 
 
 class DistributedTSDF:
-    """TSDF volume sharded over a list of devices (a 1-D mesh)."""
+    """TSDF volume sharded over a list of devices (a 1-D mesh).
+    capture: integrate as one captured step a device (the default;
+    capture=False runs it eagerly)."""
 
-    def __init__(self, cfg: TSDFConfig, mesh: Optional[Sequence] = None):
+    def __init__(self, cfg: TSDFConfig, mesh: Optional[Sequence] = None, capture: bool = True):
         self.mesh = make_mesh(devices=mesh)
         self.n_devices = len(self.mesh)
         self.cfg = cfg
         self.sub_cfg = shard_config(cfg, self.n_devices)
         self.shards = [TSDFVolume.create(self.sub_cfg, d) for d in self.mesh]
         self.spill_stores = None
+        self.capture = capture
+        # the shards of each distinct device, in shard order
+        self.groups: dict = {}
+        for d, dev in enumerate(self.mesh):
+            self.groups.setdefault(dev, []).append(d)
+        self.graphs = {dev: StepGraphs(dev) for dev in self.groups}
+        self._inputs: dict = {}
+        # each shard's capacity cuts (new candidates past max_candidates,
+        # None on the sort path; visible blocks past max_visible), static
+        # 0-d buffers the step writes every frame
+        filtered = self.sub_cfg.alloc_dedup == "filter" and self.sub_cfg.backend == "dense"
+        self._cuts = [(torch.zeros((), dtype=torch.int32, device=dev) if filtered else None,
+                       torch.zeros((), dtype=torch.int32, device=dev)) for dev in self.mesh]
+        self._tick = 0
+
+    def _static(self, dev: torch.device, h: int, w: int, render: bool = False) -> StaticInputs:
+        """A device's staged inputs: the frame and the pose (two slots),
+        or the render's pose alone (one slot)."""
+        key = (dev, h, w, render)
+        if key not in self._inputs:
+            specs = {"pose": StaticInputs.pose_spec()}
+            if not render:
+                shapes = ((h, w, 3), (h, w), (h, w), (h, w))
+                specs.update({n: (s, torch.float32) for n, s in zip(_CHANNELS, shapes)})
+            self._inputs[key] = StaticInputs(specs, dev, slots=1 if render else 2)
+        return self._inputs[key]
 
     # ------------------------------------------------------------------
     def integrate(self, frame: FrameInput, intrinsics: Tuple[float, float, float, float],
                   cam_T_world: np.ndarray, max_depth: float,
                   cuts: Optional[list] = None) -> None:
-        """One frame into every shard.  The frame's fields are host arrays
-        or tensors on any device; each distinct device receives them once.
-        Allocation runs every frame (cfg.alloc_every is not read), as in
-        the JAX package's sharded step.  With a `cuts` list, each shard
-        appends (new candidates past max_candidates, visible blocks past
-        max_visible) as 0-d device tensors (no host wait; the candidate
-        count is the dense presence filter's, None on the sort path)."""
+        """One frame into every shard, in place.  The frame's fields are
+        host arrays (staged once per distinct device) or tensors on any
+        device (copied into each device's static buffers); ht / lt None
+        read as ones.  Allocation runs every frame (cfg.alloc_every is not
+        read), as in the JAX package's sharded step.  With a `cuts` list,
+        each shard appends (new candidates past max_candidates, visible
+        blocks past max_visible) as 0-d device tensors (no host wait; the
+        candidate count is the dense presence filter's, None on the sort
+        path)."""
         img_h, img_w = frame.depth.shape[:2]
         cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), img_h, img_w)
         pose = SE3.from_matrix(cam_T_world)
         max_depth = float(max_depth)
-        local = {}
-        for d, dev in enumerate(self.mesh):
-            if dev not in local:
-                fr = FrameInput(*(_as_tensor(a, dev) for a in frame))
-                local[dev] = (fr, depth_to_range(cam, dev))
-            fr, d2r = local[dev]
+        slot = self._tick % 2
+        self._tick += 1
+        chans = dict(zip(_CHANNELS, frame))
+        staged = [n for n in _CHANNELS if not isinstance(chans[n], torch.Tensor)]
+        for dev, shards in self.groups.items():
+            inputs = self._static(dev, img_h, img_w)
+            inputs.fill(slot, pose=pose, **{n: 1.0 if chans[n] is None else chans[n]
+                                            for n in staged})
+            for n in _CHANNELS:
+                if n not in staged:
+                    inputs.dev[n].copy_(chans[n])
+
+            def body(dev=dev, shards=shards, inputs=inputs):
+                self._step(dev, shards, inputs, slot, staged, cam, max_depth)
+
+            with _on(dev):
+                if self.capture:
+                    key = (("dist", img_h, img_w, tuple(staged), cam.intrinsics, max_depth, slot)
+                           + sum((self.shards[d].storage_key() for d in shards), ()))
+                    self.graphs[dev].run(key, body)
+                else:
+                    body()
+                inputs.done(slot)
+        if cuts is not None:
+            cuts.extend(tuple(None if t is None else t.clone() for t in c) for c in self._cuts)
+
+    def _step(self, dev, shards, inputs: StaticInputs, slot: int, staged: list,
+              cam: CameraParams, max_depth: float) -> None:
+        """The frame into the shards of one device, in place: the step a
+        device's graph holds."""
+        inputs.upload(slot, staged + ["pose"])
+        fr = FrameInput(*(inputs.dev[n] for n in _CHANNELS))
+        d2r = depth_to_range(cam, dev)
+        pose = inputs.pose
+        for d in shards:
             vol, cand_over = _allocate_owned(self.shards[d], fr.depth, d2r, cam, pose,
                                              max_depth, d, self.n_devices)
             # gather_visible without the occlusion cull, its mask kept
             mask = (vol.entry_block >= 0) & block_visibility(vol.entry_pos, pose, cam, vol.cfg,
                                                              full=False)
             vis = compact_mask(vol, mask)
-            if cuts is not None:
-                cuts.append((cand_over, torch.clamp(
-                    mask.sum(dtype=torch.int32) - vol.cfg.max_visible, min=0)))
+            if cand_over is not None:
+                self._cuts[d][0].copy_(cand_over)
+            self._cuts[d][1].copy_(torch.clamp(
+                mask.sum(dtype=torch.int32) - vol.cfg.max_visible, min=0))
             vol, min_abs = fuse_visible(vol, vis, fr, d2r, cam, pose, max_depth)
-            self.shards[d] = space_carve(vol, vis, min_abs)
+            space_carve(vol, vis, min_abs)
 
     def block_until_ready(self) -> None:
         for dev in set(self.mesh):
@@ -224,29 +288,65 @@ class DistributedTSDF:
     def render(self, cam: CameraParams, cam_T_world: np.ndarray, max_depth: float
                ) -> RaycastResult:
         """Distributed splat render: each shard splats its own blocks (K4
-        and K5 on a CUDA shard) and the images merge on the first shard's
-        device: the nearest hit depth wins, the winners' rgba and normal
-        are max-merged channel by channel with the losers at zero (shards
-        tied at a pixel's depth all win it), hit is any winner.  As in
-        the JAX package, each shard shades its normals from its own depth
-        image, so normals (and rgba at ties) need not equal a one-shard
-        render's; hit and depth do."""
+        and K5 on a CUDA shard) and the images merge with the JAX rule (the
+        nearest hit depth wins, the winners' rgba and normal are max-merged
+        channel by channel with the losers at zero: shards tied at a
+        pixel's depth all win it; hit is any winner), first among the
+        shards of each device, in that device's step (one CUDA graph a
+        device after its first call of a key, as integrate), then across
+        the devices on the first one; the nearest-wins merge is the same
+        taken in parts.  As in the JAX package, each shard shades its
+        normals from its own depth image, so normals (and rgba at ties)
+        need not equal a one-shard render's; hit and depth do."""
         pose = SE3.from_matrix(cam_T_world)
-        dev0 = self.mesh[0]
+        max_depth = float(max_depth)
         parts = []
-        for s in self.shards:
-            fn = splat_render_cuda if s.device.type == "cuda" else rf.splat_render
-            res = fn(s, cam, pose, float(max_depth))
-            parts.append([t.to(dev0) for t in (res.hit, res.depth, res.rgba, res.normal)])
-        hits, depths, rgbas, normals = (torch.stack(x) for x in zip(*parts))  # [D, H, W(, 4)]
-        local_d = torch.where(hits, depths, torch.inf)
-        best = local_d.amin(0)
-        win = hits & (local_d <= best)
-        rgba = torch.where(win[..., None], rgbas, 0).amax(0)
-        normal = torch.where(win[..., None], normals, 0).amax(0)
-        hit = win.any(0)
-        depth = torch.where(torch.isfinite(best), best, 0.0)
+        for dev, shards in self.groups.items():
+            inputs = self._static(dev, 0, 0, render=True)
+            inputs.fill(0, pose=pose)
+
+            def body(dev=dev, shards=shards, inputs=inputs):
+                inputs.upload(0)
+                return _merge([self._splat(self.shards[d], cam, inputs.pose, max_depth)
+                               for d in shards])
+
+            with _on(dev):
+                if self.capture and dev.type == "cuda":
+                    key = (("dist_render", cam.img_h, cam.img_w, cam.intrinsics, max_depth)
+                           + sum((self.shards[d].storage_key() for d in shards), ()))
+                    part = [t.clone() for t in self.graphs[dev].run(key, body)]
+                else:
+                    part = body()
+                inputs.done(0)
+            parts.append(part)
+        dev0 = self.mesh[0]
+        hit, depth, rgba, normal = _merge([[t.to(dev0) for t in p] for p in parts])
         return RaycastResult(rgba=rgba, normal=normal, depth=depth, hit=hit)
+
+    @staticmethod
+    def _splat(vol: TSDFVolume, cam: CameraParams, pose, max_depth: float) -> list:
+        fn = splat_render_cuda if vol.device.type == "cuda" else rf.splat_render
+        res = fn(vol, cam, pose, max_depth)
+        return [res.hit, res.depth, res.rgba, res.normal]
+
+
+def _on(dev: torch.device):
+    """The device's context for its step: a graph replays on the current
+    device's stream, so each card's step runs with its card current."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _merge(parts: list) -> list:
+    """[hit, depth, rgba, normal] of several renders of one view, merged:
+    the nearest hit depth wins, the winners' rgba and normal max-merged
+    channel by channel with the losers at zero."""
+    hits, depths, rgbas, normals = (torch.stack(x) for x in zip(*parts))  # [D, H, W(, 4)]
+    local_d = torch.where(hits, depths, torch.inf)
+    best = local_d.amin(0)
+    win = hits & (local_d <= best)
+    rgba = torch.where(win[..., None], rgbas, 0).amax(0)
+    normal = torch.where(win[..., None], normals, 0).amax(0)
+    return [win.any(0), torch.where(torch.isfinite(best), best, 0.0), rgba, normal]
 
 
 # ----------------------------------------------------------------------
@@ -398,5 +498,5 @@ def _allocate_owned(vol: TSDFVolume, frame_depth: torch.Tensor, d2r: torch.Tenso
         dropped = None
     valid = valid & block_visibility(coords, cam_T_world, cam, cfg, full=True)
     vol, _ = h.insert(vol, coords, valid)
-    vol.oob_count = vol.oob_count + oob
+    vol.oob_count.add_(oob)
     return vol, dropped

@@ -43,13 +43,14 @@ TF32 off (`exact_fp32`).
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
 from ..utils.device import exact_fp32, resolve_device, upload
+from ..utils.graphs import StepGraphs
 from .odometry import ICPOdometry, read_result, rigid_4x4, skew
 
 logger = logging.getLogger(__name__)
@@ -265,14 +266,26 @@ def _pad_pow2(x: int, lo: int = 8) -> int:
 # ----------------------------------------------------------------------
 # Keyframe database + loop-closure manager
 # ----------------------------------------------------------------------
+class KeyframeQuery(NamedTuple):
+    """LoopClosureManager.query's result."""
+
+    depth_half: torch.Tensor  # f32 [H/2, W/2] on the device
+    desc: torch.Tensor  # f32 [DESC_DIM] on the device
+    scores: object  # f32 [cap]: db_desc @ desc on the device, or its host copy
+
+
 class LoopClosureManager:
     """Keyframe store, loop detection/verification, pose-graph state.
 
     Owned by DenseSLAM (loop_closure=True) but usable standalone.  The
     descriptors and ids live on `device`; keyframe depths are kept on the
     host at half resolution (f16) and move to the device only for the
-    rare verification ICP.  Each verification reads its pose once
-    (odometry.read_result) and counts itself in `verifications`.
+    rare verification ICP (ICPOdometry's captured prep and track, in
+    `graphs`).  Each verification reads its pose once
+    (odometry.read_result) and counts itself in `verifications`.  A
+    keyframe's match reads its best score once; a caller that has its own
+    read to make at the keyframe (DenseSLAM: the gate and the pose) takes
+    `query` first and reads its scores in the same copy.
     """
 
     def __init__(
@@ -287,6 +300,7 @@ class LoopClosureManager:
         verify_min_inliers: int = 3000,
         max_keyframes: int = 256,
         device="cuda",
+        graphs: Optional[StepGraphs] = None,
     ):
         self.device = resolve_device(device)
         self.kf_every = int(kf_every)
@@ -303,7 +317,7 @@ class LoopClosureManager:
         self._vh, self._vw = img_h // 2, img_w // 2
         self._verify_icp = ICPOdometry(
             (fx / 2, fy / 2, cx / 2, cy / 2), self._vh, self._vw,
-            max_rmse=verify_max_rmse, device=self.device,
+            max_rmse=verify_max_rmse, device=self.device, graphs=graphs,
         )
 
         # device-side database (descriptors + ids: tiny)
@@ -328,13 +342,41 @@ class LoopClosureManager:
         self.evictions = 0  # keyframes merged away at the cap
         self._cap_warned = False
 
-    def _best_match(self, desc, cur_id: int, min_gap: int) -> Tuple[int, float]:
+    def _best_match(self, desc, cur_id: int, min_gap: int,
+                    scores: Optional[np.ndarray] = None) -> Tuple[int, float]:
         """_match_scores against the live database, read to the host in
-        one copy: (best index, score)."""
+        one copy: (best index, score).  With `scores` (a query's, already
+        on the host) the same mask and first maximum are taken there,
+        from the host's copy of the ids, and nothing is read."""
+        if scores is not None:
+            ids = np.full(self.cap, _NO_ID, np.int64)
+            ids[:self.count] = self.kf_frame_ids
+            ok = (np.arange(self.cap) < self.count) & ((cur_id - ids) >= min_gap)
+            masked = np.where(ok, np.asarray(scores, np.float32), np.float32(-2.0))
+            best = int(np.argmax(masked))
+            return best, float(masked[best])
         best, score = _match_scores(desc, self.db_desc, self.db_ids, self.count,
                                     cur_id, min_gap)
         best_f, score_f = torch.stack([best.to(_F32), score]).tolist()
         return int(best_f), score_f
+
+    def query(self, depth: np.ndarray, intensity: Optional[np.ndarray] = None
+              ) -> "KeyframeQuery":
+        """A frame's half-res depth, descriptor and raw scores against the
+        whole database, on the device and without a read: the caller reads
+        `scores` together with what else it reads and passes the query,
+        scores on the host, to add_keyframe or relocalize."""
+        d_half_dev, desc = self._descriptor(np.asarray(depth, np.float32), intensity)
+        with exact_fp32():
+            scores = self.db_desc @ desc
+        return KeyframeQuery(d_half_dev, desc, scores)
+
+    def _query_or_descriptor(self, depth, intensity, query) -> tuple:
+        """(half-res depth, descriptor, host scores or None): the query's,
+        or the descriptor computed here."""
+        if query is None:
+            return (*self._descriptor(depth, intensity), None)
+        return tuple(query)
 
     def _descriptor(self, depth: np.ndarray, intensity: Optional[np.ndarray]):
         """(half-res depth on the device, its descriptor)."""
@@ -352,11 +394,10 @@ class LoopClosureManager:
         world_T_cam of the CURRENT frame in the keyframe's frame, or
         None when the rmse/inlier gate rejects."""
         icp = self._verify_icp
-        kf_depth = upload(self.kf_depth_half[kf_idx], self.device)
-        pyr_ref = icp._prep(kf_depth)
-        pyr_cur = icp._prep(depth_half_cur)
+        pyr_ref = icp.prep(self.kf_depth_half[kf_idx])
+        pyr_cur = icp.prep(depth_half_cur)
         ref_pose = upload(np.linalg.inv(self.kf_pose_opt[kf_idx]), self.device)
-        t, rmse, inl = read_result(*icp._track(
+        t, rmse, inl = read_result(*icp.track(
             upload(seed_world_T_cam, self.device), pyr_cur, pyr_ref, ref_pose))
         self.verifications += 1
         rmse_f, inl_f = float(rmse), float(inl)
@@ -373,13 +414,17 @@ class LoopClosureManager:
         world_T_cam_est: np.ndarray,
         frame_id: int,
         intensity: Optional[np.ndarray] = None,
+        query: Optional["KeyframeQuery"] = None,
     ) -> Optional[np.ndarray]:
         """Store a keyframe; detect + close loops.
 
         Returns a 4x4 world-frame CORRECTION (apply as
         world_T_cam <- C @ world_T_cam to the live tracker) when a loop
         closed, else None.  depth: full-res [H, W] float metres;
-        intensity: optional full-res [H, W] grayscale (any scale).
+        intensity: optional full-res [H, W] grayscale (any scale); query:
+        self.query(depth, intensity) with its scores read to the host (a
+        merge at the cap moves the database, and the match then reads
+        again).
 
         The kf_every cadence is enforced HERE; at the max_keyframes cap
         the most redundant keyframe is merged away (see _evict_one)."""
@@ -394,13 +439,15 @@ class LoopClosureManager:
                     "(raise max_keyframes to keep full history)", self.cap)
                 self._cap_warned = True
             self._evict_one()
+            if query is not None:
+                query = query._replace(scores=None)
         depth = np.asarray(depth, np.float32)
         d_half = depth[::2, ::2]
-        d_half_dev, desc = self._descriptor(depth, intensity)
+        d_half_dev, desc, scores = self._query_or_descriptor(depth, intensity, query)
 
         # --- detection BEFORE insertion (never match self) ---
         correction = None
-        best, score_f = self._best_match(desc, frame_id, self.min_gap_frames)
+        best, score_f = self._best_match(desc, frame_id, self.min_gap_frames, scores)
         pose_est = np.asarray(world_T_cam_est, np.float32)
 
         j = self.count  # index of the node we are about to insert
@@ -526,16 +573,18 @@ class LoopClosureManager:
 
     # ------------------------------------------------------------------
     def relocalize(
-        self, depth: np.ndarray, intensity: Optional[np.ndarray] = None
+        self, depth: np.ndarray, intensity: Optional[np.ndarray] = None,
+        query: Optional["KeyframeQuery"] = None,
     ) -> Optional[np.ndarray]:
         """Recover a pose from the keyframe database after tracking
         loss: best descriptor match (no recency gap) + ICP verify, seeded
         at the matched keyframe's pose.  Returns world_T_cam or None.
-        Pass the same intensity channel used for add_keyframe."""
+        Pass the same intensity channel used for add_keyframe; query as
+        add_keyframe takes it."""
         if self.count == 0:
             return None
-        d_half_dev, desc = self._descriptor(depth, intensity)
-        best, score_f = self._best_match(desc, 0, _NO_ID)
+        d_half_dev, desc, scores = self._query_or_descriptor(depth, intensity, query)
+        best, score_f = self._best_match(desc, 0, _NO_ID, scores)
         if score_f < self.sim_thresh:
             return None
         return self._verify(d_half_dev, best, self.kf_pose_opt[best])

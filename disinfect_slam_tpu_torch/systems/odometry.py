@@ -14,25 +14,31 @@ image pyramid, coarse to fine:
   T <- exp(dx) T
 
 The JAX package has no Pallas kernel here: every level is XLA ops inside
-one jitted program.  The port runs the same ops eagerly on one device.
-Each level's iterations are a Python loop with no host read inside it:
-the 6x6 solve is `linalg.solve_ex` and the reference pose's inverse
-`linalg.inv_ex`, both without their error check (which reads the LU
-status on the host), so a whole `_track` is queued without a sync.  The
-pose comes to the host once, through `read_result`, when the caller
+one jitted program (`_prep` and `_track` are each jitted there).  The port
+runs the same ops on one device.  Each level's iterations are a Python
+loop with no host read inside it: the 6x6 solve is `linalg.solve_ex` and
+the reference pose's inverse `linalg.inv_ex`, both without their error
+check (which reads the LU status on the host), so a whole `_track` is
+queued without a sync, and can be captured.  `prep` and `track` are
+`_prep` and `_track` as captured steps (utils/graphs.py, keyed by image
+size; eager on the CPU and with capture=False), the counterparts of the
+two jitted functions: `feed` and the loop closure's verification run
+them.  DenseSLAM runs `_prep` and `_track` inside its own captured step.
+The pose comes to the host once, through `read_result`, when the caller
 needs it.  Matmuls and the normal equations run with TF32 off
 (`exact_fp32`): a 10-bit mantissa in `J^T J` would move the pose.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.geometry import CameraIntrinsics, CameraParams
 from ..utils.device import exact_fp32, resolve_device, upload
+from ..utils.graphs import StaticInputs, StepGraphs
 
 _F32 = torch.float32
 
@@ -220,8 +226,16 @@ class ICPOdometry:
         max_rmse: float = 0.06,
         huber_delta: float = 0.05,
         device="cuda",
+        capture: bool = True,
+        graphs: Optional[StepGraphs] = None,
     ):
+        """capture: prep and track as captured steps (the default; eager
+        with False); graphs: their cache, one on `device` unless given."""
         self.device = resolve_device(device)
+        self.capture = capture
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._static = {}
+        self._tick = 0
         self.levels = levels
         self.iters = iters
         self.dist_thresh = dist_thresh
@@ -273,14 +287,97 @@ class ICPOdometry:
                     self.huber_delta)
         return T, rmse, inl
 
+    # ------------------------------------------------------------------
+    # the captured steps (jax.jit of _prep and of _track)
+    # ------------------------------------------------------------------
+    def _pyramid_buffers(self, h: int, w: int) -> list:
+        """Static tensors shaped as _prep's pyramid of an h x w depth,
+        flat: (vertices, normals, valid) per level."""
+        out = []
+        for _ in range(self.levels):
+            out += [torch.zeros((h, w, 3), dtype=_F32, device=self.device),
+                    torch.zeros((h, w, 3), dtype=_F32, device=self.device),
+                    torch.zeros((h, w), dtype=torch.bool, device=self.device)]
+            h, w = (h + 1) // 2, (w + 1) // 2
+        return out
+
+    def _statics(self, kind: str, h: int, w: int) -> dict:
+        key = (kind, h, w)
+        if key not in self._static:
+            if kind == "prep":
+                st = {"in": StaticInputs({"depth": ((h, w), _F32)}, self.device),
+                      "out": self._pyramid_buffers(h, w)}
+            else:
+                st = {"in": [torch.zeros((4, 4), dtype=_F32, device=self.device)
+                             for _ in range(2)]
+                      + self._pyramid_buffers(h, w) + self._pyramid_buffers(h, w),
+                      "out": [torch.zeros((4, 4), dtype=_F32, device=self.device),
+                              torch.zeros((), dtype=_F32, device=self.device),
+                              torch.zeros((), dtype=_F32, device=self.device)]}
+            self._static[key] = st
+        return self._static[key]
+
+    def prep(self, depth):
+        """_prep as a captured step: depth a host array or a float32
+        tensor on the device [H, W] -> the pyramid, fresh tensors."""
+        if not self.capture:
+            if not isinstance(depth, torch.Tensor):
+                depth = upload(depth, self.device)
+            return self._prep(depth)
+        h, w = depth.shape
+        st = self._statics("prep", h, w)
+        inputs, out = st["in"], st["out"]
+        staged = not isinstance(depth, torch.Tensor)
+        slot = None
+        if staged:
+            slot = self._tick % 2
+            self._tick += 1
+            inputs.fill(slot, depth=depth)
+        else:
+            inputs.dev["depth"].copy_(depth)
+
+        def body():
+            if staged:
+                inputs.upload(slot)
+            for dst, src in zip(out, _flat(self._prep(inputs.dev["depth"]))):
+                dst.copy_(src)
+
+        self.graphs.run(("icp_prep", h, w, staged, slot), body)
+        if staged:
+            inputs.done(slot)
+        return _unflat([t.clone() for t in out])
+
+    def track(self, T0: torch.Tensor, pyr_cur, pyr_ref, ref_pose: torch.Tensor):
+        """_track as a captured step (the inputs are copied into its static
+        buffers); returns (world_T_cam, rmse, inliers) as fresh device
+        tensors, without a host read."""
+        if not self.capture:
+            return self._track(T0, pyr_cur, pyr_ref, ref_pose)
+        h, w = pyr_cur[0][0].shape[:2]
+        st = self._statics("track", h, w)
+        inputs, out = st["in"], st["out"]
+        for dst, src in zip(inputs, [T0, ref_pose, *_flat(pyr_cur), *_flat(pyr_ref)]):
+            dst.copy_(src)
+        n = 3 * self.levels
+
+        def body():
+            res = self._track(inputs[0], _unflat(inputs[2:2 + n]), _unflat(inputs[2 + n:]),
+                              inputs[1])
+            for dst, src in zip(out, res):
+                dst.copy_(src)
+
+        self.graphs.run(("icp_track", h, w), body)
+        return tuple(t.clone() for t in out)
+
     def feed(self, depth: np.ndarray, timestamp_ms: int = 0):
-        """Track one depth frame; returns (cam_T_world, ok) on the host."""
-        pyr = self._prep(upload(depth, self.device))
+        """Track one depth frame; returns (cam_T_world, ok) on the host
+        (one read, the rmse's and the pose's, as the JAX feed)."""
+        pyr = self.prep(depth)
         if self._prev is None:
             self._prev = (pyr, upload(np.linalg.inv(self.world_T_cam), self.device))
             return np.linalg.inv(self.world_T_cam), True
         prev_pyr, prev_pose = self._prev
-        T, rmse, inl = read_result(*self._track(
+        T, rmse, inl = read_result(*self.track(
             upload(self.world_T_cam, self.device), pyr, prev_pyr, prev_pose))
         ok = bool(np.isfinite(float(rmse))) and float(rmse) < self.max_rmse and float(inl) > 100
         if ok:
@@ -291,3 +388,11 @@ class ICPOdometry:
 
     def feed_stereo(self, img_left, img_right, timestamp_ms, imu=None):
         raise NotImplementedError("ICPOdometry tracks depth frames; use feed()")
+
+
+def _flat(pyr) -> list:
+    return [t for level in pyr for t in level]
+
+
+def _unflat(tensors) -> list:
+    return [tuple(tensors[i:i + 3]) for i in range(0, len(tensors), 3)]

@@ -38,8 +38,10 @@ counts the replays ("graph") and the launches they made, by kernel.
 from __future__ import annotations
 
 import collections
+import gc
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..core.geometry import POSE_FLOATS, SE3, DevicePose, pose_floats
@@ -87,7 +89,11 @@ class StaticInputs:
         for name, v in values.items():
             if isinstance(v, SE3):
                 v = pose_floats(v)
-            self._host[slot][name].numpy()[...] = v
+            dst = self._host[slot][name]
+            if np.isscalar(v):
+                dst.fill_(v)
+            else:
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(v)))
 
     def upload(self, slot: int, names=None) -> None:
         """The copies from the slot's staging into the device buffers (all,
@@ -188,17 +194,28 @@ class StepGraphs:
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         torch.cuda.synchronize(self.device)
-        with torch.cuda.device(self.device), torch.cuda.stream(side):
-            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-            try:
-                out = body()
-            except BaseException:
+        # no garbage collection inside the capture: it may free another
+        # step's graph (an owner in a reference cycle), and destroying a
+        # graph while this thread captures invalidates the capture
+        # (torch.cuda.graph collects before it captures too)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture is already invalid; body's error is the one to raise
-                raise
-            graph.capture_end()
+                    out = body()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is already invalid; body's error is the one to raise
+                    raise
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         cur.wait_stream(side)
         return graph.replay, out
 

@@ -14,8 +14,10 @@ nets and FusedOnlineStep on the card against the port on the CPU), and
 the export slice: the hash backend's inserts, fusion and renders, mesh
 chunks, and a splat clipped at its surface cap (surf_overflow > 0), and
 the tracking slice: K4 at the tracking resolutions, the model depth's
-smoothing, DenseSLAM on the card against the CPU (one pose read and one
-sync a tracked frame, TF32 off in ICP) and loop closure on the card, the
+smoothing, DenseSLAM on the card against the CPU (no pose read, no sync
+once captured, TF32 off in ICP), its captured tracked frame against the
+eager one and under the sync debug mode, the sharded step captured
+against eager, and loop closure on the card, the
 kernels' self-check (utils/kernel_verify.py) and the segmentation net
 over a mesh of the one card (parallel/seg_parallel.py).
 
@@ -718,11 +720,12 @@ def test_model_depth_smoothing_on_the_card_equals_the_cpu(cuda, monkeypatch):
 def test_dense_slam_on_the_card_equals_the_cpu(cuda, monkeypatch, scale):
     """DenseSLAM over the 6-frame orbit on the card and on the CPU, with
     TF32 switched on globally beforehand: the same ok flags, poses within
-    SLAM_POSE_TOL; on the card one pose read and one stream sync per
-    tracked frame (torch's sync debug mode counts them), none on frame 0;
-    K4 once per tracked frame at the tracking camera, K5 never, fuse_rows
-    once per frame; ICP ran with TF32 off and the global flags are left as
-    they were."""
+    SLAM_POSE_TOL; no pose read and, on the card, no stream sync on any
+    frame (torch's sync debug mode counts them; frames 0-2 capture, and
+    the capture's own device synchronisation is not one); K4 once
+    per tracked frame at the tracking camera, K5 never, fuse_rows once per
+    frame, graph replays included; ICP ran with TF32 off and the global
+    flags are left as they were."""
     import warnings
 
     from disinfect_slam_tpu_torch.systems import dense_slam as tds
@@ -770,8 +773,8 @@ def test_dense_slam_on_the_card_equals_the_cpu(cuda, monkeypatch, scale):
     (cp, cok, creads, _, clx), (gp, gok, greads, gsyncs, glx) = runs["cpu"], runs["cuda"]
     assert gok == cok == [True] * 6
     np.testing.assert_allclose(gp, cp, rtol=0, atol=SLAM_POSE_TOL)
-    assert greads == creads == [0, 1, 1, 1, 1, 1]
-    assert gsyncs == [0, 1, 1, 1, 1, 1], gsyncs
+    assert greads == creads == [0] * 6
+    assert gsyncs == [0] * 6, gsyncs
     assert glx == [5, 0, 6] and clx == [0, 0, 0]
     assert flags_in_icp and all(f == (False, False) for f in flags_in_icp)
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
@@ -1363,3 +1366,96 @@ def test_a_capture_that_syncs_raises(cuda):
         graphs.run("syncs", lambda: float(x.sum()))
     assert len(graphs) == 0 and graphs.captures == 0
     assert float(torch.arange(3.0, device=cuda).sum()) == 3.0
+
+
+# ----------------------------------------------------------------------
+# DenseSLAM's tracked frame and the sharded step as captured steps
+# ----------------------------------------------------------------------
+def _slam_frames(n):
+    """An orbit out and back over the SLAM scene, n frames."""
+    angles = np.concatenate([np.linspace(0, 0.3, n // 2), np.linspace(0.3, 0, n - n // 2)])
+    return [(checker_rgb(SLAM_W, SLAM_H),
+             _slam_depth(look_at((np.sin(a) * 1.8, 0.01 * a, -1.8 * np.cos(a) + 0.3),
+                                 SLAM_CENTER))) for a in angles]
+
+
+def _new_slam(cuda, capture, scale=1, **kw):
+    from disinfect_slam_tpu_torch.systems import dense_slam as tds
+
+    return tds.DenseSLAM(SLAM_K, SLAM_H, SLAM_W, voxel_size=0.02, truncation=0.06,
+                         cfg=SLAM_CFG, track_res_scale=scale, device=cuda, capture=capture,
+                         **kw)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_captured_slam_equals_the_eager_slam(cuda, scale):
+    """DenseSLAM's tracked frame as a CUDA graph against the same step run
+    eagerly, 20 frames with loop closure every 5th: every pose and ok flag
+    and every volume array bit-equal; a tracked frame is one replay, K4 and
+    K2 once a frame through it."""
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
+
+    frames = _slam_frames(20)
+    slams = [_new_slam(cuda, c, scale, loop_closure=True, kf_every=5) for c in (True, False)]
+    before = (REPLAYS["graph"], REPLAYS["splat_zbuf_blocks"], REPLAYS["fuse_rows"])
+    out = [[], []]
+    for rgb, depth in frames:
+        for o, slam in zip(out, slams):
+            p, ok = slam.process_frame(rgb, depth)
+            o.append((p.cpu().numpy(), bool(ok)))
+    for (pa, oa), (pb, ob) in zip(*out):
+        np.testing.assert_array_equal(pa, pb)
+        assert oa == ob
+    assert all(ok for _, ok in out[0])
+    _assert_volumes_equal(slams[0].volume, slams[1].volume)
+    replays = REPLAYS["graph"] - before[0]
+    assert slams[0].graphs.replays == replays == 20 - 3
+    assert (REPLAYS["splat_zbuf_blocks"] - before[1], REPLAYS["fuse_rows"] - before[2]) == (
+        20 - 3, 20 - 3)
+
+
+def test_captured_slam_steady_frames_never_sync(cuda):
+    """Once its keys are captured, a tracked frame that is not a keyframe
+    raises nothing under set_sync_debug_mode("error"): no host read, no
+    stream sync (the device is caught up before each frame, so the staging
+    slot's wait has nothing to wait for)."""
+    frames = _slam_frames(16)
+    slam = _new_slam(cuda, True, loop_closure=True, kf_every=5)
+    for i, (rgb, depth) in enumerate(frames):
+        torch.cuda.synchronize()
+        steady = i >= 3 and i % 5
+        torch.cuda.set_sync_debug_mode("error" if steady else "default")
+        try:
+            slam.process_frame(rgb, depth)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert slam.lost_count == 0
+
+
+@pytest.mark.parametrize("n", [4, 1])
+def test_captured_sharded_step_equals_the_eager_step(cuda, n):
+    """DistributedTSDF.integrate over [cuda:0] * n as one graph a frame
+    against the same step run eagerly: every shard's arrays and the cuts
+    of every frame bit-equal; then the render (one graph a view, K4 and
+    K5 once a shard) equal to the eager one in all four images."""
+    from disinfect_slam_tpu_torch.ops.integrate import FrameInput
+    from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF
+
+    k, h, w, frames = _sphere_frames(6)
+    cfg = _graph_cfg(1)
+    dists = [DistributedTSDF(cfg, [cuda] * n, capture=c) for c in (True, False)]
+    for rgb, depth, ht, lt, pose in frames:
+        cuts = [[], []]
+        for c, d in zip(cuts, dists):
+            d.integrate(FrameInput(rgb, depth, ht, lt), k, pose, 4.0, cuts=c)
+        assert [[int(t) for t in x] for x in cuts[0]] == [[int(t) for t in x] for x in cuts[1]]
+    assert dists[0].graphs[cuda].replays == 6 - 2
+    for a, b in zip(dists[0].shards, dists[1].shards):
+        _assert_volumes_equal(a, b)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    zb = splat_kernel.splat_zbuf_blocks.launches
+    for pose in (frames[0][4], frames[-1][4], frames[0][4]):
+        a, b = (d.render(cam, pose, 4.0) for d in dists)
+        assert a.hit.any() and all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+    assert splat_kernel.splat_zbuf_blocks.launches - zb == 3 * 2 * n
+    assert dists[0].graphs[cuda].replays == 6 - 2 + 2
