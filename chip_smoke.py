@@ -233,10 +233,19 @@ exits non-zero:
      frame, clocks.sm and power.draw; (g) the sharded step at the bench
      preset over [cuda:0] * 4 and [cuda:0], eager and captured in turns,
      twice: every block and the capacity cuts equal, ms/frame of each over
-     frames 6-59, graph replays a frame; then every replay profiled
-     (frames 6-17 of the bench replay and the sharded step, 45-59 of
-     SLAM: device time, kernels, host launch calls and graph launches a
-     frame, idle share).  The kernels line gives each kernel's launches
+     frames 6-59, graph replays a frame; (h) the stereo estimator (flat
+     and pyramid, 640x480, 64 disparities, the bench's pair from the
+     host), the ZED factory rectifier's remap (VGA, host in and out),
+     InferenceEngine.infer_one (the shipped UNet, frame 0 at 480x640 u8)
+     and extract_mesh_chunked on (a)'s volume (f32 and q16), each eager
+     (capture=False) and captured: outputs bit-equal, ms a call (CUDA
+     events), graph replays a call; the mesh's first call (its own
+     graphs), a repeat on kept graphs (every step replays) and its peak
+     memory, both within the export fingerprint; then every replay
+     profiled (frames 6-17 of the bench replay and the sharded step,
+     45-59 of SLAM, three calls of each of (h)'s steps, one mesh call:
+     device time, kernels, host launch calls and graph launches a frame or
+     call, idle share).  The kernels line gives each kernel's launches
      made by graph replays over the run (graph_replays).
 
 Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 13,
@@ -344,6 +353,26 @@ SLAM_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
 # before those measurements
 TOL_SLAM_T, TOL_SLAM_R, TOL_SLAM_ATE = 0.020, 0.004, 0.001
 TOL_SLAM_COUNT, TOL_SLAM_SUM = 0.03, 0.04
+TOL_SLAM = dict(t=TOL_SLAM_T, r=TOL_SLAM_R, ate=TOL_SLAM_ATE, count=TOL_SLAM_COUNT,
+                sum=TOL_SLAM_SUM)
+# the same run at track_res_scale=2 (ICP and the model depth at 320x240)
+# against the JAX DenseSLAM's own fingerprint at that scale
+# (scripts/port_fingerprint.py --slam --track-scale 2).  The half-resolution
+# tracker amplifies an ulp far more (its model depth has hundreds of pixels
+# whose normal is the rounding residue of cross(-v, -v)); these limits are
+# 3x (scale 1's factor) the larger gap of JAX against itself with every
+# depth one float32 ulp up and one ulp down (scripts/port_slam_gap.py
+# --track-scale 2 on the CPU, 60 frames): a camera 41.36 / 55.20 mm and
+# 18.04 / 22.08 mrad apart, ATE 2.354 / 2.246 mm, blocks 1 / 4 of 630, sums
+# 0.377% / 0.635% (one twin alone would put the limit under the other's
+# gap).  The port's own gap (46.1 mm, 40.5 mrad, ATE 2.61 mm, blocks 1.27%,
+# sums 1.21%) sets none of them
+SLAM_S2_FINGERPRINT = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                                   "orbit_vga_slam_s2_fingerprint.json")
+SLAM_S2_JAX_ULP_GAP = dict(t=0.05519853351876835, r=0.02207619453954418,
+                           ate=0.002354249446624941, count=0.006349206349206327,
+                           sum=0.006349206349206327)
+TOL_SLAM_S2 = {k: 3 * v for k, v in SLAM_S2_JAX_ULP_GAP.items()}
 SLAM_WARM = 3  # frames before the SLAM timing window (frames 3-59)
 
 
@@ -1745,12 +1774,15 @@ def pose_gaps(poses: np.ndarray, ref: np.ndarray):
     return np.linalg.norm(c_a - c_b, axis=1), angle
 
 
-def check_slam_fingerprint(res, vol_fp, ref) -> dict:
-    """The app run against the JAX DenseSLAM's fingerprint, within the
-    TOL_SLAM_* limits (PERF.md §2): the same ok flags, lost, keyframe and
-    closure counts; each frame's pose; ATE; the volume."""
+def check_slam_fingerprint(res, vol_fp, ref, tol=TOL_SLAM, label="slam app") -> dict:
+    """A SLAM run against the JAX DenseSLAM's fingerprint, within the
+    limits `tol` (t, r: each camera's centre and rotation; ate; count:
+    blocks; sum: the volume's sums; PERF.md §2): the same ok flags, lost,
+    keyframe and closure counts; each frame's pose; ATE; the volume.  res
+    holds ok and poses by frame id, the DenseSLAM and the evaluation's
+    ate / rpe."""
     fids = ref["frame_ids"]
-    ok = [res["ok"][f] for f in fids]
+    ok = [bool(res["ok"][f]) for f in fids]
     poses = np.stack([res["poses"][f] for f in fids])
     dt, dr = pose_gaps(poses, np.asarray(ref["cam_T_world"], np.float32))
     lc = res["slam"].lc
@@ -1763,28 +1795,28 @@ def check_slam_fingerprint(res, vol_fp, ref) -> dict:
            "volume_rel": {k: vol_fp[k] / ref["volume"][k] - 1.0
                           for k in ("active_blocks", "sum_abs_tsdf", "sum_weight",
                                     "sum_prob")}}
-    log(f"[chip_smoke] slam app against the JAX fingerprint: ok flags equal "
+    log(f"[chip_smoke] {label} against the JAX fingerprint: ok flags equal "
         f"{out['ok_equal']}, lost {out['lost']} (ref {ref['lost']}), keyframes "
         f"{out['keyframes']} ({ref['keyframes']}), closures {out['closures']} "
         f"({ref['closures']}); max per-frame gap {out['max_translation_gap_m'] * 1e3:.3f} mm "
-        f"(limit {TOL_SLAM_T * 1e3:.0f}), {out['max_rotation_gap_rad'] * 1e3:.4f} mrad "
-        f"(limit {TOL_SLAM_R * 1e3:.0f}); ATE rmse {ate['rmse']:.6f} m against "
-        f"{ref['ate']['rmse']:.6f} (limit +-{TOL_SLAM_ATE * 1e3:.0f} mm); volume relative to "
-        f"the reference {out['volume_rel']} (limits {TOL_SLAM_COUNT}, {TOL_SLAM_SUM})")
+        f"(limit {tol['t'] * 1e3:.1f}), {out['max_rotation_gap_rad'] * 1e3:.4f} mrad "
+        f"(limit {tol['r'] * 1e3:.1f}); ATE rmse {ate['rmse']:.6f} m against "
+        f"{ref['ate']['rmse']:.6f} (limit +-{tol['ate'] * 1e3:.2f} mm); volume relative to "
+        f"the reference {out['volume_rel']} (limits {tol['count']:.5f}, {tol['sum']:.5f})")
     bad = []
     if not out["ok_equal"] or (out["lost"], out["keyframes"], out["closures"]) != (
             ref["lost"], ref["keyframes"], ref["closures"]):
         bad.append("ok flags or lost / keyframe / closure counts")
-    if out["max_translation_gap_m"] > TOL_SLAM_T or out["max_rotation_gap_rad"] > TOL_SLAM_R:
+    if out["max_translation_gap_m"] > tol["t"] or out["max_rotation_gap_rad"] > tol["r"]:
         bad.append("per-frame poses")
-    if out["ate_rmse_gap_m"] > TOL_SLAM_ATE:
+    if out["ate_rmse_gap_m"] > tol["ate"]:
         bad.append("ATE")
     rel = out["volume_rel"]
-    if abs(rel["active_blocks"]) > TOL_SLAM_COUNT or any(
-            abs(rel[k]) > TOL_SLAM_SUM for k in ("sum_abs_tsdf", "sum_weight", "sum_prob")):
+    if abs(rel["active_blocks"]) > tol["count"] or any(
+            abs(rel[k]) > tol["sum"] for k in ("sum_abs_tsdf", "sum_weight", "sum_prob")):
         bad.append("volume")
     if bad:
-        raise AssertionError(f"slam app outside the fingerprint limits: {bad}")
+        raise AssertionError(f"{label} outside the fingerprint limits: {bad}")
     return out
 
 
@@ -1864,17 +1896,22 @@ def new_slam(dev, scale, capture=True):
 def slam_timing(dev, frames, smi) -> dict:
     """Phase 8 (b): ms/frame over frames 3-59 with one sync at the end,
     three fresh runs at each track_res_scale (the captured step); lost
-    frames and ATE against trajectory.txt; then one eager pass split by
-    CUDA events at each mark of the tracked step (and the host clock beside
-    them), keyframe work after."""
+    frames and ATE against trajectory.txt, and at scale 2 each run held to
+    the JAX fingerprint at that scale (TOL_SLAM_S2); then one eager pass
+    split by CUDA events at each mark of the tracked step (and the host
+    clock beside them), keyframe work after."""
+    from disinfect_slam_tpu_torch.io.checkpoint import volume_to_numpy
+    from disinfect_slam_tpu_torch.ops.gather import volume_fingerprint
     from disinfect_slam_tpu_torch.systems.dense_slam import STAGES as SLAM_STAGES
     from disinfect_slam_tpu_torch.utils import trajectory_eval as te
 
     ts_gt, gt = te.load_trajectory(os.path.join(DATASET, "trajectory.txt"))
+    with open(SLAM_S2_FINGERPRINT) as f:
+        ref_s2 = json.load(f)
     out = {}
     for scale in (1, 2):
-        ms, lost, ates = [], [], []
-        for _ in range(3):
+        ms, lost, ates, held = [], [], [], []
+        for run in range(3):
             slam = new_slam(dev, scale)
             poses = []
             for i, (rgb, depth) in enumerate(frames):
@@ -1887,9 +1924,18 @@ def slam_timing(dev, frames, smi) -> dict:
             if not np.array_equal(ts_gt, np.arange(len(frames))):
                 raise AssertionError("trajectory.txt does not list frames 0-59 in order")
             oks = torch.stack([ok for _, ok in poses]).cpu().numpy()
-            est = np.linalg.inv(torch.stack([p for p, _ in poses]).cpu().numpy()[oks])
+            cam_T_world = torch.stack([p for p, _ in poses]).cpu().numpy()
+            est = np.linalg.inv(cam_T_world[oks])
             ates.append(te.ate(gt[oks], est)["rmse"])
             lost.append(slam.lost_count)
+            if scale == 2:
+                ate = {k: v for k, v in te.ate(gt[oks], est).items()
+                       if k in ("rmse", "mean", "median", "max", "n")}  # the app's keys
+                res = {"ok": oks, "poses": cam_T_world, "slam": slam,
+                       "evaluation": {"ate": ate, "rpe": te.rpe(gt[oks], est, delta=1)}}
+                held.append(check_slam_fingerprint(
+                    res, volume_fingerprint(volume_to_numpy(slam.volume)), ref_s2, TOL_SLAM_S2,
+                    f"slam track_res_scale=2 run {run}"))
             del slam
         # one eager pass split at the marks (frames SLAM_WARM-59)
         slam = new_slam(dev, scale, capture=False)
@@ -1924,7 +1970,7 @@ def slam_timing(dev, frames, smi) -> dict:
         torch.cuda.empty_cache()
         out[scale] = {"ms_per_frame_runs": ms, "ms_per_frame": statistics.median(ms),
                       "lost": lost, "ate_rmse_m": ates, "split_ms": split,
-                      "host_split_ms": host_split}
+                      "host_split_ms": host_split, "held_to_reference": held}
         log(f"[chip_smoke] slam track_res_scale={scale}: ms/frame over frames {SLAM_WARM}-59 "
             f"{ms} -> median {statistics.median(ms):.3f} ({smi}); lost {lost}, ATE rmse {ates}")
         log(f"[chip_smoke] slam split, CUDA-event ms/frame (host clock): " + ", ".join(
@@ -3787,6 +3833,158 @@ GRAPH_WARM = 6  # frames before the timed ones: every (cadence, slot) key captur
 GRAPH_PROFILED = 12  # frames 6-17 profiled on each side (four allocation cycles)
 
 
+IO_CALLS = 5  # timed calls of each side of a phase-16h step
+IO_PROFILED = 3  # profiled calls of each side
+
+
+def timed_call_ms(fn, calls: int = IO_CALLS) -> float:
+    """ms a call of fn over `calls` calls (CUDA events, one sync), after
+    a sync."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def io_step(label: str, sides: dict, same, smi) -> dict:
+    """One phase-16h step: sides {"eager": fn, "captured": fn}, each
+    called twice first (the captured side captures both staging slots),
+    then timed; same(a, b) holds the two sides' outputs equal.  Returns ms
+    a call and graph replays a call; the profiles come later
+    (io_profiles)."""
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
+
+    outs = {name: [fn(), fn()][-1] for name, fn in sides.items()}
+    if not same(outs["eager"], outs["captured"]):
+        raise AssertionError(f"captured {label} differs from the eager one")
+    ms, replays = {}, 0.0
+    for name, fn in sides.items():
+        before = REPLAYS["graph"]
+        ms[name] = timed_call_ms(fn)
+        if name == "captured":
+            replays = (REPLAYS["graph"] - before) / IO_CALLS
+    if not same(sides["eager"](), sides["captured"]()):
+        raise AssertionError(f"captured {label} differs from the eager one after its replays")
+    log(f"[chip_smoke] captured {label}: ms a call eager {ms['eager']:.3f}, captured "
+        f"{ms['captured']:.3f}; graph replays {replays:.2f} a call; outputs bit-equal ({smi})")
+    return {"ms": ms, "graph_replays_per_call": replays}
+
+
+def io_steps(grid, dev, smi) -> tuple:
+    """Phase 16h (see the docstring) -> (report, the steps' sides for
+    io_profiles)."""
+    from disinfect_slam_tpu_torch.io.png_io import read_image
+    from disinfect_slam_tpu_torch.io.zed_calib import rectifier_from_factory_conf
+    from disinfect_slam_tpu_torch.models import segmentation as seg
+    from disinfect_slam_tpu_torch.ops import mesh as tmesh
+    from disinfect_slam_tpu_torch.ops.cuda import build
+    from disinfect_slam_tpu_torch.ops.image_ops import StereoRectifier
+    from disinfect_slam_tpu_torch.ops.stereo import StereoDepthEstimator
+    from tests.torch_cases import ZED_FACTORY_CONF
+
+    out, profiled = {}, {}
+    left, right = (t.cpu().numpy() for t in stereo_bench_pair(dev))
+    fx = 525.1
+    for method in ("flat", "pyramid"):
+        est = {c: StereoDepthEstimator(fx, 0.12, max_disp=64, method=method, device=dev,
+                                       capture=c) for c in (False, True)}
+        sides = {"eager": lambda e=est[False]: e.depth_device(left, right),
+                 "captured": lambda e=est[True]: e.depth_device(left, right)}
+        out[f"stereo_{method}"] = io_step(f"stereo {method} (640x480, 64 disparities, host "
+                                          f"pair)", sides, torch.equal, smi)
+        profiled[f"stereo_{method}"] = sides
+    conf = os.path.join(str(build.BUILD_DIR), "SN12345_16h.conf")
+    with open(conf, "w") as f:
+        f.write(ZED_FACTORY_CONF)
+    rect = rectifier_from_factory_conf(conf, "VGA", device=dev)
+    rect_eager = StereoRectifier(rect.maps, device=dev, capture=False)
+    rng = np.random.default_rng(16)
+    h, w = rect.maps.left_x.shape
+    pair = (rng.uniform(0, 255, (h, w, 3)).astype(np.float32),
+            rng.uniform(0, 255, (h, w)).astype(np.float32))
+    sides = {"eager": lambda: rect_eager.rectify(*pair), "captured": lambda: rect.rectify(*pair)}
+    out["remap"] = io_step(f"remap ({w}x{h}, RGB + gray, host in and out)", sides,
+                           lambda a, b: all(np.array_equal(x, y) for x, y in zip(a, b)), smi)
+    profiled["remap"] = sides
+    rgb = read_image(os.path.join(DATASET, "0_rgb.png"))
+    model = seg.load_model("unet", device=dev)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # both sides on the same algorithms
+    try:
+        engines = {c: seg.InferenceEngine(model, capture=c) for c in (False, True)}
+        sides = {"eager": lambda: engines[False].infer_one(rgb),
+                 "captured": lambda: engines[True].infer_one(rgb)}
+        out["seg"] = io_step("infer_one (UNet, 480x640 u8, maps to the host)", sides,
+                             lambda a, b: all(np.array_equal(x, y) for x, y in zip(a, b)), smi)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    profiled["seg"] = sides
+    with open(EXPORT_FINGERPRINT) as f:
+        export_ref = json.load(f)
+    vol = grid.volume
+    mesh = {}
+    for transfer in ("f32", "q16"):
+        def call(t=transfer, **kw):
+            return tmesh.extract_mesh_chunked(vol, transfer=t, **kw)
+
+        wall = {}
+        t0 = time.perf_counter()
+        eager = call(capture=False)
+        wall["eager"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tmesh.counting_clips() as clipped:
+            first = call()
+        wall["captured_first"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        kept = tmesh.MeshGraphs(dev)
+        call(graphs=kept)
+        replays_first = kept.graphs.replays  # the chunks after the first
+        t0 = time.perf_counter()
+        again = call(graphs=kept)
+        wall["captured_repeat"] = time.perf_counter() - t0
+        replays_repeat = kept.graphs.replays - replays_first  # every chunk, the candidates
+        if not (np.array_equal(first, eager) and np.array_equal(again, eager)):
+            raise AssertionError(f"captured mesh {transfer} differs from the eager one")
+        fp = tmesh.mesh_fingerprint(first, clipped[0])
+        check_mesh_fingerprint(fp, export_ref["mesh"][transfer],
+                               f"captured mesh {transfer} (first call and repeat: equal)")
+        mesh[transfer] = {"wall_s": wall, "peak_bytes": peak, "replays_first_call": replays_first,
+                          "replays_repeat": replays_repeat, **fp}
+        log(f"[chip_smoke] captured mesh {transfer}: wall s eager {wall['eager']:.3f}, captured "
+            f"first call {wall['captured_first']:.3f} (the candidates and one chunk eager, two "
+            f"captures, {replays_first} replays), repeat on kept graphs "
+            f"{wall['captured_repeat']:.3f} ({replays_repeat} replays); peak "
+            f"{peak / 2**20:.0f} MiB above the volume; {first.shape[0]} triangles, equal on "
+            f"every call ({smi})")
+        if transfer == "f32":
+            profiled["mesh_f32"] = {"eager": lambda c=call: c(capture=False),
+                                    "captured": lambda c=call, k=kept: c(graphs=k)}
+        else:
+            del kept
+        torch.cuda.empty_cache()
+    out["mesh"] = mesh
+    return out, profiled
+
+
+def io_profiles(profiled: dict) -> dict:
+    """Each phase-16h step's sides under the profiler: IO_PROFILED calls
+    (one for the mesh) -> step_profile's numbers a call."""
+    res = {}
+    for name, sides in profiled.items():
+        n = 1 if name.startswith("mesh") else IO_PROFILED
+        for side, fn in sides.items():
+            res[f"{name}_{side}"] = p = step_profile(lambda fn=fn: [fn() for _ in range(n)], n)
+            log_profile(f"{side} {name} (a call)", p)
+    return res
+
+
 def smi_clocks() -> str:
     """The card's SM clock and power draw now (nvidia-smi)."""
     return subprocess.run(
@@ -4232,6 +4430,7 @@ def captured_steps(offline, fuse_kernel, splat_kernel, intrinsics, poses, ref, d
     frames = replay_frames()
     fusion, grid = captured_fusion(offline, dev, frames, intrinsics, ref, fuse_kernel, smi)
     render = captured_render(grid, splat_kernel, intrinsics, poses, smi)
+    io, io_sides = io_steps(grid, dev, smi)
     del grid
     torch.cuda.empty_cache()
     online = captured_online(dev, fuse_kernel, smi)
@@ -4254,8 +4453,11 @@ def captured_steps(offline, fuse_kernel, splat_kernel, intrinsics, poses, ref, d
                                                                 capture)
             log_profile(f"{name} sharded step, {n} shard(s) (frames {GRAPH_WARM}-{last})",
                         profile[f"shards_{n}_{name}"])
+    profile["io"] = io_profiles(io_sides)
+    del io_sides
+    torch.cuda.empty_cache()
     return {"fusion": fusion, "render": render, "online": online, "system": system,
-            "recenter": recenter, "slam": slam, "shards": shards, "profile": profile}
+            "recenter": recenter, "slam": slam, "shards": shards, "io": io, "profile": profile}
 
 
 def probe_timer(fn, name, nbytes=0) -> float:
@@ -4627,7 +4829,19 @@ def main() -> int:
         f"{captured['shards'][DIST_SHARDS]['median_ms']['eager']:.3f} / "
         f"{captured['shards'][DIST_SHARDS]['median_ms']['captured']:.3f} ms/frame ({DIST_SHARDS} "
         f"shards), {captured['shards'][1]['median_ms']['eager']:.3f} / "
-        f"{captured['shards'][1]['median_ms']['captured']:.3f} (1) ({smi}) "
+        f"{captured['shards'][1]['median_ms']['captured']:.3f} (1); stereo flat "
+        f"{captured['io']['stereo_flat']['ms']['eager']:.3f} / "
+        f"{captured['io']['stereo_flat']['ms']['captured']:.3f} ms, pyramid "
+        f"{captured['io']['stereo_pyramid']['ms']['eager']:.3f} / "
+        f"{captured['io']['stereo_pyramid']['ms']['captured']:.3f}, remap "
+        f"{captured['io']['remap']['ms']['eager']:.3f} / "
+        f"{captured['io']['remap']['ms']['captured']:.3f}, infer_one "
+        f"{captured['io']['seg']['ms']['eager']:.3f} / "
+        f"{captured['io']['seg']['ms']['captured']:.3f}, mesh f32 "
+        f"{captured['io']['mesh']['f32']['wall_s']['eager']:.3f} / "
+        f"{captured['io']['mesh']['f32']['wall_s']['captured_first']:.3f} / "
+        f"{captured['io']['mesh']['f32']['wall_s']['captured_repeat']:.3f} s (eager / first / "
+        f"repeat) ({smi}) "
         f"({time.perf_counter() - t16:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
 
     # phase 7: device times, after every end-to-end measurement

@@ -43,10 +43,12 @@ same stages run eagerly go on stderr beside them ("... eager"):
   online      FusedOnlineStep with the shipped UNet on u8 rgb and u16
               depth host frames, the upload included (online_fps), and
               with FastSeg on the card (online_fps_fast)
-  seg         InferenceEngine.infer_one, host in and out (seg_ms), and the
-              forward chained on a staged input (seg_dev_ms)
-  stereo      flat block matching at 64 disparities on frame 0's gray and
-              its 13-pixel roll, chained (stereo_ms)
+  seg         InferenceEngine.infer_one, host in and out (seg_ms, the
+              captured step), and the forward chained on a staged input
+              (seg_dev_ms)
+  stereo      StereoDepthEstimator.depth_device, flat block matching at 64
+              disparities on frame 0's gray and its 13-pixel roll staged
+              on the device (stereo_ms, the captured step)
 
 The device alone picks the configuration: on the card bench.py's
 accelerator branch (config.BENCH, 640x480, 60 frames), on the CPU its CPU
@@ -92,7 +94,7 @@ from ..ops.cuda import splat_kernel
 from ..ops.gather import fingerprint_gaps, gather_valid, volume_fingerprint
 from ..ops.integrate import FrameInput, IntegrateStep, integrate
 from ..ops.raycast import raycast
-from ..ops.stereo import block_match
+from ..ops.stereo import StereoDepthEstimator
 from ..systems.online_step import FusedOnlineStep
 from ..utils.device import resolve_device, upload
 from ..utils.graphs import counted_kernels
@@ -120,6 +122,7 @@ DEPTH_FACTOR = 5000.0  # TUM's and orbit_vga's u16 depth counts a metre
 RENDERS = 5  # splat and raycast renders timed, at frames 0-4's poses
 ONLINE_FRAMES = 30
 STEREO_DISP, STEREO_ROLL = 64, 13
+STEREO_BASELINE_M = 0.12  # a ZED's
 
 # the hand kernels' wrappers; each counts its launches
 KERNELS = counted_kernels()
@@ -315,19 +318,27 @@ def time_online(step: FusedOnlineStep, host_frames, warm: int) -> float:
     return (len(host_frames) - warm) / (time.perf_counter() - t0)
 
 
-def time_seg(model, rgb_u8: np.ndarray, iters: int, dev) -> tuple:
-    """(seg_ms, seg_dev_ms): infer_one end to end (u8 in, numpy maps out),
-    and the forward chained on a staged input, each over `iters` calls
-    after one warm-up."""
-    eng = seg.InferenceEngine(model)
-    eng.infer_one(rgb_u8)
+def time_infer(model, rgb_u8: np.ndarray, iters: int, capture: bool = True) -> float:
+    """ms of InferenceEngine.infer_one end to end (u8 in, numpy maps out):
+    the captured step (capture=False: its eager twin), `iters` calls after
+    a warm-up call in each staging slot."""
+    eng = seg.InferenceEngine(model, capture=capture)
+    for _ in range(2):
+        eng.infer_one(rgb_u8)
     t0 = time.perf_counter()
     for _ in range(iters):
         eng.infer_one(rgb_u8)
-    seg_ms = 1e3 * (time.perf_counter() - t0) / iters
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def time_seg(model, rgb_u8: np.ndarray, iters: int, dev) -> tuple:
+    """(seg_ms, seg_dev_ms): the captured infer_one (time_infer), and the
+    forward chained on a staged input, each over `iters` calls after a
+    warm-up."""
+    seg_ms = time_infer(model, rgb_u8, iters)
 
     def step(img):
-        probs = seg.segment(model, img, eng.out_h, eng.out_w)
+        probs = seg.segment(model, img, seg.OUTPUT_H, seg.OUTPUT_W)
         return img + probs.sum() * 0.0
 
     img = step(torch.from_numpy(rgb_u8).to(dev).float())
@@ -339,22 +350,20 @@ def time_seg(model, rgb_u8: np.ndarray, iters: int, dev) -> tuple:
     return seg_ms, 1e3 * (time.perf_counter() - t0) / iters
 
 
-def time_stereo(gray: np.ndarray, iters: int, dev) -> float:
-    """ms of flat block matching at STEREO_DISP disparities of gray against
-    its STEREO_ROLL-pixel roll, each call fed the last one's output, one
-    synchronisation."""
+def time_stereo(gray: np.ndarray, iters: int, dev, fx: float, capture: bool = True) -> float:
+    """ms of a flat StereoDepthEstimator call at STEREO_DISP disparities on
+    gray against its STEREO_ROLL-pixel roll, both staged on the device:
+    the captured step (capture=False: its eager twin), `iters` calls after
+    a warm-up call, one synchronisation."""
+    est = StereoDepthEstimator(fx, STEREO_BASELINE_M, max_disp=STEREO_DISP, device=dev,
+                               capture=capture)
     left = torch.from_numpy(np.ascontiguousarray(gray)).to(dev)
     right = torch.from_numpy(np.ascontiguousarray(np.roll(gray, -STEREO_ROLL, axis=1))).to(dev)
-
-    def step(x):
-        disp, valid = block_match(x, right, max_disp=STEREO_DISP)
-        return x + (disp.sum() + valid.sum()) * 0.0
-
-    x = step(left)
+    est.depth_device(left, right)
     sync(dev)
     t0 = time.perf_counter()
     for _ in range(iters):
-        x = step(x)
+        est.depth_device(left, right)
     sync(dev)
     return 1e3 * (time.perf_counter() - t0) / iters
 
@@ -456,13 +465,17 @@ def run(args) -> dict:
     rgb_u8 = np.ascontiguousarray(frames[0][1]).astype(np.uint8)
     seg_iters = int(os.environ.get("DSTPU_BENCH_SEG_ITERS", "10"))
     seg_ms, seg_dev_ms = counted("seg", time_seg, models["unet"], rgb_u8, seg_iters, dev)
-    log(f"[bench] seg device-only {seg_dev_ms:.2f} ms (end-to-end {seg_ms:.2f} incl transfer)")
+    seg_eager_ms = time_infer(models["unet"], rgb_u8, seg_iters, False)
+    log(f"[bench] seg device-only {seg_dev_ms:.2f} ms (end-to-end {seg_ms:.2f} incl transfer, "
+        f"captured; {seg_eager_ms:.2f} eager)")
     del models
 
     gray = np.ascontiguousarray(frames[0][1]).astype(np.float32).mean(axis=-1)
     stereo_iters = int(os.environ.get("DSTPU_BENCH_STEREO_ITERS", "10"))
-    stereo_ms = counted("stereo", time_stereo, gray, stereo_iters, dev)
-    log(f"[bench] stereo block match ({STEREO_DISP} disp, {w}x{h}): {stereo_ms:.2f} ms")
+    stereo_ms = counted("stereo", time_stereo, gray, stereo_iters, dev, k[0])
+    stereo_eager_ms = time_stereo(gray, stereo_iters, dev, k[0], False)
+    log(f"[bench] stereo block match ({STEREO_DISP} disp, {w}x{h}): {stereo_ms:.2f} ms captured, "
+        f"{stereo_eager_ms:.2f} eager")
 
     total = {n: sum(s[n] for s in stage_launches.values()) for n in launches()}
     log("[bench] kernel launches: " + json.dumps(
@@ -473,8 +486,9 @@ def run(args) -> dict:
         f"integrate_eager_fps={eager_fps:.2f} raycast_ms={fmt(ray_ms)} splat_ms={splat_ms:.2f} "
         f"splat_eager_ms={splat_eager_ms:.2f} "
         f"online_eager_fps={json.dumps({a: round(v, 2) for a, v in online_eager.items()})} "
-        f"seg_ms={seg_ms:.2f} "
-        f"seg_dev_ms={seg_dev_ms:.2f} launches={json.dumps(total, separators=(',', ':'))} "
+        f"seg_ms={seg_ms:.2f} seg_eager_ms={seg_eager_ms:.2f} seg_dev_ms={seg_dev_ms:.2f} "
+        f"stereo_eager_ms={stereo_eager_ms:.2f} "
+        f"launches={json.dumps(total, separators=(',', ':'))} "
         f"self_check_launches={json.dumps(verify_launches, separators=(',', ':'))} "
         f"card={card}")
     payload = {
@@ -496,6 +510,7 @@ def run(args) -> dict:
         "card": card, "frames": n_frames, "fingerprint": summary, "held_to_reference": held,
         "fusion_eager_fps": eager_fps, "splat_eager_ms": splat_eager_ms,
         "online_eager_fps": online_eager, "splat_ms": splat_ms, "raycast_ms": ray_ms, "seg_ms": seg_ms, "seg_dev_ms": seg_dev_ms,
+        "seg_eager_ms": seg_eager_ms, "stereo_eager_ms": stereo_eager_ms,
         "launches": stage_launches, "self_check_launches": verify_launches}}
 
 

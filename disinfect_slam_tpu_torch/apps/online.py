@@ -135,12 +135,18 @@ class StereoDepthReplay:
     def device_frames(self):
         """(rgb [H, W, 3], depth f32 [H, W], cam_T_world) a frame, the
         images on the estimator's device (FusedOnlineStep.step_device):
-        the pair uploads once and the depth never leaves the device."""
+        the host pair goes to the captured estimator, which uploads it once
+        through its pinned staging, and the depth never leaves the device
+        (an eager estimator takes the pair uploaded here)."""
         device = self.estimator.device
         for fr in self.stereo:
-            left = torch.from_numpy(np.ascontiguousarray(fr.left)).to(device)
-            right = torch.from_numpy(np.ascontiguousarray(fr.right)).to(device)
-            depth = self.estimator.depth_device(left, right)
+            if self.estimator.capture:
+                depth = self.estimator.depth_device(fr.left, fr.right)
+                left = self.estimator.left_device()
+            else:
+                left = torch.from_numpy(np.ascontiguousarray(fr.left)).to(device)
+                right = torch.from_numpy(np.ascontiguousarray(fr.right)).to(device)
+                depth = self.estimator.depth_device(left, right)
             rgb = left if left.ndim == 3 else left[..., None].expand(*left.shape, 3)
             pose = np.eye(4, dtype=np.float32) if fr.cam_T_world is None else fr.cam_T_world
             yield rgb, depth, pose

@@ -31,6 +31,7 @@ the card).
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import re
 from typing import Dict, Optional, Sequence, Tuple
@@ -426,20 +427,75 @@ class InferenceEngine:
     """API parity with segmentation::inference_engine (inference.h:11-22):
     infer_one(rgb, ret_uint8) -> [ht_map, lt_map], each 640x360 like
     float_tensor_to_float_mat (inference.cc:25).  `model` carries its
-    weights and runs on the device it is on."""
+    weights and runs on the device it is on.
 
-    def __init__(self, model: nn.Module, out_size: Tuple[int, int] = (OUTPUT_H, OUTPUT_W)):
+    The counterpart of the JAX engine's jitted `_forward`: on a CUDA device
+    each frame is one captured step (utils/graphs.py) keyed by the frame's
+    (H, W, dtype), the staging slot and the net's storage.  The u8 or f32
+    frame goes through pinned staging (two slots, used in turn), `segment`
+    runs with TF32 off while it is captured and replayed, and the [2, H,
+    W] maps come back in one copy into a pinned host buffer.
+    capture=False runs `segment` eagerly."""
+
+    def __init__(self, model: nn.Module, out_size: Tuple[int, int] = (OUTPUT_H, OUTPUT_W),
+                 capture: bool = True, graphs=None):
+        from ..utils.graphs import StepGraphs
+
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.out_h, self.out_w = out_size
+        self.capture = capture
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = {}
+        self._outputs = {}
+        self._tick = 0
+        self._host_out = None
+
+    def _run(self, rgb: np.ndarray) -> torch.Tensor:
+        """The frame (u8 or f32, contiguous) through the captured step ->
+        the maps [2, out_h, out_w] in its static output on the device
+        (valid until this engine's next call)."""
+        from ..utils.graphs import StaticInputs, keep
+
+        h, w = rgb.shape[:2]
+        dtype = torch.from_numpy(rgb[:0]).dtype
+        key = (tuple(rgb.shape), dtype)
+        if key not in self._inputs:
+            self._inputs[key] = StaticInputs({"rgb": (tuple(rgb.shape), dtype)}, self.device)
+        inputs = self._inputs[key]
+        slot = self._tick % 2
+        self._tick += 1
+        inputs.fill(slot, rgb=rgb)
+
+        def body():
+            inputs.upload(slot)
+            keep(self._outputs, "probs", segment(self.model, inputs.dev["rgb"], self.out_h,
+                                                 self.out_w))
+
+        net = tuple(t.data_ptr() for t in itertools.chain(self.model.parameters(),
+                                                           self.model.buffers()))
+        with exact_fp32():
+            self.graphs.run(("seg", h, w, dtype, slot, self.out_h, self.out_w, net), body)
+        inputs.done(slot)
+        return self._outputs["probs"][0]
 
     def infer_one(self, rgb_img: np.ndarray, ret_uint8: bool = False):
-        rgb = np.asarray(rgb_img)
-        if rgb.dtype != np.uint8:
-            rgb = rgb.astype(np.float32)
-        # u8 uploads 4x fewer bytes and widens on the device
-        img = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
-        probs = segment(self.model, img, self.out_h, self.out_w).cpu().numpy()
+        from ..utils.graphs import host_image
+
+        rgb = host_image(rgb_img)
+        if self.capture:
+            probs = self._run(rgb)
+            if self._host_out is None:
+                self._host_out = torch.empty(tuple(probs.shape), dtype=probs.dtype,
+                                             pin_memory=self.device.type == "cuda")
+            self._host_out.copy_(probs, non_blocking=True)  # the one copy to the host
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            probs = self._host_out.numpy().copy()
+        else:
+            # u8 uploads 4x fewer bytes and widens on the device
+            img = torch.from_numpy(rgb).to(self.device)
+            probs = segment(self.model, img, self.out_h, self.out_w).cpu().numpy()
         ht, lt = probs[0], probs[1]
         if ret_uint8:
             ht = np.clip(ht * 255, 0, 255).astype(np.uint8)

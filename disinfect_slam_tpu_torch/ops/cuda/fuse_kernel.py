@@ -30,6 +30,7 @@ import torch
 
 from ...core.geometry import SE3, CameraIntrinsics, DevicePose, device_pose
 from ...core.voxel import round_half_away
+from ...utils.graphs import count_launch
 from . import build
 
 _C = ctypes
@@ -319,7 +320,7 @@ def fuse_rows(
     c, _pose = c_args(*args, minabs, **consts)
     with torch.cuda.device(img.device):
         err = fn(*c)
-    fuse_rows.launches += 1
+    count_launch(fuse_rows)
     build.check(err, "fuse_rows")
     return minabs
 

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from ...utils.graphs import count_launch
 from . import build
 
 _C = ctypes
@@ -83,7 +84,7 @@ def sample_rows(
             build.ptr(v), build.ptr(count), rows, build.ptr(chans),
             build.ptr(valid), build.stream_of(img),
         )
-    sample_rows.launches += 1
+    count_launch(sample_rows)
     build.check(err, "sample_rows")
     return chans, valid
 

@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.geometry import SE3, CameraParams, device_pose
-from ...utils.graphs import StaticInputs, StepGraphs
+from ...utils.graphs import StaticInputs, StepGraphs, count_launch
 from .. import render_fast as rf
 from . import build
 
@@ -234,7 +234,7 @@ def splat_zbuf_blocks(
                  cam.img_h, cam.img_w, build.ptr(zbuf),
                  None if branch_counts is None else build.ptr(branch_counts),
                  build.stream_of(block_pos))
-    splat_zbuf_blocks.launches += 1
+    count_launch(splat_zbuf_blocks)
     build.check(err, "splat_zbuf_blocks")
     return zbuf
 
@@ -275,7 +275,7 @@ def splat_payload_blocks(
                  build.ptr(zbuf), build.ptr(pbuf),
                  None if branch_counts is None else build.ptr(branch_counts),
                  build.stream_of(block_pos))
-    splat_payload_blocks.launches += 1
+    count_launch(splat_payload_blocks)
     build.check(err, "splat_payload_blocks")
     return pbuf
 

@@ -299,14 +299,72 @@ class StereoRectifier:
     """API parity with utils/stereo_rectifier.h: rectify(left, right) via
     the precomputed maps, rectified intrinsics exposure.  The maps go to
     `device` once and the remap runs there; it is the CUDA device unless
-    the caller asks for another."""
+    the caller asks for another.
 
-    def __init__(self, maps: RectifyMaps, device="cuda"):
+    The counterpart of the JAX rectifier's jitted `_remap`: on a CUDA
+    device each pair is one captured step (utils/graphs.py) keyed by the
+    two images' shapes, where they came from and the staging slot; host images go through pinned
+    staging (two slots, used in turn), device tensors are copied into the
+    static inputs first.  capture=False remaps eagerly."""
+
+    def __init__(self, maps: RectifyMaps, device="cuda", capture: bool = True, graphs=None):
+        from ..utils.graphs import StepGraphs
+
         self.maps = maps
         self.device = resolve_device(device)
         self.maps_device = tuple(
             torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(self.device)
             for m in maps[:4])
+        self.capture = capture
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = {}
+        self._outputs = {}
+        self._tick = 0
+
+    def _remap(self, img_l: torch.Tensor, img_r: torch.Tensor):
+        lx, ly, rx, ry = self.maps_device
+        return bilinear_remap(img_l, lx, ly), bilinear_remap(img_r, rx, ry)
+
+    def _static(self, shapes: tuple):
+        from ..utils.graphs import StaticInputs
+
+        if shapes not in self._inputs:
+            self._inputs[shapes] = StaticInputs(
+                {side: (shape, torch.float32) for side, shape in zip(("left", "right"), shapes)},
+                self.device)
+        return self._inputs[shapes]
+
+    def _rectified(self, img_l, img_r, from_host: bool):
+        """The pair through the remap: eager, or the captured step's static
+        outputs (valid until this rectifier's next call)."""
+        from ..utils.graphs import keep
+
+        if from_host:
+            img_l, img_r = (np.ascontiguousarray(a, np.float32) for a in (img_l, img_r))
+        if not self.capture:
+            if from_host:
+                img_l, img_r = (torch.from_numpy(a).to(self.device) for a in (img_l, img_r))
+            return self._remap(img_l, img_r)
+        shapes = (tuple(img_l.shape), tuple(img_r.shape))
+        inputs = self._static(shapes)
+        slot = None
+        if from_host:
+            slot = self._tick % 2
+            self._tick += 1
+            inputs.fill(slot, left=img_l, right=img_r)
+        else:
+            inputs.dev["left"].copy_(img_l)
+            inputs.dev["right"].copy_(img_r)
+
+        def body():
+            if from_host:
+                inputs.upload(slot)
+            keep(self._outputs, shapes, *self._remap(inputs.dev["left"], inputs.dev["right"]))
+
+        self.graphs.run(("remap", from_host, shapes, slot), body)
+        if from_host:
+            inputs.done(slot)
+        return self._outputs[shapes]
 
     @classmethod
     def from_yaml(cls, config: dict, device="cuda") -> "StereoRectifier":
@@ -336,14 +394,12 @@ class StereoRectifier:
 
     def rectify_device(self, img_l: torch.Tensor, img_r: torch.Tensor):
         """Rectify a pair of float32 tensors on the rectifier's device."""
-        lx, ly, rx, ry = self.maps_device
-        return bilinear_remap(img_l, lx, ly), bilinear_remap(img_r, rx, ry)
+        out = self._rectified(img_l, img_r, False)
+        return tuple(t.clone() for t in out) if self.capture else out
 
     def rectify(self, img_l: np.ndarray, img_r: np.ndarray):
         """Host images in, rectified float32 host images out."""
-        up = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
-              for a in (img_l, img_r)]
-        left, right = self.rectify_device(*up)
+        left, right = self._rectified(img_l, img_r, True)
         return left.cpu().numpy(), right.cpu().numpy()
 
     def rectified_intrinsics(self) -> Tuple[float, float, float, float]:

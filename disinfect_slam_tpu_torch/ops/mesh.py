@@ -23,13 +23,14 @@ from __future__ import annotations
 
 import contextlib
 import logging
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core import voxel as vx
 from ..core.state import DEFAULT_TSDF, TSDFVolume
+from ..utils.graphs import StepGraphs, keep
 from . import hash as h
 from .gather import unique_rows
 from .integrate import compact_mask
@@ -77,6 +78,31 @@ def _build_tet_table() -> np.ndarray:
 
 
 _TET_TABLE = _build_tet_table()
+# the tables above as device tensors, made once a device (a capture may
+# not copy from the host): {device: {name: tensor}}, and the corner
+# offsets in metres a (device, voxel size)
+_DEVICE_TABLES: dict = {}
+
+
+def _tables(dev: torch.device, voxel_size: float) -> dict:
+    """The neighbour offsets i32 [7, 3], the case table, the tetrahedron
+    edges' corners, a triangle's vertex order flipped, and the corner
+    offsets f32 [8, 3] in metres (each Python product rounded once to
+    float32) on `dev`."""
+    key = str(dev)
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        t = {"neighbours": torch.from_numpy(np.asarray(_NEIGHBOURS, np.int32)).to(dev),
+             "table": torch.from_numpy(_TET_TABLE).to(dev),
+             "ea": torch.from_numpy(_TET_EDGES[:, 0]).long().to(dev),
+             "eb": torch.from_numpy(_TET_EDGES[:, 1]).long().to(dev),
+             "flipped": torch.tensor([0, 2, 1], dtype=torch.long, device=dev)}
+        _DEVICE_TABLES[key] = t
+    ck = ("corner_offsets", float(voxel_size))
+    if ck not in t:
+        t[ck] = torch.from_numpy(
+            (_CORNER_OFFSETS.astype(np.float64) * voxel_size).astype(np.float32)).to(dev)
+    return {**t, "corner_offsets": t[ck]}
 
 
 class Mesh(NamedTuple):
@@ -112,13 +138,57 @@ def _candidates(vol: TSDFVolume) -> torch.Tensor:
     fmin = torch.where(live, row_min[pool], torch.inf)
     fmax = torch.where(live, row_max[pool], -torch.inf)
     pos = vol.entry_pos
-    for d in _NEIGHBOURS:
-        npool = h.lookup(vol, pos + torch.tensor(d, dtype=torch.int32, device=vol.device))
+    offsets = _tables(vol.device, cfg.voxel_size)["neighbours"]
+    for k in range(len(_NEIGHBOURS)):
+        npool = h.lookup(vol, pos + offsets[k])
         nhit = (npool >= 0) & live
         nrow = npool.clamp(0, cfg.num_blocks - 1).long()
         fmin = torch.where(nhit, torch.minimum(fmin, row_min[nrow]), fmin)
         fmax = torch.where(nhit, torch.maximum(fmax, row_max[nrow]), fmax)
     return live & (fmin < 0) & (fmax >= 0)
+
+
+class MeshGraphs:
+    """extract_mesh_chunked's captured steps on one device (utils/graphs.py):
+    the candidate pass, keyed by the volume's storage_key(), and the chunk
+    body (_extract_from_blocks, then the q16 quantization), keyed by the
+    storage, the chunk size, the triangle cap and the transfer, reading its
+    chunk from static inputs that every chunk body of this object shares.
+    A call makes its own by default, freed when it returns: pass one to
+    let repeated calls on the same volume replay every step."""
+
+    def __init__(self, device, graphs: Optional[StepGraphs] = None):
+        self.device = torch.device(device)
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = {}
+        # the steps' outputs, shared like the inputs: {(step, sizes): buffers}
+        self.outputs = {}
+
+    def inputs(self, chunk: int) -> dict:
+        """The chunk body's static inputs for `chunk` rows: block_pos i32
+        [chunk, 3], pool_idx i32 [chunk], mask bool [chunk], and the q16
+        frame's origin f32 [3] and step f32 []."""
+        if chunk not in self._inputs:
+            dev = self.device
+            self._inputs[chunk] = {
+                "block_pos": torch.zeros((chunk, 3), dtype=torch.int32, device=dev),
+                "pool_idx": torch.zeros((chunk,), dtype=torch.int32, device=dev),
+                "mask": torch.zeros((chunk,), dtype=torch.bool, device=dev),
+                "q_origin": torch.zeros((3,), dtype=torch.float32, device=dev),
+                "q_step": torch.ones((), dtype=torch.float32, device=dev)}
+        return self._inputs[chunk]
+
+
+def _chunk_body(vol, block_pos, pool_idx, mask, max_tris, q_origin=None, q_step=None):
+    """One chunk's triangles (f32 [max_tris, 3, 3], or with a q16 frame
+    i16 [max_tris, 3, 3] holding value - 32768) and its count."""
+    mesh = _extract_from_blocks(vol, block_pos, pool_idx, mask, max_tris)
+    verts = mesh.vertices
+    if q_origin is not None:
+        q = torch.round((verts - q_origin) / q_step).clamp(0, 65535)
+        # 16 bits as int16 (value - 32768): torch's uint16 lacks ops
+        verts = (q - 32768.0).to(torch.int16)
+    return verts, mesh.count
 
 
 def extract_mesh_chunked(
@@ -127,12 +197,26 @@ def extract_mesh_chunked(
     chunk: int = 512,
     transfer: str = "f32",
     bucket: int = 4096,
+    capture: bool = True,
+    graphs: Optional[MeshGraphs] = None,
 ) -> np.ndarray:
     """Memory-bounded extraction -> [N, 3, 3] float32 triangles on the
     host.  The candidate blocks (_candidates) go through
-    _extract_from_blocks `chunk` at a time, at most max_tris_per_chunk
-    triangles a chunk; a chunk that reaches the cap is clipped and
-    counted, with one warning for the call.
+    _extract_from_blocks `chunk` at a time, the last chunk padded as the
+    JAX package pads it (pool index num_blocks, mask False: the padded rows
+    emit nothing), at most max_tris_per_chunk triangles a chunk; a chunk
+    that reaches the cap is clipped and counted, with one warning for the
+    call.  Each chunk's triangles and count are copied into one buffer of
+    [chunks, max_tris_per_chunk, 3, 3] (sized from the chunk count: 9.4 MB
+    a chunk in f32 at the default cap) before the next chunk runs; then one
+    read of the counts and one copy of the triangles to the host.
+
+    On a CUDA device the candidate pass and each chunk are captured steps
+    (MeshGraphs; the first chunk of a key runs eagerly, the rest replay),
+    each chunk read from the static inputs; torch.nonzero over the
+    candidates stays outside them, the one read that sizes the loop, as
+    the JAX package's np.asarray of its jitted candidates.  capture=False
+    runs the same steps eagerly.
 
     transfer="q16" quantizes the vertices on the device to 16-bit fixed
     point in steps of voxel/16 from the candidate blocks' low corner (at
@@ -143,8 +227,13 @@ def extract_mesh_chunked(
     accepted and ignored."""
     del bucket
     cfg = vol.cfg
-    cand = _candidates(vol)
-    idx = torch.nonzero(cand).flatten()
+    dev = vol.device
+    graphs = graphs if graphs is not None else MeshGraphs(dev)
+    run = graphs.graphs.run if capture else (lambda _key, body: body())
+    storage = vol.storage_key()
+    run(("mesh_candidates",) + storage,
+        lambda: keep(graphs.outputs, ("candidates", cfg.num_entries), _candidates(vol)))
+    idx = torch.nonzero(graphs.outputs[("candidates", cfg.num_entries)][0]).flatten()
     n = idx.numel()
     if n == 0:
         return np.zeros((0, 3, 3), np.float32)
@@ -160,35 +249,48 @@ def extract_mesh_chunked(
         step = cfg.voxel_size / 16.0
         if float((hi - lo).max()) / step < 65534.0:
             q_origin, q_step = lo.astype(np.float32), np.float32(step)
-            org_t = torch.from_numpy(q_origin).to(vol.device)
-            # a device divisor: torch on CUDA multiplies by the reciprocal
-            # of a Python scalar one
-            step_t = torch.tensor(q_step, dtype=torch.float32, device=vol.device)
+    quant = q_origin is not None
 
-    meshes = []
-    for s0 in range(0, n, chunk):
-        sel = slice(s0, min(s0 + chunk, n))
-        mask = torch.ones(sel.stop - sel.start, dtype=torch.bool, device=vol.device)
-        mesh = _extract_from_blocks(vol, block_pos[sel], pool_idx[sel], mask,
-                                    max_tris_per_chunk)
-        verts = mesh.vertices
-        if q_origin is not None:
-            q = torch.round((verts - org_t) / step_t).clamp(0, 65535)
-            # 16 bits as int16 (value - 32768): torch's uint16 lacks ops
-            verts = (q - 32768.0).to(torch.int16)
-        meshes.append((verts, mesh.count))
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    bp_all = torch.cat([block_pos, block_pos.new_zeros((pad, 3))])
+    pi_all = torch.cat([pool_idx, pool_idx.new_full((pad,), cfg.num_blocks)])
+    m_all = torch.arange(n_chunks * chunk, device=dev) < n
+    static = graphs.inputs(chunk)
+    rows = (static["block_pos"], static["pool_idx"], static["mask"])
+    frame = ()
+    if quant:
+        # device tensors: torch on CUDA divides by a Python scalar through
+        # its reciprocal
+        static["q_origin"].copy_(torch.from_numpy(q_origin))
+        static["q_step"].fill_(float(q_step))
+        frame = (static["q_origin"], static["q_step"])
+    sizes = (chunk, max_tris_per_chunk, "q16" if quant else "f32")
+    verts_all = torch.empty((n_chunks, max_tris_per_chunk, 3, 3),
+                            dtype=torch.int16 if quant else torch.float32, device=dev)
+    counts_all = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
+    for i in range(n_chunks):
+        sel = slice(i * chunk, (i + 1) * chunk)
+        for dst, src in zip(rows, (bp_all[sel], pi_all[sel], m_all[sel])):
+            dst.copy_(src)
+        run(("mesh_chunk",) + sizes + storage, lambda: keep(
+            graphs.outputs, sizes, *_chunk_body(vol, *rows, max_tris_per_chunk, *frame)))
+        verts, count = graphs.outputs[sizes]
+        verts_all[i].copy_(verts)
+        counts_all[i].copy_(count)
 
-    counts = torch.stack([c for _, c in meshes]).cpu().numpy()  # one read
+    counts = counts_all.cpu().numpy()  # one read
     clipped = int(np.sum(counts >= max_tris_per_chunk))
-    out = torch.cat([v[:int(min(c, max_tris_per_chunk))] for (v, _), c in zip(meshes, counts)])
+    out = torch.cat([verts_all[i, :int(min(c, max_tris_per_chunk))]
+                     for i, c in enumerate(counts)])
     tris = out.cpu().numpy()  # one copy
-    if q_origin is not None:
+    if quant:
         tris = q_origin + (tris.astype(np.int32) + 32768).astype(np.float32) * q_step
     if clipped:
         logger.warning(
             "mesh extraction clipped %d/%d chunks at %d tris; "
             "lower `chunk` or raise `max_tris_per_chunk` for the full mesh",
-            clipped, len(meshes), max_tris_per_chunk)
+            clipped, n_chunks, max_tris_per_chunk)
     return tris
 
 
@@ -214,9 +316,9 @@ def _block_fields(vol: TSDFVolume, block_pos, pool_idx, mask):
     wf = torch.zeros((vcap, s, s, s), dtype=torch.float32, device=vol.device)
     tf[:, :bl, :bl, :bl] = t_own
     wf[:, :bl, :bl, :bl] = w_own
-    for d in _NEIGHBOURS:
-        npool = h.lookup(vol, block_pos + torch.tensor(d, dtype=torch.int32,
-                                                       device=vol.device))
+    offsets = _tables(vol.device, cfg.voxel_size)["neighbours"]
+    for k, d in enumerate(_NEIGHBOURS):
+        npool = h.lookup(vol, block_pos + offsets[k])
         t_n, w_n = rows_of(npool, mask & (npool >= 0))
         dx, dy, dz = d
         # the neighbour's 0-plane along each offset axis goes to the
@@ -271,14 +373,12 @@ def _extract_from_blocks(vol: TSDFVolume, block_pos: torch.Tensor, pool_idx: tor
     blk_of = (cids_safe >> (3 * cfg.block_len_log2)).long()
     coffc = vx.index_to_offset(cids_safe & (bv - 1), cfg)
     vsz = cfg.voxel_size
+    tables = _tables(dev, vsz)
     cell0 = (base[blk_of] + coffc).float() * vsz
-    corner_pos = [cell0 + torch.tensor([dx * vsz, dy * vsz, dz * vsz], dtype=torch.float32,
-                                       device=dev)
-                  for dx, dy, dz in _CORNER_OFFSETS]  # 8 x [C, 3]
+    corner_pos = [cell0 + tables["corner_offsets"][c] for c in range(8)]  # 8 x [C, 3]
 
-    table = torch.from_numpy(_TET_TABLE).to(dev)  # [16, 2, 3]
-    ea = torch.from_numpy(_TET_EDGES[:, 0]).long().to(dev)
-    eb = torch.from_numpy(_TET_EDGES[:, 1]).long().to(dev)
+    table = tables["table"]  # [16, 2, 3]
+    ea, eb = tables["ea"], tables["eb"]
     tri_vs, tri_valid = [], []
     for tet in _TETS:
         ft = torch.stack([fv[:, int(c)] for c in tet], dim=1)  # [C, 4]
@@ -320,7 +420,7 @@ def _extract_from_blocks(vol: TSDFVolume, block_pos: torch.Tensor, pool_idx: tor
                                e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
             prod = nrm * outward
             flip = _sum3(prod[:, 0], prod[:, 1], prod[:, 2]) < 0
-            v3 = torch.where(flip[:, None, None], v3[:, [0, 2, 1]], v3)
+            v3 = torch.where(flip[:, None, None], v3.index_select(1, tables["flipped"]), v3)
             tri_vs.append(v3)
             tri_valid.append(valid)
 

@@ -31,13 +31,14 @@ depth = fx * baseline / disparity, the rectified-pinhole relation.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device
+from ..utils.graphs import StaticInputs, StepGraphs, host_image, keep
 from .image_ops import fma32
 
 METHODS = ("flat", "pyramid")
@@ -50,8 +51,9 @@ class StereoDepthResult(NamedTuple):
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A Python scalar as the float32 tensor JAX's weak typing makes of it."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    """A Python scalar as the float32 tensor JAX's weak typing makes of it
+    (a fill on the device, not a copy from the host: it captures)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def _to_gray(img: torch.Tensor) -> torch.Tensor:
@@ -311,7 +313,15 @@ class StereoDepthEstimator:
     metres with invalid pixels zeroed (the TSDF integrate path treats
     depth <= 0 as no measurement, as the reference zeroes masked depth,
     disinfect_slam.cc:55-58).  It runs on the CUDA device unless the
-    caller asks for another."""
+    caller asks for another.
+
+    The counterpart of the JAX estimator's `jax.jit(stereo_depth)`: on a
+    CUDA device each call is one captured step (utils/graphs.py), keyed by
+    the pair's shape and dtype, whether it came from the host, the staging
+    slot and the estimator's keywords (so flat and pyramid are separate
+    graphs).  Host arrays go through pinned staging (two slots, used in
+    turn) and upload inside the graph; device tensors are copied into the
+    static inputs first.  capture=False runs stereo_depth eagerly."""
 
     def __init__(
         self,
@@ -323,6 +333,8 @@ class StereoDepthEstimator:
         max_depth: float = 10.0,
         method: str = "flat",
         device="cuda",
+        capture: bool = True,
+        graphs: Optional[StepGraphs] = None,
     ):
         if method not in METHODS:
             raise ValueError(f"stereo method must be 'flat' or 'pyramid', got {method!r}")
@@ -330,17 +342,76 @@ class StereoDepthEstimator:
         self.baseline_m = float(baseline_m)
         self.device = resolve_device(device)
         self._kw = dict(fx=self.fx, baseline_m=self.baseline_m, max_disp=max_disp,
-                        patch=patch, min_depth=min_depth, max_depth=max_depth, method=method)
+                        patch=tuple(patch), min_depth=min_depth, max_depth=max_depth,
+                        method=method)
+        self.capture = capture
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = {}
+        self._outputs = {}
+        self._last = None
+        self._tick = 0
 
     def _upload(self, img) -> torch.Tensor:
         if isinstance(img, torch.Tensor):
             return img.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
 
+    def _static(self, shape: tuple, dtype: torch.dtype) -> StaticInputs:
+        key = (shape, dtype)
+        if key not in self._inputs:
+            self._inputs[key] = StaticInputs({"left": (shape, dtype), "right": (shape, dtype)},
+                                             self.device)
+        return self._inputs[key]
+
+    def _depth(self, left, right) -> torch.Tensor:
+        """The pair's depth: eager, or the captured step's static output
+        (valid until this estimator's next call)."""
+        if not self.capture:
+            return stereo_depth(self._upload(left), self._upload(right), **self._kw).depth
+        from_host = not (isinstance(left, torch.Tensor) and isinstance(right, torch.Tensor))
+        if from_host:
+            left, right = (host_image(a) for a in (left, right))
+        if left.shape != right.shape or left.dtype != right.dtype:
+            raise ValueError(f"a stereo pair of {left.dtype} {tuple(left.shape)} and "
+                             f"{right.dtype} {tuple(right.shape)}")
+        if from_host:
+            inputs = self._static(left.shape, torch.from_numpy(left[:0]).dtype)
+            slot = self._tick % 2
+            self._tick += 1
+            inputs.fill(slot, left=left, right=right)
+        else:
+            inputs = self._static(tuple(left.shape), left.dtype)
+            slot = None
+            inputs.dev["left"].copy_(left)
+            inputs.dev["right"].copy_(right)
+        self._last = inputs
+
+        shape, dtype = tuple(inputs.dev["left"].shape), inputs.dev["left"].dtype
+
+        def body():
+            if from_host:
+                inputs.upload(slot)
+            depth = stereo_depth(inputs.dev["left"], inputs.dev["right"], **self._kw).depth
+            keep(self._outputs, (shape, dtype), depth)
+
+        self.graphs.run(("stereo", from_host, shape, dtype, slot) + tuple(self._kw.items()), body)
+        if from_host:
+            inputs.done(slot)
+        return self._outputs[(shape, dtype)][0]
+
     def depth_device(self, left, right) -> torch.Tensor:
-        """Depth on the device: feed it to integrate / DenseSLAM without a
-        host round trip."""
-        return stereo_depth(self._upload(left), self._upload(right), **self._kw).depth
+        """Depth on the device (a tensor of its own): feed it to integrate
+        / DenseSLAM without a host round trip."""
+        depth = self._depth(left, right)
+        return depth.clone() if self.capture else depth
+
+    def left_device(self) -> torch.Tensor:
+        """The last captured pair's left image on the device (a copy, in
+        stream order after its upload): the stereo app's rgb, with no
+        second upload."""
+        if self._last is None:
+            raise RuntimeError("left_device follows a captured call")
+        return self._last.dev["left"].clone()
 
     def __call__(self, left: np.ndarray, right: np.ndarray) -> np.ndarray:
-        return self.depth_device(left, right).cpu().numpy()
+        return self._depth(left, right).cpu().numpy()

@@ -30,15 +30,17 @@ the same time (their owner issues them on one stream under its lock),
 and an output a caller keeps is copied out before the next replay.
 
 Launch counts: a kernel wrapper adds one to its count where Python runs
-it, and a capture runs the wrapper without launching anything, so what
-a capture adds is taken back and added again at every replay.  REPLAYS
-counts the replays ("graph") and the launches they made, by kernel.
+it (count_launch), and a capture runs the wrapper without launching
+anything, so what a capture adds on its own thread is taken back and
+added again at every replay.  REPLAYS counts the replays ("graph") and
+the launches they made, by kernel.
 """
 
 from __future__ import annotations
 
 import collections
 import gc
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -48,6 +50,24 @@ from ..core.geometry import POSE_FLOATS, SE3, DevicePose, pose_floats
 
 # "graph": graph replays; a kernel wrapper's name: its launches made by them
 REPLAYS: collections.Counter = collections.Counter()
+# one capture at a time in the process: each turns the garbage collector off
+# (a process-wide switch) and collects before it, which must not free a graph
+# that another thread is capturing into (the online app segments on its main
+# thread while DISINFSystem integrates on its own)
+_CAPTURE_LOCK = threading.Lock()
+# the launches a capture on this thread records (None outside a capture)
+_CAPTURING = threading.local()
+
+
+def count_launch(fn) -> None:
+    """A counted kernel wrapper's launch: one more on fn.launches, and on
+    the counts of a capture running on this thread, which takes them back
+    (a capture launches nothing) and adds them at each replay.  Launches
+    that other threads make meanwhile stay theirs."""
+    fn.launches += 1
+    counts = getattr(_CAPTURING, "counts", None)
+    if counts is not None:
+        counts[fn.__name__] += 1
 
 
 def counted_kernels() -> tuple:
@@ -57,6 +77,27 @@ def counted_kernels() -> tuple:
 
     return (fuse_kernel.fuse_rows, sample_kernel.sample_rows,
             splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks)
+
+
+def host_image(a) -> np.ndarray:
+    """A host image as a step stages it: contiguous, u8 kept, anything else
+    as float32 (the cast the step's float32 ops would make)."""
+    a = np.asarray(a)
+    return np.ascontiguousarray(a if a.dtype == np.uint8 else a.astype(np.float32))
+
+
+def keep(store: dict, key, *tensors) -> tuple:
+    """Copy a step's results into buffers that `store` holds under `key`
+    and return those buffers.  A captured step's body ends with this: its
+    outputs then live in memory its owner holds, outside the graph's pool,
+    and each replay leaves its results there for the caller.  The buffers
+    are made on the key's first call, which runs eagerly."""
+    bufs = store.get(key)
+    if bufs is None:
+        bufs = store[key] = tuple(torch.empty_like(t) for t in tensors)
+    for b, t in zip(bufs, tensors):
+        b.copy_(t)
+    return bufs
 
 
 class StaticInputs:
@@ -152,14 +193,15 @@ class StepGraphs:
                 REPLAYS[fn.__name__] += launched[fn.__name__]
             return out
         out = self._eager(body)
-        kernels = counted_kernels()
-        before = [fn.launches for fn in kernels]
+        counts = collections.Counter()
+        _CAPTURING.counts = counts
         try:
             replay, captured = self._capture(body)
         finally:
-            launched = {fn.__name__: fn.launches - n for fn, n in zip(kernels, before)}
-            for fn, n in zip(kernels, before):
-                fn.launches = n
+            _CAPTURING.counts = None
+            launched = {fn.__name__: counts[fn.__name__] for fn in counted_kernels()}
+            for fn in counted_kernels():
+                fn.launches -= launched[fn.__name__]
         self.captures += 1
         self._graphs[key] = (replay, captured, launched)
         while len(self._graphs) > self.max_graphs:
@@ -193,29 +235,30 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
-        torch.cuda.synchronize(self.device)
-        # no garbage collection inside the capture: it may free another
-        # step's graph (an owner in a reference cycle), and destroying a
-        # graph while this thread captures invalidates the capture
-        # (torch.cuda.graph collects before it captures too)
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.device(self.device), torch.cuda.stream(side):
-                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-                try:
-                    out = body()
-                except BaseException:
+        with _CAPTURE_LOCK:
+            torch.cuda.synchronize(self.device)
+            # no garbage collection inside the capture: it may free another
+            # step's graph (an owner in a reference cycle), and destroying a
+            # graph while this thread captures invalidates the capture
+            # (torch.cuda.graph collects before it captures too)
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.device(self.device), torch.cuda.stream(side):
+                    graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
                     try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass  # the capture is already invalid; body's error is the one to raise
-                    raise
-                graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
+                        out = body()
+                    except BaseException:
+                        try:
+                            graph.capture_end()
+                        except RuntimeError:
+                            pass  # the capture is already invalid; body's error is the one to raise
+                        raise
+                    graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
         cur.wait_stream(side)
         return graph.replay, out
 

@@ -5,8 +5,11 @@ scripts/bench_mesh.py, with its configuration and sizes).
 Fuses the bench-scale volume (30 frames of the checked-in orbit_vga
 replay, or of the synthetic orbit, at 4 mm voxels; allocation on every
 frame, as bench_mesh.py's step allocates), then times:
-  1. extract_mesh_chunked with the float32 transfer
-  2. extract_mesh_chunked with the q16 transfer
+  1. extract_mesh_chunked with the float32 transfer: eager
+     (capture=False), captured as callers run it (its own MeshGraphs a
+     call: one eager chunk, one capture, the rest replays), and a repeat
+     call on a kept MeshGraphs (every step replays)
+  2. the same with the q16 transfer
   3. the full OBJ (extract + merge_vertices + save_obj)
   4. the 2 m-bbox voxel query of the bridge's 5 Hz cadence
      (gather_voxels, its count read on the host; the reconstTimerCallback
@@ -34,7 +37,7 @@ from disinfect_slam_tpu_torch.io.orbit_scene import make_orbit_frames  # noqa: E
 from disinfect_slam_tpu_torch.ops.gather import BoundingCube, gather_voxels  # noqa: E402
 from disinfect_slam_tpu_torch.ops.integrate import integrate  # noqa: E402
 from disinfect_slam_tpu_torch.ops.mesh import (  # noqa: E402
-    extract_mesh_chunked, merge_vertices, save_obj,
+    MeshGraphs, extract_mesh_chunked, merge_vertices, save_obj,
 )
 from disinfect_slam_tpu_torch.utils.device import resolve_device  # noqa: E402
 from disinfect_slam_tpu_torch.utils.timing import card_name_and_power  # noqa: E402
@@ -62,13 +65,27 @@ def run(device, n_frames: int = FRAMES, w: int = W, h: int = H, K=K, cfg=BENCH,
     print(f"active blocks: {int(vol.num_active_blocks)}", flush=True)
     out = {}
 
-    # 1+2: chunked extraction, both transfers (the bridge reuses warm state)
-    for mode in ("f32", "q16"):
-        extract_mesh_chunked(vol, transfer=mode)
+    # 1+2: chunked extraction, both transfers, after an eager warm-up
+    def timed_s(**kw):
         t0 = time.perf_counter()
-        tris = extract_mesh_chunked(vol, transfer=mode)
-        out[mode] = dt = time.perf_counter() - t0
-        print(f"extract_mesh_chunked[{mode}]: {dt:.2f} s ({tris.shape[0]} tris)", flush=True)
+        tris = extract_mesh_chunked(vol, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0, tris
+
+    for mode in ("f32", "q16"):
+        extract_mesh_chunked(vol, transfer=mode, capture=False)
+        out[f"{mode}_eager"], eager = timed_s(transfer=mode, capture=False)
+        out[mode], tris = timed_s(transfer=mode)
+        kept = MeshGraphs(dev)
+        timed_s(transfer=mode, graphs=kept)
+        out[f"{mode}_repeat"], again = timed_s(transfer=mode, graphs=kept)
+        del kept
+        if not (np.array_equal(tris, eager) and np.array_equal(again, eager)):
+            raise AssertionError(f"the captured {mode} mesh differs from the eager one")
+        print(f"extract_mesh_chunked[{mode}]: {out[mode]:.2f} s captured, repeat on kept "
+              f"graphs {out[f'{mode}_repeat']:.2f} s, eager {out[f'{mode}_eager']:.2f} s "
+              f"({tris.shape[0]} tris, all equal)", flush=True)
 
     # 3: the full OBJ artefact (extract + weld + write)
     t0 = time.perf_counter()

@@ -40,7 +40,10 @@ voxels, 6 cm truncation, 4 m, the default TSDFConfig, keyframes every 10
 frames, a 60-frame loop gap), fed the dataset's u8 rgb as float32 and its
 u16 depth over the depth factor: the per-frame cam_T_world and ok flags,
 the lost, keyframe and closure counts, ATE and RPE against the dataset's
-trajectory.txt, and the final volume's volume_fingerprint.
+trajectory.txt, and the final volume's volume_fingerprint.  With
+--slam --track-scale 2 it runs the same tracker at track_res_scale=2 (ICP
+and the model depth at 320x240) and writes
+orbit_vga_slam_s2_fingerprint.json.
 
 With --no-semantics it writes disinfect_slam_tpu_torch/data/
 orbit_vga_bench_noseg_fingerprint.json instead: the same replay with ht
@@ -51,7 +54,8 @@ alone.
 chip_smoke.py holds the port's GPU runs against these files, because the
 GPU host has no JAX.  Each takes minutes and several GB of host memory:
 
-  python scripts/port_fingerprint.py [--online | --export | --slam | --no-semantics]
+  python scripts/port_fingerprint.py [--online | --export | --slam [--track-scale 2] |
+                                      --no-semantics]
 """
 
 import argparse
@@ -94,6 +98,7 @@ OUT = os.path.join(DATA, "orbit_vga_bench_fingerprint.json")
 OUT_ONLINE = os.path.join(DATA, "orbit_vga_online_fingerprint.json")
 OUT_EXPORT = os.path.join(DATA, "orbit_vga_export_fingerprint.json")
 OUT_SLAM = os.path.join(DATA, "orbit_vga_slam_fingerprint.json")
+OUT_SLAM_S2 = os.path.join(DATA, "orbit_vga_slam_s2_fingerprint.json")
 OUT_NOSEG = os.path.join(DATA, "orbit_vga_bench_noseg_fingerprint.json")
 # apps/dense_slam.py's defaults: voxel, truncation, max depth (m), keyframe
 # cadence and loop gap (frames)
@@ -268,7 +273,7 @@ def export():
     print(json.dumps(out, indent=1))
 
 
-def slam():
+def slam(track_scale: int = 1):
     from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
     from disinfect_slam_tpu.utils import trajectory_eval as te
 
@@ -282,7 +287,8 @@ def slam():
     dslam = DenseSLAM(intrinsics, h, w, voxel_size=SLAM_VOXEL, truncation=SLAM_TRUNC,
                       max_depth=SLAM_MAX_DEPTH, cfg=cfg, splat_impl="xla",
                       loop_closure=True, kf_every=SLAM_KF_EVERY,
-                      lc_kwargs=dict(min_gap_frames=SLAM_LC_MIN_GAP))
+                      lc_kwargs=dict(min_gap_frames=SLAM_LC_MIN_GAP),
+                      track_res_scale=track_scale)
     poses, oks = [], []
     t0 = time.perf_counter()
     for n, fid in enumerate(fids, start=1):
@@ -314,6 +320,7 @@ def slam():
         "frames": len(fids),
         "voxel": SLAM_VOXEL, "trunc": SLAM_TRUNC, "max_depth": SLAM_MAX_DEPTH,
         "kf_every": SLAM_KF_EVERY, "lc_min_gap": SLAM_LC_MIN_GAP,
+        **({"track_res_scale": track_scale} if track_scale != 1 else {}),
         "frame_ids": fids,
         "ok": oks,
         "cam_T_world": [p.tolist() for p in poses],
@@ -325,7 +332,7 @@ def slam():
         "volume": volume_fingerprint({f: np.asarray(getattr(vol, f)) for f in (
             "entry_key", "entry_block", "oob_count", "tsdf", "rgbw", "prob")}),
     }
-    with open(OUT_SLAM, "w") as f:
+    with open(OUT_SLAM if track_scale == 1 else OUT_SLAM_S2, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print(json.dumps({k: v for k, v in out.items() if k != "cam_T_world"}, indent=1))
@@ -383,12 +390,15 @@ if __name__ == "__main__":
                        help="write the pose-free dense SLAM's fingerprint instead")
     which.add_argument("--no-semantics", action="store_true",
                        help="write the replay's fingerprint with ht = lt = 1 instead")
+    ap.add_argument("--track-scale", type=int, choices=(1, 2), default=1,
+                    help="with --slam: DenseSLAM's track_res_scale (2 writes "
+                         "orbit_vga_slam_s2_fingerprint.json)")
     args = ap.parse_args()
     if args.online:
         online()
     elif args.export:
         export()
     elif args.slam:
-        slam()
+        slam(args.track_scale)
     else:
         main(semantics=not args.no_semantics)

@@ -22,11 +22,14 @@ prints the first frame where the two camera positions part by more than
 1 mm and how the gap grows from there.  --test-state NPZ writes the JAX
 run's keyframe calls, its pose after every 25th frame and its keyframe
 map before keyframes 20 and 35 (tests/data/soak_700_jax_state.npz comes
-from --frames 700).  The JAX
+from --frames 700).  --depth-ulp up|down runs the JAX soak with every
+valid depth one float32 ulp that way instead (the reference against its
+own twin) and prints its counts, its assertions and whether it keeps the
+fingerprint's; it writes nothing.  The JAX
 soak takes ~75 s at 1000 frames, the port's ~95 s on one thread:
 
   python scripts/port_soak_fingerprint.py [--frames 1000 700 900] [--port] [--no-write]
-      [--poses DIR] [--test-state NPZ]
+      [--poses DIR] [--test-state NPZ] [--depth-ulp up|down]
 """
 
 import argparse
@@ -205,7 +208,30 @@ def main():
                          f"{STATE_KEYFRAMES}, for tests/test_torch_soak_divergence.py")
     ap.add_argument("--no-write", action="store_true",
                     help=f"print only; do not write {os.path.relpath(OUT, ROOT)}")
+    ap.add_argument("--depth-ulp", choices=("up", "down"),
+                    help="run the JAX soak with every valid depth one float32 ulp up or down "
+                         "and hold it to the fingerprint (writes nothing)")
     args = ap.parse_args()
+    if args.depth_ulp:
+        corridor = tc.soak_corridor_depth
+        towards = np.float32(np.inf if args.depth_ulp == "up" else -np.inf)
+
+        def perturbed(x):
+            d, pose = corridor(x)
+            return np.where(d > 0, np.nextafter(d, towards), d).astype(np.float32), pose
+
+        tc.soak_corridor_depth = perturbed
+        for n in args.frames:
+            res = run_jax_soak(n)
+            print(f"[jax soak, depth one ulp {args.depth_ulp}] {json.dumps(res)}; assertions "
+                  f"{verdict(res)}", flush=True)
+            if n == FP_FRAMES:
+                try:
+                    tc.check_soak_fingerprint(res, tc.soak_fingerprint())
+                    print("[jax soak] within the fingerprint's limits", flush=True)
+                except AssertionError as e:
+                    print(f"[jax soak] outside the fingerprint's limits: {e}", flush=True)
+        return
     if args.poses:
         args.port = True
         os.makedirs(args.poses, exist_ok=True)

@@ -1158,10 +1158,11 @@ def test_port_bench_mesh_on_the_card(cuda, tmp_path):
 
 def test_port_bench_stereo_on_the_card(cuda):
     """scripts/port_bench_stereo.py at VGA/64 and HD/128: the flat matcher
-    and the four pyramids timed."""
+    and the four pyramids timed, eager and captured."""
     res = _port_bench_script("port_bench_stereo").run(cuda, iters=3)
     assert set(res) == {(480, 640, 64), (720, 1280, 128)}
-    assert all(len(r) == 5 and min(r.values()) > 0 for r in res.values())
+    assert all(len(r) == 5 and min(t for v in r.values() for t in v.values()) > 0
+               for r in res.values())
 
 
 # ----------------------------------------------------------------------
@@ -1459,3 +1460,120 @@ def test_captured_sharded_step_equals_the_eager_step(cuda, n):
         assert a.hit.any() and all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
     assert splat_kernel.splat_zbuf_blocks.launches - zb == 3 * 2 * n
     assert dists[0].graphs[cuda].replays == 6 - 2 + 2
+
+
+# ----------------------------------------------------------------------
+# the stereo matchers, the remap, the seg engine and chunked meshing as
+# captured steps
+# ----------------------------------------------------------------------
+def _no_sync(fn):
+    """fn() with the device caught up first and every synchronising call
+    raising."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("method", ["flat", "pyramid"])
+def test_captured_stereo_equals_the_eager_stereo(cuda, method):
+    """StereoDepthEstimator at 640x480 / 64 disparities, three pairs from
+    the host (pinned staging, slots 0, 1, 0) and from the device: the
+    captured depth equals the eager one bit for bit; three captures, the
+    other calls replays, which never synchronise."""
+    from disinfect_slam_tpu_torch.ops.stereo import StereoDepthEstimator
+
+    left, right, fx = _stereo_frame0()
+    pairs = [tuple(np.roll(x, 7 * i, 0).astype(np.uint8) for x in (left, right))
+             for i in range(3)]
+    cap, eager = (StereoDepthEstimator(fx, 0.12, max_depth=4.0, method=method, capture=c)
+                  for c in (True, False))
+    for lh, rh in pairs:
+        np.testing.assert_array_equal(cap(lh, rh), eager(lh, rh))
+        ld, rd = (torch.from_numpy(x).to(cuda) for x in (lh, rh))
+        assert torch.equal(cap.depth_device(ld, rd), eager.depth_device(ld, rd))
+    assert cap.graphs.captures == 3 and cap.graphs.replays == 3
+    lh, rh = pairs[1]
+    ld, rd = (torch.from_numpy(x).to(cuda) for x in (lh, rh))
+    for args in ((lh, rh), (ld, rd)):
+        depth = _no_sync(lambda args=args: cap.depth_device(*args))
+        np.testing.assert_array_equal(depth.cpu().numpy(), eager(lh, rh))
+    assert torch.equal(cap.left_device(), ld)
+
+
+def test_captured_remap_equals_the_eager_remap(cuda, tmp_path):
+    """The factory calibration's rectifier, captured against capture=False:
+    rectify (an RGB left and a gray right view from the host) and
+    rectify_device over three pairs bit for bit; the replays never
+    synchronise."""
+    from disinfect_slam_tpu_torch.io.zed_calib import rectifier_from_factory_conf
+    from disinfect_slam_tpu_torch.ops.image_ops import StereoRectifier
+
+    from .torch_cases import ZED_FACTORY_CONF
+
+    conf = tmp_path / "SN1.conf"
+    conf.write_text(ZED_FACTORY_CONF)
+    cap = rectifier_from_factory_conf(str(conf), "VGA")
+    eager = StereoRectifier(cap.maps, device=cuda, capture=False)
+    rng = np.random.default_rng(11)
+    for _ in range(3):
+        left = rng.uniform(0, 255, (376, 672, 3)).astype(np.float32)
+        right = rng.uniform(0, 255, (376, 672)).astype(np.float32)
+        for a, b in zip(cap.rectify(left, right), eager.rectify(left, right)):
+            np.testing.assert_array_equal(a, b)
+        ld, rd = (torch.from_numpy(x).to(cuda) for x in (left, right))
+        for a, b in zip(cap.rectify_device(ld, rd), eager.rectify_device(ld, rd)):
+            assert torch.equal(a, b)
+    assert cap.graphs.captures == 3 and cap.graphs.replays == 3
+    out = _no_sync(lambda: cap.rectify_device(ld, rd))
+    assert all(torch.equal(a, b) for a, b in zip(out, eager.rectify_device(ld, rd)))
+
+
+@pytest.mark.parametrize("arch", ["unet", "fast"])
+def test_captured_seg_engine_equals_the_eager_engine(cuda, arch):
+    """InferenceEngine.infer_one on frame 0 of orbit_vga (480x640 u8) and
+    two shifted copies, the shipped net captured against capture=False
+    (cuDNN deterministic): the maps bit for bit; the replays never
+    synchronise before the one copy to the host."""
+    rgb = read_image(ORBIT_RGB)
+    model = seg.load_model(arch, device=cuda)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cap, eager = (seg.InferenceEngine(model, capture=c) for c in (True, False))
+        frames = [np.roll(rgb, 9 * i, 1) for i in range(3)]
+        for f in frames:
+            for a, b in zip(cap.infer_one(f), eager.infer_one(f)):
+                np.testing.assert_array_equal(a, b)
+        assert cap.graphs.captures == 2 and cap.graphs.replays == 1
+        maps = _no_sync(lambda: cap._run(frames[2]).clone())
+        np.testing.assert_array_equal(maps.cpu().numpy(), np.stack(eager.infer_one(frames[2])))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def test_captured_mesh_equals_the_eager_mesh(cuda):
+    """extract_mesh_chunked on the card, the candidate pass and the chunk
+    body captured (the 29 candidate blocks in chunks of 8, the last one of
+    5) against capture=False, f32 and q16: equal triangles; with a kept
+    MeshGraphs a second call replays every step, and the replays never
+    synchronise."""
+    from disinfect_slam_tpu_torch.ops import mesh as tmesh
+
+    grid, _, _ = _fused_grid("cpu")
+    vol = _to(grid.volume, cuda)
+    n = int(tmesh._candidates(vol).sum())
+    assert n > 16 and n % 8, n
+    for transfer in ("f32", "q16"):
+        kept = tmesh.MeshGraphs(cuda)
+        eager = tmesh.extract_mesh_chunked(vol, chunk=8, transfer=transfer, capture=False)
+        first = tmesh.extract_mesh_chunked(vol, chunk=8, transfer=transfer, graphs=kept)
+        again = tmesh.extract_mesh_chunked(vol, chunk=8, transfer=transfer, graphs=kept)
+        assert eager.shape[0] > 300
+        np.testing.assert_array_equal(first, eager)
+        np.testing.assert_array_equal(again, eager)
+        assert kept.graphs.captures == 2 and kept.graphs.replays == 2 * -(-n // 8)
+        for key in kept.graphs.keys():
+            _no_sync(lambda key=key: kept.graphs.run(key, None))

@@ -267,7 +267,8 @@ def test_replays_add_the_launches_their_capture_recorded(monkeypatch):
     monkeypatch.setattr(fuse_kernel.fuse_rows, "launches", 0)
 
     def body():
-        fuse_kernel.fuse_rows.launches += 2  # a step that launches K2 twice
+        for _ in range(2):  # a step that launches K2 twice
+            g.count_launch(fuse_kernel.fuse_rows)
 
     def capture(step):
         step()  # as a capture runs the wrappers
@@ -282,6 +283,38 @@ def test_replays_add_the_launches_their_capture_recorded(monkeypatch):
     assert fuse_kernel.fuse_rows.launches == 8
     assert g.REPLAYS["graph"] - before.get("graph", 0) == 3
     assert g.REPLAYS["fuse_rows"] - before.get("fuse_rows", 0) == 6
+
+
+def test_launches_on_another_thread_during_a_capture_stay_theirs(monkeypatch):
+    """A step with no counted kernel captured while another thread
+    launches K2 (the online app segments on its main thread while
+    DISINFSystem integrates on its own): the other thread's launches stay
+    counted, and the replays add none."""
+    import threading
+
+    monkeypatch.setattr(fuse_kernel.fuse_rows, "launches", 0)
+    started, done = threading.Event(), threading.Event()
+
+    def other():
+        started.wait()
+        for _ in range(3):
+            g.count_launch(fuse_kernel.fuse_rows)
+        done.set()
+
+    def capture(step):
+        started.set()
+        done.wait()  # the other thread launches during this capture
+        step()
+        return (lambda: None), None
+
+    t = threading.Thread(target=other)
+    t.start()
+    cache = g.StepGraphs("cpu", capture=capture)
+    cache.run("seg", lambda: None)
+    t.join()
+    for _ in range(2):
+        cache.run("seg", lambda: None)
+    assert fuse_kernel.fuse_rows.launches == 3
 
 
 @pytest.mark.parametrize("alloc_every", [1, 3])
