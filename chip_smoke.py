@@ -76,18 +76,30 @@ exits non-zero:
      frame a captured step (systems/dense_slam.TrackFuseStep): fuse_rows
      once per frame, splat_zbuf_blocks once per tracked frame (graph
      replays included), splat_payload_blocks never, no pose read outside
-     the loop verifications; the trajectory, ok flags, ATE and volume
-     against the JAX DenseSLAM's fingerprint
-     (data/orbit_vga_slam_fingerprint.json) within TOL_SLAM_*; (b)
+     the loop verifications, the ICP kernel (icp_step) twice an
+     iteration, 38 a tracked frame and a loop verification; the
+     trajectory, ok flags, ATE and volume against the JAX DenseSLAM's
+     fingerprint (data/orbit_vga_slam_fingerprint.json) within TOL_SLAM_*,
+     and every pose and ok flag bit-equal to the port's own run on the CPU
+     (data/orbit_vga_slam_port_poses.json); (b)
      DenseSLAM in process at track_res_scale 1 and 2, ms/frame over
      frames 3-59 with one sync at the end, three fresh runs each
-     (captured), lost frames and ATE, then one eager pass (capture=False)
+     (captured), lost frames and ATE, every pose bit-equal to the CPU
+     port's, then one eager pass (capture=False)
      split by CUDA events (upload, model depth, pyramids, ICP, the gate,
      fusion, keyframe work); (c) K4
      on the app's SLAM volume at 640x480 and 320x240, bit-equal to its
      plain version, its branches counted; (d) LoopClosureManager on the
      card over tests/test_loop_closure.py's drifted out-and-back keyframes
-     (tests/torch_cases.py): the loop closes and the error falls;
+     (tests/torch_cases.py): the loop closes and the error falls; (e)
+     where the card's tracker parts from the CPU's (utils/parting.py):
+     the eager DenseSLAM on the card and on the CPU in lockstep over
+     frames 0-10 at track_res_scale 1 and 2, every stage of every frame
+     bit for bit (the inverse and seed, the model depth, the pyramids,
+     each ICP iteration, the gate, the volume, the descriptors, the
+     match scores, the pose graph's keyframe poses) and the tracker's
+     stages recomputed on the card from the CPU's inputs: any parting
+     fails;
   7. device times, after every end-to-end measurement (a profiler trace
      leaves the host slower for the rest of the process): the fusion
      profile (frames 45-59 of a fresh volume: device time, kernels per
@@ -103,7 +115,11 @@ exits non-zero:
      stages (P1-P6: K1's direct modes, the patch and one-hot mma
      selections, fuse_rows stripped stage by stage), each mode against
      its plain version; K4 at 320x240 on phase 8's SLAM volume (its
-     bound, its plain version, scatter_reduce "amin"); and the SLAM frame
+     bound, its plain version, scatter_reduce "amin"); the ICP kernel
+     (icp_step) at each pyramid level of orbit_vga at track_res_scale 1 and
+     2, bit-equal to its plain version on the card and the CPU, its device
+     time beside its bound and its plain version's time, and a tracked
+     frame's totals; and the SLAM frame
      profiled (frames 45-59: device time, kernels, idle share; ICP alone:
      kernels, device time and the host time of its ops).
 
@@ -181,8 +197,10 @@ exits non-zero:
      of DenseSLAM with loop closure, host spill, recentering and the
      keyframe cap on the card, with the JAX soak's assertions and within
      the JAX soak's counts (data/soak_fingerprint.json; fuse_rows once a
-     frame, splat_zbuf_blocks once a tracked frame); wall time, ms/frame
-     and closures; then K4 on the final volume at the soak's 96x72
+     frame, splat_zbuf_blocks once a tracked frame, icp_step 38 times a
+     tracked frame and a verification), every count and the end position
+     equal to the port's soak on the CPU (data/orbit_vga_slam_port_poses.json);
+     wall time, ms/frame and closures; then K4 on the final volume at the soak's 96x72
      (partial tiles) bit-equal to its plain version, and K2 on the last
      frame's visible rows against its plain version.
   13. the segmentation net over a (data, model) mesh
@@ -374,6 +392,14 @@ SLAM_S2_JAX_ULP_GAP = dict(t=0.05519853351876835, r=0.02207619453954418,
                            sum=0.006349206349206327)
 TOL_SLAM_S2 = {k: 3 * v for k, v in SLAM_S2_JAX_ULP_GAP.items()}
 SLAM_WARM = 3  # frames before the SLAM timing window (frames 3-59)
+# the port's own DenseSLAM on the CPU (scripts/port_slam_gap.py --port-poses):
+# every tracked pose at track_res_scale 1 and 2 and the soak's counts, which
+# the card must give bit for bit (the tracker's arithmetic is the same
+# sequence of IEEE operations on both devices)
+SLAM_PORT_POSES = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                               "orbit_vga_slam_port_poses.json")
+PARTING_FRAMES = 11  # phase 8 (e): frames 0-10, two keyframes
+ICP_ITERS = (4, 5, 10)  # ICPOdometry's iterations at levels 0, 1, 2
 
 
 def log(msg: str) -> None:
@@ -1820,6 +1846,59 @@ def check_slam_fingerprint(res, vol_fp, ref, tol=TOL_SLAM, label="slam app") -> 
     return out
 
 
+def port_poses() -> dict:
+    with open(SLAM_PORT_POSES) as f:
+        return json.load(f)
+
+
+def check_port_poses(poses, oks, scale: int, label: str) -> dict:
+    """A SLAM run on the card against the port's own run on the CPU
+    (SLAM_PORT_POSES): every frame's cam_T_world bit for bit and every ok
+    flag equal; the first frame that differs fails the phase."""
+    ref = port_poses()[f"scale{scale}"]
+    want = np.asarray(ref["cam_T_world"], np.float32)
+    got = np.asarray(poses, np.float32)
+    differ = [i for i in range(len(want))
+              if not np.array_equal(got[i].view(np.uint32), want[i].view(np.uint32))
+              or bool(oks[i]) != ref["ok"][i]]
+    log(f"[chip_smoke] {label} against the port on the CPU: {len(want) - len(differ)} of "
+        f"{len(want)} frames' poses and ok flags bit-equal"
+        + (f"; first differing frame {differ[0]}, max |d| "
+           f"{float(np.abs(got[differ[0]] - want[differ[0]]).max())}" if differ else ""))
+    if differ:
+        raise AssertionError(f"{label}: frame {differ[0]} parts from the CPU port's pose")
+    return {"frames": len(want), "bit_equal": True}
+
+
+def slam_parting(dev) -> dict:
+    """Phase 8 (e): where the card's tracker parts from the CPU's
+    (utils/parting.py): phase 8's DenseSLAM eager on the card and on the
+    CPU in lockstep over frames 0-10 at track_res_scale 1 and 2, every
+    stage of every frame compared bit for bit (the pose's inverse and the
+    seed, the model depth, both pyramids, each ICP iteration, the gate, the
+    volume, the descriptors, the match scores, the keyframe poses), and
+    the tracker's stages recomputed on the card from the CPU's inputs; any
+    parting fails the phase."""
+    from disinfect_slam_tpu_torch.utils import parting
+
+    frames = slam_frames()[:PARTING_FRAMES]
+    out = {}
+    for scale in (1, 2):
+        slams = [new_slam(dev, scale, capture=False), new_slam("cpu", scale, capture=False)]
+        t0 = time.perf_counter()
+        res = parting.lockstep(slams, lambda i, slam: slam.process_frame(*frames[i]),
+                               len(frames))
+        res["seconds"] = time.perf_counter() - t0
+        log(f"[chip_smoke] parting, card against CPU, track_res_scale={scale}: "
+            f"{parting.describe(res)} ({res['seconds']:.1f} s)")
+        del slams
+        if res["parted"] is not None or res["isolated"]:
+            raise AssertionError(f"the card's tracker parts from the CPU's at scale {scale}: "
+                                 f"{parting.describe(res)}")
+        out[scale] = res
+    return out
+
+
 def slam_app(fuse_kernel, splat_kernel, odometry) -> dict:
     """Phase 8 (a): apps.dense_slam over all 60 frames through main(argv),
     every count set to 0 just before and read just after."""
@@ -1833,8 +1912,10 @@ def slam_app(fuse_kernel, splat_kernel, odometry) -> dict:
 
     out_dir = os.path.join(str(build.BUILD_DIR), "slam")
     os.makedirs(out_dir, exist_ok=True)
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
+
     reset_launches(fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
-                   splat_kernel.splat_payload_blocks)
+                   splat_kernel.splat_payload_blocks, icp_kernel.icp_step)
     odometry.read_result.reads = 0
     t0 = time.perf_counter()
     r = app.main(slam_app_args(out_dir))
@@ -1842,6 +1923,7 @@ def slam_app(fuse_kernel, splat_kernel, odometry) -> dict:
     launches = {"fuse_rows": fuse_kernel.fuse_rows.launches,
                 "splat_zbuf_blocks": splat_kernel.splat_zbuf_blocks.launches,
                 "splat_payload_blocks": splat_kernel.splat_payload_blocks.launches}
+    icp_launches = icp_kernel.icp_step.launches
     reads = odometry.read_result.reads
     lc = r["slam"].lc
     tracked = r["frames"] - 1
@@ -1856,13 +1938,24 @@ def slam_app(fuse_kernel, splat_kernel, odometry) -> dict:
         raise AssertionError(f"slam app: {reads} pose reads for {lc.verifications} "
                              f"verifications, {r['slam'].graphs.replays} graph replays for "
                              f"{tracked} tracked frames")
+    # two launches an ICP iteration: 2 x 19 a tracked frame and a verification
+    icp_want = 2 * sum(ICP_ITERS) * (tracked + lc.verifications)
+    log(f"[chip_smoke] slam app: icp_step launched {icp_launches} times ({icp_want} = 2 x "
+        f"{sum(ICP_ITERS)} iterations x ({tracked} tracked frames + {lc.verifications} "
+        f"verifications), graph replays included)")
+    if icp_launches != icp_want:
+        raise AssertionError(f"slam app: icp_step launched {icp_launches} times, expected "
+                             f"{icp_want}")
     for name in ("traj.txt", "slam_volume.npz", "slam_mesh.obj"):
         if os.path.getsize(os.path.join(out_dir, name)) == 0:
             raise AssertionError(f"slam app wrote an empty {name}")
     fp = check_slam_fingerprint(r, volume_fingerprint(volume_to_numpy(r["slam"].volume)), ref)
+    fids = ref["frame_ids"]
+    port = check_port_poses([r["poses"][f] for f in fids], [r["ok"][f] for f in fids], 1,
+                            "slam app")
     res = {"frames": r["frames"], "loop_s": r["seconds"], "wall_s": wall_s,
-           "launches": launches, "pose_reads": reads, "verifications": lc.verifications,
-           "mesh": r["mesh"], **fp}
+           "launches": launches, "icp_launches": icp_launches, "pose_reads": reads,
+           "verifications": lc.verifications, "mesh": r["mesh"], "port_cpu": port, **fp}
     return res, r["slam"]
 
 
@@ -1925,6 +2018,7 @@ def slam_timing(dev, frames, smi) -> dict:
                 raise AssertionError("trajectory.txt does not list frames 0-59 in order")
             oks = torch.stack([ok for _, ok in poses]).cpu().numpy()
             cam_T_world = torch.stack([p for p, _ in poses]).cpu().numpy()
+            check_port_poses(cam_T_world, oks, scale, f"slam track_res_scale={scale} run {run}")
             est = np.linalg.inv(cam_T_world[oks])
             ates.append(te.ate(gt[oks], est)["rmse"])
             lost.append(slam.lost_count)
@@ -2082,6 +2176,91 @@ def slam_zbuf_yardsticks(splat_kernel, vol, pose) -> dict:
     return res
 
 
+# float32 operations per pixel of an ICP iteration, counted from
+# csrc/icp_step.cu (a division counted as 8): the two transforms (36), the
+# projection (4 and 2 divisions, the rounding and clip: 28), the row's
+# distance, residual and Huber weight (20 and a division: 28), the Jacobian
+# and its weighting (15), the 29 products and the 29 adds of the sums
+ICP_OPS_PER_PIXEL = 36 + 28 + 28 + 15 + 58
+
+
+def icp_inputs(dev, scale: int, frame: int = 59) -> list:
+    """ICP's inputs at each level, as _icp_level builds them, for orbit_vga's
+    frame `frame` against frame - 1 at track_res_scale `scale`, made on the
+    CPU: [(T0, src, ref_pack, ref_pose, intr, w, h)] finest level first."""
+    from disinfect_slam_tpu_torch.io.png_io import read_image
+    from disinfect_slam_tpu_torch.systems.odometry import ICPOdometry
+
+    depth = [torch.from_numpy(read_image(os.path.join(DATASET, f"{i}_depth.png"),
+                                         unchanged=True).astype(np.float32)[::scale, ::scale]
+                              / 5000.0) for i in (frame - 1, frame)]
+    k = tuple(v / scale for v in (525.1, 525.3, 319.6, 239.7))
+    icp = ICPOdometry(k, H // scale, W // scale, device="cpu")
+    pyr_ref, pyr_cur = icp._prep(depth[0]), icp._prep(depth[1])
+    T0 = torch.eye(4)
+    T0[:3, 3] = torch.tensor([0.004, -0.002, 0.003])
+    out = []
+    for lv, ((v, n, valid), (vc, _, _)) in enumerate(zip(pyr_ref, pyr_cur)):
+        h, w = v.shape[:2]
+        pack = torch.cat([v.reshape(-1, 3), n.reshape(-1, 3), valid.reshape(-1, 1).float(),
+                          torch.zeros((h * w, 1))], 1)
+        c = icp.cams[lv].intrinsics
+        out.append((T0, vc.reshape(-1, 3).contiguous(), pack, torch.eye(4),
+                    (c.fx, c.fy, c.cx, c.cy), w, h))
+    return out
+
+
+def icp_yardsticks(dev) -> dict:
+    """Phase 7, the ICP kernel (csrc/icp_step.cu) at the SLAM's shapes:
+    orbit_vga's frame 59 against frame 58 at track_res_scale 1 and 2, each
+    pyramid level's inputs as _icp_level builds them: the kernel's result
+    bit-equal to its plain version on the card and on the CPU, one call's
+    device time (both launches) beside its bound (each input read once:
+    12 B of source point and a 32 B reference row a pixel) and the plain
+    version's time; then a tracked frame's totals (4, 5 and 10 iterations
+    of levels 0, 1 and 2).  No torch call computes the same function
+    (library_ms null)."""
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
+
+    delta = torch.tensor(0.05)
+    dist2 = float(np.float32(0.25 * 0.25))
+    out = {}
+    for scale in (1, 2):
+        levels = []
+        for (T0, src, pack, ref_pose, intr, w, h), iters in zip(icp_inputs(dev, scale),
+                                                                 ICP_ITERS):
+            args = [t.to(dev) for t in (T0, src, pack, ref_pose, delta)]
+            fn = lambda a=args, i=intr, w=w, h=h: icp_kernel.icp_step(  # noqa: E731
+                *a, i, w, h, dist2)
+            plain = lambda a=args, i=intr, w=w, h=h: icp_kernel.icp_step_reference(  # noqa: E731
+                *a, i, w, h, dist2)
+            got, on_card = fn(), plain()
+            host = icp_kernel.icp_step_reference(T0, src, pack, ref_pose, delta, intr, w, h,
+                                                 dist2)
+            err = max(float((a.cpu().double() - b.double()).abs().max())
+                      for pair in (zip(got, host), zip(on_card, host)) for a, b in pair)
+            n = w * h
+            res = bound(n * (12 + 32) + 2 * 64 + 4 + 64 + 8, n * ICP_OPS_PER_PIXEL)
+            res.update({"w": w, "h": h, "iters": iters, "inliers": float(host[2]),
+                        "max_abs_err": err})
+            time_kernel(res, fn, "icp_")
+            res["plain_ms"] = cuda_time_ms(plain)
+            res["library_ms"] = None
+            print_yardsticks(f"icp_step {w}x{h}", res)
+            if err != 0.0:
+                raise AssertionError(f"icp_step at {w}x{h} differs from its plain version "
+                                     f"by {err}")
+            levels.append(res)
+        frame = {k: sum(lv["iters"] * lv[k] for lv in levels)
+                 for k in ("ms", "bound_ms", "plain_ms")}
+        log(f"[chip_smoke] icp_step a tracked frame at track_res_scale={scale}: kernel "
+            f"{frame['ms']:.4f} ms, bound {frame['bound_ms']:.4f} ms "
+            f"({frame['bound_ms'] / frame['ms']:.1%}), plain torch {frame['plain_ms']:.4f} ms, "
+            f"{2 * sum(ICP_ITERS)} launches")
+        out[scale] = {"levels": levels, "per_frame": frame}
+    return out
+
+
 def slam_profile(dev) -> dict:
     """Phase 7, the SLAM frame under the profiler: a fresh (captured)
     DenseSLAM at track_res_scale 1 over frames 0-44, then frames 45-59
@@ -2137,7 +2316,7 @@ def slam_profile(dev) -> dict:
 
 
 def slam_slice(fuse_kernel, splat_kernel, dev, smi) -> dict:
-    """Phase 8 (a)-(d); returns the report entry and the SLAM volume and
+    """Phase 8 (a)-(e); returns the report entry and the SLAM volume and
     last pose that phase 7 times K4 on."""
     from disinfect_slam_tpu_torch.systems import odometry
 
@@ -2149,7 +2328,9 @@ def slam_slice(fuse_kernel, splat_kernel, dev, smi) -> dict:
     torch.cuda.empty_cache()
     timing = slam_timing(dev, slam_frames(), smi)
     lc = slam_loop_closure(dev)
-    return {"app": app, "timing": timing, "zbuf": zbuf, "loop_closure": lc}, vol, pose
+    parted = slam_parting(dev)
+    return ({"app": app, "timing": timing, "zbuf": zbuf, "loop_closure": lc, "parting": parted},
+            vol, pose)
 
 
 # ----------------------------------------------------------------------
@@ -3413,14 +3594,17 @@ def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
     """Phase 12: tests/test_soak.py's corridor, all SOAK_FRAMES frames,
     through DenseSLAM on the card (tests/torch_cases.py:run_soak) with the
     JAX soak's assertions and within the JAX soak's own counts
-    (data/soak_fingerprint.json); fuse_rows once a frame,
+    (data/soak_fingerprint.json), and every count and the end position
+    equal to the port's soak on the CPU (SLAM_PORT_POSES); fuse_rows once a frame,
     splat_zbuf_blocks once a tracked frame, and both held against their
     plain versions on the soak's own inputs after the run."""
     from tests.torch_cases import check_soak, check_soak_fingerprint, run_soak, soak_fingerprint
 
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
+
     fns = (fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
            splat_kernel.splat_payload_blocks)
-    reset_launches(*fns)
+    reset_launches(*fns, icp_kernel.icp_step)
     res, slam = run_soak(SOAK_FRAMES, dev)
     res["launches"] = {fn.__name__: fn.launches for fn in fns}
     log(f"[chip_smoke] soak: {res['frames']} frames in {res['wall_s']:.1f} s, "
@@ -3434,9 +3618,22 @@ def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
             "splat_payload_blocks": 0}
     if res["launches"] != want:
         raise AssertionError(f"soak launches {res['launches']}, expected {want}")
+    res["launches"]["icp_step"] = icp_kernel.icp_step.launches
+    icp_want = 2 * sum(ICP_ITERS) * (SOAK_FRAMES - 1 + slam.lc.verifications)
+    log(f"[chip_smoke] soak: icp_step launched {res['launches']['icp_step']} times ({icp_want} "
+        f"= 2 x {sum(ICP_ITERS)} x ({SOAK_FRAMES - 1} tracked frames + "
+        f"{slam.lc.verifications} verifications))")
+    if res["launches"]["icp_step"] != icp_want:
+        raise AssertionError(f"soak: icp_step launched {res['launches']['icp_step']} times, "
+                             f"expected {icp_want}")
     ref = soak_fingerprint()
     log(f"[chip_smoke] soak against the JAX soak's counts {ref}")
     check_soak_fingerprint(res, ref)
+    cpu = port_poses()["soak"]
+    same = {k: res[k] == v for k, v in cpu.items()}
+    log(f"[chip_smoke] soak against the port's soak on the CPU {cpu}: equal {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the card's soak parts from the CPU's: {same}")
     res["kernels"] = check_soak_kernels(fuse_kernel, splat_kernel, slam, dev)
     del slam
     return res
@@ -3735,10 +3932,11 @@ def kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dic
     """Phase 14: utils/kernel_verify.verify_all() on the card, every check
     PASS in under VERIFY_BUDGET_S; its comparison launches are counted
     apart from the main paths'."""
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
     from disinfect_slam_tpu_torch.utils import kernel_verify
 
     fns = (sample_kernel.sample_rows, fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
-           splat_kernel.splat_payload_blocks)
+           splat_kernel.splat_payload_blocks, icp_kernel.icp_step)
     reset_launches(*fns)
     t0 = time.perf_counter()
     ok = kernel_verify.verify_all(verbose=True, device=dev)
@@ -4225,12 +4423,12 @@ def captured_recenter(offline, dev, frames, intrinsics, smi) -> dict:
 def timed_slam(dev, frames, scale, capture):
     """All frames through a fresh phase-8 DenseSLAM, CUDA events around
     frames SLAM_WARM.. -> (slam, [(cam_T_world, ok)] on the host, ms/frame,
-    graph replays and K4 / K2 launches of the run)."""
-    from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel, splat_kernel
+    graph replays and K4 / K2 / icp_step launches of the run)."""
+    from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel, icp_kernel, splat_kernel
     from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
 
     counters = lambda: (REPLAYS["graph"], splat_kernel.splat_zbuf_blocks.launches,  # noqa: E731
-                        fuse_kernel.fuse_rows.launches)
+                        fuse_kernel.fuse_rows.launches, icp_kernel.icp_step.launches)
     before = counters()
     slam = new_slam(dev, scale, capture)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4250,9 +4448,10 @@ def timed_slam(dev, frames, scale, capture):
 def captured_slam(dev, frames, smi) -> dict:
     """Phase 16f: phase 8's DenseSLAM over the 60 frames, eager then
     captured, GRAPH_REPS - 1 times in turns at each track_res_scale: every
-    pose, ok flag and volume array equal; ms/frame of each (CUDA events,
-    frames SLAM_WARM-59, median), graph replays and K4 / K2 launches a
-    frame, the clocks."""
+    pose, ok flag and volume array equal, and every pose bit-equal to the
+    port's on the CPU (SLAM_PORT_POSES); ms/frame of each (CUDA events,
+    frames SLAM_WARM-59, median), graph replays and K4 / K2 / icp_step
+    launches a frame, the clocks."""
     n = len(frames)
     out = {}
     for scale in (1, 2):
@@ -4264,9 +4463,11 @@ def captured_slam(dev, frames, smi) -> dict:
                 slam, poses, ms, c = timed_slam(dev, frames, scale, capture)
                 runs[name].append(ms)
                 counts[name] = {"graph_replays_per_frame": c[0] / n, "k4_per_frame": c[1] / n,
-                                "k2_per_frame": c[2] / n}
+                                "k2_per_frame": c[2] / n, "icp_step_per_frame": c[3] / n}
                 sides[name] = (slam, poses)
             (es, ep), (cs, cp) = sides["eager"], sides["captured"]
+            check_port_poses([p for p, _ in cp], [ok for _, ok in cp], scale,
+                             f"captured SLAM track_res_scale={scale} run {rep}")
             same = all(np.array_equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(ep, cp))
             equal = volumes_equal(cs.volume, es.volume)
             lost = [cs.lost_count, es.lost_count]
@@ -4851,6 +5052,7 @@ def main() -> int:
     fuse, fuse_1080, sample, splat, splat_1080 = (check(True) for check in checks)
     probe = probes(dev, splat_probe, feature_probe, sample_probe, fuse_kernel)
     splat_slam = slam_zbuf_yardsticks(splat_kernel, slam_vol, slam_pose)
+    icp = icp_yardsticks(dev)
     del slam_vol
     slam["profile"] = slam_profile(dev)
     stereo["profile"] = stereo_profile(dev)
@@ -4886,6 +5088,7 @@ def main() -> int:
         "captured": captured,
         "graph_replays": dict(graph_replays),
         "splat_zbuf_slam_320x240": splat_slam,
+        "icp_step": icp,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
         "fingerprint_fused": fp_fused,
@@ -4974,6 +5177,18 @@ def main() -> int:
                             render_err["pbuf"]),
          "branches_about_z": [w["payload"]["branches"] for w in splat_about_z],
          "branches_real_render": render["payload_branches"]},
+        {"name": "icp_step", "route": "cuda",
+         "source": "disinfect_slam_tpu_torch/csrc/icp_step.cu",
+         "replaces": "disinfect_slam_tpu/systems/odometry.py:116 (the _icp_level loop body: "
+                     "XLA ops inside jax.jit, no Pallas kernel)",
+         "launches": slam["app"]["icp_launches"],
+         "soak_launches": soak_res["launches"]["icp_step"],
+         "verify_launches": verify["launches"]["icp_step"],
+         **{k: icp[1]["levels"][0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+         "max_abs_err": max(lv["max_abs_err"] for sc in icp.values() for lv in sc["levels"]),
+         **{f"{k}_per_frame_scale{sc}": icp[sc]["per_frame"][k]
+            for sc in (1, 2) for k in ("ms", "bound_ms", "plain_ms")}},
         *probe_kernels(probe, probe_main_launches),
     ]
     # the launches each kernel made through graph replays over the whole run

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import TSDFConfig
+from ..core.exact import mm
 from ..core.geometry import (
     SE3, CameraIntrinsics, CameraParams, DevicePose, inverse4, pose_floats_of_matrix,
 )
@@ -43,7 +44,7 @@ from ..core.state import TSDFVolume
 from ..ops.cuda import splat_kernel
 from ..ops.hash import needs_recenter, recenter_origin_for, window_origin
 from ..ops.integrate import FrameInput, IntegrateStep, integrate
-from ..utils.device import exact_fp32, resolve_device, upload
+from ..utils.device import resolve_device, upload
 from ..utils.graphs import StaticInputs, StepGraphs
 from .block_streaming import HostBlockStore, recenter_through
 from .odometry import ICPOdometry
@@ -109,7 +110,9 @@ class TrackFuseStep:
     CUDA device the body is captured under a key (image size, tracking
     scale, intrinsics, max depth, allocate, staging slot, the volume's
     storage_key) and replayed after; capture=False runs it eagerly, and
-    only then may a mark(name) callback see each of STAGES.
+    only then may a mark(name) callback see each of STAGES, and `probe`,
+    when set to a callable, get probe(name, tensors) for each stage's
+    outputs (utils/parting.py compares two devices with it).
 
     cam / track_cam: the fusion and the tracking cameras; tracker: the
     ICPOdometry at track_cam; pose: the world_T_cam buffer, f32 [4, 4] on
@@ -133,14 +136,16 @@ class TrackFuseStep:
         self.cam_T_world = torch.zeros((4, 4), dtype=_F32, device=dev)
         self.ok = torch.zeros((), dtype=torch.bool, device=dev)
         self._tick = 0
+        self.probe: Optional[Callable[[str, object], None]] = None
 
     def __call__(self, vol: TSDFVolume, rgb, depth, ht, lt, gyro_RT, dp_w,
                  allocate: bool = True, mark: Optional[Callable[[str], None]] = None):
         """One tracked frame (host arrays; ht / lt None read as ones) into
         `vol`, in place; returns (cam_T_world f32 [4, 4], ok bool []) as
         fresh device tensors."""
-        if mark is not None and self.capture:
-            raise ValueError("mark() sees the stages of the eager step only (capture=False)")
+        if (mark is not None or self.probe is not None) and self.capture:
+            raise ValueError("mark() and probe see the stages of the eager step only "
+                             "(capture=False)")
         slot = self._tick % 2
         self._tick += 1
         self.inputs.fill(slot, rgb=rgb, depth=depth, ht=1.0 if ht is None else ht,
@@ -163,24 +168,32 @@ class TrackFuseStep:
         inputs.upload(slot)
         rgb, depth, ht, lt, gyro_rt, dp_w = (inputs.dev[n] for n in _INPUTS)
         mark("upload")
+        probe = self.probe or (lambda _name, _value: None)
         prev = self.pose
         prev_cam_T_world = inverse4(prev)
-        with exact_fp32():
-            seed_r = prev[:3, :3] @ gyro_rt
+        seed_r = mm(prev[:3, :3], gyro_rt)
         # optional world-frame translation prior (IMU preintegration,
         # systems/imu.py relative_motion) on top of the rotation seed
         seed = torch.cat([torch.cat([seed_r, (prev[:3, 3] + dp_w)[:, None]], 1), prev[3:]], 0)
         self._model_pose.buf.copy_(pose_floats_of_matrix(prev_cam_T_world))
+        probe("seed", (prev.clone(), prev_cam_T_world, seed, self._model_pose.buf))
         md_img = model_depth(vol, self.track_cam, self._model_pose, self.max_depth,
                              self.plain_splat)
         mark("model_depth")
+        probe("model_depth", md_img)
         tracker = self.tracker
         ts = self.track_scale
         pyr_ref = tracker._prep(md_img)
-        pyr_cur = tracker._prep(depth[::ts, ::ts] if ts > 1 else depth)
+        track_depth = depth[::ts, ::ts] if ts > 1 else depth
+        pyr_cur = tracker._prep(track_depth)
         mark("pyramids")
-        T, rmse, inl = tracker._track(seed, pyr_cur, pyr_ref, prev_cam_T_world)
+        probe("inputs", track_depth)
+        probe("pyramid_ref", pyr_ref)
+        probe("pyramid_cur", pyr_cur)
+        trace = [] if self.probe is not None else None
+        T, rmse, inl = tracker._track(seed, pyr_cur, pyr_ref, prev_cam_T_world, trace)
         mark("icp")
+        probe("icp", trace)
         ok = torch.isfinite(rmse) & (rmse < self.max_rmse) & (inl > 100)
         world_T_cam = torch.where(ok, T, prev)
         cam_T_world = inverse4(world_T_cam)
@@ -189,6 +202,7 @@ class TrackFuseStep:
         self.cam_T_world.copy_(cam_T_world)
         self.ok.copy_(ok)
         mark("gate")
+        probe("gate", (ok, world_T_cam, cam_T_world, self._fuse_pose.buf))
         integrate(vol, FrameInput(rgb, depth, ht, lt), self.cam, self._fuse_pose,
                   self.max_depth, allocate=allocate)
         mark("fusion")

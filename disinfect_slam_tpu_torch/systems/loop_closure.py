@@ -23,8 +23,9 @@ gap:
   pose graph    keyframe poses + odometry edges + loop edges, relaxed
                 by damped Gauss-Newton on the device: residuals are
                 se3-log of edge misclosures, the Jacobian comes from
-                torch.func.jacfwd (vmap over the edges), and the normal
-                equations solve with linalg.solve_ex
+                forward-mode AD (every edge and unit tangent in one
+                batch), and the normal equations are summed and solved
+                in float64 in a fixed order (core/exact.py)
   correction    the newest keyframe's optimized-vs-estimated delta is
                 applied to the live tracker pose; already-fused drifted
                 geometry stays, the trajectory is corrected retroactively
@@ -32,12 +33,17 @@ gap:
                 re-seeds the pose; the database saves/loads as one npz
                 with the JAX package's keys, so maps cross both ways.
 
-The JAX package has no Pallas kernel here.  The Lie helpers build their
-matrices by stacking (torch.func cannot trace a write into a fresh
-tensor) and keep the JAX package's double-where guards; their per-sample
-scalars keep a length-1 axis, because forward-mode AD promotes a 0-d
-float32 combined with a Python float to float64.  Everything runs with
-TF32 off (`exact_fp32`).
+The JAX package has no Pallas kernel here.  The Lie helpers take
+batches ([..., 6], [..., 4, 4]), build their matrices by stacking (forward
+AD and torch.func cannot trace a write into a fresh tensor) and keep the
+JAX package's double-where guards; their per-sample scalars keep a
+length-1 axis, because forward-mode AD promotes a 0-d float32 combined
+with a Python float to float64.  No matmul, einsum,
+linalg solve or float32 transcendental function runs here: the products
+are core/exact.mm's, the sums its float64 trees, the solve its LU, and
+sin, cos, atan2 and sqrt its float64 versions rounded once, so the CPU and
+the card give the same bits (a pose graph moves its output centimetres
+for one ulp of its input).
 """
 
 from __future__ import annotations
@@ -47,11 +53,12 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+import torch.autograd.forward_ad as fwAD
 
-from ..utils.device import exact_fp32, resolve_device, upload
+from ..core.exact import atan2, mm, sincos, solve_lu, sqrt_rn, tree_sum
+from ..utils.device import resolve_device, upload
 from ..utils.graphs import StepGraphs
-from .odometry import ICPOdometry, read_result, rigid_4x4, skew
+from .odometry import ICPOdometry, read_result
 
 logger = logging.getLogger(__name__)
 
@@ -73,82 +80,122 @@ _NO_ID = -(10**9)
 # ----------------------------------------------------------------------
 # SE3 log / exp on 4x4 matrices (the pose-graph state)
 # ----------------------------------------------------------------------
+def _sin_cos(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sin and cos in x's dtype from core/exact.sincos (float64, rounded
+    once): the same bits on every device."""
+    s, c = sincos(x.to(torch.float64))
+    return s.to(x.dtype), c.to(x.dtype)
+
+
+def _sq3(v: torch.Tensor) -> torch.Tensor:
+    """((v0^2 + v1^2) + v2^2) of vectors [..., 3], as [..., 1]."""
+    return ((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2])[..., None]
+
+
+def _skew(k: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> the cross-product matrices [..., 3, 3], by stacking."""
+    z = torch.zeros_like(k[..., 0])
+    return torch.stack([torch.stack([z, -k[..., 2], k[..., 1]], -1),
+                        torch.stack([k[..., 2], z, -k[..., 0]], -1),
+                        torch.stack([-k[..., 1], k[..., 0], z], -1)], -2)
+
+
+def _rigid(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Rotations [..., 3, 3] and translations [..., 3] -> 4x4s [..., 4, 4]."""
+    bottom = torch.eye(4, dtype=r.dtype, device=r.device)[3:].expand(*r.shape[:-2], 1, 4)
+    return torch.cat([torch.cat([r, t[..., None]], -1), bottom], -2)
+
+
 def _exp_se3_mat(xi: torch.Tensor) -> torch.Tensor:
-    """se3 exp to a 4x4 matrix, differentiable at xi=0: the
-    unnormalized-skew Rodrigues form with series coefficients below
+    """se3 exp of xi [..., 6] to 4x4s [..., 4, 4], differentiable at xi=0:
+    the unnormalized-skew Rodrigues form with series coefficients below
     theta^2 = 1e-4 (double-where safe)."""
-    omega, v = xi[:3], xi[3:]
-    t2 = torch.sum(omega * omega, 0, keepdim=True)
-    ox = skew(omega)
+    omega, v = xi[..., :3], xi[..., 3:]
+    t2 = _sq3(omega)
+    ox = _skew(omega)
     small = t2 < 1e-4
     t2s = torch.where(small, 1.0, t2)
-    theta = torch.sqrt(t2s)
-    s, c = torch.sin(theta), torch.cos(theta)
-    a = torch.where(small, 1.0 - t2 / 6.0, s / theta)  # sin/theta
-    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - c) / t2s)
-    cc = torch.where(small, 1.0 / 6.0 - t2 / 120.0, (theta - s) / (t2s * theta))
+    theta = sqrt_rn(t2s)
+    s, c = _sin_cos(theta)
+    a = torch.where(small, 1.0 - t2 / 6.0, s / theta)[..., None]  # sin/theta
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - c) / t2s)[..., None]
+    cc = torch.where(small, 1.0 / 6.0 - t2 / 120.0, (theta - s) / (t2s * theta))[..., None]
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
-    ox2 = ox @ ox
+    ox2 = mm(ox, ox)
     r = eye + a * ox + b * ox2
-    t = (eye + b * ox + cc * ox2) @ v
-    return rigid_4x4(r, t)
+    t = mm(eye + b * ox + cc * ox2, v[..., None])[..., 0]
+    return _rigid(r, t)
 
 
 def _so3_log(r: torch.Tensor) -> torch.Tensor:
-    """SO3 log: rotation matrix -> axis-angle vector [3].
+    """SO3 log: rotation matrices [..., 3, 3] -> axis-angle vectors
+    [..., 3].
 
     Differentiable at theta=0: no arccos and no norm-of-zero; the small
     branch is a series in |vee|^2, and the large branch's inputs are
     swapped to safe values where untaken so NaN can't leak through the
     where (the double-where pattern).  Loop misclosures are small
     rotations, far from theta=pi."""
-    vee = torch.stack([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]])
+    vee = torch.stack([r[..., 2, 1] - r[..., 1, 2], r[..., 0, 2] - r[..., 2, 0],
+                       r[..., 1, 0] - r[..., 0, 1]], -1)
     # = 2 sin(theta) * axis
-    trace = (r[0, 0] + r[1, 1] + r[2, 2]).reshape(1)
+    trace = (r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2])[..., None]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
-    s2 = torch.sum(vee * vee, 0, keepdim=True)  # = 4 sin^2(theta)
+    s2 = _sq3(vee)  # = 4 sin^2(theta)
     small = s2 < 4e-4  # sin(theta) < 0.01
     s2_safe = torch.where(small, 1.0, s2)
-    sin_t = 0.5 * torch.sqrt(s2_safe)
-    theta = torch.atan2(sin_t, cos_t)
+    sin_t = 0.5 * sqrt_rn(s2_safe)
+    theta = atan2(sin_t.to(torch.float64), cos_t.to(torch.float64)).to(r.dtype)
     # theta/(2 sin) = 0.5 + theta^2/12 + ...; theta^2 ~= s2/4 near 0
     fac = torch.where(small, 0.5 + s2 / 48.0, theta / (2.0 * sin_t))
     return fac * vee
 
 
 def _se3_log(m: torch.Tensor) -> torch.Tensor:
-    """SE3 log: 4x4 -> xi = (omega[3], v[3]); inverse of _exp_se3_mat,
-    with V^-1 built from the unnormalized skew and its coefficient
-    series-expanded below the float32 cancellation floor of 1-cos."""
-    omega = _so3_log(m[:3, :3])
-    t2 = torch.sum(omega * omega, 0, keepdim=True)
-    ox = skew(omega)
+    """SE3 log: 4x4s [..., 4, 4] -> xi = (omega, v) [..., 6]; inverse of
+    _exp_se3_mat, with V^-1 built from the unnormalized skew and its
+    coefficient series-expanded below the float32 cancellation floor of
+    1-cos."""
+    omega = _so3_log(m[..., :3, :3])
+    t2 = _sq3(omega)
+    ox = _skew(omega)
     small = t2 < 1e-4
     t2_safe = torch.where(small, 1.0, t2)
-    theta = torch.sqrt(t2_safe)
-    s, c = torch.sin(theta), torch.cos(theta)
+    theta = sqrt_rn(t2_safe)
+    s, c = _sin_cos(theta)
     # (1 - theta sin / (2 (1-cos))) / theta^2 -> 1/12 + theta^2/720 + ...
     coef = torch.where(small, 1.0 / 12.0 + t2 / 720.0,
-                       (1.0 - theta * s / (2.0 * (1.0 - c))) / t2_safe)
+                       (1.0 - theta * s / (2.0 * (1.0 - c))) / t2_safe)[..., None]
     eye = torch.eye(3, dtype=m.dtype, device=m.device)
-    v_inv = eye - 0.5 * ox + coef * (ox @ ox)
-    return torch.cat([omega, v_inv @ m[:3, 3]])
+    v_inv = eye - 0.5 * ox + coef * mm(ox, ox)
+    return torch.cat([omega, mm(v_inv, m[..., :3, 3:4])[..., 0]], -1)
 
 
 def _inv_rigid(m: torch.Tensor) -> torch.Tensor:
     """Exact inverse of rigid 4x4s [..., 4, 4] (R^T | -R^T t)."""
     rt = m[..., :3, :3].transpose(-1, -2)
-    t = torch.einsum("...ij,...j->...i", rt, -m[..., :3, 3])
+    t = mm(rt, -m[..., :3, 3:4])
     bottom = torch.eye(4, dtype=m.dtype, device=m.device)[3:].expand(*m.shape[:-2], 1, 4)
-    return torch.cat([torch.cat([rt, t[..., None]], -1), bottom], -2)
+    return torch.cat([torch.cat([rt, t], -1), bottom], -2)
 
 
 # ----------------------------------------------------------------------
 # Place-recognition descriptor + matcher
 # ----------------------------------------------------------------------
 def _unit(v: torch.Tensor) -> torch.Tensor:
-    n = torch.linalg.vector_norm(v)
+    n = sqrt_rn(tree_sum(v.double() * v.double()).float())
     return v / torch.where(n > 0, n, 1.0)
+
+
+def _cell_sums(x: torch.Tensor) -> torch.Tensor:
+    """[gh, ch, gw, cw] -> the float64 sum of each cell [gh, gw]
+    (core/exact.tree_sum)."""
+    gh, ch, gw, cw = x.shape
+    return tree_sum(x.permute(0, 2, 1, 3).reshape(gh, gw, ch * cw))
+
+
+def _mean(v: torch.Tensor) -> torch.Tensor:
+    return (tree_sum(v) / v.shape[-1]).float()
 
 
 def depth_descriptor(
@@ -164,37 +211,44 @@ def depth_descriptor(
     intensity per cell (appearance).  The two halves are zero-meaned and
     unit-normed separately, then concatenated at weight 1/sqrt(2) each, so
     cosine similarity needs BOTH to agree.  intensity=None fills the
-    appearance half with zeros (geometry-only legacy databases)."""
+    appearance half with zeros (geometry-only legacy databases).  Every
+    sum is core/exact.tree_sum's, rounded once: the same bits on every
+    device."""
     h, w = depth.shape
     ch, cw = h // gh, w // gw
     d = depth[: gh * ch, : gw * cw].reshape(gh, ch, gw, cw)
     valid = (d > 0).to(_F32)
-    cnt = valid.sum((1, 3))
-    mean = d.sum((1, 3)) / torch.clamp(cnt, min=1.0)
+    cnt = _cell_sums(valid).float()
+    mean = _cell_sums(d).float() / torch.clamp(cnt, min=1.0)
     # a device-tensor divisor (torch divides by a Python scalar on the
     # card through its reciprocal)
     frac = cnt / torch.full((), float(ch * cw), dtype=_F32, device=depth.device)
     geo = torch.cat([mean.reshape(-1), frac.reshape(-1)])
-    geo = _unit(geo - torch.mean(geo))
+    geo = _unit(geo - _mean(geo))
     if intensity is None:
         # keep the geometry half at full weight so legacy geometry-only
         # descriptors compare to each other with the old similarity
         return torch.cat([geo, torch.zeros(gh * gw, dtype=_F32, device=depth.device)])
     ii = intensity[: gh * ch, : gw * cw].reshape(gh, ch, gw, cw)
-    imean = ii.mean((1, 3)).reshape(-1)
-    app = _unit(imean - torch.mean(imean))
+    imean = (_cell_sums(ii) / (ch * cw)).float().reshape(-1)
+    app = _unit(imean - _mean(imean))
     inv_s2 = 0.7071067811865476
     return torch.cat([geo * inv_s2, app * inv_s2])
 
 
+def match_scores(db_desc: torch.Tensor, desc: torch.Tensor) -> torch.Tensor:
+    """db_desc [cap, D] @ desc [D] as float64 sums of the exact products in
+    core/exact.tree_sum's order, rounded once to float32."""
+    return tree_sum(db_desc.double() * desc.double()).float()
+
+
 def _match_scores(desc, db_desc, db_ids, count, cur_id, min_gap):
     """Cosine similarity of desc [D] vs the whole database db_desc
-    [cap, D] (one matvec), masked to live slots (index < count) whose
+    [cap, D] (match_scores), masked to live slots (index < count) whose
     frame id db_ids [cap] lies at least min_gap before cur_id (<= 0
     disables the gap); returns (best_idx, score) as device tensors, the
     first maximum on ties."""
-    with exact_fp32():
-        scores = db_desc @ desc
+    scores = match_scores(db_desc, desc)
     idx = torch.arange(db_desc.shape[0], dtype=torch.int32, device=db_desc.device)
     ok = (idx < count) & ((cur_id - db_ids) >= min_gap)
     scores = torch.where(ok, scores, -2.0)
@@ -207,7 +261,52 @@ def _match_scores(desc, db_desc, db_ids, count, cur_id, min_gap):
 # ----------------------------------------------------------------------
 def _left_update(xi: torch.Tensor, poses: torch.Tensor) -> torch.Tensor:
     """exp(xi_k) @ T_k for every node."""
-    return vmap(lambda x, m: _exp_se3_mat(x) @ m)(xi, poses)
+    return mm(_exp_se3_mat(xi), poses)
+
+
+def _exp_se3_small(xi: torch.Tensor) -> torch.Tensor:
+    """_exp_se3_mat where every theta^2 is below 1e-4 (its series branch
+    alone): the same bits, primal and tangent, at the pose graph's
+    linearisation point xi = 0, without the sine and cosine its other
+    branch would compute and discard."""
+    omega, v = xi[..., :3], xi[..., 3:]
+    t2 = _sq3(omega)
+    ox = _skew(omega)
+    a = (1.0 - t2 / 6.0)[..., None]
+    b = (0.5 - t2 / 24.0)[..., None]
+    cc = (1.0 / 6.0 - t2 / 120.0)[..., None]
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    ox2 = mm(ox, ox)
+    r = eye + a * ox + b * ox2
+    t = mm(eye + b * ox + cc * ox2, v[..., None])[..., 0]
+    return _rigid(r, t)
+
+
+def _edge_residual(xi_i, xi_j, t_i, t_j, z_inv, w):
+    """The edges' residuals se3_log(Z^-1 inv(exp(xi_i) T_i) exp(xi_j) T_j) * w
+    [..., 6] (w [..., 1]) at xi_i = xi_j = 0 (_exp_se3_small)."""
+    a = mm(_exp_se3_small(xi_i), t_i)
+    b = mm(_exp_se3_small(xi_j), t_j)
+    return _se3_log(mm(z_inv, mm(_inv_rigid(a), b))) * w
+
+
+def _edge_jacobians(t_i, t_j, z_inv, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """d residual / d xi_i and d xi_j at xi = 0, [E, 6, 6] each, by forward
+    mode: the 12 unit tangents run as one batch [12, E] of dual numbers
+    (the arithmetic jacfwd would do, in one pass)."""
+    e = t_i.shape[0]
+    zero = torch.zeros((12, e, 6), dtype=t_i.dtype, device=t_i.device)
+    unit = torch.eye(12, dtype=t_i.dtype, device=t_i.device)[:, None, :].expand(12, e, 12)
+    batch = lambda x: x.expand(12, *x.shape)  # noqa: E731
+    with fwAD.dual_level():
+        xi_i = fwAD.make_dual(zero, unit[..., :6].contiguous())
+        xi_j = fwAD.make_dual(zero, unit[..., 6:].contiguous())
+        r = _edge_residual(xi_i, xi_j, batch(t_i), batch(t_j), batch(z_inv), batch(w))
+        jt = fwAD.unpack_dual(r).tangent  # [12, E, 6]: direction, edge, residual
+    return jt[:6].permute(1, 2, 0), jt[6:].permute(1, 2, 0)
+
+
+_ANCHOR = 1e3  # the gauge prior's weight on node 0
 
 
 def optimize_pose_graph(
@@ -222,37 +321,55 @@ def optimize_pose_graph(
     """Relax keyframe poses against relative-pose constraints.
 
     Per edge the residual is se3_log(Z^-1 inv(T_i) T_j).  Each iteration
-    linearizes with jacfwd around xi=0 (left-multiplicative updates
-    T <- exp(xi) T), assembles the damped normal equations and solves
-    them on the device (float32, as the JAX package).  Node 0 is
+    linearizes around xi=0 (left-multiplicative updates T <- exp(xi) T)
+    by forward mode, an edge's rows against its two nodes only (they
+    depend on no other), assembles the damped normal equations and solves
+    them.  The residuals and their Jacobian are
+    float32, as the JAX package's; J^T J and J^T r are float64 sums of the
+    exact products in a fixed order (each edge's 6 rows in order, the
+    edges added in edge order into the node blocks, then node 0's gauge
+    prior and the damping), and the [6n, 6n] solve is core/exact.solve_lu
+    in float64, rounded once: the same bits on every device.  Node 0 is
     gauge-anchored with a strong prior residual; padded nodes are held by
     the damping term.  Returns (optimized poses, per-iteration costs
     [iters]); nothing reads the device."""
     n = poses.shape[0]
+    e = ei.shape[0]
     dev = poses.device
     ei, ej = ei.long(), ej.long()
-    with exact_fp32():
-        z_inv = _inv_rigid(z)
-
-        def residuals(xi: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-            t = _left_update(xi, p)
-            rel = torch.einsum("eab,ebc->eac", _inv_rigid(t[ei]), t[ej])
-            mis = torch.einsum("eab,ebc->eac", z_inv, rel)
-            r = vmap(_se3_log)(mis) * w[:, None]
-            anchor = xi[0] * 1e3  # gauge fix: node 0 stays put
-            return torch.cat([r.reshape(-1), anchor])
-
-        xi0 = torch.zeros((n, 6), dtype=_F32, device=dev)
-        damp = damping * torch.eye(n * 6, dtype=_F32, device=dev)
-        costs = []
-        for _ in range(iters):
-            f = lambda xi: residuals(xi, poses)  # noqa: E731
-            r0 = f(xi0)
-            jac = jacfwd(f)(xi0).reshape(r0.shape[0], n * 6)
-            h = jac.T @ jac + damp
-            dx = -torch.linalg.solve_ex(h, jac.T @ r0, check_errors=False).result
-            poses = _left_update(dx.reshape(n, 6), poses)
-            costs.append(torch.sum(r0 * r0))
+    z_inv = _inv_rigid(z)
+    w1 = w[:, None]
+    zero = torch.zeros((e, 6), dtype=_F32, device=dev)
+    # each edge's blocks of [H | g]: (i, i), (i, j), (j, i), (j, j), g_i, g_j
+    slots = torch.stack([ei * n + ei, ei * n + ej, ej * n + ei, ej * n + ej,
+                         n * n + ei, n * n + ej], 1)
+    prior = torch.zeros((6 * n,), dtype=torch.float64, device=dev)
+    prior[:6] = _ANCHOR * _ANCHOR
+    diag = prior + float(np.float32(damping))
+    costs = []
+    for _ in range(iters):
+        t_i, t_j = poses[ei], poses[ej]
+        r0 = _edge_residual(zero, zero, t_i, t_j, z_inv, w1)  # [E, 6]
+        ja, jb = _edge_jacobians(t_i, t_j, z_inv, w1)  # [E, 6, 6] each
+        ja, jb, rd = ja.double(), jb.double(), r0.double()
+        gram = lambda p, q: mm(p.transpose(1, 2), q)  # noqa: E731
+        g_pad = torch.zeros((e, 30), dtype=torch.float64, device=dev)
+        blocks = torch.stack([
+            gram(ja, ja).reshape(e, 36), gram(ja, jb).reshape(e, 36),
+            gram(jb, ja).reshape(e, 36), gram(jb, jb).reshape(e, 36),
+            torch.cat([gram(ja, rd[:, :, None])[:, :, 0], g_pad], 1),
+            torch.cat([gram(jb, rd[:, :, None])[:, :, 0], g_pad], 1)], 1)
+        acc = torch.zeros((n * n + n, 36), dtype=torch.float64, device=dev)
+        for k in range(e):
+            # one edge at a time: its six slots are distinct (a padded
+            # edge adds zeros), so each add is the same on every device
+            acc.index_add_(0, slots[k], blocks[k])
+        h = acc[:n * n].reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
+        h = h + torch.diag(diag)
+        g = acc[n * n:, :6].reshape(6 * n)
+        dx = -solve_lu(h, g).to(_F32)
+        poses = _left_update(dx.reshape(n, 6), poses)
+        costs.append(tree_sum(rd.reshape(-1) * rd.reshape(-1)).to(_F32))
     return poses, torch.stack(costs)
 
 
@@ -271,7 +388,7 @@ class KeyframeQuery(NamedTuple):
 
     depth_half: torch.Tensor  # f32 [H/2, W/2] on the device
     desc: torch.Tensor  # f32 [DESC_DIM] on the device
-    scores: object  # f32 [cap]: db_desc @ desc on the device, or its host copy
+    scores: object  # f32 [cap]: match_scores on the device, or its host copy
 
 
 class LoopClosureManager:
@@ -367,8 +484,7 @@ class LoopClosureManager:
         `scores` together with what else it reads and passes the query,
         scores on the host, to add_keyframe or relocalize."""
         d_half_dev, desc = self._descriptor(np.asarray(depth, np.float32), intensity)
-        with exact_fp32():
-            scores = self.db_desc @ desc
+        scores = match_scores(self.db_desc, desc)
         return KeyframeQuery(d_half_dev, desc, scores)
 
     def _query_or_descriptor(self, depth, intensity, query) -> tuple:

@@ -14,19 +14,23 @@ image pyramid, coarse to fine:
   T <- exp(dx) T
 
 The JAX package has no Pallas kernel here: every level is XLA ops inside
-one jitted program (`_prep` and `_track` are each jitted there).  The port
-runs the same ops on one device.  Each level's iterations are a Python
-loop with no host read inside it: the 6x6 solve is `linalg.solve_ex` and
-the reference pose's inverse `linalg.inv_ex`, both without their error
-check (which reads the LU status on the host), so a whole `_track` is
-queued without a sync, and can be captured.  `prep` and `track` are
-`_prep` and `_track` as captured steps (utils/graphs.py, keyed by image
-size; eager on the CPU and with capture=False), the counterparts of the
-two jitted functions: `feed` and the loop closure's verification run
-them.  DenseSLAM runs `_prep` and `_track` inside its own captured step.
-The pose comes to the host once, through `read_result`, when the caller
-needs it.  Matmuls and the normal equations run with TF32 off
-(`exact_fp32`): a 10-bit mantissa in `J^T J` would move the pose.
+one jitted program (`_prep` and `_track` are each jitted there).  The
+port runs one iteration of a level as one hand-written kernel of two
+launches (ops/cuda/icp_kernel.icp_step, csrc/icp_step.cu): the
+correspondences, the normal equations summed in float32 in a fixed order
+(XLA:CPU's 8 interleaved accumulators), the 6x6 solve, the se3 exp and the
+pose update in float64, rounded once.  Its plain version does the same
+arithmetic in the same order, and everything around it is elementwise
+(the reference maps' transform in SE3.apply_xyz's order, the pyramids
+with the jitted JAX contractions restated, roots in float64), so the
+tracker gives the same bits on the card as on the CPU.  Nothing in a level reads the host, so a
+whole `_track` is queued without a sync, and can be captured.  `prep`
+and `track` are `_prep` and `_track` as captured steps (utils/graphs.py,
+keyed by image size; eager on the CPU and with capture=False), the
+counterparts of the two jitted functions: `feed` and the loop closure's
+verification run them.  DenseSLAM runs `_prep` and `_track` inside its
+own captured step.  The pose comes to the host once, through
+`read_result`, when the caller needs it.
 """
 
 from __future__ import annotations
@@ -36,31 +40,62 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.geometry import CameraIntrinsics, CameraParams
-from ..utils.device import exact_fp32, resolve_device, upload
+from ..core.geometry import CameraIntrinsics, CameraParams, inverse4
+from ..ops.cuda import icp_kernel
+from ..ops.image_ops import fma32
+from ..utils.device import resolve_device, upload
 from ..utils.graphs import StaticInputs, StepGraphs
 
 _F32 = torch.float32
+# the narrowest image whose x rays the jitted JAX `_prep` takes through one
+# fused multiply-add (XLA:CPU's choice; narrower ones round twice)
+XLA_FUSED_X_MIN_WIDTH = 72
 
 
-def vertex_map(depth: torch.Tensor, cam: CameraParams) -> torch.Tensor:
-    """Depth [H, W] -> camera-space points [H, W, 3] (0-depth -> 0)."""
+def vertex_map(depth: torch.Tensor, cam: CameraParams, fused=(False, False)) -> torch.Tensor:
+    """Depth [H, W] -> camera-space points [H, W, 3] (0-depth -> 0).
+    fused: whether the x and the y rays fx_inv * u + cx_inv take one
+    rounding (image_ops.fma32, as XLA:CPU contracts them) or two."""
     dev = depth.device
     u = torch.arange(cam.img_w, dtype=_F32, device=dev)
     v = torch.arange(cam.img_h, dtype=_F32, device=dev)
     uu, vv = torch.meshgrid(u, v, indexing="xy")
-    dirs = cam.intrinsics_inv.project(torch.stack([uu, vv, torch.ones_like(uu)], -1))
+    ki = cam.intrinsics_inv
+    rays = [fma32(torch.full_like(g, f), g, torch.full_like(g, c)) if fuse else f * g + c * 1.0
+            for g, f, c, fuse in zip((uu, vv), (ki.fx, ki.fy), (ki.cx, ki.cy), fused)]
+    dirs = torch.stack([rays[0], rays[1], torch.ones_like(uu)], -1)
     return dirs * depth[..., None]
 
 
 def normal_map(verts: torch.Tensor) -> torch.Tensor:
     """Screen-space normals from a vertex map (cross of finite diffs;
-    torch.roll wraps around, as jnp.roll does)."""
+    torch.roll wraps around, as jnp.roll does).  Restates torch's CPU
+    arithmetic so that every device gives its bits: linalg.cross there
+    fuses each component's first product and the difference into one
+    multiply-add, fma(a1, b2, -(a2 b1)), and vector_norm takes the correctly
+    rounded root of fma(z, z, fma(y, y, x x)); here through image_ops.fma32
+    and a float64 root rounded once."""
     dx = torch.roll(verts, -1, 1) - verts
     dy = torch.roll(verts, -1, 0) - verts
-    n = torch.linalg.cross(dx, dy)
-    nn = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
-    return n / torch.where(nn == 0, 1.0, nn)
+    a0, a1, a2 = dx.unbind(-1)
+    b0, b1, b2 = dy.unbind(-1)
+    x = fma32(a1, b2, -(a2 * b1))
+    y = fma32(a2, b0, -(a0 * b2))
+    z = fma32(a0, b1, -(a1 * b0))
+    nn = torch.sqrt(fma32(z, z, fma32(y, y, x * x)).double()).float()[..., None]
+    return torch.stack([x, y, z], -1) / torch.where(nn == 0, 1.0, nn)
+
+
+def transform_points(m: torch.Tensor, p: torch.Tensor, translate: bool = True) -> torch.Tensor:
+    """m [4, 4] applied to points p [..., 3] in SE3.apply_xyz's order,
+    ((r0 x + r1 y) + r2 z) + t, elementwise (no matmul, whose sum order
+    differs between devices); translate=False rotates only."""
+    x, y, z = p.unbind(-1)
+    out = []
+    for i in range(3):
+        q = (m[i, 0] * x + m[i, 1] * y) + m[i, 2] * z
+        out.append(q + m[i, 3] if translate else q)
+    return torch.stack(out, -1)
 
 
 def skew(k: torch.Tensor) -> torch.Tensor:
@@ -75,18 +110,12 @@ def skew(k: torch.Tensor) -> torch.Tensor:
 
 
 def _exp_se3(xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """se3 exp map: xi = (omega[3], v[3]) -> (R [3,3], t [3])."""
-    omega = xi[:3]
-    v = xi[3:]
-    theta = torch.linalg.vector_norm(omega) + 1e-12
-    k = omega / theta
-    kx = skew(k)
-    s, c = torch.sin(theta), torch.cos(theta)
-    eye = torch.eye(3, dtype=_F32, device=xi.device)
-    kx2 = kx @ kx
-    r = eye + s * kx + (1 - c) * kx2
-    vmat = eye + (1 - c) / theta * kx + (theta - s) / theta * kx2
-    return r, vmat @ v
+    """se3 exp map: xi = (omega[3], v[3]) -> (R [3,3], t [3]), in float64
+    as ICP's update takes it (ops/cuda/icp_kernel.exp_se3_64), rounded once
+    to float32."""
+    r, t = icp_kernel.exp_se3_64(xi.tolist())
+    return (torch.tensor(r, dtype=torch.float64).to(_F32).to(xi.device),
+            torch.tensor(t, dtype=torch.float64).to(_F32).to(xi.device))
 
 
 def _downsample(depth: torch.Tensor) -> torch.Tensor:
@@ -117,16 +146,17 @@ def _icp_level(
     iters: int,
     dist_thresh: float,
     huber_delta: float,
+    trace: Optional[list] = None,
 ):
     """Iterate point-to-plane ICP at one pyramid level.
 
     T0: initial world_T_cam estimate for the current frame (4x4).
     Returns (refined world_T_cam, rmse, inlier count) as device tensors;
-    nothing in the loop reads the device."""
+    nothing in the loop reads the device.  trace: a list that gets
+    (T, rmse, inliers) after each iteration."""
     dev = src_verts.device
     h, w = src_verts.shape[:2]
-    src = src_verts.reshape(-1, 3)
-    src_valid = src[:, 2] > 0
+    src = src_verts.reshape(-1, 3).contiguous()
     # vertex + normal + validity in ONE [N, 8] row array: the
     # per-iteration correspondence lookup is a single row gather
     ref_pack = torch.cat([
@@ -136,59 +166,19 @@ def _icp_level(
         torch.zeros((h * w, 1), dtype=_F32, device=dev),
     ], 1)
 
-    fx, fy = cam.intrinsics.fx, cam.intrinsics.fy
-    cx, cy = cam.intrinsics.cx, cam.intrinsics.cy
-    ref_R = ref_cam_T_world[:3, :3]
-    ref_t = ref_cam_T_world[:3, 3]
+    intr = (cam.intrinsics.fx, cam.intrinsics.fy, cam.intrinsics.cx, cam.intrinsics.cy)
     # a device-tensor numerator: torch divides a Python scalar by a
     # tensor through the reciprocal, not the correctly rounded quotient
     delta = torch.full((), huber_delta, dtype=_F32, device=dev)
-    damp = 1e-6 * torch.eye(6, dtype=_F32, device=dev)
-
-    T = T0
+    dist2 = float(np.float32(dist_thresh * dist_thresh))
+    ref_pose = ref_cam_T_world.contiguous()
+    T = T0.contiguous()
     rmse = torch.zeros((), dtype=_F32, device=dev)
     inl = torch.zeros((), dtype=_F32, device=dev)
     for _ in range(iters):
-        r_mat = T[:3, :3]
-        t_vec = T[:3, 3]
-        p_w = src @ r_mat.T + t_vec  # current points in world
-
-        # project into the reference view to find correspondences
-        p_ref = p_w @ ref_R.T + ref_t
-        z = p_ref[:, 2]
-        u = fx * p_ref[:, 0] / z + cx
-        v = fy * p_ref[:, 1] / z + cy
-        # torch.round is half-to-even, as jnp.round.  A non-finite u casts
-        # to INT_MIN on the CPU and saturates (NaN to 0) on the card; the
-        # clip keeps the index in range and in_img drops those points
-        ui = torch.clamp(torch.round(u).to(torch.int32), 0, w - 1)
-        vi = torch.clamp(torch.round(v).to(torch.int32), 0, h - 1)
-        idx = vi * w + ui
-        in_img = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1) & (z > 0)
-
-        g = torch.index_select(ref_pack, 0, idx)  # one row gather
-        q = g[:, 0:3]
-        n = g[:, 3:6]
-        diff = p_w - q
-        dist_ok = torch.sum(diff * diff, -1) < dist_thresh * dist_thresh
-        valid = src_valid & in_img & (g[:, 6] > 0) & dist_ok
-        r_res = torch.sum(n * diff, -1)
-
-        # Huber IRLS weights: quadratic near zero, linear in the tails
-        r_abs = torch.abs(r_res)
-        huber = torch.clamp(delta / torch.clamp(r_abs, min=1e-12), max=1.0)
-        wgt = valid.to(_F32) * huber
-        jac = torch.cat([torch.linalg.cross(p_w, n), n], -1)  # [N, 6]
-        jw = jac * wgt[:, None]
-        jtj = jw.T @ jac
-        jtr = jw.T @ r_res
-        dx = torch.linalg.solve_ex(jtj + damp, -jtr, check_errors=False).result
-        r_up, t_up = _exp_se3(dx)
-        T = rigid_4x4(r_up @ r_mat, r_up @ t_vec + t_up)
-        inliers = valid.to(_F32)
-        rmse = torch.sqrt(torch.sum(r_res * r_res * inliers)
-                          / torch.clamp(torch.sum(inliers), min=1.0))
-        inl = torch.sum(inliers)
+        T, rmse, inl = icp_kernel.icp_step(T, src, ref_pack, ref_pose, delta, intr, w, h, dist2)
+        if trace is not None:
+            trace.append((T, rmse, inl))
     return T, rmse, inl
 
 
@@ -253,38 +243,45 @@ class ICPOdometry:
         self.world_T_cam = np.eye(4, dtype=np.float32)
 
     def _prep(self, depth: torch.Tensor):
-        """Depth [H, W] -> per level (vertices, normals, valid)."""
+        """Depth [H, W] -> per level (vertices, normals, valid), as the
+        jitted JAX `_prep` computes them: XLA:CPU fuses the y rays into one
+        multiply-add at every width and the x rays at widths of
+        XLA_FUSED_X_MIN_WIDTH and up (vertex_map's `fused`), and its cross
+        product and norm contract as normal_map restates them.  An ulp
+        here decides the normal at the pixels whose right and lower
+        neighbours are invalid (ROADMAP's watch list: 0/0 normals)."""
         out = []
         d = depth
         for lv in range(self.levels):
-            verts = vertex_map(d, self.cams[lv])
+            cam = self.cams[lv]
+            verts = vertex_map(d, cam, (cam.img_w >= XLA_FUSED_X_MIN_WIDTH, True))
             out.append((verts, normal_map(verts), d > 0))
             if lv + 1 < self.levels:
                 d = _downsample(d)
         return out
 
-    def _track(self, T0: torch.Tensor, pyr_cur, pyr_ref, ref_pose: torch.Tensor):
+    def _track(self, T0: torch.Tensor, pyr_cur, pyr_ref, ref_pose: torch.Tensor,
+               trace: Optional[list] = None):
         """Multi-level ICP of pyr_cur against pyr_ref (seen from
         ref_pose, its cam_T_world) from the seed T0 (world_T_cam).
         Returns (world_T_cam, rmse, inliers) as device tensors, queued
-        without a host read.  The reference view's world_T_cam is
-        inv_ex's LU inverse, as the JAX package's jnp.linalg.inv."""
-        with exact_fp32():
-            ref_world_T_cam = torch.linalg.inv_ex(ref_pose, check_errors=False).inverse
-            r_t = ref_world_T_cam[:3, :3].T
-            t_r = ref_world_T_cam[:3, 3]
-            T = T0
-            rmse = inl = None
-            for lv in reversed(range(self.levels)):  # coarse to fine
-                verts_c, _, _ = pyr_cur[lv]
-                verts_r, normals_r, valid_r = pyr_ref[lv]
-                # reference maps to world coordinates
-                rw = verts_r @ r_t + t_r
-                nw = normals_r @ r_t
-                T, rmse, inl = _icp_level(
-                    T, verts_c, rw, nw, valid_r, self.cams[lv], ref_pose,
-                    self.iters[min(lv, len(self.iters) - 1)], self.dist_thresh,
-                    self.huber_delta)
+        without a host read; trace, a list, gets each iteration's
+        (T, rmse, inliers), coarse level first.  The reference view's
+        world_T_cam is core/geometry.inverse4's (a float64 inverse rounded
+        once), the JAX package's jnp.linalg.inv to a few ulps."""
+        ref_world_T_cam = inverse4(ref_pose)
+        T = T0
+        rmse = inl = None
+        for lv in reversed(range(self.levels)):  # coarse to fine
+            verts_c, _, _ = pyr_cur[lv]
+            verts_r, normals_r, valid_r = pyr_ref[lv]
+            # reference maps to world coordinates
+            rw = transform_points(ref_world_T_cam, verts_r)
+            nw = transform_points(ref_world_T_cam, normals_r, translate=False)
+            T, rmse, inl = _icp_level(
+                T, verts_c, rw, nw, valid_r, self.cams[lv], ref_pose,
+                self.iters[min(lv, len(self.iters) - 1)], self.dist_thresh,
+                self.huber_delta, trace)
         return T, rmse, inl
 
     # ------------------------------------------------------------------

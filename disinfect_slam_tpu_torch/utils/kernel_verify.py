@@ -20,7 +20,8 @@ The kernel side of the K2, K4 and K5 checks takes its pose from device
 memory (a DevicePose, as the captured steps hand it over), the plain side
 the host pose (SE3), at a pose that is not the identity.  One more check
 holds the captured steps (IntegrateStep, SplatStep: CUDA graphs on the
-card) against the same steps run eagerly.
+card) against the same steps run eagerly, and one holds ICP's kernel
+(icp_step) against its plain version on the device and on the CPU.
 
 Each check takes perturb=True to feed the kernel side an input that
 differs from the plain side's, which must make it fail.
@@ -231,6 +232,52 @@ def verify_captured_steps(device="cuda", perturb: bool = False) -> Result:
     return err == 0.0, err, "bit-identical"
 
 
+def verify_icp_step(device="cuda", perturb: bool = False) -> Result:
+    """icp_step (csrc/icp_step.cu) on the small scene's pyramid, the frame
+    tracked against itself seen from the check's pose, three iterations
+    at each level: T, rmse and inliers bit-exact against icp_step_reference
+    on the same device and on the CPU (the kernel's contract: the CPU's
+    bits on the card)."""
+    from ..ops.cuda.icp_kernel import icp_step, icp_step_reference
+    from ..systems.odometry import ICPOdometry, transform_points
+
+    depth = _scene_frame("cpu").depth
+    icp = ICPOdometry(SCENE_K, SCENE_H, SCENE_W, device="cpu")
+    pyr = icp._prep(depth)
+    ref_pose = torch.from_numpy(SCENE_POSE)
+    world_T_ref = torch.from_numpy(np.linalg.inv(SCENE_POSE).astype(np.float32))
+    delta = torch.tensor(0.05)
+    dist2 = float(np.float32(0.25 * 0.25))
+    err = 0.0
+    inliers = []
+    for lv, (verts, normals, valid) in enumerate(pyr):
+        h, w = verts.shape[:2]
+        pack = torch.cat([transform_points(world_T_ref, verts).reshape(-1, 3),
+                          transform_points(world_T_ref, normals, False).reshape(-1, 3),
+                          valid.reshape(-1, 1).float(), torch.zeros((h * w, 1))], 1)
+        src = verts.reshape(-1, 3).contiguous()
+        c = icp.cams[lv].intrinsics
+        intr = (c.fx, c.fy, c.cx, c.cy)
+        host = dev_t = world_T_ref.clone()
+        host[:3, 3] += torch.tensor([0.01, -0.005, 0.008])
+        dev_t = host.to(device)
+        on = lambda t: t.to(device)  # noqa: E731
+        for _ in range(3):
+            got = icp_step(dev_t + 1e-3 if perturb else dev_t, on(src), on(pack), on(ref_pose),
+                           on(delta), intr, w, h, dist2)
+            plain = icp_step_reference(dev_t, on(src), on(pack), on(ref_pose), on(delta), intr,
+                                       w, h, dist2)
+            want = icp_step_reference(host, src, pack, ref_pose, delta, intr, w, h, dist2)
+            for a, b, c_ in zip(got, plain, want):
+                err = max(err, float((a.cpu().double() - b.cpu().double()).abs().max()),
+                          float((a.cpu().double() - c_.double()).abs().max()))
+            dev_t, host = plain[0], want[0]
+        inliers.append(int(want[2]))
+    if min(inliers) <= 100:
+        return False, 1.0, f"too few inliers {inliers}"
+    return err == 0.0, err, f"bit-exact on the device and against the CPU, inliers {inliers}"
+
+
 CheckFn = Callable[..., Result]
 CHECKS: List[Tuple[str, CheckFn]] = [
     ("sample_rows 640x480, 256 blocks (bit-exact)", verify_sample_kernel),
@@ -244,6 +291,7 @@ CHECKS: List[Tuple[str, CheckFn]] = [
     ("integrate fused K2 vs plain (JAX limits)", verify_fused_kernel),
     ("splat K4/K5 vs plain (bit-identical)", verify_splat),
     ("captured steps vs eager (bit-identical)", verify_captured_steps),
+    ("icp_step vs plain, on the device and the CPU (bit-exact)", verify_icp_step),
     # verify_index_hints and verify_scatter_window check XLA gather
     # promises and the windowed scatter, which the port does not have
 ]

@@ -23,9 +23,18 @@ port's pose for frame K against JAX's, and beside it how far the JAX
 tracker itself moves with its model depth one ulp up and one ulp down,
 and run without jit (camera centre and rotation gaps).
 
+--port-poses writes disinfect_slam_tpu_torch/data/orbit_vga_slam_port_poses.json
+instead: the port's own DenseSLAM on the CPU over the 60 frames at
+track_res_scale 1 and 2 (chip_smoke.py phase 8's configuration, loop
+closure on), every frame's cam_T_world and ok flag, and the soak's counts
+and end position on the CPU (tests/torch_cases.py:run_soak, 1000 frames).
+The tracker gives the same bits on every device, so chip_smoke.py holds
+the card to this file bit for bit (phases 8 and 12); ~8 min.
+
 Takes ~4 min (--steps: ~1 min) and ~3 GB of host memory:
 
   python scripts/port_slam_gap.py [--track-scale 2] [--steps K ...] [--out gap.json]
+  python scripts/port_slam_gap.py --port-poses
 """
 
 import argparse
@@ -146,6 +155,39 @@ def steps(ref, intr, kw, jcfg, ks) -> dict:
     return out
 
 
+PORT_POSES = os.path.join(ROOT, "disinfect_slam_tpu_torch", "data",
+                          "orbit_vga_slam_port_poses.json")
+
+
+def port_poses() -> dict:
+    """--port-poses: the port's CPU poses and ok flags at both scales, and
+    its CPU soak."""
+    import torch
+
+    from chip_smoke import new_slam, slam_frames
+    from tests.torch_cases import SOAK_FP_KEYS, run_soak
+
+    torch.set_num_threads(1)
+    out = {"frames": 60}
+    for scale in (1, 2):
+        slam = new_slam("cpu", scale)
+        poses, oks = [], []
+        for rgb, depth in slam_frames():
+            p, ok = slam.process_frame(rgb, depth)
+            poses.append(p.numpy().astype(np.float32).tolist())
+            oks.append(bool(ok))
+        out[f"scale{scale}"] = {"cam_T_world": poses, "ok": oks, "lost": slam.lost_count,
+                                "keyframes": slam.lc.count, "closures": slam.lc.closures}
+        print(f"[gap] port poses at track_res_scale={scale}: lost {slam.lost_count}, "
+              f"keyframes {slam.lc.count}", flush=True)
+    res, _ = run_soak(1000, "cpu")
+    out["soak"] = {k: res[k] for k in ("frames", *SOAK_FP_KEYS)}
+    print(f"[gap] port soak on the CPU: {out['soak']}", flush=True)
+    with open(PORT_POSES, "w") as f:
+        json.dump(out, f)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--track-scale", type=int, choices=(1, 2), default=1,
@@ -153,7 +195,12 @@ def main():
     ap.add_argument("--steps", type=int, nargs="+", metavar="K",
                     help="single tracked frames K from the JAX state instead of the run")
     ap.add_argument("--out", help="write the report here as JSON")
+    ap.add_argument("--port-poses", action="store_true",
+                    help="write data/orbit_vga_slam_port_poses.json (the port on the CPU)")
     args = ap.parse_args()
+    if args.port_poses:
+        port_poses()
+        return
     with open(FINGERPRINTS[args.track_scale]) as f:
         ref = json.load(f)
     intr = (525.1, 525.3, 319.6, 239.7)  # datasets/orbit_vga/cam.yaml

@@ -15,7 +15,10 @@ the export slice: the hash backend's inserts, fusion and renders, mesh
 chunks, and a splat clipped at its surface cap (surf_overflow > 0), and
 the tracking slice: K4 at the tracking resolutions, the model depth's
 smoothing, DenseSLAM on the card against the CPU (no pose read, no sync
-once captured, TF32 off in ICP), its captured tracked frame against the
+once captured, every pose bit for bit), the ICP kernel on the pyramids
+against its plain version on the card and the CPU, the tracker, the
+pose graph and the match on the card against the CPU, the lockstep
+parting walk, its captured tracked frame against the
 eager one and under the sync debug mode, the sharded step captured
 against eager, and loop closure on the card, the
 kernels' self-check (utils/kernel_verify.py) and the segmentation net
@@ -661,12 +664,9 @@ SLAM_CENTER = np.array([0.1, 0.0, 1.5])
 SLAM_CFG = TSDFConfig(voxel_size=0.05, truncation=0.15, num_blocks_log2=12,
                       max_candidates=8192, max_visible=4096, max_new_per_round=2048,
                       grid_log2=6)
-# card against CPU, per-frame cam_T_world over the 6-frame orbit: fusion,
-# the splat and the smoothing give the same bits on both; ICP's reductions
-# (the normal equations, the rmse) run in other orders, which moves the
-# poses by ulps that the next frames' correspondences carry (the CPU tests'
-# limit against the JAX tracker, tests/test_torch_dense_slam.py)
-SLAM_POSE_TOL = 2e-4
+# card against CPU: every stage of the tracker (the pyramids, ICP's
+# kernel, the gate, the splat, the smoothing and fusion) gives the same bits
+# on both, so the tracked poses are equal bit for bit
 
 
 def _slam_depth(pose):
@@ -719,36 +719,29 @@ def test_model_depth_smoothing_on_the_card_equals_the_cpu(cuda, monkeypatch):
 @pytest.mark.parametrize("scale", [1, 2])
 def test_dense_slam_on_the_card_equals_the_cpu(cuda, monkeypatch, scale):
     """DenseSLAM over the 6-frame orbit on the card and on the CPU, with
-    TF32 switched on globally beforehand: the same ok flags, poses within
-    SLAM_POSE_TOL; no pose read and, on the card, no stream sync on any
-    frame (torch's sync debug mode counts them; frames 0-2 capture, and
-    the capture's own device synchronisation is not one); K4 once
-    per tracked frame at the tracking camera, K5 never, fuse_rows once per
-    frame, graph replays included; ICP ran with TF32 off and the global
-    flags are left as they were."""
+    TF32 switched on globally beforehand: the same ok flags and every pose
+    bit for bit; no pose read and, on the card, no stream sync on any frame
+    (torch's sync debug mode counts them; frames 0-2 capture, and the
+    capture's own device synchronisation is not one); K4 once per tracked
+    frame at the tracking camera, K5 never, fuse_rows once per frame and
+    the ICP kernel twice an iteration (38 a tracked frame), graph replays
+    included; the global flags are left as they were."""
     import warnings
 
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
     from disinfect_slam_tpu_torch.systems import dense_slam as tds
     from disinfect_slam_tpu_torch.systems import odometry
 
     rgb = checker_rgb(SLAM_W, SLAM_H)
-    flags_in_icp = []
-    real_level = odometry._icp_level
-
-    def spy(*a, **k):
-        flags_in_icp.append((torch.backends.cudnn.allow_tf32,
-                             torch.backends.cuda.matmul.allow_tf32))
-        return real_level(*a, **k)
-
-    monkeypatch.setattr(odometry, "_icp_level", spy)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    counted = (splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks,
+               fuse_kernel.fuse_rows, icp_kernel.icp_step)
     runs = {}
     for dev in ("cpu", cuda):
         slam = tds.DenseSLAM(SLAM_K, SLAM_H, SLAM_W, voxel_size=0.02, truncation=0.06,
                              cfg=SLAM_CFG, track_res_scale=scale, device=dev)
-        launches = [splat_kernel.splat_zbuf_blocks.launches,
-                    splat_kernel.splat_payload_blocks.launches, fuse_kernel.fuse_rows.launches]
+        launches = [fn.launches for fn in counted]
         reads, syncs, poses, oks = [], [], [], []
         for pose in _slam_orbit():
             r0 = odometry.read_result.reads
@@ -765,19 +758,168 @@ def test_dense_slam_on_the_card_equals_the_cpu(cuda, monkeypatch, scale):
             assert p.device.type == torch.device(dev).type and p.shape == (4, 4)
             poses.append(p.cpu().numpy())
             oks.append(bool(ok))
-        launches = [n - b for n, b in zip(
-            [splat_kernel.splat_zbuf_blocks.launches,
-             splat_kernel.splat_payload_blocks.launches, fuse_kernel.fuse_rows.launches],
-            launches)]
+        launches = [fn.launches - b for fn, b in zip(counted, launches)]
         runs[torch.device(dev).type] = (np.stack(poses), oks, reads, syncs, launches)
     (cp, cok, creads, _, clx), (gp, gok, greads, gsyncs, glx) = runs["cpu"], runs["cuda"]
     assert gok == cok == [True] * 6
-    np.testing.assert_allclose(gp, cp, rtol=0, atol=SLAM_POSE_TOL)
+    np.testing.assert_array_equal(gp, cp)
     assert greads == creads == [0] * 6
     assert gsyncs == [0] * 6, gsyncs
-    assert glx == [5, 0, 6] and clx == [0, 0, 0]
-    assert flags_in_icp and all(f == (False, False) for f in flags_in_icp)
+    assert glx == [5, 0, 6, 5 * 38] and clx == [0, 0, 0, 0]
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+
+
+def _icp_inputs(scale, frame):
+    """ICP's inputs at every level of orbit_vga's frame `frame` tracked
+    against frame `frame` - 1 at track_res_scale `scale`, made on the CPU:
+    [(T0, src [N, 3], ref_pack [N, 8], ref_pose, intr, w, h)] coarse level
+    first."""
+    from disinfect_slam_tpu_torch.systems import odometry
+
+    ds = os.path.join(os.path.dirname(__file__), "..", "datasets", "orbit_vga")
+    depth = [torch.from_numpy(read_image(os.path.join(ds, f"{i}_depth.png"), unchanged=True)
+                              .astype(np.float32)[::scale, ::scale] / 5000.0)
+             for i in (frame - 1, frame)]
+    k = tuple(v / scale for v in (525.1, 525.3, 319.6, 239.7))
+    icp = odometry.ICPOdometry(k, 480 // scale, 640 // scale, device="cpu")
+    pyr_ref, pyr_cur = icp._prep(depth[0]), icp._prep(depth[1])
+    ref_pose = torch.eye(4)
+    T0 = torch.eye(4)
+    T0[:3, 3] = torch.tensor([0.004, -0.002, 0.003])
+    out = []
+    for lv in reversed(range(3)):
+        v, n, valid = pyr_ref[lv]
+        h, w = v.shape[:2]
+        pack = torch.cat([v.reshape(-1, 3), n.reshape(-1, 3), valid.reshape(-1, 1).float(),
+                          torch.zeros((h * w, 1))], 1)
+        c = icp.cams[lv].intrinsics
+        out.append((T0, pyr_cur[lv][0].reshape(-1, 3).contiguous(), pack, ref_pose,
+                    (c.fx, c.fy, c.cx, c.cy), w, h))
+    return out
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_icp_kernel_equals_its_plain_version_on_the_card_and_the_cpu(cuda, scale):
+    """csrc/icp_step.cu on orbit_vga's pyramids at 640x480 and 320x240, all
+    three levels, five iterations each: every iteration's T, rmse and
+    inlier count bit-equal to icp_step_reference on the card and on the
+    CPU, with more than 100 inliers at every level; two launches an
+    iteration."""
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
+
+    delta = torch.tensor(0.05)
+    dist2 = float(np.float32(0.25 * 0.25))
+    for T0, src, pack, ref_pose, intr, w, h in _icp_inputs(scale, 7):
+        on = lambda t: t.to(cuda)  # noqa: E731
+        t_gpu = t_ref_gpu = on(T0)
+        t_cpu = T0
+        for _ in range(5):
+            before = icp_kernel.icp_step.launches
+            kern = icp_kernel.icp_step(t_gpu, on(src), on(pack), on(ref_pose), on(delta), intr,
+                                       w, h, dist2)
+            assert icp_kernel.icp_step.launches == before + 2
+            plain = icp_kernel.icp_step_reference(t_ref_gpu, on(src), on(pack), on(ref_pose),
+                                                  on(delta), intr, w, h, dist2)
+            host = icp_kernel.icp_step_reference(t_cpu, src, pack, ref_pose, delta, intr, w, h,
+                                                 dist2)
+            for a, b, c in zip(kern, plain, host):
+                assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), c), (w, a, b, c)
+            assert float(kern[2]) > 100
+            t_gpu, t_ref_gpu, t_cpu = kern[0], plain[0], host[0]
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_icp_track_on_the_card_equals_the_cpu(cuda, scale):
+    """ICPOdometry.track (captured) on the card against _track on the CPU
+    on the same pyramids and seed: the pose, rmse and inliers bit for bit;
+    then the captured step again (a replay), the same bits."""
+    from disinfect_slam_tpu_torch.systems import odometry
+
+    ds = os.path.join(os.path.dirname(__file__), "..", "datasets", "orbit_vga")
+    k = tuple(v / scale for v in (525.1, 525.3, 319.6, 239.7))
+    depth = [read_image(os.path.join(ds, f"{i}_depth.png"), unchanged=True)
+             .astype(np.float32)[::scale, ::scale] / 5000.0 for i in (11, 12)]
+    cpu = odometry.ICPOdometry(k, 480 // scale, 640 // scale, device="cpu")
+    gpu = odometry.ICPOdometry(k, 480 // scale, 640 // scale, device=cuda)
+    seed = np.eye(4, dtype=np.float32)
+    seed[:3, 3] = [0.01, 0.0, -0.005]
+    ref_pose = np.eye(4, dtype=np.float32)
+    pc = [cpu.prep(d) for d in depth]
+    want = cpu._track(torch.from_numpy(seed), pc[1], pc[0], torch.from_numpy(ref_pose))
+    pg = [gpu.prep(d) for d in depth]
+    for lc, lg in zip(pc[0] + pc[1], pg[0] + pg[1]):
+        for a, b in zip(lc, lg):
+            assert torch.equal(a, b.cpu())
+    for _ in range(2):
+        got = gpu.track(torch.from_numpy(seed).to(cuda), pg[1], pg[0],
+                        torch.from_numpy(ref_pose).to(cuda))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    assert float(want[2]) > 100
+
+
+def test_pose_graph_and_match_on_the_card_equal_the_cpu(cuda):
+    """optimize_pose_graph on a drifted chain with a loop edge, and the
+    descriptor and match_scores / _match_scores of the out-and-back
+    keyframes, on the card against the CPU: bit for bit."""
+    from disinfect_slam_tpu_torch.systems import loop_closure as lcm
+
+    from .torch_cases import out_and_back_keyframes
+
+    n = 8
+    est = np.stack([np.eye(4, dtype=np.float32) for _ in range(n)])
+    rng = np.random.default_rng(5)
+    for k in range(n):
+        est[k, :3, 3] = [0.1 * k, 0.002 * k * k, 0.004 * k]
+        est[k, :3, :3] = lcm._exp_se3_mat(torch.from_numpy(
+            rng.normal(0, 0.02, 6).astype(np.float32))).numpy()[:3, :3]
+    ei = np.asarray(list(range(n - 1)) + [0] + [0] * 8, np.int32)
+    ej = np.asarray(list(range(1, n)) + [n - 1] + [0] * 8, np.int32)
+    z = np.tile(np.eye(4, dtype=np.float32), (16, 1, 1))
+    for k in range(n - 1):
+        z[k] = np.linalg.inv(est[k]) @ est[k + 1]
+    z[n - 1, :3, 3] = [0.7, 0.0, 0.0]
+    w = np.asarray([1.0] * (n - 1) + [4.0] + [0.0] * 8, np.float32)
+    args = [torch.from_numpy(a) for a in (est, ei, ej, z, w)]
+    want = lcm.optimize_pose_graph(*args)
+    got = lcm.optimize_pose_graph(*[a.to(cuda) for a in args])
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert float(want[1][-1]) < float(want[1][0])
+
+    _, _, depths = out_and_back_keyframes()
+    descs = {}
+    for dev in ("cpu", cuda):
+        descs[str(dev)] = torch.stack([lcm.depth_descriptor(
+            torch.from_numpy(d[::2, ::2].copy()).to(dev),
+            torch.from_numpy(d[::2, ::2].copy() * 0.3).to(dev)) for d in depths])
+    assert torch.equal(descs[str(cuda)].cpu(), descs["cpu"])
+    db, ids = descs["cpu"], torch.arange(len(depths), dtype=torch.int32) * 10
+    for q in range(len(depths)):
+        want = lcm._match_scores(db[q], db, ids, len(depths), 10 * q, 20)
+        got = lcm._match_scores(db[q].to(cuda), db.to(cuda), ids.to(cuda), len(depths),
+                                10 * q, 20)
+        assert [t.item() for t in got] == [t.item() for t in want]
+        assert torch.equal(lcm.match_scores(db.to(cuda), db[q].to(cuda)).cpu(),
+                           lcm.match_scores(db, db[q]))
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_dense_slam_parts_nowhere_between_the_card_and_the_cpu(cuda, scale):
+    """utils/parting.lockstep over the 20-frame out-and-back orbit with loop
+    closure every 5th frame, eager on the card and on the CPU: no stage of
+    any frame (the pyramids, each ICP iteration, the gate, the model depth,
+    the volume, the descriptors, the match scores, the keyframe poses)
+    differs by a bit, and neither does any tracker stage the card
+    recomputes from the CPU's inputs."""
+    from disinfect_slam_tpu_torch.utils import parting
+
+    frames = _slam_frames(20)
+    slams = [_new_slam(dev, False, scale, loop_closure=True, kf_every=5)
+             for dev in (cuda, torch.device("cpu"))]
+    res = parting.lockstep(slams, lambda i, slam: slam.process_frame(*frames[i]), len(frames))
+    assert res["parted"] is None and not res["isolated"], parting.describe(res)
+    assert res["frames_run"] == 20
 
 
 def test_loop_closure_on_the_card_closes_the_drifted_chain(cuda):

@@ -23,7 +23,9 @@ loop (frame 200, under 0.1 mm), and part by up to 1.36 m after the turn
     within 0.05 mm of the port's pose.
   - the pyramids' normals at pixels whose right and lower neighbours
     are invalid are the normalised rounding residue of cross(-v, -v), so
-    an ulp of the vertex turns them anywhere (0.34 mm of frame 1's pose).
+    an ulp of the vertex turns them anywhere; the port's _prep now
+    restates the jitted JAX contractions, so they are the JAX bits (they
+    moved frame 1's pose by 0.34 mm before).
   - the pose graph: at keyframe 35 (frame 350) one ulp of its input
     translations moves the JAX graph's output by centimetres.
 
@@ -174,23 +176,22 @@ def test_frame1_stages_agree_from_the_same_state(frame0):
     # model depth (K4's plain version, then the smoothing): bit-equal
     md = np.asarray(js._model_depth(js.volume, jnp.asarray(ref)))
     np.testing.assert_array_equal(ps._model_depth(SE3.from_matrix(ref)).numpy(), md)
-    # pyramids: vertices within an ulp (the contracted back-projection);
-    # normals within 1e-5 but at pixels whose right and lower neighbours
-    # are invalid, where they are the normalised residue of cross(-v, -v)
+    # pyramids: the jitted JAX bits, vertices and normals, the normals at
+    # pixels whose right and lower neighbours are invalid (the normalised
+    # residue of cross(-v, -v)) included: _prep restates XLA:CPU's
+    # contractions
     pj = js.tracker._prep(jnp.asarray(md))
     pp = ps.tracker._prep(torch.from_numpy(md))
     cj = js.tracker._prep(jnp.asarray(d1))
-    zero_zero = []
+    lone_pixels = []
     for lv in range(3):
         (vj, nj, okj), (vp, np_, okp) = pj[lv], pp[lv]
         np.testing.assert_array_equal(okp.numpy(), np.asarray(okj))
-        np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=0, atol=2.4e-7)
+        np.testing.assert_array_equal(vp.numpy(), np.asarray(vj))
+        np.testing.assert_array_equal(np_.numpy(), np.asarray(nj))
         ok = np.asarray(okj)
-        lone = ok & ~np.roll(ok, -1, 1) & ~np.roll(ok, -1, 0)
-        gap = np.abs(np_.numpy() - np.asarray(nj)).max(-1)
-        assert (gap[~lone] <= 1e-5).all(), gap[~lone].max()
-        zero_zero.append(int((gap[lone] > 1e-5).sum()))
-    assert zero_zero == [2, 0, 0], zero_zero
+        lone_pixels.append(int((ok & ~np.roll(ok, -1, 1) & ~np.roll(ok, -1, 0)).sum()))
+    assert lone_pixels[0] > 0, lone_pixels
     # each ICP level from the JAX level's inputs
     ref_wtc = np.asarray(jnp.linalg.inv(jnp.asarray(ref)))
     tj = jnp.asarray(seed)
@@ -209,9 +210,8 @@ def test_frame1_stages_agree_from_the_same_state(frame0):
         np.testing.assert_allclose(float(out_p[1]), float(out_j[1]), rtol=1e-5)
         assert float(out_p[2]) == float(out_j[2])
         tj = out_j[0]
-    # the whole track: from the JAX pyramids it is the JAX pose; from the
-    # port's own, the two 0/0 normals move it by 0.34 mm, and with the JAX
-    # normals there it is the JAX pose again
+    # the whole track: from the JAX pyramids and from the port's own (the
+    # same bits) it is the JAX pose
     t_jax = np.asarray(js._track_frame(js.volume, jnp.asarray(ref), jnp.asarray(d1),
                                        jnp.asarray(seed))[0])
     cp = ps.tracker._prep(torch.from_numpy(d1))
@@ -221,11 +221,7 @@ def test_frame1_stages_agree_from_the_same_state(frame0):
                                  torch.from_numpy(ref))[0].numpy()
 
     np.testing.assert_allclose(port_track(_to_torch(pj)), t_jax, rtol=0, atol=1e-6)
-    own = port_track(pp)
-    assert 1e-4 < np.abs(own - t_jax).max() < 1e-3
-    mixed = list(pp)
-    mixed[0] = (pp[0][0], torch.from_numpy(np.array(pj[0][1])), pp[0][2])
-    np.testing.assert_allclose(port_track(mixed), t_jax, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(port_track(pp), port_track(_to_torch(pj)))
     # the port's own frame-0 volume: its model depth moves the JAX tracker
     # by the soak's 3.35 mm, onto the port's own frame-1 pose
     md_own = ps_own._model_depth(SE3.from_matrix(ref)).numpy()

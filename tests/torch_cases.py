@@ -278,6 +278,39 @@ def soak_x(i: int, n_frames: int) -> float:
     return (i if i < half else (n_frames - 1 - i)) * (SOAK_CORRIDOR_M / half)
 
 
+def make_soak_slam(device, capture: bool = True):
+    """The soak's DenseSLAM: loop closure, host spill and the keyframe cap
+    on a 32^3-block dense window of 4 cm voxels."""
+    from disinfect_slam_tpu_torch.config import TSDFConfig
+    from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
+
+    cfg = TSDFConfig(voxel_size=0.04, truncation=0.12, num_blocks_log2=10,
+                     max_candidates=4096, max_visible=1024, max_new_per_round=512,
+                     backend="dense", grid_log2=5)
+    return DenseSLAM(SOAK_K, SOAK_H, SOAK_W, voxel_size=0.04, truncation=0.12,
+                     max_depth=4.0, cfg=cfg, host_spill=True, loop_closure=True,
+                     kf_every=10, lc_kwargs=dict(max_keyframes=SOAK_KF_CAP,
+                                                 min_gap_frames=200,
+                                                 verify_min_inliers=400),
+                     device=device, capture=capture)
+
+
+def soak_feed(n_frames: int):
+    """feed(i, slam) of the soak's corridor at n_frames, as run_soak feeds
+    it: frame i's depth, then maybe_recenter every 25 frames."""
+    from .scenes import checker_rgb
+
+    rgb = checker_rgb(SOAK_W, SOAK_H)
+
+    def feed(i, slam):
+        depth, _ = soak_corridor_depth(soak_x(i, n_frames))
+        slam.process_frame(rgb, depth)
+        if i % 25 == 24:
+            slam.maybe_recenter()
+
+    return feed
+
+
 def run_soak(n_frames: int, device, on_frame=None):
     """The corridor out and back through DenseSLAM with loop closure, host
     spill, maybe_recenter every 25 frames and the keyframe cap -> (the
@@ -288,21 +321,11 @@ def run_soak(n_frames: int, device, on_frame=None):
 
     import torch
 
-    from disinfect_slam_tpu_torch.config import TSDFConfig
     from disinfect_slam_tpu_torch.ops.gather import BoundingCube, gather_voxels
-    from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
 
     from .scenes import checker_rgb
 
-    cfg = TSDFConfig(voxel_size=0.04, truncation=0.12, num_blocks_log2=10,
-                     max_candidates=4096, max_visible=1024, max_new_per_round=512,
-                     backend="dense", grid_log2=5)
-    slam = DenseSLAM(SOAK_K, SOAK_H, SOAK_W, voxel_size=0.04, truncation=0.12,
-                     max_depth=4.0, cfg=cfg, host_spill=True, loop_closure=True,
-                     kf_every=10, lc_kwargs=dict(max_keyframes=SOAK_KF_CAP,
-                                                 min_gap_frames=200,
-                                                 verify_min_inliers=400),
-                     device=device)
+    slam = make_soak_slam(device)
     rgb = checker_rgb(SOAK_W, SOAK_H)
     bbox = BoundingCube(*SOAK_START_BBOX)
 
