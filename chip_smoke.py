@@ -76,8 +76,8 @@ exits non-zero:
      frame a captured step (systems/dense_slam.TrackFuseStep): fuse_rows
      once per frame, splat_zbuf_blocks once per tracked frame (graph
      replays included), splat_payload_blocks never, no pose read outside
-     the loop verifications, the ICP kernel (icp_step) twice an
-     iteration, 38 a tracked frame and a loop verification; the
+     the loop verifications, the ICP kernel (icp_step) once an
+     iteration, 19 a tracked frame and a loop verification; the
      trajectory, ok flags, ATE and volume against the JAX DenseSLAM's
      fingerprint (data/orbit_vga_slam_fingerprint.json) within TOL_SLAM_*,
      and every pose and ok flag bit-equal to the port's own run on the CPU
@@ -118,8 +118,9 @@ exits non-zero:
      bound, its plain version, scatter_reduce "amin"); the ICP kernel
      (icp_step) at each pyramid level of orbit_vga at track_res_scale 1 and
      2, bit-equal to its plain version on the card and the CPU, its device
-     time beside its bound and its plain version's time, and a tracked
-     frame's totals; and the SLAM frame
+     time beside its bound, its order floor (the chain probe: 29 register
+     chains of N / 8 dependent float32 adds) and its plain version's time,
+     and a tracked frame's totals; and the SLAM frame
      profiled (frames 45-59: device time, kernels, idle share; ICP alone:
      kernels, device time and the host time of its ops).
 
@@ -197,7 +198,7 @@ exits non-zero:
      of DenseSLAM with loop closure, host spill, recentering and the
      keyframe cap on the card, with the JAX soak's assertions and within
      the JAX soak's counts (data/soak_fingerprint.json; fuse_rows once a
-     frame, splat_zbuf_blocks once a tracked frame, icp_step 38 times a
+     frame, splat_zbuf_blocks once a tracked frame, icp_step 19 times a
      tracked frame and a verification), every count and the end position
      equal to the port's soak on the CPU (data/orbit_vga_slam_port_poses.json);
      wall time, ms/frame and closures; then K4 on the final volume at the soak's 96x72
@@ -1938,9 +1939,9 @@ def slam_app(fuse_kernel, splat_kernel, odometry) -> dict:
         raise AssertionError(f"slam app: {reads} pose reads for {lc.verifications} "
                              f"verifications, {r['slam'].graphs.replays} graph replays for "
                              f"{tracked} tracked frames")
-    # two launches an ICP iteration: 2 x 19 a tracked frame and a verification
-    icp_want = 2 * sum(ICP_ITERS) * (tracked + lc.verifications)
-    log(f"[chip_smoke] slam app: icp_step launched {icp_launches} times ({icp_want} = 2 x "
+    # one launch an ICP iteration: 19 a tracked frame and a verification
+    icp_want = sum(ICP_ITERS) * (tracked + lc.verifications)
+    log(f"[chip_smoke] slam app: icp_step launched {icp_launches} times ({icp_want} = "
         f"{sum(ICP_ITERS)} iterations x ({tracked} tracked frames + {lc.verifications} "
         f"verifications), graph replays included)")
     if icp_launches != icp_want:
@@ -2215,15 +2216,19 @@ def icp_yardsticks(dev) -> dict:
     orbit_vga's frame 59 against frame 58 at track_res_scale 1 and 2, each
     pyramid level's inputs as _icp_level builds them: the kernel's result
     bit-equal to its plain version on the card and on the CPU, one call's
-    device time (both launches) beside its bound (each input read once:
-    12 B of source point and a 32 B reference row a pixel) and the plain
-    version's time; then a tracked frame's totals (4, 5 and 10 iterations
-    of levels 0, 1 and 2).  No torch call computes the same function
-    (library_ms null)."""
+    device time beside its bound (each input read once: 12 B of source
+    point and a 32 B reference row a pixel), its order floor (the device
+    time of icp_kernel.chain: 29 register chains of N / 8 dependent
+    float32 adds, the least the kernel's fixed sum order allows) and the
+    plain version's time; then a tracked frame's totals (4, 5 and 10
+    iterations of levels 0, 1 and 2).  No torch call computes the same
+    function (library_ms null)."""
     from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
 
     delta = torch.tensor(0.05)
     dist2 = float(np.float32(0.25 * 0.25))
+    seed = torch.full((32,), 1e-3, device=dev)
+    sink = torch.empty(32, device=dev)
     out = {}
     for scale in (1, 2):
         levels = []
@@ -2243,20 +2248,28 @@ def icp_yardsticks(dev) -> dict:
             res = bound(n * (12 + 32) + 2 * 64 + 4 + 64 + 8, n * ICP_OPS_PER_PIXEL)
             res.update({"w": w, "h": h, "iters": iters, "inliers": float(host[2]),
                         "max_abs_err": err})
-            time_kernel(res, fn, "icp_")
+            time_kernel(res, fn, "icp_step")
+            chain = -(-n // icp_kernel.ACC)  # an accumulator's dependent adds
+            res["order_floor_ms"] = kernel_ms(
+                lambda r=chain: icp_kernel.chain(seed, r, sink), "icp_chain")
             res["plain_ms"] = cuda_time_ms(plain)
             res["library_ms"] = None
             print_yardsticks(f"icp_step {w}x{h}", res)
+            log(f"[chip_smoke] icp_step {w}x{h}: order floor {res['order_floor_ms']:.4f} ms "
+                f"({chain} dependent adds a chain) beside the byte bound "
+                f"{res['bound_ms']:.4f} ms: the kernel at "
+                f"{res['ms'] / res['order_floor_ms']:.2f}x the floor")
             if err != 0.0:
                 raise AssertionError(f"icp_step at {w}x{h} differs from its plain version "
                                      f"by {err}")
             levels.append(res)
         frame = {k: sum(lv["iters"] * lv[k] for lv in levels)
-                 for k in ("ms", "bound_ms", "plain_ms")}
+                 for k in ("ms", "bound_ms", "order_floor_ms", "plain_ms")}
         log(f"[chip_smoke] icp_step a tracked frame at track_res_scale={scale}: kernel "
             f"{frame['ms']:.4f} ms, bound {frame['bound_ms']:.4f} ms "
-            f"({frame['bound_ms'] / frame['ms']:.1%}), plain torch {frame['plain_ms']:.4f} ms, "
-            f"{2 * sum(ICP_ITERS)} launches")
+            f"({frame['bound_ms'] / frame['ms']:.1%}), order floor "
+            f"{frame['order_floor_ms']:.4f} ms, plain torch {frame['plain_ms']:.4f} ms, "
+            f"{sum(ICP_ITERS)} launches")
         out[scale] = {"levels": levels, "per_frame": frame}
     return out
 
@@ -3619,9 +3632,9 @@ def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
     if res["launches"] != want:
         raise AssertionError(f"soak launches {res['launches']}, expected {want}")
     res["launches"]["icp_step"] = icp_kernel.icp_step.launches
-    icp_want = 2 * sum(ICP_ITERS) * (SOAK_FRAMES - 1 + slam.lc.verifications)
+    icp_want = sum(ICP_ITERS) * (SOAK_FRAMES - 1 + slam.lc.verifications)
     log(f"[chip_smoke] soak: icp_step launched {res['launches']['icp_step']} times ({icp_want} "
-        f"= 2 x {sum(ICP_ITERS)} x ({SOAK_FRAMES - 1} tracked frames + "
+        f"= {sum(ICP_ITERS)} x ({SOAK_FRAMES - 1} tracked frames + "
         f"{slam.lc.verifications} verifications))")
     if res["launches"]["icp_step"] != icp_want:
         raise AssertionError(f"soak: icp_step launched {res['launches']['icp_step']} times, "
@@ -4451,7 +4464,8 @@ def captured_slam(dev, frames, smi) -> dict:
     pose, ok flag and volume array equal, and every pose bit-equal to the
     port's on the CPU (SLAM_PORT_POSES); ms/frame of each (CUDA events,
     frames SLAM_WARM-59, median), graph replays and K4 / K2 / icp_step
-    launches a frame, the clocks."""
+    launches a frame (icp_step once an ICP iteration: 19 a tracked frame
+    and a loop verification), the clocks."""
     n = len(frames)
     out = {}
     for scale in (1, 2):
@@ -4464,6 +4478,11 @@ def captured_slam(dev, frames, smi) -> dict:
                 runs[name].append(ms)
                 counts[name] = {"graph_replays_per_frame": c[0] / n, "k4_per_frame": c[1] / n,
                                 "k2_per_frame": c[2] / n, "icp_step_per_frame": c[3] / n}
+                # one icp_step launch an ICP iteration: 19 a tracked frame and a verification
+                icp_want = sum(ICP_ITERS) * (n - 1 + slam.lc.verifications)
+                if c[3] != icp_want:
+                    raise AssertionError(f"{name} SLAM (scale {scale}): icp_step launched "
+                                         f"{c[3]} times, expected {icp_want}")
                 sides[name] = (slam, poses)
             (es, ep), (cs, cp) = sides["eager"], sides["captured"]
             check_port_poses([p for p, _ in cp], [ok for _, ok in cp], scale,
@@ -5185,10 +5204,10 @@ def main() -> int:
          "soak_launches": soak_res["launches"]["icp_step"],
          "verify_launches": verify["launches"]["icp_step"],
          **{k: icp[1]["levels"][0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")},
+                                                "bound_by", "order_floor_ms", "library_ms")},
          "max_abs_err": max(lv["max_abs_err"] for sc in icp.values() for lv in sc["levels"]),
          **{f"{k}_per_frame_scale{sc}": icp[sc]["per_frame"][k]
-            for sc in (1, 2) for k in ("ms", "bound_ms", "plain_ms")}},
+            for sc in (1, 2) for k in ("ms", "bound_ms", "order_floor_ms", "plain_ms")}},
         *probe_kernels(probe, probe_main_launches),
     ]
     # the launches each kernel made through graph replays over the whole run

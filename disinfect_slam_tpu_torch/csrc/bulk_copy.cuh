@@ -1,7 +1,8 @@
 // Hopper's bulk copy engine (TMA, cp.async.bulk) into shared memory,
 // completing on an mbarrier: the ring of fuse_rows.cuh and the patch
 // stages of the sample probe (sample_probe.cu), checked by the feature
-// probe (feature_probe.cu).
+// probe (feature_probe.cu); and the mbarriers alone, for the ring that
+// icp_step.cu's warps fill and drain.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +48,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// whether the phase of parity `parity` of the barrier has completed,
+// without waiting (acquire, like a wait that returns)
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // one TMA bulk copy global -> shared, completing on `bar`

@@ -1,4 +1,5 @@
-// icp_step: one iteration of point-to-plane ICP at one pyramid level.
+// icp_step: one iteration of point-to-plane ICP at one pyramid level, as
+// one launch of one cluster of 8 CTAs.
 //
 // Replaces no TPU kernel: its counterpart is the body of the JAX
 // `_icp_level` loop (disinfect_slam_tpu/systems/odometry.py:116), XLA ops
@@ -7,61 +8,112 @@
 // it replaces sum J^T W J in cuBLAS's order on the card and the CPU BLAS's
 // order on the host, solve with cuSOLVER against LAPACK and take float32
 // sin / cos / sqrt from different libraries, and the tracked trajectory
-// amplifies each ulp.  Second, to cut an iteration's ~35 launches to two.
+// amplifies each ulp.  Second, to cut an iteration's ~35 launches to one.
 //
-// Pass A (dst_icp_pixels): one thread a source pixel, 256 a block.  The
-// transform by T and by the reference pose in SE3.apply_xyz's order
-// ((r0 x + r1 y) + r2 z) + t, the projection with IEEE divisions, round
-// half to even (rintf) and clip, the packed [N, 8] reference row (vertex,
-// normal, validity: two float4 loads), the distance gate, the residual,
-// the Huber weight and the Jacobian [p x n | n]; it writes the pixel's row
-// of 16 floats: jw = jac * weight [6], jac [6], r, inlier, 1, 0.
-//
-// Pass B (dst_icp_solve): 8 blocks, one an accumulator.  The 29 float32
-// sums over the pixels (the 21 upper-triangle entries of J^T W J, the 6 of
-// J^T W r, sum r^2 over inliers and the inlier count), each product
-// rounded to float32, each sum run by 8 interleaved accumulators (pixel p
-// adds into p mod 8, every accumulator in pixel order; pass A wrote each
-// accumulator's rows as one slab, which its block streams through shared
-// memory with cp.async), then the 8 added in order by the last block to
-// finish.  That is a float32 sum with XLA:CPU's 8-lane
-// vector accumulation: a pairwise tree, a float64 sum or contiguous chunks
-// move the tracked corridor of the soak test off the JAX soak's counts
-// (PERF.md), so the kernel keeps the reference's accumulation.  Then one
-// thread adds the 1e-6 damping, solves the 6x6 in float64 by LU with
-// partial pivoting (jnp.linalg.solve's method; the first largest |pivot|,
-// a NaN counting as largest, as torch.argmax), runs the se3 exp (sin and
-// cos by one fixed polynomial) and the pose update in float64, and rounds
-// T, rmse and the inlier count once to float32.
+// What it computes.  Per source pixel: the transform by T and by the
+// reference pose in SE3.apply_xyz's order ((r0 x + r1 y) + r2 z) + t, the
+// projection with IEEE divisions, round half to even (rintf) and clip, the
+// packed [N, 8] reference row (vertex, normal, validity: two float4
+// loads), the distance gate, the residual, the Huber weight and the
+// Jacobian [p x n | n]; then its 29 float32 products: jw_a jac_b for the
+// 21 upper-triangle entries of J^T W J (jw = jac * weight), jw_a r for the
+// 6 of J^T W r, (r r) inlier and the inlier.  Each of the 29 sums over the
+// pixels is run by 8 interleaved accumulators: pixel p adds into
+// accumulator p mod 8, each accumulator in pixel order, its first real
+// pixel seeding it and a padded pixel (past N, up to a multiple of 8)
+// adding +0; then the 8 are added in order 0..7.  That is a float32 sum
+// with XLA:CPU's 8-lane vector accumulation: a pairwise tree, a float64
+// sum or contiguous chunks move the tracked corridor of the soak test off
+// the JAX soak's counts (PERF.md), so the kernel keeps the reference's
+// accumulation.  Then one thread adds the 1e-6 damping, solves the 6x6 in
+// float64 by LU with partial pivoting (jnp.linalg.solve's method; the
+// first largest |pivot|, a NaN counting as largest, as torch.argmax), runs
+// the se3 exp (sin and cos by one fixed polynomial) and the pose update in
+// float64, and rounds T, rmse and the inlier count once to float32.
 //
 // Every operation is one IEEE operation with one rounding, and the
 // library is built with -fmad=false, so ops/cuda/icp_kernel.py's
 // icp_step_reference repeats the arithmetic op for op and gives the same
 // bits on the CPU and the card.
 //
-// What bounds it: pass A, device memory (per pixel 12 B of source point,
-// a 32 B reference row, a 64 B row out); pass B, the latency of its sums'
-// chains of N / 8 dependent adds, which the fixed order makes serial (a
-// first version streamed the rows through one block from device memory
-// and took 13.4 ms a call at 640x480, load latency on every add).
-#include <cuda_pipeline.h>
+// What bounds it: the order of the sums.  Each accumulator is a chain of
+// N / 8 dependent float32 adds (38400 at 640x480), ~4.4 cycles each: the
+// order floor, which `dst_icp_chain` times alone (0.087 ms at 640x480 on
+// the H100).  The bytes (12 B of source point and a 32 B reference row a
+// pixel, 13.5 MB at 640x480) take a twentieth of that.  The design feeds
+// every chain an add at the add's own latency:
+//
+//   - CTA j of the cluster is accumulator j: its own pixels j, j + 8, ...
+//     in order, no partial sums in device memory and no second launch;
+//   - warp-specialised: 12 producer warps run the per-pixel arithmetic,
+//     kPix pixels a thread in a part of a stage, kSlotWarps parts a stage
+//     (the reference-row gather depends on the data, so many rows are in
+//     flight), and write each pixel's 29 products into a ring of kStages
+//     shared-memory stages laid out [stage][sum][row], the sum's stride
+//     padded so that a quarter-warp's 16-byte loads fall in distinct
+//     banks; each stage has a full / empty mbarrier pair, and no
+//     __syncthreads runs in the loop;
+//   - one consumer warp: lane c folds sum c, one 16-byte shared load
+//     giving 4 consecutive rows of its sum and 4 dependent adds, from a
+//     ring of kAhead loads in registers that runs on across stage
+//     boundaries (the next stage's barrier tested early, waited on only
+//     if it is not complete).  The consumer is warp 0 and warps 4, 8 and
+//     12 stay idle, so that the chain's scheduler (a warp's scheduler is
+//     its index mod 4) issues for the chain alone;
+//   - the end: each CTA leaves its 29 partials in its shared memory, the
+//     cluster synchronises, CTA 0 reads the 8 through distributed shared
+//     memory and adds them in order, and its thread 0 solves.
+//
+// What is left (scripts/port_icp_variants.py, PERF.md): the consumer alone
+// runs near the floor, and the producers bound the kernel at ~1.4x it.
+// On 8 SMs their per-pixel arithmetic alone takes ~0.8 of the floor, and
+// CTA j's stride-8 pixels make every warp load touch a cache line a lane.
+// Letting producers share the consumer's scheduler slowed the chain;
+// stores into other CTAs' rings (to make the loads contiguous) cost more
+// than the loads they would save.
+//
+// Earlier designs: two launches (pass A writing a 64 B row a pixel to
+// device memory, pass B's 8 blocks folding them, one warp's 29 lanes each
+// making three scalar shared loads, two multiplies and an add a row, a
+// __syncthreads pair every 512 rows, the last block found by a global
+// counter) ran ~24 cycles a row; one block streaming the rows from device
+// memory ran 13.4 ms a call at 640x480, load latency on every add.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kAcc = 8;
-constexpr int kSums = 29;
-constexpr int kTerms = 16;
-constexpr int kSumThreads = 256;  // pass B: threads a block (8 blocks)
-constexpr int kChunk = 512;       // pass B: rows a ring stage
-constexpr int kStages = 4;        // pass B: ring stages (128 KB of shared memory)
+constexpr int kAcc = 8;                    // the cluster's CTAs: CTA j is accumulator j
+constexpr int kSums = 29;                  // 21 of J^T W J, 6 of J^T W r, sum r^2, inliers
+constexpr int kWarps = 16;                 // warp 0 consumes, 4 / 8 / 12 idle, 12 produce
+constexpr int kThreads = 32 * kWarps;
+constexpr int kProducers = kWarps - kWarps / 4;  // 12
+constexpr int kPix = 4;                    // pixels a producer thread a part of a stage
+constexpr int kSlotWarps = 2;              // producer warps filling a stage, a part each
+constexpr int kStageRows = 32 * kPix * kSlotWarps;  // an accumulator's rows a stage
+constexpr int kStride = kStageRows + 4;    // floats from one sum's rows to the next's
+constexpr int kStages = 6;                 // the ring
+constexpr int kStageFloats = kSums * kStride;
+constexpr int kGroups = kStageRows / 4;    // 16-byte loads of a sum a stage
+constexpr int kAhead = 8;                  // the consumer's loads in flight
+constexpr int kSmem = kStages * kStageFloats * 4 + 2 * kStages * 8;
 constexpr int kSinTerms = 15;  // sin to t^29, cos to t^30
 constexpr float kDamping = 1e-6f;  // the JAX package's 1e-6, a float32
 constexpr double kTwoPi = 0x1.921fb54442d18p+2;
 constexpr double kInvTwoPi = 0x1.45f306dc9c883p-3;
+static_assert(kStride % 32 == 4, "a quarter-warp's 16-byte loads in distinct banks");
+// each part of a ring slot has one producer warp, which fills it round
+// after round: a second owner could run two rounds ahead and pass a parity
+// wait early
+static_assert(kStages * kSlotWarps % kProducers == 0, "a slot part per producer warp");
+static_assert(kSmem <= 232448, "a CTA's shared memory");
+static_assert(kGroups >= 2 * kAhead, "the next stage is tested within the current one");
 
 // 1/n! for n = 0..30, correctly rounded (core/exact.INV_FACT's values)
 __constant__ double kInvFact[2 * kSinTerms + 1] = {
@@ -78,55 +130,86 @@ __constant__ double kInvFact[2 * kSinTerms + 1] = {
     0x1.3932c5047d60ep-108,
 };
 
-__global__ void __launch_bounds__(kBlock) icp_pixels_kernel(
-    const float* __restrict__ T, const float* __restrict__ src,
-    const float4* __restrict__ ref_pack, const float* __restrict__ ref_pose,
-    const float* __restrict__ delta, int img_w, int img_h, float fx, float fy,
-    float cx, float cy, float dist2, float4* __restrict__ terms,
-    unsigned int* __restrict__ counter) {
-  const int n = img_w * img_h;
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i == 0) *counter = 0u;  // pass B's count of finished blocks
-  if (i >= n) return;
-  const float x = src[3 * i], y = src[3 * i + 1], zs = src[3 * i + 2];
-  const float px = ((T[0] * x + T[1] * y) + T[2] * zs) + T[3];
-  const float py = ((T[4] * x + T[5] * y) + T[6] * zs) + T[7];
-  const float pz = ((T[8] * x + T[9] * y) + T[10] * zs) + T[11];
-  const float* P = ref_pose;
-  const float qx = ((P[0] * px + P[1] * py) + P[2] * pz) + P[3];
-  const float qy = ((P[4] * px + P[5] * py) + P[6] * pz) + P[7];
-  const float qz = ((P[8] * px + P[9] * py) + P[10] * pz) + P[11];
-  const float u = fx * qx / qz + cx;
-  const float v = fy * qy / qz + cy;
-  // clipped as floats (a NaN to 0), as the plain version does
-  const float uf = rintf(u), vf = rintf(v);
-  const float wm = static_cast<float>(img_w - 1), hm = static_cast<float>(img_h - 1);
-  const int ui = static_cast<int>(uf >= 0.f ? (uf <= wm ? uf : wm) : 0.f);
-  const int vi = static_cast<int>(vf >= 0.f ? (vf <= hm ? vf : hm) : 0.f);
-  const bool in_img = u >= 0.f && u <= wm && v >= 0.f && v <= hm && qz > 0.f;
-  const size_t row = static_cast<size_t>(vi) * img_w + ui;
-  const float4 g0 = __ldg(ref_pack + 2 * row);
-  const float4 g1 = __ldg(ref_pack + 2 * row + 1);
-  const float dx = px - g0.x, dy = py - g0.y, dz = pz - g0.z;
-  const float nx = g0.w, ny = g1.x, nz = g1.y;
-  const bool dist_ok = ((dx * dx + dy * dy) + dz * dz) < dist2;
-  const bool valid = zs > 0.f && in_img && g1.z > 0.f && dist_ok;
-  const float r = (nx * dx + ny * dy) + nz * dz;
-  // torch.clamp's order and its NaN (a NaN stays a NaN)
-  const float ra = fabsf(r);
-  const float lo = ra < 1e-12f ? 1e-12f : ra;
-  const float q = __ldg(delta) / lo;
-  const float huber = q > 1.f ? 1.f : q;
-  const float inl = valid ? 1.f : 0.f;
-  const float wgt = inl * huber;
-  const float j0 = py * nz - pz * ny, j1 = pz * nx - px * nz, j2 = px * ny - py * nx;
-  // pixel i's row goes to its accumulator's slab: slab i % 8, row i / 8
-  const int n8 = (n + kAcc - 1) / kAcc;
-  float4* out = terms + 4 * (static_cast<size_t>(i % kAcc) * n8 + i / kAcc);
-  out[0] = make_float4(j0 * wgt, j1 * wgt, j2 * wgt, nx * wgt);
-  out[1] = make_float4(ny * wgt, nz * wgt, j0, j1);
-  out[2] = make_float4(j2, nx, ny, nz);
-  out[3] = make_float4(r, inl, 1.f, 0.f);
+struct Level {
+  const float* src;
+  const float4* ref_pack;
+  int img_w, img_h;
+  float fx, fy, cx, cy, dist2;
+};
+
+// One producer thread's kPix pixels of its part of a stage: their 29
+// products into the stage at the accumulator's rows base + lane, base +
+// lane + 32, ... (those below `live`; stage_base: the stage's first
+// row, so the part starts base - stage_base rows in).  Loads first for every
+// pixel, so the source and the gathered reference rows of all kPix are in
+// flight together.
+__device__ __forceinline__ void produce(const Level& L, const float (&T)[12],
+                                        const float (&P)[12], float delta, int j, int base,
+                                        int stage_base, int lane, int live,
+                                        float* __restrict__ stage) {
+  float x[kPix], y[kPix], zs[kPix], px[kPix], py[kPix], pz[kPix];
+  bool in_img[kPix];
+  float4 g0[kPix], g1[kPix];
+  const float wm = static_cast<float>(L.img_w - 1), hm = static_cast<float>(L.img_h - 1);
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+    const int i = base + lane + 32 * q;  // the accumulator's row
+    const size_t p = static_cast<size_t>(j) + static_cast<size_t>(kAcc) * (i < live ? i : 0);
+    x[q] = __ldg(L.src + 3 * p);
+    y[q] = __ldg(L.src + 3 * p + 1);
+    zs[q] = __ldg(L.src + 3 * p + 2);
+  }
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+    px[q] = ((T[0] * x[q] + T[1] * y[q]) + T[2] * zs[q]) + T[3];
+    py[q] = ((T[4] * x[q] + T[5] * y[q]) + T[6] * zs[q]) + T[7];
+    pz[q] = ((T[8] * x[q] + T[9] * y[q]) + T[10] * zs[q]) + T[11];
+    const float qx = ((P[0] * px[q] + P[1] * py[q]) + P[2] * pz[q]) + P[3];
+    const float qy = ((P[4] * px[q] + P[5] * py[q]) + P[6] * pz[q]) + P[7];
+    const float qz = ((P[8] * px[q] + P[9] * py[q]) + P[10] * pz[q]) + P[11];
+    const float u = L.fx * qx / qz + L.cx;
+    const float v = L.fy * qy / qz + L.cy;
+    // clipped as floats (a NaN to 0), as the plain version does
+    const float uf = rintf(u), vf = rintf(v);
+    const int ui = static_cast<int>(uf >= 0.f ? (uf <= wm ? uf : wm) : 0.f);
+    const int vi = static_cast<int>(vf >= 0.f ? (vf <= hm ? vf : hm) : 0.f);
+    in_img[q] = u >= 0.f && u <= wm && v >= 0.f && v <= hm && qz > 0.f;
+    const size_t row = static_cast<size_t>(vi) * L.img_w + ui;
+    g0[q] = __ldg(L.ref_pack + 2 * row);
+    g1[q] = __ldg(L.ref_pack + 2 * row + 1);
+  }
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+    const int r_in = base - stage_base + lane + 32 * q;  // the row within the stage
+    if (base + lane + 32 * q >= live) break;  // rows grow with q: the rest are past the end
+    const float dx = px[q] - g0[q].x, dy = py[q] - g0[q].y, dz = pz[q] - g0[q].z;
+    const float nx = g0[q].w, ny = g1[q].x, nz = g1[q].y;
+    const bool dist_ok = ((dx * dx + dy * dy) + dz * dz) < L.dist2;
+    const bool valid = zs[q] > 0.f && in_img[q] && g1[q].z > 0.f && dist_ok;
+    const float r = (nx * dx + ny * dy) + nz * dz;
+    // torch.clamp's order and its NaN (a NaN stays a NaN)
+    const float ra = fabsf(r);
+    const float lo = ra < 1e-12f ? 1e-12f : ra;
+    const float qh = delta / lo;
+    const float huber = qh > 1.f ? 1.f : qh;
+    const float inl = valid ? 1.f : 0.f;
+    const float wgt = inl * huber;
+    const float jac[6] = {py[q] * nz - pz[q] * ny, pz[q] * nx - px[q] * nz,
+                          px[q] * ny - py[q] * nx, nx, ny, nz};
+    float jw[6];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) jw[a] = jac[a] * wgt;
+    float* out = stage + r_in;
+    int s = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int b = a; b < 6; ++b) out[kStride * s++] = jw[a] * jac[b];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) out[kStride * (21 + a)] = jw[a] * r;
+    out[kStride * 27] = (r * r) * inl;
+    out[kStride * 28] = inl;
+  }
 }
 
 // sin and cos by core/exact.sincos's polynomial
@@ -157,92 +240,10 @@ __device__ void mat3(const double a[3][3], const double* b, int bs, int cols, do
       out[i * os + j] = (a[i][0] * b[j] + a[i][1] * b[bs + j]) + a[i][2] * b[2 * bs + j];
 }
 
-__global__ void __launch_bounds__(kSumThreads) icp_solve_kernel(
-    const float4* __restrict__ terms, int n, float* __restrict__ partial,
-    unsigned int* __restrict__ counter, const float* __restrict__ T,
-    float* __restrict__ T_out, float* __restrict__ out) {
-  // block j runs accumulator j of every sum: the rows of pixels j, j + 8,
-  // ... (its slab), streamed through a ring of kStages chunks of shared
-  // memory by cp.async; thread c < 29 folds sum c over them in order, and
-  // the last block to finish adds the 8 accumulators and solves
-  extern __shared__ float4 stage[];  // [kStages][kChunk * 4]
-  __shared__ bool last;
-  __shared__ float total[kSums];
-  const int j = blockIdx.x, t = threadIdx.x;
-  const int n8 = (n + kAcc - 1) / kAcc;
-  const int live = n > j ? (n - j + kAcc - 1) / kAcc : 0;  // rows of real pixels
-  const float4* slab = terms + static_cast<size_t>(j) * n8 * 4;
-  const int chunks = (n8 + kChunk - 1) / kChunk;
-  auto issue = [&](int k) {
-    if (k < chunks) {
-      float4* dst = stage + (k % kStages) * kChunk * 4;
-      const int rows = min(kChunk, n8 - k * kChunk);
-      const float4* src = slab + static_cast<size_t>(k) * kChunk * 4;
-      for (int e = t; e < rows * 4; e += kSumThreads) __pipeline_memcpy_async(dst + e, src + e, 16);
-    }
-    __pipeline_commit();
-  };
-  for (int k = 0; k < kStages - 1; ++k) issue(k);
-  // every sum's term is (row[a] * row[b]) * row[e], row[14] holding 1:
-  // jw[a] jac[b - 6] * 1 (sums 0-20), jw[a] r * 1 (21-26), (r r) inlier
-  // (27), inlier * 1 * 1 (28); x * 1 is x, so the plain version's products
-  const int sc = t;  // the sum this thread folds
-  int a = 13, b = 14, e = 14;
-  if (sc < 21) {
-    int k = sc;
-    a = 0;
-    while (k >= 6 - a) {
-      k -= 6 - a;
-      ++a;
-    }
-    b = 6 + a + k;
-  } else if (sc < 27) {
-    a = sc - 21;
-    b = 12;
-  } else if (sc == 27) {
-    a = b = 12;
-    e = 13;
-  }
-  float acc = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    issue(k + kStages - 1);
-    __pipeline_wait_prior(kStages - 1);
-    __syncthreads();
-    if (sc < kSums) {
-      const float* rows = reinterpret_cast<const float*>(stage + (k % kStages) * kChunk * 4);
-      const int i0 = k * kChunk;
-      const int count = min(kChunk, n8 - i0);
-      const int real = max(0, min(count, live - i0));
-      int r = 0;
-      if (k == 0) {  // the first row seeds the accumulator (a padded one with +0)
-        acc = real > 0 ? (rows[a] * rows[b]) * rows[e] : 0.f;
-        r = 1;
-      }
-#pragma unroll 8
-      for (; r < real; ++r) {
-        const float* row = rows + r * kTerms;
-        acc = acc + (row[a] * row[b]) * row[e];
-      }
-      for (; r < count; ++r) acc = acc + 0.f;  // a padded pixel adds +0
-    }
-    __syncthreads();
-  }
-  if (sc < kSums) partial[j * 32 + sc] = acc;
-  __threadfence();
-  __syncthreads();
-  if (t == 0) last = atomicAdd(counter, 1u) == kAcc - 1;
-  __syncthreads();
-  if (!last) return;
-  // the last block: the 8 accumulators of each sum added in order
-  __threadfence();
-  if (t < kSums) {
-    const volatile float* pv = partial;
-    float s = pv[t];
-    for (int jj = 1; jj < kAcc; ++jj) s = s + pv[jj * 32 + t];
-    total[t] = s;
-  }
-  __syncthreads();
-  if (t != 0) return;
+// The 29 sums -> the damped 6x6 solve, the se3 exp and T <- exp(x) T in
+// float64, rounded once: T_out, rmse and the inlier count.
+__device__ void solve_update(const float* total, const float* __restrict__ T,
+                             float* __restrict__ T_out, float* __restrict__ out) {
   double sums[kSums];
   for (int q = 0; q < kSums; ++q) sums[q] = static_cast<double>(total[q]);
   // [A | -b], A symmetric from its upper triangle, the damping on the diagonal
@@ -321,35 +322,163 @@ __global__ void __launch_bounds__(kSumThreads) icp_solve_kernel(
   out[1] = static_cast<float>(n_in);
 }
 
-}  // namespace
-
-extern "C" int dst_icp_pixels(const float* T, const float* src, const void* ref_pack,
-                              const float* ref_pose, const float* delta, int img_w, int img_h,
-                              float fx, float fy, float cx, float cy, float dist2,
-                              void* terms, unsigned int* counter, void* stream) {
-  const int n = img_w * img_h;
-  const int blocks = (n + kBlock - 1) / kBlock;
-  if (blocks > 0) {
-    icp_pixels_kernel<<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        T, src, static_cast<const float4*>(ref_pack), ref_pose, delta, img_w, img_h, fx, fy, cx,
-        cy, dist2, static_cast<float4*>(terms), counter);
+__global__ void __cluster_dims__(kAcc, 1, 1) __launch_bounds__(kThreads, 1)
+    icp_step_kernel(const float* __restrict__ T, const float* __restrict__ ref_pose,
+                    const float* __restrict__ delta_p, Level L, float* __restrict__ T_out,
+                    float* __restrict__ out) {
+  extern __shared__ __align__(16) float ring[];  // [kStages][kSums][kStride]
+  __shared__ float part[kSums];   // this CTA's accumulators
+  __shared__ float total[kSums];  // CTA 0: the 8 added in order
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageFloats);
+  uint64_t* empty = full + kStages;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int j = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int n = L.img_w * L.img_h;
+  const int n8 = (n + kAcc - 1) / kAcc;
+  const int live = n > j ? (n - j + kAcc - 1) / kAcc : 0;  // rows of real pixels
+  const int stages = (live + kStageRows - 1) / kStageRows;
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32 * kSlotWarps);  // the lanes of the warps filling it
+      mbar_init(empty + s, 32);  // the consumer warp's lanes
+    }
+    mbar_init_fence();
   }
-  return static_cast<int>(cudaGetLastError());
+  __syncthreads();
+  if (warp == 0) {
+    // the consumer: lane c folds sum c over the stages in order (lanes
+    // past the sums fold sum 28 again, unused), from a ring of kAhead
+    // 16-byte loads in registers that runs on across stage boundaries:
+    // the next stage's barrier is tested 2 kAhead groups before the end
+    // of the current one and waited on kAhead groups before it
+    const float* mine = ring + min(lane, kSums - 1) * kStride;
+    const int whole = live / kStageRows;  // stages of kStageRows real rows
+    float acc = 0.f;
+    if (whole > 0) {
+      mbar_wait(full, 0);
+      float4 buf[kAhead];
+#pragma unroll
+      for (int d = 0; d < kAhead; ++d) buf[d] = *reinterpret_cast<const float4*>(mine + 4 * d);
+      for (int k = 0; k < whole; ++k) {
+        const int slot = k % kStages, next = (k + 1) % kStages;
+        const bool more = k + 1 < whole;
+        const float* cur = mine + slot * kStageFloats;
+        const float* nxt = mine + next * kStageFloats;
+        bool ready = true;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          const float4 v = buf[g % kAhead];
+          if (g + 2 * kAhead == kGroups && more) ready = mbar_test(full + next, ((k + 1) / kStages) & 1);
+          if (g + kAhead < kGroups) {
+            buf[g % kAhead] = *reinterpret_cast<const float4*>(cur + 4 * (g + kAhead));
+          } else if (more) {
+            if (g + kAhead == kGroups && !ready) mbar_wait(full + next, ((k + 1) / kStages) & 1);
+            buf[g % kAhead] = *reinterpret_cast<const float4*>(nxt + 4 * (g + kAhead - kGroups));
+          }
+          acc = g == 0 && k == 0 ? v.x : acc + v.x;  // the first real row seeds
+          acc = acc + v.y;
+          acc = acc + v.z;
+          acc = acc + v.w;
+        }
+        mbar_arrive(empty + slot);
+      }
+    }
+    const int tail = live - whole * kStageRows;  // the last stage's rows, partly filled
+    if (tail > 0) {
+      mbar_wait(full + whole % kStages, (whole / kStages) & 1);
+      const float* rows = mine + (whole % kStages) * kStageFloats;
+      int r = 0;
+      if (whole == 0) {
+        acc = rows[0];
+        r = 1;
+      }
+      for (; r < tail; ++r) acc = acc + rows[r];
+    }
+    // a padded pixel adds +0 (an accumulator with no real pixel holds +0)
+    if (lane < kSums) part[lane] = live < n8 ? acc + 0.f : acc;
+  } else if (warp % 4 != 0) {
+    // a producer: parts pw, pw + kProducers, ... of the stages in order
+    const int pw = warp - warp / 4 - 1;
+    float Tr[12], Pr[12];
+#pragma unroll
+    for (int e = 0; e < 12; ++e) {
+      Tr[e] = __ldg(T + e);
+      Pr[e] = __ldg(ref_pose + e);
+    }
+    const float delta = __ldg(delta_p);
+    for (int g = pw; g < stages * kSlotWarps; g += kProducers) {
+      const int k = g / kSlotWarps, slot = k % kStages;
+      if (k >= kStages) mbar_wait(empty + slot, (k / kStages - 1) & 1);
+      produce(L, Tr, Pr, delta, j, k * kStageRows + (g % kSlotWarps) * 32 * kPix,
+              k * kStageRows, lane, live, ring + slot * kStageFloats);
+      mbar_arrive(full + slot);
+    }
+  }
+  // the end: CTA 0 adds the cluster's 8 accumulators in order and solves
+  cluster.sync();
+  if (j == 0 && t < kSums) {
+    float s = part[t];
+    for (int r = 1; r < kAcc; ++r) s = s + *cluster.map_shared_rank(part + t, r);
+    total[t] = s;
+  }
+  cluster.sync();  // the other CTAs' shared memory lives until CTA 0 has read it
+  if (j == 0 && t == 0) solve_update(total, T, T_out, out);
 }
 
-extern "C" int dst_icp_solve(const void* terms, int n, float* partial, unsigned int* counter,
-                             const float* T, float* T_out, float* out, void* stream) {
-  const int smem = kStages * kChunk * kTerms * static_cast<int>(sizeof(float));
-  // above 48 KB of dynamic shared memory only once allowed; the first call
-  // of a step runs eagerly, before any capture
+// The order floor: 29 chains of `rows` dependent float32 adds, in
+// registers, one warp (a lane a chain, as the consumer folds them).
+__global__ void __launch_bounds__(32) icp_chain_kernel(const float* __restrict__ seed,
+                                                       int rows, float* __restrict__ out) {
+  const int c = threadIdx.x;
+  if (c >= kSums) return;
+  const float inc = __ldg(seed + c);
+  float acc = inc;
+#pragma unroll 16
+  for (int r = 1; r < rows; ++r) acc = acc + inc;
+  out[c] = acc;
+}
+
+// above 48 KB of dynamic shared memory only once allowed; the first call
+// of a step runs eagerly, before any capture
+cudaError_t set_smem() {
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        icp_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+        icp_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  icp_solve_kernel<<<kAcc, kSumThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(terms), n, partial, counter, T, T_out, out);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// How many of the kernel's 8-CTA clusters the card can hold at once (0:
+// it cannot schedule one, and icp_step raises).
+extern "C" int dst_icp_clusters(int* count) {
+  cudaError_t err = set_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kAcc);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(count, icp_step_kernel, &cfg));
+}
+
+extern "C" int dst_icp_step(const float* T, const float* src, const void* ref_pack,
+                            const float* ref_pose, const float* delta, int img_w, int img_h,
+                            float fx, float fy, float cx, float cy, float dist2, float* T_out,
+                            float* out, void* stream) {
+  const cudaError_t err = set_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Level L{src, static_cast<const float4*>(ref_pack), img_w, img_h, fx, fy, cx, cy, dist2};
+  icp_step_kernel<<<kAcc, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      T, ref_pose, delta, L, T_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dst_icp_chain(const float* seed, int rows, float* out, void* stream) {
+  icp_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(seed, rows, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,27 +4,34 @@ Replaces no TPU kernel.  Its counterpart is the body of the JAX
 `_icp_level` loop (disinfect_slam_tpu/systems/odometry.py:116), XLA ops
 inside `jax.jit`, no Pallas.  The kernel (csrc/icp_step.cu) was added so
 that the card gives the CPU's bits through the tracker, and to cut an
-iteration's ~35 launches to two:
+iteration's ~35 launches to one.  It computes, per source pixel, the
+transform by T and by the reference pose (SE3.apply_xyz's order), the
+projection with IEEE divisions, round half to even and clip, the packed
+[N, 8] reference row, the distance gate, the residual, the Huber weight
+and the Jacobian, and the pixel's 29 float32 products (`products`); then
+29 float32 sums over the pixels, the 21 upper-triangle entries of
+J^T W J, the 6 of J^T W r, sum r^2 over inliers and the inlier count,
+each run by 8 interleaved accumulators (pixel p adds into p mod 8, in
+pixel order, the first real pixel seeding, a padded one adding +0), then
+the 8 added in order: XLA:CPU's 8-lane vector accumulation of the
+reference's float32 dot; then the 1e-6 damping, the 6x6 solve in float64
+(core/exact.solve_lu: LU with partial pivoting, as jnp.linalg.solve, in a
+fixed order of operations), the se3 exp and the pose update in float64
+(sine and cosine by core/exact.sincos's polynomial), rounded once to
+float32: T, rmse and inliers.
 
-  pass A  one thread a source pixel: the transform by T and by the
-          reference pose (SE3.apply_xyz's order), the projection with IEEE
-          divisions, round half to even and clip, the packed [N, 8]
-          reference row, the distance gate, the residual, the Huber weight
-          and the Jacobian; it writes the pixel's row [16]: jw = jac *
-          weight [6], jac [6], r, inlier, 1, 0, into its accumulator's slab
-          ([8, N / 8, 16]);
-  pass B  8 blocks, one an accumulator: 29 float32 sums over the
-          pixels, the 21 upper-triangle entries of J^T W J, the 6 of
-          J^T W r, sum r^2 over inliers and the inlier count, each product
-          rounded to float32 and each sum run by 8 interleaved
-          accumulators (pixel p adds into p mod 8, in pixel order), then
-          the 8 added in order by the last block: XLA:CPU's 8-lane vector
-          accumulation of the reference's float32 dot; then
-          the 1e-6 damping, the 6x6 solve in float64 (core/exact.solve_lu:
-          LU with partial pivoting, as jnp.linalg.solve, in a fixed order
-          of operations), the se3 exp and the pose update in float64 (sine
-          and cosine by core/exact.sincos's polynomial), rounded once to
-          float32: T, rmse and inliers.
+What bounds it is that order: each accumulator is a chain of N / 8
+dependent float32 adds (38400 at 640x480), whose latency is the order
+floor (`chain`, timed by chip_smoke.py phase 7); the bytes take a
+twentieth of it.  So the kernel is one launch of one 8-CTA cluster, CTA j
+accumulator j: 12 producer warps run the per-pixel arithmetic for the
+CTA's pixels j, j + 8, ... and write their products into a ring of
+STAGES shared-memory stages of STAGE_ROWS rows, sum-major; one consumer
+warp folds them, lane c sum c, four rows a 16-byte load; the cluster's
+CTA 0 adds the 8 partials through distributed shared memory and solves.
+Nothing goes through device memory between the pixels and the solve.
+The consumer alone runs near the floor; the producers' arithmetic on 8
+SMs and their stride-8 loads hold the kernel at ~1.4x it (PERF.md).
 
 The sums stay float32 on purpose.  A float64 sum, a float32 pairwise tree
 and float32 sums of contiguous chunks each move the soak test's corridor
@@ -33,14 +40,14 @@ against 6: the corridor's weakly constrained direction follows the
 reference's own float32 accumulation, which one accumulator or eight in
 pixel order keep (PERF.md, PR 17).
 
-Every operation of both passes is an IEEE operation with one rounding
-(the kernel contracts nothing, `-fmad=false`), so `icp_step_reference`,
-the plain torch version below, repeats the same arithmetic in the same
-order and gives the same bits on the CPU and on the card; it uses no
-matmul, no linalg and no float32 sin, cos or sqrt, and takes its
-sequential sums with numpy on the host.  `icp_step` launches the kernel
-for CUDA tensors and raises if it cannot; for CPU tensors it runs the
-plain version.
+Every operation is an IEEE operation with one rounding (the kernel
+contracts nothing, `-fmad=false`), so `icp_step_reference`, the plain
+torch version below, repeats the same arithmetic in the same order and
+gives the same bits on the CPU and on the card; it uses no matmul, no
+linalg and no float32 sin, cos or sqrt, and takes its sequential sums
+with numpy on the host.  `icp_step` launches the kernel for CUDA tensors
+and raises if it cannot (a build that fails, a card that cannot schedule
+the cluster); for CPU tensors it runs the plain version.
 """
 
 from __future__ import annotations
@@ -58,10 +65,10 @@ from . import build
 
 _C = ctypes
 _F32, _F64 = torch.float32, torch.float64
-BLOCK = 256  # pass A's threads a block
 ACC = 8  # the interleaved float32 accumulators a sum: pixel p adds into p mod 8
 SUMS = 29  # 21 of J^T W J, 6 of J^T W r, sum r^2 over inliers, inliers
-TERMS = 16  # a pixel's row: jw[6], jac[6], r, inlier, 1, 0
+STAGE_ROWS = 256  # the kernel's rows of one accumulator a shared-memory stage
+STAGES = 6  # the kernel's ring of stages
 DAMPING = float(torch.tensor(1e-6, dtype=_F32))  # the JAX 1e-6, a float32
 
 
@@ -95,8 +102,10 @@ def sequential_sums(prods: torch.Tensor) -> torch.Tensor:
 
 def _sincos(theta: float) -> Tuple[float, float]:
     """core/exact.sincos on one Python float (IEEE double arithmetic, the
-    same operations in the same order)."""
-    t = theta - float(round(theta * INV_TWO_PI)) * TWO_PI
+    same operations in the same order; a NaN or an infinity gives NaNs,
+    as the kernel's rint does)."""
+    k = theta * INV_TWO_PI
+    t = theta - (float(round(k)) if math.isfinite(k) else k) * TWO_PI
     t2 = t * t
     s = (-1) ** (SIN_TERMS - 1) * INV_FACT[2 * SIN_TERMS - 1]
     c = (-1) ** SIN_TERMS * INV_FACT[2 * SIN_TERMS]
@@ -240,41 +249,62 @@ def _check_inputs(T, src, ref_pack, ref_pose, delta, img_w, img_h) -> None:
         raise ValueError("ref_pack must be 16-byte aligned")
 
 
+def _clusters(dev: torch.device) -> None:
+    """At first use on a device: raise unless the card can hold one of the
+    kernel's 8-CTA clusters (8 SMs of one GPC with a CTA's shared memory
+    free each); there is no fallback."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key in _clusters.checked:
+        return
+    count = _C.c_int(0)
+    fn = build.entry("icp_step", "dst_icp_clusters", [_C.c_void_p])
+    with torch.cuda.device(dev):
+        build.check(fn(_C.byref(count)), "icp_step (cluster occupancy)")
+    if count.value < 1:
+        raise RuntimeError(f"icp_step: {torch.cuda.get_device_name(dev)} cannot schedule an "
+                           f"{ACC}-CTA cluster of the kernel")
+    _clusters.checked.add(key)
+
+
+_clusters.checked = set()
+
+
 def icp_step(T, src, ref_pack, ref_pose, delta, intr, img_w: int, img_h: int, dist2: float):
-    """One ICP iteration (two launches: the per-pixel pass and the solve);
-    see icp_step_reference for the contract."""
+    """One ICP iteration (one launch); see icp_step_reference for the
+    contract."""
     if src.device.type == "cpu":
         return icp_step_reference(T, src, ref_pack, ref_pose, delta, intr, img_w, img_h, dist2)
     _check_inputs(T, src, ref_pack, ref_pose, delta, img_w, img_h)
     dev = src.device
-    n = img_w * img_h
-    terms = torch.empty((ACC, -(-n // ACC), TERMS), dtype=_F32, device=dev)
-    partial = torch.empty((ACC, 32), dtype=_F32, device=dev)
-    counter = torch.empty((1,), dtype=torch.int32, device=dev)
+    _clusters(dev)
     T_new = torch.empty((4, 4), dtype=_F32, device=dev)
     out = torch.empty((2,), dtype=_F32, device=dev)
     fx, fy, cx, cy = intr
-    pass_a = build.entry("icp_step", "dst_icp_pixels", [
+    step = build.entry("icp_step", "dst_icp_step", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
         _C.c_int, _C.c_float, _C.c_float, _C.c_float, _C.c_float, _C.c_float,
         _C.c_void_p, _C.c_void_p, _C.c_void_p,
     ])
-    pass_b = build.entry("icp_step", "dst_icp_solve", [
-        _C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p,
-    ])
-    stream = build.stream_of(src)
     with torch.cuda.device(dev):
-        err = pass_a(build.ptr(T), build.ptr(src), build.ptr(ref_pack), build.ptr(ref_pose),
-                     build.ptr(delta), img_w, img_h, fx, fy, cx, cy, dist2, build.ptr(terms),
-                     build.ptr(counter), stream)
+        err = step(build.ptr(T), build.ptr(src), build.ptr(ref_pack), build.ptr(ref_pose),
+                   build.ptr(delta), img_w, img_h, fx, fy, cx, cy, dist2, build.ptr(T_new),
+                   build.ptr(out), build.stream_of(src))
         count_launch(icp_step)
-        build.check(err, "icp_step (pixels)")
-        err = pass_b(build.ptr(terms), n, build.ptr(partial), build.ptr(counter), build.ptr(T),
-                     build.ptr(T_new), build.ptr(out), stream)
-        count_launch(icp_step)
-        build.check(err, "icp_step (solve)")
+        build.check(err, "icp_step")
     return T_new, out[0], out[1]
 
 
 icp_step.launches = 0
+
+
+def chain(seed: torch.Tensor, rows: int, out: torch.Tensor) -> None:
+    """The order floor's probe (not on any path, not counted): 29 chains of
+    `rows` dependent float32 adds of seed[c] f32 [32] in registers, one
+    warp, into out f32 [32] (CUDA tensors); its device time at rows = N / 8
+    is the least an iteration over N pixels can take in the kernel's sum
+    order."""
+    fn = build.entry("icp_step", "dst_icp_chain", [_C.c_void_p, _C.c_int, _C.c_void_p,
+                                                   _C.c_void_p])
+    with torch.cuda.device(seed.device):
+        build.check(fn(build.ptr(seed), rows, build.ptr(out), build.stream_of(seed)),
+                    "icp_step (chain)")

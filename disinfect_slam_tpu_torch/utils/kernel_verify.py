@@ -235,10 +235,12 @@ def verify_captured_steps(device="cuda", perturb: bool = False) -> Result:
 def verify_icp_step(device="cuda", perturb: bool = False) -> Result:
     """icp_step (csrc/icp_step.cu) on the small scene's pyramid, the frame
     tracked against itself seen from the check's pose, three iterations
-    at each level: T, rmse and inliers bit-exact against icp_step_reference
-    on the same device and on the CPU (the kernel's contract: the CPU's
-    bits on the card)."""
-    from ..ops.cuda.icp_kernel import icp_step, icp_step_reference
+    at each level, and on a ragged crop of level 0 (the top-left 23 x 89
+    pixels: 2047, one under 8 x STAGE_ROWS, so seven accumulators fill one
+    stage and the eighth ends a row short, on a padded pixel): T, rmse
+    and inliers bit-exact against icp_step_reference on the same device
+    and on the CPU (the kernel's contract: the CPU's bits on the card)."""
+    from ..ops.cuda.icp_kernel import ACC, STAGE_ROWS, icp_step, icp_step_reference
     from ..systems.odometry import ICPOdometry, transform_points
 
     depth = _scene_frame("cpu").depth
@@ -248,9 +250,14 @@ def verify_icp_step(device="cuda", perturb: bool = False) -> Result:
     world_T_ref = torch.from_numpy(np.linalg.inv(SCENE_POSE).astype(np.float32))
     delta = torch.tensor(0.05)
     dist2 = float(np.float32(0.25 * 0.25))
+    ragged_h, ragged_w = 23, 89
+    assert ragged_h * ragged_w == ACC * STAGE_ROWS - 1
+    verts0, normals0, valid0 = pyr[0]
+    levels = [(lv, *maps) for lv, maps in enumerate(pyr)]
+    levels.append((0, *(m[:ragged_h, :ragged_w] for m in (verts0, normals0, valid0))))
     err = 0.0
     inliers = []
-    for lv, (verts, normals, valid) in enumerate(pyr):
+    for lv, verts, normals, valid in levels:
         h, w = verts.shape[:2]
         pack = torch.cat([transform_points(world_T_ref, verts).reshape(-1, 3),
                           transform_points(world_T_ref, normals, False).reshape(-1, 3),

@@ -1,7 +1,8 @@
 """PyTorch port, the tracker's device-independent arithmetic on the CPU:
 ICP's kernel (ops/cuda/icp_kernel.py) through its plain version against
 the jitted JAX `_icp_level`, the plain version's bits against the thread
-count, the CUDA source's constants against the plain version's, the
+count, its sums against the kernel's order written out in float32
+scalars, the CUDA source's constants against the plain version's, the
 restated `_prep` against the jitted JAX `_prep` bit for bit (ROADMAP
 Queue 3's fault), the pose graph, the descriptor and the match against
 the thread count, and utils/parting.py's lockstep walk.  Inputs come from
@@ -125,10 +126,63 @@ def test_plain_bits_do_not_depend_on_the_thread_count():
         assert torch.equal(a, b)
 
 
+def _fold(prods: np.ndarray) -> np.ndarray:
+    """The kernel's sum order written out in numpy float32 scalars: for
+    each of the 29 sums, accumulator j takes pixels j, j + 8, ... in order,
+    its first row seeding it and a padded pixel (past n, up to a multiple
+    of 8) adding +0; then the 8 accumulators added in order 0..7."""
+    n = prods.shape[0]
+    rows = -(-n // 8)
+    out = []
+    for c in range(prods.shape[1]):
+        part = []
+        for j in range(8):
+            acc = None
+            for i in range(rows):
+                x = prods[j + 8 * i, c] if j + 8 * i < n else np.float32(0.0)
+                acc = x if acc is None else np.float32(acc + x)
+            part.append(acc)
+        total = part[0]
+        for j in range(1, 8):
+            total = np.float32(total + part[j])
+        out.append(total)
+    return np.array(out, np.float32)
+
+
+def _fold_case(kind: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    if kind == "zeros":
+        # signed zeros: -0 rows, so that a seed of +0 or a missing +0 of
+        # padding shows in the sign bit
+        x = np.full((n, icp_kernel.SUMS), -0.0, np.float32)
+        x[:, 1::3] = 0.0
+        return x
+    # magnitudes over 12 decades and both signs: any other order of the
+    # adds rounds differently
+    mag = 10.0 ** rng.uniform(-6, 6, (n, icp_kernel.SUMS))
+    return (mag * rng.choice([-1.0, 1.0], mag.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,n", [("values", 1), ("values", 5), ("values", 8),
+                                    ("values", 8 * 3 + 5), ("values", 8 * 40 + 1),
+                                    ("values", 1025), ("zeros", 3), ("zeros", 8),
+                                    ("zeros", 9), ("zeros", 16)])
+def test_sequential_sums_keep_the_kernels_order(kind, n):
+    """sequential_sums, the order csrc/icp_step.cu keeps, equals the fold
+    written out in float32 scalars bit for bit: n < 8, n = 8k + r and
+    signed zeros; on the values, a float64 sum rounded once differs."""
+    x = _fold_case(kind, n)
+    got = icp_kernel.sequential_sums(torch.from_numpy(x)).numpy()
+    want = _fold(x)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if kind == "values" and n > 8:
+        assert not np.array_equal(want, x.astype(np.float64).sum(0).astype(np.float32))
+
+
 def test_the_cuda_source_holds_the_plain_versions_constants():
     """csrc/icp_step.cu's hex literals are core/exact's doubles (1/n!, 2 pi,
-    1/(2 pi)), its damping the float32 1e-6, its accumulators and row
-    width the plain version's."""
+    1/(2 pi)), its damping the float32 1e-6, its accumulators, sums, stage
+    rows and stages the plain version's."""
     src = open(SOURCE).read()
     table = re.search(r"kInvFact\[[^\]]*\] = \{([^}]*)\}", src).group(1)
     values = [float.fromhex(v.strip()) for v in table.split(",") if v.strip()]
@@ -137,7 +191,10 @@ def test_the_cuda_source_holds_the_plain_versions_constants():
     assert float.fromhex(consts["kTwoPi"]) == exact.TWO_PI
     assert float.fromhex(consts["kInvTwoPi"]) == exact.INV_TWO_PI
     assert float(np.float32(consts["kDamping"].rstrip("f"))) == icp_kernel.DAMPING
-    assert int(consts["kAcc"]) == icp_kernel.ACC and int(consts["kTerms"]) == icp_kernel.TERMS
+    assert int(consts["kAcc"]) == icp_kernel.ACC and int(consts["kSums"]) == icp_kernel.SUMS
+    assert consts["kStageRows"] == "32 * kPix * kSlotWarps"
+    assert 32 * int(consts["kPix"]) * int(consts["kSlotWarps"]) == icp_kernel.STAGE_ROWS
+    assert int(consts["kStages"]) == icp_kernel.STAGES
     assert int(consts["kSinTerms"]) == exact.SIN_TERMS
 
 
