@@ -91,7 +91,9 @@ exits non-zero:
      on the app's SLAM volume at 640x480 and 320x240, bit-equal to its
      plain version, its branches counted; (d) LoopClosureManager on the
      card over tests/test_loop_closure.py's drifted out-and-back keyframes
-     (tests/torch_cases.py): the loop closes and the error falls; (e)
+     (tests/torch_cases.py): the loop closes and the error falls, the
+     queries and pose graphs as captured steps, 12 pose_graph_solve
+     launches a closure, the wall time beside the parent tree's; (e)
      where the card's tracker parts from the CPU's (utils/parting.py):
      the eager DenseSLAM on the card and on the CPU in lockstep over
      frames 0-10 at track_res_scale 1 and 2, every stage of every frame
@@ -120,7 +122,11 @@ exits non-zero:
      2, bit-equal to its plain version on the card and the CPU, its device
      time beside its bound, its order floor (the chain probe: 29 register
      chains of N / 8 dependent float32 adds) and its plain version's time,
-     and a tracked frame's totals; and the SLAM frame
+     and a tracked frame's totals; the pose graph's kernel
+     (pose_graph_solve) at 8, 32, 128 and 256 nodes, bit-equal to its
+     plain version, its device time beside its float64 bound, its order
+     floor (the chain probe: the pivot steps alone), torch.linalg.solve_ex
+     of the same H and its plain version's time; and the SLAM frame
      profiled (frames 45-59: device time, kernels, idle share; ICP alone:
      kernels, device time and the host time of its ops).
 
@@ -199,7 +205,8 @@ exits non-zero:
      keyframe cap on the card, with the JAX soak's assertions and within
      the JAX soak's counts (data/soak_fingerprint.json; fuse_rows once a
      frame, splat_zbuf_blocks once a tracked frame, icp_step 19 times a
-     tracked frame and a verification), every count and the end position
+     tracked frame and a verification, pose_graph_solve 12 times a
+     closure), every count and the end position
      equal to the port's soak on the CPU (data/orbit_vga_slam_port_poses.json);
      wall time, ms/frame and closures; then K4 on the final volume at the soak's 96x72
      (partial tiles) bit-equal to its plain version, and K2 on the last
@@ -218,8 +225,9 @@ exits non-zero:
      (SEG_PAR_INFER_TOL); no fusion or splat kernel launched;
   14. the kernels' self-check: utils/kernel_verify.verify_all() on the
      card (K1 at 640x480, 1080p and with an early count, the two-stage
-     and the fused integrate of a small scene, K4/K5's render of it),
-     every check PASS in under 60 s; its launches are reported apart
+     and the fused integrate of a small scene, K4/K5's render of it, the
+     captured steps, icp_step, pose_graph_solve: nine checks), every
+     check PASS in under 60 s; its launches are reported apart
      from the main paths' (verify_launches).
   15. the port's benchmark as a user runs it: `python bench_torch.py` in
      its own process (no arguments, so on the card), under a time limit:
@@ -2131,17 +2139,31 @@ def check_slam_zbuf(splat_kernel, vol, pose, dev) -> dict:
     return out
 
 
+# phase 8 (d)'s 12 keyframes before the query and the pose graph were
+# captured steps: chip_smoke.py's own run on the parent tree (NVIDIA H100
+# 80GB HBM3, 700.00 W)
+LC_PARENT_WALL_MS = 5040.252403000011
+
+
 def slam_loop_closure(dev) -> dict:
     """Phase 8 (d): the port's LoopClosureManager on the card over the
     drifted out-and-back keyframes of tests/test_loop_closure.py (its
     JAX-free copy, tests/torch_cases.py): a loop closes, first at keyframe
     5 or later, and the optimised keyframes' error falls below 60% of the
-    drifted estimates' (the CPU test's limits)."""
+    drifted estimates' (the CPU test's limits); the keyframes' queries and
+    the closures' pose graphs run as captured steps (each key's first call
+    captures, within the wall time), each closure's pose graph 12
+    pose_graph_solve launches, counted here."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel
     from disinfect_slam_tpu_torch.systems.loop_closure import LoopClosureManager
+    from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
     from tests.torch_cases import LC_ARGS, LC_H, LC_K, LC_W, out_and_back_keyframes
 
     true_poses, est_poses, depths = out_and_back_keyframes()
     lc = LoopClosureManager(LC_K, LC_H, LC_W, device=dev, **LC_ARGS)
+    reset_launches(pose_graph_kernel.pose_graph_solve)
+    replays = REPLAYS["graph"]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     firsts = [k for k, (d, e) in enumerate(zip(depths, est_poses))
               if lc.add_keyframe(d, e, frame_id=10 * k) is not None]
@@ -2150,11 +2172,16 @@ def slam_loop_closure(dev) -> dict:
                                        for p, g in zip(poses, true_poses)]))
     res = {"closures": lc.closures, "corrections_at": firsts, "verifications": lc.verifications,
            "err_est_m": err(est_poses), "err_opt_m": err(lc.kf_pose_opt),
-           "wall_ms_12_keyframes": wall_ms}
+           "wall_ms_12_keyframes": wall_ms, "wall_ms_12_keyframes_parent": LC_PARENT_WALL_MS,
+           "pose_graph_solve_launches": pose_graph_kernel.pose_graph_solve.launches,
+           "graph_captures": lc.graphs.captures, "graph_replays": REPLAYS["graph"] - replays}
     log(f"[chip_smoke] slam loop closure on the card: {res}")
     if not (lc.closures >= 1 and firsts and firsts[0] >= 5
             and res["err_opt_m"] < 0.6 * res["err_est_m"]):
         raise AssertionError(f"loop closure on the card did not close the chain: {res}")
+    if res["pose_graph_solve_launches"] != 12 * lc.closures:
+        raise AssertionError(f"pose_graph_solve launched {res['pose_graph_solve_launches']} "
+                             f"times for {lc.closures} closures")
     return res
 
 
@@ -2271,6 +2298,84 @@ def icp_yardsticks(dev) -> dict:
             f"{frame['order_floor_ms']:.4f} ms, plain torch {frame['plain_ms']:.4f} ms, "
             f"{sum(ICP_ITERS)} launches")
         out[scale] = {"levels": levels, "per_frame": frame}
+    return out
+
+
+# pose_graph_solve's sizes (nodes, edges as LoopClosureManager pads them):
+# the out-and-back chain, the soak's cap of 24 keyframes, and the manager's
+# default cap of 256 and half of it
+POSE_GRAPH_SIZES = ((8, 16), (32, 64), (128, 256), (256, 512))
+# float64 outside the tensor cores on an H100 SXM (NVIDIA's data sheet,
+# 700 W; an FMA counted as two operations, and the kernel fuses none)
+PEAK_F64_OPS_PER_S = 34e12
+
+
+def pose_graph_ops(m: int, e: int) -> int:
+    """pose_graph_solve's float64 operations on an m-row system of e edges,
+    counted from csrc/pose_graph.cu: each edge's 156 block entries of 6
+    products and 5 adds and their add into H or g (12 each), the
+    diagonal's m adds; each LU step k's m - k - 1 divisions and its
+    multiply-subtract pairs over the trailing m - k - 1 rows and m - k
+    columns (g's included); the back substitution's m divisions and
+    m (m - 1) / 2 multiply-subtract pairs."""
+    lu = sum((m - k - 1) + 2 * (m - k - 1) * (m - k) for k in range(m - 1))
+    return e * 156 * 12 + m + lu + m + m * (m - 1)
+
+
+def pose_graph_yardsticks(dev) -> dict:
+    """Phase 7, the pose graph's kernel (csrc/pose_graph.cu) at
+    POSE_GRAPH_SIZES on tests/torch_cases.pose_graph_case's graphs, the
+    first Gauss-Newton iteration's system: dx bit-equal to its plain version
+    on the card and (up to 32 nodes) on the CPU, one call's device time
+    beside its bound (the larger of its bytes over 3.35 TB/s and its float64
+    operations over PEAK_F64_OPS_PER_S), its order floor (the chain probe:
+    the m - 1 pivot steps alone at the same cluster size), torch.linalg
+    .solve_ex of the same H on the card (the library call; never used by
+    the port) and the plain version's time."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.systems.loop_closure import pose_graph_system
+    from tests.torch_cases import pose_graph_case
+
+    sink = torch.empty(pk.MAX_CLUSTER, dtype=torch.int32, device=dev)
+    out = {}
+    for n_pad, e_pad in POSE_GRAPH_SIZES:
+        host = pose_graph_system(*(torch.from_numpy(a)
+                                   for a in pose_graph_case(n_pad, e_pad, seed=n_pad)))
+        args = [t.to(dev) for t in host]
+        m = 6 * n_pad
+        fn = lambda a=args: pk.pose_graph_solve(*a)  # noqa: E731
+        plain = lambda a=args: pk.pose_graph_solve_reference(*a)  # noqa: E731
+        got, on_card = fn(), plain()
+        err = float((got.cpu().double() - on_card.cpu().double()).abs().max())
+        if n_pad <= 32:
+            want = pk.pose_graph_solve_reference(*host)
+            err = max(err, float((got.cpu().double() - want.double()).abs().max()))
+        nbytes = e_pad * (72 * 8 + 6 * 8 + 8) + m * 8 + m * 4
+        ops = pose_graph_ops(m, e_pad)
+        by_bytes, by_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_F64_OPS_PER_S
+        res = {"n_pad": n_pad, "e_pad": e_pad, "m": m, "shape": list(pk.cluster_shape(m)),
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations", "bytes": nbytes,
+               "ops": ops, "max_abs_err": err}
+        time_kernel(res, fn, "pose_graph_kernel")
+        col = torch.rand(m, dtype=torch.float64, device=dev)
+        res["order_floor_ms"] = kernel_ms(lambda c=col, k=res["shape"][0]: pk.chain(c, k, sink),
+                                          "pose_graph_chain")
+        h, g = pk.normal_equations(*args)
+        res["library_ms"] = kernel_ms(lambda: torch.linalg.solve_ex(h, g))
+        res["plain_ms"] = cuda_time_ms(plain, 1 if n_pad > 32 else 3)
+        print_yardsticks(f"pose_graph_solve m={m} ({n_pad} nodes, {e_pad} edges, "
+                         f"{res['shape'][0]} CTAs, {'shared' if res['shape'][1] else 'device'} "
+                         f"memory)", res)
+        log(f"[chip_smoke] pose_graph_solve m={m}: order floor {res['order_floor_ms']:.4f} ms "
+            f"({m - 1} pivot steps, {1e3 * res['order_floor_ms'] / (m - 1):.2f} us each): "
+            f"the kernel at {res['ms'] / res['order_floor_ms']:.2f}x it")
+        if err != 0.0:
+            raise AssertionError(f"pose_graph_solve at m={m} differs from its plain version "
+                                 f"by {err}")
+        out[n_pad] = res
+        del h, g
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3603,6 +3708,11 @@ def stereo_slice(read_png, smi, dev) -> dict:
     return res
 
 
+# the soak before the query and the pose graph were captured steps:
+# chip_smoke.py's phase 12 on the parent tree (NVIDIA H100 80GB HBM3, 700.00 W)
+SOAK_PARENT_WALL_S = 115.1
+
+
 def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
     """Phase 12: tests/test_soak.py's corridor, all SOAK_FRAMES frames,
     through DenseSLAM on the card (tests/torch_cases.py:run_soak) with the
@@ -3613,11 +3723,11 @@ def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
     plain versions on the soak's own inputs after the run."""
     from tests.torch_cases import check_soak, check_soak_fingerprint, run_soak, soak_fingerprint
 
-    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel, pose_graph_kernel
 
     fns = (fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
            splat_kernel.splat_payload_blocks)
-    reset_launches(*fns, icp_kernel.icp_step)
+    reset_launches(*fns, icp_kernel.icp_step, pose_graph_kernel.pose_graph_solve)
     res, slam = run_soak(SOAK_FRAMES, dev)
     res["launches"] = {fn.__name__: fn.launches for fn in fns}
     log(f"[chip_smoke] soak: {res['frames']} frames in {res['wall_s']:.1f} s, "
@@ -3639,6 +3749,14 @@ def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
     if res["launches"]["icp_step"] != icp_want:
         raise AssertionError(f"soak: icp_step launched {res['launches']['icp_step']} times, "
                              f"expected {icp_want}")
+    res["launches"]["pose_graph_solve"] = pose_graph_kernel.pose_graph_solve.launches
+    log(f"[chip_smoke] soak: pose_graph_solve launched {res['launches']['pose_graph_solve']} "
+        f"times (12 x {res['closures']} closures); the soak took {res['wall_s']:.1f} s "
+        f"against the parent's {SOAK_PARENT_WALL_S} s")
+    if res["launches"]["pose_graph_solve"] != 12 * res["closures"]:
+        raise AssertionError(f"soak: pose_graph_solve launched "
+                             f"{res['launches']['pose_graph_solve']} times for "
+                             f"{res['closures']} closures")
     ref = soak_fingerprint()
     log(f"[chip_smoke] soak against the JAX soak's counts {ref}")
     check_soak_fingerprint(res, ref)
@@ -3945,11 +4063,12 @@ def kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dic
     """Phase 14: utils/kernel_verify.verify_all() on the card, every check
     PASS in under VERIFY_BUDGET_S; its comparison launches are counted
     apart from the main paths'."""
-    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel, pose_graph_kernel
     from disinfect_slam_tpu_torch.utils import kernel_verify
 
     fns = (sample_kernel.sample_rows, fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
-           splat_kernel.splat_payload_blocks, icp_kernel.icp_step)
+           splat_kernel.splat_payload_blocks, icp_kernel.icp_step,
+           pose_graph_kernel.pose_graph_solve)
     reset_launches(*fns)
     t0 = time.perf_counter()
     ok = kernel_verify.verify_all(verbose=True, device=dev)
@@ -5072,6 +5191,7 @@ def main() -> int:
     probe = probes(dev, splat_probe, feature_probe, sample_probe, fuse_kernel)
     splat_slam = slam_zbuf_yardsticks(splat_kernel, slam_vol, slam_pose)
     icp = icp_yardsticks(dev)
+    pose_graph = pose_graph_yardsticks(dev)
     del slam_vol
     slam["profile"] = slam_profile(dev)
     stereo["profile"] = stereo_profile(dev)
@@ -5108,6 +5228,7 @@ def main() -> int:
         "graph_replays": dict(graph_replays),
         "splat_zbuf_slam_320x240": splat_slam,
         "icp_step": icp,
+        "pose_graph_solve": pose_graph,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
         "fingerprint_fused": fp_fused,
@@ -5208,6 +5329,18 @@ def main() -> int:
          "max_abs_err": max(lv["max_abs_err"] for sc in icp.values() for lv in sc["levels"]),
          **{f"{k}_per_frame_scale{sc}": icp[sc]["per_frame"][k]
             for sc in (1, 2) for k in ("ms", "bound_ms", "order_floor_ms", "plain_ms")}},
+        {"name": "pose_graph_solve", "route": "cuda",
+         "source": "disinfect_slam_tpu_torch/csrc/pose_graph.cu",
+         "replaces": "disinfect_slam_tpu/systems/loop_closure.py:243 (the optimize_pose_graph "
+                     "scan body: XLA ops inside jax.jit and lax.scan, no Pallas kernel)",
+         "launches": soak_res["launches"]["pose_graph_solve"],
+         "loop_closure_launches": slam["loop_closure"]["pose_graph_solve_launches"],
+         "verify_launches": verify["launches"]["pose_graph_solve"],
+         **{k: pose_graph[32][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "order_floor_ms", "library_ms")},
+         "max_abs_err": max(r["max_abs_err"] for r in pose_graph.values()),
+         **{f"{k}_{n}_nodes": pose_graph[n][k] for n in (8, 128, 256)
+            for k in ("ms", "bound_ms", "order_floor_ms", "library_ms", "plain_ms")}},
         *probe_kernels(probe, probe_main_launches),
     ]
     # the launches each kernel made through graph replays over the whole run

@@ -71,7 +71,9 @@ def solve_lu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(n, device=a.device)
     for k in range(n - 1):
         p = k + torch.argmax(torch.abs(m[k:, k]))
-        m = m[torch.where(rows == k, p, torch.where(rows == p, k, rows))]
+        # rows k and p swap in place, by a two-row copy on the device (exact)
+        kp = torch.stack([rows[k], p])
+        m.index_copy_(0, kp, m.index_select(0, kp.flip(0)))
         lo = m[k + 1:, k] / m[k, k]
         m[k + 1:, k + 1:] -= lo[:, None] * m[k, k + 1:]
     rhs = m[:, n]

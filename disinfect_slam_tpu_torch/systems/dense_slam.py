@@ -238,8 +238,9 @@ class DenseSLAM:
         # pyramid) at 1/scale resolution while fusion stays full res.
         #
         # capture: the tracked step, frame 0's integrate and the loop
-        # closure's verification ICP as captured steps (the default;
-        # capture=False runs them eagerly); graphs: their one cache.
+        # closure's query, verification ICP and pose graph as captured
+        # steps (the default; capture=False runs them eagerly); graphs:
+        # their one cache (by default room for the pose graph's sizes too).
         if splat_impl not in SPLAT_IMPLS:
             raise ValueError(f"splat_impl must be one of {SPLAT_IMPLS}, got {splat_impl!r}")
         self.device = resolve_device(device)
@@ -260,7 +261,8 @@ class DenseSLAM:
             raise ValueError(f"track_res_scale {ts} must divide the image dims "
                              f"{img_h}x{img_w}")
         self.track_scale = ts
-        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self.graphs = graphs if graphs is not None else StepGraphs(
+            self.device, max_graphs=32 if loop_closure else 8)
         fx, fy, cx, cy = intrinsics
         track_intr = (fx / ts, fy / ts, cx / ts, cy / ts)
         self.track_cam = CameraParams.create(
@@ -296,7 +298,8 @@ class DenseSLAM:
             from .loop_closure import LoopClosureManager
 
             self.lc = LoopClosureManager(intrinsics, img_h, img_w, kf_every=kf_every,
-                                         device=self.device, graphs=self.graphs,
+                                         device=self.device, capture=capture,
+                                         graphs=self.graphs,
                                          **(lc_kwargs or {}))
 
     # ------------------------------------------------------------------

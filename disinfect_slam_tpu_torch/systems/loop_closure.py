@@ -55,9 +55,10 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from ..core.exact import atan2, mm, sincos, solve_lu, sqrt_rn, tree_sum
+from ..core.exact import atan2, mm, sincos, sqrt_rn, tree_sum
+from ..ops.cuda import pose_graph_kernel
 from ..utils.device import resolve_device, upload
-from ..utils.graphs import StepGraphs
+from ..utils.graphs import StaticInputs, StepGraphs, keep
 from .odometry import ICPOdometry, read_result
 
 logger = logging.getLogger(__name__)
@@ -290,10 +291,12 @@ def _edge_residual(xi_i, xi_j, t_i, t_j, z_inv, w):
     return _se3_log(mm(z_inv, mm(_inv_rigid(a), b))) * w
 
 
-def _edge_jacobians(t_i, t_j, z_inv, w) -> Tuple[torch.Tensor, torch.Tensor]:
+def _edge_jacobians(t_i, t_j, z_inv, w) -> Tuple[torch.Tensor, ...]:
     """d residual / d xi_i and d xi_j at xi = 0, [E, 6, 6] each, by forward
     mode: the 12 unit tangents run as one batch [12, E] of dual numbers
-    (the arithmetic jacfwd would do, in one pass)."""
+    (the arithmetic jacfwd would do, in one pass); and the residuals
+    [E, 6], the pass's primal (every tangent's primal is _edge_residual at
+    xi = 0, the same elementwise operations on the same values)."""
     e = t_i.shape[0]
     zero = torch.zeros((12, e, 6), dtype=t_i.dtype, device=t_i.device)
     unit = torch.eye(12, dtype=t_i.dtype, device=t_i.device)[:, None, :].expand(12, e, 12)
@@ -302,8 +305,8 @@ def _edge_jacobians(t_i, t_j, z_inv, w) -> Tuple[torch.Tensor, torch.Tensor]:
         xi_i = fwAD.make_dual(zero, unit[..., :6].contiguous())
         xi_j = fwAD.make_dual(zero, unit[..., 6:].contiguous())
         r = _edge_residual(xi_i, xi_j, batch(t_i), batch(t_j), batch(z_inv), batch(w))
-        jt = fwAD.unpack_dual(r).tangent  # [12, E, 6]: direction, edge, residual
-    return jt[:6].permute(1, 2, 0), jt[6:].permute(1, 2, 0)
+        primal, jt = fwAD.unpack_dual(r)  # [12, E, 6]: direction, edge, residual
+    return jt[:6].permute(1, 2, 0), jt[6:].permute(1, 2, 0), primal[0]
 
 
 _ANCHOR = 1e3  # the gauge prior's weight on node 0
@@ -323,54 +326,106 @@ def optimize_pose_graph(
     Per edge the residual is se3_log(Z^-1 inv(T_i) T_j).  Each iteration
     linearizes around xi=0 (left-multiplicative updates T <- exp(xi) T)
     by forward mode, an edge's rows against its two nodes only (they
-    depend on no other), assembles the damped normal equations and solves
-    them.  The residuals and their Jacobian are
-    float32, as the JAX package's; J^T J and J^T r are float64 sums of the
-    exact products in a fixed order (each edge's 6 rows in order, the
-    edges added in edge order into the node blocks, then node 0's gauge
-    prior and the damping), and the [6n, 6n] solve is core/exact.solve_lu
-    in float64, rounded once: the same bits on every device.  Node 0 is
-    gauge-anchored with a strong prior residual; padded nodes are held by
-    the damping term.  Returns (optimized poses, per-iteration costs
-    [iters]); nothing reads the device."""
-    n = poses.shape[0]
-    e = ei.shape[0]
-    dev = poses.device
-    ei, ej = ei.long(), ej.long()
+    depend on no other), then assembles the damped normal equations and
+    solves them in one call of ops/cuda/pose_graph_kernel.pose_graph_solve
+    (a kernel on the card, its plain version on the CPU).  The residuals and
+    their Jacobian are float32, as the JAX package's; J^T J and J^T r are
+    float64 sums of the exact products in a fixed order (each edge's 6 rows
+    in order, the edges added in edge order into the node blocks, then node
+    0's gauge prior and the damping), and the [6n, 6n] solve is
+    core/exact.solve_lu's LU in float64, rounded once: the same bits on
+    every device.  Node 0 is gauge-anchored with a strong prior residual;
+    padded nodes are held by the damping term.  Returns (optimized poses,
+    per-iteration costs [iters]); nothing reads the device."""
+    ei32, ej32 = ei.to(torch.int32).contiguous(), ej.to(torch.int32).contiguous()
     z_inv = _inv_rigid(z)
-    w1 = w[:, None]
-    zero = torch.zeros((e, 6), dtype=_F32, device=dev)
-    # each edge's blocks of [H | g]: (i, i), (i, j), (j, i), (j, j), g_i, g_j
-    slots = torch.stack([ei * n + ei, ei * n + ej, ej * n + ei, ej * n + ej,
-                         n * n + ei, n * n + ej], 1)
-    prior = torch.zeros((6 * n,), dtype=torch.float64, device=dev)
-    prior[:6] = _ANCHOR * _ANCHOR
-    diag = prior + float(np.float32(damping))
+    diag = _gauge_diag(poses.shape[0], damping, poses.device)
     costs = []
     for _ in range(iters):
-        t_i, t_j = poses[ei], poses[ej]
-        r0 = _edge_residual(zero, zero, t_i, t_j, z_inv, w1)  # [E, 6]
-        ja, jb = _edge_jacobians(t_i, t_j, z_inv, w1)  # [E, 6, 6] each
-        ja, jb, rd = ja.double(), jb.double(), r0.double()
-        gram = lambda p, q: mm(p.transpose(1, 2), q)  # noqa: E731
-        g_pad = torch.zeros((e, 30), dtype=torch.float64, device=dev)
-        blocks = torch.stack([
-            gram(ja, ja).reshape(e, 36), gram(ja, jb).reshape(e, 36),
-            gram(jb, ja).reshape(e, 36), gram(jb, jb).reshape(e, 36),
-            torch.cat([gram(ja, rd[:, :, None])[:, :, 0], g_pad], 1),
-            torch.cat([gram(jb, rd[:, :, None])[:, :, 0], g_pad], 1)], 1)
-        acc = torch.zeros((n * n + n, 36), dtype=torch.float64, device=dev)
-        for k in range(e):
-            # one edge at a time: its six slots are distinct (a padded
-            # edge adds zeros), so each add is the same on every device
-            acc.index_add_(0, slots[k], blocks[k])
-        h = acc[:n * n].reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
-        h = h + torch.diag(diag)
-        g = acc[n * n:, :6].reshape(6 * n)
-        dx = -solve_lu(h, g).to(_F32)
-        poses = _left_update(dx.reshape(n, 6), poses)
+        ja, jb, rd = _linearize(poses, ei, ej, z_inv, w)
+        dx = pose_graph_kernel.pose_graph_solve(ja, jb, rd, ei32, ej32, diag)
+        poses = _left_update(dx, poses)
         costs.append(tree_sum(rd.reshape(-1) * rd.reshape(-1)).to(_F32))
     return poses, torch.stack(costs)
+
+
+def _gauge_diag(n: int, damping: float, dev) -> torch.Tensor:
+    """H's added diagonal, f64 [6n]: node 0's gauge prior plus the damping
+    (a float32, as the JAX package's)."""
+    prior = torch.zeros((6 * n,), dtype=torch.float64, device=dev)
+    prior[:6] = _ANCHOR * _ANCHOR
+    return prior + float(np.float32(damping))
+
+
+def _linearize(poses, ei, ej, z_inv, w) -> Tuple[torch.Tensor, ...]:
+    """The edges' Jacobians and residuals at poses: (ja, jb f64 [E, 6, 6],
+    rd f64 [E, 6]), contiguous, pose_graph_solve's inputs."""
+    ei, ej = ei.long(), ej.long()
+    t_i, t_j = poses[ei], poses[ej]
+    ja, jb, r0 = _edge_jacobians(t_i, t_j, z_inv, w[:, None])  # [E, 6, 6] each, [E, 6]
+    return tuple(x.double().contiguous() for x in (ja, jb, r0))
+
+
+def pose_graph_system(poses, ei, ej, z, w, damping: float = 1e-4) -> tuple:
+    """pose_graph_solve's inputs for optimize_pose_graph's first iteration
+    on this graph: (ja, jb, rd, ei, ej as int32, diag)."""
+    ja, jb, rd = _linearize(poses, ei, ej, _inv_rigid(z), w)
+    return (ja, jb, rd, ei.to(torch.int32).contiguous(), ej.to(torch.int32).contiguous(),
+            _gauge_diag(poses.shape[0], damping, poses.device))
+
+
+class PoseGraphStep:
+    """optimize_pose_graph as one captured step: the counterpart of the JAX
+    `jax.jit(optimize_pose_graph)` (its lax.scan of iterations is one
+    device program there).  The graph's host arrays go through pinned
+    staging into static device buffers; the body uploads them, runs every
+    iteration (the residuals and their forward-mode Jacobians, one
+    pose_graph_solve launch, the update, the cost) and copies the poses and
+    costs into buffers this step holds (utils/graphs.keep).  On a CUDA
+    device the body is captured under a key (nodes, edges, iterations,
+    damping, device, the static buffers' address) and replayed after; on
+    the CPU, and with capture=False, it runs eagerly."""
+
+    def __init__(self, device, capture: bool = True, graphs: Optional[StepGraphs] = None):
+        self.device = torch.device(device)
+        self.capture = capture
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = {}
+        self._outputs = {}
+
+    def __call__(self, poses: np.ndarray, ei: np.ndarray, ej: np.ndarray, z: np.ndarray,
+                 w: np.ndarray, iters: int = 12, damping: float = 1e-4):
+        """Host arrays (poses f32 [n, 4, 4], ei / ej int32 [e], z f32 [e, 4,
+        4], w f32 [e]) -> (optimized poses f32 [n, 4, 4], costs f32 [iters])
+        on the device: the step's own buffers, valid until its next call
+        with the same sizes."""
+        dev = self.device
+        if not self.capture:
+            return optimize_pose_graph(
+                upload(poses, dev), torch.from_numpy(np.asarray(ei, np.int32)).to(dev),
+                torch.from_numpy(np.asarray(ej, np.int32)).to(dev), upload(z, dev),
+                upload(w, dev), iters, damping)
+        n, e = poses.shape[0], ei.shape[0]
+        inputs = self._inputs.get((n, e))
+        if inputs is None:
+            inputs = self._inputs[(n, e)] = StaticInputs({
+                "poses": ((n, 4, 4), _F32), "ei": ((e,), torch.int32),
+                "ej": ((e,), torch.int32), "z": ((e, 4, 4), _F32), "w": ((e,), _F32)},
+                dev, slots=1)
+        inputs.fill(0, poses=poses, ei=ei, ej=ej, z=z, w=w)
+        key = (n, e, int(iters), float(damping))
+        outputs = self._outputs
+
+        def body():
+            inputs.upload(0)
+            d = inputs.dev
+            keep(outputs, key, *optimize_pose_graph(d["poses"], d["ei"], d["ej"], d["z"],
+                                                    d["w"], iters, damping))
+
+        # the static buffers' address: another step's buffers are another graph
+        self.graphs.run(("pose_graph",) + key + (str(dev), inputs.dev["poses"].data_ptr()), body)
+        inputs.done(0)
+        return outputs[key]
 
 
 def _pad_pow2(x: int, lo: int = 8) -> int:
@@ -402,7 +457,11 @@ class LoopClosureManager:
     (odometry.read_result) and counts itself in `verifications`.  A
     keyframe's match reads its best score once; a caller that has its own
     read to make at the keyframe (DenseSLAM: the gate and the pose) takes
-    `query` first and reads its scores in the same copy.
+    `query` first and reads its scores in the same copy.  The query (the
+    descriptor and the match against the whole database, read in place)
+    and the pose graph (PoseGraphStep) are captured steps in `graphs` on a
+    CUDA device, keyed by their sizes, so a closure is one graph launch
+    and one read of its poses; capture=False runs them eagerly.
     """
 
     def __init__(
@@ -417,9 +476,12 @@ class LoopClosureManager:
         verify_min_inliers: int = 3000,
         max_keyframes: int = 256,
         device="cuda",
+        capture: bool = True,
         graphs: Optional[StepGraphs] = None,
     ):
         self.device = resolve_device(device)
+        self.capture = capture
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
         self.kf_every = int(kf_every)
         self.min_gap_frames = int(min_gap_frames)
         self.sim_thresh = float(sim_thresh)
@@ -434,8 +496,11 @@ class LoopClosureManager:
         self._vh, self._vw = img_h // 2, img_w // 2
         self._verify_icp = ICPOdometry(
             (fx / 2, fy / 2, cx / 2, cy / 2), self._vh, self._vw,
-            max_rmse=verify_max_rmse, device=self.device, graphs=graphs,
+            max_rmse=verify_max_rmse, device=self.device, capture=capture, graphs=self.graphs,
         )
+        self._pose_graph = PoseGraphStep(self.device, capture, self.graphs)
+        self._query_inputs = {}
+        self._query_outputs = {}
 
         # device-side database (descriptors + ids: tiny)
         self.db_desc = torch.zeros((self.cap, DESC_DIM), dtype=_F32, device=self.device)
@@ -482,24 +547,50 @@ class LoopClosureManager:
         """A frame's half-res depth, descriptor and raw scores against the
         whole database, on the device and without a read: the caller reads
         `scores` together with what else it reads and passes the query,
-        scores on the host, to add_keyframe or relocalize."""
-        d_half_dev, desc = self._descriptor(np.asarray(depth, np.float32), intensity)
-        scores = match_scores(self.db_desc, desc)
-        return KeyframeQuery(d_half_dev, desc, scores)
+        scores on the host, to add_keyframe or relocalize.  The counterpart
+        of the JAX `depth_descriptor` and `_match_scores` jits as one
+        captured step, keyed by the half-res size, whether there is an
+        intensity, the cap, the database's storage and the staging
+        buffers: the half-res images go through pinned staging (one slot:
+        the caller reads the scores before the next query, so one capture
+        serves every keyframe), the database is read in place, and the
+        tensors returned are the step's own buffers, valid until its next
+        query of that kind."""
+        d_half = np.asarray(depth, np.float32)[::2, ::2]
+        i_half = None if intensity is None else np.asarray(intensity)[::2, ::2]
+        if not self.capture:
+            d_half_dev = upload(d_half, self.device)
+            inten = None if i_half is None else upload(i_half, self.device)
+            desc = depth_descriptor(d_half_dev, inten)
+            return KeyframeQuery(d_half_dev, desc, match_scores(self.db_desc, desc))
+        shape = d_half.shape
+        kind = (shape, i_half is not None)
+        inputs = self._query_inputs.get(kind)
+        if inputs is None:
+            specs = {"depth": (shape, _F32)}
+            if i_half is not None:
+                specs["intensity"] = (shape, _F32)
+            inputs = self._query_inputs[kind] = StaticInputs(specs, self.device, slots=1)
+        inputs.fill(0, depth=d_half, **({} if i_half is None else {"intensity": i_half}))
+        db, outputs = self.db_desc, self._query_outputs
+
+        def body():
+            inputs.upload(0)
+            d = inputs.dev["depth"]
+            desc = depth_descriptor(d, inputs.dev.get("intensity"))
+            keep(outputs, kind, d, desc, match_scores(db, desc))
+
+        self.graphs.run(("lc_query",) + kind + (self.cap, db.data_ptr(),
+                                                inputs.dev["depth"].data_ptr()), body)
+        inputs.done(0)
+        return KeyframeQuery(*outputs[kind])
 
     def _query_or_descriptor(self, depth, intensity, query) -> tuple:
         """(half-res depth, descriptor, host scores or None): the query's,
-        or the descriptor computed here."""
+        or a query run here (its scores left on the device)."""
         if query is None:
-            return (*self._descriptor(depth, intensity), None)
+            query = self.query(depth, intensity)._replace(scores=None)
         return tuple(query)
-
-    def _descriptor(self, depth: np.ndarray, intensity: Optional[np.ndarray]):
-        """(half-res depth on the device, its descriptor)."""
-        d_half_dev = upload(np.asarray(depth)[::2, ::2], self.device)
-        inten_half = (upload(np.asarray(intensity)[::2, ::2], self.device)
-                      if intensity is not None else None)
-        return d_half_dev, depth_descriptor(d_half_dev, inten_half)
 
     # ------------------------------------------------------------------
     def _verify(
@@ -677,10 +768,7 @@ class LoopClosureManager:
         w = np.zeros(e_pad, np.float32)
         for k, (i, j, zz, ww) in enumerate(self.edges):
             ei[k], ej[k], z[k], w[k] = i, j, zz, ww
-        dev = self.device
-        opt, _costs = optimize_pose_graph(
-            upload(poses, dev), torch.from_numpy(ei).to(dev), torch.from_numpy(ej).to(dev),
-            upload(z, dev), upload(w, dev))
+        opt, _costs = self._pose_graph(poses, ei, ej, z, w)
         opt = opt.cpu().numpy().astype(np.float32)
         before = self.kf_pose_opt[newest].copy()
         for k in range(n):
@@ -766,8 +854,9 @@ class LoopClosureManager:
             desc[:n] = loaded
         ids = np.full((self.cap,), _NO_ID, np.int64)
         ids[:n] = d["frame_ids"]
-        self.db_desc = upload(desc, self.device)
-        self.db_ids = torch.as_tensor(ids.astype(np.int32)).to(self.device)
+        # in place: a captured query reads the database where it lies
+        self.db_desc.copy_(upload(desc, self.device))
+        self.db_ids.copy_(torch.as_tensor(ids.astype(np.int32)))
         self.edges = [
             (int(ij[0]), int(ij[1]), z.astype(np.float32), float(w))
             for ij, z, w in zip(d["edges_ij"], d["edges_z"], d["edges_w"])

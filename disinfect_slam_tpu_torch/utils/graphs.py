@@ -73,11 +73,11 @@ def count_launch(fn) -> None:
 def counted_kernels() -> tuple:
     """The hand kernels' wrappers on the captured paths (each counts its
     launches in `.launches`)."""
-    from ..ops.cuda import fuse_kernel, icp_kernel, sample_kernel, splat_kernel
+    from ..ops.cuda import fuse_kernel, icp_kernel, pose_graph_kernel, sample_kernel, splat_kernel
 
     return (fuse_kernel.fuse_rows, sample_kernel.sample_rows,
             splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks,
-            icp_kernel.icp_step)
+            icp_kernel.icp_step, pose_graph_kernel.pose_graph_solve)
 
 
 def host_image(a) -> np.ndarray:

@@ -20,8 +20,9 @@ The kernel side of the K2, K4 and K5 checks takes its pose from device
 memory (a DevicePose, as the captured steps hand it over), the plain side
 the host pose (SE3), at a pose that is not the identity.  One more check
 holds the captured steps (IntegrateStep, SplatStep: CUDA graphs on the
-card) against the same steps run eagerly, and one holds ICP's kernel
-(icp_step) against its plain version on the device and on the CPU.
+card) against the same steps run eagerly, one holds ICP's kernel
+(icp_step) and one the pose graph's (pose_graph_solve) against their
+plain versions on the device and on the CPU.
 
 Each check takes perturb=True to feed the kernel side an input that
 differs from the plain side's, which must make it fail.
@@ -285,6 +286,54 @@ def verify_icp_step(device="cuda", perturb: bool = False) -> Result:
     return err == 0.0, err, f"bit-exact on the device and against the CPU, inliers {inliers}"
 
 
+def pose_graph_inputs(n_pad: int, e_pad: int, seed: int, device) -> tuple:
+    """pose_graph_solve's inputs for a random graph: n_pad nodes, e_pad -
+    e_pad // 4 edges between random distinct nodes with float32 Jacobians
+    and residuals (as float64), the rest padded (nodes 0 -> 0, zeros), the
+    diagonal of optimize_pose_graph (node 0's gauge prior and the
+    damping)."""
+    from ..systems.loop_closure import _gauge_diag
+
+    rng = np.random.default_rng(seed)
+    e = e_pad - e_pad // 4
+    ends = np.stack([rng.choice(n_pad, 2, replace=False) for _ in range(e)])
+    ei = np.zeros(e_pad, np.int32)
+    ej = np.zeros(e_pad, np.int32)
+    ei[:e], ej[:e] = ends[:, 0], ends[:, 1]
+    jac = np.zeros((2, e_pad, 6, 6), np.float64)
+    rd = np.zeros((e_pad, 6), np.float64)
+    jac[:, :e] = rng.normal(0, 1, (2, e, 6, 6)).astype(np.float32)
+    rd[:e] = rng.normal(0, 0.01, (e, 6)).astype(np.float32)
+    out = [torch.from_numpy(a) for a in (jac[0], jac[1], rd, ei, ej)]
+    out.append(_gauge_diag(n_pad, 1e-4, "cpu"))
+    return [t.to(device) for t in out]
+
+
+def verify_pose_graph(device="cuda", perturb: bool = False) -> Result:
+    """pose_graph_solve (csrc/pose_graph.cu) on random graphs of 8 nodes
+    (16 edges, 4 padded) and 32 nodes (64, 16 padded), each at the launch
+    shape cluster_shape picks and with its columns in device memory over 16
+    CTAs: dx bit-exact against pose_graph_solve_reference on the same
+    device and on the CPU (the kernel's contract: the CPU's bits on the
+    card)."""
+    from ..ops.cuda.pose_graph_kernel import pose_graph_solve, pose_graph_solve_reference
+
+    err = 0.0
+    for n_pad, e_pad in ((8, 16), (32, 64)):
+        host = pose_graph_inputs(n_pad, e_pad, n_pad, "cpu")
+        want = pose_graph_solve_reference(*host)
+        args = [t.to(device) for t in host]
+        plain = pose_graph_solve_reference(*args)
+        kernel_args = list(args)
+        if perturb:
+            kernel_args[2] = kernel_args[2] + 1e-3
+        for shape in ({}, {"ctas": 16, "shared": False}):
+            got = pose_graph_solve(*kernel_args, **shape)
+            err = max(err, float((got.cpu().double() - plain.cpu().double()).abs().max()),
+                      float((got.cpu().double() - want.double()).abs().max()))
+    return err == 0.0, err, "bit-exact on the device and against the CPU at m = 48 and 192"
+
+
 CheckFn = Callable[..., Result]
 CHECKS: List[Tuple[str, CheckFn]] = [
     ("sample_rows 640x480, 256 blocks (bit-exact)", verify_sample_kernel),
@@ -299,6 +348,7 @@ CHECKS: List[Tuple[str, CheckFn]] = [
     ("splat K4/K5 vs plain (bit-identical)", verify_splat),
     ("captured steps vs eager (bit-identical)", verify_captured_steps),
     ("icp_step vs plain, on the device and the CPU (bit-exact)", verify_icp_step),
+    ("pose_graph_solve vs plain, on the device and the CPU (bit-exact)", verify_pose_graph),
     # verify_index_hints and verify_scatter_window check XLA gather
     # promises and the windowed scatter, which the port does not have
 ]

@@ -1009,6 +1009,12 @@ def test_pose_graph_and_match_on_the_card_equal_the_cpu(cuda):
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
     assert float(want[1][-1]) < float(want[1][0])
+    # the captured step (PoseGraphStep: its capture, then replays) and its
+    # eager twin give the same bits
+    for step in (lcm.PoseGraphStep(cuda), lcm.PoseGraphStep(cuda, capture=False)):
+        for _ in range(3):
+            for a, b in zip(step(est, ei, ej, z, w), want):
+                assert torch.equal(a.cpu(), b)
 
     _, _, depths = out_and_back_keyframes()
     descs = {}
@@ -1025,6 +1031,125 @@ def test_pose_graph_and_match_on_the_card_equal_the_cpu(cuda):
         assert [t.item() for t in got] == [t.item() for t in want]
         assert torch.equal(lcm.match_scores(db.to(cuda), db[q].to(cuda)).cpu(),
                            lcm.match_scores(db, db[q]))
+
+
+@pytest.mark.parametrize("n_pad, e", [(8, 13), (32, 50), (64, 100), (256, 400)])
+def test_pose_graph_kernel_equals_its_plain_version(cuda, n_pad, e):
+    """pose_graph_solve on random graphs (a quarter of the edges padded, e
+    not a power of two) at the launch shape cluster_shape picks: dx bit-equal
+    to its plain version on the card, and up to 64 nodes to the CPU's; at
+    32 nodes every other launch shape too (the columns in shared memory over
+    2-16 CTAs, in device memory over 1-16)."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.utils.kernel_verify import pose_graph_inputs
+
+    host = pose_graph_inputs(n_pad, e, seed=n_pad, device="cpu")
+    args = [t.to(cuda) for t in host]
+    want = pk.pose_graph_solve_reference(*args).cpu()
+    if n_pad <= 64:
+        assert torch.equal(want, pk.pose_graph_solve_reference(*host))
+    before = pk.pose_graph_solve.launches
+    assert torch.equal(pk.pose_graph_solve(*args).cpu(), want)
+    assert pk.pose_graph_solve.launches == before + 1
+    if n_pad == 32:
+        m = 6 * n_pad
+        for ctas in pk.CLUSTERS:
+            for shared in (True, False):
+                if shared and pk.smem_bytes(m, ctas, True) > pk.SMEM_LIMIT:
+                    continue
+                got = pk.pose_graph_solve(*args, ctas=ctas, shared=shared)
+                assert torch.equal(got.cpu(), want), (ctas, shared)
+    assert torch.isfinite(want).all()
+
+
+def test_a_closure_is_one_graph_launch_and_never_syncs(cuda):
+    """Once captured, the pose graph of a closure (the soak's size: 28 of
+    32 nodes, 64 edges) is one graph launch holding 12 pose_graph_solve
+    launches, makes no kernel launch of its own and no sync under
+    set_sync_debug_mode("error"); the read of its result is the one sync.
+    The same for the keyframe's query (no kernel of its own to count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.systems import loop_closure as lcm
+    from disinfect_slam_tpu_torch.utils import graphs
+
+    from .torch_cases import LC_ARGS, LC_H, LC_K, LC_W, out_and_back_keyframes, pose_graph_case
+
+    g = pose_graph_case(32, 64, seed=3)
+    step = lcm.PoseGraphStep(cuda)
+    want = [t.cpu() for t in step(*g)]
+    _, _, depths = out_and_back_keyframes()
+    lc = lcm.LoopClosureManager(LC_K, LC_H, LC_W, device=cuda, **LC_ARGS)
+    inten = depths[0] * 0.3
+    lc.query(depths[0], inten)
+    torch.cuda.synchronize()
+    launches, replays = pk.pose_graph_solve.launches, graphs.REPLAYS["graph"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = step(*g)
+            q = lc.query(depths[0], inten)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    names = [e.name for e in prof.events()]
+    assert sum(n in ("cudaGraphLaunch", "cuGraphLaunch") for n in names) == 2
+    assert not any(n in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernelEx") for n in names)
+    assert pk.pose_graph_solve.launches - launches == 12
+    assert graphs.REPLAYS["graph"] - replays == 2
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(out, want))
+    assert q.scores.shape == (LC_ARGS["max_keyframes"],)
+
+
+def test_captured_query_equals_the_eager_query_and_the_cpu(cuda):
+    """LoopClosureManager.query on the card, captured (its capture and
+    replays) and eager, against the CPU's: the half-res depth, the
+    descriptor and the scores bit for bit, with and without intensity, over
+    a database of the out-and-back keyframes."""
+    from disinfect_slam_tpu_torch.systems.loop_closure import LoopClosureManager
+
+    from .torch_cases import LC_ARGS, LC_H, LC_K, LC_W, out_and_back_keyframes
+
+    _, est, depths = out_and_back_keyframes()
+    mgrs = [LoopClosureManager(LC_K, LC_H, LC_W, device=dev, capture=cap, **LC_ARGS)
+            for dev, cap in ((cuda, True), (cuda, False), ("cpu", True))]
+    for k in range(4):
+        for lc in mgrs:
+            lc.add_keyframe(depths[k], est[k], frame_id=10 * k)
+    for k in range(4, 8):
+        for inten in (None, depths[k] * 0.3):
+            for _ in range(2):
+                got = [tuple(t.cpu() for t in lc.query(depths[k], inten)) for lc in mgrs]
+                for a, b in ((got[0], got[2]), (got[1], got[2])):
+                    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_a_jax_database_closes_the_same_loops_on_the_card(cuda):
+    """A keyframe database saved by the JAX manager
+    (disinfect_slam_tpu_torch/data/lc_jax_database.npz: the first six
+    out-and-back keyframes) loaded into the port on the card and on the
+    CPU: the return leg's six keyframes each close a loop, and every
+    optimized keyframe pose, descriptor and edge is the CPU's bit for bit."""
+    from disinfect_slam_tpu_torch.systems.loop_closure import LoopClosureManager
+
+    from .torch_cases import LC_ARGS, LC_H, LC_K, LC_W, out_and_back_keyframes
+
+    path = os.path.join(os.path.dirname(__file__), "..", "disinfect_slam_tpu_torch", "data",
+                        "lc_jax_database.npz")
+    _, est, depths = out_and_back_keyframes()
+    runs = []
+    for dev in (cuda, "cpu"):
+        lc = LoopClosureManager(LC_K, LC_H, LC_W, device=dev, **LC_ARGS)
+        lc.load(path)
+        corr = [lc.add_keyframe(depths[k], est[k], frame_id=10 * k) for k in range(6, 12)]
+        runs.append((lc, corr))
+    (card, card_corr), (cpu, cpu_corr) = runs
+    assert card.closures == cpu.closures == 6 and all(c is not None for c in card_corr)
+    np.testing.assert_array_equal(np.stack(card.kf_pose_opt), np.stack(cpu.kf_pose_opt))
+    np.testing.assert_array_equal(np.stack(card_corr), np.stack(cpu_corr))
+    assert torch.equal(card.db_desc.cpu(), cpu.db_desc)
+    assert [(i, j, w) for i, j, _, w in card.edges] == [(i, j, w) for i, j, _, w in cpu.edges]
 
 
 @pytest.mark.parametrize("scale", [1, 2])
@@ -1658,7 +1783,8 @@ def test_captured_slam_equals_the_eager_slam(cuda, scale):
     """DenseSLAM's tracked frame as a CUDA graph against the same step run
     eagerly, 20 frames with loop closure every 5th: every pose and ok flag
     and every volume array bit-equal; a tracked frame is one replay, K4 and
-    K2 once a frame through it."""
+    K2 once a frame through it, and a keyframe's query one replay after
+    the first keyframe's capture."""
     from disinfect_slam_tpu_torch.utils.graphs import REPLAYS
 
     frames = _slam_frames(20)
@@ -1675,7 +1801,10 @@ def test_captured_slam_equals_the_eager_slam(cuda, scale):
     assert all(ok for _, ok in out[0])
     _assert_volumes_equal(slams[0].volume, slams[1].volume)
     replays = REPLAYS["graph"] - before[0]
-    assert slams[0].graphs.replays == replays == 20 - 3
+    # frames 3-19 replay the tracked step (frame 0 integrates, 1 and 2
+    # capture its two staging slots); the keyframes 0, 5, 10, 15 query, the
+    # first capturing the query and the other three replaying it
+    assert slams[0].graphs.replays == replays == (20 - 3) + (4 - 1)
     assert (REPLAYS["splat_zbuf_blocks"] - before[1], REPLAYS["fuse_rows"] - before[2]) == (
         20 - 3, 20 - 3)
 

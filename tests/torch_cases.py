@@ -567,3 +567,49 @@ def stereo_depth_summary(res) -> dict:
     return {"valid": int(valid.sum()),
             "sum_disp": float(disp[valid].astype(np.float64).sum()),
             "sum_depth": float(depth[valid].astype(np.float64).sum())}
+
+
+# ----------------------------------------------------------------------
+# the pose graph at the sizes of a closure (PERF.md §6)
+# ----------------------------------------------------------------------
+def _axis_angle(omega: np.ndarray) -> np.ndarray:
+    """Rodrigues' rotation of the axis-angle omega [3], float64."""
+    theta = float(np.linalg.norm(omega))
+    k = omega / theta
+    kx = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(theta) * kx + (1.0 - np.cos(theta)) * kx @ kx
+
+
+def pose_graph_case(n_pad: int, e_pad: int, seed: int = 0) -> tuple:
+    """A keyframe graph as LoopClosureManager pads it, host arrays: n_pad -
+    n_pad // 8 real nodes along a drifting path (each pose turned by a
+    seeded rotation of ~2 degrees), the odometry chain between them, n // 8
+    loop edges (weight 4) from the last node back to earlier ones measured
+    against the undrifted path, the rest of e_pad padded (weight 0, nodes
+    0 -> 0) and the padded nodes at the identity.  Returns (poses f32
+    [n_pad, 4, 4], ei, ej int32 [e_pad], z f32 [e_pad, 4, 4], w f32
+    [e_pad])."""
+    rng = np.random.default_rng(seed)
+    n = n_pad - n_pad // 8
+    loops = max(1, n // 8)
+    if n - 1 + loops > e_pad:
+        raise ValueError(f"{n - 1 + loops} edges exceed e_pad {e_pad}")
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_pad, 1, 1))
+    true = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for k in range(n):
+        true[k, :3, :3] = _axis_angle(rng.normal(0, 0.02, 3))
+        true[k, :3, 3] = [0.1 * k, 0.05 * np.sin(0.3 * k), 0.0]
+        poses[k] = true[k]
+        poses[k, :3, 3] += [0.0, 0.002 * k, 0.004 * k]
+    ei = np.zeros(e_pad, np.int32)
+    ej = np.zeros(e_pad, np.int32)
+    z = np.tile(np.eye(4, dtype=np.float32), (e_pad, 1, 1))
+    w = np.zeros(e_pad, np.float32)
+    for k in range(n - 1):
+        ei[k], ej[k], w[k] = k, k + 1, 1.0
+        z[k] = np.linalg.inv(poses[k]) @ poses[k + 1]
+    for q, i in enumerate(rng.choice(n - 1, loops, replace=False)):
+        k = n - 1 + q
+        ei[k], ej[k], w[k] = i, n - 1, 4.0
+        z[k] = np.linalg.inv(true[i]) @ true[n - 1]
+    return poses, ei, ej, z, w
