@@ -123,10 +123,13 @@ exits non-zero:
      time beside its bound, its order floor (the chain probe: 29 register
      chains of N / 8 dependent float32 adds) and its plain version's time,
      and a tracked frame's totals; the pose graph's kernel
-     (pose_graph_solve) at 8, 32, 128 and 256 nodes, bit-equal to its
-     plain version, its device time beside its float64 bound, its order
-     floor (the chain probe: the pivot steps alone), torch.linalg.solve_ex
-     of the same H and its plain version's time; and the SLAM frame
+     (pose_graph_solve and its fused entry, the residuals and Jacobians in
+     the launch) at 8, 32, 128, 256 and 512 nodes (the last with its
+     columns in device memory), each entry bit-equal to its
+     plain version, its device time beside its bound, its order floor
+     (the chain probe: the pivot steps alone) beside the parent design's,
+     torch.linalg.solve_ex of the same H, the plain versions' times and one
+     call's stages from the kernel's timeline; and the SLAM frame
      profiled (frames 45-59: device time, kernels, idle share; ICP alone:
      kernels, device time and the host time of its ops).
 
@@ -2139,10 +2142,10 @@ def check_slam_zbuf(splat_kernel, vol, pose, dev) -> dict:
     return out
 
 
-# phase 8 (d)'s 12 keyframes before the query and the pose graph were
-# captured steps: chip_smoke.py's own run on the parent tree (NVIDIA H100
-# 80GB HBM3, 700.00 W)
-LC_PARENT_WALL_MS = 5040.252403000011
+# phase 8 (d)'s 12 keyframes with the pose graph's Jacobians outside the
+# kernel (forward mode in torch, captured): chip_smoke.py's own run on the
+# parent tree (NVIDIA H100 80GB HBM3, 700.00 W)
+LC_PARENT_WALL_MS = 6706.9509520000565
 
 
 def slam_loop_closure(dev) -> dict:
@@ -2302,77 +2305,192 @@ def icp_yardsticks(dev) -> dict:
 
 
 # pose_graph_solve's sizes (nodes, edges as LoopClosureManager pads them):
-# the out-and-back chain, the soak's cap of 24 keyframes, and the manager's
-# default cap of 256 and half of it
-POSE_GRAPH_SIZES = ((8, 16), (32, 64), (128, 256), (256, 512))
+# the out-and-back chain, the soak's cap of 24 keyframes, the manager's
+# default cap of 256 and half of it, and twice it (the columns in device
+# memory)
+POSE_GRAPH_SIZES = ((8, 16), (32, 64), (128, 256), (256, 512), (512, 1024))
 # float64 outside the tensor cores on an H100 SXM (NVIDIA's data sheet,
 # 700 W; an FMA counted as two operations, and the kernel fuses none)
 PEAK_F64_OPS_PER_S = 34e12
+# the order floor of the kernel this design replaced (m - 1 pivot steps,
+# one cluster barrier each): chip_smoke.py's own run on the parent tree
+# (NVIDIA H100 80GB HBM3, 700.00 W), ms at POSE_GRAPH_SIZES' nodes (not
+# measured at 512)
+PARENT_ORDER_FLOOR_MS = {8: 0.0821, 32: 0.3372, 128: 1.4011, 256: 2.9395}
 
 
-def pose_graph_ops(m: int, e: int) -> int:
+def lu_counts(h: torch.Tensor, g: torch.Tensor) -> dict:
+    """What the LU of [h | g] and its back substitution must compute, on
+    this data (core/exact.solve_lu's steps on the device, counted there):
+    the divisions of nonzero entries below each pivot, the multiply-
+    subtract pairs of rows with a nonzero multiplier over the trailing
+    columns (g's included), the back substitution's m divisions and a pair
+    for each nonzero entry of U above the diagonal.  A zero's division and
+    a zero multiplier's update change no bit: the data needs neither (the
+    kernel skips the divisions, csrc/pose_graph.cu's quotient)."""
+    a = torch.cat([h, g[:, None]], 1).clone()
+    n = h.shape[0]
+    rows = torch.arange(n, device=h.device)
+    div = torch.zeros((), dtype=torch.int64, device=h.device)
+    pairs = torch.zeros((), dtype=torch.int64, device=h.device)
+    for k in range(n - 1):
+        p = k + torch.argmax(torch.abs(a[k:, k]))
+        kp = torch.stack([rows[k], p])
+        a.index_copy_(0, kp, a.index_select(0, kp.flip(0)))
+        col = a[k + 1:, k]
+        div += (col != 0).sum()
+        lo = col / a[k, k]
+        pairs += (lo != 0).sum() * (n - k)
+        a[k + 1:, k + 1:] -= lo[:, None] * a[k, k + 1:]
+    upper = int((torch.triu(a[:, :n], 1) != 0).sum())
+    return {"divisions": int(div) + n, "pairs": int(pairs) + upper}
+
+
+def pose_graph_ops(m: int, e: int, nonzero: int, lu: dict) -> int:
     """pose_graph_solve's float64 operations on an m-row system of e edges,
-    counted from csrc/pose_graph.cu: each edge's 156 block entries of 6
-    products and 5 adds and their add into H or g (12 each), the
-    diagonal's m adds; each LU step k's m - k - 1 divisions and its
-    multiply-subtract pairs over the trailing m - k - 1 rows and m - k
-    columns (g's included); the back substitution's m divisions and
-    m (m - 1) / 2 multiply-subtract pairs."""
-    lu = sum((m - k - 1) + 2 * (m - k - 1) * (m - k) for k in range(m - 1))
-    return e * 156 * 12 + m + lu + m + m * (m - 1)
+    `nonzero` of them with Jacobians that are not all zero, counted from
+    csrc/pose_graph.cu: each edge's 156 block entries of 6 products and 5
+    adds, the nonzero edges' adds into H and g (156 each; the others add
+    +-0 and are skipped), the diagonal's m adds; the LU's and the back
+    substitution's divisions and multiply-subtract pairs on this data
+    (lu_counts)."""
+    return e * 156 * 11 + nonzero * 156 + m + lu["divisions"] + 2 * lu["pairs"]
+
+
+def jacobian_ops(args) -> dict:
+    """The float32 and float64 operations the edges' residuals and
+    Jacobians need (args: the fused entry's CPU inputs): the adds,
+    subtracts, products, divisions and roots of edge_jacobians_reference,
+    counted under a dispatch mode by the elements they write, the primal's
+    ([E, ...]) and the tangents' ([12, E, ...]) once each.  (The kernel
+    computes each edge's primal in all 12 of its threads: work the
+    function does not need, so not in the bound.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+
+    arith = {"add", "sub", "rsub", "mul", "div", "sqrt"}
+    counts = {torch.float32: 0, torch.float64: 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            if func._schema.name.split("::")[-1] in arith and out.dtype in counts:
+                counts[out.dtype] += out.numel()
+            return out
+
+    poses, ei, ej, z_inv, w, _ = args
+    with Count():
+        pk.edge_jacobians_reference(poses[ei.long()], poses[ej.long()], z_inv, w[:, None])
+    return {"f32": counts[torch.float32], "f64": counts[torch.float64]}
+
+
+def _timeline_breakdown(pk, fn, m: int, dev) -> dict:
+    """One call's stages from the kernel's timeline (device clock, us): the
+    Jacobians (fused entry), the edges' blocks, the assembly (CTA 0's), the
+    panels' factorizations, their publishing, the flag hand-overs, the next
+    panel's update by its owner, the back substitution."""
+    tl = torch.zeros(pk.timeline_slots(m), dtype=torch.int64, device=dev)
+    for _ in range(3):
+        fn(tl)
+    torch.cuda.synchronize()
+    v = tl.cpu().numpy().astype(np.int64)
+    p = v[8:].reshape(pk.panels(m), 4)
+    return {"total_us": (v[3] - v[0]) / 1e3, "jacobians_us": (v[4] - v[0]) / 1e3,
+            "edge_blocks_us": (v[5] - v[4]) / 1e3, "assembly_us": (v[1] - v[5]) / 1e3,
+            "factor_us": float((p[:, 2] - p[:, 1]).sum()) / 1e3,
+            "publish_us": float((p[:, 3] - p[:, 2]).sum()) / 1e3,
+            "hand_over_us": float((p[1:, 0] - p[:-1, 3]).sum()) / 1e3,
+            "update_next_us": float((p[1:, 1] - p[1:, 0]).sum()) / 1e3,
+            "back_substitution_us": (v[3] - v[2]) / 1e3}
 
 
 def pose_graph_yardsticks(dev) -> dict:
     """Phase 7, the pose graph's kernel (csrc/pose_graph.cu) at
     POSE_GRAPH_SIZES on tests/torch_cases.pose_graph_case's graphs, the
-    first Gauss-Newton iteration's system: dx bit-equal to its plain version
-    on the card and (up to 32 nodes) on the CPU, one call's device time
-    beside its bound (the larger of its bytes over 3.35 TB/s and its float64
-    operations over PEAK_F64_OPS_PER_S), its order floor (the chain probe:
-    the m - 1 pivot steps alone at the same cluster size), torch.linalg
-    .solve_ex of the same H on the card (the library call; never used by
-    the port) and the plain version's time."""
+    first Gauss-Newton iteration, both entries: the solve-only entry's dx
+    (from the forward-mode Jacobians) and the fused entry's dx and
+    residuals (from the poses) bit-equal to their plain versions on the
+    card and (up to 32 nodes) on the CPU; each entry's device time beside
+    its bound (the larger of its bytes over 3.35 TB/s and its operations
+    over the peak of their type), the order floor (the chain probe: the
+    m - 1 pivot steps alone at the same launch shape) beside the parent
+    design's, torch.linalg.solve_ex of the same H on the card (the library
+    call; never used by the port), the plain versions' times, and one
+    call's stages from the kernel's timeline."""
     from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
-    from disinfect_slam_tpu_torch.systems.loop_closure import pose_graph_system
+    from disinfect_slam_tpu_torch.systems import loop_closure as lc
     from tests.torch_cases import pose_graph_case
 
-    sink = torch.empty(pk.MAX_CLUSTER, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.empty(sms, dtype=torch.int32, device=dev)
     out = {}
     for n_pad, e_pad in POSE_GRAPH_SIZES:
-        host = pose_graph_system(*(torch.from_numpy(a)
-                                   for a in pose_graph_case(n_pad, e_pad, seed=n_pad)))
+        graph = [torch.from_numpy(a) for a in pose_graph_case(n_pad, e_pad, seed=n_pad)]
+        host = lc.pose_graph_system(*graph)
+        fused_host = [graph[0], host[3], host[4], lc._inv_rigid(graph[3]).contiguous(), graph[4],
+                      host[5]]
         args = [t.to(dev) for t in host]
+        fargs = [t.to(dev) for t in fused_host]
         m = 6 * n_pad
         fn = lambda a=args: pk.pose_graph_solve(*a)  # noqa: E731
+        fused = lambda a=fargs: pk.pose_graph_fused(*a)  # noqa: E731
         plain = lambda a=args: pk.pose_graph_solve_reference(*a)  # noqa: E731
+        fused_plain = lambda a=fargs: pk.pose_graph_fused_reference(*a)  # noqa: E731
+        diff = lambda x, y: float((x.cpu().double() - y.cpu().double()).abs().max())  # noqa: E731
         got, on_card = fn(), plain()
-        err = float((got.cpu().double() - on_card.cpu().double()).abs().max())
+        err = diff(got, on_card)
+        (fdx, frd), (pdx, prd) = fused(), fused_plain()
+        ferr = max(diff(fdx, pdx), diff(frd, prd))
         if n_pad <= 32:
-            want = pk.pose_graph_solve_reference(*host)
-            err = max(err, float((got.cpu().double() - want.double()).abs().max()))
+            err = max(err, diff(got, pk.pose_graph_solve_reference(*host)))
+            cdx, crd = pk.pose_graph_fused_reference(*fused_host)
+            ferr = max(ferr, diff(fdx, cdx), diff(frd, crd))
+        nonzero = int(((host[0] != 0).flatten(1).any(1) | (host[1] != 0).flatten(1).any(1)).sum())
         nbytes = e_pad * (72 * 8 + 6 * 8 + 8) + m * 8 + m * 4
-        ops = pose_graph_ops(m, e_pad)
+        h, g = pk.normal_equations(*args)
+        lu = lu_counts(h, g)
+        ops = pose_graph_ops(m, e_pad, nonzero, lu)
         by_bytes, by_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_F64_OPS_PER_S
-        res = {"n_pad": n_pad, "e_pad": e_pad, "m": m, "shape": list(pk.cluster_shape(m)),
+        ctas, shared = pk.grid_shape(m, sms)
+        res = {"n_pad": n_pad, "e_pad": e_pad, "m": m, "ctas": ctas, "shared": shared,
+               "lu_counts": lu,
                "bound_ms": max(by_bytes, by_ops),
                "bound_by": "bytes" if by_bytes >= by_ops else "operations", "bytes": nbytes,
-               "ops": ops, "max_abs_err": err}
+               "ops": ops, "max_abs_err": max(err, ferr), "solve_err": err, "fused_err": ferr}
         time_kernel(res, fn, "pose_graph_kernel")
-        col = torch.rand(m, dtype=torch.float64, device=dev)
-        res["order_floor_ms"] = kernel_ms(lambda c=col, k=res["shape"][0]: pk.chain(c, k, sink),
+        # the fused entry: its Jacobians' float32 and float64 operations too
+        jops = jacobian_ops(fused_host)
+        fbytes = n_pad * 64 + e_pad * (8 + 64 + 4 + 48) + m * 8 + m * 4
+        f_by_ops = max(1e3 * (ops + jops["f64"]) / PEAK_F64_OPS_PER_S,
+                       1e3 * jops["f32"] / PEAK_F32_OPS_PER_S)
+        res["fused_bound_ms"] = max(1e3 * fbytes / PEAK_BYTES_PER_S, f_by_ops)
+        res["jacobian_ops"] = jops
+        res["fused_ms"] = kernel_ms(fused, "pose_graph_kernel", floor_ms=res["fused_bound_ms"])
+        res["fused_call_ms"] = cuda_time_ms(fused)
+        col = h[:, 0].contiguous()  # the system's first column: its zeros are not divided
+        res["order_floor_ms"] = kernel_ms(lambda c=col, k=ctas: pk.chain(c, k, sink),
                                           "pose_graph_chain")
-        h, g = pk.normal_equations(*args)
+        res["parent_order_floor_ms"] = PARENT_ORDER_FLOOR_MS.get(n_pad)
         res["library_ms"] = kernel_ms(lambda: torch.linalg.solve_ex(h, g))
         res["plain_ms"] = cuda_time_ms(plain, 1 if n_pad > 32 else 3)
+        res["fused_plain_ms"] = cuda_time_ms(fused_plain, 1 if n_pad > 32 else 3)
+        res["stages"] = _timeline_breakdown(
+            pk, lambda tl, a=fargs: pk.pose_graph_fused(*a, timeline=tl), m, dev)
         print_yardsticks(f"pose_graph_solve m={m} ({n_pad} nodes, {e_pad} edges, "
-                         f"{res['shape'][0]} CTAs, {'shared' if res['shape'][1] else 'device'} "
-                         f"memory)", res)
+                         f"{ctas} CTAs, columns in {'shared' if shared else 'device'} memory)",
+                         res)
+        log(f"[chip_smoke] pose_graph_fused m={m}: kernel {res['fused_ms']:.4f} ms (one call "
+            f"{res['fused_call_ms']:.4f} ms), bound {res['fused_bound_ms']:.4f} ms ({jops}), "
+            f"plain torch {res['fused_plain_ms']:.4f} ms; stages {res['stages']}")
         log(f"[chip_smoke] pose_graph_solve m={m}: order floor {res['order_floor_ms']:.4f} ms "
-            f"({m - 1} pivot steps, {1e3 * res['order_floor_ms'] / (m - 1):.2f} us each): "
-            f"the kernel at {res['ms'] / res['order_floor_ms']:.2f}x it")
-        if err != 0.0:
+            f"({m - 1} pivot steps, {1e3 * res['order_floor_ms'] / (m - 1):.2f} us each; the "
+            f"parent design's {res['parent_order_floor_ms']} ms): the kernel at "
+            f"{res['ms'] / res['order_floor_ms']:.2f}x it; solve_ex / kernel "
+            f"{res['library_ms'] / res['ms']:.2f}")
+        if err != 0.0 or ferr != 0.0:
             raise AssertionError(f"pose_graph_solve at m={m} differs from its plain version "
-                                 f"by {err}")
+                                 f"by {err} (solve-only) and {ferr} (fused)")
         out[n_pad] = res
         del h, g
         torch.cuda.empty_cache()
@@ -3708,9 +3826,9 @@ def stereo_slice(read_png, smi, dev) -> dict:
     return res
 
 
-# the soak before the query and the pose graph were captured steps:
-# chip_smoke.py's phase 12 on the parent tree (NVIDIA H100 80GB HBM3, 700.00 W)
-SOAK_PARENT_WALL_S = 115.1
+# the soak before the pose graph's kernel was redesigned: chip_smoke.py's
+# phase 12 on the parent tree, 162f905 (NVIDIA H100 80GB HBM3, 700.00 W)
+SOAK_PARENT_WALL_S = 16.8
 
 
 def soak(fuse_kernel, splat_kernel, dev, smi) -> dict:
@@ -5337,10 +5455,12 @@ def main() -> int:
          "loop_closure_launches": slam["loop_closure"]["pose_graph_solve_launches"],
          "verify_launches": verify["launches"]["pose_graph_solve"],
          **{k: pose_graph[32][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                                           "order_floor_ms", "library_ms")},
+                                           "order_floor_ms", "library_ms", "fused_ms",
+                                           "fused_bound_ms", "fused_plain_ms")},
          "max_abs_err": max(r["max_abs_err"] for r in pose_graph.values()),
-         **{f"{k}_{n}_nodes": pose_graph[n][k] for n in (8, 128, 256)
-            for k in ("ms", "bound_ms", "order_floor_ms", "library_ms", "plain_ms")}},
+         **{f"{k}_{n}_nodes": pose_graph[n][k] for n in (8, 128, 256, 512)
+            for k in ("ms", "bound_ms", "order_floor_ms", "library_ms", "plain_ms", "fused_ms",
+                      "fused_bound_ms")}},
         *probe_kernels(probe, probe_main_launches),
     ]
     # the launches each kernel made through graph replays over the whole run

@@ -32,8 +32,8 @@ SIN_TERMS = 15  # sin to t^29, cos to t^30
 INV_FACT = tuple(1.0 / math.factorial(n) for n in range(2 * SIN_TERMS + 1))
 TWO_PI = 2.0 * math.pi
 INV_TWO_PI = 1.0 / TWO_PI
-_ATAN_TERMS = 21  # atan's series on |z| <= tan(pi / 8): z^41 / 41 < 1e-17
-_TAN_PI_8 = math.tan(math.pi / 8)
+ATAN_TERMS = 21  # atan's series on |z| <= tan(pi / 8): z^41 / 41 < 1e-17
+TAN_PI_8 = math.tan(math.pi / 8)
 
 
 def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -109,11 +109,11 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     num = torch.where(swap, ax, ay)
     den = torch.where(swap, ay, ax)
     z = num / torch.where(den == 0, 1.0, den)
-    big = z > _TAN_PI_8
+    big = z > TAN_PI_8
     zr = torch.where(big, (z - 1.0) / (z + 1.0), z)
     z2 = zr * zr
-    p = torch.full_like(zr, (-1) ** (_ATAN_TERMS - 1) / (2 * _ATAN_TERMS - 1))
-    for k in range(_ATAN_TERMS - 2, -1, -1):
+    p = torch.full_like(zr, (-1) ** (ATAN_TERMS - 1) / (2 * ATAN_TERMS - 1))
+    for k in range(ATAN_TERMS - 2, -1, -1):
         p = (-1) ** k / (2 * k + 1) + z2 * p
     a = zr * p
     a = torch.where(big, math.pi / 4 + a, a)

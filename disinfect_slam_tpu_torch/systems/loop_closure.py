@@ -22,10 +22,12 @@ gap:
                 transform IS the loop constraint (rmse/inlier gated)
   pose graph    keyframe poses + odometry edges + loop edges, relaxed
                 by damped Gauss-Newton on the device: residuals are
-                se3-log of edge misclosures, the Jacobian comes from
-                forward-mode AD (every edge and unit tangent in one
-                batch), and the normal equations are summed and solved
-                in float64 in a fixed order (core/exact.py)
+                se3-log of edge misclosures, the Jacobian is forward-mode
+                AD's (every edge and unit tangent; its formulas written
+                out, ops/cuda/pose_graph_kernel.edge_jacobians_reference),
+                and the normal equations are summed and solved in float64
+                in a fixed order (core/exact.py), one kernel launch an
+                iteration
   correction    the newest keyframe's optimized-vs-estimated delta is
                 applied to the live tracker pose; already-fused drifted
                 geometry stays, the trajectory is corrected retroactively
@@ -325,10 +327,12 @@ def optimize_pose_graph(
 
     Per edge the residual is se3_log(Z^-1 inv(T_i) T_j).  Each iteration
     linearizes around xi=0 (left-multiplicative updates T <- exp(xi) T)
-    by forward mode, an edge's rows against its two nodes only (they
-    depend on no other), then assembles the damped normal equations and
-    solves them in one call of ops/cuda/pose_graph_kernel.pose_graph_solve
-    (a kernel on the card, its plain version on the CPU).  The residuals and
+    with forward mode's bits, an edge's rows against its two nodes only
+    (they depend on no other), then assembles the damped normal equations
+    and solves them: all in one call of
+    ops/cuda/pose_graph_kernel.pose_graph_fused (a kernel on the card, its
+    plain version on the CPU; _edge_jacobians is the forward-mode
+    reference the tests hold it to).  The residuals and
     their Jacobian are float32, as the JAX package's; J^T J and J^T r are
     float64 sums of the exact products in a fixed order (each edge's 6 rows
     in order, the edges added in edge order into the node blocks, then node
@@ -341,9 +345,9 @@ def optimize_pose_graph(
     z_inv = _inv_rigid(z)
     diag = _gauge_diag(poses.shape[0], damping, poses.device)
     costs = []
+    z_inv, w = z_inv.contiguous(), w.to(_F32).contiguous()
     for _ in range(iters):
-        ja, jb, rd = _linearize(poses, ei, ej, z_inv, w)
-        dx = pose_graph_kernel.pose_graph_solve(ja, jb, rd, ei32, ej32, diag)
+        dx, rd = pose_graph_kernel.pose_graph_fused(poses.contiguous(), ei32, ej32, z_inv, w, diag)
         poses = _left_update(dx, poses)
         costs.append(tree_sum(rd.reshape(-1) * rd.reshape(-1)).to(_F32))
     return poses, torch.stack(costs)
@@ -379,8 +383,8 @@ class PoseGraphStep:
     `jax.jit(optimize_pose_graph)` (its lax.scan of iterations is one
     device program there).  The graph's host arrays go through pinned
     staging into static device buffers; the body uploads them, runs every
-    iteration (the residuals and their forward-mode Jacobians, one
-    pose_graph_solve launch, the update, the cost) and copies the poses and
+    iteration (one pose_graph_fused launch: the residuals, their Jacobians
+    and the solve; then the update and the cost) and copies the poses and
     costs into buffers this step holds (utils/graphs.keep).  On a CUDA
     device the body is captured under a key (nodes, edges, iterations,
     damping, device, the static buffers' address) and replayed after; on
@@ -488,6 +492,10 @@ class LoopClosureManager:
         self.verify_max_rmse = float(verify_max_rmse)
         self.verify_min_inliers = int(verify_min_inliers)
         self.cap = int(max_keyframes)
+        if self.device.type == "cuda" and 6 * _pad_pow2(self.cap) > pose_graph_kernel.MAX_ROWS:
+            # the graph pads to a power of two nodes, 6 rows each
+            raise ValueError(f"max_keyframes={self.cap} pads to {_pad_pow2(self.cap)} nodes; the "
+                             f"pose graph's kernel takes at most {pose_graph_kernel.MAX_ROWS // 6}")
         self.img_h, self.img_w = img_h, img_w
 
         # verification tracker at HALF resolution (stored kf depths are

@@ -311,27 +311,61 @@ def pose_graph_inputs(n_pad: int, e_pad: int, seed: int, device) -> tuple:
 
 def verify_pose_graph(device="cuda", perturb: bool = False) -> Result:
     """pose_graph_solve (csrc/pose_graph.cu) on random graphs of 8 nodes
-    (16 edges, 4 padded) and 32 nodes (64, 16 padded), each at the launch
-    shape cluster_shape picks and with its columns in device memory over 16
-    CTAs: dx bit-exact against pose_graph_solve_reference on the same
-    device and on the CPU (the kernel's contract: the CPU's bits on the
-    card)."""
-    from ..ops.cuda.pose_graph_kernel import pose_graph_solve, pose_graph_solve_reference
+    (16 edges, 4 padded) and 32 nodes (64, 16 padded), at the launch shape
+    grid_shape picks, over the fewest CTAs the wrapper takes and with the
+    columns in device memory (the layout of the sizes above 275 nodes); and its
+    fused entry (the residuals and Jacobians in the kernel) on drifting
+    graphs of the same sizes (tests/torch_cases.pose_graph_case's shape,
+    from a seed): dx (and the residuals) bit-exact against the plain
+    versions on the same device and on the CPU (the kernel's contract: the
+    CPU's bits on the card)."""
+    from ..ops.cuda import pose_graph_kernel as pk
+    from ..systems.loop_closure import _gauge_diag, _inv_rigid
 
+    def diff(a, b) -> float:
+        return float((a.cpu().double() - b.cpu().double()).abs().max())
+
+    device = torch.device(device)
     err = 0.0
     for n_pad, e_pad in ((8, 16), (32, 64)):
         host = pose_graph_inputs(n_pad, e_pad, n_pad, "cpu")
-        want = pose_graph_solve_reference(*host)
+        want = pk.pose_graph_solve_reference(*host)
         args = [t.to(device) for t in host]
-        plain = pose_graph_solve_reference(*args)
+        plain = pk.pose_graph_solve_reference(*args)
         kernel_args = list(args)
         if perturb:
             kernel_args[2] = kernel_args[2] + 1e-3
-        for shape in ({}, {"ctas": 16, "shared": False}):
-            got = pose_graph_solve(*kernel_args, **shape)
-            err = max(err, float((got.cpu().double() - plain.cpu().double()).abs().max()),
-                      float((got.cpu().double() - want.double()).abs().max()))
-    return err == 0.0, err, "bit-exact on the device and against the CPU at m = 48 and 192"
+        fewest = (pk.shapes(6 * n_pad, torch.cuda.get_device_properties(device)
+                            .multi_processor_count)[0] if device.type == "cuda" else None)
+        for ctas, shared in ((None, None), (fewest, None), (None, False)):
+            got = pk.pose_graph_solve(*kernel_args, ctas=ctas, shared=shared)
+            err = max(err, diff(got, plain), diff(got, want))
+        # the fused entry on a drifting chain with a loop
+        rng = np.random.default_rng(n_pad)
+        poses = np.tile(np.eye(4, dtype=np.float32), (n_pad, 1, 1))
+        poses[:, :3, 3] = np.cumsum(rng.normal(0, 0.1, (n_pad, 3)), 0)
+        ei = np.zeros(e_pad, np.int32)
+        ej = np.zeros(e_pad, np.int32)
+        ei[:n_pad - 1], ej[:n_pad - 1] = np.arange(n_pad - 1), np.arange(1, n_pad)
+        ej[n_pad - 1] = n_pad - 1
+        z = np.tile(np.eye(4, dtype=np.float32), (e_pad, 1, 1))
+        z[:n_pad, :3, 3] = rng.normal(0, 0.1, (n_pad, 3))
+        w = np.zeros(e_pad, np.float32)
+        w[:n_pad] = 1.0
+        fhost = [torch.from_numpy(poses), torch.from_numpy(ei), torch.from_numpy(ej),
+                 _inv_rigid(torch.from_numpy(z)).contiguous(), torch.from_numpy(w),
+                 _gauge_diag(n_pad, 1e-4, "cpu")]
+        fwant = pk.pose_graph_fused_reference(*fhost)
+        fargs = [t.to(device) for t in fhost]
+        fplain = pk.pose_graph_fused_reference(*fargs)
+        if perturb:
+            fargs[4] = fargs[4] * 1.001
+        for shared in (None, False):
+            fgot = pk.pose_graph_fused(*fargs, shared=shared)
+            for a, b, c in zip(fgot, fplain, fwant):
+                err = max(err, diff(a, b), diff(a, c))
+    return (err == 0.0, err, "both entries bit-exact on the device and against the CPU at m = 48 "
+            "and 192")
 
 
 CheckFn = Callable[..., Result]

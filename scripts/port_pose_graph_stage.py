@@ -2,17 +2,19 @@
 """The loop closure's pose graph and keyframe query, for the PyTorch port
 of any checkout: two trees timed by one code on one card.
 
-At each size (n_pad nodes, e_pad edges: 8/16, 32/64, 128/256, 256/512;
-tests/torch_cases.pose_graph_case's drifting chain with loop and padded
-edges; the case is always this checkout's), a closure's pose graph as the
+At each size (n_pad nodes, e_pad edges: 8/16, 32/64, 128/256, 256/512,
+512/1024; tests/torch_cases.pose_graph_case's drifting chain with loop and
+padded edges; the case is always this checkout's), a closure's pose graph as the
 tree's LoopClosureManager runs it: its wall ms a call, the optimized
 poses read to the host (median of `--reps`), and one call under the
 profiler (device kernels, host kernel-launch calls and graph launches, idle
-share; not for an eager call at 128 nodes and up).  Where the tree has the captured step (`PoseGraphStep`), it
-runs captured and its eager twin beside it, both held bit-equal to the
-CPU's run; where the tree has the kernel (ops/cuda/pose_graph_kernel.py),
-its device ms a call at every launch shape it takes beside the order floor
-(the chain of pivot steps alone).  Then the keyframe's query
+share; not for an eager call at 128 nodes and up), captured
+(`PoseGraphStep`) and eager, both held bit-equal to the CPU's run; then
+the kernel (ops/cuda/pose_graph_kernel.py): its device ms a call at the
+launch shapes it takes (both layouts of the columns; above 64 nodes the
+device-memory layout's two widest) beside the order floor (the chain of
+pivot steps alone), and the fused entry's device ms and one call's stages
+(the kernel's timeline).  Then the keyframe's query
 (LoopClosureManager.query and the read of its scores) at 320x240 with a
 database of 24 keyframes; with --soak, chip_smoke.py phase 12's soak
 (1000 frames, its wall time and counts).  It runs against the
@@ -37,7 +39,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZES = ((8, 16), (32, 64), (128, 256), (256, 512))
+SIZES = ((8, 16), (32, 64), (128, 256), (256, 512), (512, 1024))
 QUERY_H, QUERY_W = 480, 640  # the frame; the query runs at its half, 320x240
 QUERY_DB = 24  # keyframes in the database (the soak's cap)
 
@@ -57,17 +59,14 @@ def _wall_ms(fn, reps: int) -> list:
 
 def pose_graph_times(chip_smoke, dev, reps: int) -> list:
     """Each size: wall ms a closure's pose graph (read included), its
-    profile, and the kernel's device ms where the tree has it."""
+    profile, and the kernel's device ms."""
     import torch
 
     from disinfect_slam_tpu_torch.systems import loop_closure as lc
     from tests.torch_cases import pose_graph_case
 
-    try:
-        from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
-    except ImportError:
-        pk = None
-    step_cls = getattr(lc, "PoseGraphStep", None)
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+
     out = []
     for n_pad, e_pad in SIZES:
         graph = pose_graph_case(n_pad, e_pad, seed=n_pad)
@@ -79,10 +78,8 @@ def pose_graph_times(chip_smoke, dev, reps: int) -> list:
         def eager(g=graph):
             return lc.optimize_pose_graph(*(torch.from_numpy(a).to(dev) for a in g))[0].cpu()
 
-        runs = {"eager": eager}
-        if step_cls is not None:
-            step = step_cls(dev)
-            runs["captured"] = lambda s=step, g=graph: s(*g)[0].cpu()
+        step = lc.PoseGraphStep(dev)
+        runs = {"eager": eager, "captured": lambda s=step, g=graph: s(*g)[0].cpu()}
         for name, fn in runs.items():
             got = fn()  # a captured step's first call captures
             if host is None:
@@ -96,8 +93,7 @@ def pose_graph_times(chip_smoke, dev, reps: int) -> list:
             res[name] = {"wall_ms": ms, "median_ms": statistics.median(ms), "profile": prof}
             chip_smoke.log(f"[port_pose_graph_stage] n_pad {n_pad}, e_pad {e_pad}, {name}: "
                            f"{res[name]}")
-        if pk is not None:
-            res["kernel"] = kernel_times(chip_smoke, pk, lc, graph, dev)
+        res["kernel"] = kernel_times(chip_smoke, pk, lc, graph, dev)
         out.append(res)
         torch.cuda.empty_cache()
     return out
@@ -105,29 +101,41 @@ def pose_graph_times(chip_smoke, dev, reps: int) -> list:
 
 def kernel_times(chip_smoke, pk, lc, graph, dev) -> dict:
     """pose_graph_solve's device ms a call on the graph's first iteration at
-    each launch shape the size takes (held bit-equal to the plain version
-    first), and the order floor at the shape cluster_shape picks."""
+    the launch shapes the size takes (held bit-equal to the plain version
+    first; "Ns" N CTAs with the columns in shared memory, "Ng" in device
+    memory), the order floor at the shape the wrapper picks, the fused
+    entry's ms and one call's stages from the kernel's timeline."""
     import torch
 
     args = [t.to(dev) for t in lc.pose_graph_system(*(torch.from_numpy(a) for a in graph))]
     m = args[5].shape[0]
     want = pk.pose_graph_solve_reference(*args)
-    shapes = [(c, True) for c in pk.CLUSTERS if pk.smem_bytes(m, c, True) <= pk.SMEM_LIMIT]
-    shapes += [(c, False) for c in (1, 4, 8, 16)]
-    res = {"auto": list(pk.cluster_shape(m)), "shapes": {}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    auto, _ = pk.grid_shape(m, sms)
+    wide = pk.shapes(m, sms, False)
+    shapes = ([(c, True) for c in pk.shapes(m, sms, True)]
+              + [(c, False) for c in (wide if m <= 384 else wide[-2:])])
+    res = {"auto": list(pk.grid_shape(m, sms)), "shapes": {}}
     for ctas, shared in shapes:
         fn = lambda c=ctas, s=shared: pk.pose_graph_solve(*args, ctas=c, shared=s)  # noqa: E731
         if not torch.equal(fn(), want):
             raise SystemExit(f"pose_graph_solve at m {m}, {ctas} CTAs, shared {shared} differs "
-                             f"from its plain version")
+                             "from its plain version")
         res["shapes"][f"{ctas}{'s' if shared else 'g'}"] = chip_smoke.kernel_ms(
             fn, "pose_graph_kernel", reps=5)
-    if hasattr(pk, "chain"):
-        col = torch.rand(m, dtype=torch.float64, device=dev)
-        sink = torch.empty(16, dtype=torch.int32, device=dev)
-        ctas = res["auto"][0]
-        res["order_floor_ms"] = chip_smoke.kernel_ms(lambda: pk.chain(col, ctas, sink),
-                                                     "pose_graph_chain", reps=5)
+    col = torch.rand(m, dtype=torch.float64, device=dev)
+    sink = torch.empty(sms, dtype=torch.int32, device=dev)
+    res["order_floor_ms"] = chip_smoke.kernel_ms(lambda: pk.chain(col, auto, sink),
+                                                 "pose_graph_chain", reps=5)
+    poses, ei, ej, z, w = (torch.from_numpy(a).to(dev) for a in graph)
+    fargs = [poses, ei.int(), ej.int(), lc._inv_rigid(z).contiguous(), w, args[5]]
+    fused = lambda: pk.pose_graph_fused(*fargs)  # noqa: E731
+    got, plain = fused(), pk.pose_graph_fused_reference(*fargs)
+    if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+        raise SystemExit(f"pose_graph_fused at m {m} differs from its plain version")
+    res["fused_ms"] = chip_smoke.kernel_ms(fused, "pose_graph_kernel", reps=5)
+    res["stages"] = chip_smoke._timeline_breakdown(
+        pk, lambda tl: pk.pose_graph_fused(*fargs, timeline=tl), m, dev)
     chip_smoke.log(f"[port_pose_graph_stage] pose_graph_solve at m {m}: {res}")
     return res
 

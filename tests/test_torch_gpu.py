@@ -1033,13 +1033,32 @@ def test_pose_graph_and_match_on_the_card_equal_the_cpu(cuda):
                            lcm.match_scores(db, db[q]))
 
 
-@pytest.mark.parametrize("n_pad, e", [(8, 13), (32, 50), (64, 100), (256, 400)])
+def _ints(t: torch.Tensor) -> torch.Tensor:
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _pose_graph_shapes(m: int, n_pad: int, sms: int) -> list:
+    """(ctas, shared) of every launch shape the pose graph's wrapper takes
+    at m rows, the columns in shared memory and in device memory; above 64
+    nodes only the device-memory layout's two widest (over a few CTAs it
+    takes seconds a call)."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+
+    out = [(c, True) for c in pk.shapes(m, sms, True)]
+    wide = pk.shapes(m, sms, False)
+    return out + [(c, False) for c in (wide if n_pad <= 64 else wide[-2:])]
+
+
+@pytest.mark.parametrize("n_pad, e", [(8, 13), (32, 50), (64, 100), (128, 200), (256, 400),
+                                      (512, 800), (1024, 1600)])
 def test_pose_graph_kernel_equals_its_plain_version(cuda, n_pad, e):
     """pose_graph_solve on random graphs (a quarter of the edges padded, e
-    not a power of two) at the launch shape cluster_shape picks: dx bit-equal
-    to its plain version on the card, and up to 64 nodes to the CPU's; at
-    32 nodes every other launch shape too (the columns in shared memory over
-    2-16 CTAs, in device memory over 1-16)."""
+    not a power of two) at the launch shape grid_shape picks and at the
+    other shapes the wrapper takes (the ctas and shared overrides; 512
+    and 1024 nodes fit only in device memory, where a thread holds up to
+    8 and up to 32 of a panel's rows): dx bit-equal to its plain version
+    on the card, and up to 64 nodes to the CPU's."""
     from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
     from disinfect_slam_tpu_torch.utils.kernel_verify import pose_graph_inputs
 
@@ -1051,15 +1070,89 @@ def test_pose_graph_kernel_equals_its_plain_version(cuda, n_pad, e):
     before = pk.pose_graph_solve.launches
     assert torch.equal(pk.pose_graph_solve(*args).cpu(), want)
     assert pk.pose_graph_solve.launches == before + 1
-    if n_pad == 32:
-        m = 6 * n_pad
-        for ctas in pk.CLUSTERS:
-            for shared in (True, False):
-                if shared and pk.smem_bytes(m, ctas, True) > pk.SMEM_LIMIT:
-                    continue
-                got = pk.pose_graph_solve(*args, ctas=ctas, shared=shared)
-                assert torch.equal(got.cpu(), want), (ctas, shared)
+    m = 6 * n_pad
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pk.grid_shape(m, sms)[1] == (n_pad <= 256)
+    for ctas, shared in _pose_graph_shapes(m, n_pad, sms):
+        got = pk.pose_graph_solve(*args, ctas=ctas, shared=shared)
+        assert torch.equal(got.cpu(), want), (ctas, shared)
     assert torch.isfinite(want).all()
+
+
+@pytest.mark.parametrize("n_pad, e_pad", [(8, 16), (32, 64), (128, 256), (256, 512),
+                                          (512, 1024)])
+def test_pose_graph_fused_equals_its_plain_version(cuda, n_pad, e_pad):
+    """pose_graph_fused (the residuals and Jacobians in the kernel) on
+    pose_graph_case's drifting graphs at the launch shapes of
+    _pose_graph_shapes: dx and the
+    residuals bit-equal to its plain version on the card, and up to 32
+    nodes to the CPU's (whose Jacobians are torch's forward mode's bits);
+    one launch counted on pose_graph_solve."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.systems import loop_closure as lcm
+
+    from .torch_cases import pose_graph_case
+
+    poses, ei, ej, z, w = (torch.from_numpy(a) for a in pose_graph_case(n_pad, e_pad, seed=n_pad))
+    host = [poses, ei.int(), ej.int(), lcm._inv_rigid(z).contiguous(), w,
+            lcm._gauge_diag(n_pad, 1e-4, "cpu")]
+    args = [t.to(cuda) for t in host]
+    want = pk.pose_graph_fused_reference(*args)
+    if n_pad <= 32:
+        cpu = pk.pose_graph_fused_reference(*host)
+        assert all(torch.equal(_ints(a), _ints(b)) for a, b in zip(want, cpu))
+    before = pk.pose_graph_solve.launches
+    got = pk.pose_graph_fused(*args)
+    assert pk.pose_graph_solve.launches == before + 1
+    assert all(torch.equal(_ints(a), _ints(b)) for a, b in zip(got, want))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for ctas, shared in _pose_graph_shapes(6 * n_pad, n_pad, sms):
+        got = pk.pose_graph_fused(*args, ctas=ctas, shared=shared)
+        assert all(torch.equal(_ints(a), _ints(b)) for a, b in zip(got, want)), (ctas, shared)
+    assert torch.isfinite(want[0]).all()
+
+
+@pytest.mark.parametrize("n_pad", [8, 32])
+@pytest.mark.parametrize("nan", [False, True], ids=["ties", "nan"])
+def test_pose_graph_kernel_on_ties_and_nan(cuda, n_pad, nan):
+    """Integer Jacobians, so that equal |a| tie in the pivot columns, and a
+    NaN in one edge's Jacobian (NaN columns): pose_graph_solve at every
+    launch shape against its plain version on the card, as integer views
+    (the NaNs' bits too), and the ties against the CPU's."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+
+    from .torch_cases import pose_graph_ties
+
+    host = pose_graph_ties(n_pad, 2 * n_pad, seed=3 + nan, nan=nan)
+    args = [t.to(cuda) for t in host]
+    want = pk.pose_graph_solve_reference(*args)
+    if not nan:
+        assert torch.equal(_ints(want), _ints(pk.pose_graph_solve_reference(*host)))
+        assert torch.isfinite(want).all()
+    else:
+        assert torch.isnan(want).any()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for ctas, shared in _pose_graph_shapes(6 * n_pad, n_pad, sms):
+        got = pk.pose_graph_solve(*args, ctas=ctas, shared=shared)
+        assert torch.equal(_ints(got), _ints(want)), (ctas, shared)
+
+
+def test_the_manager_takes_every_cap_the_kernel_takes(cuda):
+    """LoopClosureManager on the card takes max_keyframes up to the largest
+    power of two of nodes pose_graph_solve solves (2048: its graphs pad to
+    a power of two), and refuses a larger cap when it is built, not at a
+    closure."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.systems import loop_closure as lcm
+
+    from .torch_cases import LC_ARGS, LC_H, LC_K, LC_W
+
+    args = {k: v for k, v in LC_ARGS.items() if k != "max_keyframes"}
+    top = 1 << ((pk.MAX_ROWS // 6).bit_length() - 1)
+    assert top == 2048
+    lcm.LoopClosureManager(LC_K, LC_H, LC_W, device=cuda, max_keyframes=top, **args)
+    with pytest.raises(ValueError, match="max_keyframes"):
+        lcm.LoopClosureManager(LC_K, LC_H, LC_W, device=cuda, max_keyframes=top + 1, **args)
 
 
 def test_a_closure_is_one_graph_launch_and_never_syncs(cuda):

@@ -180,14 +180,15 @@ def test_captured_pose_graph_keys_replays_and_launches(monkeypatch):
     small, large = pose_graph_case(8, 16, seed=1), pose_graph_case(16, 32, seed=2)
     want = {id(g): tlc.optimize_pose_graph(*(torch.from_numpy(a) for a in g))
             for g in (small, large)}
-    real = pk.pose_graph_solve
+    real = pk.pose_graph_fused
 
+    # the fused entry's launches count as pose_graph_solve's
     def pose_graph_solve(*args, **kw):
         graphs.count_launch(pose_graph_solve)
         return real(*args, **kw)
 
     pose_graph_solve.launches = 0
-    monkeypatch.setattr(pk, "pose_graph_solve", pose_graph_solve)
+    monkeypatch.setattr(pk, "pose_graph_fused", pose_graph_solve)
     cache = StepGraphs("cpu", capture=RecordingCapture())
     step = tlc.PoseGraphStep("cpu", graphs=cache)
     before = graphs.REPLAYS["pose_graph_solve"]
@@ -248,25 +249,56 @@ def test_captured_query_equals_the_eager_query():
 # the CUDA source and the launch shape
 # ----------------------------------------------------------------------
 def test_the_cuda_source_holds_the_wrappers_constants():
-    """csrc/pose_graph.cu's CTA size, largest cluster and shared-memory
-    limit are the wrapper's, and its columns a CTA and shared-memory sum
-    are smem_bytes'."""
+    """csrc/pose_graph.cu's CTA size, panel width, a thread's panel rows in
+    either layout, largest m, shared-memory limit, edge entries and edge
+    chunk are the wrapper's, its shared-memory sum is smem_bytes', and its
+    hex literals are core/exact's doubles (1/n!,
+    2 pi, pi / 8's tangent, the float32 1/6 and 1/12)."""
     with open(SOURCE) as f:
         src = f.read()
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    consts = dict(re.findall(r"constexpr \w+ (k\w+) = ([^;]+);", src))
     assert int(consts["kThreads"]) == pk.THREADS
-    assert int(consts["kMaxCluster"]) == pk.MAX_CLUSTER
+    assert int(consts["kNB"]) == pk.NB
+    assert int(consts["kMaxSlots"]) == pk.SLOTS and int(consts["kWideSlots"]) == pk.WIDE_SLOTS
+    assert int(consts["kMidSlots"]) == pk.MID_SLOTS
+    assert consts["kMaxRows"] == "kThreads * kWideSlots" and pk.THREADS * pk.WIDE_SLOTS == pk.MAX_ROWS
     assert int(consts["kSmemLimit"]) == pk.SMEM_LIMIT
-    assert src.count("const int cols = m / ctas + 1;") == 2
-    assert ("return 8 * ((shared ? static_cast<size_t>(cols) * m : 0) + 3 * static_cast<size_t>(m)"
-            " + kWarps) +\n         4 * (kWarps + 2);") in src
+    assert int(consts["kBlockVals"]) == pk.BLOCK_VALS
+    assert int(consts["kEdgeChunk"]) == pk.EDGE_CHUNK
+    assert ("return 8 * ((global ? 0 : nlb * kNB * m) + kNB * nlb * kNB + 6 * kNB * kNB + 2 * kNB) +\n"
+            "         4 * (6 * kWarps + 2 * kNB + 2 * static_cast<size_t>(m) + 3 * kEdgeChunk);") in src
+    table = re.search(r"kInvFact\[[^\]]*\] = \{([^}]*)\}", src).group(1)
+    assert [float.fromhex(v) for v in table.split(",") if v.strip()] == list(exact.INV_FACT)
+    assert float.fromhex(consts["kTwoPi"]) == exact.TWO_PI
+    assert float.fromhex(consts["kInvTwoPi"]) == exact.INV_TWO_PI
+    assert float.fromhex(consts["kTanPi8"]) == exact.TAN_PI_8
+    assert float.fromhex(consts["kPi"]) == np.pi
+    assert float.fromhex(consts["kPi2"]) == np.pi / 2 and float.fromhex(consts["kPi4"]) == np.pi / 4
+    assert float.fromhex(consts["kSixth"].rstrip("f")) == float(np.float32(1.0 / 6.0))
+    assert float.fromhex(consts["kTwelfth"].rstrip("f")) == float(np.float32(1.0 / 12.0))
+    assert int(consts["kSinTerms"]) == exact.SIN_TERMS
+    assert int(consts["kAtanTerms"]) == exact.ATAN_TERMS
 
 
-@pytest.mark.parametrize("m, want", [(48, (1, True)), (96, (1, True)), (192, (16, True)),
-                                     (384, (16, True)), (768, (16, False)), (1536, (16, False))])
-def test_cluster_shape_is_one_cta_or_sixteen(m, want):
-    assert pk.cluster_shape(m) == want
-    assert pk.smem_bytes(m, *want) <= pk.SMEM_LIMIT
+@pytest.mark.parametrize("m, want, shared", [
+    (48, 7, True), (96, 13, True), (144, 19, True), (192, 25, True), (384, 49, True),
+    (768, 97, True), (1536, 132, True), (1656, 132, False), (3072, 132, False),
+    (pk.MAX_ROWS - 4, 132, False)])
+def test_cluster_shape_is_one_cta_or_sixteen(m, want, shared):
+    """grid_shape on an H100's 132 SMs (the name is kept from the cluster
+    shapes this test first held): a CTA for every block of columns, up to
+    the SMs, the columns in shared memory up to 1536 rows (256 nodes) and
+    in device memory above; every shape listed fits; beyond MAX_ROWS
+    raises, and too few SMs to hold the columns take device memory."""
+    assert pk.grid_shape(m, 132) == (want, shared)
+    assert want in pk.shapes(m, 132, shared)
+    assert all(pk.smem_bytes(m, c, shared) <= pk.SMEM_LIMIT for c in pk.shapes(m, 132, shared))
+    if not shared:
+        assert pk.shapes(m, 132, True) == []
+    with pytest.raises(ValueError):
+        pk.grid_shape(pk.MAX_ROWS + 6, 132)
+    if m == 1536:
+        assert pk.grid_shape(m, 64) == (64, False)
 
 
 def test_the_wrapper_rejects_what_the_kernel_cannot_take():

@@ -580,6 +580,28 @@ def _axis_angle(omega: np.ndarray) -> np.ndarray:
     return np.eye(3) + np.sin(theta) * kx + (1.0 - np.cos(theta)) * kx @ kx
 
 
+def pose_graph_ties(n_pad: int, e_pad: int, seed: int, nan: bool = False) -> list:
+    """pose_graph_solve's inputs (CPU tensors) with integer Jacobians and
+    residuals in [-2, 2] on random edges (a quarter padded) and a diagonal
+    of ones, so that pivot candidates tie; with nan, one NaN in an edge's
+    Jacobian."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    e = e_pad - e_pad // 4
+    ei = np.zeros(e_pad, np.int32)
+    ej = np.zeros(e_pad, np.int32)
+    ends = np.stack([rng.choice(n_pad, 2, replace=False) for _ in range(e)])
+    ei[:e], ej[:e] = ends[:, 0], ends[:, 1]
+    jac = np.zeros((2, e_pad, 6, 6))
+    rd = np.zeros((e_pad, 6))
+    jac[:, :e] = rng.integers(-2, 3, (2, e, 6, 6))
+    rd[:e] = rng.integers(-2, 3, (e, 6))
+    if nan:
+        jac[0, 1, 2, 3] = np.nan
+    return [torch.from_numpy(a) for a in (jac[0], jac[1], rd, ei, ej, np.ones(6 * n_pad))]
+
+
 def pose_graph_case(n_pad: int, e_pad: int, seed: int = 0) -> tuple:
     """A keyframe graph as LoopClosureManager pads it, host arrays: n_pad -
     n_pad // 8 real nodes along a drifting path (each pose turned by a
