@@ -33,9 +33,13 @@ exits non-zero:
      kernels project), each kernel and the image assembly by CUDA events,
      and profiled (render_split, which scripts/port_render_stage.py also
      runs on another tree); the frame-0 and the app's view held against
-     the JAX reference's render fingerprint; the parity raycaster on the
-     frame-0
-     view, timed, with its divergence from the splat; then fuse_rows
+     the JAX reference's render fingerprint; the parity raycaster (the
+     raycast kernel, csrc/raycast.cu) through TSDFGrid.ray_cast(renderer=
+     "raycast") at frames 0-4: the captured RaycastStep (the main path,
+     one launch counted a render) and the same eagerly, ms a render, the
+     frame-0 render bit-equal to the eager one, to raycast_reference on
+     the card (its time beside) and to the port's CPU raycast of the same
+     volume, and the splat's divergence from it; then fuse_rows
      against its plain version on frame 30's visible set of the fused
      volume, with its yardsticks (below);
   6. the online slice (segmentation feeding fusion): InferenceEngine on
@@ -65,7 +69,9 @@ exits non-zero:
      fingerprint); the hash-backend replay (apps.offline --backend hash,
      fused sampler: fuse_rows once per frame, the volume against the
      fingerprint, a frame-0 render launching each splat kernel once,
-     bit-equal in both buffers to the plain splat); and apps.offline
+     bit-equal in both buffers to the plain splat, and the raycast kernel
+     on the hash volume, captured and eager, bit-equal to its plain
+     version); and apps.offline
      --preset small --grid-log2 6 --auto-recenter, whose window moves
      (every live entry's table cell points back at it, no live block
      outside the window);
@@ -129,7 +135,16 @@ exits non-zero:
      plain version, its device time beside its bound, its order floor
      (the chain probe: the pivot steps alone) beside the parent design's,
      torch.linalg.solve_ex of the same H, the plain versions' times and one
-     call's stages from the kernel's timeline; and the SLAM frame
+     call's stages from the kernel's timeline; the pose graph's pass
+     layout (a panel's rows in passes) forced at 8 and 512 nodes and taken
+     by itself at 2736 nodes (m = 16416, past the register layouts' 16384
+     rows), each bit-equal to its plain version (core/exact.solve_lu); the
+     raycast kernel on phase 3's volume at the frame-0 view and the app's
+     640x360 view, bit-equal to its plain version, its device time beside
+     its bound (from the launch's record of its work: the images, each
+     distinct index entry and tsdf row read once), its order floor (the
+     longest ray's dependent loads at the latency of the chase probe's
+     dependent loads in L2) and its plain version's time; and the SLAM frame
      profiled (frames 45-59: device time, kernels, idle share; ICP alone:
      kernels, device time and the host time of its ops).
 
@@ -229,7 +244,8 @@ exits non-zero:
   14. the kernels' self-check: utils/kernel_verify.verify_all() on the
      card (K1 at 640x480, 1080p and with an early count, the two-stage
      and the fused integrate of a small scene, K4/K5's render of it, the
-     captured steps, icp_step, pose_graph_solve: nine checks), every
+     captured steps, icp_step, pose_graph_solve, the raycast kernel on a
+     dense and a hash volume: ten checks), every
      check PASS in under 60 s; its launches are reported apart
      from the main paths' (verify_launches).
   15. the port's benchmark as a user runs it: `python bench_torch.py` in
@@ -239,7 +255,9 @@ exits non-zero:
      line with bench.py's twelve keys (platform "cuda", fallback false,
      vs_baseline null, every other number positive); fuse_rows launched
      2 + 60 times by the fusion stage and 30 a net by the online stage,
-     each splat kernel 6 times, sample_rows only in the self-check
+     each splat kernel 6 times, the raycast kernel 6 times by the
+     captured raycast stage and never by its plain one, sample_rows only
+     in the self-check
      (bench_launches in the kernels line).  Its line and its summary are
      printed.
   16. the captured steps (utils/graphs.py: each per-frame step one CUDA
@@ -278,7 +296,8 @@ exits non-zero:
      call, idle share).  The kernels line gives each kernel's launches
      made by graph replays over the run (graph_replays).
 
-Phases run 0-6b, then 9, then 8, then 10, then 11, then 12, then 13,
+Each phase prints its wall seconds on a line of its own.  Phases run
+0-6b, then 9, then 8, then 10, then 11, then 12, then 13,
 then 14, then 15, then 16, then 7 (which
 also profiles the two matchers: kernels and device time a call).  Phase
 2 also holds splat_zbuf_blocks and splat_payload_blocks (K4, K5:
@@ -297,6 +316,7 @@ meshes go to disinfect_slam_tpu_torch/_build/.  Run from the
 repository root, with no arguments:  python3 chip_smoke.py
 """
 
+import collections
 import io
 import json
 import os
@@ -416,6 +436,11 @@ ICP_ITERS = (4, 5, 10)  # ICPOdometry's iterations at levels 0, 1, 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase_wall(name: str, t0: float) -> None:
+    """The phase's wall seconds, on a line of its own."""
+    log(f"[chip_smoke] phase {name} wall s: {time.perf_counter() - t0:.1f}")
 
 
 def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
@@ -1120,21 +1145,18 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
             (kept_i + ov).cpu())
         check_render_fingerprint(fps[name], ref["render"][name], f"render {name}")
 
-    # the parity raycaster on the frame-0 view, and the splat's divergence from it
-    grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ray = grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")
-    torch.cuda.synchronize()
-    raycast_ms = 1e3 * (time.perf_counter() - t0)
+    # the parity raycaster (the raycast kernel) on frames 0-4, and the
+    # splat's divergence from it on frame 0
+    ray, raycast = raycast_views(grid, view, frames)
+    raycast_ms = raycast["captured_ms"]
     d = render_fast.render_divergence(ray, res, intrinsics, grid.cfg.voxel_size)
     p95 = float(np.percentile(d["depth_err"], 95)) if d["depth_err"].size else 0.0
     divergence = {"holes": d["holes"], "p95_depth_err_voxels": p95 / grid.cfg.voxel_size,
                   "bad": d["bad"], "on_edge": d["on_edge"],
                   "rgba_median": [float(v) for v in d["rgba_median"]],
                   "raycast_hit_share": ray.hit.float().mean().item()}
-    log(f"[chip_smoke] raycast frame 0: {raycast_ms:.3f} ms (640x480); splat "
-        f"divergence from it {divergence}")
+    log(f"[chip_smoke] raycast frame 0: {raycast_ms:.3f} ms a captured render (640x480); "
+        f"splat divergence from it {divergence}")
     if not ray.hit.any():
         raise AssertionError("the parity raycaster hit nothing")
     report = {"splat_ms_per_render": passes, "splat_ms": splat_ms,
@@ -1142,8 +1164,258 @@ def render_views(grid, render_fast, splat_kernel, intrinsics, poses, ref):
               "kernel_ms_frame0": split["kernel_ms"], "surface_blocks": kept + overflow,
               "surf_overflow": overflow, "stages_ms": stages, "split": split["stages_ms"],
               "profile": split["profile"], "fingerprints": fps, "raycast_ms": raycast_ms,
-              "divergence": divergence}
+              "raycast": raycast, "divergence": divergence}
     return report, launches, err
+
+
+RAY_FIELDS = ("hit", "depth", "rgba", "normal")
+
+
+def to_cpu(vol):
+    """A copy of a volume on the host."""
+    import dataclasses
+
+    return dataclasses.replace(vol, **{f.name: getattr(vol, f.name).cpu()
+                                       for f in dataclasses.fields(vol) if f.name != "cfg"})
+
+
+def raycast_views(grid, view, frames) -> tuple:
+    """Phase 5, the parity raycaster through TSDFGrid.ray_cast(renderer=
+    "raycast"): the main path first, the captured RaycastStep at frames
+    0-4 (the capture, then three timed passes of five replays; one raycast
+    launch counted a render), then the same passes eagerly (capture off:
+    one launch a render); the frame-0 view captured against the eager
+    render, raycast_reference on the card and the port's CPU raycast of a
+    host copy of the volume, all four images bit for bit.  Returns (the
+    frame-0 render, the report)."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.ops.raycast import raycast_reference
+
+    intr, hgt, wid = view
+    cam = CameraParams.create(CameraIntrinsics.create(*intr), hgt, wid)
+
+    def passes() -> list:
+        grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")  # warm-up
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for pose in frames:
+                grid.ray_cast(RENDER_MAX_DEPTH, view, pose, renderer="raycast")
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0) / len(frames))
+        return out
+
+    grid.capture = True
+    reset_launches(raycast_kernel.raycast)
+    captured = passes()
+    launches = raycast_kernel.raycast.launches
+    n_renders = 1 + 3 * len(frames)
+    if launches != n_renders:
+        raise AssertionError(f"the raycast kernel launched {launches} times for {n_renders} "
+                             "captured renders")
+    grid.capture = False
+    eager = passes()
+    got = {"eager": grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")}
+    grid.capture = True
+    ray = grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")
+    pose0 = SE3.from_matrix(frames[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got["plain on the card"] = raycast_reference(grid.volume, cam, pose0, RENDER_MAX_DEPTH)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got["the port on the CPU"] = raycast_reference(to_cpu(grid.volume), cam, pose0,
+                                                   RENDER_MAX_DEPTH)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    equal = {k: all(torch.equal(getattr(r, f).cpu(), getattr(ray, f).cpu()) for f in RAY_FIELDS)
+             for k, r in got.items()}
+    report = {"captured_ms_per_render": captured, "captured_ms": statistics.median(captured),
+              "eager_ms_per_render": eager, "eager_ms": statistics.median(eager),
+              "plain_ms": plain_ms, "cpu_ms": cpu_ms, "launches": launches, "equal": equal,
+              "hit_share": ray.hit.float().mean().item()}
+    log(f"[chip_smoke] raycast (the kernel, {hgt}x{wid}, frames 0-4): captured ms/render "
+        f"{captured} -> median {report['captured_ms']:.4f}, eager {eager} -> median "
+        f"{report['eager_ms']:.4f}; launches {launches} for {n_renders} captured renders; the "
+        f"plain march on the card {plain_ms:.1f} ms, on the CPU {cpu_ms:.1f} ms; frame 0 "
+        f"captured bit-equal to {equal}; hit share {report['hit_share']:.4f}")
+    if not all(equal.values()):
+        raise AssertionError(f"the raycast kernel's render differs: {equal}")
+    return ray, report
+
+
+def raycast_hash(grid, view, frames) -> dict:
+    """Phase 6b, the hash replay's volume through the raycast kernel (its
+    probes): the captured frame-0 render, a replay and one eager launch
+    against raycast_reference on the card and the port's CPU raycast of a
+    host copy of the same volume, all four images bit for bit."""
+    from disinfect_slam_tpu_torch.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.ops.raycast import raycast_reference
+
+    intr, hgt, wid = view
+    cam = CameraParams.create(CameraIntrinsics.create(*intr), hgt, wid)
+    pose = SE3.from_matrix(frames[0])
+    reset_launches(raycast_kernel.raycast)
+    got = {f"captured {i}": grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")
+           for i in range(2)}
+    got["eager"] = raycast_kernel.raycast(grid.volume, cam, pose, RENDER_MAX_DEPTH)
+    launches = raycast_kernel.raycast.launches
+    got["plain on the card"] = raycast_reference(grid.volume, cam, pose, RENDER_MAX_DEPTH)
+    cpu = raycast_reference(to_cpu(grid.volume), cam, pose, RENDER_MAX_DEPTH)
+    equal = {k: all(torch.equal(getattr(r, f).cpu(), getattr(cpu, f)) for f in RAY_FIELDS)
+             for k, r in got.items()}
+    log(f"[chip_smoke] hash raycast frame 0: launches {launches} (a capture, a replay, an "
+        f"eager call); bit-equal to the port's CPU raycast of the same volume: {equal}; hit "
+        f"share {cpu.hit.float().mean().item():.4f}")
+    if not all(equal.values()) or launches != 3 or not cpu.hit.any():
+        raise AssertionError(f"the raycast kernel on the hash volume: equal {equal}, "
+                             f"launches {launches}")
+    return {"launches": launches, "equal": equal, "hit_share": cpu.hit.float().mean().item()}
+
+
+# operations counted from csrc/raycast.cu, float32 (a division or root counted
+# as 8): a ray's setup (the back-projection, its norm, three divisions, the
+# rotation, the step and origin) 70; a march sample (its position, the
+# rounding, the crossing test) 15; a hit's bisection step 12 and its final
+# voxel, normal, shade and depth 110
+RAY_SETUP_OPS, SAMPLE_OPS, REFINE_OPS, SHADE_OPS = 70, 15, 12, 110
+CHASE_STEPS = 20000  # dependent loads a chase probe takes
+
+
+def load_latency_ms(dev, n: int, fresh: bool) -> float:
+    """ms a dependent load: the chase probe through a random cycle of n
+    int32 (4 n bytes), from a trace of CHASE_STEPS loads a call.  Each call
+    starts at index 0, so that its loads hit the lines the last call left
+    in L2, or (fresh) at a new random index of a cycle far larger than L2,
+    so that they come from device memory."""
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+
+    g = torch.Generator().manual_seed(0)
+    perm = torch.randperm(n, generator=g)
+    nxt = torch.empty(n, dtype=torch.int32)
+    nxt[perm] = perm.roll(-1).to(torch.int32)
+    nxt = nxt.to(dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    starts = iter(torch.randint(0, n, (64,), generator=g).tolist())
+    return kernel_ms(lambda: raycast_kernel.chase(nxt, CHASE_STEPS, out,
+                                                  next(starts) if fresh else 0),
+                     "chase_kernel", reps=3) / CHASE_STEPS
+
+
+def raycast_replay_profile(vol, cam, pose) -> dict:
+    """Phase 7, a captured render as the main path runs it (a RaycastStep,
+    an SE3 pose through its staging): wall ms a render over five calls
+    after the capture (host clock, ending in a sync); the device ms of the
+    step's graph alone (CUDA events around a bare replay, median of 10),
+    the raycast kernel's within it and the kernels a replay holds (from
+    traces), and the superblock table's torch ops alone (superblock_table,
+    the sum of its kernels from a trace); the idle share of a render,
+    1 - the graph's device ms over the wall ms.  A trace of the replays
+    can lose device events, so no device time here is a trace's sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.ops.raycast import superblock_table
+
+    step = raycast_kernel.RaycastStep(vol.device)
+    for _ in range(2):
+        step(vol, cam, pose, RENDER_MAX_DEPTH)  # the capture, then a replay
+    n = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(vol, cam, pose, RENDER_MAX_DEPTH)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    (replay, _, _), = step.graphs._graphs.values()
+    graph_ms = cuda_time_ms(replay)
+    kernel = kernel_ms(replay, "raycast_kernel")
+    table_ms = kernel_ms(lambda: superblock_table(vol))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            replay()
+        torch.cuda.synchronize()
+    counts = collections.Counter(e.name for e in prof.events() if e.device_type.name == "CUDA")
+    kernels = {k: max(1, round(v / n)) for k, v in counts.items()}
+    res = {"wall_ms_per_render": wall_ms, "graph_device_ms": graph_ms,
+           "raycast_kernel_ms": kernel, "table_ms": table_ms,
+           "rest_ms": graph_ms - kernel - table_ms, "kernels_per_replay": sum(kernels.values()),
+           "kernels": kernels, "idle_share": 1 - graph_ms / wall_ms}
+    log(f"[chip_smoke] raycast captured replay ({cam.img_w}x{cam.img_h}): wall "
+        f"{wall_ms:.4f} ms/render; the graph's device time {graph_ms:.4f} ms (CUDA events): the "
+        f"raycast kernel {kernel:.4f}, the superblock table's ops {table_ms:.4f} (alone), the "
+        f"rest {res['rest_ms']:.4f}; idle share {res['idle_share']:.3f}; "
+        f"{res['kernels_per_replay']} kernels and copies a replay (a trace)")
+    return res
+
+
+def raycast_yardsticks(vol, intrinsics, poses, launches) -> dict:
+    """Phase 7, the raycast kernel on phase 3's volume at the frame-0 view
+    (640x480) and the app's view (640x360, the last pose): its device time
+    from a trace and one wrapper call by CUDA events (the superblock
+    table's torch ops included); the bound from the launch's own record of
+    its work (RaycastWork): the images written (13 bytes a pixel), each
+    distinct index entry and tsdf row read once, over 3.35 TB/s, against
+    the operations above over 67 TFLOP/s; the order floor, the longest
+    ray's dependent loads (a table and a voxel load a sample: its march
+    samples, the bisection, the origin, the final voxel and the normal's
+    six reads together) times the dependent-load latency the chase probe
+    measures in L2 (the same 20000 lines each call; fresh lines of a 256 MB
+    cycle, from device memory, for context);
+    the plain version's time; library: none.  Then a captured render's
+    profile at the frame-0 view (raycast_replay_profile)."""
+    from disinfect_slam_tpu_torch.core.geometry import (SE3, CameraIntrinsics, CameraParams,
+                                                        DevicePose)
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.ops.raycast import raycast_reference
+
+    dev = vol.device
+    lat_l2 = load_latency_ms(dev, 1 << 20, fresh=False)
+    lat_hbm = load_latency_ms(dev, 1 << 26, fresh=True)
+    cfg = vol.cfg
+    refine = cfg.refine_iters(cfg.truncation / 2.0)
+    out = {"load_latency_us": {"l2": 1e3 * lat_l2, "hbm": 1e3 * lat_hbm}}
+    for name, (i, hgt, wid) in {"frame0": (0, H, W), "app": (-1, 360, 640)}.items():
+        cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), hgt, wid)
+        pose = DevicePose.from_se3(SE3.from_matrix(poses[i]), dev)
+        fn = lambda c=cam, p=pose: raycast_kernel.raycast(vol, c, p, RENDER_MAX_DEPTH)  # noqa: E731
+        work = raycast_kernel.RaycastWork.zeros(vol, cam)
+        res = raycast_kernel.raycast(vol, cam, pose, RENDER_MAX_DEPTH, work=work)
+        plain = raycast_reference(vol, cam, pose, RENDER_MAX_DEPTH)
+        err = max(float((getattr(res, f).double() - getattr(plain, f).double()).abs().max())
+                  for f in RAY_FIELDS)
+        samples = work.samples
+        cells, rows = int(work.cells.sum()), int(work.rows.sum())
+        hits = int(res.hit.sum())
+        nbytes = hgt * wid * 13 + cells * (4 if cfg.backend == "dense" else 8) + rows * 4 * 512
+        ops = (hgt * wid * RAY_SETUP_OPS + int(samples.sum()) * SAMPLE_OPS
+               + hits * (refine * REFINE_OPS + SHADE_OPS))
+        longest = int(samples.max())
+        loads = 2 * (longest + refine + 3)
+        r = {"img": f"{wid}x{hgt}", **bound(nbytes, ops), "max_abs_err": err,
+             "samples": int(samples.sum()), "longest_ray_samples": longest,
+             "index_entries": cells, "tsdf_rows": rows, "hits": hits,
+             "order_floor_loads": loads, "order_floor_ms": loads * lat_l2,
+             "library_ms": None, "launches": launches}
+        time_kernel(r, fn, "raycast_kernel")
+        r["plain_ms"] = cuda_time_ms(lambda c=cam, p=pose: raycast_reference(
+            vol, c, p, RENDER_MAX_DEPTH), 1)
+        print_yardsticks(f"raycast {name} ({wid}x{hgt}, {hits} hits, {r['samples']} samples, "
+                         f"{cells} index entries, {rows} tsdf rows)", r)
+        log(f"[chip_smoke] raycast {name}: order floor {r['order_floor_ms']:.4f} ms ({loads} "
+            f"dependent loads of the longest ray, {longest} march samples, at "
+            f"{out['load_latency_us']['l2']:.3f} us in L2; {out['load_latency_us']['hbm']:.3f} "
+            f"us from device memory): the kernel at {r['ms'] / r['order_floor_ms']:.2f}x it")
+        if err != 0.0:
+            raise AssertionError(f"the raycast kernel at {name} differs from its plain "
+                                 f"version by {err}")
+        out[name] = r
+    cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), H, W)
+    out["replay_profile"] = raycast_replay_profile(vol, cam, SE3.from_matrix(poses[0]))
+    return out
 
 
 def check_seg(seg, dev, rgb0, ref):
@@ -1707,8 +1979,10 @@ def hash_replay(offline, splat_kernel, fuse_kernel, intrinsics, poses, ref, fuse
         f"buffers bit-equal to the plain splat: {equal} ({int(ours[3])} surface blocks)")
     if not equal:
         raise AssertionError("hash render: the kernels' buffers differ from the plain splat")
+    ray = raycast_hash(grid, (intrinsics, H, W), poses)
     return {"ms_per_frame": ms, "fuse_rows_launches": fuse_launches,
-            "splat_launches": launches, "fingerprint": fp, "frames": res["frames"]}
+            "splat_launches": launches, "fingerprint": fp, "frames": res["frames"],
+            "raycast": ray}
 
 
 def recenter_replay(offline) -> dict:
@@ -2493,6 +2767,58 @@ def pose_graph_yardsticks(dev) -> dict:
                                  f"by {err} (solve-only) and {ferr} (fused)")
         out[n_pad] = res
         del h, g
+        torch.cuda.empty_cache()
+    return out
+
+
+# the pass layout (csrc/pose_graph.cu: the threads stride over a panel's
+# rows, their state in device memory): forced at 8 and 512 nodes, and
+# taken by itself at 2736 nodes (m = 16416, just past the register
+# layouts' 16384 rows); (nodes, edges, forced)
+PASS_LAYOUT_CASES = ((8, 16, True), (512, 1024, True), (2736, 5472, False))
+
+
+def pose_graph_pass_layout(dev) -> dict:
+    """Phase 7, the pose graph's kernel in the pass layout on
+    kernel_verify.pose_graph_inputs' random graphs: dx bit-equal to the
+    plain version (normal_equations, then core/exact.solve_lu) on the card,
+    and at 8 nodes to the CPU's; the kernel's time from a trace (one call
+    by CUDA events at 2736 nodes), the plain version's by CUDA events."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.utils.kernel_verify import pose_graph_inputs
+
+    out = {}
+    for n_pad, e, forced in PASS_LAYOUT_CASES:
+        m = 6 * n_pad
+        host = pose_graph_inputs(n_pad, e, seed=n_pad + 1, device="cpu")
+        args = [t.to(dev) for t in host]
+        fn = lambda a=args, f=forced: pk.pose_graph_solve(*a, passes=f)  # noqa: E731
+        t0 = time.perf_counter()
+        want = pk.pose_graph_solve_reference(*args)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        got = fn()
+        err = float((got.double() - want.double()).abs().max())
+        equal = torch.equal(got, want)
+        if n_pad <= 8:
+            equal &= torch.equal(got.cpu(), pk.pose_graph_solve_reference(*host))
+        big = n_pad > 512
+        ms = cuda_time_ms(fn, 1) if big else kernel_ms(fn, "pose_graph_kernel", reps=5)
+        layout = pk.launch_layout(m, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                  passes=forced)
+        if not layout[1]:
+            raise AssertionError(f"pose_graph_solve at m={m} does not take the pass layout")
+        res = {"n_pad": n_pad, "e": e, "m": m, "forced": forced, "equal": equal,
+               "max_abs_err": err, "ms": ms, "timed_by": "cuda events" if big else "trace",
+               "plain_ms": plain_ms, "scratch_gb": pk.scratch_bytes(m, e) / 1e9}
+        log(f"[chip_smoke] pose_graph_solve pass layout m={m} ({n_pad} nodes, {e} edges, "
+            f"{'forced' if forced else 'by itself'}): bit-equal to solve_lu {equal}; kernel {ms:.4f} ms "
+            f"({res['timed_by']}), plain {plain_ms:.1f} ms, scratch {res['scratch_gb']:.2f} GB")
+        if not equal:
+            raise AssertionError(f"pose_graph_solve in the pass layout at m={m} differs from "
+                                 f"its plain version by {err}")
+        out[n_pad] = res
+        del args, want, got
         torch.cuda.empty_cache()
     return out
 
@@ -3969,6 +4295,8 @@ SEG_PAR_LR = 3e-3  # phase 10a's rate
 SEG_PAR_LOSS_RTOL, SEG_PAR_GRAD_RTOL = 1e-5, 1e-4
 SEG_PAR_INFER_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 VERIFY_BUDGET_S = 60.0
+VERIFY_CHECKS = 10  # K1 (three), K1 and K2 in integrate, K4/K5, the captured steps,
+# icp_step, pose_graph_solve, raycast
 
 
 def _net(dev, dtype=torch.bfloat16):
@@ -4181,12 +4509,12 @@ def kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dic
     """Phase 14: utils/kernel_verify.verify_all() on the card, every check
     PASS in under VERIFY_BUDGET_S; its comparison launches are counted
     apart from the main paths'."""
-    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel, pose_graph_kernel
+    from disinfect_slam_tpu_torch.ops.cuda import icp_kernel, pose_graph_kernel, raycast_kernel
     from disinfect_slam_tpu_torch.utils import kernel_verify
 
     fns = (sample_kernel.sample_rows, fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
            splat_kernel.splat_payload_blocks, icp_kernel.icp_step,
-           pose_graph_kernel.pose_graph_solve)
+           pose_graph_kernel.pose_graph_solve, raycast_kernel.raycast)
     reset_launches(*fns)
     t0 = time.perf_counter()
     ok = kernel_verify.verify_all(verbose=True, device=dev)
@@ -4201,6 +4529,9 @@ def kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dic
         raise AssertionError(f"the self-check took {wall:.1f} s")
     if not all(launches.values()):
         raise AssertionError(f"the self-check left a kernel unlaunched: {launches}")
+    if len(kernel_verify.CHECKS) != VERIFY_CHECKS:
+        raise AssertionError(f"the self-check has {len(kernel_verify.CHECKS)} checks, "
+                             f"not {VERIFY_CHECKS}")
     return {"checks": len(kernel_verify.CHECKS), "wall_s": wall, "launches": launches}
 
 
@@ -4211,7 +4542,7 @@ BENCH_TIMEOUT_S = 600
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "platform", "img", "voxel_m",
               "online_fps", "online_fps_fast", "stereo_ms", "fallback", "dataset"]
 BENCH_FRAMES, BENCH_WARM = 60, 2  # the fusion stage's timed frames; warm-up frames
-BENCH_RENDERS = 6  # a warm-up and five timed splat renders
+BENCH_RENDERS = 6  # a warm-up and five timed renders (splat, raycast)
 
 
 def bench_phase(smi) -> dict:
@@ -4243,6 +4574,7 @@ def bench_phase(smi) -> dict:
         ("online unet", "fuse_rows"): ONLINE_FRAMES, ("online fast", "fuse_rows"): ONLINE_FRAMES,
         ("splat", "splat_zbuf_blocks"): BENCH_RENDERS,
         ("splat", "splat_payload_blocks"): BENCH_RENDERS,
+        ("raycast", "raycast"): BENCH_RENDERS, ("raycast plain", "raycast"): 0,
     }
     got = {k: stages.get(k[0], {}).get(k[1]) for k in want}
     failed = []
@@ -5072,9 +5404,11 @@ def main() -> int:
     log(f"[chip_smoke] phase 1: {len(paths)} kernel libraries built in {nvcc_s:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s) -> "
         f"{sorted(os.path.relpath(p, ROOT) for p in paths.values())}")
+    phase_wall("1", t0)
 
     # phase 2: kernels against their plain versions at the slice's shapes
     # (their times come in phase 7: a profiler trace would slow what follows)
+    t2 = time.perf_counter()
     checks = [lambda timed: check_fuse_rows(fuse_kernel, H, W, 1, dev, False, timed),
               lambda timed: check_fuse_rows(fuse_kernel, 1080, 1920, 2, dev, True, timed),
               lambda timed: check_sample_rows(sample_kernel, dev, timed),
@@ -5089,6 +5423,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[chip_smoke] phase 2: kernels agree with their plain versions "
         f"({time.perf_counter() - t_start:.1f} s)")
+    phase_wall("2", t2)
 
     with open(FINGERPRINT) as f:
         ref = json.load(f)
@@ -5102,6 +5437,7 @@ def main() -> int:
     # must launch none
     probe_fns = probe_launches(splat_probe, feature_probe, sample_probe)
     reset_launches(*probe_fns)
+    t3 = time.perf_counter()
     ms_runs = []
     for i in range(3):
         reset_launches(fuse_kernel.fuse_rows, sample_kernel.sample_rows, *splat_fns)
@@ -5136,8 +5472,10 @@ def main() -> int:
         f"({time.perf_counter() - t_start:.1f} s)")
     # where the fusion's time goes
     fusion = fusion_split(offline, fuse_kernel, dev)
+    phase_wall("3", t3)
 
     # phase 4: the two-stage path
+    t4 = time.perf_counter()
     fuse_kernel.fuse_rows.launches = 0
     sample_kernel.sample_rows.launches = 0
     save_two = os.path.join(str(build.BUILD_DIR), "data_two_stage.bin")
@@ -5154,18 +5492,23 @@ def main() -> int:
         f"sample_rows launches {sample_launches} ({time.perf_counter() - t_start:.1f} s)")
     del res
     torch.cuda.empty_cache()
+    phase_wall("4", t4)
 
     # phase 5: the render slice on the last fused volume
+    t5 = time.perf_counter()
     intrinsics = get_intrinsics(load_yaml(os.path.join(DATASET, "cam.yaml")))
     poses = [pose for _, pose in LoggedReplay(DATASET, 5000.0).entries]
     render, splat_launches, render_err = render_views(
         grid, render_fast, splat_kernel, intrinsics, poses, ref)
     log(f"[chip_smoke] phase 5: render slice ok; splat {render['splat_ms']:.3f} "
-        f"ms/render, raycast {render['raycast_ms']:.3f} ms ({smi}) "
+        f"ms/render, raycast {render['raycast']['captured_ms']:.3f} ms/render captured, "
+        f"{render['raycast']['eager_ms']:.3f} eager, its plain version "
+        f"{render['raycast']['plain_ms']:.1f} ms ({smi}) "
         f"({time.perf_counter() - t_start:.1f} s)")
     # fuse_rows on a real frame's visible set of the fused volume
     fuse_real = check_fuse_real_frame(fuse_kernel, grid, 30, dev)
     torch.cuda.empty_cache()
+    phase_wall("5", t5)
 
     # phase 6: the online slice, segmentation feeding fuse_rows
     t6 = time.perf_counter()
@@ -5175,6 +5518,7 @@ def main() -> int:
         f"online_fps_fast {online['online_fps_fast']:.3f}, seg_ms "
         f"{online['seg']['unet']['seg_ms']:.3f} (UNet) ({smi}) "
         f"({time.perf_counter() - t6:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+    phase_wall("6", t6)
 
     # phase 6b: the export slice on phase 3's volume and dump
     t6b = time.perf_counter()
@@ -5187,10 +5531,12 @@ def main() -> int:
         f"s, hash replay {export['hash']['ms_per_frame']:.3f} ms/frame (dense {fused_ms:.3f}) "
         f"({smi}) ({time.perf_counter() - t6b:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
+    phase_wall("6b", t6b)
 
     # phase 9: the served map on phase 3's volume
     t9 = time.perf_counter()
     served = served_map_slice(offline, grid, fuse_kernel, splat_kernel, ref, fused_ms, smi, dev)
+    raycast_vol = grid.volume  # phase 7 times the raycast kernel on it
     del grid
     torch.cuda.empty_cache()
     log(f"[chip_smoke] phase 9: served map ok; /render "
@@ -5201,6 +5547,7 @@ def main() -> int:
         f"rows {served['cull']['on']['visible_rows_mean']:.1f} of "
         f"{served['cull']['off']['visible_rows_mean']:.1f} ({smi}) "
         f"({time.perf_counter() - t9:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+    phase_wall("9", t9)
 
     # phase 8: the tracking slice (pose-free dense SLAM)
     t8 = time.perf_counter()
@@ -5210,6 +5557,7 @@ def main() -> int:
         f"{slam['timing'][1]['ms_per_frame']:.3f} at track_res_scale 1, "
         f"{slam['timing'][2]['ms_per_frame']:.3f} at 2 ({smi}) "
         f"({time.perf_counter() - t8:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+    phase_wall("8", t8)
 
     # phase 10: training the seg net, the sharded volume, the host library
     t10 = time.perf_counter()
@@ -5223,6 +5571,7 @@ def main() -> int:
         f"{dist[f'shards_{DIST_SHARDS}']['ms_per_frame']:.3f} ms/frame on {DIST_SHARDS} shards, "
         f"{dist['shards_1']['ms_per_frame']:.3f} on 1 (phase 3 {fused_ms:.3f}) ({smi}) "
         f"({time.perf_counter() - t10:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+    phase_wall("10", t10)
 
     # phase 11: stereo-only depth
     t11 = time.perf_counter()
@@ -5232,6 +5581,7 @@ def main() -> int:
         f"{stereo['stereo_ms']['pyramid']['ms']:.3f}; stereo app --fused "
         f"{stereo['app']['fused']['fps']:.3f} FPS ({smi}) "
         f"({time.perf_counter() - t11:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+    phase_wall("11", t11)
 
     # phase 12: the soak
     t12 = time.perf_counter()
@@ -5240,6 +5590,7 @@ def main() -> int:
     log(f"[chip_smoke] phase 12: soak ok; {soak_res['frames']} frames, "
         f"{soak_res['ms_per_frame']:.3f} ms/frame, {soak_res['closures']} closures ({smi}) "
         f"({time.perf_counter() - t12:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+    phase_wall("12", t12)
 
     # phase 13: the seg net over a (data, model) mesh on the card
     t13 = time.perf_counter()
@@ -5250,6 +5601,7 @@ def main() -> int:
         f"make_train_step's {seg_par['timing']['make_train_step']['step_ms_median']:.2f} ms "
         f"({smi}) ({time.perf_counter() - t13:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
+    phase_wall("13", t13)
 
     probe_main_launches = {fn.__name__: fn.launches for fn in probe_fns}
     log(f"[chip_smoke] probe launches on the main path (phases 3-13): {probe_main_launches}")
@@ -5259,6 +5611,7 @@ def main() -> int:
     verify = kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi)
     log(f"[chip_smoke] phase 14: kernel self-check ok ({time.perf_counter() - t14:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
+    phase_wall("14", t14)
 
     # phase 15: the port's benchmark, as a user runs it
     t15 = time.perf_counter()
@@ -5267,6 +5620,7 @@ def main() -> int:
         f"online_fps {bench['payload']['online_fps']}, stereo_ms "
         f"{bench['payload']['stereo_ms']} ({smi}) ({time.perf_counter() - t15:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
+    phase_wall("15", t15)
 
     # phase 16: the captured steps
     t16 = time.perf_counter()
@@ -5300,6 +5654,7 @@ def main() -> int:
         f"{captured['io']['mesh']['f32']['wall_s']['captured_repeat']:.3f} s (eager / first / "
         f"repeat) ({smi}) "
         f"({time.perf_counter() - t16:.1f} s added, {time.perf_counter() - t_start:.1f} s)")
+    phase_wall("16", t16)
 
     # phase 7: device times, after every end-to-end measurement
     t7 = time.perf_counter()
@@ -5310,11 +5665,14 @@ def main() -> int:
     splat_slam = slam_zbuf_yardsticks(splat_kernel, slam_vol, slam_pose)
     icp = icp_yardsticks(dev)
     pose_graph = pose_graph_yardsticks(dev)
-    del slam_vol
+    pass_layout = pose_graph_pass_layout(dev)
+    raycast = raycast_yardsticks(raycast_vol, intrinsics, poses, render["raycast"]["launches"])
+    del slam_vol, raycast_vol
     slam["profile"] = slam_profile(dev)
     stereo["profile"] = stereo_profile(dev)
     log(f"[chip_smoke] phase 7: device times ({smi}) ({time.perf_counter() - t7:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
+    phase_wall("7", t7)
 
     from disinfect_slam_tpu_torch.utils.graphs import REPLAYS as graph_replays
 
@@ -5347,6 +5705,8 @@ def main() -> int:
         "splat_zbuf_slam_320x240": splat_slam,
         "icp_step": icp,
         "pose_graph_solve": pose_graph,
+        "pose_graph_pass_layout": pass_layout,
+        "raycast": raycast,
         "fused_replay_ms_per_frame": ms_runs,
         "two_stage_replay_ms_per_frame": two_ms,
         "fingerprint_fused": fp_fused,
@@ -5460,7 +5820,26 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in pose_graph.values()),
          **{f"{k}_{n}_nodes": pose_graph[n][k] for n in (8, 128, 256, 512)
             for k in ("ms", "bound_ms", "order_floor_ms", "library_ms", "plain_ms", "fused_ms",
-                      "fused_bound_ms")}},
+                      "fused_bound_ms")},
+         **{f"pass_layout_{k}_{n}_nodes": pass_layout[n][k] for n in pass_layout
+            for k in ("ms", "plain_ms", "forced")}},
+        {"name": "raycast", "route": "cuda",
+         "source": "disinfect_slam_tpu_torch/csrc/raycast.cu",
+         "replaces": "disinfect_slam_tpu/ops/raycast.py:186 (the march: a lax.while_loop of "
+                     "XLA ops inside jax.jit, no Pallas kernel)",
+         "launches": render["raycast"]["launches"],
+         "hash_launches": export["hash"]["raycast"]["launches"],
+         "verify_launches": verify["launches"]["raycast"],
+         "bench_launches": bench["launches"]["total"]["raycast"],
+         **{k: raycast["frame0"][k] for k in ("ms", "call_ms", "bound_ms", "bound_by",
+                                              "order_floor_ms", "library_ms", "plain_ms")},
+         "max_abs_err": max(raycast[v]["max_abs_err"] for v in ("frame0", "app")),
+         **{f"{k}_640x360": raycast["app"][k] for k in ("ms", "bound_ms", "order_floor_ms",
+                                                       "plain_ms")},
+         "captured_ms_per_render": render["raycast"]["captured_ms"],
+         "eager_ms_per_render": render["raycast"]["eager_ms"],
+         **{f"replay_{k}": raycast["replay_profile"][k]
+            for k in ("graph_device_ms", "raycast_kernel_ms", "table_ms", "idle_share")}},
         *probe_kernels(probe, probe_main_launches),
     ]
     # the launches each kernel made through graph replays over the whole run

@@ -37,9 +37,11 @@ same stages run eagerly go on stderr beside them ("... eager"):
               the eager replay's bit for bit
   splat       the K4/K5 splat render (SplatStep) at frames 0-4's poses
               (splat_ms)
-  raycast     the parity raycaster at the same poses (raycast_ms;
-              DSTPU_BENCH_RAYCAST=0 skips it; eager: it reads the host
-              every march step)
+  raycast     the parity raycaster at the same poses: the raycast kernel
+              as a captured step (RaycastStep; raycast_ms), and beside it,
+              as context, the eager plain march (raycast_reference: it
+              reads the host every march step); DSTPU_BENCH_RAYCAST=0
+              skips both
   online      FusedOnlineStep with the shipped UNet on u8 rgb and u16
               depth host frames, the upload included (online_fps), and
               with FastSeg on the card (online_fps_fast)
@@ -93,7 +95,8 @@ from ..ops import render_fast
 from ..ops.cuda import splat_kernel
 from ..ops.gather import fingerprint_gaps, gather_valid, volume_fingerprint
 from ..ops.integrate import FrameInput, IntegrateStep, integrate
-from ..ops.raycast import raycast
+from ..ops.cuda.raycast_kernel import RaycastStep
+from ..ops.raycast import raycast_reference
 from ..ops.stereo import StereoDepthEstimator
 from ..systems.online_step import FusedOnlineStep
 from ..utils.device import resolve_device, upload
@@ -436,9 +439,14 @@ def run(args) -> dict:
     splat_eager_ms = counted("splat eager", time_renders, render, vol, cam, poses, max_depth,
                              dev)
     log(f"[bench] splat: {splat_ms:.2f} ms a render captured, {splat_eager_ms:.2f} eager")
-    ray_ms = None
+    ray_ms = ray_plain_ms = None
     if os.environ.get("DSTPU_BENCH_RAYCAST", "1") == "1":
-        ray_ms = counted("raycast", time_renders, raycast, vol, cam, poses, max_depth, dev)
+        ray_ms = counted("raycast", time_renders, RaycastStep(dev), vol, cam,
+                         [dpose for _, _, dpose in staged[:RENDERS]], max_depth, dev)
+        ray_plain_ms = counted("raycast plain", time_renders, raycast_reference, vol, cam,
+                               poses, max_depth, dev)
+        log(f"[bench] raycast: {ray_ms:.2f} ms a render captured (the kernel), the plain "
+            f"march {ray_plain_ms:.2f} eager")
     del vol, staged
 
     # sensor-format frames (u8 rgb, u16 depth counts) from the host, as a
@@ -483,7 +491,8 @@ def run(args) -> dict:
     fmt = lambda v: "none" if v is None else f"{v:.2f}"  # noqa: E731
     log(f"[bench] platform={dev.type} img={w}x{h} voxel={cfg.voxel_size} frames={n_frames} "
         f"active_blocks={summary['active_blocks']} integrate_fps={fps:.2f} "
-        f"integrate_eager_fps={eager_fps:.2f} raycast_ms={fmt(ray_ms)} splat_ms={splat_ms:.2f} "
+        f"integrate_eager_fps={eager_fps:.2f} raycast_ms={fmt(ray_ms)} "
+        f"raycast_plain_ms={fmt(ray_plain_ms)} splat_ms={splat_ms:.2f} "
         f"splat_eager_ms={splat_eager_ms:.2f} "
         f"online_eager_fps={json.dumps({a: round(v, 2) for a, v in online_eager.items()})} "
         f"seg_ms={seg_ms:.2f} seg_eager_ms={seg_eager_ms:.2f} seg_dev_ms={seg_dev_ms:.2f} "
@@ -509,7 +518,8 @@ def run(args) -> dict:
     return {**payload, "stages": {
         "card": card, "frames": n_frames, "fingerprint": summary, "held_to_reference": held,
         "fusion_eager_fps": eager_fps, "splat_eager_ms": splat_eager_ms,
-        "online_eager_fps": online_eager, "splat_ms": splat_ms, "raycast_ms": ray_ms, "seg_ms": seg_ms, "seg_dev_ms": seg_dev_ms,
+        "online_eager_fps": online_eager, "splat_ms": splat_ms, "raycast_ms": ray_ms,
+        "raycast_plain_ms": ray_plain_ms, "seg_ms": seg_ms, "seg_dev_ms": seg_dev_ms,
         "seg_eager_ms": seg_eager_ms, "stereo_eager_ms": stereo_eager_ms,
         "launches": stage_launches, "self_check_launches": verify_launches}}
 

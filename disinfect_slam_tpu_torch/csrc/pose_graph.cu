@@ -71,10 +71,19 @@
 // an H100) the same kernel keeps them in hg instead (kGlobal: every
 // column at its place there, read and written by its owner only, g's at
 // hg + m m) and a thread holds up to kMidSlots of a panel's rows (up to
-// 4096 rows) or kWideSlots (up to kMaxRows): the same operations in the
+// 4096 rows) or kWideSlots (up to kWideRows): the same operations in the
 // same order, each trailing column's entries from L2 or device memory
 // once a panel.  At 512 nodes the panels' pivot steps and the next
 // panel's update are again most of a call (PERF.md §6).
+// Above kWideRows (2730 nodes) the pass layout (kPasses, which the caller
+// may also force at any m) takes any m: a thread strides over a panel's
+// rows, each row's logical position kept in device memory (lpos) between
+// pivot steps, the rows each panel leaves read from ibuf and the
+// logical-to-physical map from prow instead of shared memory, and the
+// pivot's logical and physical rows in a word each (the 16-bit halves of
+// the other layouts' key stop at 65536 rows).  Each entry's chain of row
+// swaps and multiply-subtracts in ascending k is unchanged, so the bits
+// are the other layouts' at every m.
 //
 // What bounds it (the timeline, `timeline=`; PERF.md §5-6): the chain.  At
 // 256 nodes (m = 1536) the panels' pivot steps are ~44% of a call (~1.1 us
@@ -97,7 +106,7 @@ constexpr int kNB = 8;                 // a panel's columns
 constexpr int kMaxSlots = 4;           // panel rows a thread holds, the columns in shared memory
 constexpr int kMidSlots = 8;           // the same, the columns in device memory, up to 4096 rows
 constexpr int kWideSlots = 32;         // the same above (its arrays spill: ~1.4x slower)
-constexpr int kMaxRows = kThreads * kWideSlots;  // the largest m
+constexpr int kWideRows = kThreads * kWideSlots;  // the largest m of the register layouts
 constexpr int kSmemLimit = 232448;     // a CTA's shared memory on the H100
 constexpr int kBlockVals = 156;        // an edge's entries: 4 blocks of 36, J_a^T r, J_b^T r
 constexpr int kEdgeChunk = 256;        // edges staged in shared memory at a time
@@ -120,6 +129,7 @@ struct Args {
   int* ibuf;           // [rows] their physical rows, in logical order
   double* lpiv;        // [m][kNB] a pivot row's multipliers before it became one
   int* prow;           // [m] the physical row at each logical position
+  int* lpos;           // pass layout: [m] each row of the panel's logical position
   unsigned* flags;     // [panels + 2], zeroed: panel b published; the Jacobians' count; the CTAs done
   unsigned long long* tl;  // null, or [8 + 4 panels] the timeline (see MARK)
   int e, m, fused;
@@ -151,13 +161,15 @@ __device__ __forceinline__ size_t published(int b, int m) {
 // [kNB][lb kNB], the panels' pivot multipliers [2][kNB][kNB] (by parity),
 // the back substitution's x [2][kNB], diagonal blocks [2][kNB][kNB] and the
 // blocks of rows above them [2][kNB][kNB]; then 32-bit words: the
-// reduction's keys [2][3][kWarps], the panels' pivot rows [2][kNB], the
-// rows each panel leaves, in logical order [2][m] (the back substitution's
-// logical-to-physical map after), the staged edges [3][kEdgeChunk].
-__host__ __device__ inline size_t smem_bytes(int m, int ctas, bool global) {
+// reduction's keys [2][3][kWarps] ([2][4][kWarps] in the pass layout), the
+// panels' pivot rows [2][kNB], the rows each panel leaves, in logical order
+// [2][m] (the back substitution's logical-to-physical map after; none in
+// the pass layout, `passes`), the staged edges [3][kEdgeChunk].
+__host__ __device__ inline size_t smem_bytes(int m, int ctas, bool global, bool passes) {
   const size_t nlb = static_cast<size_t>(local_blocks(m, ctas));
   return 8 * ((global ? 0 : nlb * kNB * m) + kNB * nlb * kNB + 6 * kNB * kNB + 2 * kNB) +
-         4 * (6 * kWarps + 2 * kNB + 2 * static_cast<size_t>(m) + 3 * kEdgeChunk);
+         4 * ((passes ? 8 : 6) * kWarps + 2 * kNB + (passes ? 0 : 2 * static_cast<size_t>(m)) +
+              3 * kEdgeChunk);
 }
 
 struct Smem {
@@ -175,7 +187,7 @@ struct Smem {
   int ucols;
 };
 
-__device__ Smem carve(unsigned char* raw, int m, int ctas, bool global) {
+__device__ Smem carve(unsigned char* raw, int m, int ctas, bool global, bool passes) {
   Smem s;
   const int nlb = local_blocks(m, ctas);
   double* d = reinterpret_cast<double*>(raw);
@@ -193,12 +205,12 @@ __device__ Smem carve(unsigned char* raw, int m, int ctas, bool global) {
   s.ubel = d;
   d += 2 * kNB * kNB;
   s.red = reinterpret_cast<unsigned*>(d);
-  int* i = reinterpret_cast<int*>(s.red + 6 * kWarps);
+  int* i = reinterpret_cast<int*>(s.red + (passes ? 8 : 6) * kWarps);
   s.prow = i;
   i += 2 * kNB;
-  s.left = i;
-  s.rowmap = i;
-  i += 2 * m;
+  s.left = passes ? nullptr : i;
+  s.rowmap = s.left;
+  if (!passes) i += 2 * m;
   s.edges = i;
   return s;
 }
@@ -315,6 +327,50 @@ __device__ __forceinline__ Best cta_best(Best b, const Smem& S, int par) {
   __syncthreads();
   Best o = kNoBest;
   if (lane < kWarps) o = Best{red[lane], red[kWarps + lane], red[2 * kWarps + lane]};
+  return warp_best(o);
+}
+
+// The pass layout's pivot order: the same key, then the logical row, the
+// lower first, and the physical row beside it, each in a word of its own.
+struct BestW {
+  unsigned hi, lo;  // the key's halves
+  unsigned lg, ph;  // logical row, physical row
+};
+constexpr BestW kNoBestW{0u, 0u, kNone, kNone};
+
+__device__ __forceinline__ BestW key_w(double a, int logical, int physical) {
+  const Best k = key(a, 0, 0);
+  return BestW{k.hi, k.lo, static_cast<unsigned>(logical), static_cast<unsigned>(physical)};
+}
+
+__device__ __forceinline__ void take(BestW& b, const BestW& o) {
+  if (o.hi > b.hi || (o.hi == b.hi && (o.lo > b.lo || (o.lo == b.lo && o.lg < b.lg)))) b = o;
+}
+
+__device__ __forceinline__ BestW warp_best(const BestW& b) {
+  const unsigned hi = __reduce_max_sync(0xffffffffu, b.hi);
+  const unsigned lo = __reduce_max_sync(0xffffffffu, b.hi == hi ? b.lo : 0u);
+  const bool top = b.hi == hi && b.lo == lo;
+  const unsigned lg = __reduce_min_sync(0xffffffffu, top ? b.lg : kNone);
+  const unsigned ph = __reduce_min_sync(0xffffffffu, top && b.lg == lg ? b.ph : kNone);
+  return BestW{hi, lo, lg, ph};
+}
+
+__device__ __forceinline__ BestW cta_best(BestW b, const Smem& S, int par) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  unsigned* red = S.red + par * 4 * kWarps;
+  b = warp_best(b);
+  if (lane == 0) {
+    red[warp] = b.hi;
+    red[kWarps + warp] = b.lo;
+    red[2 * kWarps + warp] = b.lg;
+    red[3 * kWarps + warp] = b.ph;
+  }
+  __syncthreads();
+  BestW o = kNoBestW;
+  if (lane < kWarps) {
+    o = BestW{red[lane], red[kWarps + lane], red[2 * kWarps + lane], red[3 * kWarps + lane]};
+  }
   return warp_best(o);
 }
 
@@ -440,13 +496,94 @@ __device__ void factor_panel(const Args& A, const Smem& S, int b, double* blk) {
   for (size_t q = t; q < static_cast<size_t>(nbw) * m; q += kThreads) dst[q] = blk[q];
 }
 
+// factor_panel in the pass layout (any m): thread t takes the panel's rows
+// t + q kThreads, each row's logical position in A.lpos between steps, the
+// panel's rows in logical order from ibuf (panel b - 1's rows left).  Each
+// row's operations and their order are factor_panel's; a thread reads and
+// writes only its own rows' positions.
+__device__ void factor_panel_passes(const Args& A, const Smem& S, int b, double* blk) {
+  const int m = A.m, t = threadIdx.x;
+  const int k0 = b * kNB, nbw = width(b, m), rows = m - k0;
+  const int* act = b == 0 ? nullptr : A.ibuf + published(b - 1, m);
+  int* lp = A.lpos;
+  MARK(A, 8 + 4 * b + 1);
+  // step 0's candidates, the positions set
+  BestW best = kNoBestW;
+  for (int s = t; s < rows; s += kThreads) {
+    const int r = b == 0 ? s : act[s];
+    lp[s] = k0 + s;
+    take(best, key_w(blk[r], k0 + s, r));
+  }
+  for (int kk = 0; kk < nbw; ++kk) {
+    const int k = k0 + kk;
+    double* colk = blk + static_cast<size_t>(kk) * m;
+    double* next = blk + static_cast<size_t>(kk + 1) * m;
+    best = cta_best(best, S, kk & 1);
+    const int p = static_cast<int>(best.lg), pr = static_cast<int>(best.ph);
+    const double akk = colk[pr];
+    best = kNoBestW;
+    for (int s = t; s < rows; s += kThreads) {
+      const int r = b == 0 ? s : act[s];
+      int pos = lp[s];
+      const bool upd = pos >= k && r != pr;
+      if (r == pr) {
+        pos = k;
+        lp[s] = pos;
+      } else if (pos == k) {
+        pos = p;
+        lp[s] = pos;
+      }
+      if (!upd) continue;
+      const double l = quotient(colk[r], akk);
+      colk[r] = l;
+      if (kk + 1 < nbw) {
+        next[r] = __dsub_rn(next[r], __dmul_rn(l, next[pr]));
+        take(best, key_w(next[r], pos, r));
+      }
+      for (int jj = kk + 2; jj < nbw; ++jj) {
+        double* cj = blk + static_cast<size_t>(jj) * m;
+        cj[r] = __dsub_rn(cj[r], __dmul_rn(l, cj[pr]));
+      }
+    }
+  }
+  MARK(A, 8 + 4 * b + 2);
+  __syncthreads();
+  // the rows left, in logical order (ibuf), and their multipliers (lbuf);
+  // the pivot rows and their multipliers (prow, lpiv and shared memory)
+  const size_t off = published(b, m);
+  const int nrows = rows - nbw;
+  double* lb = A.lbuf + off * kNB;
+  int* sprow = S.prow + (b & 1) * kNB;
+  double* slpiv = S.lpiv + (b & 1) * kNB * kNB;
+  for (int s = t; s < rows; s += kThreads) {
+    const int r = b == 0 ? s : act[s];
+    const int pos = lp[s] - k0;
+    if (pos >= nbw) {
+      A.ibuf[off + pos - nbw] = r;
+      for (int kk = 0; kk < nbw; ++kk) {
+        lb[static_cast<size_t>(kk) * nrows + pos - nbw] = blk[static_cast<size_t>(kk) * m + r];
+      }
+    } else {
+      A.prow[k0 + pos] = r;
+      sprow[pos] = r;
+      for (int kk = 0; kk < pos; ++kk) {
+        const double v = blk[static_cast<size_t>(kk) * m + r];
+        A.lpiv[static_cast<size_t>(k0 + pos) * kNB + kk] = v;
+        slpiv[pos * kNB + kk] = v;
+      }
+    }
+  }
+  release(A.flags + b);
+  MARK(A, 8 + 4 * b + 3);
+}
+
 // The CTA's local blocks [lb0, lb1) through panel b's steps: its pivot
 // rows and multipliers in S.prow / S.lpiv (parity b & 1), its rows left
 // and their multipliers from this CTA's shared memory where it factored
 // the panel, else from device memory (plain loads: written before the
 // panel's flag, which this CTA acquired), and then kept in S.left for the
 // next panel's factorization.
-template <bool kGlobal>
+template <bool kGlobal, bool kPasses>
 __device__ void update(const Args& A, const Smem& S, int b, int lb0, int lb1, int ctas) {
   const int m = A.m, t = threadIdx.x, c = blockIdx.x;
   const int k0 = b * kNB, nbw = width(b, m), nrows = m - k0 - nbw;
@@ -459,7 +596,7 @@ __device__ void update(const Args& A, const Smem& S, int b, int lb0, int lb1, in
   };
   const int* sprow = S.prow + (b & 1) * kNB;
   const double* slpiv = S.lpiv + (b & 1) * kNB * kNB;
-  int* left = S.left + (b & 1) * m;
+  int* left = kPasses ? nullptr : S.left + (b & 1) * m;
   // the pivot rows, one thread a column: each the chain of multiply-
   // subtracts it took before it became the pivot, in step order
   for (int ci = t; ci < ncols; ci += kThreads) {
@@ -492,7 +629,11 @@ __device__ void update(const Args& A, const Smem& S, int b, int lb0, int lb1, in
     const int q = w % nrows, g = w / nrows;
     double l[kNB];
     int r;
-    if (local) {
+    if (kPasses) {
+      r = A.ibuf[off + q];
+#pragma unroll
+      for (int kk = 0; kk < kNB; ++kk) l[kk] = kk < nbw ? lbase[static_cast<size_t>(kk) * nrows + q] : 0.0;
+    } else if (local) {
       r = left[q];
 #pragma unroll
       for (int kk = 0; kk < kNB; ++kk) l[kk] = kk < nbw ? own[static_cast<size_t>(kk) * m + r] : 0.0;
@@ -987,9 +1128,14 @@ __device__ __forceinline__ void bar_arrive(int id) {
 // give every row below block b - 1 block b's subtractions, kMaxSlots rows
 // a thread at a time, the first rows' U values loaded while warp 0 solves.
 // Each rhs_r sees the plain descending i.
+template <bool kPasses>
 __device__ void back_substitute(const Args& A, const Smem& S, double* rhs) {
   const int m = A.m, t = threadIdx.x, lane = t % 32, nbh = panels(m);
-  for (int i = t; i < m; i += kThreads) S.rowmap[i] = A.prow[i];
+  // the logical-to-physical map: prow itself in the pass layout
+  const int* rowmap = kPasses ? A.prow : S.rowmap;
+  if (!kPasses) {
+    for (int i = t; i < m; i += kThreads) S.rowmap[i] = A.prow[i];
+  }
   __syncthreads();
   if (t < 32) {
     // block b's diagonal block, [i][j] = a(k0 + j, k0 + i) for j <= i, and
@@ -1001,8 +1147,8 @@ __device__ void back_substitute(const Args& A, const Smem& S, double* rhs) {
       for (int h = 0; h < 2; ++h) {
         const int q = lane + 32 * h, i = q / kNB, j = q % kNB;
         const double* col = A.hg + static_cast<size_t>(k0 + i) * m;
-        d[h] = i < nbw && j <= i ? col[S.rowmap[k0 + j]] : 0.0;
-        e[h] = b > 0 && i < nbw ? col[S.rowmap[k0 - kNB + j]] : 0.0;
+        d[h] = i < nbw && j <= i ? col[rowmap[k0 + j]] : 0.0;
+        e[h] = b > 0 && i < nbw ? col[rowmap[k0 - kNB + j]] : 0.0;
       }
     };
     auto keep_fetched = [&](int b) {
@@ -1020,7 +1166,7 @@ __device__ void back_substitute(const Args& A, const Smem& S, double* rhs) {
       if (b > 0) fetch(b - 1);
       const double* ub = S.ublk + (b & 1) * kNB * kNB;
       const double* ue = S.ubel + (b & 1) * kNB * kNB;
-      double rv = lane < nbw ? rhs[S.rowmap[k0 + lane]] : 0.0;
+      double rv = lane < nbw ? rhs[rowmap[k0 + lane]] : 0.0;
       double x[kNB];
 #pragma unroll
       for (int i = kNB - 1; i >= 0; --i) {
@@ -1037,7 +1183,7 @@ __device__ void back_substitute(const Args& A, const Smem& S, double* rhs) {
       bar_arrive(1);
       if (b < nbh - 1) bar_sync(2);
       if (b > 0 && lane < kNB) {
-        const int pr = S.rowmap[k0 - kNB + lane];
+        const int pr = rowmap[k0 - kNB + lane];
         double v = rhs[pr];
 #pragma unroll
         for (int i = kNB - 1; i >= 0; --i) {
@@ -1059,7 +1205,7 @@ __device__ void back_substitute(const Args& A, const Smem& S, double* rhs) {
 #pragma unroll
         for (int q = 0; q < kMaxSlots; ++q) {
           const int r = r0 + t - 32 + q * kUpdaters;
-          pr[q] = r < below ? S.rowmap[r] : -1;
+          pr[q] = r < below ? rowmap[r] : -1;
 #pragma unroll
           for (int i = 0; i < kNB; ++i) {
             u[q][i] = pr[q] >= 0 && i < nbw ? A.hg[static_cast<size_t>(k0 + i) * m + pr[q]] : 0.0;
@@ -1083,12 +1229,20 @@ __device__ void back_substitute(const Args& A, const Smem& S, double* rhs) {
 }
 
 // kGlobal: [H | g]'s columns in hg instead of shared memory (the sizes
-// whose columns do not fit), the same operations in the same order.
-template <bool kGlobal, int kSlots>
+// whose columns do not fit), the same operations in the same order;
+// kPasses: the pass layout (kGlobal too; kSlots unused).
+template <bool kGlobal, int kSlots, bool kPasses>
 __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Args A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ctas = gridDim.x, c = blockIdx.x, m = A.m;
-  const Smem S = carve(smem_raw, m, ctas, kGlobal);
+  const Smem S = carve(smem_raw, m, ctas, kGlobal, kPasses);
+  const auto factor = [&](int b, double* blk) {
+    if constexpr (kPasses) {
+      factor_panel_passes(A, S, b, blk);
+    } else {
+      factor_panel<kGlobal, kSlots>(A, S, b, blk);
+    }
+  };
   const int nbh = panels(m), nblk = nbh + 1;
   const int nlb = c < nblk ? (nblk - c + ctas - 1) / ctas : 0;  // this CTA's blocks
   // the first local block at or after block b
@@ -1105,7 +1259,7 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Args A) {
   if (c == 0) MARK(A, 5);
   assemble<kGlobal>(A, S, nlb, ctas);
   if (c == 0) MARK(A, 1);
-  if (c == owner(0, ctas)) factor_panel<kGlobal, kSlots>(A, S, 0, blk(0));
+  if (c == owner(0, ctas)) factor(0, blk(0));
   for (int b = 0; b < nbh; ++b) {
     const bool mine = owner(b, ctas) == c;
     const bool ahead = b + 1 < nbh && owner(b + 1, ctas) == c;
@@ -1126,24 +1280,26 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Args A) {
     const int lb = first_local(b + 1);
     if (ahead) {
       // look-ahead: the next panel first, factored, then the rest
-      update<kGlobal>(A, S, b, lb, lb + 1, ctas);
-      factor_panel<kGlobal, kSlots>(A, S, b + 1, blk(b + 1));
-      update<kGlobal>(A, S, b, lb + 1, nlb, ctas);
+      update<kGlobal, kPasses>(A, S, b, lb, lb + 1, ctas);
+      factor(b + 1, blk(b + 1));
+      update<kGlobal, kPasses>(A, S, b, lb + 1, nlb, ctas);
     } else {
-      update<kGlobal>(A, S, b, lb, nlb, ctas);
+      update<kGlobal, kPasses>(A, S, b, lb, nlb, ctas);
     }
   }
   arrive(A.flags + nbh + 1);
   if (c == owner(nbh, ctas)) {
     acquire(A.flags + nbh + 1, static_cast<unsigned>(ctas));  // every CTA's columns in hg
     MARK(A, 2);
-    back_substitute(A, S, blk(nbh));
+    back_substitute<kPasses>(A, S, blk(nbh));
     MARK(A, 3);
   }
 }
 
 // the chain probe's reduction scratch, rounded up to 16 bytes
-__host__ __device__ inline size_t chain_scratch() { return (smem_bytes(1, 1, false) + 15) / 16 * 16; }
+__host__ __device__ inline size_t chain_scratch() {
+  return (smem_bytes(1, 1, false, false) + 15) / 16 * 16;
+}
 
 // The order floor: the chain of the kernel's m - 1 pivot steps alone, on one
 // column held by every CTA (col: m doubles): panel b's steps by its owner,
@@ -1155,7 +1311,7 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_chain_kernel(const dou
                                                                        int* out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ctas = gridDim.x, c = blockIdx.x, t = threadIdx.x;
-  Smem S = carve(smem_raw, 1, 1, false);  // only the reduction's scratch is used
+  Smem S = carve(smem_raw, 1, 1, false, false);  // only the reduction's scratch is used
   double* col = reinterpret_cast<double*>(smem_raw + chain_scratch());
   double* lvec = col + m;
   for (int i = t; i < m; i += kThreads) col[i] = src[i];
@@ -1204,28 +1360,39 @@ cudaError_t launch(Kernel kernel, int ctas, size_t smem, cudaStream_t stream, vo
 using KernelFn = void (*)(Args);
 
 // the kernel with [H | g]'s columns in shared memory, or (global) in device
-// memory, for m rows
-inline KernelFn kernel_for(int global, int m) {
-  if (!global) return pose_graph_kernel<false, kMaxSlots>;
-  return m <= kThreads * kMidSlots ? pose_graph_kernel<true, kMidSlots>
-                                   : pose_graph_kernel<true, kWideSlots>;
+// memory, for m rows; passes: the pass layout
+inline KernelFn kernel_for(int global, int m, int passes) {
+  if (passes) return pose_graph_kernel<true, 1, true>;
+  if (!global) return pose_graph_kernel<false, kMaxSlots, false>;
+  return m <= kThreads * kMidSlots ? pose_graph_kernel<true, kMidSlots, false>
+                                   : pose_graph_kernel<true, kWideSlots, false>;
 }
 
-// whether the kernel takes m rows over `ctas` CTAs in that layout
-inline bool takes(int m, int ctas, int global) {
-  return ctas >= 1 && m >= 1 && m <= (global ? kMaxRows : kThreads * kMaxSlots) &&
-         smem_bytes(m, ctas, global != 0) <= static_cast<size_t>(kSmemLimit);
+inline size_t launch_smem(int m, int ctas, int global, int passes) {
+  return smem_bytes(m, ctas, global != 0, passes != 0);
+}
+
+// whether the kernel takes m rows over `ctas` CTAs in that layout (the pass
+// layout keeps the columns in device memory and takes any m)
+inline bool takes(int m, int ctas, int global, int passes) {
+  if (ctas < 1 || m < 1) return false;
+  if (passes) {
+    if (!global) return false;
+  } else if (m > (global ? kWideRows : kThreads * kMaxSlots)) {
+    return false;
+  }
+  return launch_smem(m, ctas, global, passes) <= static_cast<size_t>(kSmemLimit);
 }
 
 }  // namespace
 
 // Whether the card holds `ctas` CTAs of the kernel at m rows at once (ok 1)
 // or not (ok 0).
-extern "C" int dst_pose_graph_shape(int m, int ctas, int global, int* ok) {
+extern "C" int dst_pose_graph_shape(int m, int ctas, int global, int passes, int* ok) {
   *ok = 0;
-  if (!takes(m, ctas, global)) return static_cast<int>(cudaSuccess);
-  const size_t smem = smem_bytes(m, ctas, global != 0);
-  const KernelFn kernel = kernel_for(global, m);
+  if (!takes(m, ctas, global, passes)) return static_cast<int>(cudaSuccess);
+  const size_t smem = launch_smem(m, ctas, global, passes);
+  const KernelFn kernel = kernel_for(global, m, passes);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemLimit);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1242,15 +1409,17 @@ extern "C" int dst_pose_graph_shape(int m, int ctas, int global, int* ok) {
 
 extern "C" int dst_pose_graph_solve(const double* ja, const double* jb, const double* rd,
                                     const int* ei, const int* ej, const double* diag, int e, int m,
-                                    int ctas, int global, double* gv, int* eflag, double* hg,
-                                    double* lbuf, int* ibuf, double* lpiv, int* prow,
-                                    unsigned* flags, unsigned long long* tl, float* dx,
+                                    int ctas, int global, int passes, double* gv, int* eflag,
+                                    double* hg, double* lbuf, int* ibuf, double* lpiv, int* prow,
+                                    int* lpos, unsigned* flags, unsigned long long* tl, float* dx,
                                     void* stream) {
-  if (!takes(m, ctas, global) || e < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!takes(m, ctas, global, passes) || e < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args A{const_cast<double*>(ja), const_cast<double*>(jb), const_cast<double*>(rd), gv, eflag, ei,
-         ej, diag, nullptr, nullptr, nullptr, dx, hg, lbuf, ibuf, lpiv, prow, flags, tl, e, m, 0};
+         ej, diag, nullptr, nullptr, nullptr, dx, hg, lbuf, ibuf, lpiv, prow, lpos, flags, tl, e, m,
+         0};
   void* args[] = {&A};
-  return static_cast<int>(launch(kernel_for(global, m), ctas, smem_bytes(m, ctas, global != 0),
+  return static_cast<int>(launch(kernel_for(global, m, passes), ctas,
+                                 launch_smem(m, ctas, global, passes),
                                  static_cast<cudaStream_t>(stream), args));
 }
 
@@ -1258,15 +1427,17 @@ extern "C" int dst_pose_graph_solve(const double* ja, const double* jb, const do
 // the solve; ja, jb, rd are its outputs (float64 of the float32 values).
 extern "C" int dst_pose_graph_fused(const float* poses, const int* ei, const int* ej,
                                     const float* zinv, const float* w, const double* diag, int e,
-                                    int m, int ctas, int global, double* ja, double* jb, double* rd,
-                                    double* gv, int* eflag, double* hg, double* lbuf, int* ibuf,
-                                    double* lpiv, int* prow, unsigned* flags,
-                                    unsigned long long* tl, float* dx, void* stream) {
-  if (!takes(m, ctas, global) || e < 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args A{ja, jb, rd, gv, eflag, ei, ej, diag, poses, zinv, w, dx, hg, lbuf, ibuf, lpiv, prow, flags,
-         tl, e, m, 1};
+                                    int m, int ctas, int global, int passes, double* ja,
+                                    double* jb, double* rd, double* gv, int* eflag, double* hg,
+                                    double* lbuf, int* ibuf, double* lpiv, int* prow, int* lpos,
+                                    unsigned* flags, unsigned long long* tl, float* dx,
+                                    void* stream) {
+  if (!takes(m, ctas, global, passes) || e < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Args A{ja, jb, rd, gv, eflag, ei, ej, diag, poses, zinv, w, dx, hg, lbuf, ibuf, lpiv, prow, lpos,
+         flags, tl, e, m, 1};
   void* args[] = {&A};
-  return static_cast<int>(launch(kernel_for(global, m), ctas, smem_bytes(m, ctas, global != 0),
+  return static_cast<int>(launch(kernel_for(global, m, passes), ctas,
+                                 launch_smem(m, ctas, global, passes),
                                  static_cast<cudaStream_t>(stream), args));
 }
 

@@ -38,12 +38,17 @@ and the back substitution's chain of divisions.  One cooperative launch of
 `grid_shape` CTAs: one an SM for each block of columns, up to the card's
 SMs.  Where the columns do not fit the CTAs' shared memory (above 275
 nodes on an H100) the same kernel keeps them in device memory (`shared`
-False: the same operations in the same order), up to MAX_ROWS rows.
+False: the same operations in the same order).  Above WIDE_ROWS rows
+(2730 nodes) the pass layout takes any m: the threads stride over a
+panel's rows, the rows' state in device memory (`passes` forces the
+layout at any m); the same bits again.  Its scratch
+is [H | g] and the factorization's multipliers, about 12 m^2 bytes
+(`scratch_bytes`).
 
 Both entries launch the kernel for CUDA tensors and raise if they cannot
 (a build that fails, a launch refused, a shape the card cannot hold at
-once, more than MAX_ROWS rows); for CPU tensors they run their plain
-versions.
+once, a scratch the card's memory cannot hold); for CPU tensors they run
+their plain versions.
 """
 
 from __future__ import annotations
@@ -65,8 +70,8 @@ THREADS = 512  # a CTA of the kernel
 NB = 8  # a panel's columns
 SLOTS = 4  # a panel's rows a thread holds, the columns in shared memory
 MID_SLOTS = 8  # the same, the columns in device memory, up to THREADS * MID_SLOTS rows
-WIDE_SLOTS = 32  # the same above
-MAX_ROWS = THREADS * WIDE_SLOTS  # the largest m (2730 nodes)
+WIDE_SLOTS = 32  # the same above, up to WIDE_ROWS
+WIDE_ROWS = THREADS * WIDE_SLOTS  # the largest m of the register layouts (2730 nodes)
 SMEM_LIMIT = 232448  # a CTA's shared memory on the H100
 EDGE_CHUNK = 256  # edges the assembly stages in shared memory at a time
 
@@ -75,39 +80,49 @@ def panels(m: int) -> int:
     return (m + NB - 1) // NB
 
 
-def smem_bytes(m: int, ctas: int, shared: bool = True) -> int:
+def smem_bytes(m: int, ctas: int, shared: bool = True, passes: bool = False) -> int:
     """A CTA's shared memory at m rows over `ctas` CTAs (csrc/pose_graph.cu's
     smem_bytes): its blocks of columns of [H | g] (none where they live in
     device memory, shared False), the trailing update's pivot-row values,
     two panels' pivot multipliers, the back substitution's unknowns and its
     blocks of U, the reduction's keys, two panels' pivot rows and rows
-    left, and the staged edges."""
+    left (none in the pass layout, `passes`), and the staged edges."""
     nlb = (panels(m) + 1 + ctas - 1) // ctas  # the blocks of columns a CTA holds at most
     warps = THREADS // 32
     return (8 * ((nlb * NB * m if shared else 0) + NB * nlb * NB + 6 * NB * NB + 2 * NB)
-            + 4 * (6 * warps + 2 * NB + 2 * m + 3 * EDGE_CHUNK))
+            + 4 * ((8 if passes else 6) * warps + 2 * NB + (0 if passes else 2 * m)
+                   + 3 * EDGE_CHUNK))
 
 
-def shapes(m: int, sms: int, shared: bool = True) -> list:
+def passes_for(m: int, shared: bool) -> bool:
+    """Whether a launch at m rows takes the pass layout unless forced: the
+    columns in device memory and more rows than the register layouts
+    hold."""
+    return not shared and m > WIDE_ROWS
+
+
+def shapes(m: int, sms: int, shared: bool = True, passes: Optional[bool] = None) -> list:
     """The CTA counts the kernel takes at m rows on a card of `sms` SMs, its
-    columns in shared memory or (shared False) in device memory: a power of
-    two, two blocks of columns a CTA, or the most the card holds (one CTA
-    an SM, no more than the blocks), each within the shared memory."""
-    if m > THREADS * (SLOTS if shared else WIDE_SLOTS):  # the rows a panel's threads hold
+    columns in shared memory or (shared False) in device memory, in the
+    pass layout above WIDE_ROWS rows or where `passes` asks for it: a
+    power of two, two blocks of columns a CTA, or the most the card holds
+    (one CTA an SM, no more than the blocks), each within the shared
+    memory."""
+    passes = passes_for(m, shared) if passes is None else bool(passes)
+    if shared and (passes or m > THREADS * SLOTS):  # the rows a panel's threads hold
         return []
     blocks = panels(m) + 1
     most = min(blocks, sms)
     out = sorted({c for c in (1, 2, 4, 8, 16, 32, 64, (blocks + 1) // 2, most) if c <= most})
-    return [c for c in out if smem_bytes(m, c, shared) <= SMEM_LIMIT]
+    return [c for c in out if smem_bytes(m, c, shared, passes) <= SMEM_LIMIT]
 
 
 def grid_shape(m: int, sms: int) -> Tuple[int, bool]:
     """(CTAs, shared) of a launch at m = 6n rows on a card of `sms` SMs: one
     CTA an SM for every block of columns, up to the card's SMs (the fastest
     at every size measured, PERF.md §6), the columns in shared memory where
-    they fit and in device memory above."""
-    if m > MAX_ROWS:
-        raise ValueError(f"pose_graph_solve takes at most {MAX_ROWS} rows, got {m}")
+    they fit and in device memory above (in the pass layout above
+    WIDE_ROWS rows)."""
     for shared in (True, False):
         fit = shapes(m, sms, shared)
         if fit:
@@ -123,16 +138,27 @@ def _scratch_layout(m: int, e: int) -> dict:
     entries gv f64 [e, BLOCK_VALS], the columns hg f64 [m + 1, m], the
     panels' multipliers lbuf f64 [rows, NB] and pivot multipliers lpiv f64
     [m, NB], each edge's flag eflag i32 [e], the rows left below each panel
-    ibuf i32 [rows] and the logical-to-physical map prow i32 [m]."""
-    rows = sum(m - b * NB - min(NB, m - b * NB) for b in range(panels(m)))
+    ibuf i32 [rows], the logical-to-physical map prow i32 [m] and (the pass
+    layout) the panel rows' logical positions lpos i32 [m]."""
+    # every panel but the last leaves m - (b + 1) NB rows
+    nb = panels(m)
+    rows = (nb - 1) * m - NB * (nb - 1) * nb // 2
     sizes = (("gv", 8 * e * BLOCK_VALS), ("hg", 8 * (m + 1) * m), ("lbuf", 8 * rows * NB),
-             ("lpiv", 8 * m * NB), ("eflag", 4 * e), ("ibuf", 4 * rows), ("prow", 4 * m))
+             ("lpiv", 8 * m * NB), ("eflag", 4 * e), ("ibuf", 4 * rows), ("prow", 4 * m),
+             ("lpos", 4 * m))
     out, at = {}, 0
     for name, nbytes in sizes:
         out[name] = at
         at += (nbytes + 15) // 16 * 16
     out["bytes"] = at
     return out
+
+
+def scratch_bytes(m: int, e: int = 0) -> int:
+    """The device scratch of a launch at m rows and e edges: [H | g] (8 m (m
+    + 1) bytes) and the factorization's multipliers and row maps (about 4 m^2
+    more)."""
+    return _scratch_layout(m, e)["bytes"]
 
 
 # ----------------------------------------------------------------------
@@ -469,17 +495,19 @@ def _check_inputs(ja, jb, rd, ei, ej, diag) -> None:
             raise ValueError("all tensors must be contiguous")
 
 
-def _shape(dev: torch.device, m: int, ctas: int, shared: bool) -> None:
+def _shape(dev: torch.device, m: int, ctas: int, shared: bool, passes: bool) -> None:
     """At first use of a shape on a device: raise unless the card holds
     every CTA of it at once; there is no fallback."""
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(), m, ctas, shared)
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), m, ctas, shared,
+           passes)
     if key in _shape.checked:
         return
     ok = _C.c_int(0)
     fn = build.entry("pose_graph", "dst_pose_graph_shape",
-                     [_C.c_int, _C.c_int, _C.c_int, _C.c_void_p])
+                     [_C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_void_p])
     with torch.cuda.device(dev):
-        build.check(fn(m, ctas, int(not shared), _C.byref(ok)), "pose_graph_solve (occupancy)")
+        build.check(fn(m, ctas, int(not shared), int(passes), _C.byref(ok)),
+                    "pose_graph_solve (occupancy)")
     if not ok.value:
         raise RuntimeError(f"pose_graph_solve: {torch.cuda.get_device_name(dev)} cannot hold "
                            f"{ctas} CTAs of the kernel at {m} rows at once")
@@ -489,17 +517,36 @@ def _shape(dev: torch.device, m: int, ctas: int, shared: bool) -> None:
 _shape.checked = set()
 
 
-def _launch_shape(dev: torch.device, m: int, ctas: Optional[int],
-                  shared: Optional[bool]) -> Tuple[int, bool]:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+def launch_layout(m: int, sms: int, shared: Optional[bool] = None,
+                  passes: bool = False) -> Tuple[bool, bool]:
+    """(shared, passes) of a launch at m rows: grid_shape's choice where
+    shared is None; the pass layout above WIDE_ROWS rows, or at any m where
+    `passes` forces it (the columns in device memory)."""
+    if passes:
+        if shared:
+            raise ValueError("the pass layout keeps the columns in device memory: passes=True "
+                             "takes shared=None or False")
+        return False, True
     shared = grid_shape(m, sms)[1] if shared is None else bool(shared)
-    fit = shapes(m, sms, shared)
+    return shared, passes_for(m, shared)
+
+
+def _launch_shape(dev: torch.device, m: int, e: int, ctas: Optional[int], shared: Optional[bool],
+                  passes: bool) -> Tuple[int, bool, bool]:
+    props = torch.cuda.get_device_properties(dev)
+    shared, passes = launch_layout(m, props.multi_processor_count, shared, passes)
+    fit = shapes(m, props.multi_processor_count, shared, passes)
     ctas = (fit[-1] if fit else 0) if ctas is None else int(ctas)
     if ctas not in fit:
         raise ValueError(f"pose_graph_solve: ctas must be one of {fit} at {m} rows "
-                         f"(shared={shared}), got {ctas}")
-    _shape(dev, m, ctas, shared)
-    return ctas, shared
+                         f"(shared={shared}, passes={passes}), got {ctas}")
+    need = scratch_bytes(m, e)
+    if need > props.total_memory:
+        raise ValueError(f"pose_graph_solve at {m} rows needs {need / 1e9:.1f} GB of scratch "
+                         f"([H | g] and its LU's multipliers); {props.name} has "
+                         f"{props.total_memory / 1e9:.1f} GB")
+    _shape(dev, m, ctas, shared, passes)
+    return ctas, shared, passes
 
 
 def _timeline(timeline: Optional[torch.Tensor], dev: torch.device, m: int) -> _C.c_void_p:
@@ -512,14 +559,15 @@ def _timeline(timeline: Optional[torch.Tensor], dev: torch.device, m: int) -> _C
 
 
 def _scratch(dev: torch.device, m: int, e: int) -> Tuple[list, torch.Tensor, torch.Tensor]:
-    """The scratch's pointers (gv, eflag, hg, lbuf, ibuf, lpiv, prow, flags),
-    with the tensors that hold them: one byte buffer, and the flags zeroed."""
+    """The scratch's pointers (gv, eflag, hg, lbuf, ibuf, lpiv, prow, lpos,
+    flags), with the tensors that hold them: one byte buffer, and the flags
+    zeroed."""
     lay = _scratch_layout(m, e)
     buf = torch.empty((lay["bytes"],), dtype=torch.uint8, device=dev)
     flags = torch.zeros((panels(m) + 2,), dtype=torch.int32, device=dev)
     base = buf.data_ptr()
     ptrs = [_C.c_void_p(base + lay[k]) for k in ("gv", "eflag", "hg", "lbuf", "ibuf", "lpiv",
-                                                   "prow")]
+                                                   "prow", "lpos")]
     return ptrs + [build.ptr(flags)], buf, flags
 
 
@@ -531,13 +579,15 @@ def timeline_slots(m: int) -> int:
 
 def pose_graph_solve(ja: torch.Tensor, jb: torch.Tensor, rd: torch.Tensor, ei: torch.Tensor,
                      ej: torch.Tensor, diag: torch.Tensor, ctas: Optional[int] = None,
-                     shared: Optional[bool] = None,
+                     shared: Optional[bool] = None, passes: bool = False,
                      timeline: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch (see pose_graph_solve_reference for the contract; ei, ej
     int32, every tensor contiguous).  ctas and shared override grid_shape's
-    choice of the launch (ctas one of `shapes(m, sms, shared)`; the same
-    bits at every shape); timeline, an int64 tensor of timeline_slots(m) on
-    the device, receives the device clock (ns) at the launch's stages."""
+    choice of the launch (ctas one of `shapes(m, sms, shared, passes)`; the
+    same bits at every shape), passes forces the pass layout at any m
+    (launch_layout); timeline, an int64 tensor of
+    timeline_slots(m) on the device, receives the device clock (ns) at the
+    launch's stages."""
     _check_inputs(ja, jb, rd, ei, ej, diag)
     if ja.device.type == "cpu":
         return pose_graph_solve_reference(ja, jb, rd, ei, ej, diag)
@@ -545,14 +595,14 @@ def pose_graph_solve(ja: torch.Tensor, jb: torch.Tensor, rd: torch.Tensor, ei: t
         raise ValueError(f"pose_graph_solve takes CPU or CUDA tensors, got {ja.device}")
     dev = ja.device
     m = diag.shape[0]
-    ctas, shared = _launch_shape(dev, m, ctas, shared)
+    ctas, shared, passes = _launch_shape(dev, m, ei.shape[0], ctas, shared, passes)
     dx = torch.empty((m // 6, 6), dtype=_F32, device=dev)
     scratch, _buf, _flags = _scratch(dev, m, ei.shape[0])
-    fn = build.entry("pose_graph", "dst_pose_graph_solve", [_C.c_void_p] * 6 + [_C.c_int] * 4
-                     + [_C.c_void_p] * 11)
+    fn = build.entry("pose_graph", "dst_pose_graph_solve", [_C.c_void_p] * 6 + [_C.c_int] * 5
+                     + [_C.c_void_p] * 12)
     with torch.cuda.device(dev):
         err = fn(build.ptr(ja), build.ptr(jb), build.ptr(rd), build.ptr(ei), build.ptr(ej),
-                 build.ptr(diag), ei.shape[0], m, ctas, int(not shared), *scratch,
+                 build.ptr(diag), ei.shape[0], m, ctas, int(not shared), int(passes), *scratch,
                  _timeline(timeline, dev, m), build.ptr(dx), build.stream_of(ja))
         count_launch(pose_graph_solve)
         build.check(err, "pose_graph_solve")
@@ -594,11 +644,13 @@ def _check_fused(poses, ei, ej, z_inv, w, diag) -> None:
 def pose_graph_fused(poses: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
                      z_inv: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
                      ctas: Optional[int] = None, shared: Optional[bool] = None,
+                     passes: bool = False,
                      timeline: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the fused entry (see pose_graph_fused_reference for the
     contract; ei, ej int32, every tensor contiguous): the edges' residuals and
     Jacobians, then the solve, in the kernel.  Counts on
-    pose_graph_solve.launches; ctas, shared and timeline as pose_graph_solve's."""
+    pose_graph_solve.launches; ctas, shared, passes and timeline as
+    pose_graph_solve's."""
     _check_fused(poses, ei, ej, z_inv, w, diag)
     if poses.device.type == "cpu":
         return pose_graph_fused_reference(poses, ei, ej, z_inv, w, diag)
@@ -606,16 +658,16 @@ def pose_graph_fused(poses: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
         raise ValueError(f"pose_graph_fused takes CPU or CUDA tensors, got {poses.device}")
     dev = poses.device
     m, e = diag.shape[0], ei.shape[0]
-    ctas, shared = _launch_shape(dev, m, ctas, shared)
+    ctas, shared, passes = _launch_shape(dev, m, e, ctas, shared, passes)
     dx = torch.empty((m // 6, 6), dtype=_F32, device=dev)
     jac = torch.empty((2, e, 6, 6), dtype=_F64, device=dev)
     rd = torch.empty((e, 6), dtype=_F64, device=dev)
     scratch, _buf, _flags = _scratch(dev, m, e)
-    fn = build.entry("pose_graph", "dst_pose_graph_fused", [_C.c_void_p] * 6 + [_C.c_int] * 4
-                     + [_C.c_void_p] * 14)
+    fn = build.entry("pose_graph", "dst_pose_graph_fused", [_C.c_void_p] * 6 + [_C.c_int] * 5
+                     + [_C.c_void_p] * 15)
     with torch.cuda.device(dev):
         err = fn(build.ptr(poses), build.ptr(ei), build.ptr(ej), build.ptr(z_inv), build.ptr(w),
-                 build.ptr(diag), e, m, ctas, int(not shared), build.ptr(jac[0]),
+                 build.ptr(diag), e, m, ctas, int(not shared), int(passes), build.ptr(jac[0]),
                  build.ptr(jac[1]), build.ptr(rd),
                  *scratch, _timeline(timeline, dev, m), build.ptr(dx), build.stream_of(poses))
         count_launch(pose_graph_solve)

@@ -34,8 +34,9 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.geometry import SE3, CameraParams, device_pose
-from ...utils.graphs import StaticInputs, StepGraphs, count_launch
+from ...utils.graphs import RenderStep, count_launch
 from .. import render_fast as rf
+from ..raycast import RaycastResult
 from . import build
 
 _C = ctypes
@@ -338,40 +339,17 @@ def splat_render_cuda(
     return rf.images_from_buffers(zbuf, pbuf, cam, surf_overflow=overflow)
 
 
-class SplatStep:
-    """splat_render_cuda as one captured step a view (utils/graphs.py;
-    the JAX package's jitted `_splat`): the pose in a static buffer, a
-    CUDA graph on a CUDA device keyed by (image size, intrinsics,
-    max_depth, band, surf_cap, where the pose comes from, the volume's
-    storage_key).  An SE3 pose goes through pinned staging (one slot: a
-    render waits until the last one has read it) and its copy is the
-    step's first op; a DevicePose on the device is copied in before the
-    step.  The images come back as copies, fresh arrays as the jitted call
-    returns them.  On the CPU it runs the plain splat, eagerly."""
+class SplatStep(RenderStep):
+    """splat_render_cuda as one captured step a view (utils/graphs.RenderStep;
+    the JAX package's jitted `_splat`), keyed also by max_depth, band and
+    surf_cap.  On the CPU it runs the plain splat, eagerly."""
 
-    def __init__(self, device, graphs: Optional[StepGraphs] = None):
-        self.device = torch.device(device)
-        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
-        self._inputs = StaticInputs({"pose": StaticInputs.pose_spec()}, self.device, slots=1)
+    name = "splat"
+    result = RaycastResult
+
+    def render(self, vol, cam: CameraParams, pose, max_depth: float, band: float, surf_cap):
+        return splat_render_cuda(vol, cam, pose, max_depth, band, surf_cap)
 
     def __call__(self, vol, cam: CameraParams, pose, max_depth: float, band: float = 1.25,
                  surf_cap=rf.DEFAULT_SURF_CAP):
-        inputs = self._inputs
-        staged = isinstance(pose, SE3)
-        if staged:
-            inputs.fill(0, pose=pose)
-        else:
-            inputs.dev["pose"].copy_(pose.slots())
-
-        def body():
-            if staged:
-                inputs.upload(0)
-            return splat_render_cuda(vol, cam, inputs.pose, max_depth, band, surf_cap)
-
-        key = ("splat", cam.img_h, cam.img_w, cam.intrinsics, float(max_depth), float(band),
-               surf_cap, staged) + vol.storage_key()
-        res = self.graphs.run(key, body)
-        out = type(res)(*(t.clone() if isinstance(t, torch.Tensor) else t for t in res))
-        if staged:
-            inputs.done(0)
-        return out
+        return self.run(vol, cam, pose, float(max_depth), float(band), surf_cap)

@@ -4,11 +4,20 @@ voxel_tsdf.cu:232-307).
 
 Every pixel marches its ray in step_size steps until the TSDF crosses
 from positive to non-positive, then bisects the crossing and shades it
-with a central-difference normal.  The JAX package marches in a
-`lax.while_loop`; here the march is a Python loop over step index with a
-per-pixel active mask, which stops when no pixel is active (one `.any()`
-read of the device per step).  This is the exact oracle the splat
-renderer (ops/render_fast.py) is held against, not a fast path.
+with a central-difference normal.  `raycast` launches the hand-written
+kernel for a CUDA volume (ops/cuda/raycast_kernel.py, csrc/raycast.cu:
+one thread a pixel, the march with early exit) and runs
+`raycast_reference` for a CPU volume.  The plain version marches as the
+JAX package's `lax.while_loop` does, as a Python loop over step index
+with a per-pixel active mask, which stops when no pixel is active (one
+`.any()` read of the device per step).  It is the exact oracle the splat
+renderer (ops/render_fast.py) and the kernel are held against.
+
+Each three-term sum (the norms, the shading's dot product) is written
+as explicit adds, left to right: torch's reduction over a last axis of
+three adds in another order on the card than on the CPU, so with these
+sums the plain version gives the same bits on both devices, and the
+kernel repeats them.
 
 Empty-space skipping: a sample inside an unallocated block provably
 reads the default +1, so the march jumps whole steps that stay inside
@@ -43,11 +52,36 @@ class RaycastResult(NamedTuple):
     surf_overflow: Optional[torch.Tensor] = None
 
 
+def _sum3(x: torch.Tensor) -> torch.Tensor:
+    """x[..., 0] + x[..., 1] + x[..., 2], left to right, in x's dtype."""
+    return (x[..., 0] + x[..., 1]) + x[..., 2]
+
+
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis: float32 sum of squares, root
-    taken in float64 and rounded once (torch's CPU float32 sqrt is not
-    correctly rounded)."""
-    return torch.sqrt((x * x).sum(-1).double()).float()
+    """Euclidean norm over the last axis: float32 sum of squares (left to
+    right), root taken in float64 and rounded once (torch's CPU float32
+    sqrt is not correctly rounded)."""
+    return torch.sqrt(_sum3(x * x).double()).float()
+
+
+def superblock_table(vol: TSDFVolume) -> torch.Tensor:
+    """The dense block table (int32) with each empty cell of an empty
+    4x4x4-block superblock set to -3 (the march's skip sentinel), as torch
+    ops on the volume's device."""
+    s = vol.cfg.grid_side >> 2
+    # table_index layout is x, y, z; superblocks tile it exactly
+    occ = (vol.block_table >= 0).reshape(s, 4, s, 4, s, 4)
+    super_occ = occ.any(dim=5, keepdim=True).any(dim=3, keepdim=True).any(dim=1, keepdim=True)
+    return torch.where(
+        vol.block_table >= 0, vol.block_table,
+        torch.where(super_occ.expand(occ.shape).reshape(-1), -1, _SUPER_EMPTY),
+    ).to(torch.int32)
+
+
+def uses_superblocks(cfg) -> bool:
+    """Whether the march skips whole empty superblocks (dense backend,
+    skipping on, a grid of at least 8 blocks a side)."""
+    return cfg.raycast_skip and cfg.backend == "dense" and cfg.grid_side >= 8
 
 
 def _shade(rgb, prob, diffusivity, hit, shape):
@@ -74,7 +108,23 @@ def raycast(
     step_size: Optional[float] = None,
 ) -> RaycastResult:
     """Render a virtual view (TSDFGrid::RayCast, voxel_tsdf.cu:490-506);
-    step_size defaults to truncation / 2 like the host call site (:497)."""
+    step_size defaults to truncation / 2 like the host call site (:497).
+    One kernel launch for a CUDA volume (cam_T_world an SE3 or a
+    DevicePose), the plain version for a CPU volume."""
+    from .cuda import raycast_kernel
+
+    return raycast_kernel.raycast(vol, cam, cam_T_world, max_depth, step_size)
+
+
+def raycast_reference(
+    vol: TSDFVolume,
+    cam: CameraParams,
+    cam_T_world: SE3,
+    max_depth: float,
+    step_size: Optional[float] = None,
+) -> RaycastResult:
+    """Plain version of raycast, on any device (cam_T_world an SE3 or a
+    DevicePose on the volume's device)."""
     cfg = vol.cfg
     if step_size is None:
         step_size = cfg.truncation / 2.0
@@ -93,24 +143,15 @@ def raycast(
     step_grid = ray_dir_world * (step_size / cfg.voxel_size)
     # divide by a device tensor: torch on CUDA multiplies by the
     # reciprocal of a Python scalar divisor
-    origin_grid = (torch.from_numpy(world_T_cam.t).to(dev)
+    origin_grid = (world_T_cam.translation_tensor(dev)
                    / torch.tensor(cfg.voxel_size, **f32))
     max_step = int(math.ceil(max_depth / step_size))
 
     bl = cfg.block_len_log2
     sb_log2 = bl + 2
-    use_super = cfg.raycast_skip and cfg.backend == "dense" and cfg.grid_side >= 8
+    use_super = uses_superblocks(cfg)
     if use_super:
-        g = cfg.grid_side
-        s = g >> 2
-        # table_index layout is x, y, z; superblocks tile it exactly
-        occ = (vol.block_table >= 0).reshape(s, 4, s, 4, s, 4)
-        super_occ = occ.any(dim=5, keepdim=True).any(dim=3, keepdim=True).any(
-            dim=1, keepdim=True)
-        aug_table = torch.where(
-            vol.block_table >= 0, vol.block_table,
-            torch.where(super_occ.expand(occ.shape).reshape(-1), -1, _SUPER_EMPTY),
-        )
+        aug_table = superblock_table(vol)
 
     def read(pt):
         """(tsdf, block missing, superblock empty) at voxel coords [N, 3]."""
@@ -189,7 +230,7 @@ def raycast(
     ], -1)
     nrm = _norm(norm_raw)
     nrm = torch.where(nrm == 0, 1.0, nrm)
-    diffusivity = torch.clamp((norm_raw * -ray_dir_world).sum(-1) / nrm, min=0.0)
+    diffusivity = torch.clamp(_sum3(norm_raw * -ray_dir_world) / nrm, min=0.0)
     rgba, normal = _shade(rgb, prob, diffusivity, hit, (hgt, wid))
 
     # hit depth along the ray (world metres)

@@ -450,6 +450,24 @@ class KeyframeQuery(NamedTuple):
     scores: object  # f32 [cap]: match_scores on the device, or its host copy
 
 
+def cap_graph_fits(cap: int, device) -> None:
+    """Raise unless the pose graph of `cap` keyframes, padded to a power of
+    two of nodes (6 rows each) as a closure pads it, fits in the card's
+    memory: its [H | g] (8 m (m + 1) bytes at m rows) with the LU's
+    multipliers (pose_graph_kernel.scratch_bytes, about 12 m^2 bytes in
+    all; the edges' share is negligible).  The kernel takes any m; on an
+    80 GB card the largest cap taken is 8192 keyframes (m = 49152, 29.6
+    GB)."""
+    n = _pad_pow2(cap)
+    need = pose_graph_kernel.scratch_bytes(6 * n)
+    total = torch.cuda.get_device_properties(device).total_memory
+    if need > total:
+        raise ValueError(
+            f"max_keyframes={cap} pads to {n} nodes: the pose graph's [H | g] "
+            f"({8 * 6 * n * (6 * n + 1) / 1e9:.1f} GB) and its LU's multipliers need "
+            f"{need / 1e9:.1f} GB, more than the card's {total / 1e9:.1f} GB")
+
+
 class LoopClosureManager:
     """Keyframe store, loop detection/verification, pose-graph state.
 
@@ -492,10 +510,8 @@ class LoopClosureManager:
         self.verify_max_rmse = float(verify_max_rmse)
         self.verify_min_inliers = int(verify_min_inliers)
         self.cap = int(max_keyframes)
-        if self.device.type == "cuda" and 6 * _pad_pow2(self.cap) > pose_graph_kernel.MAX_ROWS:
-            # the graph pads to a power of two nodes, 6 rows each
-            raise ValueError(f"max_keyframes={self.cap} pads to {_pad_pow2(self.cap)} nodes; the "
-                             f"pose graph's kernel takes at most {pose_graph_kernel.MAX_ROWS // 6}")
+        if self.device.type == "cuda":
+            cap_graph_fits(self.cap, self.device)
         self.img_h, self.img_w = img_h, img_w
 
         # verification tracker at HALF resolution (stored kf depths are

@@ -5,15 +5,15 @@ utils/tsdf/voxel_tsdf.cuh:32-124).
 Owns a TSDFVolume on one device; integrate takes numpy frames, uploads
 them and updates the volume in place; ray_cast renders a virtual view
 with the parity raycaster or the splat renderer (on a CUDA device, the
-splat_zbuf_blocks / splat_payload_blocks kernels).  On a CUDA device
-integrate and the splat render run as captured steps, the counterparts
-of the JAX object's jitted `_integrate` / `_integrate_stats` (donated)
-and `_splat` (ops/integrate.IntegrateStep, splat_kernel.SplatStep, one
-memory pool for the grid's graphs): the frame goes through static pinned
-buffers, the pose into device memory, and after its first call each
-key replays a CUDA graph; capture=False runs them eagerly instead (the
-path they are held against).  The parity raycaster stays eager: it
-reads the host once per march step (ops/raycast.py).  recenter and
+raycast kernel or the splat_zbuf_blocks / splat_payload_blocks kernels).
+On a CUDA device integrate and both renders run as captured steps, the
+counterparts of the JAX object's jitted `_integrate` / `_integrate_stats`
+(donated), `_raycast` and `_splat` (ops/integrate.IntegrateStep,
+raycast_kernel.RaycastStep, splat_kernel.SplatStep, one memory pool for
+the grid's graphs): the frame goes through static pinned buffers, the
+pose into device memory, and after its first call each key replays a
+CUDA graph; capture=False runs them eagerly instead (the path they are
+held against: one kernel launch a raycast).  recenter and
 maybe_recenter move the dense window after the camera.  With host_spill
 the blocks a recenter releases go to a host store (systems/
 block_streaming.py) and come back when the window returns, and
@@ -34,6 +34,7 @@ from ..config import TSDFConfig
 from ..core.geometry import SE3, CameraIntrinsics, CameraParams
 from ..core.state import TSDFVolume
 from ..ops import gather as gather_ops
+from ..ops.cuda.raycast_kernel import RaycastStep
 from ..ops.cuda.splat_kernel import SplatStep, splat_render_cuda
 from ..ops.gather import BoundingCube, SpatialTSDF
 from ..ops.hash import needs_recenter, recenter_origin_for, window_origin
@@ -59,7 +60,7 @@ class TSDFGrid:
         capture: bool = True,
         graphs: Optional[StepGraphs] = None,
     ):
-        """capture: integrate and the splat render as captured steps (the
+        """capture: integrate and both renders as captured steps (the
         default); graphs: their cache (utils/graphs.StepGraphs), one on
         the grid's device unless given."""
         cfg = cfg or TSDFConfig()
@@ -84,10 +85,11 @@ class TSDFGrid:
         self.graphs = graphs if graphs is not None else StepGraphs(self.device)
         self._integrate_step = IntegrateStep(self.device, capture=capture, graphs=self.graphs)
         self._splat_step = SplatStep(self.device, graphs=self.graphs)
+        self._raycast_step = RaycastStep(self.device, graphs=self.graphs)
 
     @property
     def capture(self) -> bool:
-        """Whether integrate and the splat render run as captured steps."""
+        """Whether integrate and the renders run as captured steps."""
         return self._integrate_step.capture
 
     @capture.setter
@@ -159,13 +161,16 @@ class TSDFGrid:
         """TSDFGrid::RayCast (voxel_tsdf.cu:490-506); virtual_cam =
         ((fx, fy, cx, cy), img_h, img_w).
 
-        "raycast" is the parity ray marcher (the reference's trilinear
-        refinement and shading).  "splat" and "splat_pallas" are the
-        splat renderer, geometry within about a voxel of the raycaster
+        "raycast" is the parity ray marcher (the reference's
+        refinement and shading): the raycast kernel on a CUDA device, as
+        a captured step (RaycastStep; fresh images each call), its plain
+        version on the CPU.  "splat" and "splat_pallas" are the splat
+        renderer, geometry within about a voxel of the raycaster
         (ops/render_fast.py); both launch the two splat kernels on a
         CUDA device, as a captured step (SplatStep; fresh images each
         call), and run their plain versions on the CPU.  "auto" is the
-        kernels on a CUDA device and the raycaster elsewhere."""
+        splat kernels on a CUDA device and the raycaster elsewhere.
+        With capture off each render runs eagerly."""
         if renderer not in RENDERERS:
             raise ValueError(f"renderer must be one of {RENDERERS}, got {renderer!r}")
         if renderer == "auto":
@@ -178,7 +183,8 @@ class TSDFGrid:
         # tsdf_module.cc:40-49)
         with self._lock:
             if renderer == "raycast":
-                res = raycast(self.volume, cam, pose, float(max_depth))
+                step = self._raycast_step if self.capture else raycast
+                res = step(self.volume, cam, pose, float(max_depth))
             elif self.capture:
                 res = self._splat_step(self.volume, cam, pose, float(max_depth))
             else:

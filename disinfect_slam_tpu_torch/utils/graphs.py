@@ -73,11 +73,12 @@ def count_launch(fn) -> None:
 def counted_kernels() -> tuple:
     """The hand kernels' wrappers on the captured paths (each counts its
     launches in `.launches`)."""
-    from ..ops.cuda import fuse_kernel, icp_kernel, pose_graph_kernel, sample_kernel, splat_kernel
+    from ..ops.cuda import (fuse_kernel, icp_kernel, pose_graph_kernel, raycast_kernel,
+                            sample_kernel, splat_kernel)
 
     return (fuse_kernel.fuse_rows, sample_kernel.sample_rows,
             splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks,
-            icp_kernel.icp_step, pose_graph_kernel.pose_graph_solve)
+            icp_kernel.icp_step, pose_graph_kernel.pose_graph_solve, raycast_kernel.raycast)
 
 
 def host_image(a) -> np.ndarray:
@@ -263,3 +264,53 @@ class StepGraphs:
         cur.wait_stream(side)
         return graph.replay, out
 
+
+
+class RenderStep:
+    """A render as one captured step a view (the JAX package's jitted
+    renders): the pose in a static buffer, a CUDA graph on a CUDA device
+    keyed by (`name`, image size, intrinsics, the render's own arguments,
+    where the pose comes from, the volume's storage_key).  An SE3 pose goes
+    through pinned staging (one slot: a render waits until the last one
+    has read it) and its copy is the step's first op; a DevicePose on the
+    device is copied in before the step.  The render's images are written
+    into buffers the step holds (`keep`, one set an image size) and come
+    back as fresh copies, as the jitted call returns them.  On the CPU the
+    render runs eagerly.  A subclass names the step, its `result` type (a
+    NamedTuple) and `render(vol, cam, pose, *args)`, which returns one
+    whose None fields, if any, come last and keep their defaults."""
+
+    name = "render"
+    result: type = tuple
+
+    def __init__(self, device, graphs: Optional[StepGraphs] = None):
+        self.device = torch.device(device)
+        self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._inputs = StaticInputs({"pose": StaticInputs.pose_spec()}, self.device, slots=1)
+        self._outputs: dict = {}
+
+    def render(self, vol, cam, pose: DevicePose, *args):
+        raise NotImplementedError
+
+    def run(self, vol, cam, pose, *args):
+        """render(vol, cam, pose, *args) through the step; args are part of
+        the key, so hashable."""
+        inputs = self._inputs
+        staged = isinstance(pose, SE3)
+        if staged:
+            inputs.fill(0, pose=pose)
+        else:
+            inputs.dev["pose"].copy_(pose.slots())
+        key = (self.name, cam.img_h, cam.img_w, cam.intrinsics) + args + (staged,)
+        size = (cam.img_h, cam.img_w)
+
+        def body():
+            if staged:
+                inputs.upload(0)
+            res = self.render(vol, cam, inputs.pose, *args)
+            keep(self._outputs, size, *(t for t in res if t is not None))
+
+        self.graphs.run(key + vol.storage_key(), body)
+        if staged:
+            inputs.done(0)
+        return self.result(*(t.clone() for t in self._outputs[size]))

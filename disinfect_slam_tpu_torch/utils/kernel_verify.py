@@ -22,7 +22,9 @@ the host pose (SE3), at a pose that is not the identity.  One more check
 holds the captured steps (IntegrateStep, SplatStep: CUDA graphs on the
 card) against the same steps run eagerly, one holds ICP's kernel
 (icp_step) and one the pose graph's (pose_graph_solve) against their
-plain versions on the device and on the CPU.
+plain versions on the device and on the CPU, and one the raycast kernel
+against raycast_reference on a dense volume (the superblock skip) and a
+hash volume.
 
 Each check takes perturb=True to feed the kernel side an input that
 differs from the plain side's, which must make it fail.
@@ -44,10 +46,12 @@ from ..core.geometry import SE3, CameraIntrinsics, CameraParams, DevicePose
 from ..core.state import TSDFVolume
 from ..ops import integrate as integrate_mod
 from ..ops import render_fast
+from ..ops.cuda import raycast_kernel
 from ..ops.cuda.fuse_kernel import fuse_rows_reference
 from ..ops.cuda.sample_kernel import sample_rows, sample_rows_reference
 from ..ops.cuda.splat_kernel import SplatStep, splat_render_cuda
 from ..ops.integrate import FrameInput, IntegrateStep, integrate
+from ..ops.raycast import raycast_reference
 from .device import resolve_device
 
 Result = Tuple[bool, float, str]
@@ -117,7 +121,12 @@ def _plain(name: str, plain: Callable):
         setattr(integrate_mod, name, kernel)
 
 
-def _scene_cfg(sampler: str) -> TSDFConfig:
+def _scene_cfg(sampler: str, backend: str = "dense") -> TSDFConfig:
+    if backend == "hash":
+        return TSDFConfig(voxel_size=0.008, truncation=0.048, num_blocks_log2=12,
+                          num_buckets_log2=13, max_candidates=8192, max_visible=2048,
+                          max_new_per_round=2048, backend="hash", alloc_dedup="sort",
+                          sampler=sampler)
     return TSDFConfig(voxel_size=0.008, truncation=0.048, num_blocks_log2=12,
                       max_candidates=8192, max_visible=2048, max_new_per_round=2048,
                       backend="dense", grid_log2=6, sampler=sampler)
@@ -136,7 +145,7 @@ def _scene_frame(device, perturb: bool = False) -> FrameInput:
 
 
 def _small_scene_step(sampler: str, device="cuda", perturb: bool = False,
-                      pose: str = "identity") -> TSDFVolume:
+                      pose: str = "identity", backend: str = "dense") -> TSDFVolume:
     """Two integrate passes of the JAX suite's small synthetic scene
     (160x128, voxel 8 mm, 2^12 blocks, a 2^6 dense grid; the second pass
     fuses onto nonzero weights) under `sampler`: "gather" is the
@@ -150,7 +159,7 @@ def _small_scene_step(sampler: str, device="cuda", perturb: bool = False,
     cam_T_world = {"identity": lambda: SE3.identity(),
                    "host": lambda: SE3.from_matrix(SCENE_POSE),
                    "device": lambda: DevicePose.from_matrix(SCENE_POSE, device)}[pose]()
-    vol = TSDFVolume.create(_scene_cfg(sampler), device)
+    vol = TSDFVolume.create(_scene_cfg(sampler, backend), device)
     for _ in range(2):
         vol = integrate(vol, frame, cam, cam_T_world, 4.0)
     return vol
@@ -368,6 +377,30 @@ def verify_pose_graph(device="cuda", perturb: bool = False) -> Result:
             "and 192")
 
 
+def verify_raycast(device="cuda", perturb: bool = False) -> Result:
+    """The raycast kernel (csrc/raycast.cu, the pose in device memory)
+    against raycast_reference (the host pose) on the small scene's volume,
+    dense (the march skips blocks and superblocks) and hash, from the
+    check's pose: hit, depth, rgba and normal bit-identical.  perturb moves
+    the kernel's camera by 1 cm."""
+    device = resolve_device(device)
+    cam = CameraParams.create(CameraIntrinsics.create(*SCENE_K), SCENE_H, SCENE_W)
+    pose = SE3.from_matrix(SCENE_POSE)
+    moved = SE3(q=pose.q, t=pose.t + np.float32(0.01)) if perturb else pose
+    err, hits = 0.0, []
+    for backend in ("dense", "hash"):
+        vol = _small_scene_step("pallas_fused", device, backend=backend)
+        a = raycast_reference(vol, cam, pose, 4.0)
+        b = raycast_kernel.raycast(vol, cam, DevicePose.from_se3(moved, device), 4.0)
+        for f in ("rgba", "normal", "depth", "hit"):
+            err += float((getattr(a, f).double() - getattr(b, f).double()).abs().max())
+        hits.append(float(a.hit.float().mean()))
+    # the dense window (4.1 m across) holds the near edge of the scene's
+    # 2-2.8 m depths: a few percent of the pixels hit it
+    ok = err == 0.0 and min(hits) > 0.01
+    return ok, err, f"bit-identical, dense and hash (hit shares {hits[0]:.2f}, {hits[1]:.2f})"
+
+
 CheckFn = Callable[..., Result]
 CHECKS: List[Tuple[str, CheckFn]] = [
     ("sample_rows 640x480, 256 blocks (bit-exact)", verify_sample_kernel),
@@ -383,6 +416,7 @@ CHECKS: List[Tuple[str, CheckFn]] = [
     ("captured steps vs eager (bit-identical)", verify_captured_steps),
     ("icp_step vs plain, on the device and the CPU (bit-exact)", verify_icp_step),
     ("pose_graph_solve vs plain, on the device and the CPU (bit-exact)", verify_pose_graph),
+    ("raycast vs plain, dense and hash (bit-identical)", verify_raycast),
     # verify_index_hints and verify_scatter_window check XLA gather
     # promises and the windowed scatter, which the port does not have
 ]

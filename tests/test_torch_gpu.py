@@ -411,15 +411,103 @@ def test_card_path_writes_no_plane(cuda, monkeypatch):
 
 
 def test_raycast_on_the_card_agrees_with_the_cpu(cuda):
-    """The parity raycaster on the card against the CPU on the same
-    fused volume: the hit masks agree on all but 0.5% of pixels (a sum
-    over three products may round differently on the two devices)."""
-    grid, poses, cam = _fused_grid(cuda)
+    """The parity raycaster on the card (the raycast kernel, captured)
+    against the CPU (the plain version): on the dense volume fused on
+    each device, and on a host copy of the card's hash volume (two hash
+    fusions' prob may differ in the last bit); all four images bit for
+    bit, at every pose (the plain version's three-term sums are written
+    out left to right, so both devices add them alike)."""
+    import dataclasses
+
+    from disinfect_slam_tpu_torch.ops import raycast as rc
+
+    grid, poses, (k, h, w) = _fused_grid(cuda)
     cpu, _, _ = _fused_grid("cpu")
-    a = grid.ray_cast(4.0, cam, poses[0], renderer="raycast")
-    b = cpu.ray_cast(4.0, cam, poses[0], renderer="raycast")
-    assert a.hit.device.type == "cuda" and b.hit.any()
-    assert (a.hit.cpu() != b.hit).float().mean() <= 0.005
+    hgrid, hposes, _ = _hash_grid(cuda)
+    hvol = hgrid.volume
+    host = dataclasses.replace(hvol, **{f.name: getattr(hvol, f.name).cpu()
+                                        for f in dataclasses.fields(hvol) if f.name != "cfg"})
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    cases = [(grid, lambda p: cpu.ray_cast(4.0, (k, h, w), p, renderer="raycast"), poses),
+             (hgrid, lambda p: rc.raycast_reference(host, cam, SE3.from_matrix(p), 4.0), hposes)]
+    for on_card, on_cpu, views in cases:
+        for pose in views:
+            a = on_card.ray_cast(4.0, (k, h, w), pose, renderer="raycast")
+            b = on_cpu(pose)
+            assert a.hit.device.type == "cuda" and b.hit.any()
+            for f in ("hit", "depth", "rgba", "normal"):
+                assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (on_card.volume.cfg.backend, f)
+
+
+def _raycast_volumes(cuda):
+    """(name, volume, poses, (k, h, w)) of the raycast kernel's cases: the
+    dense orbit (the march skips blocks and superblocks), the same volume
+    without the skip, and the hash orbit (blocks only)."""
+    import dataclasses
+
+    grid, poses, cam = _fused_grid(cuda)
+    hgrid, hposes, _ = _hash_grid(cuda)
+    vol = grid.volume
+    no_skip = dataclasses.replace(vol, cfg=dataclasses.replace(vol.cfg, raycast_skip=False))
+    return [("dense", vol, poses, cam), ("dense_no_skip", no_skip, poses, cam),
+            ("hash", hgrid.volume, hposes, cam)]
+
+
+def test_raycast_kernel_equals_its_plain_version(cuda):
+    """The raycast kernel (one launch a render) against raycast_reference
+    on the card, on the dense volume (superblocks), without the skip and
+    on the hash volume, at every pose and at a max_depth cut short of the
+    surface: hit, depth, rgba and normal bit for bit, one launch each."""
+    from disinfect_slam_tpu_torch.ops import raycast as rc
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+
+    for name, vol, poses, (k, h, w) in _raycast_volumes(cuda):
+        cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+        for pose in poses:
+            for max_depth in (4.0, 2.2):
+                before = raycast_kernel.raycast.launches
+                got = raycast_kernel.raycast(vol, cam, SE3.from_matrix(pose), max_depth)
+                assert raycast_kernel.raycast.launches == before + 1
+                want = rc.raycast_reference(vol, cam, SE3.from_matrix(pose), max_depth)
+                for f in ("hit", "depth", "rgba", "normal"):
+                    assert torch.equal(getattr(got, f), getattr(want, f)), (name, f, max_depth)
+                if max_depth == 4.0:
+                    assert got.hit.float().mean() > 0.1, name
+
+
+def test_a_captured_raycast_is_one_graph_launch_and_never_syncs(cuda):
+    """TSDFGrid.ray_cast(renderer="raycast") on the card: the first call
+    captures a RaycastStep, later calls replay it as one graph launch with
+    no kernel launch of its own and no sync (set_sync_debug_mode("error")),
+    one raycast launch counted a render; each render's images are fresh
+    tensors equal to the eager kernel's (capture off)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.utils import graphs
+
+    grid, poses, cam = _fused_grid(cuda)
+    first = grid.ray_cast(4.0, cam, poses[0], renderer="raycast")
+    torch.cuda.synchronize()
+    launches, replays = raycast_kernel.raycast.launches, graphs.REPLAYS["graph"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = [grid.ray_cast(4.0, cam, p, renderer="raycast") for p in poses[1:3]]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    names = [e.name for e in prof.events()]
+    assert sum(n in ("cudaGraphLaunch", "cuGraphLaunch") for n in names) == 2
+    assert not any(n in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernelEx") for n in names)
+    assert raycast_kernel.raycast.launches - launches == 2
+    assert graphs.REPLAYS["graph"] - replays == 2
+    assert res[0].rgba.data_ptr() != res[1].rgba.data_ptr() != first.rgba.data_ptr()
+    grid.capture = False
+    for pose, r in zip(poses[1:3], res):
+        eager = grid.ray_cast(4.0, cam, pose, renderer="raycast")
+        for f in ("hit", "depth", "rgba", "normal"):
+            assert torch.equal(getattr(eager, f), getattr(r, f)), f
 
 
 # ----------------------------------------------------------------------
@@ -1138,21 +1226,78 @@ def test_pose_graph_kernel_on_ties_and_nan(cuda, n_pad, nan):
 
 
 def test_the_manager_takes_every_cap_the_kernel_takes(cuda):
-    """LoopClosureManager on the card takes max_keyframes up to the largest
-    power of two of nodes pose_graph_solve solves (2048: its graphs pad to
-    a power of two), and refuses a larger cap when it is built, not at a
-    closure."""
+    """LoopClosureManager on the card takes every max_keyframes whose
+    padded graph's [H | g] and LU scratch fit in the card's memory (4096
+    and 8192 keyframes, past the register layouts' 2730 nodes: the pass
+    layout), and refuses a cap whose scratch cannot fit when it is built,
+    not at a closure."""
     from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
     from disinfect_slam_tpu_torch.systems import loop_closure as lcm
 
     from .torch_cases import LC_ARGS, LC_H, LC_K, LC_W
 
     args = {k: v for k, v in LC_ARGS.items() if k != "max_keyframes"}
-    top = 1 << ((pk.MAX_ROWS // 6).bit_length() - 1)
-    assert top == 2048
-    lcm.LoopClosureManager(LC_K, LC_H, LC_W, device=cuda, max_keyframes=top, **args)
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    for cap in (2048, 4096, 8192):
+        if pk.scratch_bytes(6 * cap) <= total:
+            lcm.LoopClosureManager(LC_K, LC_H, LC_W, device=cuda, max_keyframes=cap, **args)
+    if total >= 80e9:
+        assert pk.scratch_bytes(6 * 8192) <= total
+    top = 1 << 20
+    while pk.scratch_bytes(6 * top) > total:
+        top >>= 1
     with pytest.raises(ValueError, match="max_keyframes"):
         lcm.LoopClosureManager(LC_K, LC_H, LC_W, device=cuda, max_keyframes=top + 1, **args)
+
+
+@pytest.mark.parametrize("n_pad, e, forced", [(8, 13, True), (512, 800, True),
+                                              (2736, 5472, False)])
+def test_pose_graph_pass_layout_equals_its_plain_version(cuda, n_pad, e, forced):
+    """The pass layout (the threads stride over a panel's rows, their state
+    in device memory): forced at 48 and at 3072 rows, and taken by itself
+    at m = 16416 (2736 nodes, past the register layouts' 16384 rows): dx
+    bit-equal to the plain version (core/exact.solve_lu) on the card, and
+    at 48 rows to the CPU's; at every CTA count the layout takes up to 3072
+    rows."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.utils.kernel_verify import pose_graph_inputs
+
+    host = pose_graph_inputs(n_pad, e, seed=n_pad + 1, device="cpu")
+    args = [t.to(cuda) for t in host]
+    want = pk.pose_graph_solve_reference(*args).cpu()
+    if n_pad <= 8:
+        assert torch.equal(want, pk.pose_graph_solve_reference(*host))
+    m = 6 * n_pad
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if not forced:
+        assert pk.launch_layout(m, sms) == (False, True)
+        before = pk.pose_graph_solve.launches
+        assert torch.equal(pk.pose_graph_solve(*args).cpu(), want)
+        assert pk.pose_graph_solve.launches == before + 1
+    else:
+        fit = pk.shapes(m, sms, False, passes=True)
+        for ctas in (fit if m <= 48 else fit[-2:]):
+            got = pk.pose_graph_solve(*args, ctas=ctas, passes=True)
+            assert torch.equal(got.cpu(), want), ctas
+    assert torch.isfinite(want).all()
+
+
+@pytest.mark.parametrize("n_pad, e_pad", [(8, 16), (512, 1024)])
+def test_pose_graph_fused_in_the_pass_layout(cuda, n_pad, e_pad):
+    """pose_graph_fused forced into the pass layout: dx and the residuals
+    bit-equal to its plain version on the card."""
+    from disinfect_slam_tpu_torch.ops.cuda import pose_graph_kernel as pk
+    from disinfect_slam_tpu_torch.systems import loop_closure as lcm
+
+    from .torch_cases import pose_graph_case
+
+    poses, ei, ej, z, w = (torch.from_numpy(a) for a in pose_graph_case(n_pad, e_pad, seed=n_pad))
+    host = [poses, ei.int(), ej.int(), lcm._inv_rigid(z).contiguous(), w,
+            lcm._gauge_diag(n_pad, 1e-4, "cpu")]
+    args = [t.to(cuda) for t in host]
+    want = pk.pose_graph_fused_reference(*args)
+    got = pk.pose_graph_fused(*args, passes=True)
+    assert all(torch.equal(_ints(a), _ints(b)) for a, b in zip(got, want))
 
 
 def test_a_closure_is_one_graph_launch_and_never_syncs(cuda):

@@ -250,8 +250,9 @@ def test_captured_query_equals_the_eager_query():
 # ----------------------------------------------------------------------
 def test_the_cuda_source_holds_the_wrappers_constants():
     """csrc/pose_graph.cu's CTA size, panel width, a thread's panel rows in
-    either layout, largest m, shared-memory limit, edge entries and edge
-    chunk are the wrapper's, its shared-memory sum is smem_bytes', and its
+    either layout, the register layouts' largest m, the pass layout's
+    stride over a panel's rows (a CTA's threads), shared-memory limit, edge entries and edge chunk are the
+    wrapper's, its shared-memory sum is smem_bytes', and its
     hex literals are core/exact's doubles (1/n!,
     2 pi, pi / 8's tangent, the float32 1/6 and 1/12)."""
     with open(SOURCE) as f:
@@ -261,12 +262,15 @@ def test_the_cuda_source_holds_the_wrappers_constants():
     assert int(consts["kNB"]) == pk.NB
     assert int(consts["kMaxSlots"]) == pk.SLOTS and int(consts["kWideSlots"]) == pk.WIDE_SLOTS
     assert int(consts["kMidSlots"]) == pk.MID_SLOTS
-    assert consts["kMaxRows"] == "kThreads * kWideSlots" and pk.THREADS * pk.WIDE_SLOTS == pk.MAX_ROWS
+    assert consts["kWideRows"] == "kThreads * kWideSlots"
+    assert pk.THREADS * pk.WIDE_SLOTS == pk.WIDE_ROWS
+    assert src.count("for (int s = t; s < rows; s += kThreads) {") == 3
     assert int(consts["kSmemLimit"]) == pk.SMEM_LIMIT
     assert int(consts["kBlockVals"]) == pk.BLOCK_VALS
     assert int(consts["kEdgeChunk"]) == pk.EDGE_CHUNK
     assert ("return 8 * ((global ? 0 : nlb * kNB * m) + kNB * nlb * kNB + 6 * kNB * kNB + 2 * kNB) +\n"
-            "         4 * (6 * kWarps + 2 * kNB + 2 * static_cast<size_t>(m) + 3 * kEdgeChunk);") in src
+            "         4 * ((passes ? 8 : 6) * kWarps + 2 * kNB + (passes ? 0 : 2 * static_cast<size_t>(m)) +\n"
+            "              3 * kEdgeChunk);") in src
     table = re.search(r"kInvFact\[[^\]]*\] = \{([^}]*)\}", src).group(1)
     assert [float.fromhex(v) for v in table.split(",") if v.strip()] == list(exact.INV_FACT)
     assert float.fromhex(consts["kTwoPi"]) == exact.TWO_PI
@@ -283,20 +287,21 @@ def test_the_cuda_source_holds_the_wrappers_constants():
 @pytest.mark.parametrize("m, want, shared", [
     (48, 7, True), (96, 13, True), (144, 19, True), (192, 25, True), (384, 49, True),
     (768, 97, True), (1536, 132, True), (1656, 132, False), (3072, 132, False),
-    (pk.MAX_ROWS - 4, 132, False)])
-def test_cluster_shape_is_one_cta_or_sixteen(m, want, shared):
-    """grid_shape on an H100's 132 SMs (the name is kept from the cluster
-    shapes this test first held): a CTA for every block of columns, up to
-    the SMs, the columns in shared memory up to 1536 rows (256 nodes) and
-    in device memory above; every shape listed fits; beyond MAX_ROWS
-    raises, and too few SMs to hold the columns take device memory."""
+    (pk.WIDE_ROWS - 4, 132, False), (pk.WIDE_ROWS + 32, 132, False), (49152, 132, False)])
+def test_grid_shape_takes_a_cta_an_sm_and_picks_the_layout(m, want, shared):
+    """grid_shape on an H100's 132 SMs: a CTA for every block of columns, up
+    to the SMs, the columns in shared memory up to 1536 rows (256 nodes)
+    and in device memory above, in the pass layout past WIDE_ROWS (16384
+    rows: 16416 and 49152 take it, 16380 does not); every shape listed
+    fits; too few SMs to hold the columns take device memory."""
     assert pk.grid_shape(m, 132) == (want, shared)
+    passes = m > pk.WIDE_ROWS
+    assert pk.launch_layout(m, 132) == (shared, passes)
     assert want in pk.shapes(m, 132, shared)
-    assert all(pk.smem_bytes(m, c, shared) <= pk.SMEM_LIMIT for c in pk.shapes(m, 132, shared))
+    assert all(pk.smem_bytes(m, c, shared, passes) <= pk.SMEM_LIMIT
+               for c in pk.shapes(m, 132, shared))
     if not shared:
         assert pk.shapes(m, 132, True) == []
-    with pytest.raises(ValueError):
-        pk.grid_shape(pk.MAX_ROWS + 6, 132)
     if m == 1536:
         assert pk.grid_shape(m, 64) == (64, False)
 
