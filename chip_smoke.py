@@ -34,9 +34,10 @@ exits non-zero:
      and profiled (render_split, which scripts/port_render_stage.py also
      runs on another tree); the frame-0 and the app's view held against
      the JAX reference's render fingerprint; the parity raycaster (the
-     raycast kernel, csrc/raycast.cu) through TSDFGrid.ray_cast(renderer=
-     "raycast") at frames 0-4: the captured RaycastStep (the main path,
-     one launch counted a render) and the same eagerly, ms a render, the
+     superblock_bits and raycast kernels, csrc/raycast_bits.cu and
+     csrc/raycast.cu) through TSDFGrid.ray_cast(renderer="raycast") at
+     frames 0-4: the captured RaycastStep (the main path, one launch of
+     each counted a render) and the same eagerly, ms a render, the
      frame-0 render bit-equal to the eager one, to raycast_reference on
      the card (its time beside) and to the port's CPU raycast of the same
      volume, and the splat's divergence from it; then fuse_rows
@@ -141,10 +142,17 @@ exits non-zero:
      rows), each bit-equal to its plain version (core/exact.solve_lu); the
      raycast kernel on phase 3's volume at the frame-0 view and the app's
      640x360 view, bit-equal to its plain version, its device time beside
-     its bound (from the launch's record of its work: the images, each
-     distinct index entry and tsdf row read once), its order floor (the
-     longest ray's dependent loads at the latency of the chase probe's
-     dependent loads in L2) and its plain version's time; and the SLAM frame
+     its bound (from the launch's record of its work: the images, the
+     bits, each distinct index entry and tsdf row read once), its order
+     floor (the longest chain of dependent global loads the kernel counted
+     for a ray, at the latency of the chase probe's dependent loads in L2;
+     the two-loads-a-sample definition beside it), its plain version's
+     time, its launch shape and the A/B of its bits in shared and in
+     device memory; the
+     superblock_bits kernel bit-equal to its plain version, its device
+     time beside its bound, its plain version's and torch.amax's; a
+     captured render's graph split into the two kernels and the rest, its
+     wall time with the pose staged and with a DevicePose; and the SLAM frame
      profiled (frames 45-59: device time, kernels, idle share; ICP alone:
      kernels, device time and the host time of its ops).
 
@@ -245,7 +253,8 @@ exits non-zero:
      card (K1 at 640x480, 1080p and with an early count, the two-stage
      and the fused integrate of a small scene, K4/K5's render of it, the
      captured steps, icp_step, pose_graph_solve, the raycast kernel on a
-     dense and a hash volume: ten checks), every
+     dense (both bits layouts) and a hash volume, superblock_bits: eleven
+     checks), every
      check PASS in under 60 s; its launches are reported apart
      from the main paths' (verify_launches).
   15. the port's benchmark as a user runs it: `python bench_torch.py` in
@@ -255,8 +264,9 @@ exits non-zero:
      line with bench.py's twelve keys (platform "cuda", fallback false,
      vs_baseline null, every other number positive); fuse_rows launched
      2 + 60 times by the fusion stage and 30 a net by the online stage,
-     each splat kernel 6 times, the raycast kernel 6 times by the
-     captured raycast stage and never by its plain one, sample_rows only
+     each splat kernel 6 times, the raycast and superblock_bits kernels 6
+     times by the captured raycast stage and never by its plain one,
+     sample_rows only
      in the self-check
      (bench_launches in the kernels line).  Its line and its summary are
      printed.
@@ -443,7 +453,7 @@ def phase_wall(name: str, t0: float) -> None:
     log(f"[chip_smoke] phase {name} wall s: {time.perf_counter() - t0:.1f}")
 
 
-def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
+def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0, events: bool = True):
     """Device time per call of fn() from a profiler trace of reps calls
     after one warm-up: the median launch of the kernel whose name holds
     `name`, or (name None) the sum over the kernels a call launches of
@@ -454,7 +464,9 @@ def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
     faster, so such a reading is a fault of the trace), is taken again,
     five times at most; when none gave a reading at or above the bound,
     the calls are timed by CUDA events (cuda_time_ms, launch overhead
-    included) and the log says so, and a time below the bound raises.
+    included) and the log says so, and a time below the bound raises;
+    or (events False: where fn does more than the kernel, so that its CUDA
+    events would not time the kernel) None, "not measured".
     The profiler leaves the
     host slower for the rest of the process, so these run after the
     end-to-end measurements they could slow."""
@@ -484,6 +496,11 @@ def kernel_ms(fn, name=None, reps: int = 10, floor_ms: float = 0.0) -> float:
     # no trace read at or above the bound (the rest lost their device
     # events): time the calls with CUDA events, which include each call's
     # launch overhead (an upper bound of the device time), and say so
+    if not events:
+        log(f"[chip_smoke] {name or 'fn'}: no trace read at or above the bound (readings "
+            f"{[round(r, 4) for r in readings]}, the rest lost their device events): not "
+            f"measured")
+        return None
     ms = cuda_time_ms(fn, reps)
     log(f"[chip_smoke] {name or 'fn'}: no trace read at or above the bound (readings "
         f"{[round(r, 4) for r in readings]}, the rest lost their device events); CUDA events "
@@ -1183,7 +1200,8 @@ def raycast_views(grid, view, frames) -> tuple:
     """Phase 5, the parity raycaster through TSDFGrid.ray_cast(renderer=
     "raycast"): the main path first, the captured RaycastStep at frames
     0-4 (the capture, then three timed passes of five replays; one raycast
-    launch counted a render), then the same passes eagerly (capture off:
+    and one superblock_bits launch counted a render), then the same passes
+    eagerly (capture off:
     one launch a render); the frame-0 view captured against the eager
     render, raycast_reference on the card and the port's CPU raycast of a
     host copy of the volume, all four images bit for bit.  Returns (the
@@ -1208,13 +1226,14 @@ def raycast_views(grid, view, frames) -> tuple:
         return out
 
     grid.capture = True
-    reset_launches(raycast_kernel.raycast)
+    reset_launches(raycast_kernel.raycast, raycast_kernel.superblock_bits)
     captured = passes()
     launches = raycast_kernel.raycast.launches
+    bits_launches = raycast_kernel.superblock_bits.launches
     n_renders = 1 + 3 * len(frames)
-    if launches != n_renders:
-        raise AssertionError(f"the raycast kernel launched {launches} times for {n_renders} "
-                             "captured renders")
+    if launches != n_renders or bits_launches != n_renders:
+        raise AssertionError(f"the raycast kernel launched {launches} times and superblock_bits "
+                             f"{bits_launches} for {n_renders} captured renders")
     grid.capture = False
     eager = passes()
     got = {"eager": grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")}
@@ -1234,11 +1253,13 @@ def raycast_views(grid, view, frames) -> tuple:
              for k, r in got.items()}
     report = {"captured_ms_per_render": captured, "captured_ms": statistics.median(captured),
               "eager_ms_per_render": eager, "eager_ms": statistics.median(eager),
-              "plain_ms": plain_ms, "cpu_ms": cpu_ms, "launches": launches, "equal": equal,
+              "plain_ms": plain_ms, "cpu_ms": cpu_ms, "launches": launches,
+              "bits_launches": bits_launches, "equal": equal,
               "hit_share": ray.hit.float().mean().item()}
-    log(f"[chip_smoke] raycast (the kernel, {hgt}x{wid}, frames 0-4): captured ms/render "
+    log(f"[chip_smoke] raycast (the kernels, {hgt}x{wid}, frames 0-4): captured ms/render "
         f"{captured} -> median {report['captured_ms']:.4f}, eager {eager} -> median "
-        f"{report['eager_ms']:.4f}; launches {launches} for {n_renders} captured renders; the "
+        f"{report['eager_ms']:.4f}; launches {launches} raycast and {bits_launches} "
+        f"superblock_bits for {n_renders} captured renders; the "
         f"plain march on the card {plain_ms:.1f} ms, on the CPU {cpu_ms:.1f} ms; frame 0 "
         f"captured bit-equal to {equal}; hit share {report['hit_share']:.4f}")
     if not all(equal.values()):
@@ -1258,11 +1279,14 @@ def raycast_hash(grid, view, frames) -> dict:
     intr, hgt, wid = view
     cam = CameraParams.create(CameraIntrinsics.create(*intr), hgt, wid)
     pose = SE3.from_matrix(frames[0])
-    reset_launches(raycast_kernel.raycast)
+    reset_launches(raycast_kernel.raycast, raycast_kernel.superblock_bits)
     got = {f"captured {i}": grid.ray_cast(RENDER_MAX_DEPTH, view, frames[0], renderer="raycast")
            for i in range(2)}
     got["eager"] = raycast_kernel.raycast(grid.volume, cam, pose, RENDER_MAX_DEPTH)
     launches = raycast_kernel.raycast.launches
+    bits_launches = raycast_kernel.superblock_bits.launches
+    if bits_launches:
+        raise AssertionError("superblock_bits launched on the hash volume")
     got["plain on the card"] = raycast_reference(grid.volume, cam, pose, RENDER_MAX_DEPTH)
     cpu = raycast_reference(to_cpu(grid.volume), cam, pose, RENDER_MAX_DEPTH)
     equal = {k: all(torch.equal(getattr(r, f).cpu(), getattr(cpu, f)) for f in RAY_FIELDS)
@@ -1273,7 +1297,8 @@ def raycast_hash(grid, view, frames) -> dict:
     if not all(equal.values()) or launches != 3 or not cpu.hit.any():
         raise AssertionError(f"the raycast kernel on the hash volume: equal {equal}, "
                              f"launches {launches}")
-    return {"launches": launches, "equal": equal, "hit_share": cpu.hit.float().mean().item()}
+    return {"launches": launches, "bits_launches": bits_launches, "equal": equal,
+            "hit_share": cpu.hit.float().mean().item()}
 
 
 # operations counted from csrc/raycast.cu, float32 (a division or root counted
@@ -1306,78 +1331,139 @@ def load_latency_ms(dev, n: int, fresh: bool) -> float:
 
 
 def raycast_replay_profile(vol, cam, pose) -> dict:
-    """Phase 7, a captured render as the main path runs it (a RaycastStep,
-    an SE3 pose through its staging): wall ms a render over five calls
-    after the capture (host clock, ending in a sync); the device ms of the
-    step's graph alone (CUDA events around a bare replay, median of 10),
-    the raycast kernel's within it and the kernels a replay holds (from
-    traces), and the superblock table's torch ops alone (superblock_table,
-    the sum of its kernels from a trace); the idle share of a render,
-    1 - the graph's device ms over the wall ms.  A trace of the replays
-    can lose device events, so no device time here is a trace's sum."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Phase 7, a captured render as the main path runs it (a RaycastStep):
+    wall ms a render over five calls after the capture (host clock, ending
+    in a sync), with an SE3 pose through the step's one-slot pinned
+    staging and with a DevicePose copied in on the device; the device ms of
+    the step's graph alone (CUDA events around a bare replay, median of
+    10), the superblock_bits kernel's and the raycast kernel's within it
+    (traces of replays, None where every trace lost the kernel's events)
+    and the rest (the pose's copy, the tile counter's memset, the images'
+    copies; None unless both kernels were measured); the graph's nodes,
+    read from the graph itself: its kernels must be one superblock_bits
+    and one raycast launch and nothing else (no torch op of the table the
+    bits replace); the idle share of a render, 1 - the graph's device ms
+    over the staged wall ms.  As context, not in the graph: the torch ops
+    of superblock_table, the table the bits replace."""
+    from disinfect_slam_tpu_torch.core.geometry import DevicePose
     from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
     from disinfect_slam_tpu_torch.ops.raycast import superblock_table
+    from disinfect_slam_tpu_torch.utils.graphs import StepGraphs
 
-    step = raycast_kernel.RaycastStep(vol.device)
-    for _ in range(2):
-        step(vol, cam, pose, RENDER_MAX_DEPTH)  # the capture, then a replay
+    step = raycast_kernel.RaycastStep(vol.device,
+                                      graphs=StepGraphs(vol.device, keep_structure=True))
     n = 5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step(vol, cam, pose, RENDER_MAX_DEPTH)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    (replay, _, _), = step.graphs._graphs.values()
-    graph_ms = cuda_time_ms(replay)
-    kernel = kernel_ms(replay, "raycast_kernel")
-    table_ms = kernel_ms(lambda: superblock_table(vol))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            replay()
+    wall = {}
+    for name, p in (("staged", pose), ("device", DevicePose.from_se3(pose, vol.device))):
+        for _ in range(2):
+            step(vol, cam, p, RENDER_MAX_DEPTH)  # the capture, then a replay
         torch.cuda.synchronize()
-    counts = collections.Counter(e.name for e in prof.events() if e.device_type.name == "CUDA")
-    kernels = {k: max(1, round(v / n)) for k, v in counts.items()}
-    res = {"wall_ms_per_render": wall_ms, "graph_device_ms": graph_ms,
-           "raycast_kernel_ms": kernel, "table_ms": table_ms,
-           "rest_ms": graph_ms - kernel - table_ms, "kernels_per_replay": sum(kernels.values()),
-           "kernels": kernels, "idle_share": 1 - graph_ms / wall_ms}
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(vol, cam, p, RENDER_MAX_DEPTH)
+        torch.cuda.synchronize()
+        wall[name] = 1e3 * (time.perf_counter() - t0) / n
+    key = step.graphs.keys()[0]  # the staged pose's graph, made first
+    nodes = step.graphs.nodes(key)
+    kernels = {k: v for k, v in nodes.items() if k.startswith("KERNEL")}
+    named = {kname: sum(v for k, v in kernels.items() if kname in k)
+             for kname in ("superblock_bits_kernel", "raycast_kernel")}
+    if named != {"superblock_bits_kernel": 1, "raycast_kernel": 1} or len(kernels) != 2:
+        raise AssertionError(f"a captured render's graph should hold one superblock_bits and "
+                             f"one raycast kernel and no other kernel (no torch op of the "
+                             f"superblock table): its nodes {dict(nodes)}")
+    replay = step.graphs._graphs[key][0]
+    graph_ms = cuda_time_ms(replay)
+    kernel = kernel_ms(replay, "raycast_kernel", events=False)
+    bits = kernel_ms(replay, "superblock_bits_kernel", events=False)
+    rest = None if kernel is None or bits is None else graph_ms - kernel - bits
+    if rest is not None and rest < 0:
+        raise AssertionError(f"the kernels' traced times ({bits} + {kernel} ms) exceed the "
+                             f"graph's device time {graph_ms} ms")
+    table_ms = kernel_ms(lambda: superblock_table(vol))
+    wall_ms = wall["staged"]
+    res = {"wall_ms_per_render": wall_ms, "wall_ms_per_render_device_pose": wall["device"],
+           "graph_device_ms": graph_ms, "superblock_bits_ms": bits, "raycast_kernel_ms": kernel,
+           "rest_ms": rest, "table_ms_context": table_ms,
+           "nodes_per_replay": sum(nodes.values()), "nodes": dict(nodes),
+           "idle_share": 1 - graph_ms / wall_ms}
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
     log(f"[chip_smoke] raycast captured replay ({cam.img_w}x{cam.img_h}): wall "
-        f"{wall_ms:.4f} ms/render; the graph's device time {graph_ms:.4f} ms (CUDA events): the "
-        f"raycast kernel {kernel:.4f}, the superblock table's ops {table_ms:.4f} (alone), the "
-        f"rest {res['rest_ms']:.4f}; idle share {res['idle_share']:.3f}; "
-        f"{res['kernels_per_replay']} kernels and copies a replay (a trace)")
+        f"{wall_ms:.4f} ms/render with the SE3 staged, {wall['device']:.4f} with a DevicePose; "
+        f"the graph's device time {graph_ms:.4f} ms (CUDA events): superblock_bits "
+        f"{fmt(bits)}, the raycast kernel {fmt(kernel)}, the rest {fmt(rest)}; idle "
+        f"share {res['idle_share']:.3f}; the graph's {res['nodes_per_replay']} nodes (read "
+        f"from the graph): {dict(nodes)}; as context, superblock_table's torch ops (the table "
+        f"the bits replace, alone) {table_ms:.4f}")
     return res
+
+
+def superblock_bits_yardsticks(vol, launches) -> dict:
+    """Phase 7, the superblock_bits kernel on phase 3's volume (a 2^8 grid):
+    bit-equal to its plain version; its device time; its bound (the table
+    read once, the bits written once; one AND a cell); its plain version's
+    time; library: torch.amax of the occupancy reshaped to [s, 4, s, 4, s,
+    4] over the 4s, the comparison included."""
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.ops.raycast import superblock_bits_reference
+
+    cfg = vol.cfg
+    got = raycast_kernel.superblock_bits(vol)
+    plain = superblock_bits_reference(vol)
+    err = int((got != plain).sum())
+    s = cfg.grid_side >> 2
+    table = vol.block_table
+    lib = lambda: (table >= 0).view(torch.uint8).reshape(s, 4, s, 4, s, 4).amax(  # noqa: E731
+        dim=(1, 3, 5))
+    lib_occ = lib().reshape(-1).bool()
+    occ = ((got.long()[:, None] >> torch.arange(32, device=got.device)) & 1).reshape(-1)
+    if err or not torch.equal(occ[:s ** 3].bool(), lib_occ):
+        raise AssertionError(f"superblock_bits differs from its plain version in {err} words")
+    r = {**bound(4 * table.numel() + 4 * got.numel(), table.numel()), "max_abs_err": err,
+         "words": got.numel(), "superblocks_held": int(lib_occ.sum()), "launches": launches}
+    time_kernel(r, lambda: raycast_kernel.superblock_bits(vol), "superblock_bits_kernel")
+    r["plain_ms"] = cuda_time_ms(lambda: superblock_bits_reference(vol))
+    r["library_ms"] = kernel_ms(lib)
+    print_yardsticks(f"superblock_bits ({cfg.grid_side}^3 cells, {r['words']} words, "
+                     f"{r['superblocks_held']} of {s ** 3} superblocks held)", r)
+    return r
 
 
 def raycast_yardsticks(vol, intrinsics, poses, launches) -> dict:
     """Phase 7, the raycast kernel on phase 3's volume at the frame-0 view
     (640x480) and the app's view (640x360, the last pose): its device time
-    from a trace and one wrapper call by CUDA events (the superblock
-    table's torch ops included); the bound from the launch's own record of
-    its work (RaycastWork): the images written (13 bytes a pixel), each
+    from a trace and one wrapper call by CUDA events (the superblock bits'
+    launch included); the bound from the launch's own record of its work
+    (RaycastWork): the images written (13 bytes a pixel), the bits and each
     distinct index entry and tsdf row read once, over 3.35 TB/s, against
     the operations above over 67 TFLOP/s; the order floor, the longest
-    ray's dependent loads (a table and a voxel load a sample: its march
-    samples, the bisection, the origin, the final voxel and the normal's
-    six reads together) times the dependent-load latency the chase probe
-    measures in L2 (the same 20000 lines each call; fresh lines of a 256 MB
-    cycle, from device memory, for context);
-    the plain version's time; library: none.  Then a captured render's
-    profile at the frame-0 view (raycast_replay_profile)."""
+    chain of dependent global loads the kernel counted for a ray (a bit
+    read from shared memory and a reused lookup count none) times the
+    dependent-load latency the chase probe measures in L2 (the same 20000
+    lines each call; fresh lines of a 256 MB cycle, from device memory,
+    for context), and beside it the two-loads-a-sample floor (a table and a voxel load
+    for each of the longest ray's march samples, its bisection steps, the
+    origin, the final voxel and the normal's six reads together); the plain
+    version's time; library: none.  Then the launch's shape in each bits
+    layout (registers, shared memory, resident warps), the layouts' A/B at
+    640x480 (shared, device, device, shared: each bit-equal), the
+    superblock bits' own yardsticks and a captured render's profile at
+    the frame-0 view (raycast_replay_profile)."""
     from disinfect_slam_tpu_torch.core.geometry import (SE3, CameraIntrinsics, CameraParams,
                                                         DevicePose)
     from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
-    from disinfect_slam_tpu_torch.ops.raycast import raycast_reference
+    from disinfect_slam_tpu_torch.ops.raycast import raycast_reference, superblock_words
 
     dev = vol.device
     lat_l2 = load_latency_ms(dev, 1 << 20, fresh=False)
     lat_hbm = load_latency_ms(dev, 1 << 26, fresh=True)
     cfg = vol.cfg
     refine = cfg.refine_iters(cfg.truncation / 2.0)
+    bits_bytes = 4 * superblock_words(cfg)
     out = {"load_latency_us": {"l2": 1e3 * lat_l2, "hbm": 1e3 * lat_hbm}}
+    out["shape"] = {lay: raycast_kernel.launch_shape(vol, lay) for lay in raycast_kernel.LAYOUTS}
+    log(f"[chip_smoke] raycast launch shape (bits layout: registers a thread, shared memory "
+        f"a CTA, CTAs and warps resident an SM): {out['shape']}")
     for name, (i, hgt, wid) in {"frame0": (0, H, W), "app": (-1, 360, 640)}.items():
         cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), hgt, wid)
         pose = DevicePose.from_se3(SE3.from_matrix(poses[i]), dev)
@@ -1390,30 +1476,54 @@ def raycast_yardsticks(vol, intrinsics, poses, launches) -> dict:
         samples = work.samples
         cells, rows = int(work.cells.sum()), int(work.rows.sum())
         hits = int(res.hit.sum())
-        nbytes = hgt * wid * 13 + cells * (4 if cfg.backend == "dense" else 8) + rows * 4 * 512
+        nbytes = (hgt * wid * 13 + bits_bytes + cells * (4 if cfg.backend == "dense" else 8)
+                  + rows * 4 * 512)
         ops = (hgt * wid * RAY_SETUP_OPS + int(samples.sum()) * SAMPLE_OPS
                + hits * (refine * REFINE_OPS + SHADE_OPS))
         longest = int(samples.max())
-        loads = 2 * (longest + refine + 3)
+        loads = int(work.loads.max())
+        loads_pr21 = 2 * (longest + refine + 3)
         r = {"img": f"{wid}x{hgt}", **bound(nbytes, ops), "max_abs_err": err,
              "samples": int(samples.sum()), "longest_ray_samples": longest,
              "index_entries": cells, "tsdf_rows": rows, "hits": hits,
              "order_floor_loads": loads, "order_floor_ms": loads * lat_l2,
-             "library_ms": None, "launches": launches}
+             "mean_ray_loads": float(work.loads.float().mean()),
+             "order_floor_loads_pr21": loads_pr21, "order_floor_ms_pr21": loads_pr21 * lat_l2,
+             "library_ms": None, "launches": launches["raycast"]}
         time_kernel(r, fn, "raycast_kernel")
         r["plain_ms"] = cuda_time_ms(lambda c=cam, p=pose: raycast_reference(
             vol, c, p, RENDER_MAX_DEPTH), 1)
         print_yardsticks(f"raycast {name} ({wid}x{hgt}, {hits} hits, {r['samples']} samples, "
                          f"{cells} index entries, {rows} tsdf rows)", r)
-        log(f"[chip_smoke] raycast {name}: order floor {r['order_floor_ms']:.4f} ms ({loads} "
-            f"dependent loads of the longest ray, {longest} march samples, at "
-            f"{out['load_latency_us']['l2']:.3f} us in L2; {out['load_latency_us']['hbm']:.3f} "
-            f"us from device memory): the kernel at {r['ms'] / r['order_floor_ms']:.2f}x it")
+        log(f"[chip_smoke] raycast {name}: order floor {r['order_floor_ms']:.4f} ms (the "
+            f"longest chain the kernel counted, {loads} dependent global loads; "
+            f"{r['mean_ray_loads']:.1f} a ray on average; at {out['load_latency_us']['l2']:.3f} "
+            f"us in L2, {out['load_latency_us']['hbm']:.3f} us from device memory): the kernel "
+            f"at {r['ms'] / r['order_floor_ms']:.2f}x it; the two-loads-a-sample floor (two "
+            f"loads for each of "
+            f"the longest ray's {longest} march samples, {refine} bisection steps and 3 more: "
+            f"{loads_pr21} loads) {r['order_floor_ms_pr21']:.4f} ms")
         if err != 0.0:
             raise AssertionError(f"the raycast kernel at {name} differs from its plain "
                                  f"version by {err}")
         out[name] = r
+    # the bits layouts' A/B at 640x480: shared, device, device, shared
     cam = CameraParams.create(CameraIntrinsics.create(*intrinsics), H, W)
+    pose = DevicePose.from_se3(SE3.from_matrix(poses[0]), dev)
+    plain = raycast_reference(vol, cam, pose, RENDER_MAX_DEPTH)
+    ab = {lay: [] for lay in raycast_kernel.LAYOUTS}
+    for lay in ("shared", "device", "device", "shared"):
+        got = raycast_kernel.raycast(vol, cam, pose, RENDER_MAX_DEPTH, layout=lay)
+        if not all(torch.equal(getattr(got, f), getattr(plain, f)) for f in RAY_FIELDS):
+            raise AssertionError(f"the raycast kernel with its bits in {lay} memory differs")
+        ab[lay].append(kernel_ms(lambda lay=lay: raycast_kernel.raycast(
+            vol, cam, pose, RENDER_MAX_DEPTH, layout=lay), "raycast_kernel",
+            floor_ms=out["frame0"]["bound_ms"], events=False))
+    out["layout_ab_ms"] = ab
+    log(f"[chip_smoke] raycast bits layouts at 640x480 (device ms, shared / device / device / "
+        f"shared, each bit-equal; None where every trace lost the kernel's events): shared "
+        f"memory {ab['shared']}, device memory {ab['device']}")
+    out["superblock_bits"] = superblock_bits_yardsticks(vol, launches["superblock_bits"])
     out["replay_profile"] = raycast_replay_profile(vol, cam, SE3.from_matrix(poses[0]))
     return out
 
@@ -4295,8 +4405,8 @@ SEG_PAR_LR = 3e-3  # phase 10a's rate
 SEG_PAR_LOSS_RTOL, SEG_PAR_GRAD_RTOL = 1e-5, 1e-4
 SEG_PAR_INFER_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 VERIFY_BUDGET_S = 60.0
-VERIFY_CHECKS = 10  # K1 (three), K1 and K2 in integrate, K4/K5, the captured steps,
-# icp_step, pose_graph_solve, raycast
+VERIFY_CHECKS = 11  # K1 (three), K1 and K2 in integrate, K4/K5, the captured steps,
+# icp_step, pose_graph_solve, raycast, superblock_bits
 
 
 def _net(dev, dtype=torch.bfloat16):
@@ -4514,7 +4624,8 @@ def kernel_self_check(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dic
 
     fns = (sample_kernel.sample_rows, fuse_kernel.fuse_rows, splat_kernel.splat_zbuf_blocks,
            splat_kernel.splat_payload_blocks, icp_kernel.icp_step,
-           pose_graph_kernel.pose_graph_solve, raycast_kernel.raycast)
+           pose_graph_kernel.pose_graph_solve, raycast_kernel.raycast,
+           raycast_kernel.superblock_bits)
     reset_launches(*fns)
     t0 = time.perf_counter()
     ok = kernel_verify.verify_all(verbose=True, device=dev)
@@ -4575,6 +4686,7 @@ def bench_phase(smi) -> dict:
         ("splat", "splat_zbuf_blocks"): BENCH_RENDERS,
         ("splat", "splat_payload_blocks"): BENCH_RENDERS,
         ("raycast", "raycast"): BENCH_RENDERS, ("raycast plain", "raycast"): 0,
+        ("raycast", "superblock_bits"): BENCH_RENDERS, ("raycast plain", "superblock_bits"): 0,
     }
     got = {k: stages.get(k[0], {}).get(k[1]) for k in want}
     failed = []
@@ -5666,7 +5778,9 @@ def main() -> int:
     icp = icp_yardsticks(dev)
     pose_graph = pose_graph_yardsticks(dev)
     pass_layout = pose_graph_pass_layout(dev)
-    raycast = raycast_yardsticks(raycast_vol, intrinsics, poses, render["raycast"]["launches"])
+    raycast = raycast_yardsticks(raycast_vol, intrinsics, poses,
+                                 {"raycast": render["raycast"]["launches"],
+                                  "superblock_bits": render["raycast"]["bits_launches"]})
     del slam_vol, raycast_vol
     slam["profile"] = slam_profile(dev)
     stereo["profile"] = stereo_profile(dev)
@@ -5836,10 +5950,26 @@ def main() -> int:
          "max_abs_err": max(raycast[v]["max_abs_err"] for v in ("frame0", "app")),
          **{f"{k}_640x360": raycast["app"][k] for k in ("ms", "bound_ms", "order_floor_ms",
                                                        "plain_ms")},
+         "order_floor_loads": raycast["frame0"]["order_floor_loads"],
+         "order_floor_ms_pr21": raycast["frame0"]["order_floor_ms_pr21"],
          "captured_ms_per_render": render["raycast"]["captured_ms"],
          "eager_ms_per_render": render["raycast"]["eager_ms"],
+         "layout_ab_ms": raycast["layout_ab_ms"], "shape": raycast["shape"],
          **{f"replay_{k}": raycast["replay_profile"][k]
-            for k in ("graph_device_ms", "raycast_kernel_ms", "table_ms", "idle_share")}},
+            for k in ("graph_device_ms", "superblock_bits_ms", "raycast_kernel_ms", "rest_ms",
+                      "nodes_per_replay", "table_ms_context", "wall_ms_per_render",
+                      "wall_ms_per_render_device_pose", "idle_share")}},
+        {"name": "superblock_bits", "route": "cuda",
+         "source": "disinfect_slam_tpu_torch/csrc/raycast_bits.cu",
+         "replaces": "disinfect_slam_tpu/ops/raycast.py:116 (the superblock table: XLA ops "
+                     "inside jax.jit, no Pallas kernel)",
+         "launches": render["raycast"]["bits_launches"],
+         "hash_launches": export["hash"]["raycast"]["bits_launches"],
+         "verify_launches": verify["launches"]["superblock_bits"],
+         "bench_launches": bench["launches"]["total"]["superblock_bits"],
+         **{k: raycast["superblock_bits"][k] for k in (
+             "ms", "call_ms", "bound_ms", "bound_by", "library_ms", "plain_ms", "max_abs_err",
+             "words", "superblocks_held")}},
         *probe_kernels(probe, probe_main_launches),
     ]
     # the launches each kernel made through graph replays over the whole run

@@ -37,8 +37,9 @@ same stages run eagerly go on stderr beside them ("... eager"):
               the eager replay's bit for bit
   splat       the K4/K5 splat render (SplatStep) at frames 0-4's poses
               (splat_ms)
-  raycast     the parity raycaster at the same poses: the raycast kernel
-              as a captured step (RaycastStep; raycast_ms), and beside it,
+  raycast     the parity raycaster at the same poses: the superblock bits'
+              and the raycast kernel as a captured step (RaycastStep;
+              raycast_ms), and beside it,
               as context, the eager plain march (raycast_reference: it
               reads the host every march step); DSTPU_BENCH_RAYCAST=0
               skips both

@@ -22,9 +22,12 @@ kernel repeats them.
 Empty-space skipping: a sample inside an unallocated block provably
 reads the default +1, so the march jumps whole steps that stay inside
 that block, or, on the dense backend, inside its 4x4x4-block superblock
-when the whole superblock is empty (a -3 sentinel folded into the block
-table once per render; the hash backend has no table to fold it into).  Every sample the brute-force march would take is either taken
-or provably +1, so skipping changes no image.
+when the whole superblock is empty (the plain version folds a -3
+sentinel into the block table once per render, `superblock_table`; the
+kernel reads one occupancy bit a superblock instead,
+`superblock_bits_reference` and its kernel; the hash backend has no
+table to fold it into).  Every sample the brute-force march would take
+is either taken or provably +1, so skipping changes no image.
 """
 
 from __future__ import annotations
@@ -76,6 +79,40 @@ def superblock_table(vol: TSDFVolume) -> torch.Tensor:
         vol.block_table >= 0, vol.block_table,
         torch.where(super_occ.expand(occ.shape).reshape(-1), -1, _SUPER_EMPTY),
     ).to(torch.int32)
+
+
+def superblock_words(cfg) -> int:
+    """The 32-bit words of a dense grid's superblock occupancy bits (one bit
+    a 4x4x4-block superblock), padded to a multiple of four (16 bytes); 0
+    on a grid under 8 blocks a side, which the march does not split into
+    superblocks."""
+    if cfg.grid_side < 8:
+        return 0
+    return -(-((cfg.grid_side >> 2) ** 3) // 128) * 4
+
+
+def superblock_bits_reference(vol: TSDFVolume) -> torch.Tensor:
+    """Plain version of the raycast kernel's superblock bits (csrc/
+    raycast_bits.cu), as torch ops on the volume's device: int32
+    [superblock_words], bit sb & 31 of word sb >> 5 set iff superblock
+    sb = (sx * s + sy) * s + sz (the table's x, y, z order, s superblocks
+    a side) holds a block, so clear exactly where superblock_table's cells
+    are -3; the padding words are 0.  Empty on a grid under 8 blocks a
+    side."""
+    cfg, dev = vol.cfg, vol.device
+    if cfg.backend != "dense":
+        raise ValueError("superblock bits need the dense backend")
+    words = superblock_words(cfg)
+    if words == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=dev)
+    s = cfg.grid_side >> 2
+    occ = (vol.block_table >= 0).reshape(s, 4, s, 4, s, 4)
+    occ = occ.any(dim=5).any(dim=3).any(dim=1).reshape(-1)
+    padded = torch.zeros((words * 32,), dtype=torch.int64, device=dev)
+    padded[:occ.numel()] = occ.long()
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    w = (padded.reshape(words, 32) << shifts).sum(-1)  # distinct powers of two: exact
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
 def uses_superblocks(cfg) -> bool:

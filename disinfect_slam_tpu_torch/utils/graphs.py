@@ -40,7 +40,11 @@ from __future__ import annotations
 
 import collections
 import gc
+import os
+import re
+import tempfile
 import threading
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -78,7 +82,8 @@ def counted_kernels() -> tuple:
 
     return (fuse_kernel.fuse_rows, sample_kernel.sample_rows,
             splat_kernel.splat_zbuf_blocks, splat_kernel.splat_payload_blocks,
-            icp_kernel.icp_step, pose_graph_kernel.pose_graph_solve, raycast_kernel.raycast)
+            icp_kernel.icp_step, pose_graph_kernel.pose_graph_solve, raycast_kernel.raycast,
+            raycast_kernel.superblock_bits)
 
 
 def host_image(a) -> np.ndarray:
@@ -152,19 +157,55 @@ class StaticInputs:
             self._read[slot] = ev
 
 
+# the node types of a CUDA graph's DOT dump (cudaGraphDebugDotPrint)
+DOT_NODE_TYPES = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "EMPTY", "GRAPH", "EVENT_RECORD",
+                  "WAIT_EVENT", "EXT_SEMAS_SIGNAL", "EXT_SEMAS_WAIT", "MEM_ALLOC", "MEM_FREE",
+                  "BATCH_MEM_OP", "CONDITIONAL")
+
+
+def dot_nodes(text: str) -> collections.Counter:
+    """The nodes of a CUDA graph's DOT dump: a Counter of node types, a
+    kernel node counted as "KERNEL <its function's mangled name>".  Raises
+    on a node with no type, or on no node."""
+    # a statement a line: a node ("graph_1_node_0"[...]) or an edge
+    # ("graph_1_node_0" -> "graph_1_node_1" [...]), a label running on
+    # over lines
+    lines = list(re.finditer(r'^"graph_\d+_node_\d+"(\s*\[)?', text, re.MULTILINE))
+    type_re = re.compile(r"\b(" + "|".join(DOT_NODE_TYPES) + r")\b")
+    nodes = collections.Counter()
+    for m, nxt in zip(lines, lines[1:] + [None]):
+        if m.group(1) is None:
+            continue  # an edge
+        block = text[m.start():nxt.start() if nxt is not None else len(text)]
+        kind = type_re.search(block)
+        if kind is None:
+            raise ValueError(f"a node of the DOT dump has no type: {block[:600]!r}")
+        if kind.group(1) == "KERNEL":
+            fn = re.search(r"_Z\w+", block)
+            nodes[f"KERNEL {fn.group(0) if fn else '?'}"] += 1
+        else:
+            nodes[kind.group(1)] += 1
+    if not nodes:
+        raise ValueError(f"the DOT dump holds no node: {text[:2000]!r}")
+    return nodes
+
+
 class StepGraphs:
     """A cache of captured steps of one owner, keyed as the module's
     docstring says; at most `max_graphs`, the least recently used going
     first.  `capture(body) -> (replay, outputs)` is the capturer: CUDA
     graphs on a CUDA device, none on the CPU (eager there); a test may
-    pass its own."""
+    pass its own.  `keep_structure` keeps each CUDA graph's nodes after
+    its capture, for `nodes`."""
 
-    def __init__(self, device, capture: Optional[Callable] = None, max_graphs: int = 8):
+    def __init__(self, device, capture: Optional[Callable] = None, max_graphs: int = 8,
+                 keep_structure: bool = False):
         self.device = torch.device(device)
         if capture is None and self.device.type == "cuda":
             capture = self._capture_cuda
         self._capture = capture
         self.max_graphs = max_graphs
+        self.keep_structure = keep_structure
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._pool = None
         self._stream = None
@@ -210,6 +251,22 @@ class StepGraphs:
             self._graphs.popitem(last=False)
         return out
 
+    def nodes(self, key) -> collections.Counter:
+        """The nodes of the CUDA graph captured under `key`, read from the
+        graph itself (its DOT dump, `dot_nodes`), not from a profiler
+        trace; needs keep_structure."""
+        if not self.keep_structure:
+            raise ValueError("StepGraphs.nodes needs keep_structure=True")
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "graph.dot")
+            with warnings.catch_warnings():  # torch announces each dump
+                warnings.simplefilter("ignore", UserWarning)
+                self._graphs[key][0].__self__.debug_dump(path)
+            if not os.path.exists(path):
+                raise RuntimeError("the CUDA graph's DOT dump wrote no file")
+            with open(path) as f:
+                return dot_nodes(f.read())
+
     def _side_stream(self) -> torch.cuda.Stream:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -234,7 +291,8 @@ class StepGraphs:
         the capture fails (a sync, a host read, an uncapturable call)."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the graph's nodes outlive its instantiation, for nodes()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_structure)
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         with _CAPTURE_LOCK:
@@ -258,6 +316,8 @@ class StepGraphs:
                             pass  # the capture is already invalid; body's error is the one to raise
                         raise
                     graph.capture_end()
+                    if self.keep_structure:
+                        graph.instantiate()
             finally:
                 if collecting:
                     gc.enable()

@@ -22,9 +22,10 @@ the host pose (SE3), at a pose that is not the identity.  One more check
 holds the captured steps (IntegrateStep, SplatStep: CUDA graphs on the
 card) against the same steps run eagerly, one holds ICP's kernel
 (icp_step) and one the pose graph's (pose_graph_solve) against their
-plain versions on the device and on the CPU, and one the raycast kernel
-against raycast_reference on a dense volume (the superblock skip) and a
-hash volume.
+plain versions on the device and on the CPU, one the raycast kernel
+against raycast_reference on a dense volume (the superblock skip, both
+layouts of its bits) and a hash volume, and one the superblock bits'
+kernel against its plain version.
 
 Each check takes perturb=True to feed the kernel side an input that
 differs from the plain side's, which must make it fail.
@@ -36,6 +37,7 @@ import contextlib
 import sys
 import time
 import traceback
+from types import SimpleNamespace
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -51,7 +53,7 @@ from ..ops.cuda.fuse_kernel import fuse_rows_reference
 from ..ops.cuda.sample_kernel import sample_rows, sample_rows_reference
 from ..ops.cuda.splat_kernel import SplatStep, splat_render_cuda
 from ..ops.integrate import FrameInput, IntegrateStep, integrate
-from ..ops.raycast import raycast_reference
+from ..ops.raycast import raycast_reference, superblock_bits_reference
 from .device import resolve_device
 
 Result = Tuple[bool, float, str]
@@ -380,25 +382,62 @@ def verify_pose_graph(device="cuda", perturb: bool = False) -> Result:
 def verify_raycast(device="cuda", perturb: bool = False) -> Result:
     """The raycast kernel (csrc/raycast.cu, the pose in device memory)
     against raycast_reference (the host pose) on the small scene's volume,
-    dense (the march skips blocks and superblocks) and hash, from the
-    check's pose: hit, depth, rgba and normal bit-identical.  perturb moves
-    the kernel's camera by 1 cm."""
+    dense (the march skips blocks and superblocks, its bits in shared
+    memory and, forced, in device memory) and hash, from the check's pose:
+    hit, depth, rgba and normal bit-identical.  perturb moves the kernel's
+    camera by 1 cm."""
     device = resolve_device(device)
     cam = CameraParams.create(CameraIntrinsics.create(*SCENE_K), SCENE_H, SCENE_W)
     pose = SE3.from_matrix(SCENE_POSE)
     moved = SE3(q=pose.q, t=pose.t + np.float32(0.01)) if perturb else pose
     err, hits = 0.0, []
-    for backend in ("dense", "hash"):
+    for backend, layouts in (("dense", ("shared", "device")), ("hash", (None,))):
         vol = _small_scene_step("pallas_fused", device, backend=backend)
         a = raycast_reference(vol, cam, pose, 4.0)
-        b = raycast_kernel.raycast(vol, cam, DevicePose.from_se3(moved, device), 4.0)
-        for f in ("rgba", "normal", "depth", "hit"):
-            err += float((getattr(a, f).double() - getattr(b, f).double()).abs().max())
+        for layout in layouts:
+            b = raycast_kernel.raycast(vol, cam, DevicePose.from_se3(moved, device), 4.0,
+                                       layout=layout)
+            for f in ("rgba", "normal", "depth", "hit"):
+                err += float((getattr(a, f).double() - getattr(b, f).double()).abs().max())
         hits.append(float(a.hit.float().mean()))
     # the dense window (4.1 m across) holds the near edge of the scene's
     # 2-2.8 m depths: a few percent of the pixels hit it
     ok = err == 0.0 and min(hits) > 0.01
-    return ok, err, f"bit-identical, dense and hash (hit shares {hits[0]:.2f}, {hits[1]:.2f})"
+    return ok, err, (f"bit-identical, dense (both bit layouts) and hash (hit shares "
+                     f"{hits[0]:.2f}, {hits[1]:.2f})")
+
+
+def verify_superblock_bits(device="cuda", perturb: bool = False) -> Result:
+    """The superblock_bits kernel (csrc/raycast_bits.cu) against
+    superblock_bits_reference, word for word: on the small scene's dense
+    volume (a 2^6 grid, 128 words) and on a 2^8 grid (the bench's, 8192
+    words) holding a random 0.1% of its cells, its first and its last
+    cell.  perturb takes the kernel's table with one more cell held."""
+    device = resolve_device(device)
+    vol = _small_scene_step("pallas_fused", device)
+    cfg8 = TSDFConfig(grid_log2=8, num_blocks_log2=12)
+    rng = np.random.default_rng(7)
+    table = np.full(cfg8.grid_cells, -1, np.int32)
+    held = rng.choice(cfg8.grid_cells, cfg8.grid_cells // 1000, replace=False)
+    table[held] = rng.integers(0, 1 << 12, held.size)
+    table[[0, cfg8.grid_cells - 1]] = (5, 6)
+    big = SimpleNamespace(cfg=cfg8, device=device, block_table=torch.from_numpy(table).to(device))
+    err, words = 0, 0
+    for v in (vol, big):
+        want = superblock_bits_reference(v)
+        if perturb:
+            # a block in the first empty superblock
+            s, glog2 = v.cfg.grid_side >> 2, v.cfg.grid_log2
+            occ = (want.long()[:, None] >> torch.arange(32, device=device)) & 1
+            sb = int((occ.reshape(-1)[:s ** 3] == 0).nonzero()[0])
+            sx, sy, sz = sb // (s * s), (sb // s) % s, sb % s
+            t = v.block_table.clone()
+            t[(4 * sx << 2 * glog2) | (4 * sy << glog2) | 4 * sz] = 0
+            v = SimpleNamespace(cfg=v.cfg, device=v.device, block_table=t)
+        got = raycast_kernel.superblock_bits(v)
+        err += int((got != want).sum())
+        words += want.numel()
+    return err == 0, float(err), f"{words} words equal (words differing: {err})"
 
 
 CheckFn = Callable[..., Result]
@@ -417,6 +456,7 @@ CHECKS: List[Tuple[str, CheckFn]] = [
     ("icp_step vs plain, on the device and the CPU (bit-exact)", verify_icp_step),
     ("pose_graph_solve vs plain, on the device and the CPU (bit-exact)", verify_pose_graph),
     ("raycast vs plain, dense and hash (bit-identical)", verify_raycast),
+    ("superblock_bits vs plain, 2^6 and 2^8 grids (bit-exact)", verify_superblock_bits),
     # verify_index_hints and verify_scatter_window check XLA gather
     # promises and the windowed scatter, which the port does not have
 ]

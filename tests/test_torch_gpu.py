@@ -454,25 +454,123 @@ def _raycast_volumes(cuda):
 
 
 def test_raycast_kernel_equals_its_plain_version(cuda):
-    """The raycast kernel (one launch a render) against raycast_reference
-    on the card, on the dense volume (superblocks), without the skip and
-    on the hash volume, at every pose and at a max_depth cut short of the
-    surface: hit, depth, rgba and normal bit for bit, one launch each."""
+    """The raycast kernel (one launch a render, after one superblock_bits
+    launch on the dense superblock path) against raycast_reference on the
+    card, on the dense volume (superblocks: the bits in shared memory and,
+    forced, in device memory), without the skip and on the hash volume, at
+    every pose and at a max_depth cut short of the surface: hit, depth,
+    rgba and normal bit for bit, one launch each."""
     from disinfect_slam_tpu_torch.ops import raycast as rc
     from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
 
     for name, vol, poses, (k, h, w) in _raycast_volumes(cuda):
         cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+        layouts = raycast_kernel.LAYOUTS if rc.uses_superblocks(vol.cfg) else (None,)
         for pose in poses:
             for max_depth in (4.0, 2.2):
-                before = raycast_kernel.raycast.launches
-                got = raycast_kernel.raycast(vol, cam, SE3.from_matrix(pose), max_depth)
-                assert raycast_kernel.raycast.launches == before + 1
                 want = rc.raycast_reference(vol, cam, SE3.from_matrix(pose), max_depth)
-                for f in ("hit", "depth", "rgba", "normal"):
-                    assert torch.equal(getattr(got, f), getattr(want, f)), (name, f, max_depth)
+                for layout in layouts:
+                    before = (raycast_kernel.raycast.launches,
+                              raycast_kernel.superblock_bits.launches)
+                    got = raycast_kernel.raycast(vol, cam, SE3.from_matrix(pose), max_depth,
+                                                 layout=layout)
+                    assert (raycast_kernel.raycast.launches,
+                            raycast_kernel.superblock_bits.launches) == (
+                                before[0] + 1, before[1] + (layout is not None))
+                    for f in ("hit", "depth", "rgba", "normal"):
+                        assert torch.equal(getattr(got, f), getattr(want, f)), (
+                            name, layout, f, max_depth)
                 if max_depth == 4.0:
-                    assert got.hit.float().mean() > 0.1, name
+                    assert want.hit.float().mean() > 0.1, name
+
+
+def test_superblock_bits_equals_its_plain_version(cuda):
+    """The superblock_bits kernel against superblock_bits_reference word
+    for word, one launch each: the fused orbit's 2^6 grid, the 2^3 window
+    (one word and three of padding) and a 2^8 grid (the bench's) holding a
+    random 0.1% of its cells, its first and last cell and claim codes;
+    then the same 2^8 table's bits on the CPU."""
+    from types import SimpleNamespace
+
+    from disinfect_slam_tpu_torch.ops import raycast as rc
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+
+    grid, _, _ = _fused_grid(cuda)
+    cfg3 = TSDFConfig(grid_log2=3, num_blocks_log2=6)
+    small = torch.full((cfg3.grid_cells,), -1, dtype=torch.int32)
+    small[[0, 100, 511]] = torch.tensor([3, -5, 4], dtype=torch.int32)
+    cfg8 = TSDFConfig(grid_log2=8, num_blocks_log2=12)
+    rng = np.random.default_rng(11)
+    table = np.full(cfg8.grid_cells, -1, np.int32)
+    held = rng.choice(cfg8.grid_cells, cfg8.grid_cells // 1000, replace=False)
+    table[held] = rng.integers(-20, 1 << 12, held.size)
+    table[[0, cfg8.grid_cells - 1]] = (5, 6)
+    vols = [grid.volume,
+            SimpleNamespace(cfg=cfg3, device=cuda, block_table=small.to(cuda)),
+            SimpleNamespace(cfg=cfg8, device=cuda, block_table=torch.from_numpy(table).to(cuda))]
+    for vol in vols:
+        before = raycast_kernel.superblock_bits.launches
+        got = raycast_kernel.superblock_bits(vol)
+        assert raycast_kernel.superblock_bits.launches == before + 1
+        want = rc.superblock_bits_reference(vol)
+        assert got.dtype == torch.int32 and torch.equal(got, want), vol.cfg.grid_log2
+        assert got.numel() == rc.superblock_words(vol.cfg) and got.any()
+    host = SimpleNamespace(cfg=cfg8, device=torch.device("cpu"),
+                           block_table=torch.from_numpy(table))
+    assert torch.equal(got.cpu(), rc.superblock_bits_reference(host))
+
+
+def test_a_captured_raycast_replayed_after_new_allocations_reads_fresh_bits(cuda):
+    """A RaycastStep captured at a view of empty space, then a wall fused
+    there (blocks in superblocks whose bits were clear), then a replay (the
+    same key: the volume keeps its storage): the replay gives the plain
+    raycast of the new volume, not the empty render the graph first
+    made, so the graph rebuilds the bits every render."""
+    from disinfect_slam_tpu_torch.ops import raycast as rc
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.utils import graphs
+
+    grid, _, (k, h, w) = _fused_grid(cuda)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    pose = look_at((6.0, 0.1, -1.5), (6.0, 0.1, 2.0))
+    step = raycast_kernel.RaycastStep(cuda)
+    key = grid.volume.storage_key()
+    bits_before = rc.superblock_bits_reference(grid.volume)
+    empty = step(grid.volume, cam, SE3.from_matrix(pose), 4.0)  # the capture
+    assert not empty.hit.any()
+    depth = render_wall(w, h, k, pose, wall_z=1.0).astype(np.float32)
+    rng = np.random.default_rng(5)
+    ht, lt = rng.uniform(0.05, 0.95, (2, h, w)).astype(np.float32)
+    grid.integrate(checker_rgb(w, h), depth, ht, lt, 4.0, k, pose)
+    torch.cuda.synchronize()
+    assert grid.volume.storage_key() == key
+    bits_after = rc.superblock_bits_reference(grid.volume)
+    assert ((bits_before ^ bits_after) & bits_after).any()  # superblocks newly held
+    replays = graphs.REPLAYS["graph"]
+    res = step(grid.volume, cam, SE3.from_matrix(pose), 4.0)
+    assert graphs.REPLAYS["graph"] == replays + 1
+    want = rc.raycast_reference(grid.volume, cam, SE3.from_matrix(pose), 4.0)
+    assert want.hit.float().mean() > 0.5
+    for f in ("hit", "depth", "rgba", "normal"):
+        assert torch.equal(getattr(res, f), getattr(want, f)), f
+
+
+def test_a_captured_raycast_graph_holds_only_its_two_kernels(cuda):
+    """A RaycastStep's graph, read from the graph itself (its DOT dump):
+    one superblock_bits kernel and one raycast kernel, and no other kernel
+    (no torch op of the superblock table)."""
+    from disinfect_slam_tpu_torch.ops.cuda import raycast_kernel
+    from disinfect_slam_tpu_torch.utils.graphs import StepGraphs
+
+    grid, poses, (k, h, w) = _fused_grid(cuda)
+    cam = CameraParams.create(CameraIntrinsics.create(*k), h, w)
+    step = raycast_kernel.RaycastStep(cuda, graphs=StepGraphs(cuda, keep_structure=True))
+    step(grid.volume, cam, SE3.from_matrix(poses[0]), 4.0)
+    nodes = step.graphs.nodes(step.graphs.keys()[0])
+    kernels = [k for k in nodes.elements() if k.startswith("KERNEL")]
+    assert len(kernels) == 2, dict(nodes)
+    assert sum("superblock_bits_kernel" in k for k in kernels) == 1, kernels
+    assert sum("raycast_kernel" in k for k in kernels) == 1, kernels
 
 
 def test_a_captured_raycast_is_one_graph_launch_and_never_syncs(cuda):

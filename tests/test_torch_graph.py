@@ -9,6 +9,7 @@ the engine objects run their steps eagerly; the CUDA graphs themselves are
 tested on the card, tests/test_torch_gpu.py)."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -332,3 +333,23 @@ def test_online_step_through_the_cache_equals_the_eager_step(alloc_every):
     assert len(steps[0].graphs) == (2 if alloc_every == 1 else 4)
     assert steps[0].graphs.replays == 7 - len(steps[0].graphs)
     _assert_same(steps[0].volume, steps[1].volume)
+
+
+def test_dot_nodes_reads_a_captured_raycast_graph():
+    """dot_nodes on the DOT dump of a RaycastStep's graph captured on an
+    H100 at 640x480 (tests/data/raycast_step_graph.dot): the pose's upload,
+    superblock_bits, the tile counter's memset, the march and the four
+    images' copies; edges are not nodes.  A cache that does not keep its
+    graphs' structure refuses nodes()."""
+    path = os.path.join(os.path.dirname(__file__), "data", "raycast_step_graph.dot")
+    with open(path) as f:
+        nodes = g.dot_nodes(f.read())
+    kernels = [k for k in nodes if k.startswith("KERNEL")]
+    assert sum(nodes.values()) == 8 and nodes["MEMCPY"] == 5 and nodes["MEMSET"] == 1
+    assert len(kernels) == 2
+    assert any("superblock_bits_kernel" in k for k in kernels)
+    assert any("raycast_kernel" in k for k in kernels)
+    with pytest.raises(ValueError):
+        g.dot_nodes("digraph dot {\n}\n")
+    with pytest.raises(ValueError):
+        g.StepGraphs("cpu").nodes("k")

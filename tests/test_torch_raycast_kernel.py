@@ -2,14 +2,19 @@
 itself needs the card: tests/test_torch_gpu.py holds it against its plain
 version there).
 
-- `ray_thread` transcribes what one thread of csrc/raycast.cu computes,
-  in numpy float32 scalars, with the kernel's early exit; on a few hundred
+- `Thread` transcribes what one thread of csrc/raycast.cu computes, in
+  numpy float32 scalars, with the kernel's early exit, its index (the
+  block table read only in a superblock whose occupancy bit is set, any
+  negative cell -1) and its last block's lookup reused; on a few hundred
   rays of each golden scene it equals raycast_reference bit for bit (hit,
-  depth, rgba, normal): the dense volume with its superblock table, without
+  depth, rgba, normal): the dense volume with its superblock bits, without
   the skip, with the block skip alone (a window too small for
   superblocks), a camera outside the window, the hash volume, an
   axis-parallel ray (the 1e-9 guards) and a max_depth cut short of the
   surface.  The scalars come from the wrapper's own launch_scalars.
+- superblock_bits_reference encodes exactly superblock_table's -3 cells,
+  at every cell; its words' bit order and 16-byte padding are pinned, and
+  so is where the march reads them (shared or device memory).
 - raycast_reference (a DevicePose as well as an SE3) meets the JAX
   raycaster at tests/test_torch_render.py's limits.
 - RaycastStep through the stub capturer returns its owner-held images as
@@ -89,6 +94,13 @@ def window4():
 
 
 @pytest.fixture(scope="module")
+def window8_ahead():
+    """An 8-block window from z = 0: the cameras (z < -1 m) outside it, the
+    sphere inside."""
+    return _orbit_grid(TSDFConfig(grid_log2=3, grid_origin=(-4, -4, 0), **_CAPS))
+
+
+@pytest.fixture(scope="module")
 def hashed():
     return _orbit_grid(TSDFConfig(num_buckets_log2=12, backend="hash", alloc_dedup="sort",
                                   alloc_every=2, **_CAPS), frames=5)
@@ -98,7 +110,9 @@ def hashed():
 # one kernel thread, transcribed
 # ----------------------------------------------------------------------
 def _round(x: F) -> int:
-    return int(np.floor(x + F(0.5)) if x >= 0 else np.ceil(x - F(0.5)))
+    """The kernel's round_to_int: the truncation of x + copysign(0.5, x),
+    one float32 add (the plain version's floor(x + 0.5) / ceil(x - 0.5))."""
+    return int(np.trunc(np.float32(x) + np.copysign(F(0.5), np.float32(x))))
 
 
 def _i32(x: int) -> int:
@@ -113,7 +127,8 @@ def _norm3(x: F, y: F, z: F) -> F:
 class Thread:
     """csrc/raycast.cu's Params and per-pixel function in numpy float32
     scalars and Python ints (C's int32 arithmetic where it wraps), counting
-    the skips it takes and the guards it meets."""
+    the skips it takes, the guards it meets, the lookups it reuses, the
+    samples a clear superblock bit answers and its index loads."""
 
     def __init__(self, vol, cam: CameraParams, pose: SE3, max_depth: float, step_size=None):
         cfg = vol.cfg
@@ -124,26 +139,46 @@ class Thread:
          self.glog2, ox, oy, oz, self.bucket_mask, self.epb_log2, self.entry_mask,
          self.max_probe, self.coord_bits) = list(ints)
         self.org = (ox, oy, oz)
+        self.bits = None
         if cfg.backend == "dense":
-            table = rc.superblock_table(vol) if rc.uses_superblocks(cfg) else vol.block_table
-            self.keys = None
+            table, self.keys = vol.block_table, None
+            if self.super_blocks:
+                self.bits = rc.superblock_bits_reference(vol).numpy().view(np.uint32)
         else:
             table, self.keys = vol.entry_block, vol.entry_key.numpy()
         self.table = table.numpy()
         self.tsdf, self.rgbw, self.prob = (t.numpy() for t in (vol.tsdf, vol.rgbw, vol.prob))
         slots = pose_floats(pose)[16:]  # world_T_cam's half
         self.t, self.q = slots[9:12], slots[12:16]
-        self.stats = {"block_skips": 0, "super_skips": 0, "guarded": 0, "outside": 0}
+        self.last = None
+        self.stats = {"block_skips": 0, "super_skips": 0, "guarded": 0, "outside": 0,
+                      "reused": 0, "bit_clear": 0, "index_loads": 0}
 
     def lookup(self, p) -> int:
-        b = [c >> self.bl for c in p]
+        """The code of p's block, from the last block's when p lies in it."""
+        b = tuple(c >> self.bl for c in p)
+        if self.last is not None and self.last[0] == b:
+            self.stats["reused"] += 1
+            return self.last[1]
+        self.last = (b, self.block_code(b))
+        return self.last[1]
+
+    def block_code(self, b) -> int:
         if not self.hash:
             gs = 1 << self.glog2
             x, y, z = (b[k] - self.org[k] for k in range(3))
             if not all(0 <= c < gs for c in (x, y, z)):
                 self.stats["outside"] += 1
                 return -3 if self.super_blocks else -1
-            return int(self.table[(x << (2 * self.glog2)) | (y << self.glog2) | z])
+            if self.super_blocks:
+                sl = self.glog2 - 2
+                sb = ((x >> 2) << (2 * sl)) | ((y >> 2) << sl) | (z >> 2)
+                if not (int(self.bits[sb >> 5]) >> (sb & 31)) & 1:
+                    self.stats["bit_clear"] += 1
+                    return -3
+            self.stats["index_loads"] += 1
+            pool = int(self.table[(x << (2 * self.glog2)) | (y << self.glog2) | z])
+            return pool if pool >= 0 else -1
         h = (((b[0] * 73856093) & 0xFFFFFFFF) ^ ((b[1] * 19349669) & 0xFFFFFFFF)
              ^ ((b[2] * 83492791) & 0xFFFFFFFF))
         base = (h & self.bucket_mask) << self.epb_log2
@@ -151,6 +186,7 @@ class Thread:
         key = _i32((b[0] + off) | ((b[1] + off) << cb) | ((b[2] + off) << (2 * cb)))
         for k in range(self.max_probe):
             slot = (base + k) & self.entry_mask
+            self.stats["index_loads"] += 1
             pool = int(self.table[slot])
             if pool >= 0 and int(self.keys[slot]) == key:
                 return pool
@@ -165,18 +201,18 @@ class Thread:
         return self.tsdf[self.index(pool, p)] if pool >= 0 else F(1.0)
 
     def skip_steps(self, pos, p, s: int, d) -> int:
+        """One division an axis: the finite one of the plain version's jh,
+        jl (the other +inf)."""
         span = F(1 << s)
         j = F(np.inf)
         for k in range(3):
-            base = F((p[k] >> s) << s)
-            safe_lo = (base - F(0.5)) + F(1e-4)
-            safe_hi = (base + (span - F(0.5))) - F(1e-4)
-            dd = d[k] if abs(d[k]) > F(1e-9) else F(1.0)
             if not abs(d[k]) > F(1e-9):
                 self.stats["guarded"] += 1
-            jh = (safe_hi - pos[k]) / dd if d[k] > F(1e-9) else F(np.inf)
-            jl = (safe_lo - pos[k]) / dd if d[k] < F(-1e-9) else F(np.inf)
-            j = min(j, min(jh, jl))
+                continue
+            base = F((p[k] >> s) << s)
+            bound = ((base + (span - F(0.5))) - F(1e-4) if d[k] > F(1e-9)
+                     else (base - F(0.5)) + F(1e-4))
+            j = min(j, (bound - pos[k]) / d[k])
         return int(min(max(np.floor(j), F(0.0)), self.max_step_f))
 
     def __call__(self, u: int, v: int):
@@ -192,6 +228,7 @@ class Thread:
         dirs = tuple(vv + F(2.0) * (w * cc + ee) for vv, cc, ee in zip((vx, vy, vz), c, e))
         d = tuple(dd * self.step for dd in dirs)
         o = tuple(tt / self.voxel for tt in self.t)
+        self.last = None  # a thread's pixel starts with no block
         prev = self.read_tsdf([_round(oo) for oo in o])
         hit, i = False, 1
         while True:
@@ -284,6 +321,8 @@ def test_one_thread_equals_the_plain_version_dense(dense, case):
     if case == "superblocks":
         assert stats["super_skips"] > 0 and stats["block_skips"] > 0
         assert stats["hit_share"] > 0.1
+        # empty superblocks answered from the bits, samples from the last block
+        assert stats["bit_clear"] > 0 and stats["reused"] > stats["index_loads"] > 0
     elif case == "no_skip":
         assert stats["super_skips"] == stats["block_skips"] == 0 and stats["hit_share"] > 0.1
     else:
@@ -310,6 +349,15 @@ def test_one_thread_equals_the_plain_version_camera_outside_the_window(window8):
     assert stats["outside"] > 0 and stats["super_skips"] > 0 and stats["hit_share"] > 0.02
 
 
+def test_one_thread_equals_the_plain_version_window_ahead_of_the_camera(window8_ahead):
+    """The cameras outside a window that holds the sphere, fused from
+    there: rays cross -3 (outside) into superblocks whose bits are set."""
+    grid, poses = window8_ahead
+    assert rc.uses_superblocks(grid.cfg) and int(grid.volume.block_table.ge(0).sum()) > 0
+    stats = _hold(grid.volume, CAM_T, SE3.from_matrix(poses[1]), 4.0, _rays(6))
+    assert stats["outside"] > 0 and stats["index_loads"] > 0 and stats["hit_share"] > 0.02
+
+
 def test_one_thread_equals_the_plain_version_hash(hashed):
     grid, poses = hashed
     stats = _hold(grid.volume, CAM_T, SE3.from_matrix(poses[2]), 4.0, _rays(4))
@@ -330,6 +378,86 @@ def test_one_thread_equals_the_plain_version_axis_parallel_rays(dense):
     assert thread.fxi * F(32) + thread.cxi == 0 and thread.fyi * F(24) + thread.cyi == 0
     stats = _hold(grid.volume, cam, pose, 4.0, _rays(5, [(32, 24), (32, 10), (10, 24)]))
     assert stats["guarded"] > 0 and stats["hit_share"] > 0.1
+
+
+# ----------------------------------------------------------------------
+# the superblock bits
+# ----------------------------------------------------------------------
+def _cell_bits(bits: np.ndarray, glog2: int) -> np.ndarray:
+    """Each cell's superblock bit (bool [grid cells]), read as the kernel
+    reads it."""
+    g = 1 << glog2
+    x, y, z = np.meshgrid(*(np.arange(g),) * 3, indexing="ij")
+    sl = glog2 - 2
+    sb = (((x >> 2) << (2 * sl)) | ((y >> 2) << sl) | (z >> 2)).reshape(-1)
+    return ((bits.view(np.uint32)[sb >> 5] >> (sb & 31).astype(np.uint32)) & 1).astype(bool)
+
+
+@pytest.mark.parametrize("case", ["dense", "window8", "window8_ahead", "window4"])
+def test_superblock_bits_encode_the_tables_minus_3_cells(case, request):
+    """superblock_bits_reference against superblock_table at every cell: a
+    bit is clear exactly where the table holds -3, and the kernel's codes
+    (-3 where the bit is clear, else the cell, any negative value -1)
+    rebuild the table; a window under 8 blocks a side has no bits."""
+    grid, _ = request.getfixturevalue(case)
+    vol, cfg = grid.volume, grid.cfg
+    bits = rc.superblock_bits_reference(vol)
+    assert bits.dtype == torch.int32 and bits.numel() == rc.superblock_words(cfg)
+    assert torch.equal(rk.superblock_bits(vol), bits)  # the CPU's wrapper: the plain version
+    if case == "window4":
+        assert bits.numel() == 0 and not rc.uses_superblocks(cfg) and rk.bits_layout(cfg) is None
+        return
+    table = rc.superblock_table(vol).numpy()
+    held = _cell_bits(bits.numpy(), cfg.grid_log2)
+    np.testing.assert_array_equal(table == -3, ~held)
+    bt = vol.block_table.numpy()
+    np.testing.assert_array_equal(np.where(held, np.where(bt >= 0, bt, -1), -3), table)
+    assert held.any() and not held.all()
+    assert rk.bits_layout(cfg) == "shared"
+
+
+def _table_volume(glog2: int, cells) -> SimpleNamespace:
+    cfg = TSDFConfig(grid_log2=glog2, num_blocks_log2=6)
+    table = torch.full((cfg.grid_cells,), -1, dtype=torch.int32)
+    for i, (x, y, z) in enumerate(cells):
+        table[(x << 2 * glog2) | (y << glog2) | z] = i
+    return SimpleNamespace(cfg=cfg, device=torch.device("cpu"), block_table=table)
+
+
+def test_superblock_bit_layout_is_pinned():
+    """Bit sb & 31 of word sb >> 5, sb = (sx * s + sy) * s + sz; the words
+    padded with zeros to a multiple of four; bit 31 makes the int32 word
+    negative; allocation's claim codes (-3 - id) count as empty."""
+    # 2^3 grid: 8 superblocks, one word and three of padding
+    vol = _table_volume(3, [(4, 1, 7)])  # superblock (1, 0, 1): sb 5
+    vol.block_table[1] = -3 - 9  # a claim code in superblock 0
+    assert rc.superblock_bits_reference(vol).tolist() == [1 << 5, 0, 0, 0]
+    # 2^4 grid: 64 superblocks, two words and two of padding
+    vol = _table_volume(4, [(0, 0, 0), (15, 15, 15), (8, 0, 4)])  # sb 0, 63, 33
+    assert rc.superblock_bits_reference(vol).tolist() == [1, (1 << 1) | -(1 << 31), 0, 0]
+    # 2^5 grid: 512 superblocks, 16 words, no padding
+    vol = _table_volume(5, [(31, 31, 31), (0, 0, 4 * 7)])  # sb 511, 7
+    want = [1 << 7] + [0] * 14 + [-(1 << 31)]
+    assert rc.superblock_bits_reference(vol).tolist() == want
+    assert rc.superblock_words(vol.cfg) == 16 and rc.superblock_words(TSDFConfig(grid_log2=2)) == 0
+
+
+def test_the_bits_layout_follows_their_size():
+    """Shared memory up to BITS_SMEM_BUDGET (32 KB of bits at grid_log2 8),
+    device memory above it (256 KB at 9); either forced within the budget,
+    shared refused above it; no bits without superblocks."""
+    dense = {g: TSDFConfig(grid_log2=g) for g in (3, 8, 9)}
+    assert 4 * rc.superblock_words(dense[8]) == 32768 <= rk.BITS_SMEM_BUDGET
+    assert 4 * rc.superblock_words(dense[9]) == 262144 > rk.BITS_SMEM_BUDGET
+    assert [rk.bits_layout(dense[g]) for g in (3, 8, 9)] == ["shared", "shared", "device"]
+    assert rk.bits_layout(dense[8], "device") == "device"
+    with pytest.raises(ValueError, match="shared only up to"):
+        rk.bits_layout(dense[9], "shared")
+    for cfg in (TSDFConfig(backend="hash"), TSDFConfig(raycast_skip=False),
+                TSDFConfig(grid_log2=2)):
+        assert rk.bits_layout(cfg) is None
+        with pytest.raises(ValueError, match="no superblock bits"):
+            rk.bits_layout(cfg, "device")
 
 
 # ----------------------------------------------------------------------
