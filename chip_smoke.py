@@ -187,12 +187,17 @@ exits non-zero:
   10. training the seg net, the sharded volume and the host library:
      (a) UNetSeg and FastSeg at their shipped widths, 10 steps each of
      models/train.py's make_train_step at 352x640, batch 8, on make_batch
-     scenes: the loss finite and falling, step ms (CUDA events, median of
-     the last 8), peak memory, and (at the end of the phase) the kernels of
-     one profiled step; a narrow net's first step on the card against the
-     CPU from the same parameters, float32 and bfloat16 (TRAIN_TOL); (b)
-     apps.train_seg as its own process (no --device) for 600 steps at its
-     defaults: its npz beats IoU 0.7 on both channels of
+     scenes, eager and captured (a CUDA graph a step after each staging
+     slot's first call), with cuDNN deterministic (the captured losses and
+     parameters bit-equal to eager) and at its defaults: the loss finite
+     and falling, step ms (CUDA events, median of the last 8), graph
+     replays, peak memory, and (at the end of the phase) one profiled
+     eager step and one profiled replay (kernels, device ms, host launch
+     calls: none in a replay, idle share); a narrow net's first step on
+     the card against the CPU from the same parameters, float32 and
+     bfloat16 (TRAIN_TOL); (b) apps.train_seg as its own process (no
+     --device: its steps captured) for 600 steps at its defaults: its npz
+     beats IoU 0.7 on both channels of
      tests/test_seg_training.py's held-out set (printed beside the shipped
      checkpoint's), and its msgpack save_checkpoint drives apps.online
      --seg-ckpt --fused over 5 logged frames; (c) DistributedTSDF at the
@@ -239,16 +244,22 @@ exits non-zero:
      frame's visible rows against its plain version.
   13. the segmentation net over a (data, model) mesh
      (parallel/seg_parallel.py), the shipped UNet's architecture at its
-     full width, 352x640, batch 8 (phase 10a's shape): over [cuda:0]
-     (1x1) the sharded step bit-equal to make_train_step over 3 steps,
-     loss and every parameter; over [cuda:0] * 4 (2x2) the first step's
-     loss within 1e-5 relative, and in float32 its gradients within 1e-4
-     of each parameter's largest with AdamW held on them bit-equal; ms a
-     step of make_train_step and the sharded step over 1x1 and 2x2
-     (median of the last 8 of 10, CUDA events) and the kernels of one
-     profiled step each; make_sharded_infer of the shipped weights over
-     [cuda:0] * 4 against sigmoid(model), bfloat16 and float32
-     (SEG_PAR_INFER_TOL); no fusion or splat kernel launched;
+     full width, 352x640, batch 8 (phase 10a's shape), cuDNN
+     deterministic: make_train_step and the sharded step over [cuda:0]
+     (1x1) and [cuda:0] * 4 (2x2), each captured (one CUDA graph a step)
+     and eager over 10 steps, the captured run bit-equal to its eager
+     twin, loss and every parameter, and the 1x1 run bit-equal to
+     make_train_step's; ms a step of each (median of the last 8, CUDA
+     events), graph replays, one profiled eager step and one profiled
+     replay each (kernels, device ms, host launch calls: none in a
+     replay, idle share), and the 2x2 step's ms eager and captured again
+     at cuDNN's defaults; over 2x2 the first step's loss within 1e-5
+     relative, and in float32 its gradients within 1e-4 of each
+     parameter's largest with AdamW held on them bit-equal;
+     make_sharded_infer of the shipped weights over [cuda:0] * 4 against
+     sigmoid(model), bfloat16 (captured, bit-equal to eager, ms a call of
+     each) and float32 (SEG_PAR_INFER_TOL); no fusion or splat kernel
+     launched;
   14. the kernels' self-check: utils/kernel_verify.verify_all() on the
      card (K1 at 640x480, 1080p and with an early count, the two-stage
      and the fused integrate of a small scene, K4/K5's render of it, the
@@ -327,6 +338,7 @@ repository root, with no arguments:  python3 chip_smoke.py
 """
 
 import collections
+import gc
 import io
 import json
 import os
@@ -446,6 +458,13 @@ ICP_ITERS = (4, 5, 10)  # ICPOdometry's iterations at levels 0, 1, 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_graphs() -> None:
+    """Collect the captured steps let go of (a step's graph cache is in a
+    reference cycle) and release the allocator's cached memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_wall(name: str, t0: float) -> None:
@@ -3497,45 +3516,92 @@ def train_batches(n: int, dev):
                   make_batch(rng, TRAIN_BATCH, TRAIN_H, TRAIN_W)) for _ in range(n)]
 
 
+def _train_run(dev, arch, batches, capture) -> dict:
+    """TRAIN_STEPS steps of make_train_step (capture as given) of a fresh
+    seed-0 `arch` net, each between CUDA events; the losses kept in a
+    buffer this function holds (a step's returned tensor is its own, but
+    the list must not lean on that), read once after the loop."""
+    from disinfect_slam_tpu_torch.models import train
+
+    free_graphs()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = train.create_train_state(arch=arch, lr=3e-3, device=dev,
+                                     generator=torch.Generator().manual_seed(0))
+    step = train.make_train_step(state.model, state.opt, capture=capture)
+    losses = torch.empty(len(batches), device=dev)
+    events = []
+    for i, (imgs, labs) in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, imgs, labs)
+        end.record()
+        losses[i] = loss
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    return {"losses": losses.tolist(), "step_ms": ms, "step_ms_median": statistics.median(ms[2:]),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "params": [p.detach().clone() for p in state.model.parameters()],
+            "replays": step.graphs.replays if capture else 0,
+            "n_params": sum(p.numel() for p in state.model.parameters())}
+
+
 def train_full_width(dev, batches, smi) -> dict:
     """Phase 10a: UNetSeg and FastSeg at their shipped widths, TRAIN_STEPS
     steps of make_train_step each (AdamW at 3e-3, the rate
-    tests/test_seg_training.py's falling-loss test uses): the loss finite
-    and falling, the step's ms (CUDA events, median of the last 8) and
-    the peak memory."""
-    from disinfect_slam_tpu_torch.models import train
-
+    tests/test_seg_training.py's falling-loss test uses), eager
+    (capture=False) and captured (the default: the first two steps eager
+    and captured, one per staging slot, then replays), first with cuDNN
+    deterministic, where the captured losses and parameters must equal
+    the eager ones bit for bit, then at cuDNN's defaults (as the app
+    trains): the loss finite and falling, each step's ms (CUDA events,
+    median of the last 8), graph replays and peak memory."""
     res = {}
     for arch in ("unet", "fast"):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        state = train.create_train_state(arch=arch, lr=3e-3, device=dev,
-                                         generator=torch.Generator().manual_seed(0))
-        step = train.make_train_step(state.model, state.opt)
-        losses, events = [], []
-        for imgs, labs in batches:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            state, loss = step(state, imgs, labs)
-            end.record()
-            losses.append(loss)
-            events.append((start, end))
-        torch.cuda.synchronize()
-        losses = [float(v) for v in losses]
-        ms = [a.elapsed_time(b) for a, b in events]
-        r = {"params": sum(p.numel() for p in state.model.parameters()), "losses": losses,
-             "step_ms": ms, "step_ms_median": statistics.median(ms[2:]),
-             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-        log(f"[chip_smoke] train {arch} ({r['params'] / 1e6:.2f} M params) at {TRAIN_H}x"
-            f"{TRAIN_W} batch {TRAIN_BATCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, step "
-            f"{r['step_ms_median']:.2f} ms (median of the last {len(ms) - 2}; first "
-            f"{ms[0]:.1f} ms), peak memory {r['peak_gb']:.2f} GB ({smi})")
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            raise AssertionError(f"train {arch}: the loss did not fall: {losses}")
+        r = {}
+        for mode, deterministic in (("deterministic", True), ("default", False)):
+            prev = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = deterministic
+            try:
+                runs = {name: _train_run(dev, arch, batches, capture)
+                        for name, capture in (("eager", False), ("captured", True))}
+            finally:
+                torch.backends.cudnn.deterministic = prev
+            eager, captured = runs["eager"], runs["captured"]
+            if deterministic:
+                same = (eager["losses"] == captured["losses"]
+                        and all(torch.equal(a, b) for a, b in zip(eager["params"],
+                                                                  captured["params"])))
+                if not same:
+                    raise AssertionError(f"train {arch}: the captured steps differ from the "
+                                         f"eager ones: {captured['losses']} vs "
+                                         f"{eager['losses']}")
+            if captured["replays"] != len(batches) - 2:
+                raise AssertionError(f"train {arch}: {captured['replays']} graph replays for "
+                                     f"{len(batches)} steps")
+            for run in runs.values():
+                del run["params"]
+                losses = run["losses"]
+                if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                    raise AssertionError(f"train {arch}: the loss did not fall: {losses}")
+            r[mode] = runs
+            log(f"[chip_smoke] train {arch} ({eager['n_params'] / 1e6:.2f} M params) at "
+                f"{TRAIN_H}x{TRAIN_W} batch {TRAIN_BATCH}, cuDNN {mode}: loss "
+                f"{eager['losses'][0]:.4f} -> {eager['losses'][-1]:.4f}; step eager "
+                f"{eager['step_ms_median']:.2f} ms, captured {captured['step_ms_median']:.2f} "
+                f"ms (median of the last {len(batches) - 2}; first {captured['step_ms'][0]:.1f} "
+                f"/ {captured['step_ms'][1]:.1f} ms eager and captured, {captured['replays']} "
+                f"graph replays); peak memory {eager['peak_gb']:.2f} / "
+                f"{captured['peak_gb']:.2f} GB"
+                + ("; captured losses and parameters bit-equal to eager" if deterministic
+                   else "") + f" ({smi})")
+        # the figures earlier PRs report: eager, at cuDNN's defaults
+        r.update(params=r["default"]["eager"]["n_params"],
+                 step_ms_median=r["default"]["eager"]["step_ms_median"],
+                 captured_step_ms_median=r["default"]["captured"]["step_ms_median"])
         res[arch] = r
-        del state, step
-    torch.cuda.empty_cache()
+    free_graphs()
     return res
 
 
@@ -3963,32 +4029,28 @@ def random_pose(rng) -> np.ndarray:
 
 
 def train_profile(batches) -> dict:
-    """Phase 10a's launches a train step: one profiled step per net (after
-    phase 10's timed work: a trace slows the host for the rest of the
-    process)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Phase 10a's profiles: one eager step and one replay of the captured
+    step per net (step_profile: kernels, device ms, host launch calls,
+    graph launches, idle share), after phase 10's timed work (a trace
+    slows the host for the rest of the process)."""
     from disinfect_slam_tpu_torch.models import train
 
     dev = torch.device("cuda", 0)
     res = {}
     for arch in ("unet", "fast"):
-        state = train.create_train_state(arch=arch, lr=3e-3, device=dev)
-        step = train.make_train_step(state.model, state.opt)
-        step(state, *batches[0])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(state, *batches[1])
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-        # a trace that caught no device event measured nothing
-        res[arch] = {"launches": len(events) or None, "device_ms": device_ms or None}
-        log(f"[chip_smoke] train {arch} step profiled: "
-            + (f"{len(events)} kernels, {device_ms:.2f} ms of device time" if events
-               else "no device event traced (not measured)"))
-        del state, step
-    torch.cuda.empty_cache()
+        for capture in (False, True):
+            state = train.create_train_state(arch=arch, lr=3e-3, device=dev)
+            step = train.make_train_step(state.model, state.opt, capture=capture)
+            for imgs, labs in batches[:2]:  # both staging slots captured
+                step(state, imgs, labs)
+            name = f"{arch}_{'captured' if capture else 'eager'}"
+            res[name] = step_profile(lambda: step(state, *batches[2]), 1)
+            log_profile(f"train {arch} step, {'a replay' if capture else 'eager'}", res[name])
+            if capture and res[name]["launch_calls_per_frame"]:
+                raise AssertionError(f"a replayed train step launched kernels from the host: "
+                                     f"{res[name]}")
+            del state, step
+            free_graphs()
     return res
 
 
@@ -4392,7 +4454,6 @@ def stereo_profile(dev) -> dict:
 # phase 13: the segmentation net over a (data, model) mesh on the card;
 # phase 14: the kernels' self-check
 # ----------------------------------------------------------------------
-SEG_PAR_STEPS = 3  # steps the 1x1 mesh must equal make_train_step over, bit for bit
 SEG_PAR_LR = 3e-3  # phase 10a's rate
 # tests/test_torch_seg_parallel.py's limits: the 2x2 step's loss within
 # 1e-5 relative of the unsharded step's; its gradients (a float32 net)
@@ -4417,42 +4478,68 @@ def _net(dev, dtype=torch.bfloat16):
     return seg.create_model(dtype=dtype, generator=torch.Generator().manual_seed(0)).to(dev).train()
 
 
-def _timed_steps(step, state, batches) -> tuple:
-    """One step per batch, each between CUDA events: (state, ms list)."""
+def _seg_step(kind, dev, sd, capture):
+    """A fresh state from the state dict sd and its step: kind
+    "make_train_step" (models/train.py) or "sharded_N" (seg_parallel over
+    [dev] * N)."""
+    from disinfect_slam_tpu_torch.models import train
+    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
+
+    net = _net(dev)
+    net.load_state_dict(sd)
+    if kind == "make_train_step":
+        state = train.create_train_state(net, lr=SEG_PAR_LR, device=dev)
+        return state, train.make_train_step(state.model, state.opt, capture=capture)
+    mesh = sp.make_mesh_2d(devices=[dev] * int(kind.split("_")[1]))
+    return (sp.ShardedTrainState(sp.shard_params(net, mesh)),
+            sp.make_sharded_train_step(net, dict(lr=SEG_PAR_LR), mesh, capture=capture))
+
+
+def _seg_run(kind, dev, sd, batches, capture, profile=True) -> dict:
+    """One step of _seg_step a batch, each between CUDA events, then (if
+    `profile`) one profiled step (step_profile; for a captured step, a
+    replay): the losses (in a buffer this function holds), the parameters
+    after them under their names, the ms, graph replays and the
+    profile."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, step = _seg_step(kind, dev, sd, capture)
+    losses = torch.empty(len(batches), device=dev)
     events = []
-    for imgs, labs in batches:
+    for i, (imgs, labs) in enumerate(batches):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        state, _ = step(state, imgs, labs)
+        state, loss = step(state, imgs, labs)
         end.record()
+        losses[i] = loss
         events.append((start, end))
     torch.cuda.synchronize()
-    return state, [a.elapsed_time(b) for a, b in events]
-
-
-def _profiled(step, state, batch) -> dict:
-    """The kernels and device time of one step under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, *batch)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    # a trace that caught no device event measured nothing
-    return {"launches": len(events) or None, "device_ms": device_ms or None}
+    ms = [a.elapsed_time(b) for a, b in events]
+    # copies: the profiled step below moves the parameters on
+    params = {k: p.detach().clone() for k, p in (
+        state.model.named_parameters() if kind == "make_train_step"
+        else state.params.full().items())}
+    res = {"losses": losses, "params": params, "step_ms": ms,
+           "step_ms_median": statistics.median(ms[2:]),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "replays": step.graphs.replays if capture else None}
+    if profile:
+        res["profile"] = step_profile(lambda: step(state, *batches[0]), 1)
+    return res
 
 
 def seg_parallel_checks(dev, batches, mesh_sizes=(1, 4)) -> dict:
-    """Phase 13's checks on any device (the card here; the CPU tests run
-    the same checks at a narrow width): over [dev] (1x1) the sharded step
-    equals make_train_step bit for bit, loss and every parameter, for
-    SEG_PAR_STEPS steps; over [dev] * 4 (2x2) the first step's loss
-    (bfloat16 net) and gradients (the same net in float32) within the CPU
-    tests' limits, AdamW held on the same gradients (bit-equal).  cuDNN
-    keeps to its deterministic algorithms meanwhile: a weight gradient
-    summed by atomics differs between two runs of one step."""
+    """Phase 13's steps on any device (the card here; the CPU tests run
+    the same checks at a narrow width), with cuDNN on its deterministic
+    algorithms (a weight gradient summed by atomics differs between two
+    runs of one step): make_train_step and the sharded step over [dev]
+    (1x1) and [dev] * 4 (2x2), each captured (the default) and eager
+    (capture=False) over the batches from the same parameters, timed
+    (CUDA events) and then profiled (an eager step, a replay): each
+    captured run equal to its eager twin bit for bit, every loss and
+    parameter, and the 1x1 sharded run equal to make_train_step's; over
+    2x2 the first step's loss (bfloat16 net) and gradients (the same net
+    in float32) within the CPU tests' limits, AdamW held on the same
+    gradients (bit-equal)."""
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -4461,41 +4548,56 @@ def seg_parallel_checks(dev, batches, mesh_sizes=(1, 4)) -> dict:
         torch.backends.cudnn.deterministic = deterministic
 
 
+def _same_run(a: dict, b: dict) -> bool:
+    return torch.equal(a["losses"], b["losses"]) and a["params"].keys() == b["params"].keys() \
+        and all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+
+
 def _seg_parallel_checks(dev, batches, mesh_sizes) -> dict:
     from disinfect_slam_tpu_torch.models import train
     from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
 
-    res = {}
     sd = _net(dev).state_dict()
-    ref = train.create_train_state(_net(dev), lr=SEG_PAR_LR, device=dev)
-    ref.model.load_state_dict(sd)
-    ref_step = train.make_train_step(ref.model, ref.opt)
-    mesh = sp.make_mesh_2d(devices=[dev] * mesh_sizes[0])
-    net = _net(dev)
-    net.load_state_dict(sd)
-    state = sp.ShardedTrainState(sp.shard_params(net, mesh))
-    step = sp.make_sharded_train_step(net, dict(lr=SEG_PAR_LR), mesh)
-    for i, (imgs, labs) in enumerate(batches[:SEG_PAR_STEPS]):
-        ref, ref_loss = ref_step(ref, imgs, labs)
-        state, loss = step(state, imgs, labs)
-        if not torch.equal(loss, ref_loss):
-            raise AssertionError(f"1x1 step {i}: loss {float(loss)} != {float(ref_loss)}")
-    params = state.params.full()
-    unequal = [k for k, p in ref.model.named_parameters() if not torch.equal(p, params[k])]
-    if unequal:
-        raise AssertionError(f"1x1 mesh: {len(unequal)} parameters differ: {unequal[:4]}")
-    res["1x1"] = {"steps_bit_equal": SEG_PAR_STEPS, "losses": [float(ref_loss)]}
+    names = {"make_train_step": "make_train_step", f"sharded_{mesh_sizes[0]}": "sharded_1x1",
+             f"sharded_{mesh_sizes[1]}": "sharded_2x2"}
+    timing, params = {}, {}
+    for kind, name in names.items():
+        runs = {}
+        for capture in (False, True):
+            free_graphs()
+            runs[capture] = _seg_run(kind, dev, sd, batches, capture)
+            if capture and runs[capture]["profile"]["launch_calls_per_frame"]:
+                raise AssertionError(f"a replayed {name} step launched kernels from the host: "
+                                     f"{runs[capture]['profile']}")
+        if not _same_run(runs[True], runs[False]):
+            raise AssertionError(f"{name}: the captured steps differ from the eager ones: "
+                                 f"{runs[True]['losses'].tolist()} vs "
+                                 f"{runs[False]['losses'].tolist()}")
+        params[name] = runs[True]
+        timing[name] = {("captured" if c else "eager"): {
+            k: r[k] for k in ("step_ms", "step_ms_median", "peak_gb", "replays", "profile")}
+            for c, r in runs.items()}
+        timing[name]["captured"]["losses"] = runs[True]["losses"].tolist()
+        del runs
+    if not _same_run(params["make_train_step"], params["sharded_1x1"]):
+        raise AssertionError("1x1 mesh differs from make_train_step: "
+                             f"{params['sharded_1x1']['losses'].tolist()} vs "
+                             f"{params['make_train_step']['losses'].tolist()}")
+    del params
+    free_graphs()
+    res = {"timing": timing, "steps_bit_equal": len(batches)}
     imgs, labs = batches[0]
     for dtype, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         base = _net(dev, dtype)
         base.load_state_dict(sd)
         one = train.create_train_state(_net(dev, dtype), lr=SEG_PAR_LR, device=dev)
         one.model.load_state_dict(sd)
-        _, one_loss = train.make_train_step(one.model, one.opt)(one, imgs, labs)
+        _, one_loss = train.make_train_step(one.model, one.opt, capture=False)(one, imgs, labs)
         grads = {k: p.grad for k, p in one.model.named_parameters()}
         mesh = sp.make_mesh_2d(devices=[dev] * mesh_sizes[1])
         st = sp.ShardedTrainState(sp.shard_params(base, mesh))
-        st, loss = sp.make_sharded_train_step(base, dict(lr=SEG_PAR_LR), mesh)(st, imgs, labs)
+        st, loss = sp.make_sharded_train_step(base, dict(lr=SEG_PAR_LR), mesh,
+                                              capture=False)(st, imgs, labs)
         loss_rel = abs(float(loss) - float(one_loss)) / abs(float(one_loss))
         r = {"mesh": list(mesh.shape), "loss": float(loss),
              "loss_1x1": float(one_loss), "loss_rel": loss_rel}
@@ -4519,14 +4621,31 @@ def _seg_parallel_checks(dev, batches, mesh_sizes) -> dict:
                 raise AssertionError("2x2 float32: AdamW on the shards differs from AdamW on "
                                      "the same gradients")
         res[f"2x2_{label}"] = r
+        free_graphs()
     return res
+
+
+def _call_ms(fn, calls: int) -> list:
+    """fn() `calls` times, each between CUDA events: the ms list."""
+    events = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
 
 
 def seg_parallel_infer(dev, imgs, n_devices=4) -> dict:
     """Phase 13's inference: make_sharded_infer of the shipped UNet over
     [dev] * n_devices against sigmoid(model) on the whole batch, in
-    bfloat16 (as shipped) and with the same weights in float32, within
-    SEG_PAR_INFER_TOL."""
+    bfloat16 (as shipped; captured, the default) and with the same weights
+    in float32 (eager), within SEG_PAR_INFER_TOL; in bfloat16 the captured
+    inference (its second call a replay) bit-equal to capture=False with
+    cuDNN deterministic, and both timed (ms a call, CUDA events, median
+    of the last 8 of 10, captured anew at cuDNN's defaults)."""
     from disinfect_slam_tpu_torch.models import segmentation as seg
     from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
     from disinfect_slam_tpu_torch.utils.device import exact_fp32
@@ -4539,25 +4658,43 @@ def seg_parallel_infer(dev, imgs, n_devices=4) -> dict:
         model.load_state_dict(shipped.state_dict())
         with torch.no_grad(), exact_fp32():
             full = torch.sigmoid(model(imgs.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
-        probs = sp.make_sharded_infer(model, mesh)(imgs)
+        r = {"mesh": list(mesh.shape)}
+        if dtype == torch.bfloat16:
+            infers = {c: sp.make_sharded_infer(model, mesh, capture=c) for c in (True, False)}
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                probs = [infers[True](imgs) for _ in range(2)]
+                eager = infers[False](imgs)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            if not all(torch.equal(p, eager) for p in probs):
+                raise AssertionError("sharded inference: captured differs from eager")
+            r["replays"] = infers[True].graphs.replays
+            probs = probs[-1]
+            del eager, infers
+            free_graphs()
+            r["ms"] = {("captured" if c else "eager"): statistics.median(_call_ms(
+                lambda f=sp.make_sharded_infer(model, mesh, capture=c): f(imgs), 10)[2:])
+                for c in (False, True)}
+        else:
+            probs = sp.make_sharded_infer(model, mesh, capture=False)(imgs)
         if probs.shape != full.shape or not bool(torch.isfinite(probs).all()):
             raise AssertionError(f"sharded inference: {tuple(probs.shape)} vs "
                                  f"{tuple(full.shape)}")
         d = (probs - full).abs()
-        res[label] = {"mesh": list(mesh.shape), "max_abs_err": float(d.max()),
-                      "mean_abs_err": float(d.mean()),
-                      "labels_flipped": float(((probs > 0.5) != (full > 0.5)).float().mean())}
-        if res[label]["max_abs_err"] > SEG_PAR_INFER_TOL[label]:
-            raise AssertionError(f"sharded inference off the net ({label}): {res[label]}")
+        r.update(max_abs_err=float(d.max()), mean_abs_err=float(d.mean()),
+                 labels_flipped=float(((probs > 0.5) != (full > 0.5)).float().mean()))
+        res[label] = r
+        if r["max_abs_err"] > SEG_PAR_INFER_TOL[label]:
+            raise AssertionError(f"sharded inference off the net ({label}): {r}")
         del model, full, probs
+        free_graphs()
     return res
 
 
 def seg_parallel_slice(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> dict:
     """Phase 13 (see the docstring)."""
-    from disinfect_slam_tpu_torch.models import train
-    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
-
     hand = (fuse_kernel.fuse_rows, sample_kernel.sample_rows, splat_kernel.splat_zbuf_blocks,
             splat_kernel.splat_payload_blocks)
     reset_launches(*hand)
@@ -4565,53 +4702,55 @@ def seg_parallel_slice(fuse_kernel, sample_kernel, splat_kernel, dev, smi) -> di
     batches = train_batches(TRAIN_STEPS, dev)
     res = {"batches_s": time.perf_counter() - t}
     res["checks"] = seg_parallel_checks(dev, batches)
-    log(f"[chip_smoke] seg_parallel: 1x1 over [{dev}] bit-equal to make_train_step over "
-        f"{SEG_PAR_STEPS} steps (loss and every parameter); 2x2 over [{dev}] * 4: "
+    timing = res["timing"] = res["checks"].pop("timing")
+    for k, v in timing.items():
+        for c, r in v.items():
+            log_profile(f"seg_parallel {k} {c} step" + (" (a replay)" if c == "captured" else ""),
+                        r["profile"])
+    log(f"[chip_smoke] seg_parallel, cuDNN deterministic: every captured step bit-equal to its "
+        f"eager twin over {TRAIN_STEPS} steps (loss and every parameter), the 1x1 mesh over "
+        f"[{dev}] bit-equal to make_train_step; 2x2 over [{dev}] * 4: "
         + "; ".join(f"{k} loss {v['loss']:.6f} vs {v['loss_1x1']:.6f} (rel {v['loss_rel']:.2e})"
                     + (f", gradients {v['grad_rel']:.2e} of each largest, AdamW held on them "
                        f"bit-equal" if "grad_rel" in v else "")
                     for k, v in res["checks"].items() if k.startswith("2x2")))
-    # ms a step: make_train_step and the sharded step over 1x1 and 2x2,
-    # each from the same parameters, median of the last 8 of TRAIN_STEPS
-    sd = _net(dev).state_dict()
-    timing = {}
-    for label, n in (("make_train_step", 0), ("sharded_1x1", 1), ("sharded_2x2", 4)):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        net = _net(dev)
-        net.load_state_dict(sd)
-        if n == 0:
-            state = train.create_train_state(net, lr=SEG_PAR_LR, device=dev)
-            step = train.make_train_step(state.model, state.opt)
-        else:
-            mesh = sp.make_mesh_2d(devices=[dev] * n)
-            state = sp.ShardedTrainState(sp.shard_params(net, mesh))
-            step = sp.make_sharded_train_step(net, dict(lr=SEG_PAR_LR), mesh)
-        state, ms = _timed_steps(step, state, batches)
-        timing[label] = {"step_ms": ms, "step_ms_median": statistics.median(ms[2:]),
-                         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                         "profile": _profiled(step, state, batches[0])}
-        del state, step, net
-    res["timing"] = timing
     log(f"[chip_smoke] seg_parallel step at {TRAIN_H}x{TRAIN_W} batch {TRAIN_BATCH} (UNet "
-        f"full width, median of the last {TRAIN_STEPS - 2} of {TRAIN_STEPS}, CUDA events): "
-        + "; ".join(f"{k} {v['step_ms_median']:.2f} ms, peak {v['peak_gb']:.2f} GB, profiled "
-                    + (f"{v['profile']['launches']} kernels, {v['profile']['device_ms']:.2f} ms "
-                       f"of device time" if v["profile"]["launches"] else "no device event "
-                       "traced (not measured)")
-                    for k, v in timing.items()) + f" ({smi})")
+        f"full width, cuDNN deterministic, median of the last {TRAIN_STEPS - 2} of "
+        f"{TRAIN_STEPS}, CUDA events; the captured step's first two calls eager and captured), "
+        f"eager / captured: " + "; ".join(
+            f"{k} {v['eager']['step_ms_median']:.2f} / {v['captured']['step_ms_median']:.2f} "
+            f"ms, peak {v['eager']['peak_gb']:.2f} / {v['captured']['peak_gb']:.2f} GB, "
+            f"{v['captured']['replays']} graph replays" for k, v in timing.items())
+        + f" ({smi})")
+    # the 2x2 step again at cuDNN's defaults, the algorithms training runs
+    sd = _net(dev).state_dict()
+    for capture in (False, True):
+        free_graphs()
+        r = _seg_run("sharded_4", dev, sd, batches, capture, profile=False)
+        timing["sharded_2x2"][f"{'captured' if capture else 'eager'}_default"] = {
+            "step_ms": r["step_ms"], "step_ms_median": r["step_ms_median"]}
+        del r
+    free_graphs()
+    d = timing["sharded_2x2"]
+    log(f"[chip_smoke] seg_parallel sharded_2x2 step at cuDNN's defaults, eager / captured: "
+        f"{d['eager_default']['step_ms_median']:.2f} / "
+        f"{d['captured_default']['step_ms_median']:.2f} ms (median of the last "
+        f"{TRAIN_STEPS - 2} of {TRAIN_STEPS}, CUDA events) ({smi})")
     res["infer"] = seg_parallel_infer(dev, batches[0][0])
     res["hand_kernel_launches"] = {fn.__name__: fn.launches for fn in hand}
     log(f"[chip_smoke] seg_parallel inference of the shipped UNet over [{dev}] * 4 at "
         f"{TRAIN_H}x{TRAIN_W} batch {TRAIN_BATCH}: " + "; ".join(
             f"{k} max |dp| {v['max_abs_err']:.3e} (limit {SEG_PAR_INFER_TOL[k]:g}), mean "
             f"{v['mean_abs_err']:.3e}, labels flipped {v['labels_flipped']:.2e}"
-            for k, v in res["infer"].items())
-        + f"; hand kernel launches {res['hand_kernel_launches']} (cuDNN and torch ops only)")
+            + (f", captured bit-equal to eager ({v['replays']} graph replay), ms a call eager "
+               f"{v['ms']['eager']:.2f} / captured {v['ms']['captured']:.2f}" if "ms" in v
+               else "") for k, v in res["infer"].items())
+        + f"; hand kernel launches {res['hand_kernel_launches']} (cuDNN and torch ops only) "
+        f"({smi})")
     if any(res["hand_kernel_launches"].values()):
         raise AssertionError("seg_parallel launched a fusion or splat kernel")
     del batches
-    torch.cuda.empty_cache()
+    free_graphs()
     return res
 
 
@@ -5676,8 +5815,10 @@ def main() -> int:
     p10 = train_dist_host(fuse_kernel, splat_kernel, intrinsics, poses, fused_ms, smi)
     dist = p10["dist"]
     log(f"[chip_smoke] phase 10: training, sharded volume and host library ok; UNet step "
-        f"{p10['train']['unet']['step_ms_median']:.2f} ms, FastSeg "
-        f"{p10['train']['fast']['step_ms_median']:.2f} ms at {TRAIN_H}x{TRAIN_W} batch "
+        f"{p10['train']['unet']['step_ms_median']:.2f} ms eager, "
+        f"{p10['train']['unet']['captured_step_ms_median']:.2f} captured, FastSeg "
+        f"{p10['train']['fast']['step_ms_median']:.2f} / "
+        f"{p10['train']['fast']['captured_step_ms_median']:.2f} ms at {TRAIN_H}x{TRAIN_W} batch "
         f"{TRAIN_BATCH}; train_seg {TRAIN_APP_STEPS} steps {p10['train_app']['wall_s']:.1f} s, "
         f"IoU {p10['train_app']['iou']}; sharded replay "
         f"{dist[f'shards_{DIST_SHARDS}']['ms_per_frame']:.3f} ms/frame on {DIST_SHARDS} shards, "
@@ -5707,10 +5848,13 @@ def main() -> int:
     # phase 13: the seg net over a (data, model) mesh on the card
     t13 = time.perf_counter()
     seg_par = seg_parallel_slice(fuse_kernel, sample_kernel, splat_kernel, dev, smi)
-    log(f"[chip_smoke] phase 13: seg_parallel ok; step "
-        f"{seg_par['timing']['sharded_1x1']['step_ms_median']:.2f} ms (1x1), "
-        f"{seg_par['timing']['sharded_2x2']['step_ms_median']:.2f} ms (2x2) against "
-        f"make_train_step's {seg_par['timing']['make_train_step']['step_ms_median']:.2f} ms "
+    tm = {k: {c: v[c]["step_ms_median"] for c in ("eager", "captured")}
+          for k, v in seg_par["timing"].items()}
+    log(f"[chip_smoke] phase 13: seg_parallel ok; step eager / captured "
+        f"{tm['sharded_1x1']['eager']:.2f} / {tm['sharded_1x1']['captured']:.2f} ms (1x1), "
+        f"{tm['sharded_2x2']['eager']:.2f} / {tm['sharded_2x2']['captured']:.2f} ms (2x2) "
+        f"against make_train_step's {tm['make_train_step']['eager']:.2f} / "
+        f"{tm['make_train_step']['captured']:.2f} ms "
         f"({smi}) ({time.perf_counter() - t13:.1f} s added, "
         f"{time.perf_counter() - t_start:.1f} s)")
     phase_wall("13", t13)

@@ -18,7 +18,9 @@ the JAX package's shipped weights.  The file is the shipped flat-flax
 float16 npz: load it with models/segmentation.py:load_model(arch, path)
 (or the JAX package's load_params_npz), or pass it to apps.online
 --seg-weights.  It runs on the CUDA device unless asked for another
-(--device cpu).
+(--device cpu); there the train and eval steps replay as CUDA graphs, as
+the JAX app runs them jitted (models/train.py), each batch going to the
+card through pinned staging.
 """
 
 from __future__ import annotations
@@ -72,17 +74,14 @@ def run(args) -> dict:
     step_fn = make_train_step(state.model, state.opt)
     eval_fn = make_eval_step(state.model)
 
-    def upload(*arrays):
-        return [torch.from_numpy(a).to(device) for a in arrays]
-
     # held-out eval set (fixed seed disjoint from the training stream)
     eval_rng = np.random.default_rng(10_000 + args.seed)
-    ev_imgs, ev_labs = upload(*make_batch(eval_rng, 8, args.height, args.width))
+    ev_imgs, ev_labs = (torch.from_numpy(a).to(device)
+                        for a in make_batch(eval_rng, 8, args.height, args.width))
 
     t0 = time.time()
     for i in range(args.steps):
-        imgs, labs = upload(*make_batch(rng, args.batch, args.height, args.width))
-        state, loss = step_fn(state, imgs, labs)
+        state, loss = step_fn(state, *make_batch(rng, args.batch, args.height, args.width))
         if (i + 1) % args.eval_every == 0 or i == 0:
             m = eval_fn(ev_imgs, ev_labs)
             iou = m["iou"].cpu().numpy()

@@ -31,7 +31,6 @@ the card).
 from __future__ import annotations
 
 import functools
-import itertools
 import os
 import re
 from typing import Dict, Optional, Sequence, Tuple
@@ -455,7 +454,7 @@ class InferenceEngine:
         """The frame (u8 or f32, contiguous) through the captured step ->
         the maps [2, out_h, out_w] in its static output on the device
         (valid until this engine's next call)."""
-        from ..utils.graphs import StaticInputs, keep
+        from ..utils.graphs import StaticInputs, keep, module_key
 
         h, w = rgb.shape[:2]
         dtype = torch.from_numpy(rgb[:0]).dtype
@@ -472,10 +471,9 @@ class InferenceEngine:
             keep(self._outputs, "probs", segment(self.model, inputs.dev["rgb"], self.out_h,
                                                  self.out_w))
 
-        net = tuple(t.data_ptr() for t in itertools.chain(self.model.parameters(),
-                                                           self.model.buffers()))
         with exact_fp32():
-            self.graphs.run(("seg", h, w, dtype, slot, self.out_h, self.out_w, net), body)
+            self.graphs.run(("seg", h, w, dtype, slot, self.out_h, self.out_w)
+                            + module_key(self.model), body)
         inputs.done(slot)
         return self._outputs["probs"][0]
 

@@ -21,6 +21,12 @@ statistics, the data replicas' losses and gradients).  On a 1x1 mesh the
 train step runs the unsharded step's very ops.  TF32 stays off
 (`exact_fp32`).  The nets are UNetSeg (the JAX module's type); FastSeg's
 final resize mixes every row and is not split.
+
+The JAX module jits the train step and the inference; here, on a mesh
+whose devices are all one card, each is one captured CUDA graph a call
+(utils/graphs.py: the replicas in turn, the collectives as moves within
+the card).  A mesh of distinct cards cannot be one CUDA graph: there
+capture=True raises and capture=False runs the step eagerly.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from torch.func import functional_call
 
 from ..models.segmentation import (Conv, GroupNorm, UNetSeg, _same_pads, _upsample2, group_norm,
                                    normalize)
-from ..models.train import ADAMW_HPARAMS, bce_loss
+from ..models.train import ADAMW_HPARAMS, AdamW, bce_loss
 from ..utils.device import exact_fp32, resolve_device
+from ..utils.graphs import StepGraphs, batch_inputs, keep, module_key, tensors_key
 
 
 # ----------------------------------------------------------------------
@@ -219,7 +226,7 @@ class ShardedTrainState:
 
     params: ShardedParams
     step: int = 0
-    opts: Optional[List[List[torch.optim.AdamW]]] = None
+    opts: Optional[List[List[AdamW]]] = None
 
 
 def _hparams(opt_or_hparams) -> dict:
@@ -234,56 +241,146 @@ def _check(model: nn.Module) -> None:
         raise TypeError(f"the sharded net is UNetSeg, got {type(model).__name__}")
 
 
-def make_sharded_train_step(model: UNetSeg, opt_or_hparams, mesh: np.ndarray):
-    """(state, images, labels) -> (state, loss): make_train_step's AdamW
-    step over the mesh, in place on state.params.  images f32 [N, H, W,
-    3] and labels f32 [N, H, W, 2] on any device, N a multiple of the data
-    axis; the loss is the mean over the whole batch, a 0-d tensor on the
-    mesh's first device.  opt_or_hparams: an AdamW (make_train_step's,
-    its hyper-parameters copied) or a dict of AdamW's lr, betas, eps and
-    weight_decay (defaults: create_train_state's)."""
-    _check(model)
-    hp = _hparams(opt_or_hparams)
-    n_data, n_model = mesh.shape
-    dev0 = mesh[0, 0]
+def _one_card(mesh: np.ndarray, what: str) -> torch.device:
+    """The one device of a mesh a captured step runs on (CUDA resolved:
+    raises without it); a mesh of distinct devices raises ValueError."""
+    def card(d):  # "cuda" is the current card
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device()
+                                if torch.cuda.is_available() else 0)
+        return d
 
-    def step(state: ShardedTrainState, images: torch.Tensor, labels: torch.Tensor):
+    devs = {card(d) for d in mesh.flat}
+    if len(devs) > 1:
+        raise ValueError(f"{what}: a mesh of distinct devices {sorted(map(str, devs))} cannot "
+                         f"be one CUDA graph; pass capture=False to run it eagerly")
+    return resolve_device(devs.pop())
+
+
+class ShardedTrainStep:
+    """make_sharded_train_step's step: (state, images, labels) -> (state,
+    loss), make_train_step's AdamW step over the mesh, in place on
+    state.params.
+
+    images f32 [N, H, W, 3] and labels f32 [N, H, W, 2] on any device (a
+    host array too), N a multiple of the data axis; the loss is the mean
+    over the whole batch, a fresh 0-d tensor a call on the mesh's first
+    device, valid after later calls.  With capture=True the mesh is one
+    device and the step one captured step (utils/graphs.py): the first
+    call of a key runs eagerly (it makes the per-device AdamWs' moments),
+    then the replicas, the moves, the gradients' sums and every shard's
+    AdamW are captured as one CUDA graph, which later calls replay.  A
+    host batch goes through pinned staging (two slots), a device batch is
+    copied into the step's buffers first; the key holds the batch's shapes
+    and dtypes, the staging slot and the storage of every leaf, its
+    gradient and its AdamW's tensors (a new state captures anew).  The
+    gradients are kept from step to step, zeroed, accumulated and summed
+    in place, and `full_grads()` reads the last step's until the next.
+    On the CPU the same step runs eagerly; capture=False runs the plain
+    eager step on any mesh (gradients set to None and made anew)."""
+
+    def __init__(self, model: UNetSeg, opt_or_hparams, mesh: np.ndarray, capture: bool = True,
+                 graphs: Optional[StepGraphs] = None):
+        _check(model)
+        self.model, self.mesh, self.capture = model, mesh, capture
+        self.hp = _hparams(opt_or_hparams)
+        if capture:
+            self.device = _one_card(mesh, "make_sharded_train_step")
+            self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._batches: dict = {}
+        self._outputs: dict = {}
+        self._tick = 0
+
+    def _loss(self, params: ShardedParams, images: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+        n_data = self.mesh.shape[0]
+        dev0 = self.mesh[0, 0]
+        b = images.shape[0] // n_data
+        loss = None
+        for r in range(n_data):
+            devs = self.mesh[r]
+            logits = _unet_row(self.model, params.shards[r], params.specs,
+                               images[r * b:(r + 1) * b].permute(0, 3, 1, 2), devs)
+            # the batch mean, entered once per data replica
+            part = bce_loss(logits.permute(0, 2, 3, 1),
+                            labels[r * b:(r + 1) * b].to(devs[0])) / n_data
+            loss = part.to(dev0) if loss is None else loss + part.to(dev0)
+        return loss
+
+    def __call__(self, state: ShardedTrainState, images, labels):
         params = state.params
+        n_data = self.mesh.shape[0]
         if images.shape[0] % n_data:
             raise ValueError(f"batch {images.shape[0]} does not split over {n_data} data rows")
         if state.opts is None:
-            state.opts = [[torch.optim.AdamW(list(params.shards[r][m].values()), **hp)
-                           for m in range(n_model)] for r in range(n_data)]
-        b = images.shape[0] // n_data
-        with exact_fp32():
-            for row in params.shards:
-                for leaves in row:
-                    for t in leaves.values():
-                        t.grad = None
-            loss = None
-            for r in range(n_data):
-                devs = mesh[r]
-                logits = _unet_row(model, params.shards[r], params.specs,
-                                   images[r * b:(r + 1) * b].permute(0, 3, 1, 2), devs)
-                # the batch mean, entered once per data replica
-                part = bce_loss(logits.permute(0, 2, 3, 1),
-                                labels[r * b:(r + 1) * b].to(devs[0])) / n_data
-                loss = part.to(dev0) if loss is None else loss + part.to(dev0)
-            loss.backward()
-            _sum_grads(params)
-            for row in state.opts:
-                for opt in row:
+            state.opts = [[AdamW(list(leaves.values()), **self.hp) for leaves in row]
+                          for row in params.shards]
+        opts = [opt for row in state.opts for opt in row]
+        leaves = [t for row in params.shards for ls in row for t in ls.values()]
+        if not self.capture:
+            images, labels = torch.as_tensor(images), torch.as_tensor(labels)
+            with exact_fp32():
+                for t in leaves:
+                    t.grad = None
+                loss = self._loss(params, images, labels)
+                loss.backward()
+                _sum_grads(params)
+                for opt in opts:
                     opt.step()
+            state.step += 1
+            return state, loss.detach()
+
+        slot = self._tick % 2
+        self._tick += 1
+        inputs, staged, key = batch_inputs(self._batches, self.device, slot, images=images,
+                                           labels=labels)
+        for t in leaves:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        grads = [t.grad for t in leaves]
+        for opt in opts:
+            opt.init_state()
+        key = (("sharded_train",) + key + tensors_key(leaves) + tensors_key(grads)
+               + tensors_key(t for opt in opts for t in opt.tensors()))
+
+        def body():
+            if staged:
+                inputs.upload(slot)
+            torch._foreach_zero_(grads)
+            loss = self._loss(params, inputs.dev["images"], inputs.dev["labels"])
+            loss.backward()
+            _sum_grads(params, in_place=True)
+            for opt in opts:
+                opt.step()
+            keep(self._outputs, key, loss.detach())
+
+        with exact_fp32():
+            self.graphs.run(key, body)
+        if staged:
+            inputs.done(slot)
         state.step += 1
-        return state, loss.detach()
-
-    return step
+        return state, self._outputs[key][0].clone()
 
 
-def _sum_grads(params: ShardedParams) -> None:
+def make_sharded_train_step(model: UNetSeg, opt_or_hparams, mesh: np.ndarray,
+                            capture: bool = True,
+                            graphs: Optional[StepGraphs] = None) -> ShardedTrainStep:
+    """(state, images, labels) -> (state, loss): make_train_step's AdamW
+    step over the mesh, in place on state.params (ShardedTrainStep says
+    what a captured step's key holds and how long each result is valid).
+    opt_or_hparams: an AdamW (make_train_step's, its hyper-parameters
+    copied) or a dict of AdamW's lr, betas, eps and weight_decay
+    (defaults: create_train_state's).  capture=True needs a mesh of one
+    device (a ValueError names capture=False otherwise)."""
+    return ShardedTrainStep(model, opt_or_hparams, mesh, capture, graphs)
+
+
+def _sum_grads(params: ShardedParams, in_place: bool = False) -> None:
     """Each shard's gradient becomes the sum over `data` of its copies;
     a replicated parameter's, the sum over `model` as well (each model
-    shard's copy saw only the paths through its own slices)."""
+    shard's copy saw only the paths through its own slices).  in_place
+    writes the sums into the gradients' own tensors (a captured step's)."""
     n_data, n_model = params.mesh.shape
     for name, spec in params.specs.items():
         leaves = [[params.shards[r][m][name] for m in range(n_model)] for r in range(n_data)]
@@ -294,7 +391,10 @@ def _sum_grads(params: ShardedParams) -> None:
         cols = [all_sum([grads[r][m] for r in range(n_data)]) for m in range(n_model)]
         for r in range(n_data):
             for m in range(n_model):
-                leaves[r][m].grad = cols[m][r]
+                if in_place:
+                    leaves[r][m].grad.copy_(cols[m][r])
+                else:
+                    leaves[r][m].grad = cols[m][r]
 
 
 # ----------------------------------------------------------------------
@@ -359,34 +459,84 @@ def _norm_rows(norm: GroupNorm, weights, parts):
     return out
 
 
-def make_sharded_infer(model: UNetSeg, mesh: np.ndarray):
-    """images f32 [N, H, W, 3] in [0, 1] -> sigmoid(model(images)) f32
-    [N, H, W, 2] on the mesh's first device, the batch over `data` (N a
-    multiple of it) and the image height over `model`; the net's current
-    parameters, copied to each device a call (no copy where it already
-    lives)."""
-    _check(model)
-    n_data, n_model = mesh.shape
-    stride = 2 ** len(model.widths)
+class ShardedInfer:
+    """make_sharded_infer's inference: images f32 [N, H, W, 3] in [0, 1]
+    (on any device, or a host array) -> sigmoid(model(images)) f32 [N, H,
+    W, 2] on the mesh's first device, the batch over `data` (N a multiple
+    of it) and the image height over `model`, with the net's current
+    parameters.
 
-    def infer(images: torch.Tensor) -> torch.Tensor:
-        n, h, w, _ = images.shape
-        if n % n_data:
-            raise ValueError(f"batch {n} does not split over {n_data} data rows")
-        ranges0 = row_split(h, n_model, stride)
+    With capture=True the mesh is one device and a call one captured step
+    (utils/graphs.py): the images through pinned staging (two slots) or
+    copied into the step's buffer, the row shards, their halo moves and
+    GroupNorm sums as one CUDA graph that reads the parameters in place
+    (a move to the device they live on is none, so a replay sees every
+    update); the key holds the images' shape and dtype, the staging slot
+    and the storage of the net's parameters and buffers, so replaced
+    parameters or a new net capture anew.  Each call returns a fresh
+    tensor, valid after later calls.  On the CPU the same step runs
+    eagerly; capture=False runs it eagerly on any mesh, the parameters
+    copied to each device a call (no copy where they already live)."""
+
+    def __init__(self, model: UNetSeg, mesh: np.ndarray, capture: bool = True,
+                 graphs: Optional[StepGraphs] = None):
+        _check(model)
+        self.model, self.mesh, self.capture = model, mesh, capture
+        if capture:
+            self.device = _one_card(mesh, "make_sharded_infer")
+            self.graphs = graphs if graphs is not None else StepGraphs(self.device)
+        self._batches: dict = {}
+        self._outputs: dict = {}
+        self._tick = 0
+
+    def _infer(self, images: torch.Tensor) -> torch.Tensor:
+        model, mesh = self.model, self.mesh
+        n_data, n_model = mesh.shape
+        n, h = images.shape[:2]
+        ranges0 = row_split(h, n_model, 2 ** len(model.widths))
         b = n // n_data
         outs = []
-        with torch.no_grad(), exact_fp32():
+        with torch.no_grad():
             for r in range(n_data):
                 devs = list(mesh[r][:len(ranges0)])
                 x = images[r * b:(r + 1) * b].permute(0, 3, 1, 2)
                 parts = [x[:, :, a:e].to(d).to(model.dtype) for (a, e), d in zip(ranges0, devs)]
                 logits = _unet_rows(model, parts, ranges0, h, devs)
-                probs = torch.cat([torch.sigmoid(p).to(mesh[0, 0]) for p in logits], 2)
-                outs.append(probs)
+                outs.append(torch.cat([torch.sigmoid(p).to(mesh[0, 0]) for p in logits], 2))
         return torch.cat(outs, 0).permute(0, 2, 3, 1)
 
-    return infer
+    def __call__(self, images) -> torch.Tensor:
+        n_data = self.mesh.shape[0]
+        if images.shape[0] % n_data:
+            raise ValueError(f"batch {images.shape[0]} does not split over {n_data} data rows")
+        if not self.capture:
+            with exact_fp32():
+                return self._infer(torch.as_tensor(images))
+        slot = self._tick % 2
+        self._tick += 1
+        inputs, staged, key = batch_inputs(self._batches, self.device, slot, images=images)
+        key = ("sharded_infer",) + key + module_key(self.model)
+
+        def body():
+            if staged:
+                inputs.upload(slot)
+            keep(self._outputs, key, self._infer(inputs.dev["images"]).contiguous())
+
+        with exact_fp32():
+            self.graphs.run(key, body)
+        if staged:
+            inputs.done(slot)
+        return self._outputs[key][0].clone()
+
+
+def make_sharded_infer(model: UNetSeg, mesh: np.ndarray, capture: bool = True,
+                       graphs: Optional[StepGraphs] = None) -> ShardedInfer:
+    """images f32 [N, H, W, 3] in [0, 1] -> sigmoid(model(images)) f32
+    [N, H, W, 2] on the mesh's first device, the batch over `data` and the
+    image height over `model` (ShardedInfer says what a captured call's
+    key holds and how long each result is valid).  capture=True needs a
+    mesh of one device (a ValueError names capture=False otherwise)."""
+    return ShardedInfer(model, mesh, capture, graphs)
 
 
 def _unet_rows(model: UNetSeg, parts, ranges0, h: int, devs):

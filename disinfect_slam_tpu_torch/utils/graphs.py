@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import itertools
 import os
 import re
 import tempfile
@@ -107,18 +108,36 @@ def keep(store: dict, key, *tensors) -> tuple:
     return bufs
 
 
+def tensors_key(tensors) -> tuple:
+    """The address, shape and dtype of each tensor (None for None): the
+    part of a step's key that holds its storage, so that a tensor replaced
+    (a new model, load_state_dict(assign=True), .to(), new optimizer
+    state) captures anew instead of replaying into freed memory."""
+    return tuple(None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype)
+                 for t in tensors)
+
+
+def module_key(module: torch.nn.Module) -> tuple:
+    """tensors_key of a module's parameters and buffers."""
+    return tensors_key(itertools.chain(module.parameters(), module.buffers()))
+
+
 class StaticInputs:
     """A step's inputs as static device buffers (`dev`), each filled by a
     copy from a pinned host staging buffer.  There are `slots` staging
     sets, used in turn by the caller, so that the host fills one while the
     device may still copy from another; `fill` waits until the device has
     read the slot's last contents.  specs: {name: (shape, dtype)}; a
-    "pose" entry is a DevicePose buffer (`pose`)."""
+    "pose" entry is a DevicePose buffer (`pose`); `buffers` names device
+    tensors the copies fill in place of new ones (a 0-d learning rate an
+    optimizer reads)."""
 
-    def __init__(self, specs: dict, device, slots: int = 2):
+    def __init__(self, specs: dict, device, slots: int = 2, buffers: Optional[dict] = None):
         self.device = torch.device(device)
         pin = self.device.type == "cuda"
-        self.dev = {n: torch.zeros(shape, dtype=dt, device=self.device)
+        buffers = buffers or {}
+        self.dev = {n: buffers[n] if n in buffers else torch.zeros(shape, dtype=dt,
+                                                                  device=self.device)
                     for n, (shape, dt) in specs.items()}
         self._host = [{n: torch.zeros(shape, dtype=dt, pin_memory=pin)
                        for n, (shape, dt) in specs.items()} for _ in range(slots)]
@@ -155,6 +174,40 @@ class StaticInputs:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
             self._read[slot] = ev
+
+
+def batch_inputs(store: dict, device: torch.device, slot: int, **arrays) -> tuple:
+    """A captured step's named arrays in static device buffers, kept in
+    `store` by their shapes and dtypes: host arrays (numpy, or CPU tensors
+    for a step on another device) as float32 through pinned staging slot
+    `slot`, which the step's body uploads first (`inputs.upload(slot)`);
+    tensors on a device copied into the buffers now, before the step.
+    Returns (inputs, staged, key): the part of the step's key the inputs
+    decide (the staging slot among it)."""
+    def host(a):
+        return not isinstance(a, torch.Tensor) or (a.device.type == "cpu"
+                                                    and device.type != "cpu")
+
+    staged = host(next(iter(arrays.values())))
+    if any(host(a) != staged for a in arrays.values()):
+        raise ValueError("a step's arrays are all on the host or all on a device")
+    if staged:
+        arrays = {n: np.ascontiguousarray(a.numpy() if isinstance(a, torch.Tensor) else a,
+                                          dtype=np.float32) for n, a in arrays.items()}
+        specs = {n: (tuple(a.shape), torch.float32) for n, a in arrays.items()}
+    else:
+        specs = {n: (tuple(a.shape), a.dtype) for n, a in arrays.items()}
+    key = (staged,) + tuple(specs.items()) + ((slot,) if staged else ())
+    shapes = key[:-1] if staged else key
+    inputs = store.get(shapes)
+    if inputs is None:
+        inputs = store[shapes] = StaticInputs(specs, device, slots=2 if staged else 0)
+    if staged:
+        inputs.fill(slot, **arrays)
+    else:
+        for n, a in arrays.items():
+            inputs.dev[n].copy_(a)
+    return inputs, staged, key
 
 
 # the node types of a CUDA graph's DOT dump (cudaGraphDebugDotPrint)

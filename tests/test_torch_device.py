@@ -23,12 +23,14 @@ from disinfect_slam_tpu_torch.core.state import TSDFVolume
 from disinfect_slam_tpu_torch.io.config_reader import load_yaml
 from disinfect_slam_tpu_torch.io.zed_calib import rectifier_from_factory_conf
 from disinfect_slam_tpu_torch.io.checkpoint import load_volume, volume_from_numpy, volume_to_numpy
-from disinfect_slam_tpu_torch.models.segmentation import load_model
-from disinfect_slam_tpu_torch.models.train import create_train_state
+from disinfect_slam_tpu_torch.models.segmentation import create_model, load_model
+from disinfect_slam_tpu_torch.models.train import (create_train_state, make_eval_step,
+                                                   make_train_step)
 from disinfect_slam_tpu_torch.ops.image_ops import StereoRectifier
 from disinfect_slam_tpu_torch.ops.stereo import StereoDepthEstimator
 from disinfect_slam_tpu_torch.ops.gather import volume_from_spatial_records
-from disinfect_slam_tpu_torch.parallel.seg_parallel import make_mesh_2d
+from disinfect_slam_tpu_torch.parallel.seg_parallel import (make_mesh_2d, make_sharded_infer,
+                                                            make_sharded_train_step)
 from disinfect_slam_tpu_torch.parallel.sharding import DistributedTSDF, load_distributed, make_mesh
 from disinfect_slam_tpu_torch.systems.dense_slam import DenseSLAM
 from disinfect_slam_tpu_torch.systems.disinf_system import DISINFSystem
@@ -45,6 +47,19 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 K = (52.7, 53.3, 31.71, 23.43)
 CFG = dataclasses.replace(TINY_DENSE, voxel_size=0.05, truncation=0.15)
+
+def _model_opt(state):
+    return state.model, state.opt
+
+
+def _unet():
+    return create_model(widths=(8, 16, 16, 16))
+
+
+def _card_mesh():
+    """A 2x2 mesh of the one card, built without asking for CUDA."""
+    return make_mesh_2d(devices=[torch.device("cuda", 0)] * 4)
+
 
 DEFAULT_DEVICE_CALLS = {
     "TSDFGrid": lambda: TSDFGrid(0.05, 0.15, cfg=CFG),
@@ -81,6 +96,16 @@ DEFAULT_DEVICE_CALLS = {
     "rectifier_from_factory_conf": lambda: rectifier_from_factory_conf(
         str(ROOT / "no_such_calibration.conf"), "VGA"),
     "make_mesh_2d": lambda: make_mesh_2d(),
+    # the captured steps: the train and eval steps on a state a user makes
+    # without a device, the sharded ones on a mesh of the card
+    "make_train_step(capture=True)": lambda: make_train_step(
+        *_model_opt(create_train_state(widths=(8, 16, 16, 16))), capture=True),
+    "make_eval_step(capture=True)": lambda: make_eval_step(
+        create_train_state(widths=(8, 16, 16, 16)).model, capture=True),
+    "make_sharded_train_step(capture=True)": lambda: make_sharded_train_step(
+        _unet(), {}, _card_mesh(), capture=True),
+    "make_sharded_infer(capture=True)": lambda: make_sharded_infer(
+        _unet(), _card_mesh(), capture=True),
     "verify_all": lambda: verify_all(verbose=False),
 }
 
@@ -178,7 +203,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "apps/train_seg.py", "io/flax_msgpack.py", "parallel/sharding.py",
                 "io/sync.py", "io/logger.py", "io/cameras.py", "native/runtime.py",
                 "io/zed_calib.py", "ops/image_ops.py", "ops/stereo.py",
-                "parallel/seg_parallel.py", "utils/kernel_verify.py", "apps/bench.py"):
+                "parallel/seg_parallel.py", "utils/kernel_verify.py", "apps/bench.py",
+                "utils/graphs.py"):
         assert ROOT / "disinfect_slam_tpu_torch" / mod in files, mod
     bad = {}
     for path in files:

@@ -21,8 +21,10 @@ pose graph and the match on the card against the CPU, the lockstep
 parting walk, its captured tracked frame against the
 eager one and under the sync debug mode, the sharded step captured
 against eager, and loop closure on the card, the
-kernels' self-check (utils/kernel_verify.py) and the segmentation net
-over a mesh of the one card (parallel/seg_parallel.py).
+kernels' self-check (utils/kernel_verify.py), the segmentation net
+over a mesh of the one card (parallel/seg_parallel.py), and the seg net's
+train, eval, sharded train and sharded inference steps captured against
+their eager forms and under the sync debug mode.
 
 Needs a CUDA device and nvcc; skipped without a card.  This file imports
 no JAX, so it runs on a GPU host without it:
@@ -2307,3 +2309,156 @@ def test_captured_mesh_equals_the_eager_mesh(cuda):
         assert kept.graphs.captures == 2 and kept.graphs.replays == 2 * -(-n // 8)
         for key in kept.graphs.keys():
             _no_sync(lambda key=key: kept.graphs.run(key, None))
+
+
+# ----------------------------------------------------------------------
+# the seg net's training as captured steps: make_train_step and
+# make_eval_step, seg_parallel's sharded step and inference
+# ----------------------------------------------------------------------
+TRAIN_NETS = {"unet": dict(arch="unet", widths=(8, 16, 16, 16)),
+              "fast": dict(arch="fast", widths=(32, 64))}
+
+
+def _train_batches(n, b=2, h=48, w=64):
+    from disinfect_slam_tpu_torch.models.synth_data import make_batch
+
+    rng = np.random.default_rng(0)
+    return [make_batch(rng, b, h, w) for _ in range(n)]
+
+
+def _deterministic(fn):
+    """fn() with cuDNN on its deterministic algorithms (a weight gradient
+    summed by atomics differs between two runs of one step)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _train_twins(cuda, arch, dtype, lr):
+    from disinfect_slam_tpu_torch.models import train
+
+    states = [train.create_train_state(seg.create_model(
+        dtype=dtype, generator=torch.Generator().manual_seed(0), **TRAIN_NETS[arch]), lr=lr,
+        device=cuda) for _ in range(2)]
+    return states, [train.make_train_step(s.model, s.opt, capture=c)
+                    for s, c in zip(states, (True, False))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["unet", "fast"])
+def test_captured_train_and_eval_steps_equal_eager(cuda, arch, dtype):
+    """make_train_step of a narrow net, captured against capture=False from
+    the same parameters, 8 steps while a warmup schedule moves the lr
+    (steps 0-3 host batches, 4-7 the same kind on the card), cuDNN
+    deterministic: every loss, parameter and Adam moment equal; four
+    captures (two staging slots of each kind), one replay a step after
+    them.  make_eval_step captured against eager: loss and IoU equal."""
+    from disinfect_slam_tpu_torch.models import train
+
+    sched = train.warmup_cosine_decay_schedule(0.0, 1e-2, warmup_steps=3, decay_steps=12)
+    states, (cap, eager) = _train_twins(cuda, arch, dtype, sched)
+    batches = _train_batches(8)
+
+    def run():
+        for i, (imgs, labs) in enumerate(batches):
+            if i >= 4:
+                imgs, labs = (torch.from_numpy(a).to(cuda) for a in (imgs, labs))
+            _, a = cap(states[0], imgs, labs)
+            _, b = eager(states[1], imgs, labs)
+            assert torch.equal(a, b), (i, float(a), float(b))
+        evals = [train.make_eval_step(states[0].model, capture=c) for c in (True, False)]
+        for imgs, labs in batches[:3]:
+            a, b = (e(imgs, labs) for e in evals)
+            assert torch.equal(a["loss"], b["loss"]) and torch.equal(a["iou"], b["iou"])
+        assert evals[0].graphs.captures == 2 and evals[0].graphs.replays == 1
+
+    _deterministic(run)
+    assert cap.graphs.captures == 4 and cap.graphs.replays == 8 - 4
+    assert states[0].opt.param_groups[0]["lr"] == states[1].opt.param_groups[0]["lr"] > 0
+    for p, q in zip(states[0].model.parameters(), states[1].model.parameters()):
+        assert torch.equal(p, q)
+        for k in ("mu", "nu"):
+            assert torch.equal(states[0].opt.state[p][k], states[1].opt.state[q][k])
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_captured_sharded_steps_equal_eager(cuda, n):
+    """seg_parallel over [cuda:0] * n, a narrow float32 UNet: the captured
+    train step against capture=False over 4 steps of batches on the card
+    (one capture, then a replay a step), loss and every parameter equal;
+    the captured inference equal to the eager one, and again after the
+    parameters change in place (a replay reads them where they live)."""
+    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
+
+    rng = np.random.default_rng(0)
+    batches = [(torch.from_numpy(rng.uniform(0, 1, (8, 32, 48, 3)).astype(np.float32)).to(cuda),
+                (torch.from_numpy(rng.uniform(0, 1, (8, 32, 48, 2))) > 0.5).float().to(cuda))
+               for _ in range(4)]
+    mesh = sp.make_mesh_2d(devices=[cuda] * n)
+    sd = seg.create_model(widths=(8, 16, 32, 64), dtype=torch.float32).state_dict()
+    nets, states = [], []
+    for _ in range(2):
+        net = seg.create_model(widths=(8, 16, 32, 64), dtype=torch.float32)
+        net.load_state_dict(sd)
+        nets.append(net.to(cuda))
+        states.append(sp.ShardedTrainState(sp.shard_params(nets[-1], mesh, tp_min_width=16)))
+    steps = [sp.make_sharded_train_step(net, dict(lr=1e-3), mesh, capture=c)
+             for net, c in zip(nets, (True, False))]
+    infers = [sp.make_sharded_infer(nets[0], sp.make_mesh_2d(devices=[cuda] * 4), capture=c)
+              for c in (True, False)]
+
+    def run():
+        for i, (imgs, labs) in enumerate(batches):
+            (_, a), (_, b) = (s(st, imgs, labs) for s, st in zip(steps, states))
+            assert torch.equal(a, b), i
+        for _ in range(2):
+            a, b = (f(batches[0][0]) for f in infers)
+            assert torch.equal(a, b)
+            with torch.no_grad():
+                for p in nets[0].parameters():
+                    p.mul_(0.9)
+
+    _deterministic(run)
+    assert steps[0].graphs.captures == 1 and steps[0].graphs.replays == 3
+    assert infers[0].graphs.captures == 1 and infers[0].graphs.replays == 1
+    full = [st.params.full() for st in states]
+    for k in full[1]:
+        assert torch.equal(full[0][k], full[1][k]), k
+
+
+def test_captured_train_steps_never_sync(cuda):
+    """Once captured, a replay of make_train_step (host and card batches),
+    make_eval_step, the 2x2 sharded step and the sharded inference raises
+    nothing under set_sync_debug_mode("error"), and counts one replay."""
+    from disinfect_slam_tpu_torch.models import train
+    from disinfect_slam_tpu_torch.parallel import seg_parallel as sp
+
+    sched = train.warmup_cosine_decay_schedule(0.0, 1e-2, warmup_steps=3, decay_steps=12)
+    (state, _), (step, _) = _train_twins(cuda, "unet", torch.float32, sched)
+    evals = train.make_eval_step(state.model)
+    host = _train_batches(1)[0]
+    card = tuple(torch.from_numpy(a).to(cuda) for a in host)
+    for batch in (host, host, card, card):
+        step(state, *batch)
+        evals(*batch)
+    replays = step.graphs.replays
+    for batch in (host, card):
+        loss = _no_sync(lambda batch=batch: step(state, *batch)[1])
+        m = _no_sync(lambda batch=batch: evals(*batch))
+        assert bool(torch.isfinite(loss)) and m["iou"].shape == (2,)
+    assert step.graphs.replays == replays + 2
+
+    mesh = sp.make_mesh_2d(devices=[cuda] * 4)
+    net = seg.create_model(widths=(8, 16, 32, 64), dtype=torch.float32).to(cuda)
+    sstate = sp.ShardedTrainState(sp.shard_params(net, mesh, tp_min_width=16))
+    sstep, infer = sp.make_sharded_train_step(net, {}, mesh), sp.make_sharded_infer(net, mesh)
+    imgs = torch.rand(4, 32, 48, 3, device=cuda)
+    labs = (torch.rand(4, 32, 48, 2, device=cuda) > 0.5).float()
+    sstep(sstate, imgs, labs)
+    infer(imgs)
+    _no_sync(lambda: sstep(sstate, imgs, labs))
+    _no_sync(lambda: infer(imgs))
+    assert sstep.graphs.replays == 1 and infer.graphs.replays == 1
