@@ -121,10 +121,12 @@ exits non-zero:
      tile (P8's A/B of the per-voxel atomics against the tile kernel,
      P9's tile-shape sweep), the feature probe (P7: every primitive's
      check must pass) and the probes of the sampler and of fuse_rows'
-     stages (P1-P6: K1's direct modes, the patch and one-hot mma
-     selections, fuse_rows stripped stage by stage), each mode against
-     its plain version; K4 at 320x240 on phase 8's SLAM volume (its
-     bound, its plain version, scatter_reduce "amin"); the ICP kernel
+     stages (P1-P6: K1's direct modes, the window selections staging
+     each row's footprint box through a bulk-copy ring, P3's among them,
+     with what each window shape stages, fuse_rows stripped stage by
+     stage), each mode against its plain version; K4 at 320x240 on phase
+     8's SLAM volume (its bound, its plain version, scatter_reduce
+     "amin"); the ICP kernel
      (icp_step) at each pyramid level of orbit_vga at track_res_scale 1 and
      2, bit-equal to its plain version on the card and the CPU, its device
      time beside its bound, its order floor (the chain probe: 29 register
@@ -5509,7 +5511,7 @@ def probe_timer(fn, name, nbytes=0) -> float:
 def probe_launches(splat_probe, feature_probe, sp) -> list:
     """The probe wrappers that count their launches."""
     return [splat_probe.zbuf_atomic, splat_probe.zbuf_tile, feature_probe.launch,
-            sp.sample_patch, sp.sample_mma, sp.sample_direct, sp.fuse_stage]
+            sp.sample_patch, sp.sample_direct, sp.fuse_stage]
 
 
 def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
@@ -5517,9 +5519,10 @@ def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
     splat_zbuf_blocks' tile (splat_probe, on phase 2's block rows at
     640x480 and 1080p), P7's primitives (feature_probe: every check must
     pass; its kernels' device time and its plain torch version's), and
-    P1-P6 (sample_probe: K1's direct modes, the patch and mma selections
-    and fuse_rows' stages, each against its plain version, at K1's and
-    fuse_rows' phase 2 rows)."""
+    P1-P6 (sample_probe: K1's direct modes, the window selections with
+    P3's, what each window stages beside K1's direct time, and fuse_rows'
+    stages, each against its plain version, at K1's and fuse_rows' phase
+    2 rows)."""
     t0 = time.perf_counter()
     cases = {"640x480": make_splat_blocks(3, H, W, dev),
              "1080p": make_splat_blocks(4, 1080, 1920, dev)}
@@ -5566,6 +5569,15 @@ def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
                    if "skipped_voxels" in r else "")
                 + (f"; voxels let through {r['voxels_through']}"
                    if "voxels_through" in r else ""))
+    k1 = next(r for r in res["p4"] if r["mode"] == "full")
+    for ph, pw in sp.PATCH_SHAPES:
+        st = next(r for r in res["patch"] if r["mode"].startswith(f"patch {ph}x{pw}"))["staging"]
+        log(f"[chip_smoke] probe patch {ph}x{pw} staging: {st['staged_bytes'] / 1e6:.1f} MB "
+            f"in {st['turns']} ring turns of {st['slot_bytes']} B slots (whole windows: "
+            f"{st['window_bytes'] / 1e6:.1f} MB); median box {st['box_median_px']} px, largest "
+            f"{st['box_largest'][0]}x{st['box_largest'][1]}; {st['rows_in_strips']} rows in "
+            f"strips, {st['empty_rows']} empty; K1's direct body on the same rows "
+            f"{k1['ms']:.4f} ms ({card_name_and_power()})")
     u0, v0 = sp.patch_origins(u, v, H, W)
     res["plain_ms"] = {
         "direct": cuda_time_ms(lambda: sp.sample_direct_reference(img, u, v, count, 0)),
@@ -5592,7 +5604,7 @@ def probe_kernels(probe, launches: dict) -> list:
     pick = lambda group, key, name: next(r for r in sample[group] if r[key] == name)  # noqa: E731
     worst = lambda rows: max(r["max_abs_err"] for r in rows if "max_abs_err" in r)  # noqa: E731
     patch = pick("patch", "mode", "patch 24x32, 4 rows a CTA")
-    mma = sample["patch"][-1]
+    p3 = sample["patch"][-1]
     direct = pick("p4", "mode", "full")
     stage = pick("p5", "stage", "ring")
     entry = lambda name, source, replaces, r, plain, mode, n, err: {  # noqa: E731
@@ -5604,9 +5616,9 @@ def probe_kernels(probe, launches: dict) -> list:
         entry("probe sample_patch_kernel (P1/P2/P6)", "sample_probe.cu",
               "scripts/probe_sample2.py:132", patch, sample["plain_ms"]["patch"], patch["mode"],
               launches["sample_patch"], worst(sample["patch"][:-1])),
-        entry("probe sample_mma_kernel (P3)", "sample_probe.cu", "scripts/probe_sample4.py:132",
-              mma, sample["plain_ms"]["patch"], mma["mode"], launches["sample_mma"],
-              mma["max_abs_err"]),
+        entry("probe sample_patch_kernel (P3)", "sample_probe.cu", "scripts/probe_sample4.py:132",
+              p3, sample["plain_ms"]["patch"], p3["mode"], launches["sample_patch"],
+              p3["max_abs_err"]),
         entry("probe sample_direct_kernel (P4)", "sample_probe.cu",
               "scripts/probe_sample_overhead.py:131", direct, sample["plain_ms"]["direct"],
               direct["mode"], launches["sample_direct"], worst(sample["p4"])),

@@ -6,13 +6,18 @@ csrc/sample_probe.cu, with fuse_rows' body from csrc/fuse_rows.cuh.
 
 - P4, `direct`: K1's body, its pixel loads alone (one word written a
   voxel) and its writes alone.
-- P1/P2/P6, `patch`: the TPU's design on this card: each block's aligned
-  patch (24x32 and 48x64 pixels) staged in shared memory by the bulk copy
-  engine, each voxel reading its pixel there, 1, 4 and 16 rows a CTA;
-  voxels in the image but outside the patch come back invalid and are
-  counted (the TPU's sampler_skipped).
-- P3, `mma`: the 24x32 patch selected through exact one-hot u8 mma.sync
-  on four byte planes.
+- P1/P2/P6, `patch`: the exact samples of each block's aligned window
+  (24x32 and 48x64 pixels), 1, 4 and 16 rows a CTA; voxels in the image
+  but outside the window come back invalid and are counted (the TPU's
+  sampler_skipped).  Each row stages only its voxels' box in the window
+  (`patch_boxes`) in shared memory, through a ring of two slots of
+  `SLOT_BYTES` (one slot for a CTA of one row), in strips of box rows
+  where a box is taller than a slot holds (`staging_plan`;
+  `patch_sample_staged` is the staging written out in torch).
+- P3, the TPU's one-hot matmul selection: on this card the same kernel at
+  24x32, `P3_ROWS_PER_CTA` rows a CTA: a shared-memory load is Hopper's
+  gather, where the one-hot form's int8 mma work alone came to 37.5% of
+  the byte bound.
 - P5, `fuse_stages`: fuse_rows stripped to the ring of pool rows, then
   with the projection, then with the sampling; each reduces min |tsdf|
   over the voxels its stages let through and writes their pool words back
@@ -23,8 +28,9 @@ Every mode is held against its plain torch version (`*_reference`), its
 largest difference from it reported (`max_abs_err`, 0 or it raises), and
 timed with the timer it is given, timer(fn, kernel_name, nbytes), nbytes
 being the bytes its bound counts; `run` gives chip_smoke.py's report.
-The probe kernels take CUDA tensors only; each wrapper counts its
-launches in its `launches` attribute.
+`sample_patch` runs its plain version on CPU tensors and its kernel on
+CUDA tensors; the other probe kernels take CUDA tensors only.  Each
+wrapper counts its launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ _P = _C.c_void_p
 SOURCE = "sample_probe"
 PATCH_SHAPES = ((24, 32), (48, 64))
 ROWS_PER_CTA = (1, 4, 16)
-MMA_ROWS_PER_CTA = 4
+P3_ROWS_PER_CTA = 4
+SLOT_BYTES = 24576  # a ring slot: the 24x32 window, so any 24x32 box fits whole
 DIRECT_MODES = ("full", "loads_only", "writes_only")
 FUSE_STAGES = ("ring", "ring + projection", "ring + projection + sampling")
 
@@ -88,51 +95,128 @@ def patch_sample_reference(img, u, v, count, u0, v0, ph: int, pw: int):
     return chans, valid, skipped
 
 
+def patch_boxes(img, u, v, count, u0, v0, ph: int, pw: int):
+    """Each row's footprint box in its aligned ph x pw window (arguments as
+    patch_sample_reference's): (c0, r0, c1, r1) i32 [V, 4], the least and
+    greatest lu = u - u0 and lv = v - v0 over the row's voxels inside the
+    window, (u0, v0) the aligned origin; an empty box (pw, ph, -1, -1) for
+    a row with none and for the rows at or past count."""
+    au, av = align_origins(u0, v0, img.shape[0], img.shape[1], ph, pw)
+    lu, lv = u - au[:, None], v - av[:, None]
+    inside = (lu >= 0) & (lu < pw) & (lv >= 0) & (lv < ph)
+    inside &= (torch.arange(u.shape[0], device=u.device) < count)[:, None]
+    return torch.stack([torch.where(inside, lu, pw).amin(1), torch.where(inside, lv, ph).amin(1),
+                        torch.where(inside, lu, -1).amax(1), torch.where(inside, lv, -1).amax(1)],
+                       1).to(torch.int32)
+
+
+def staging_plan(boxes, slot_bytes: int = SLOT_BYTES) -> dict:
+    """How the kernel stages each box of patch_boxes through ring slots of
+    slot_bytes: i64 [V] each of `width` and `height` (pixels; 0 for an
+    empty box), `strip_rows` (box rows a strip: as many 32-byte-pixel rows
+    as a slot holds), `strips` (ring turns; 0 for an empty box) and
+    `bytes` (staged)."""
+    b = boxes.long()
+    width = (b[:, 2] - b[:, 0] + 1).clamp(min=0)
+    height = (b[:, 3] - b[:, 1] + 1).clamp(min=0)
+    strip_rows = torch.minimum(height, slot_bytes // (32 * width.clamp(min=1))).clamp(min=1)
+    return {"width": width, "height": height, "strip_rows": strip_rows,
+            "strips": (height + strip_rows - 1) // strip_rows, "bytes": 32 * width * height}
+
+
+def staging_stats(img, u, v, count, u0, v0, ph: int, pw: int,
+                  slot_bytes: int = SLOT_BYTES) -> dict:
+    """What the kernel stages on these rows (arguments as
+    patch_sample_reference's): bytes in all, the bytes whole windows would
+    stage, the median and the largest box (pixels, width x height), the
+    rows whose box is staged in more than one strip, and the ring turns."""
+    n = int(count)
+    plan = {k: t[:n] for k, t in staging_plan(
+        patch_boxes(img, u, v, count, u0, v0, ph, pw), slot_bytes).items()}
+    area = plan["width"] * plan["height"]
+    big = int(area.argmax()) if n else 0
+    return {"slot_bytes": slot_bytes, "staged_bytes": int(plan["bytes"].sum()),
+            "window_bytes": 32 * ph * pw * n,
+            "box_median_px": int(area.median()) if n else 0,
+            "box_largest": [int(plan["width"][big]), int(plan["height"][big])] if n else [0, 0],
+            "rows_in_strips": int((plan["strips"] > 1).sum()),
+            "empty_rows": int((plan["strips"] == 0).sum()), "turns": int(plan["strips"].sum())}
+
+
+def patch_sample_staged(img, u, v, count, u0, v0, ph: int, pw: int,
+                        slot_bytes: int = SLOT_BYTES):
+    """The kernel's staging written out in torch, row by row: each live
+    row's box (patch_boxes) copied in strips of staging_plan's box rows
+    into a buffer of at most slot_bytes, each voxel inside the window
+    reading its pixel from the strip that holds its row -> (channels,
+    valid, skipped) as patch_sample_reference (rows at or past count:
+    channels 0, valid False)."""
+    img_h, img_w, _ = img.shape
+    au, av = align_origins(u0, v0, img_h, img_w, ph, pw)
+    boxes = patch_boxes(img, u, v, count, u0, v0, ph, pw)
+    plan = staging_plan(boxes, slot_bytes)
+    rows = u.shape[0]
+    chans = torch.zeros((rows, 512, 8), dtype=torch.float32, device=u.device)
+    valid = torch.zeros((rows, 512), dtype=torch.bool, device=u.device)
+    skipped = [0, 0]
+    for row in range(min(int(count), rows)):
+        lu, lv = u[row] - au[row], v[row] - av[row]
+        inside = (lu >= 0) & (lu < pw) & (lv >= 0) & (lv < ph)
+        in_img = (u[row] >= 0) & (u[row] < img_w) & (v[row] >= 0) & (v[row] < img_h)
+        skip = int((in_img & ~inside).sum())
+        skipped[0] += skip
+        skipped[1] += skip > 0
+        valid[row] = inside
+        c0, r0 = int(boxes[row, 0]), int(boxes[row, 1])
+        bw, sr = int(plan["width"][row]), int(plan["strip_rows"][row])
+        top, left = int(av[row]) + r0, int(au[row]) + c0
+        for s in range(int(plan["strips"][row])):
+            first = s * sr
+            strip = img[top + first:top + min(first + sr, int(plan["height"][row])),
+                        left:left + bw].contiguous()
+            assert strip.numel() * 4 <= slot_bytes
+            here = inside & ((lv - r0) // sr == s)
+            chans[row, here] = strip[(lv[here] - r0 - first).long(), (lu[here] - c0).long()]
+    return (chans.permute(2, 0, 1).contiguous(), valid,
+            torch.tensor(skipped, dtype=torch.int32, device=u.device))
+
+
 def _sample_outputs(u):
     rows = u.shape[0]
     return (torch.empty((8, rows, 512), dtype=torch.float32, device=u.device),
             torch.empty((rows, 512), dtype=torch.bool, device=u.device))
 
 
-def sample_patch(img, u, v, count, u0, v0, shape: int, rows_per_cta: int):
-    """The patch kernel at PATCH_SHAPES[shape] -> (channels, valid,
-    skipped) as patch_sample_reference."""
+def sample_patch(img, u, v, count, u0, v0, shape: int, rows_per_cta: int,
+                 slot_bytes: int = SLOT_BYTES):
+    """The patch kernel at PATCH_SHAPES[shape], rows_per_cta rows a CTA,
+    its ring's slots of slot_bytes each (a multiple of 128, at least one
+    window row; two slots, one at one row a CTA) -> (channels, valid,
+    skipped) as patch_sample_reference, which it runs for CPU tensors."""
     ph, pw = PATCH_SHAPES[shape]
+    if img.device.type == "cpu":
+        return patch_sample_reference(img, u, v, count, u0, v0, ph, pw)
+    if slot_bytes % 128 or slot_bytes < 32 * pw or slot_bytes > 98304:
+        raise ValueError(f"slot_bytes {slot_bytes}: a multiple of 128 from {32 * pw} to 98304")
+    if img.shape[0] < ph or img.shape[1] < pw or img.data_ptr() % 16:
+        raise ValueError(f"img {tuple(img.shape)} must hold a {ph}x{pw} window, 16-byte aligned")
     au, av = align_origins(u0, v0, img.shape[0], img.shape[1], ph, pw)
     chans, valid = _sample_outputs(u)
     skipped = torch.zeros(2, dtype=torch.int32, device=u.device)
     fn = build.entry(SOURCE, "dst_probe_sample_patch", [
-        _C.c_int, _P, _C.c_int, _C.c_int, _P, _P, _P, _P, _P, _C.c_int, _C.c_int, _P, _P,
-        _P, _P])
+        _C.c_int, _P, _C.c_int, _C.c_int, _P, _P, _P, _P, _P, _C.c_int, _C.c_int, _C.c_int,
+        _P, _P, _P, _P])
     with torch.cuda.device(u.device):
         err = fn(shape, build.ptr(img), img.shape[0], img.shape[1], build.ptr(u), build.ptr(v),
                  build.ptr(au), build.ptr(av), build.ptr(count), u.shape[0], rows_per_cta,
-                 build.ptr(chans), build.ptr(valid), build.ptr(skipped), build.stream_of(u))
+                 slot_bytes, build.ptr(chans), build.ptr(valid), build.ptr(skipped),
+                 build.stream_of(u))
     sample_patch.launches += 1
     build.check(err, f"probe sample_patch {ph}x{pw}")
     return chans, valid, skipped
 
 
 sample_patch.launches = 0
-
-
-def sample_mma(img, u, v, count, u0, v0, rows_per_cta: int = MMA_ROWS_PER_CTA):
-    """The one-hot u8 mma selection at the 24x32 patch -> as sample_patch."""
-    au, av = align_origins(u0, v0, img.shape[0], img.shape[1], *PATCH_SHAPES[0])
-    chans, valid = _sample_outputs(u)
-    skipped = torch.zeros(2, dtype=torch.int32, device=u.device)
-    fn = build.entry(SOURCE, "dst_probe_sample_mma", [
-        _P, _C.c_int, _C.c_int, _P, _P, _P, _P, _P, _C.c_int, _C.c_int, _P, _P, _P, _P])
-    with torch.cuda.device(u.device):
-        err = fn(build.ptr(img), img.shape[0], img.shape[1], build.ptr(u), build.ptr(v),
-                 build.ptr(au), build.ptr(av), build.ptr(count), u.shape[0], rows_per_cta,
-                 build.ptr(chans), build.ptr(valid), build.ptr(skipped), build.stream_of(u))
-    sample_mma.launches += 1
-    build.check(err, "probe sample_mma")
-    return chans, valid, skipped
-
-
-sample_mma.launches = 0
 
 
 def sample_direct(img, u, v, count, mode: int):
@@ -281,31 +365,31 @@ def _check_patch(label, got, ref, n) -> dict:
 
 
 def patch(dev, timer, img, u, v, count) -> list:
-    """P1/P2/P6 and P3: every patch shape at every rows-per-CTA, and the
-    mma selection, against the plain version; skipped voxels and rows;
+    """P1/P2/P6 and P3: every window shape at every rows-per-CTA, and P3's
+    mode (24x32, P3_ROWS_PER_CTA rows a CTA), against the plain version;
+    skipped voxels and rows; what each shape stages (staging_stats);
     bytes: u, v of the live voxels, the origins, the outputs, the frame
     once."""
     n = int(count)
     img_h, img_w, _ = img.shape
     u0, v0 = patch_origins(u, v, img_h, img_w)
     nbytes = 41 * 512 * n + 8 * n + img.numel() * 4
-    out = []
-    for shape, (ph, pw) in enumerate(PATCH_SHAPES):
-        ref = patch_sample_reference(img, u, v, count, u0, v0, ph, pw)
-        for rpc in ROWS_PER_CTA:
-            label = f"patch {ph}x{pw}, {rpc} rows a CTA"
-            res = _check_patch(label, sample_patch(img, u, v, count, u0, v0, shape, rpc), ref, n)
-            res.update(mode=label, bytes=nbytes, ms=timer(
-                lambda s=shape, r=rpc: sample_patch(img, u, v, count, u0, v0, s, r),
-                "sample_patch_kernel", nbytes))
-            out.append(res)
-    ref = patch_sample_reference(img, u, v, count, u0, v0, *PATCH_SHAPES[0])
-    label = f"mma one-hot u8 24x32, {MMA_ROWS_PER_CTA} rows a CTA"
-    res = _check_patch(label, sample_mma(img, u, v, count, u0, v0), ref, n)
-    res.update(mode=label, bytes=nbytes,
-               ms=timer(lambda: sample_mma(img, u, v, count, u0, v0), "sample_mma_kernel",
-                        nbytes))
-    out.append(res)
+    modes = [(shape, rpc, f"patch {ph}x{pw}, {rpc} rows a CTA")
+             for shape, (ph, pw) in enumerate(PATCH_SHAPES) for rpc in ROWS_PER_CTA]
+    modes.append((0, P3_ROWS_PER_CTA, "P3: patch 24x32 selected from shared memory, "
+                                      f"{P3_ROWS_PER_CTA} rows a CTA"))
+    refs, stats, out = {}, {}, []
+    for shape, rpc, label in modes:
+        if shape not in refs:
+            ph, pw = PATCH_SHAPES[shape]
+            refs[shape] = patch_sample_reference(img, u, v, count, u0, v0, ph, pw)
+            stats[shape] = staging_stats(img, u, v, count, u0, v0, ph, pw)
+        res = _check_patch(label, sample_patch(img, u, v, count, u0, v0, shape, rpc),
+                           refs[shape], n)
+        res.update(mode=label, bytes=nbytes, staging=stats[shape], ms=timer(
+            lambda s=shape, r=rpc: sample_patch(img, u, v, count, u0, v0, s, r),
+            "sample_patch_kernel", nbytes))
+        out.append(res)
     return out
 
 

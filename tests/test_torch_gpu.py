@@ -322,16 +322,19 @@ def test_feature_probe_passes_every_check(cuda):
 
 
 def test_sample_probe_modes_agree(cuda):
-    """P1-P6's Hopper counterparts: every direct, patch and mma mode and
-    every stripped stage of fuse_rows launches and agrees with its plain
-    version (run raises otherwise); pixels scattered over the frame leave
-    voxels outside the patches, skipped and counted."""
+    """P1-P6's Hopper counterparts: every direct mode, every window shape
+    at every rows-per-CTA and P3's mode, and every stripped stage of
+    fuse_rows launches and agrees with its plain version (run raises
+    otherwise); pixels scattered over the frame leave voxels outside the
+    24x32 windows, skipped and counted, and fill the 48x64 window, whose
+    box is staged in strips."""
     from disinfect_slam_tpu_torch.ops.cuda import sample_probe
 
     c = _case(cuda, seed=9)
     b = _block_case(cuda, seed=9, img_h=48, img_w=64)
     consts = dict(truncation=TRUNC, max_depth=MAX_DEPTH, max_weight=MAX_W, **b["geometry"])
     calls = []
+    before = sample_probe.sample_patch.launches
     res = sample_probe.run(
         cuda, lambda fn, name, nbytes: calls.append(name) or 0.0,
         (c["img"], c["u"], c["v"], c["count"]),
@@ -341,13 +344,87 @@ def test_sample_probe_modes_agree(cuda):
     assert len(res["p4"]) == len(sample_probe.DIRECT_MODES) + 1
     assert len(res["patch"]) == n_patch and len(res["p5"]) == len(sample_probe.FUSE_STAGES) + 1
     assert len(calls) == len(res["p4"]) + n_patch + len(res["p5"])
+    assert set(calls[len(res["p4"]):][:n_patch]) == {"sample_patch_kernel"}
+    assert sample_probe.sample_patch.launches == before + n_patch
+    assert res["patch"][-1]["mode"].startswith("P3: patch 24x32")
     assert all(r["max_abs_err"] == 0 for g in ("p4", "patch", "p5") for r in res[g]
                if "max_abs_err" in r)
     through = [r["voxels_through"] for r in res["p5"][:-1]]
     assert through[0] == 512 * int(b["count"]) and through == sorted(through, reverse=True)
-    # the 48x64 patch covers this 48x64 frame; the 24x32 one does not
+    # the 48x64 window covers this 48x64 frame; the 24x32 one does not
     assert all((r["skipped_voxels"] > 0 and r["skipped_rows"] > 0) == ("24x32" in r["mode"])
                for r in res["patch"])
+    assert all(r["staging"]["rows_in_strips"] > 0 for r in res["patch"] if "48x64" in r["mode"])
+
+
+def _patch_equal(sp, img, u, v, count, shape, rpc, slot_bytes):
+    """The patch kernel against its plain version in every output, over
+    the live rows."""
+    n = int(count)
+    u0, v0 = sp.patch_origins(u, v, img.shape[0], img.shape[1])
+    got = sp.sample_patch(img, u, v, count, u0, v0, shape, rpc, slot_bytes=slot_bytes)
+    torch.cuda.synchronize()
+    ref = sp.patch_sample_reference(img, u, v, count, u0, v0, *sp.PATCH_SHAPES[shape])
+    assert torch.equal(got[0][:, :n], ref[0][:, :n]) and torch.equal(got[1][:n], ref[1][:n])
+    assert got[2].tolist() == ref[2].tolist()
+    return got
+
+
+@pytest.mark.parametrize("rpc", (1, 3, 16))
+@pytest.mark.parametrize("shape", (0, 1))
+def test_sample_patch_strips_bit_equal(cuda, shape, rpc):
+    """A slot of one window row (and of three and a half) stages every box
+    in strips of box rows, one ring turn each: the kernel stays bit-equal
+    to its plain version in channels, valid and skipped, with rows past
+    count and a CTA's last rows cut short."""
+    from disinfect_slam_tpu_torch.ops.cuda import sample_probe as sp
+
+    ph, pw = sp.PATCH_SHAPES[shape]
+    rng = np.random.default_rng(21 + shape)
+    img_h, img_w, rows, count = 120, 160, 37, 33
+    img = rng.uniform(0, 255, (img_h, img_w, 8)).astype(np.float32)
+    spread = rng.integers(1, 2 * pw, (rows, 1))
+    u = rng.integers(-8, img_w - 4, (rows, 1)) + (rng.uniform(size=(rows, 512)) * spread).astype(int)
+    v = rng.integers(-8, img_h - 4, (rows, 1)) + (rng.uniform(size=(rows, 512)) * spread).astype(int)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)  # noqa: E731
+    img, u, v = torch.from_numpy(img).to(cuda), t(u), t(v)
+    count = torch.tensor(count, dtype=torch.int32, device=cuda)
+    u0, v0 = sp.patch_origins(u, v, img_h, img_w)
+    for slot in (32 * pw, 112 * pw, sp.SLOT_BYTES):
+        plan = sp.staging_stats(img, u, v, count, u0, v0, ph, pw, slot)
+        assert (plan["rows_in_strips"] > 0) == (slot < sp.SLOT_BYTES or shape == 1)
+        _patch_equal(sp, img, u, v, count, shape, rpc, slot)
+
+
+@pytest.mark.parametrize("shape", (0, 1))
+def test_sample_patch_empty_box_counts_skipped(cuda, shape):
+    """Rows whose voxels all lie in the image but outside their window,
+    and rows wholly off the image, between ordinary rows: an empty box
+    stages nothing and waits on nothing, its voxels come back invalid, and
+    those in the image count as skipped."""
+    from disinfect_slam_tpu_torch.ops.cuda import sample_probe as sp
+
+    rng = np.random.default_rng(5)
+    img_h, img_w, rows = 96, 160, 12
+    img = rng.uniform(0, 255, (img_h, img_w, 8)).astype(np.float32)
+    u = rng.integers(0, 14, (rows, 512)) + 40  # a 14x14 footprint: inside either window
+    v = rng.integers(0, 14, (rows, 512)) + 30
+    empty = [1, 4, 5, 9]
+    # origin (0, 0) from the two pixels' least column and row: neither lies in the window
+    u[[1, 9]] = np.where(np.arange(512) % 2, 10, 150)
+    v[[1, 9]] = np.where(np.arange(512) % 2, 90, 5)
+    u[4], v[4] = -5, 10  # wholly off the image
+    u[5], v[5] = img_w + 3, img_h + 3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)  # noqa: E731
+    img, u, v = torch.from_numpy(img).to(cuda), t(u), t(v)
+    count = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    u0, v0 = sp.patch_origins(u, v, img_h, img_w)
+    stats = sp.staging_stats(img, u, v, count, u0, v0, *sp.PATCH_SHAPES[shape])
+    assert stats["empty_rows"] == len(empty) and stats["rows_in_strips"] == 0
+    for rpc in (1, 4, 16):
+        got = _patch_equal(sp, img, u, v, count, shape, rpc, sp.SLOT_BYTES)
+        assert not got[1][empty].any() and got[1][[0, 2, 3, 6]].all()
+        assert got[2].tolist() == [2 * 512, 2]
 
 
 def _fused_grid(device):

@@ -1,8 +1,10 @@
 """PyTorch port, the Hopper probes' plain versions (ops/cuda/
-sample_probe.py): the patch modes of P1/P2/P6 select, and skip, what the
-JAX package's Pallas sampler sample_patches does in interpret mode on the
-same rows; P4's direct modes and P5's stripped stages of fuse_rows agree
-with the port's sampler and projection.  (The probe kernels are held
+sample_probe.py): the patch modes of P1/P2/P3/P6 select, and skip, what
+the JAX package's Pallas sampler sample_patches does in interpret mode on
+the same rows, and so does the patch kernel's staging written out
+(footprint boxes staged in strips through slots of a given size); P4's
+direct modes and P5's stripped stages of fuse_rows agree with the port's
+sampler and projection.  (The probe kernels are held
 against these plain versions on the card: tests/test_torch_gpu.py and
 chip_smoke.py.)"""
 
@@ -56,6 +58,130 @@ def test_patch_reference_skips_what_jax_sample_patches_skips(shape):
     skip = in_img & ~valid_j
     assert skipped.tolist() == [int(skip.sum()), int(skip.any(1).sum())]
     assert (skipped[0] > 0) == (ph == 24)  # the 48x64 patch holds every footprint
+
+
+SHAPES = pytest.mark.parametrize("shape", sp.PATCH_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+
+
+def _torch_rows(seed):
+    img, u, v = _rows(seed)
+    ut, vt = torch.from_numpy(u), torch.from_numpy(v)
+    return (torch.from_numpy(img), ut, vt, torch.tensor(COUNT, dtype=torch.int32),
+            *sp.patch_origins(ut, vt, H, W))
+
+
+def _edge_rows(seed):
+    """_rows with edge cases among the live rows: row 1's voxels all in the
+    image but outside its window (origin (0, 0) from the least column and
+    row of two pixels far apart), rows 4 and 7 wholly off the image, row
+    9 a single pixel; COUNT < V."""
+    img, u, v = _rows(seed)
+    u[1] = np.where(np.arange(512) % 2, 2, W - 3)
+    v[1] = np.where(np.arange(512) % 2, H - 3, 1)
+    u[4], v[4] = -7, 5
+    u[7], v[7] = W + 1, H + 4
+    u[9], v[9] = 70, 33
+    ut, vt = torch.from_numpy(u), torch.from_numpy(v)
+    return (torch.from_numpy(img), ut, vt, torch.tensor(COUNT, dtype=torch.int32),
+            *sp.patch_origins(ut, vt, H, W))
+
+
+def _assert_patch_equal(got, ref, n=COUNT):
+    assert torch.equal(got[0][:, :n], ref[0][:, :n])
+    assert torch.equal(got[1][:n], ref[1][:n])
+    assert got[2].tolist() == ref[2].tolist()
+
+
+@SHAPES
+def test_patch_boxes_bound_each_rows_window_voxels(shape):
+    """A row's box is the least and greatest window column and row over
+    its voxels inside the aligned window; rows past count and rows with no
+    voxel inside have the empty box."""
+    ph, pw = shape
+    img, u, v, count, u0, v0 = _edge_rows(5)
+    boxes = sp.patch_boxes(img, u, v, count, u0, v0, ph, pw).numpy()
+    au, av = (a.numpy() for a in sp.align_origins(u0, v0, H, W, ph, pw))
+    for row in range(V):
+        lu, lv = u[row].numpy() - au[row], v[row].numpy() - av[row]
+        inside = (lu >= 0) & (lu < pw) & (lv >= 0) & (lv < ph)
+        if row >= COUNT or not inside.any():
+            assert boxes[row].tolist() == [pw, ph, -1, -1], row
+        else:
+            assert boxes[row].tolist() == [lu[inside].min(), lv[inside].min(),
+                                           lu[inside].max(), lv[inside].max()], row
+    assert boxes[9].tolist() == [70 - au[9], 33 - av[9]] * 2
+    for row in (1, 4, 7):
+        assert boxes[row].tolist() == [pw, ph, -1, -1]
+
+
+@SHAPES
+@pytest.mark.parametrize("rows_a_slot", [None, 1, 3])
+def test_staging_plan_covers_each_box_within_a_slot(shape, rows_a_slot):
+    """Each strip holds at most a slot's bytes, the strips cover the box's
+    rows, and an empty box takes no turn; a slot of one or three window
+    rows takes a box of more rows in strips."""
+    ph, pw = shape
+    slot = sp.SLOT_BYTES if rows_a_slot is None else 32 * pw * rows_a_slot
+    img, u, v, count, u0, v0 = _edge_rows(6)
+    plan = sp.staging_plan(sp.patch_boxes(img, u, v, count, u0, v0, ph, pw), slot)
+    w, h, sr, strips = plan["width"], plan["height"], plan["strip_rows"], plan["strips"]
+    assert ((w > 0) == (h > 0)).all() and ((strips == 0) == (h == 0)).all()
+    assert (32 * w * sr <= slot).all() and (sr * strips >= h).all()
+    assert (sr * (strips - 1) < h.clamp(min=1)).all()
+    assert torch.equal(plan["bytes"], 32 * w * h)
+    stats = sp.staging_stats(img, u, v, count, u0, v0, ph, pw, slot)
+    assert stats["staged_bytes"] == int(plan["bytes"][:COUNT].sum()) < stats["window_bytes"]
+    assert stats["empty_rows"] == 3 and stats["turns"] == int(strips.sum())
+    assert (stats["rows_in_strips"] > 0) == (rows_a_slot is not None or ph == 48)
+
+
+@SHAPES
+@pytest.mark.parametrize("rows_a_slot", [None, 1, 3])
+def test_staged_sampling_equals_patch_reference(shape, rows_a_slot):
+    """Staging each live row's box in strips through slots of the given
+    size gives exactly patch_sample_reference's channels, valid and
+    skipped, edge rows included."""
+    ph, pw = shape
+    slot = sp.SLOT_BYTES if rows_a_slot is None else 32 * pw * rows_a_slot
+    for rows in (_torch_rows(3), _edge_rows(7)):
+        got = sp.patch_sample_staged(*rows, ph, pw, slot)
+        _assert_patch_equal(got, sp.patch_sample_reference(*rows, ph, pw))
+
+
+@SHAPES
+def test_staged_sampling_skips_what_jax_sample_patches_skips(shape):
+    """The staging written out against the JAX package's Pallas sampler in
+    interpret mode, with the edge rows: a row with no voxel in its window,
+    rows wholly off the image, a single pixel, count < rows."""
+    ph, pw = shape
+    img, u, v, count, u0, v0 = _edge_rows(8)
+    chans, valid, skipped = sp.patch_sample_staged(img, u, v, count, u0, v0, ph, pw,
+                                                   32 * pw)
+    chans_j, valid_j = sample_patches(
+        jnp.asarray(img.numpy()), jnp.asarray(u0.numpy()), jnp.asarray(v0.numpy()),
+        jnp.asarray(u.numpy()), jnp.asarray(v.numpy()), ph=ph, pw=pw, interpret=True,
+        as_channels=True, count=jnp.asarray(COUNT, jnp.int32))
+    valid_j = np.asarray(valid_j)[:COUNT]
+    np.testing.assert_array_equal(valid.numpy()[:COUNT], valid_j)
+    for c in range(8):
+        np.testing.assert_array_equal(chans[c].numpy()[:COUNT], np.asarray(chans_j[c])[:COUNT])
+    un, vn = u.numpy()[:COUNT], v.numpy()[:COUNT]
+    skip = ((un >= 0) & (un < W) & (vn >= 0) & (vn < H)) & ~valid_j
+    assert skipped.tolist() == [int(skip.sum()), int(skip.any(1).sum())]
+    assert skip[1].sum() == 512 and not valid_j[[1, 4, 7]].any() and valid_j[9].all()
+
+
+@SHAPES
+def test_sample_patch_on_cpu_tensors_is_the_plain_version(shape):
+    """The wrapper runs patch_sample_reference for CPU tensors, at any
+    rows a CTA and slot size, and counts no launch."""
+    ph, pw = shape
+    rows = _edge_rows(9)
+    before = sp.sample_patch.launches
+    got = sp.sample_patch(*rows, sp.PATCH_SHAPES.index(shape), sp.P3_ROWS_PER_CTA,
+                          slot_bytes=32 * pw)
+    _assert_patch_equal(got, sp.patch_sample_reference(*rows, ph, pw))
+    assert sp.sample_patch.launches == before
 
 
 def test_direct_references():
