@@ -119,9 +119,11 @@ exits non-zero:
      plain version's time and, where one torch call computes the same
      function, that call's device time; and the probes: of the splat
      tile (P8's A/B of the per-voxel atomics against the tile kernel,
-     P9's tile-shape sweep), the feature probe (P7: every primitive's
-     check must pass) and the probes of the sampler and of fuse_rows'
-     stages (P1-P6: K1's direct modes, the window selections staging
+     P9's tile-shape sweep), the feature probe (P7: one launch of the
+     Pallas probe's eight functions and the port's primitives, every
+     role bit-equal to its plain version and every check passed, its
+     time beside its operation bound and floors) and the probes of the
+     sampler and of fuse_rows' stages (P1-P6: K1's direct modes, the window selections staging
      each row's footprint box through a bulk-copy ring, P3's among them,
      with what each window shape stages, fuse_rows stripped stage by
      stage), each mode against its plain version; K4 at 320x240 on phase
@@ -407,6 +409,12 @@ TOL_ONLINE_PROB = 5e-3
 # the 67 TFLOP/s of float32 outside the tensor cores, whichever is larger
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# P7's floors beside its bound (csrc/feature_probe.cu): the dot's float32
+# instructions, a multiply and an add for the plain sum (-fmad=false) and
+# one fmaf, 3 x 256^3, over 132 SMs x 128 lanes at 1.98 GHz; and a sum's
+# 256 dependent adds at 4 cycles
+P7_FLOORS_MS = {"issue_floor_ms": 1e3 * 3 * 256**3 / (132 * 128 * 1.98e9),
+                "order_floor_ms": 1e3 * 256 * 4 / 1.98e9}
 # operations per voxel, counted from the sources (a division, exp, log or
 # square root counted as 8): sample_rows clips, bounds-checks and indexes
 # (12); fuse_rows projects (48 and 2 divisions) and fuses (60 and 9
@@ -5517,8 +5525,11 @@ def probe_launches(splat_probe, feature_probe, sp) -> list:
 def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
     """Phase 7: the probes, each kernel timed by its device time: P8/P9 of
     splat_zbuf_blocks' tile (splat_probe, on phase 2's block rows at
-    640x480 and 1080p), P7's primitives (feature_probe: every check must
-    pass; its kernels' device time and its plain torch version's), and
+    640x480 and 1080p), P7 (feature_probe: the Pallas probe's eight
+    functions and the port's primitives as one launch, every role
+    bit-equal to the plain version on the card and every check passed;
+    its device time beside its bound and floors, and its plain torch
+    version's), and
     P1-P6 (sample_probe: K1's direct modes, the window selections with
     P3's, what each window stages beside K1's direct time, and fuse_rows'
     stages, each against its plain version, at K1's and fuse_rows' phase
@@ -5541,14 +5552,23 @@ def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
                                    f"{r[k]['branches']})" for k in ("640x480", "1080p"))
             + "; launches and agrees")
 
+    launches = feature_probe.launch.launches
     checks = feature_probe.run(dev)
-    kernels_fn, plain_fn, nbytes = feature_probe.timed_pair(dev)
-    probe["p7"] = {"checks": checks, "ms": probe_timer(kernels_fn, "feature_", nbytes),
-                   "plain_ms": cuda_time_ms(plain_fn), **bound(nbytes, 0),
-                   "max_abs_err": max(r["max_abs_err"] for r in checks.values())}
-    log(f"[chip_smoke] probe P7: every check passed {checks}; its kernels "
-        f"{probe['p7']['ms']:.4f} ms of device time, the torch version "
-        f"{probe['p7']['plain_ms']:.4f} ms")
+    if feature_probe.launch.launches != launches + 1:
+        raise AssertionError("probe P7: run launched "
+                             f"{feature_probe.launch.launches - launches} kernels, not one")
+    kernel_fn, plain_fn, nbytes, ops = feature_probe.timed_pair(dev)
+    p7 = {"checks": checks, **bound(nbytes, ops), **P7_FLOORS_MS,
+          "max_abs_err": max(r["max_abs_err"] for r in checks.values())}
+    p7["ms"] = kernel_ms(kernel_fn, "feature_", floor_ms=p7["bound_ms"])
+    p7["plain_ms"] = cuda_time_ms(plain_fn)
+    probe["p7"] = p7
+    log(f"[chip_smoke] probe P7: one launch, every role bit-equal to the plain version on the "
+        f"card and every check passed {checks}; {p7['ms']:.4f} ms of device time, bound "
+        f"{p7['bound_ms']:.4f} ms by {p7['bound_by']} ({p7['bytes'] / 1e6:.2f} MB, "
+        f"{p7['ops'] / 1e6:.1f} M float32 operations), {p7['bound_ms'] / p7['ms']:.1%} of it; "
+        f"issue floor {p7['issue_floor_ms']:.4f} ms, order floor {p7['order_floor_ms']:.4f} ms; "
+        f"the torch version {p7['plain_ms']:.4f} ms ({card_name_and_power()})")
 
     img, u, v = make_frame(np.random.default_rng(7), H, W, dev)
     count = torch.tensor(COUNT, dtype=torch.int32, device=dev)
@@ -5626,7 +5646,8 @@ def probe_kernels(probe, launches: dict) -> list:
               "scripts/probe_kernel_stages.py:187", stage, sample["plain_ms"]["fuse_stage"],
               stage["stage"], launches["fuse_stage"], worst(sample["p5"])),
         {"name": "probe feature kernels (P7)", "route": "cuda", "source": src + "feature_probe.cu",
-         "replaces": "scripts/probe_mosaic_features.py:39", "launches": launches["launch"],
+         "replaces": "scripts/probe_mosaic_features.py:39,57,76,91,104,116,128,139",
+         "launches": launches["launch"],
          "max_abs_err": p7["max_abs_err"], "ms": p7["ms"], "plain_ms": p7["plain_ms"],
          "bound_ms": p7["bound_ms"], "bound_by": p7["bound_by"], "library_ms": None},
     ]

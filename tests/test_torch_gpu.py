@@ -310,15 +310,49 @@ def test_splat_probes_agree(cuda):
 
 
 def test_feature_probe_passes_every_check(cuda):
-    """P7's Hopper counterpart: every primitive compiles, launches and
-    gives the numerics its check expects (run raises otherwise)."""
+    """P7's Hopper counterpart: one launch computes every role (the Pallas
+    probe's eight functions and the port's primitives), each bit-equal to
+    the plain version on the card, the fmaf rows too (fma32), and to
+    numpy's expectations (run raises otherwise)."""
     from disinfect_slam_tpu_torch.ops.cuda import feature_probe
 
     before = feature_probe.launch.launches
     res = feature_probe.run(cuda)
-    assert set(res) == {fn.__name__ for fn in feature_probe.CHECKS}
-    assert all(r["ok"] and r["max_abs_err"] == 0 for r in res.values())
-    assert feature_probe.launch.launches == before + len(feature_probe.CHECKS)
+    assert set(res) == set(feature_probe.CHECKS)
+    assert all(r["ok"] and r["plain_bits_equal"] and r["max_abs_err"] == 0
+               for r in res.values())
+    assert res["f32_dot"]["fma_differs_from_plain"] > 0
+    assert feature_probe.launch.launches == before + 1
+
+
+def test_feature_probe_global_atomics_span_ctas(cuda):
+    """P7's global atomics role spans several CTAs: every slot takes
+    values from more than one of them, some slots' winners come from a
+    CTA after the first, and the merges meet exactly in global memory on
+    every launch (the last CTA resets the ticket; the initial rows, merged
+    in place, leave the result unchanged)."""
+    from disinfect_slam_tpu_torch.ops.cuda import feature_probe as fp
+
+    ctas = dict(fp.ROLES)["atomics_global"]
+    assert ctas > 1
+    own = fp.own_inputs()
+    vals, slots = own["atomics.vals"], own["atomics.slots"]
+    owner = np.arange(fp.VALUES) // (fp.VALUES // ctas)
+    winners = []
+    for s in range(fp.SLOTS):
+        assert len(set(owner[slots == s])) > 1
+        winners.append(owner[slots == s][np.argmin(vals[slots == s])])
+    assert max(winners) > 0
+    inp = torch.from_numpy(fp.pack(fp.pallas_inputs(), own)).to(cuda)
+    out = fp.LAYOUT["out"]["atomics_global"]
+    want = fp.region(fp.feature_probe_reference(inp).cpu().numpy(), out)
+    before = fp.launch.launches
+    for _ in range(3):
+        assert np.array_equal(fp.region(fp.launch(inp).cpu().numpy(), out), want)
+    assert fp.launch.launches == before + 3
+    assert fp.region(inp.cpu().numpy(), fp.LAYOUT["in"]["atomics_global.ticket"])[0] == 0
+    init = fp.region(inp.cpu().numpy(), fp.LAYOUT["in"]["atomics_global.init"])
+    assert np.array_equal(init[:, :, 0], want)
 
 
 def test_sample_probe_modes_agree(cuda):
