@@ -117,16 +117,23 @@ exits non-zero:
      yardsticks: its device time (and one call's, CUDA events) beside its
      bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s), its
      plain version's time and, where one torch call computes the same
-     function, that call's device time; and the probes: of the splat
-     tile (P8's A/B of the per-voxel atomics against the tile kernel,
-     P9's tile-shape sweep), the feature probe (P7: one launch of the
-     Pallas probe's eight functions and the port's primitives, every
-     role bit-equal to its plain version and every check passed, its
-     time beside its operation bound and floors) and the probes of the
-     sampler and of fuse_rows' stages (P1-P6: K1's direct modes, the window selections staging
-     each row's footprint box through a bulk-copy ring, P3's among them,
-     with what each window shape stages, fuse_rows stripped stage by
-     stage), each mode against its plain version; K4 at 320x240 on phase
+     function, that call's device time; and the probes: K4's own
+     instruments (the per-voxel atomics against the tile kernel, the
+     tile-shape sweep), P8 and P9 (the Pallas z-buffer from the scripts'
+     own inputs, every function bit-equal to its plain version on the
+     card and to probe_splat2.py main's numpy z-buffer, the shared patch
+     against one atomic a footprint pixel), the feature probe (P7: one
+     launch of the Pallas probe's eight functions and the port's
+     primitives, every role bit-equal to its plain version and every
+     check passed, its time beside its operation bound and floors), P4
+     and P5 (the Pallas sampler's modes on the scripts' own inputs, every
+     mode bit-equal to its plain version on the card), and the window
+     selections (P1-P3, P6: each row's footprint box staged through a
+     bulk-copy ring, with what each window shape stages) beside the
+     port's instruments of K1 (its direct modes) and of K2 (fuse_rows
+     stripped stage by stage), each mode against its plain version; each
+     probe kernel beside its bound, its plain version and, where one
+     torch call computes it, that call; K4 at 320x240 on phase
      8's SLAM volume (its bound, its plain version, scatter_reduce
      "amin"); the ICP kernel
      (icp_step) at each pyramid level of orbit_vga at track_res_scale 1 and
@@ -5518,40 +5525,61 @@ def probe_timer(fn, name, nbytes=0) -> float:
 
 def probe_launches(splat_probe, feature_probe, sp) -> list:
     """The probe wrappers that count their launches."""
-    return [splat_probe.zbuf_atomic, splat_probe.zbuf_tile, feature_probe.launch,
-            sp.sample_patch, sp.sample_direct, sp.fuse_stage]
+    return [splat_probe.zbuf_atomic, splat_probe.zbuf_tile, splat_probe.splat_zbuf_given,
+            feature_probe.launch, sp.sample_patch, sp.sample_direct, sp.fuse_stage,
+            sp.sample_modes]
 
 
 def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
-    """Phase 7: the probes, each kernel timed by its device time: P8/P9 of
-    splat_zbuf_blocks' tile (splat_probe, on phase 2's block rows at
-    640x480 and 1080p), P7 (feature_probe: the Pallas probe's eight
-    functions and the port's primitives as one launch, every role
-    bit-equal to the plain version on the card and every check passed;
-    its device time beside its bound and floors, and its plain torch
-    version's), and
-    P1-P6 (sample_probe: K1's direct modes, the window selections with
-    P3's, what each window stages beside K1's direct time, and fuse_rows'
-    stages, each against its plain version, at K1's and fuse_rows' phase
-    2 rows)."""
+    """Phase 7: the probes, each kernel timed by its device time: K4's
+    instruments (splat_probe, on phase 2's block rows at 640x480 and
+    1080p: the per-voxel atomics against the tile, the tile-shape sweep),
+    P8 and P9 (splat_probe.run_given: the Pallas z-buffer from the
+    scripts' own inputs, every function bit-equal to its plain version on
+    the card and to probe_splat2.py main's numpy z-buffer), P7 (feature_probe: the
+    Pallas probe's eight functions and the port's primitives as one
+    launch, every role bit-equal to the plain version on the card and
+    every check passed; its device time beside its bound and floors, and
+    its plain torch version's), P4 and P5 (sample_probe.run_modes: the
+    Pallas sampler's modes on the scripts' own inputs, every mode
+    bit-equal to its plain version on the card), and P1-P3 and P6 with
+    the port's instruments of K1 and K2 (sample_probe.run: K1's direct
+    modes, the window selections with P3's, what each window stages
+    beside K1's direct time, and fuse_rows' stages, each against its
+    plain version, at K1's and fuse_rows' phase 2 rows)."""
     t0 = time.perf_counter()
     cases = {"640x480": make_splat_blocks(3, H, W, dev),
              "1080p": make_splat_blocks(4, 1080, 1920, dev)}
     probe = splat_probe.run(dev, probe_timer, cases)
     del cases
     torch.cuda.empty_cache()
-    p8 = probe["p8"]
-    log(f"[chip_smoke] probe P8 (block rows, S={p8['rows']}, count {p8['count']}, "
-        f"{p8['image'][1]}x{p8['image'][0]}): per-voxel atomics {p8['atomic_ms']:.4f} ms, "
-        f"tile kernel {p8['tile_ms']:.4f} ms, both bit-equal to the plain scatter-min; tile "
-        f"rows on the tile / atomic branch {p8['tile_branches']}")
-    for r in probe["p9"]:
-        log(f"[chip_smoke] probe P9 tile {r['tile'][0]}x{r['tile'][1]}: {r['registers']} "
+    ab = probe["k4_ab"]
+    log(f"[chip_smoke] K4's A/B (block rows, S={ab['rows']}, count {ab['count']}, "
+        f"{ab['image'][1]}x{ab['image'][0]}): per-voxel atomics {ab['atomic_ms']:.4f} ms, "
+        f"tile kernel {ab['tile_ms']:.4f} ms, both bit-equal to the plain scatter-min; tile "
+        f"rows on the tile / atomic branch {ab['tile_branches']}")
+    for r in probe["k4_tiles"]:
+        log(f"[chip_smoke] K4's tile sweep {r['tile'][0]}x{r['tile'][1]}: {r['registers']} "
             f"registers, {r['local_bytes']} local (spill) bytes, {r['shared_bytes']} shared "
             f"bytes; " + "; ".join(f"{k} rows {r[k]['ms']:.4f} ms (branches "
                                    f"{r[k]['branches']})" for k in ("640x480", "1080p"))
             + "; launches and agrees")
 
+    given = splat_probe.run_given(dev, probe_timer)
+    for name, g in given.items():
+        g.update(bound(g["bytes"], 0))
+        head = g["functions"][g["head"]]
+        log(f"[chip_smoke] probe {name} (S={g['blocks']}, {g['footprint_pixels']} footprint "
+            f"pixels, {g['numpy_zbuf_set']} z-buffer pixels set): "
+            + "; ".join(f"{f} {r['ms']:.4f} ms (mode {r['kernel_mode']}, "
+                        f"{r['pixels_set']} set)" for f, r in g["functions"].items())
+            + f"; every function bit-equal to its plain version, "
+            f"{'/'.join(splat_probe.NUMPY_EQUAL)} to main's numpy z-buffer, those that merge "
+            f"nothing to the fill; {g['head']} {head['ms']:.4f} ms against a bound of "
+            f"{g['bound_ms']:.4f} ms ({g['bytes'] / 1e6:.2f} MB), "
+            f"{g['bound_ms'] / head['ms']:.1%} of it; plain {g['plain_ms']:.4f} ms; "
+            f"scatter_reduce amin {g['library_ms']:.4f} ms ({card_name_and_power()})")
+    probe["given"] = given
     launches = feature_probe.launch.launches
     checks = feature_probe.run(dev)
     if feature_probe.launch.launches != launches + 1:
@@ -5570,6 +5598,20 @@ def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
         f"issue floor {p7['issue_floor_ms']:.4f} ms, order floor {p7['order_floor_ms']:.4f} ms; "
         f"the torch version {p7['plain_ms']:.4f} ms ({card_name_and_power()})")
 
+    modes = sp.run_modes(dev, probe_timer)
+    for name, m in modes.items():
+        for r in m["functions"].values():
+            r.update(bound(r["bytes"], 0))
+        head = m["functions"][m["head"]]
+        log(f"[chip_smoke] probe {name} ({m['rows']} rows, {m['rows_computed']} computed): "
+            + "; ".join(f"{k} {r['ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB, bound "
+                        f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%})"
+                        for k, r in m["functions"].items())
+            + f"; every mode bit-equal to its plain version; {m['head']} {head['ms']:.4f} ms; "
+            f"plain {m['plain_ms']:.4f} ms; the index_select gather {m['library_ms']:.4f} ms "
+            f"({card_name_and_power()})")
+    probe["modes"] = modes
+
     img, u, v = make_frame(np.random.default_rng(7), H, W, dev)
     count = torch.tensor(COUNT, dtype=torch.int32, device=dev)
     fimg, block_pos, pool_idx, geometry = block_rows(1, H, W, False, dev)
@@ -5578,18 +5620,19 @@ def probes(dev, splat_probe, feature_probe, sp, fuse_kernel) -> dict:
     res = sp.run(dev, probe_timer, (img, u, v, count),
                  (fimg, block_pos, pool_idx, count, pool, consts),
                  fuse_kernel.fuse_rows)
-    for group in ("p4", "patch", "p5"):
+    labels = {"k1_direct": "K1's split", "patch": "probe patch", "k2_stages": "K2's stages"}
+    for group in ("k1_direct", "patch", "k2_stages"):
         for r in res[group]:
             if "bytes" in r:
                 r.update(bound(r["bytes"], 0))
-            log(f"[chip_smoke] probe {group} {r.get('mode', r.get('stage'))}: {r['ms']:.4f} ms"
+            log(f"[chip_smoke] {labels[group]} {r.get('mode', r.get('stage'))}: {r['ms']:.4f} ms"
                 + (f", bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB), "
                    f"{r['bound_ms'] / r['ms']:.1%} of it" if "bound_ms" in r else "")
                 + (f"; skipped {r['skipped_voxels']} voxels in {r['skipped_rows']} rows"
                    if "skipped_voxels" in r else "")
                 + (f"; voxels let through {r['voxels_through']}"
                    if "voxels_through" in r else ""))
-    k1 = next(r for r in res["p4"] if r["mode"] == "full")
+    k1 = next(r for r in res["k1_direct"] if r["mode"] == "full")
     for ph, pw in sp.PATCH_SHAPES:
         st = next(r for r in res["patch"] if r["mode"].startswith(f"patch {ph}x{pw}"))["staging"]
         log(f"[chip_smoke] probe patch {ph}x{pw} staging: {st['staged_bytes'] / 1e6:.1f} MB "
@@ -5625,13 +5668,19 @@ def probe_kernels(probe, launches: dict) -> list:
     worst = lambda rows: max(r["max_abs_err"] for r in rows if "max_abs_err" in r)  # noqa: E731
     patch = pick("patch", "mode", "patch 24x32, 4 rows a CTA")
     p3 = sample["patch"][-1]
-    direct = pick("p4", "mode", "full")
-    stage = pick("p5", "stage", "ring")
+    direct = pick("k1_direct", "mode", "full")
+    stage = pick("k2_stages", "stage", "ring")
     entry = lambda name, source, replaces, r, plain, mode, n, err: {  # noqa: E731
         "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
         "launches": n, "max_abs_err": err, "ms": r["ms"], "plain_ms": plain,
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "mode": mode}
     p7 = probe["p7"]
+    given, modes = probe["given"], probe["modes"]
+    p8, p9 = given["P8"], given["P9"]
+    p4, p5 = modes["P4"], modes["P5"]
+    p4_head, p5_head = p4["functions"][p4["head"]], p5["functions"][p5["head"]]
+    given_err = max(r["max_abs_err"] for g in given.values() for r in g["functions"].values())
+    modes_err = max(r["max_abs_err"] for m in modes.values() for r in m["functions"].values())
     return [
         entry("probe sample_patch_kernel (P1/P2/P6)", "sample_probe.cu",
               "scripts/probe_sample2.py:132", patch, sample["plain_ms"]["patch"], patch["mode"],
@@ -5639,17 +5688,36 @@ def probe_kernels(probe, launches: dict) -> list:
         entry("probe sample_patch_kernel (P3)", "sample_probe.cu", "scripts/probe_sample4.py:132",
               p3, sample["plain_ms"]["patch"], p3["mode"], launches["sample_patch"],
               p3["max_abs_err"]),
-        entry("probe sample_direct_kernel (P4)", "sample_probe.cu",
-              "scripts/probe_sample_overhead.py:131", direct, sample["plain_ms"]["direct"],
-              direct["mode"], launches["sample_direct"], worst(sample["p4"])),
-        entry("probe fuse_rows_kernel stages (P5)", "fuse_rows.cuh",
-              "scripts/probe_kernel_stages.py:187", stage, sample["plain_ms"]["fuse_stage"],
-              stage["stage"], launches["fuse_stage"], worst(sample["p5"])),
+        {**entry("probe sample_modes_kernel (P4/P5)", "sample_probe.cu",
+                 "scripts/probe_sample_overhead.py:131; scripts/probe_kernel_stages.py:187,216",
+                 p4_head, p4["plain_ms"], f"P4 {p4['head']} at V = {p4['rows']}",
+                 launches["sample_modes"], modes_err),
+         "library_ms": p4["library_ms"],
+         "ms_p5": p5_head["ms"], "bound_ms_p5": p5_head["bound_ms"], "plain_ms_p5": p5["plain_ms"],
+         "library_ms_p5": p5["library_ms"], "mode_p5": f"P5 {p5['head']} at count "
+                                                       f"{p5['rows_computed']}"},
+        entry("probe sample_direct_kernel (K1's split)", "sample_probe.cu",
+              "none: the port's own instrument of K1 (disinfect_slam_tpu/ops/pallas/"
+              "sample_kernel.py:359)", direct, sample["plain_ms"]["direct"], direct["mode"],
+              launches["sample_direct"], worst(sample["k1_direct"])),
+        entry("probe fuse_rows_kernel stages (K2's stages)", "fuse_rows.cuh",
+              "none: the port's own instrument of K2 (disinfect_slam_tpu/ops/pallas/"
+              "fuse_kernel.py:262)", stage, sample["plain_ms"]["fuse_stage"], stage["stage"],
+              launches["fuse_stage"], worst(sample["k2_stages"])),
         {"name": "probe feature kernels (P7)", "route": "cuda", "source": src + "feature_probe.cu",
          "replaces": "scripts/probe_mosaic_features.py:39,57,76,91,104,116,128,139",
          "launches": launches["launch"],
          "max_abs_err": p7["max_abs_err"], "ms": p7["ms"], "plain_ms": p7["plain_ms"],
          "bound_ms": p7["bound_ms"], "bound_by": p7["bound_by"], "library_ms": None},
+        {"name": "probe splat_zbuf_given_kernel (P8/P9)", "route": "cuda",
+         "source": src + "splat_probe.cu",
+         "replaces": "scripts/probe_splat2.py:91,121,191; scripts/probe_splat2b.py:80",
+         "launches": launches["splat_zbuf_given"], "max_abs_err": given_err,
+         "ms": p8["functions"][p8["head"]]["ms"], "plain_ms": p8["plain_ms"],
+         "bound_ms": p8["bound_ms"], "bound_by": p8["bound_by"], "library_ms": p8["library_ms"],
+         "mode": f"P8 {p8['head']} at S = {p8['blocks']}",
+         "ms_p9": p9["functions"][p9["head"]]["ms"], "bound_ms_p9": p9["bound_ms"],
+         "plain_ms_p9": p9["plain_ms"], "library_ms_p9": p9["library_ms"]},
     ]
 
 

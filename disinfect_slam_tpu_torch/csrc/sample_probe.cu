@@ -1,52 +1,35 @@
 // Hopper probes of the frame sampler (K1, sample_rows.cu) and of the
-// stages of fuse_rows (K2): the counterparts of the TPU probes
-// scripts/probe_sample2.py, probe_sample3.py, probe_sample4.py (P1-P3),
-// probe_sample_overhead.py (P4), probe_kernel_stages.py (P5) and
-// probe_mxu_shapes.py (P6), run by ops/cuda/sample_probe.py.
+// stages of fuse_rows (K2), run by ops/cuda/sample_probe.py: the
+// counterparts of the TPU probes scripts/probe_sample2.py,
+// probe_sample3.py, probe_sample4.py (P1-P3), probe_sample_overhead.py
+// (P4), probe_kernel_stages.py (P5) and probe_mxu_shapes.py (P6), and the
+// port's own instruments of K1 and K2.
 //
-// P4 split K1's time into its pixel loads and its writes.  Here:
-// sample_direct_kernel<mode>, K1's body (kFull), its pixel loads with one
-// word written per voxel (kLoadsOnly: the xor of the pixel's eight words)
-// and its writes without a pixel load (kWritesOnly).
+// P4 and P5 split the Pallas sampler into stripped modes, on inputs of
+// their own: a random 480x640x8 frame, rows whose patch origin (u0, v0)
+// lies on a 16 / 8 pixel grid and whose 512 voxels lie within 16 pixels
+// of it.  Each mode writes 8 channel planes and a valid plane (vmask, the
+// voxel inside the 24x32 patch), [V, 512] float32 each: P4 over all V
+// rows nodma (vmask * c), dma_only (vmask times the patch's pixel (u0,
+// v0)), stage1 (the pixel (u0, v0 + lv_c) through three bf16 splits) and
+// full (the pixel (u0 + lu_c, v0 + lv_c) through three splits, which is
+// the pixel itself); P5 over the 16-row steps whose first row lies below
+// a live count read from device memory dma_only (lu_c), mxu (column 0's
+// pixel through two splits, hi + mid, unmasked), mask_fold and vmem_img
+// (the pixel through two splits, masked).  Here: sample_modes_kernel<Mode>,
+// each thread four voxels (one 16-byte load of u and of v, two float4 of
+// each pixel, nine float4 stores).  It is bound by its writes: P4 writes
+// 604 MB and reads 134 MB (0.223 ms at 3.35 TB/s), P5 412 MB of 513 MB
+// (0.153 ms).  The stores stream (__stcs) and so do the coordinate loads
+// (__ldcs), so that the 9.8 MB frame stays in L2 for the pixel loads.
+// The splits are __float2bfloat16_rn and back, added in float32 in the
+// probes' order, (hi + mid) + lo.
 //
-// P1, P2 and P6 tuned the TPU's patch selection (blocks per grid step, the
-// patch layout, the one-hot matmul shapes); P3 selected through exact
-// one-hot matmuls on the MXU, the TPU's stand-in for a gather.  All four
-// compute the exact samples of each block's aligned PH x PW window (origin
-// the block's lowest in-image pixel, rounded down to 16 columns and 8 rows,
-// clipped into the image, as ops/pallas/sample_kernel.py aligns it): a
-// voxel in the image but outside the window comes back invalid and is
-// counted (the TPU's sampler_skipped: voxels, and rows with any).
-//
-// Here sample_patch_kernel<PH, PW, Slots> (24x32 and 48x64; P3 is the
-// 24x32 one at 4 rows a CTA: on Hopper the gather is a shared-memory load,
-// and the one-hot form's 4096 int8 mma.sync a row would cost 37.5% of the
-// byte bound alone).  What bounds it is the bytes moved: staging a whole
-// window, one bulk copy a window row, moved 98 KB a row at 48x64 from L2
-// and held L2-bound with no overlap.  So each row first reduces its
-// voxels inside the window to their box (min and max of lu = u - u0 and
-// lv = v - v0, by warp reductions), and only the box is staged, one bulk
-// copy a box row (a pixel is 32 B, so every width meets the copy's
-// 16-byte rule), through a ring of slots of slot_bytes each: with two
-// slots the copy of the CTA's next strip or row is issued before the
-// current one is selected, and the pixels of the row after next load
-// meanwhile.  A box taller than a slot holds is staged in strips of box
-// rows, one ring turn each, and each voxel selects in the strip that holds
-// its row.  Each slot has its own mbarrier, armed by one producer (warp 0)
-// a round, and the turn's parity is its round; a row with an empty box
-// stages nothing and waits on nothing.  rows_per_cta consecutive rows a
-// CTA (1, 4, 16: P1's batching) walk one ring; a CTA of one row has no next
-// row to overlap and takes a one-slot ring, so more of them fit an SM.
-// The row's box reduction is the one barrier a row in steady state: it
-// also frees the slot the row before read.  256 threads of two voxels
-// each: the registers of one voxel a thread at 512 threads a CTA left two
-// CTAs an SM, and spilling to fit more was slower still.
-//
-// P5 attributed the TPU kernel's time to its stages.  Here:
-// fuse_rows_kernel<kStage> (fuse_rows.cuh) stripped to the ring of pool
-// rows (0), with the projection (1), with the frame sampling (2), each
-// writing back unchanged the pool words of the voxels it lets through;
-// the fusion (3) is fuse_rows itself, built in fuse_rows.cu.
+// The port's instrument of K1 split its time into its pixel loads and its
+// writes: sample_direct_kernel<mode>, K1's body (kFull), its pixel loads
+// with one word written per voxel (kLoadsOnly: the xor of the pixel's
+// eight words) and its writes without a pixel load (kWritesOnly).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -324,9 +307,88 @@ int launch_patch(const float* img, int img_h, int img_w, const int* us, const in
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- P4 / P5: the Pallas sampler's modes on their own inputs ---
+
+constexpr int kProbePH = 24, kProbePW = 32, kTileRows = 16;
+constexpr int kModesThreads = 256, kModesPer = 4;  // four voxels a thread
+// kernel modes: P4 nodma, dma_only, stage1, full; P5 dma_only, mxu,
+// mask_fold (= vmem_img)
+constexpr int kNoDma = 0, kOrigin = 1, kStage1 = 2, kFull3 = 3, kLuC = 4, kMxu = 5, kFold2 = 6;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x through Splits bf16 splits, summed in float32 in the probes' order
+template <int Splits>
+__device__ __forceinline__ float splits(float x) {
+  const float hi = bf16_round(x);
+  const float r1 = __fsub_rn(x, hi);
+  const float mid = bf16_round(r1);
+  if constexpr (Splits == 2) return __fadd_rn(hi, mid);
+  return __fadd_rn(__fadd_rn(hi, mid), bf16_round(__fsub_rn(r1, mid)));
+}
+
+template <int Mode>
+__global__ void __launch_bounds__(kModesThreads) sample_modes_kernel(
+    const float* __restrict__ img, int img_h, int img_w, const int* __restrict__ us,
+    const int* __restrict__ vs, const int* __restrict__ pu0, const int* __restrict__ pv0,
+    const int* __restrict__ count, int rows, float* __restrict__ out) {
+  constexpr bool kColLu = Mode == kFull3 || Mode == kFold2;
+  constexpr bool kRowLv = Mode != kOrigin;
+  const int quad = blockIdx.x * kModesThreads + threadIdx.x;
+  const int row = quad / (kVoxels / kModesPer);
+  if (row >= rows) return;
+  // P5: the grid step of 16 rows runs when its first row is below count
+  if (count != nullptr && (row & ~(kTileRows - 1)) >= __ldg(count)) return;
+  const int u0 = __ldg(pu0 + row), v0 = __ldg(pv0 + row);
+  const int4 u4 = __ldcs(reinterpret_cast<const int4*>(us) + quad);
+  const int4 v4 = __ldcs(reinterpret_cast<const int4*>(vs) + quad);
+  const int uu[kModesPer] = {u4.x, u4.y, u4.z, u4.w};
+  const int vv[kModesPer] = {v4.x, v4.y, v4.z, v4.w};
+  float o[kChannels + 1][kModesPer];
+#pragma unroll
+  for (int k = 0; k < kModesPer; ++k) {
+    // int32 differences wrap, as the probes' do
+    const int lu = static_cast<int>(static_cast<unsigned>(uu[k]) - static_cast<unsigned>(u0));
+    const int lv = static_cast<int>(static_cast<unsigned>(vv[k]) - static_cast<unsigned>(v0));
+    const float vmask = lu >= 0 && lu < kProbePW && lv >= 0 && lv < kProbePH ? 1.f : 0.f;
+    const int lu_c = min(max(lu, 0), kProbePW - 1), lv_c = min(max(lv, 0), kProbePH - 1);
+    o[kChannels][k] = vmask;
+    if constexpr (Mode == kNoDma) {
+#pragma unroll
+      for (int c = 0; c < kChannels; ++c) o[c][k] = __fmul_rn(vmask, static_cast<float>(c));
+    } else if constexpr (Mode == kLuC) {
+#pragma unroll
+      for (int c = 0; c < kChannels; ++c) o[c][k] = static_cast<float>(lu_c);
+    } else {
+      // the pixel, clamped into the frame (the probes' inputs never leave it)
+      const long long pu = static_cast<long long>(u0) + (kColLu ? lu_c : 0);
+      const long long pv = static_cast<long long>(v0) + (kRowLv ? lv_c : 0);
+      const int col = static_cast<int>(min(max(pu, 0LL), static_cast<long long>(img_w - 1)));
+      const int line = static_cast<int>(min(max(pv, 0LL), static_cast<long long>(img_h - 1)));
+      const float4* px = reinterpret_cast<const float4*>(
+          img + (static_cast<size_t>(line) * img_w + col) * kChannels);
+      const float4 a = __ldg(px), b = __ldg(px + 1);
+      const float s[kChannels] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int c = 0; c < kChannels; ++c) {
+        float x = s[c];
+        if constexpr (Mode == kStage1 || Mode == kFull3) x = splits<3>(x);
+        if constexpr (Mode == kMxu || Mode == kFold2) x = splits<2>(x);
+        o[c][k] = Mode == kMxu ? x : __fmul_rn(x, vmask);
+      }
+    }
+  }
+  const size_t plane = static_cast<size_t>(rows) * kVoxels;
+#pragma unroll
+  for (int c = 0; c <= kChannels; ++c)
+    __stcs(reinterpret_cast<float4*>(out + c * plane) + quad,
+           make_float4(o[c][0], o[c][1], o[c][2], o[c][3]));
+}
 }  // namespace
 
-// P4: mode 0 K1's body, 1 pixel loads with one word written, 2 writes only
+// K1's split: mode 0 K1's body, 1 pixel loads with one word written, 2 writes only
 extern "C" int dst_probe_sample_direct(int mode, const float* img, int img_h, int img_w,
                                        const int* us, const int* vs, const int* count,
                                        int rows, float* out, uint8_t* valid, uint32_t* words,
@@ -365,7 +427,7 @@ extern "C" int dst_probe_sample_patch(int shape, const float* img, int img_h, in
   }
 }
 
-// P5: fuse_rows_kernel<stage> for stage 0, 1, 2 (the arguments of
+// K2's stages: fuse_rows_kernel<stage> for stage 0, 1, 2 (the arguments of
 // dst_fuse_rows; the pool words keep their values)
 extern "C" int dst_probe_fuse_stage(int stage, const float* img, int img_h, int img_w,
                                     const int* block_pos, const int* pool_idx,
@@ -391,4 +453,35 @@ extern "C" int dst_probe_fuse_stage(int stage, const float* img, int img_h, int 
                                        max_weight, prob_eps, prob_hi, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// P4 / P5: mode 0-3 P4's nodma, dma_only, stage1, full; 4-6 P5's
+// dma_only, mxu, mask_fold (vmem_img); img f32 [img_h, img_w, 8]; us, vs
+// i32 [rows, 512]; pu0, pv0 i32 [rows] the patch origins; count i32 [1]
+// (P5) or null (P4: every row); out f32 [9, rows, 512]; rows a multiple
+// of 16, img, us, vs and out 16-byte aligned
+extern "C" int dst_probe_sample_modes(int mode, const float* img, int img_h, int img_w,
+                                      const int* us, const int* vs, const int* pu0,
+                                      const int* pv0, const int* count, int rows, float* out,
+                                      void* stream) {
+  if (rows < 0 || rows % kTileRows || img_h < 1 || img_w < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ctas = rows * (kVoxels / kModesPer) / kModesThreads;
+  const auto go = [&](auto kernel) {
+    kernel<<<ctas, kModesThreads, 0, s>>>(img, img_h, img_w, us, vs, pu0, pv0, count, rows,
+                                          out);
+  };
+  switch (mode) {
+    case kNoDma: go(sample_modes_kernel<kNoDma>); break;
+    case kOrigin: go(sample_modes_kernel<kOrigin>); break;
+    case kStage1: go(sample_modes_kernel<kStage1>); break;
+    case kFull3: go(sample_modes_kernel<kFull3>); break;
+    case kLuC: go(sample_modes_kernel<kLuC>); break;
+    case kMxu: go(sample_modes_kernel<kMxu>); break;
+    case kFold2: go(sample_modes_kernel<kFold2>); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,15 @@
-"""Hopper probes of the frame sampler (K1) and of fuse_rows' stages (K2),
-the counterparts of the TPU probes P1-P6 (scripts/probe_sample2.py,
-probe_sample3.py, probe_sample4.py, probe_sample_overhead.py,
-probe_kernel_stages.py, probe_mxu_shapes.py).  Source:
-csrc/sample_probe.cu, with fuse_rows' body from csrc/fuse_rows.cuh.
+"""Hopper probes of the frame sampler (K1) and of fuse_rows' stages (K2).
+Source: csrc/sample_probe.cu, with fuse_rows' body from csrc/fuse_rows.cuh.
 
-- P4, `direct`: K1's body, its pixel loads alone (one word written a
-  voxel) and its writes alone.
+- P4 and P5, the TPU probes scripts/probe_sample_overhead.py (run in four
+  modes) and scripts/probe_kernel_stages.py (four variants): the Pallas
+  sampler's stripped modes on the probes' own inputs (`probe_inputs`),
+  `sample_modes` (one launch of sample_modes_kernel): the 8 channel planes
+  and the valid plane of each mode (P4 over every row; P5 over the 16-row
+  steps below a live count read on the device), with the probes' bf16
+  splits (`bf16_splits`: P4's full mode is the exact pixel, P5's two
+  splits are not); `run_modes` holds each on the card to its plain
+  version, `sample_modes_reference`.
 - P1/P2/P6, `patch`: the exact samples of each block's aligned window
   (24x32 and 48x64 pixels), 1, 4 and 16 rows a CTA; voxels in the image
   but outside the window come back invalid and are counted (the TPU's
@@ -18,25 +22,29 @@ csrc/sample_probe.cu, with fuse_rows' body from csrc/fuse_rows.cuh.
   24x32, `P3_ROWS_PER_CTA` rows a CTA: a shared-memory load is Hopper's
   gather, where the one-hot form's int8 mma work alone came to 37.5% of
   the byte bound.
-- P5, `fuse_stages`: fuse_rows stripped to the ring of pool rows, then
-  with the projection, then with the sampling; each reduces min |tsdf|
-  over the voxels its stages let through and writes their pool words back
-  unchanged (the bytes of the fusion without its arithmetic).  The fusion
-  is fuse_rows.
+- The port's own instruments: K1's split, `direct` (K1's body, its pixel
+  loads alone with one word written a voxel, and its writes alone); K2's
+  stages, `fuse_stages` (fuse_rows stripped to the ring of pool rows,
+  then with the projection, then with the sampling; each reduces min
+  |tsdf| over the voxels its stages let through and writes their pool
+  words back unchanged: the bytes of the fusion without its arithmetic;
+  the fusion is fuse_rows).
 
 Every mode is held against its plain torch version (`*_reference`), its
 largest difference from it reported (`max_abs_err`, 0 or it raises), and
 timed with the timer it is given, timer(fn, kernel_name, nbytes), nbytes
-being the bytes its bound counts; `run` gives chip_smoke.py's report.
-`sample_patch` runs its plain version on CPU tensors and its kernel on
-CUDA tensors; the other probe kernels take CUDA tensors only.  Each
-wrapper counts its launches in its `launches` attribute.
+being the bytes its bound counts; `run` and `run_modes` give
+chip_smoke.py's report.  `sample_patch` and `sample_modes` run their
+plain versions on CPU tensors and their kernels on CUDA tensors; the
+other probe kernels take CUDA tensors only.  Each wrapper counts its
+launches in its `launches` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build, fuse_kernel
@@ -220,8 +228,9 @@ sample_patch.launches = 0
 
 
 def sample_direct(img, u, v, count, mode: int):
-    """P4's modes of K1's body (DIRECT_MODES[mode]) -> (channels, valid)
-    for full and writes_only, the word per voxel for loads_only."""
+    """K1's split: the modes of K1's body (DIRECT_MODES[mode]) ->
+    (channels, valid) for full and writes_only, the word per voxel for
+    loads_only."""
     chans, valid = _sample_outputs(u)
     words = torch.empty(u.shape, dtype=torch.int32, device=u.device)
     fn = build.entry(SOURCE, "dst_probe_sample_direct", [
@@ -239,7 +248,7 @@ sample_direct.launches = 0
 
 
 def sample_direct_reference(img, u, v, count, mode: int):
-    """Plain versions of P4's modes: sample_rows_reference; the xor of the
+    """Plain versions of K1's split: sample_rows_reference; the xor of the
     pixel's eight words (0 off the image); channel c's value c (0 off the
     image) and validity."""
     if DIRECT_MODES[mode] == "full":
@@ -326,7 +335,7 @@ def _row_err(a, b, n: int) -> float:
 
 
 def direct(dev, timer, img, u, v, count) -> list:
-    """P4: each direct mode against its plain version, timed; bytes as
+    """K1's split: each direct mode against its plain version, timed; bytes as
     each mode needs them (u, v of the live voxels, the frame once for the
     loads, the writes)."""
     n = int(count)
@@ -342,7 +351,7 @@ def direct(dev, timer, img, u, v, count) -> list:
         else:
             err = max(_row_err(got[0], ref[0], n), _row_err(got[1], ref[1], n))
         if err:
-            raise AssertionError(f"P4 {name}: differs from its plain version by {err}")
+            raise AssertionError(f"K1's split {name}: differs from its plain version by {err}")
         out.append({"mode": name, "bytes": need[name], "max_abs_err": err,
                     "ms": timer(lambda m=mode: sample_direct(img, u, v, count, m),
                                 "sample_direct_kernel", need[name])})
@@ -395,7 +404,7 @@ def patch(dev, timer, img, u, v, count) -> list:
 
 def fuse_stages(dev, timer, img, block_pos, pool_idx, count, pool, consts,
                 fuse_rows_fn) -> list:
-    """P5: each stripped stage of fuse_rows against its plain version
+    """K2's stages: each stripped stage of fuse_rows against its plain version
     (min |tsdf| of the live rows bit-equal, the pool words it wrote back
     unchanged), timed, then fuse_rows itself on a copy of the pool; bytes:
     block position and pool index per live row, the tsdf word per live
@@ -413,7 +422,7 @@ def fuse_stages(dev, timer, img, block_pos, pool_idx, count, pool, consts,
         ref = fuse_stage_reference(stage, img, block_pos, pool_idx, count, *pool, **consts)
         err = max(_row_err(got, ref, n), *(_row_err(a[live], b, n) for a, b in zip(pool, before)))
         if err:
-            raise AssertionError(f"P5 {name}: differs from its plain version by {err}")
+            raise AssertionError(f"K2's stage {name}: differs from its plain version by {err}")
         through = int(stage_keep(stage, img, block_pos, pool_idx, count, **gate).sum())
         nbytes = 20 * n + 4 * 512 * n + 20 * through + (img.numel() * 4 if stage >= 2 else 0)
         out.append({"stage": name, "voxels_through": through, "bytes": nbytes,
@@ -430,10 +439,234 @@ def fuse_stages(dev, timer, img, block_pos, pool_idx, count, pool, consts,
 
 
 def run(dev, timer, sample_case, fuse_case, fuse_rows_fn) -> dict:
-    """All modes.  timer(fn, kernel_name, nbytes) -> ms; sample_case (img, u, v,
-    count) at K1's shapes; fuse_case (img, block_pos, pool_idx, count,
-    (tsdf, rgbw, prob), consts) at fuse_rows'; fuse_rows_fn the fusion
-    kernel's wrapper."""
-    return {"p4": direct(dev, timer, *sample_case),
+    """K1's split, the window modes and K2's stages.  timer(fn,
+    kernel_name, nbytes) -> ms; sample_case (img, u, v, count) at K1's
+    shapes; fuse_case (img, block_pos, pool_idx, count, (tsdf, rgbw,
+    prob), consts) at fuse_rows'; fuse_rows_fn the fusion kernel's
+    wrapper."""
+    return {"k1_direct": direct(dev, timer, *sample_case),
             "patch": patch(dev, timer, *sample_case),
-            "p5": fuse_stages(dev, timer, *fuse_case, fuse_rows_fn)}
+            "k2_stages": fuse_stages(dev, timer, *fuse_case, fuse_rows_fn)}
+
+
+# --- P4 / P5: the Pallas sampler's modes on their own inputs ----------------
+
+IMG_H, IMG_W, CHANNELS = 480, 640, 8  # the probes' frame, flat as [H, W * 8]
+PROBE_PH, PROBE_PW = 24, 32  # the patch each row's origin (u0, v0) opens
+TILE_ROWS = 16  # TB: the Pallas grid runs rows in steps of 16
+P4_V = 32768  # probe_sample_overhead.py's rows
+P5_VCAP, P5_COUNT = 32768, 22336  # probe_kernel_stages.py's rows and live count
+# the Pallas functions, by probe, in the scripts' order
+MODES = {"P4": ("nodma", "dma_only", "stage1", "full"),
+         "P5": ("dma_only", "mxu", "mask_fold", "vmem_img")}
+# each function as the kernel computes it (csrc/sample_probe.cu's
+# sample_modes_kernel<Mode>): (kernel mode, pixel column, pixel row,
+# bf16 splits, masked).  The pixel is (u0 + lu_c, v0 + lv_c) or the
+# patch's column or row 0; 0 splits: no pixel; masked: times vmask.
+# nodma writes vmask * c, P5's dma_only lu_c
+_SAMPLE_MODES = {("P4", "nodma"): (0, None, None, 0, True),
+                 ("P4", "dma_only"): (1, "origin", "origin", 1, True),
+                 ("P4", "stage1"): (2, "origin", "lv", 3, True),
+                 ("P4", "full"): (3, "lu", "lv", 3, True),
+                 ("P5", "dma_only"): (4, None, None, 0, True),
+                 ("P5", "mxu"): (5, "origin", "lv", 2, False),
+                 ("P5", "mask_fold"): (6, "lu", "lv", 2, True),
+                 ("P5", "vmem_img"): (6, "lu", "lv", 2, True)}
+
+
+def probe_inputs(probe: str, rows: int | None = None, count: int | None = None) -> list:
+    """The arrays probe ("P4" or "P5") hands its pallas_call, drawn as its
+    main draws them at `rows` rows (default the script's V / VCAP): P4
+    [u0, v0, img, u, v], P5 [u0, v0, count, img, u, v] (count int32 of
+    shape (1,), default COUNT); img float32 [480, 640 * 8], u0 / v0 int32
+    [rows] origins on a 16 / 8 grid, u, v int32 [rows, 512] within 16
+    pixels of them."""
+    rows = (P4_V if probe == "P4" else P5_VCAP) if rows is None else rows
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 255, (IMG_H, IMG_W * CHANNELS)).astype(np.float32)
+    u0 = (rng.integers(0, (IMG_W - PROBE_PW) // 16, rows) * 16).astype(np.int32)
+    v0 = (rng.integers(0, (IMG_H - PROBE_PH) // 8, rows) * 8).astype(np.int32)
+    u = (u0[:, None] + rng.integers(0, 16, (rows, 512))).astype(np.int32)
+    v = (v0[:, None] + rng.integers(0, 16, (rows, 512))).astype(np.int32)
+    if probe == "P4":
+        return [u0, v0, img, u, v]
+    cnt = np.full((1,), P5_COUNT if count is None else count, np.int32)
+    return [u0, v0, cnt, img, u, v]
+
+
+def rows_computed(count: int, rows: int) -> int:
+    """The rows a Pallas grid of 16-row steps computes when it runs the
+    steps whose first row lies below count."""
+    return min(rows, -(-max(count, 0) // TILE_ROWS) * TILE_ROWS)
+
+
+def bf16_splits(x: torch.Tensor, splits: int) -> torch.Tensor:
+    """x through the probes' bf16 splits, summed in float32 in their
+    order: hi = bf16(x), mid = bf16(x - hi), lo = bf16((x - hi) - mid);
+    2 splits give hi + mid, 3 give (hi + mid) + lo."""
+    hi = x.to(torch.bfloat16).float()
+    r1 = x - hi
+    mid = r1.to(torch.bfloat16).float()
+    if splits == 2:
+        return hi + mid
+    return (hi + mid) + (r1 - mid).to(torch.bfloat16).float()
+
+
+def _mode_pixels(u0, v0, u, v, probe: str, mode: str):
+    """(vmask f32, lu_c, pixel column, pixel row) of each voxel as the
+    mode reads them (the pixel clamped into the frame, which the probe's
+    inputs never leave)."""
+    _, col, row, _, _ = _SAMPLE_MODES[(probe, mode)]
+    lu = u - u0[:, None]
+    lv = v - v0[:, None]
+    vmask = ((lu >= 0) & (lu < PROBE_PW) & (lv >= 0) & (lv < PROBE_PH)).float()
+    lu_c, lv_c = lu.clamp(0, PROBE_PW - 1), lv.clamp(0, PROBE_PH - 1)
+    pu = u0.long()[:, None] + (lu_c.long() if col == "lu" else 0)
+    pv = v0.long()[:, None] + (lv_c.long() if row == "lv" else 0)
+    return (vmask, lu_c, pu.clamp(0, IMG_W - 1).expand(u.shape),
+            pv.clamp(0, IMG_H - 1).expand(u.shape))
+
+
+def pixel_index(u0, v0, u, v, probe: str, mode: str):
+    """The flat pixel (row of img.view(-1, 8)) each voxel reads, int64
+    [rows, 512]; None for the modes that read no pixel."""
+    if not _SAMPLE_MODES[(probe, mode)][3]:
+        return None
+    _, _, pu, pv = _mode_pixels(u0, v0, u, v, probe, mode)
+    return pv * IMG_W + pu
+
+
+def sample_modes_reference(probe: str, mode: str, u0, v0, img, u, v, count=None):
+    """Plain version of the Pallas function probe.mode (MODES) on its
+    pallas_call's inputs (u0, v0 int32 [V]; img float32 [480, 5120]; u, v
+    int32 [V, 512]; P5's count int32 [1]) -> float32 [9, V, 512]: the 8
+    channel planes and the valid plane (vmask) as the Pallas out_shape
+    lays them out.  P5 computes the rows of rows_computed(count) (the
+    others 0 here, unwritten by the kernel)."""
+    kmode, _, _, splits, masked = _SAMPLE_MODES[(probe, mode)]
+    vmask, lu_c, pu, pv = _mode_pixels(u0, v0, u, v, probe, mode)
+    out = torch.empty((CHANNELS + 1, *u.shape), dtype=torch.float32, device=u.device)
+    if splits:
+        px = img.view(-1, CHANNELS)[pv * IMG_W + pu]  # [V, 512, 8]
+        if splits > 1:
+            px = bf16_splits(px, splits)
+        out[:CHANNELS] = (px * vmask[..., None] if masked else px).permute(2, 0, 1)
+    elif kmode == 0:
+        c = torch.arange(CHANNELS, dtype=torch.float32, device=u.device)[:, None, None]
+        out[:CHANNELS] = vmask[None] * c
+    else:
+        out[:CHANNELS] = lu_c.float()[None]
+    out[CHANNELS] = vmask
+    if count is not None:
+        step = torch.arange(u.shape[0], device=u.device) // TILE_ROWS * TILE_ROWS
+        out = torch.where((step < count.reshape(()).to(u.device))[None, :, None], out, 0.0)
+    return out
+
+
+def _check_modes(probe, mode, u0, v0, img, u, v, count) -> None:
+    if (probe, mode) not in _SAMPLE_MODES:
+        raise ValueError(f"sample_modes: no function {probe}.{mode}")
+    rows = u.shape[0]
+    want = [("u0", u0, (rows,), torch.int32), ("v0", v0, (rows,), torch.int32),
+            ("img", img, (IMG_H, IMG_W * CHANNELS), torch.float32),
+            ("u", u, (rows, 512), torch.int32), ("v", v, (rows, 512), torch.int32)]
+    if probe == "P5":
+        if count is None:
+            raise ValueError("sample_modes: P5 takes its live count")
+        want.append(("count", count, (1,), torch.int32))
+    elif count is not None:
+        raise ValueError("sample_modes: P4 runs every row and takes no count")
+    for name, t, shape, dtype in want:
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"sample_modes: {name} must be contiguous {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != u.device:
+            raise ValueError(f"sample_modes: {name} on {t.device}, u on {u.device}")
+    if rows % TILE_ROWS:
+        raise ValueError(f"sample_modes: {rows} rows, not a multiple of {TILE_ROWS} "
+                         "(the Pallas grid's step)")
+
+
+def sample_modes(probe: str, mode: str, u0, v0, img, u, v, count=None) -> torch.Tensor:
+    """The Pallas function probe.mode (MODES) -> float32 [9, V, 512]; the
+    arguments and layout of sample_modes_reference.  On CPU tensors the
+    plain version; on CUDA tensors one launch of sample_modes_kernel
+    (P5's rows past rows_computed(count) left unwritten), counted in
+    sample_modes.launches."""
+    _check_modes(probe, mode, u0, v0, img, u, v, count)
+    if u.device.type == "cpu":
+        return sample_modes_reference(probe, mode, u0, v0, img, u, v, count)
+    if any(t.data_ptr() % 16 for t in (img, u, v)):
+        raise ValueError("sample_modes: img, u and v must be 16-byte aligned")
+    out = torch.empty((CHANNELS + 1, *u.shape), dtype=torch.float32, device=u.device)
+    fn = build.entry(SOURCE, "dst_probe_sample_modes",
+                     [_C.c_int, _P, _C.c_int, _C.c_int, _P, _P, _P, _P, _P, _C.c_int, _P, _P])
+    with torch.cuda.device(u.device):
+        err = fn(_SAMPLE_MODES[(probe, mode)][0], build.ptr(img), IMG_H, IMG_W, build.ptr(u),
+                 build.ptr(v), build.ptr(u0), build.ptr(v0),
+                 None if count is None else build.ptr(count), u.shape[0], build.ptr(out),
+                 build.stream_of(u))
+    sample_modes.launches += 1
+    build.check(err, f"probe sample_modes {probe}.{mode}")
+    return out
+
+
+sample_modes.launches = 0
+
+
+def modes_bytes(probe: str, mode: str, u0, v0, img, u, v, count=None) -> int:
+    """The bytes the mode must move on these inputs, over the rows it
+    computes: u and v, the origins (and P5's count) read once, the nine
+    planes written once, and each distinct 32-byte pixel it reads once."""
+    n = u.shape[0] if count is None else rows_computed(int(count.reshape(())), u.shape[0])
+    nbytes = 8 * 512 * n + 8 * n + 36 * 512 * n + (0 if count is None else 4)
+    pix = pixel_index(u0[:n], v0[:n], u[:n], v[:n], probe, mode)
+    if pix is not None:
+        nbytes += 32 * int(torch.unique(pix).numel())
+    return nbytes
+
+
+def run_modes(dev, timer) -> dict:
+    """P4 and P5 on the card at the scripts' own rows and inputs: every
+    function bit-equal to its plain version on the card over the rows it
+    computes, each kernel mode timed once (timer(fn, kernel_name, nbytes)
+    -> ms) beside its bytes; for P4's full and P5's mask_fold the plain
+    version (CUDA events) and the library call, the one gather
+    img.view(-1, 8).index_select of the pixels read (indices built
+    outside the timed window; timer(fn, None, 0)).  Raises on any
+    difference.  -> {probe: {"rows", "rows_computed", "functions": {mode:
+    result}, "head", "plain_ms", "library_ms"}}."""
+    from ...utils.timing import cuda_time_ms
+
+    out = {}
+    for probe, modes in MODES.items():
+        t = [torch.from_numpy(a).to(dev) for a in probe_inputs(probe)]
+        args = (t[0], t[1], t[3], t[4], t[5], t[2]) if probe == "P5" else tuple(t)
+        rows = args[3].shape[0]
+        n = rows if probe == "P4" else rows_computed(int(args[5]), rows)
+        res, timed = {}, {}
+        for mode in modes:
+            got = sample_modes(probe, mode, *args)
+            plain = sample_modes_reference(probe, mode, *args)
+            r = {"kernel_mode": _SAMPLE_MODES[(probe, mode)][0],
+                 "max_abs_err": _row_err(got, plain, n),
+                 "bits_equal": bool(torch.equal(got[:, :n].view(torch.int32),
+                                                plain[:, :n].view(torch.int32))),
+                 "bytes": modes_bytes(probe, mode, *args)}
+            if r["max_abs_err"] or not r["bits_equal"]:
+                raise AssertionError(f"{probe} {mode}: differs from its plain version: {r}")
+            if r["kernel_mode"] not in timed:
+                timed[r["kernel_mode"]] = timer(lambda m=mode: sample_modes(probe, m, *args),
+                                                "sample_modes_kernel", r["bytes"])
+            r["ms"] = timed[r["kernel_mode"]]
+            res[mode] = r
+            del got, plain
+        head = "full" if probe == "P4" else "mask_fold"
+        pix = pixel_index(*args[:2], *args[3:5], probe, head)[:n].reshape(-1)
+        px8 = args[2].view(-1, CHANNELS)
+        out[probe] = {
+            "rows": rows, "rows_computed": n, "head": head, "functions": res,
+            "plain_ms": cuda_time_ms(lambda: sample_modes_reference(probe, head, *args)),
+            "library_ms": timer(lambda: px8.index_select(0, pix), None, 0)}
+        del t, args, pix
+    return out

@@ -288,9 +288,10 @@ def test_splat_kernels_at_the_float32_thresholds(cuda, case):
 
 
 def test_splat_probes_agree(cuda):
-    """P8's A/B and P9's tile-shape sweep run on block rows, project as K4
-    does and agree with the plain scatter-min (each raises otherwise);
-    the smaller the tile, the more wide rows take the atomic branch."""
+    """K4's instruments, its A/B and its tile-shape sweep, run on block
+    rows, project as K4 does and agree with the plain scatter-min (each
+    raises otherwise); the smaller the tile, the more wide rows take the
+    atomic branch."""
     from disinfect_slam_tpu_torch.ops.cuda import splat_probe
 
     cases = {"narrow": _splat_case(cuda, 5, COUNT, 48, 64),
@@ -302,11 +303,65 @@ def test_splat_probes_agree(cuda):
     assert len(calls) == 2 + 2 * len(splat_probe.TILE_SHAPES)
     assert splat_probe.zbuf_atomic.launches > before[0]
     assert splat_probe.zbuf_tile.launches > before[1]
-    assert res["p8"]["max_abs_err"] == 0 and res["p8"]["count"] == COUNT
-    assert [r["tile"] for r in res["p9"]] == [list(s) for s in splat_probe.TILE_SHAPES]
-    atomic_rows = [r["wide"]["branches"][1] for r in res["p9"]]
+    assert res["k4_ab"]["max_abs_err"] == 0 and res["k4_ab"]["count"] == COUNT
+    assert [r["tile"] for r in res["k4_tiles"]] == [list(s) for s in splat_probe.TILE_SHAPES]
+    atomic_rows = [r["wide"]["branches"][1] for r in res["k4_tiles"]]
     assert atomic_rows[0] > 0 and atomic_rows == sorted(atomic_rows, reverse=True)
-    assert all(r[k]["max_abs_err"] == 0 for r in res["p9"] for k in cases)
+    assert all(r[k]["max_abs_err"] == 0 for r in res["k4_tiles"] for k in cases)
+
+
+def _given_inputs(dev, probe, blocks=None, wrap=False):
+    """P8's or P9's inputs on dev; with wrap, the first six boxes at
+    origins whose rolled patches wrap inside their windows, n two short,
+    and one block's lu spread over the 128-column patch."""
+    from disinfect_slam_tpu_torch.ops.cuda import splat_probe as zp
+
+    arrays = zp.pallas_inputs(probe, blocks)
+    if wrap:
+        bu, bv, n, lu, lv, dq = arrays
+        bu[:3] = [755, 767, 760]
+        bv[3:6] = [483, 495, 490]
+        lu[2] = np.random.default_rng(3).integers(0, 127, lu.shape[1])
+        n[0] = len(bu) - 2
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+_GIVEN = [(p, f) for p, fs in (("P8", ("run_v2", "run_v2i", "run_v3")),
+                                ("P9", ("rmw", "rowwrite", "roll", "norollfull", "full")))
+          for f in fs]
+
+
+@pytest.mark.parametrize("probe,function", _GIVEN, ids=[f"{p}-{f}" for p, f in _GIVEN])
+def test_splat_zbuf_given_bit_equal(cuda, probe, function):
+    """P8 and P9's Hopper counterpart: each Pallas function bit-equal to
+    its plain version at 64 blocks with wrapping rolls and n short of the
+    blocks, and at the script's own block count and inputs, where the
+    merging functions also equal main's numpy z-buffer; each call counts
+    its launches, the fill and, for a function that merges, the merge."""
+    from disinfect_slam_tpu_torch.ops.cuda import splat_probe as zp
+
+    for t in (_given_inputs(cuda, probe, 64, wrap=True), _given_inputs(cuda, probe)):
+        before = zp.splat_zbuf_given.launches
+        got = zp.splat_zbuf_given(*t, function)
+        torch.cuda.synchronize()
+        assert zp.splat_zbuf_given.launches == before + 1 + (zp.KERNEL_MODES[function] != 0)
+        assert torch.equal(got, zp.splat_zbuf_given_reference(*t, function))
+    if function in zp.NUMPY_EQUAL:
+        a = [x.cpu().numpy() for x in t]
+        assert np.array_equal(got.cpu().numpy(), zp.numpy_zbuf(a[0], a[1], a[3], a[4], a[5]))
+
+
+def test_splat_zbuf_given_runs_every_function(cuda):
+    """run_given: every function of P8 and P9 at the scripts' sizes held
+    to its plain version and the numpy z-buffer (it raises otherwise),
+    each kernel mode timed once, the library call beside them."""
+    from disinfect_slam_tpu_torch.ops.cuda import splat_probe as zp
+
+    calls = []
+    res = zp.run_given(cuda, lambda fn, name, nbytes: calls.append(name) or 0.0)
+    assert res["P8"]["blocks"] == zp.P8_S and res["P9"]["blocks"] == zp.P9_S
+    assert all(r["max_abs_err"] == 0 for p in res.values() for r in p["functions"].values())
+    assert calls.count("zbuf_given") == 2 + 3 and calls.count(None) == 2
 
 
 def test_feature_probe_passes_every_check(cuda):
@@ -356,12 +411,13 @@ def test_feature_probe_global_atomics_span_ctas(cuda):
 
 
 def test_sample_probe_modes_agree(cuda):
-    """P1-P6's Hopper counterparts: every direct mode, every window shape
-    at every rows-per-CTA and P3's mode, and every stripped stage of
-    fuse_rows launches and agrees with its plain version (run raises
-    otherwise); pixels scattered over the frame leave voxels outside the
-    24x32 windows, skipped and counted, and fill the 48x64 window, whose
-    box is staged in strips."""
+    """The window modes (P1/P2/P6, P3) and the port's instruments of K1
+    and K2: every direct mode, every window shape at every rows-per-CTA
+    and P3's mode, and every stripped stage of fuse_rows launches and
+    agrees with its plain version (run raises otherwise); pixels
+    scattered over the frame leave voxels outside the 24x32 windows,
+    skipped and counted, and fill the 48x64 window, whose box is staged
+    in strips."""
     from disinfect_slam_tpu_torch.ops.cuda import sample_probe
 
     c = _case(cuda, seed=9)
@@ -375,20 +431,62 @@ def test_sample_probe_modes_agree(cuda):
         (b["img"], b["block_pos"], b["pool_idx"], b["count"],
          (b["tsdf"], b["rgbw"], b["prob"]), consts), fuse_kernel.fuse_rows)
     n_patch = len(sample_probe.PATCH_SHAPES) * len(sample_probe.ROWS_PER_CTA) + 1
-    assert len(res["p4"]) == len(sample_probe.DIRECT_MODES) + 1
-    assert len(res["patch"]) == n_patch and len(res["p5"]) == len(sample_probe.FUSE_STAGES) + 1
-    assert len(calls) == len(res["p4"]) + n_patch + len(res["p5"])
-    assert set(calls[len(res["p4"]):][:n_patch]) == {"sample_patch_kernel"}
+    assert len(res["k1_direct"]) == len(sample_probe.DIRECT_MODES) + 1
+    assert len(res["patch"]) == n_patch
+    assert len(res["k2_stages"]) == len(sample_probe.FUSE_STAGES) + 1
+    assert len(calls) == len(res["k1_direct"]) + n_patch + len(res["k2_stages"])
+    assert set(calls[len(res["k1_direct"]):][:n_patch]) == {"sample_patch_kernel"}
     assert sample_probe.sample_patch.launches == before + n_patch
     assert res["patch"][-1]["mode"].startswith("P3: patch 24x32")
-    assert all(r["max_abs_err"] == 0 for g in ("p4", "patch", "p5") for r in res[g]
+    assert all(r["max_abs_err"] == 0 for g in ("k1_direct", "patch", "k2_stages") for r in res[g]
                if "max_abs_err" in r)
-    through = [r["voxels_through"] for r in res["p5"][:-1]]
+    through = [r["voxels_through"] for r in res["k2_stages"][:-1]]
     assert through[0] == 512 * int(b["count"]) and through == sorted(through, reverse=True)
     # the 48x64 window covers this 48x64 frame; the 24x32 one does not
     assert all((r["skipped_voxels"] > 0 and r["skipped_rows"] > 0) == ("24x32" in r["mode"])
                for r in res["patch"])
     assert all(r["staging"]["rows_in_strips"] > 0 for r in res["patch"] if "48x64" in r["mode"])
+
+
+_MODES = [(p, m) for p, ms in (("P4", ("nodma", "dma_only", "stage1", "full")),
+                                ("P5", ("dma_only", "mxu", "mask_fold", "vmem_img")))
+          for m in ms]
+
+
+@pytest.mark.parametrize("probe,mode", _MODES, ids=[f"{p}-{m}" for p, m in _MODES])
+def test_sample_modes_bit_equal(cuda, probe, mode):
+    """P4 and P5's Hopper counterpart: each Pallas mode bit-equal to its
+    plain version on the rows it computes, at 64 rows with voxels outside
+    their patches and a P5 count off the grid's step (40: 48 rows), and at
+    the script's own rows and inputs; one counted launch a call."""
+    from disinfect_slam_tpu_torch.ops.cuda import sample_probe as sp
+
+    small = sp.probe_inputs(probe, 64, 40)
+    u, v = small[-2], small[-1]
+    u[::3, ::7] += 20  # past the patch's 32 columns
+    v[1::3, ::5] -= 9  # above its first row
+    for arrays, n in ((small, 64 if probe == "P4" else 48), (sp.probe_inputs(probe), None)):
+        t = [torch.from_numpy(a).to(cuda) for a in arrays]
+        args = (t[0], t[1], t[3], t[4], t[5], t[2]) if probe == "P5" else tuple(t)
+        n = n or (t[3].shape[0] if probe == "P4" else sp.P5_COUNT)
+        before = sp.sample_modes.launches
+        got = sp.sample_modes(probe, mode, *args)
+        torch.cuda.synchronize()
+        assert sp.sample_modes.launches == before + 1
+        want = sp.sample_modes_reference(probe, mode, *args)
+        assert torch.equal(got[:, :n].view(torch.int32), want[:, :n].view(torch.int32))
+
+
+def test_sample_modes_runs_every_function(cuda):
+    """run_modes: every mode of P4 and P5 at the scripts' sizes held to its
+    plain version (it raises otherwise), each kernel mode timed once, the
+    library gather beside the head modes."""
+    from disinfect_slam_tpu_torch.ops.cuda import sample_probe as sp
+
+    calls = []
+    res = sp.run_modes(cuda, lambda fn, name, nbytes: calls.append(name) or 0.0)
+    assert res["P4"]["rows_computed"] == sp.P4_V and res["P5"]["rows_computed"] == sp.P5_COUNT
+    assert calls.count("sample_modes_kernel") == 4 + 3 and calls.count(None) == 2
 
 
 def _patch_equal(sp, img, u, v, count, shape, rpc, slot_bytes):

@@ -2,9 +2,9 @@
 sample_probe.py): the patch modes of P1/P2/P3/P6 select, and skip, what
 the JAX package's Pallas sampler sample_patches does in interpret mode on
 the same rows, and so does the patch kernel's staging written out
-(footprint boxes staged in strips through slots of a given size); P4's
-direct modes and P5's stripped stages of fuse_rows agree with the port's
-sampler and projection.  (The probe kernels are held
+(footprint boxes staged in strips through slots of a given size); the
+port's own instruments of K1 (its direct modes) and of K2 (fuse_rows
+stripped stage by stage) agree with the port's sampler and projection.  (The probe kernels are held
 against these plain versions on the card: tests/test_torch_gpu.py and
 chip_smoke.py.)"""
 
@@ -185,8 +185,8 @@ def test_sample_patch_on_cpu_tensors_is_the_plain_version(shape):
 
 
 def test_direct_references():
-    """P4: the full mode is sample_rows' plain version; loads-only the xor
-    of the pixel's eight words; writes-only channel c's value c."""
+    """K1's split: the full mode is sample_rows' plain version; loads-only
+    the xor of the pixel's eight words; writes-only channel c's value c."""
     img, u, v = _rows(4)
     args = (torch.from_numpy(img), torch.from_numpy(u), torch.from_numpy(v),
             torch.tensor(V, dtype=torch.int32))
@@ -203,10 +203,10 @@ def test_direct_references():
 
 
 def test_fuse_stage_references_narrow_stage_by_stage():
-    """P5: the ring alone takes min |tsdf| over every voxel of the live
-    rows; the projection and then the sampling let fewer voxels through,
-    so the minimum only rises, and rows with voxels in the image have a
-    finite one."""
+    """K2's stages: the ring alone takes min |tsdf| over every voxel of the
+    live rows; the projection and then the sampling let fewer voxels
+    through, so the minimum only rises, and rows with voxels in the image
+    have a finite one."""
     c = block_case(7, 48, 64, 40, 33, 64)
     t = {k: torch.from_numpy(np.ascontiguousarray(c[k]))
          for k in ("img", "block_pos", "pool_idx", "tsdf", "rgbw", "prob")}
@@ -222,10 +222,10 @@ def test_fuse_stage_references_narrow_stage_by_stage():
 
 
 def test_fuse_stage_gate_holds_every_voxel_fuse_rows_changes():
-    """P5: each stripped stage writes back the pool words of the voxels it
-    lets through; the sampling stage lets through every voxel whose words
-    the plain fuse_rows changes, so it moves the fusion's bytes; the
-    stages let fewer voxels through, stage by stage."""
+    """K2's stages: each stripped stage writes back the pool words of the
+    voxels it lets through; the sampling stage lets through every voxel
+    whose words the plain fuse_rows changes, so it moves the fusion's
+    bytes; the stages let fewer voxels through, stage by stage."""
     from disinfect_slam_tpu_torch.ops.cuda import fuse_kernel
 
     c = block_case(7, 48, 64, 40, 33, 64)
